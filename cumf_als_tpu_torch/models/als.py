@@ -1,0 +1,486 @@
+"""The ALS training loop on one device (the JAX package's models/als.py
+in PyTorch).
+
+Per iteration: update X from theta over the CSR ratings, update theta
+from X over the CSC ratings, then report train and test RMSE with the
+reference's stdout contract. Each phase takes one of two routes, chosen
+as in the JAX package:
+
+  - direct: every row's Gram is formed whole and solved at once, chunk
+    by chunk (kernel K1, ``gather_gram_cg``, on the "pallas" backend);
+  - panel: when the gather table is large and the updated factor's full
+    (A, b) accumulators fit ``panel_budget_bytes``, partial Grams per
+    table panel (kernel K2, ``gather_gram_out``) are scatter-added into
+    the accumulators, which are then solved slice by slice (kernel K3,
+    ``solve_cg_reg``).
+
+The split and batched-panel strategies are chosen as in the JAX package
+but not ported yet: building their plans raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import sys
+from typing import List, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from cumf_als_tpu_torch.config import ALSConfig
+from cumf_als_tpu_torch.ops import cuda_solve
+from cumf_als_tpu_torch.ops.gram import extend_table, gram_rhs
+from cumf_als_tpu_torch.ops.rmse import fused_sq_err, rmse_direct
+from cumf_als_tpu_torch.ops.solve import solve
+from cumf_als_tpu_torch.ops.tiling import (PanelPlan, build_panel_plan,
+                                           build_update_plan)
+from cumf_als_tpu_torch.utils.io import COOMatrix, CSRMatrix, transpose_csr
+from cumf_als_tpu_torch.utils.timing import seconds, sync
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device a run uses: CUDA unless the caller asks for the CPU.
+    Raises when CUDA is asked for (or defaulted to) and no card is
+    present; the port never falls back to the CPU on its own."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass "
+                           "device='cpu' (CLI: --device cpu) to run on the "
+                           "CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+@dataclasses.dataclass
+class IterationMetrics:
+    iteration: int
+    train_rmse: float
+    test_rmse: float
+    x_seconds: float
+    theta_seconds: float
+    rmse_seconds: float
+
+
+@dataclasses.dataclass
+class ALSResult:
+    x: np.ndarray        # (m, f) un-padded factors
+    theta: np.ndarray    # (n, f)
+    history: List[IterationMetrics]
+
+    @property
+    def final_test_rmse(self) -> float:
+        return self.history[-1].test_rmse if self.history else float("nan")
+
+    def predict(self, rows: np.ndarray, cols: np.ndarray) -> np.ndarray:
+        """Predicted ratings for (row, col) pairs."""
+        return np.einsum("ij,ij->i", self.x[rows], self.theta[cols])
+
+
+def _compact_vals(vals: np.ndarray) -> torch.Tensor:
+    """Rating values as bf16 when the round trip is exact (star halves
+    and integer grids are), else f32, as the JAX package stores them.
+    Every consumer widens to f32 before use."""
+    v = torch.from_numpy(vals)
+    if v.dtype == torch.float32 and v.numel():
+        v16 = v.to(torch.bfloat16)
+        if torch.equal(v16.float(), v):
+            return v16
+    return v
+
+
+class DeviceChunk:
+    """A plan chunk's arrays on the device. Dummy tail rows
+    (rows == num_rows) follow the `n_real` real rows."""
+
+    __slots__ = ("width", "panel", "n_real", "rows", "rows_real", "nnz",
+                 "cols", "vals")
+
+    def __init__(self, chunk, num_rows: int, device: torch.device):
+        self.width = chunk.width
+        self.panel = getattr(chunk, "panel", 0)
+        self.n_real = int(np.count_nonzero(chunk.rows < num_rows))
+        self.rows = torch.from_numpy(chunk.rows.astype(np.int64)).to(device)
+        self.rows_real = self.rows[:self.n_real]
+        self.nnz = torch.from_numpy(chunk.nnz.astype(np.int32)).to(device)
+        self.cols = torch.from_numpy(
+            np.ascontiguousarray(chunk.cols, np.int32)).to(device)
+        self.vals = _compact_vals(
+            np.ascontiguousarray(chunk.vals)).to(device)
+
+
+def _solve_slice(a_buf, b_buf, x0_full, row_nnz, lo: int, lam: float,
+                 batch: int, solver: str, cg_iters: int, cg_tol: float,
+                 backend: str):
+    """Solve systems [lo, lo + batch) of the panel accumulators. A is the
+    raw (possibly bf16) Gram; the Tikhonov diagonal is applied at solve
+    time (in the kernel on the "pallas" backend)."""
+    a = a_buf[lo:lo + batch]
+    b = b_buf[lo:lo + batch]
+    x0 = x0_full[lo:lo + batch]
+    nnzf = row_nnz[lo:lo + batch].float()
+    diag = nnzf * lam + (nnzf == 0).float()
+    out = solve(a, b, x0, solver=solver, cg_iters=cg_iters, cg_tol=cg_tol,
+                backend=backend, diag=diag)
+    return out * (nnzf > 0).float()[:, None]
+
+
+def _se_terms(a_buf, b_buf, x_new, batch: int) -> torch.Tensor:
+    """-2 sum x.b + sum x^T A x over all rows, A the raw Gram
+    accumulators; adding sum r^2 completes the train squared error.
+    Summed in slices of `batch` rows to bound the f32 copy of A."""
+    total = torch.zeros((), dtype=torch.float32, device=x_new.device)
+    for lo in range(0, x_new.shape[0], batch):
+        x = x_new[lo:lo + batch].float()
+        aq = torch.einsum("rfg,rg->rf", a_buf[lo:lo + batch].float(), x)
+        total = total + (x * aq).sum() - 2.0 * (x * b_buf[lo:lo + batch]).sum()
+    return total
+
+
+class ALS:
+    """ALS over row-compressed ratings on one device.
+
+    Parameters: the training CSR, its transpose (the CSC view; computed
+    when None), the test COO, an ALSConfig, and the device (CUDA unless
+    `device="cpu"`)."""
+
+    # bf16 partial-Gram accumulators swamp under deep scatter-add chains:
+    # past ~16 partials per accumulator row the accumulators are f32.
+    BF16_ACCUM_MAX_DEPTH = 16
+
+    def __init__(self, cfg: ALSConfig, train_csr: CSRMatrix,
+                 train_csc: Optional[CSRMatrix] = None,
+                 test_coo: Optional[COOMatrix] = None, device=None):
+        if cfg.save_model:
+            raise NotImplementedError(
+                "save_model dumps are not ported yet (ROADMAP A9)")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.train_csr = train_csr
+        self.train_csc = train_csc or transpose_csr(train_csr)
+        self.test_coo = test_coo
+        t0 = seconds()
+        self.plan_x = self._build_phase_plan(self.train_csr, cfg.x_batch)
+        self.plan_theta = self._build_phase_plan(self.train_csc,
+                                                 cfg.theta_batch)
+        self.plan_seconds = seconds() - t0
+
+    # ----- strategy choice (as in the JAX package) -----
+    def _split_enabled(self, csr: CSRMatrix) -> bool:
+        """Whether the split-table direct route applies to this phase. In
+        "auto" mode the JAX package also asks whether its fused kernel
+        compiles; the port's kernels always exist (a kernel either builds
+        or the run fails), so that gate is backend "pallas" with CG."""
+        cfg = self.cfg
+        if cfg.split_gather == "off" or \
+                csr.num_cols <= cfg.split_part_rows():
+            return False
+        if cfg.split_gather == "force":
+            return True
+        item = 2 if cfg.factor_dtype == "bf16" else 4
+        if csr.num_cols * cfg.f_pad * item <= cfg.split_min_table_bytes:
+            return False
+        return cfg.backend == "pallas" and cfg.solver == "cg"
+
+    def _phase_strategy(self, csr: CSRMatrix) -> str:
+        """"direct", "panel", "split" or "batched_panel" for one phase."""
+        cfg = self.cfg
+        if cfg.split_gather == "force" and self._split_enabled(csr):
+            return "split"
+        if cfg.use_panels == "never":
+            return "direct"
+        a_bytes = (csr.num_rows + 1) * cfg.f_pad * cfg.f_pad * 4
+        margin = max(1, cfg.panel_size // 8)
+        if csr.num_cols > cfg.panel_size + margin:
+            if a_bytes <= cfg.panel_budget_bytes:
+                return "panel"
+            if self._split_enabled(csr):
+                return "split"
+            if cfg.backend == "pallas" and cfg.solver == "cg":
+                return "direct"
+            return "batched_panel"
+        return "direct"
+
+    def _accum_dtype(self, total_row_slots: int, num_rows: int):
+        if self.cfg.gram_dtype != "bf16":
+            return torch.float32
+        depth = total_row_slots / max(1, num_rows)
+        if depth <= self.BF16_ACCUM_MAX_DEPTH:
+            return torch.bfloat16
+        if not getattr(self, "_warned_promote", False):
+            self._warned_promote = True
+            print(f"[als] ~{depth:.0f} partial adds per accumulator "
+                  f"row > {self.BF16_ACCUM_MAX_DEPTH}: promoting Gram "
+                  f"accumulators bf16 -> f32 (swamping guard)",
+                  file=sys.stderr, flush=True)
+        return torch.float32
+
+    def _chunk_nnz(self, csr: CSRMatrix, batch: int) -> int:
+        """Per-phase chunk budget: x_batch / theta_batch act as a minimum
+        number of chunks, capping padded slots per chunk at nnz/batch."""
+        budget = self.cfg.chunk_nnz
+        if batch and batch > 1:
+            budget = min(budget, max(1 << 14, -(-csr.nnz // batch)))
+        return budget
+
+    def _build_phase_plan(self, csr: CSRMatrix, batch: int = 1):
+        cfg = self.cfg
+        strategy = self._phase_strategy(csr)
+        chunk_nnz = self._chunk_nnz(csr, batch)
+        if strategy == "panel":
+            plan = build_panel_plan(csr, panel_size=cfg.panel_size,
+                                    min_width=cfg.min_bucket_width,
+                                    chunk_nnz=chunk_nnz,
+                                    chunk_rows=cfg.chunk_rows,
+                                    split_width=cfg.split_width,
+                                    octave_points=cfg.octave_points)
+        elif strategy == "direct":
+            plan = build_update_plan(csr, min_width=cfg.min_bucket_width,
+                                     max_width=cfg.max_bucket_width,
+                                     chunk_nnz=chunk_nnz,
+                                     chunk_rows=cfg.chunk_rows,
+                                     octave_points=cfg.octave_points)
+        else:
+            raise NotImplementedError(
+                f"the {strategy!r} phase strategy is not ported yet "
+                f"(ROADMAP A8)")
+        return self._device_plan(plan)
+
+    def _device_plan(self, plan):
+        aux = {}
+        if isinstance(plan, PanelPlan):
+            # the solve batch hugs the row count (a multiple of 8)
+            batch = min(self.cfg.chunk_rows,
+                        -(-(plan.num_rows + 1) // 8) * 8)
+            m_pad = -(-(plan.num_rows + 1) // batch) * batch
+            nnz_pad = np.zeros(m_pad, np.int32)
+            nnz_pad[:plan.num_rows] = plan.row_nnz
+            aux["row_nnz_pad"] = torch.from_numpy(nnz_pad).to(self.device)
+            aux["m_pad"] = m_pad
+            aux["solve_batch"] = batch
+        chunks = [DeviceChunk(c, plan.num_rows, self.device)
+                  for c in plan.chunks]
+        return plan, chunks, aux
+
+    # ----- factor padding helpers -----
+    def _pad_f(self, arr: np.ndarray) -> torch.Tensor:
+        f_pad = self.cfg.f_pad
+        t = torch.as_tensor(arr, dtype=torch.float32)
+        if t.shape[1] != f_pad:
+            t = F.pad(t, (0, f_pad - t.shape[1]))
+        return t.contiguous().to(self.device)
+
+    def _unpad_f(self, arr: torch.Tensor) -> np.ndarray:
+        return arr[:, :self.cfg.f].float().cpu().numpy()
+
+    def _sum_r2(self) -> float:
+        """Sum of squared training ratings (the r^2 term of the fused
+        train RMSE), computed once."""
+        if not hasattr(self, "_r2"):
+            self._r2 = float(
+                np.sum(self.train_csr.data.astype(np.float64) ** 2))
+        return self._r2
+
+    # ----- one phase -----
+    def _update_phase(self, table, current, plan_pair,
+                      collect_rmse_terms: bool):
+        if isinstance(plan_pair[0], PanelPlan):
+            return self._update_phase_panelized(table, current, plan_pair,
+                                                collect_rmse_terms)
+        return self._update_phase_direct(table, current, plan_pair,
+                                         collect_rmse_terms)
+
+    def accumulate_panels(self, table, plan_pair):
+        """The panel route's Gram step: per-panel partial (A, b) of every
+        chunk (kernel K2 on the "pallas" backend), scatter-added into the
+        phase accumulators a_buf (m_pad, f, f) and b_buf (m_pad, f)."""
+        cfg = self.cfg
+        plan, chunks, aux = plan_pair
+        f = cfg.f_pad
+        s = plan.panel_size
+        a_dtype = self._accum_dtype(sum(c.rows.shape[0] for c in chunks),
+                                    plan.num_rows)
+        if cfg.factor_dtype == "bf16":
+            table = table.to(torch.bfloat16)
+        table_pad = F.pad(table, (0, 0, 0, plan.n_panels * s - table.shape[0]))
+        zero_row = table.new_zeros((1, f))
+        a_buf = torch.zeros((aux["m_pad"], f, f), dtype=a_dtype,
+                            device=self.device)
+        b_buf = torch.zeros((aux["m_pad"], f), dtype=torch.float32,
+                            device=self.device)
+        by_panel = {}
+        for ch in chunks:
+            by_panel.setdefault(ch.panel, []).append(ch)
+        for p, group in sorted(by_panel.items()):
+            tp = torch.cat([table_pad[p * s:(p + 1) * s], zero_row], dim=0)
+            for ch in group:
+                if cfg.backend == "pallas":
+                    a_part, b_part = cuda_solve.gather_gram_out(
+                        tp, ch.cols, ch.vals, out_dtype=a_dtype)
+                else:
+                    a_part, b_part = cuda_solve.gather_gram_out_plain(
+                        tp, ch.cols, ch.vals, out_dtype=a_dtype)
+                # dummy rows carry id m, which lies inside a_buf (m_pad > m)
+                a_buf.index_add_(0, ch.rows, a_part)
+                b_buf.index_add_(0, ch.rows, b_part)
+                del a_part, b_part
+        return a_buf, b_buf
+
+    def _update_phase_panelized(self, table, current, plan_pair,
+                                collect_rmse_terms: bool = False):
+        """Panel Grams into full accumulators, then batched solves of the
+        accumulators, slice by slice (kernel K3 on the "pallas" backend)."""
+        cfg = self.cfg
+        plan, _chunks, aux = plan_pair
+        m, m_pad = plan.num_rows, aux["m_pad"]
+        a_buf, b_buf = self.accumulate_panels(table, plan_pair)
+        x0_full = F.pad(current, (0, 0, 0, m_pad - m))
+        batch = aux["solve_batch"]
+        outs = [_solve_slice(a_buf, b_buf, x0_full, aux["row_nnz_pad"], lo,
+                             cfg.lam, batch, cfg.solver, cfg.cg_iters,
+                             cfg.cg_tol, cfg.backend)
+                for lo in range(0, m_pad, batch)]
+        new_pad = torch.cat(outs, dim=0) if len(outs) > 1 else outs[0]
+        se = 0.0
+        if collect_rmse_terms:
+            se = _se_terms(a_buf, b_buf, new_pad, batch) + self._sum_r2()
+        return new_pad[:m].contiguous(), se
+
+    def _update_phase_direct(self, table, current, plan_pair,
+                             collect_rmse_terms: bool):
+        """Solve every row of `current` against the fixed `table`, chunk
+        by chunk, writing solved rows back in place. Returns the factor
+        and, when requested, the summed train squared error (a device
+        scalar)."""
+        cfg = self.cfg
+        plan, chunks, _aux = plan_pair
+        use_kernel = cfg.backend == "pallas" and cfg.solver == "cg"
+        if cfg.factor_dtype == "bf16":   # cast the table before the gather
+            table = table.to(torch.bfloat16)
+        table_ext = extend_table(table)
+        se_acc = torch.zeros((), dtype=torch.float32, device=self.device)
+        for ch in chunks:
+            k = ch.n_real
+            x0 = current.index_select(0, ch.rows_real)
+            if k < ch.rows.shape[0]:   # dummy tail rows start from zero
+                x0 = F.pad(x0, (0, 0, 0, ch.rows.shape[0] - k))
+            if use_kernel:
+                solved, se = cuda_solve.gather_gram_cg(
+                    table_ext, ch.cols, ch.vals, ch.nnz, x0, cfg.lam,
+                    cg_iters=cfg.cg_iters, cg_tol=cfg.cg_tol)
+                se = se.sum()
+            else:
+                a, b = gram_rhs(table_ext, ch.cols, ch.vals, ch.nnz,
+                                cfg.lam, gram_dtype=cfg.gram_dtype)
+                solved = solve(a, b, x0, solver=cfg.solver,
+                               cg_iters=cfg.cg_iters, cg_tol=cfg.cg_tol,
+                               backend=cfg.backend)
+                solved = solved * (ch.nnz > 0).float()[:, None]
+                se = fused_sq_err(a, b, ch.vals, ch.nnz, cfg.lam, solved) \
+                    if collect_rmse_terms else 0.0
+                del a, b
+            if collect_rmse_terms:
+                se_acc = se_acc + se
+            current.index_copy_(0, ch.rows_real,
+                                solved[:k].to(current.dtype))
+        return current, se_acc
+
+    # ----- the training loop -----
+    def run(self, x0: np.ndarray, theta0: np.ndarray,
+            start_iter: int = 0) -> ALSResult:
+        cfg = self.cfg
+        if cfg.factor_store == "bf16":
+            # as in the JAX package: the initial factors round to bf16,
+            # and the resident factors stay f32
+            x0 = torch.as_tensor(x0).to(torch.bfloat16)
+            theta0 = torch.as_tensor(theta0).to(torch.bfloat16)
+        x = self._pad_f(x0)
+        theta = self._pad_f(theta0)
+        # Zero the factors of empty rows/cols up front: the plans leave
+        # them out, so their initial values would otherwise persist.
+        x *= torch.from_numpy(
+            np.diff(self.train_csr.indptr) > 0).to(self.device)[:, None]
+        theta *= torch.from_numpy(
+            np.diff(self.train_csc.indptr) > 0).to(self.device)[:, None]
+
+        history: List[IterationMetrics] = []
+        if cfg.verbose:
+            print(f"*******parameters: m: {cfg.m}, n:  {cfg.n}, "
+                  f"f: {cfg.f}, nnz: {self.train_csr.nnz} ")
+            print("*******start iterations...")
+        for it in range(start_iter, cfg.iters):
+            if cfg.verbose:
+                print(f"---------------------------ALS iteration {it}, "
+                      f"update X.----------------------------------")
+            t0 = seconds()
+            x, _ = self._update_phase(theta, x, self.plan_x, False)
+            if cfg.debug_timing:
+                # an exact per-phase split costs a sync at the boundary
+                sync(self.device)
+            tx = seconds() - t0
+            if cfg.debug_timing:
+                print(f"update X run {tx:f} seconds, gridSize: {cfg.m}, "
+                      f"blockSize {cfg.f}.")
+
+            if cfg.verbose:
+                print(f"---------------------------------- ALS iteration "
+                      f"{it}, update theta ----------------------------------")
+            t0 = seconds()
+            want_fused = cfg.train_rmse_method == "fused"
+            theta, se_acc = self._update_phase(x, theta, self.plan_theta,
+                                               want_fused)
+            sync(self.device)
+            tth = seconds() - t0
+            if cfg.debug_timing:
+                print(f"update theta run {tth:f} seconds, gridSize: "
+                      f"{cfg.n}, blockSize {cfg.f}.")
+
+            t0 = seconds()
+            if want_fused:
+                train_rmse = float(np.sqrt(max(float(se_acc), 0.0) /
+                                           self.train_csr.nnz))
+            else:
+                train_rmse = rmse_direct(
+                    x, theta, self.train_csr.to_coo_rows(),
+                    self.train_csr.indices, self.train_csr.data)
+            if cfg.verbose:
+                print(f"--------- Train RMSE in iter {it}: {train_rmse:f}")
+            test_rmse = float("nan")
+            if self.test_coo is not None and self.test_coo.nnz:
+                test_rmse = rmse_direct(x, theta, self.test_coo.row,
+                                        self.test_coo.col,
+                                        self.test_coo.data)
+                if cfg.verbose:
+                    print(f"--------- Test RMSE in iter {it}: {test_rmse:f}")
+            trm = seconds() - t0
+            history.append(IterationMetrics(it, train_rmse, test_rmse,
+                                            tx, tth, trm))
+            if cfg.metrics_jsonl:
+                with open(cfg.metrics_jsonl, "a") as fh:
+                    fh.write(json.dumps({
+                        "iteration": it, "train_rmse": train_rmse,
+                        "test_rmse": test_rmse, "x_seconds": tx,
+                        "theta_seconds": tth, "rmse_seconds": trm}) + "\n")
+            if cfg.checkpoint_every and cfg.checkpoint_dir and \
+                    (it + 1) % cfg.checkpoint_every == 0:
+                from cumf_als_tpu_torch.utils.checkpoint import \
+                    save_checkpoint
+                save_checkpoint(cfg.checkpoint_dir, it, self._unpad_f(x),
+                                self._unpad_f(theta), cfg)
+            if not np.isfinite(train_rmse):
+                raise FloatingPointError(
+                    f"non-finite train RMSE at iteration {it}")
+        return ALSResult(x=self._unpad_f(x), theta=self._unpad_f(theta),
+                         history=history)
+
+
+def do_als(csr: CSRMatrix, csc: Optional[CSRMatrix],
+           test: Optional[COOMatrix], theta0: np.ndarray, x0: np.ndarray,
+           cfg: ALSConfig, device=None) -> ALSResult:
+    """Functional doALS: the sparse views and initial factors in, the
+    final factors and the RMSE trajectory out. Runs on CUDA unless
+    `device="cpu"`."""
+    model = ALS(cfg, csr, csc, test, device=device)
+    return model.run(x0, theta0)

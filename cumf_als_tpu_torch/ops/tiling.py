@@ -1,0 +1,321 @@
+"""Row bucketing / padding plans (host numpy).
+
+A copy of the numpy paths of the JAX package's ops/tiling.py, so that a
+plan here is array for array the JAX package's numpy plan. Rows are
+grouped into buckets of a few widths per octave, each row's column list
+is padded to its bucket's width, and buckets are cut into chunks of at
+most `chunk_nnz` padded slots and `chunk_rows` rows. The padding
+contract the kernels rely on:
+
+  - `cols` pads with the id one past the gather table, whose row is
+    zero, and `vals` pads with 0, so pad slots add nothing;
+  - pad slots sit at the tail of each row (the kernels may stop at the
+    row's nnz);
+  - ragged tail rows of a chunk have `rows == num_rows`, `nnz == 0` and
+    all-pad slots; the write-back skips them.
+
+The split and batched-panel plans are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence
+
+import numpy as np
+
+from cumf_als_tpu_torch.utils.io import CSRMatrix
+
+
+@dataclasses.dataclass
+class PlanChunk:
+    """One unit of work: R rows, each padded to width P."""
+    width: int            # P
+    rows: np.ndarray      # (R,) int32, == num_rows for dummy tail rows
+    nnz: np.ndarray       # (R,) int32 true row lengths
+    cols: np.ndarray      # (R, P) int32 gather indices into the fixed factor
+    vals: np.ndarray      # (R, P) float32 ratings, 0-padded
+
+    @property
+    def num_rows(self) -> int:
+        return int(self.rows.shape[0])
+
+    @property
+    def padded_nnz(self) -> int:
+        return self.rows.shape[0] * self.width
+
+
+@dataclasses.dataclass
+class UpdatePlan:
+    """Bucketed layout of one side of the ALS update (X or theta phase)."""
+    num_rows: int         # rows of the factor being updated (m or n)
+    num_cols: int         # rows of the gather table (n or m)
+    chunks: List[PlanChunk]
+    true_nnz: int
+    padded_nnz: int
+
+    @property
+    def expansion(self) -> float:
+        return self.padded_nnz / max(1, self.true_nnz)
+
+
+def _next_pow2(x: int) -> int:
+    return 1 << max(0, int(x - 1).bit_length())
+
+
+def make_width_grid(min_width: int, max_len: int, fine: bool = True,
+                    max_width: Optional[int] = None,
+                    octave_points: int = 4) -> List[int]:
+    """Bucket widths: powers of two, plus the quarter-octave points
+    (5/4, 3/2, 7/4 * 2^k) from 16 up when `fine`, the eighth-octave
+    points from 64 up when octave_points >= 8 and the sixteenth-octave
+    points from 256 up when octave_points >= 16. Above `max_width` only
+    powers of two remain. The grid stops at the first width >= max_len."""
+    grid = set()
+    w = max(8, _next_pow2(min_width))
+    top = max(w, _next_pow2(max(1, max_len)))
+    while w <= top:
+        grid.add(w)
+        if fine and (max_width is None or w < max_width):
+            grid.add(w * 3 // 2)
+            if w >= 16:
+                grid.add(w * 5 // 4)
+                grid.add(w * 7 // 4)
+            if octave_points >= 8 and w >= 64:
+                grid.add(w * 9 // 8)
+                grid.add(w * 11 // 8)
+                grid.add(w * 13 // 8)
+                grid.add(w * 15 // 8)
+            if octave_points >= 16 and w >= 256:
+                for q in range(17, 32, 2):
+                    grid.add(w * q // 16)
+        w *= 2
+    widths = sorted(x for x in grid
+                    if max_width is None or x <= max_width
+                    or (x & (x - 1)) == 0)
+    cut = next(x for x in widths if x >= max_len)
+    return [x for x in widths if x <= cut]
+
+
+def _round_rows(r: int, cap: int) -> int:
+    """Row count of a ragged final chunk: the next multiple of 8 up to
+    128, then the next 4-bit-mantissa value ({8..15} * 2^e), at most
+    `cap`."""
+    if r >= cap:
+        return cap
+    r8 = max(8, -(-r // 8) * 8)
+    if r8 <= 128:
+        return min(cap, r8)
+    e = r8.bit_length() - 4
+    return min(cap, -(-r8 >> e) << e)
+
+
+def _rows_per_chunk(width: int, chunk_nnz: int, chunk_rows: int) -> int:
+    """Rows per full chunk: a power of two, at least 8."""
+    r = max(8, min(chunk_nnz // width, chunk_rows))
+    return 1 << (r.bit_length() - 1)
+
+
+def build_update_plan(
+    csr: CSRMatrix,
+    min_width: int = 8,
+    max_width: int = 1 << 18,
+    chunk_nnz: int = 1 << 22,
+    chunk_rows: int = 1 << 14,
+    widths: Optional[Sequence[int]] = None,
+    octave_points: int = 4,
+) -> UpdatePlan:
+    """The direct route's plan: every nonempty row once, whole, in the
+    smallest bucket that holds it. Empty rows are left out (their
+    factors are zeroed by the training loop)."""
+    row_nnz = np.diff(csr.indptr).astype(np.int64)
+    max_nnz = int(row_nnz.max()) if row_nnz.size else 0
+    if widths is None:
+        widths = make_width_grid(min_width, max_nnz, max_width=max_width,
+                                 octave_points=octave_points)
+    widths = sorted(set(int(w) for w in widths))
+
+    nonempty = np.nonzero(row_nnz > 0)[0]
+    bucket_of = np.searchsorted(widths, row_nnz[nonempty])
+    order = np.argsort(bucket_of, kind="stable")
+    nonempty = nonempty[order]
+    bucket_of = bucket_of[order]
+
+    chunks: List[PlanChunk] = []
+    padded_total = 0
+    starts = np.searchsorted(bucket_of, np.arange(len(widths) + 1))
+    for b, width in enumerate(widths):
+        rows_b = nonempty[starts[b]:starts[b + 1]]
+        if rows_b.size == 0:
+            continue
+        rows_per_chunk = _rows_per_chunk(width, chunk_nnz, chunk_rows)
+        for lo in range(0, rows_b.size, rows_per_chunk):
+            rows_c = rows_b[lo:lo + rows_per_chunk]
+            r = rows_c.size
+            r_pad = rows_per_chunk if r == rows_per_chunk else \
+                _round_rows(r, rows_per_chunk)
+            chunk = _materialize_chunk(csr, rows_c, width, r_pad)
+            chunks.append(chunk)
+            padded_total += chunk.padded_nnz
+    return UpdatePlan(num_rows=csr.num_rows, num_cols=csr.num_cols,
+                      chunks=chunks, true_nnz=int(row_nnz.sum()),
+                      padded_nnz=padded_total)
+
+
+@dataclasses.dataclass
+class PanelChunk:
+    """A bucket chunk whose gathers address one column panel only: `cols`
+    are panel-local (0..panel_size-1), padded with `panel_size` (the zero
+    row appended to the panel). Its partial (A, b) are scatter-added into
+    the phase accumulators at `rows`."""
+    panel: int
+    width: int
+    rows: np.ndarray   # (R,) int32, == num_rows for dummy tails
+    nnz: np.ndarray    # (R,) int32 subrow length
+    cols: np.ndarray   # (R, P) int32 panel-local
+    vals: np.ndarray   # (R, P) float32
+
+
+@dataclasses.dataclass
+class PanelPlan:
+    """Panel route layout: each row's (sorted) column list is split at
+    panel boundaries into subrows, and a row's Gram is the sum of its
+    subrows' partial Grams."""
+    num_rows: int
+    num_cols: int
+    panel_size: int
+    n_panels: int
+    chunks: List[PanelChunk]
+    row_nnz: np.ndarray    # (num_rows,) int32 total nnz per row
+    true_nnz: int
+    padded_nnz: int
+
+    @property
+    def expansion(self) -> float:
+        return self.padded_nnz / max(1, self.true_nnz)
+
+
+def build_panel_plan(csr: CSRMatrix, panel_size: int = 1 << 16,
+                     min_width: int = 8, chunk_nnz: int = 1 << 22,
+                     chunk_rows: int = 1 << 14,
+                     split_width: int = 4096,
+                     octave_points: int = 4) -> PanelPlan:
+    """Split each row's column list at panel boundaries (cols are sorted
+    within rows, so subrows are contiguous slices), cut subrows longer
+    than `split_width` into exact segments plus a remainder, then bucket
+    subrows by width per (panel, width) group."""
+    m = csr.num_rows
+    n_panels = -(-csr.num_cols // panel_size)
+    row_nnz = np.diff(csr.indptr).astype(np.int64)
+    nnz_total = int(row_nnz.sum())
+
+    # Subrow table: a subrow is a maximal run of one row's columns in one
+    # panel; run starts are panel changes on the flat axis unioned with
+    # row starts, owners recovered by searchsorted.
+    if panel_size & (panel_size - 1) == 0:
+        p_flat = csr.indices >> int(np.log2(panel_size))
+    else:
+        p_flat = csr.indices // np.int32(panel_size)
+    if nnz_total:
+        pc = np.flatnonzero(p_flat[1:] != p_flat[:-1]).astype(np.int64) + 1
+        indptr64 = np.asarray(csr.indptr[:-1], np.int64)
+        starts = np.unique(np.concatenate([pc, indptr64]))
+        starts = starts[starts < nnz_total]
+        ends = np.concatenate([starts[1:],
+                               np.asarray([nnz_total], np.int64)])
+        # owner row: largest r with indptr[r] <= start (empty rows share
+        # start values and lose the tie to the owning nonempty row)
+        sub_rows = (np.searchsorted(csr.indptr, starts, side="right")
+                    - 1).astype(np.int32)
+        sub_panel = p_flat[starts].astype(np.int32)
+    else:
+        starts = np.zeros(0, np.int64)
+        ends = np.zeros(0, np.int64)
+        sub_rows = np.zeros(0, np.int32)
+        sub_panel = np.zeros(0, np.int32)
+    sub_off = starts
+    sub_len = ends - starts
+
+    # Split subrows longer than split_width into exact segments + rest.
+    if split_width and sub_len.size and int(sub_len.max()) > split_width:
+        n_full = sub_len // split_width
+        rem = sub_len - n_full * split_width
+        counts = (n_full + (rem > 0)).astype(np.int64)
+        idx = np.repeat(np.arange(sub_len.size, dtype=np.int64), counts)
+        excl = np.zeros(sub_len.size, np.int64)
+        np.cumsum(counts[:-1], out=excl[1:])
+        seg_i = np.arange(idx.size, dtype=np.int64) - excl[idx]
+        sub_off = sub_off[idx] + seg_i * split_width
+        sub_len = np.where(seg_i < n_full[idx], split_width, rem[idx])
+        sub_rows = sub_rows[idx]
+        sub_panel = sub_panel[idx]
+
+    max_len = int(sub_len.max()) if sub_len.size else 1
+    widths = make_width_grid(min_width, max_len,
+                             octave_points=octave_points)
+    widx = np.searchsorted(widths, sub_len)
+
+    # group subrows by (panel, width) with one argsort
+    group = sub_panel.astype(np.int64) * len(widths) + widx
+    order = np.argsort(group, kind="stable")
+    group_sorted = group[order]
+    bounds = np.searchsorted(
+        group_sorted, np.arange(n_panels * len(widths) + 1))
+
+    chunks: List[PanelChunk] = []
+    padded = 0
+    for gid in range(n_panels * len(widths)):
+        sel = order[bounds[gid]:bounds[gid + 1]]
+        if sel.size == 0:
+            continue
+        p, b = divmod(gid, len(widths))
+        width = widths[b]
+        base = p * panel_size
+        rows_per_chunk = _rows_per_chunk(width, chunk_nnz, chunk_rows)
+        arange_w = np.arange(width, dtype=np.int64)[None, :]
+        for lo_i in range(0, sel.size, rows_per_chunk):
+            part = sel[lo_i:lo_i + rows_per_chunk]
+            k = part.size
+            r_pad = rows_per_chunk if k == rows_per_chunk else \
+                _round_rows(k, rows_per_chunk)
+            rows = np.full(r_pad, m, np.int32)
+            nnz = np.zeros(r_pad, np.int32)
+            cols = np.full((r_pad, width), panel_size, np.int32)
+            vals = np.zeros((r_pad, width), np.float32)
+            lens = sub_len[part]
+            idx = sub_off[part][:, None] + arange_w
+            mask = arange_w < lens[:, None]
+            idx = np.where(mask, idx, 0)
+            rows[:k] = sub_rows[part]
+            nnz[:k] = lens
+            cols[:k] = np.where(mask, csr.indices[idx] - base, panel_size)
+            vals[:k] = np.where(mask, csr.data[idx], 0.0)
+            chunks.append(PanelChunk(panel=p, width=width, rows=rows,
+                                     nnz=nnz, cols=cols, vals=vals))
+            padded += r_pad * width
+    return PanelPlan(num_rows=m, num_cols=csr.num_cols,
+                     panel_size=panel_size, n_panels=n_panels,
+                     chunks=chunks,
+                     row_nnz=row_nnz.astype(np.int32),
+                     true_nnz=int(row_nnz.sum()), padded_nnz=padded)
+
+
+def _materialize_chunk(csr: CSRMatrix, rows: np.ndarray, width: int,
+                       r_pad: int) -> PlanChunk:
+    r = rows.size
+    nnz = np.diff(csr.indptr)[rows].astype(np.int32)
+    offs = csr.indptr[rows].astype(np.int64)
+    idx = offs[:, None] + np.arange(width, dtype=np.int64)[None, :]
+    mask = np.arange(width, dtype=np.int32)[None, :] < nnz[:, None]
+    idx = np.where(mask, idx, 0)
+    cols = np.where(mask, csr.indices[idx], csr.num_cols).astype(np.int32)
+    vals = np.where(mask, csr.data[idx], 0.0).astype(np.float32)
+    if r_pad > r:
+        pad = r_pad - r
+        rows = np.concatenate([rows, np.full(pad, csr.num_rows)])
+        nnz = np.concatenate([nnz, np.zeros(pad, np.int32)])
+        cols = np.concatenate(
+            [cols, np.full((pad, width), csr.num_cols, np.int32)])
+        vals = np.concatenate([vals, np.zeros((pad, width), np.float32)])
+    return PlanChunk(width=width, rows=rows.astype(np.int32), nnz=nnz,
+                     cols=cols, vals=vals)

@@ -1,0 +1,165 @@
+"""Package-level rules of the port: it imports no JAX, its entry points
+default to CUDA and refuse to fall back to the CPU, state carries across
+from and to the JAX package, and the CLI runs end to end."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from cumf_als_tpu.config import ALSConfig as JConfig
+from cumf_als_tpu.models.als import ALS as JALS
+from cumf_als_tpu.utils import checkpoint as jckpt
+
+from cumf_als_tpu_torch import ALS, ALSConfig, CSRMatrix, do_als
+from cumf_als_tpu_torch import cli
+from cumf_als_tpu_torch.data.synthetic import init_factors, synthetic_ratings
+from cumf_als_tpu_torch.interop import from_reference, to_reference
+from cumf_als_tpu_torch.utils.io import write_dataset
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+CHILD = r"""
+import sys
+import cumf_als_tpu_torch as pkg
+from cumf_als_tpu_torch.data.synthetic import init_factors, synthetic_ratings
+import cumf_als_tpu_torch.cli, cumf_als_tpu_torch.interop
+import cumf_als_tpu_torch.ops.cuda_solve, cumf_als_tpu_torch.ops._build
+tr, te = synthetic_ratings(m=30, n=20, nnz=300, nnz_test=40, seed=1)
+cfg = pkg.ALSConfig(m=30, n=20, f=16, iters=2, verbose=False,
+                    debug_timing=False, backend="pallas")
+x0, th0 = init_factors(30, 20, 16)
+res = pkg.do_als(tr, None, te, th0, x0, cfg, device="cpu")
+assert len(res.history) == 2
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m == "cumf_als_tpu" or m.startswith("cumf_als_tpu."))
+print("BAD", bad)
+"""
+
+
+def test_port_imports_no_jax():
+    out = subprocess.run([sys.executable, "-c", CHILD], cwd=REPO,
+                         capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=REPO))
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
+def _problem():
+    return synthetic_ratings(m=30, n=20, nnz=300, nnz_test=40, seed=1)
+
+
+def test_entry_points_refuse_silent_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    tr, te = _problem()
+    cfg = ALSConfig(m=30, n=20, f=16, iters=1, verbose=False)
+    x0, th0 = init_factors(30, 20, 16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ALS(cfg, tr, None, te)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        do_als(tr, None, te, th0, x0, cfg)
+
+
+def _jax_checkpoint(tmp_path):
+    """A JAX run that checkpoints after iteration 0 (f=100, so the
+    factors carry across f_pad=128 padding)."""
+    from cumf_als_tpu.data.synthetic import synthetic_ratings as jsyn
+    jtr, jte = jsyn(m=30, n=20, nnz=300, nnz_test=40, seed=1)
+    jcfg = JConfig(m=30, n=20, f=100, lam=0.5, iters=1, verbose=False,
+                   debug_timing=False, solver="cholesky",
+                   checkpoint_dir=str(tmp_path), checkpoint_every=1)
+    x0, th0 = init_factors(30, 20, 100, seed=2)
+    JALS(jcfg, jtr, None, jte).run(x0, th0)
+    x, th, it = jckpt.load_checkpoint(str(tmp_path), cfg=jcfg)
+    return jcfg, jtr, jte, x, th, it
+
+
+def test_interop_round_trip(tmp_path):
+    import dataclasses
+    jcfg, jtr, jte, x, th, it = _jax_checkpoint(tmp_path)
+    fields = dataclasses.asdict(jcfg)
+    cfg, xt, tt = from_reference(fields, x, th, device="cpu")
+    assert xt.shape == (30, 128) and tt.shape == (20, 128)
+    assert torch.all(xt[:, 100:] == 0)
+    fields2, x2, th2 = to_reference(cfg, xt, tt)
+    assert fields2 == fields
+    np.testing.assert_array_equal(x2, x)
+    np.testing.assert_array_equal(th2, th)
+    assert JConfig(**fields2) == jcfg
+    # padded input carries across unchanged as well
+    _, xt2, _ = from_reference(fields, xt.numpy(), tt.numpy(), device="cpu")
+    assert torch.equal(xt2, xt)
+    with pytest.raises(ValueError):
+        from_reference(dict(fields, tpu_only_knob=1), x, th, device="cpu")
+    if not torch.cuda.is_available():
+        # like every entry point, the default device is CUDA: no silent CPU
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            from_reference(fields, x, th)
+
+
+def test_resume_from_jax_checkpoint_matches_jax(tmp_path):
+    """A port run resumed from a JAX checkpoint takes the same next step
+    as the JAX run resumed from it."""
+    import dataclasses
+    jcfg, jtr, jte, x, th, it = _jax_checkpoint(tmp_path)
+    jcfg = jcfg.replace(iters=2, checkpoint_every=0)
+    jres = JALS(jcfg, jtr, None, jte).run(x, th, start_iter=it + 1)
+    cfg, xt, tt = from_reference(dataclasses.asdict(jcfg), x, th,
+                                 device="cpu")
+    tr = CSRMatrix(indptr=jtr.indptr, indices=jtr.indices, data=jtr.data,
+                   num_rows=30, num_cols=20)
+    res = ALS(cfg, tr, None, jte, device="cpu").run(xt, tt,
+                                                    start_iter=it + 1)
+    assert res.history[-1].iteration == jres.history[-1].iteration == 1
+    assert res.history[-1].test_rmse == pytest.approx(
+        jres.history[-1].test_rmse, abs=1e-4)
+    np.testing.assert_allclose(res.theta, jres.theta, atol=1e-3)
+
+
+def _dataset(tmp_path):
+    tr, te = _problem()
+    d = str(tmp_path / "ds")
+    write_dataset(d, tr, te)
+    return d, tr, te
+
+
+def test_cli_runs_on_cpu(tmp_path, capsys):
+    d, tr, te = _dataset(tmp_path)
+    argv = ["30", "20", "16", str(tr.nnz), str(te.nnz), "0.05", "1", "1",
+            d, "--iters", "2", "--device", "cpu", "--backend", "pallas",
+            "--factor-dtype", "bf16", "--gram-dtype", "bf16"]
+    assert cli.main(argv) == 0
+    out = capsys.readouterr().out
+    assert "--------- Train RMSE in iter 1:" in out
+    assert "--------- Test RMSE in iter 1:" in out
+    assert "ALS Done." in out
+
+
+def test_cli_usage_and_unported_models(tmp_path, capsys):
+    assert cli.main([]) == 0
+    assert "Usage: give M, N, F" in capsys.readouterr().out
+    d, tr, te = _dataset(tmp_path)
+    base = ["30", "20", "16", str(tr.nnz), str(te.nnz), "0.05", "1", "1",
+            d, "--device", "cpu", "--iters", "1"]
+    for flag, item in (("--mesh=2", "A12"), ("--out-of-core", "A11")):
+        with pytest.raises(NotImplementedError, match=item):
+            cli.main(base + [flag])
+
+
+def test_cli_resume_from_checkpoint(tmp_path, capsys):
+    d, tr, te = _dataset(tmp_path)
+    ck = str(tmp_path / "ck")
+    base = ["30", "20", "16", str(tr.nnz), str(te.nnz), "0.05", "1", "1",
+            d, "--device", "cpu", "--solver", "cholesky",
+            "--checkpoint-dir", ck, "--checkpoint-every", "1"]
+    assert cli.main(base + ["--iters", "2"]) == 0
+    capsys.readouterr()
+    assert cli.main(base + ["--iters", "3", "--resume"]) == 0
+    out = capsys.readouterr().out
+    assert "resuming from checkpoint at iteration 1" in out
+    assert "Train RMSE in iter 2" in out and "iter 1:" not in out
