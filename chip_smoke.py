@@ -6,19 +6,27 @@ Phases, each of which must pass (any failure exits non-zero before the
 result line):
 
 1. card and build: the card's name and power limit, the torch/CUDA
-   versions, and the build of every CUDA kernel from csrc/;
+   versions, and the build of every CUDA kernel from csrc/ (seven);
 2. each kernel against its plain PyTorch version on the card, on real
-   chunks of the Netflix-shaped plans (the widest and the most populous
-   theta-phase chunk for K1, the most populous X-phase panel chunk for
-   K2, one full solve slice of the X-phase accumulators for K3), with
-   kernel, plain, yardstick and bound times;
-3. a small Netflix-shaped run (scale 0.01, lowered panel_size so both
-   routes engage) on the card against the same run on the CPU;
-4. the main path at full width: `ALS.run` for 3 iterations on the
-   Netflix workload at scale 1.0 (~99M ratings, F=100, bf16 factors and
-   Gram accumulators, backend "pallas", CG), with the X phase on the
-   panel route and theta on the direct route, every kernel's launch
-   count read around that run alone.
+   chunks of the Netflix-shaped plans, with kernel, plain, yardstick and
+   bound times: the widest and the most populous theta-phase chunk for
+   K1 and K6, the most populous X-phase panel chunk for K2 and K5a, one
+   full solve slice of the X-phase accumulators for K3 (split, bf16),
+   K5b (augmented, f32) and K4 (the same slice unpacked and regularized
+   beforehand, through `ops.solve.solve` without a diagonal);
+3. small Netflix-shaped runs (scale 0.01, lowered panel_size so both
+   routes engage) on the card against the same runs on the CPU: bf16
+   accumulators, f32 with aug_gram="auto", f32 with aug_gram="force";
+4. two paths at full width, `ALS.run` for 3 iterations each on the
+   Netflix workload at scale 1.0 (~99M ratings, F=100, bf16 factors,
+   backend "pallas", CG), X phase on the panel route and theta on the
+   direct route, every kernel's launch count read around each run alone:
+   a. bf16 Gram accumulators: split buffers, kernels K1, K2, K3;
+   b. f32 accumulators with aug_gram="force": the augmented-lane forms,
+      kernels K5a, K5b, K6;
+   and K4's path, the public dispatcher `ops.solve.solve` without a
+   diagonal, over every solve slice of the X-phase accumulators, held
+   against the augmented solve of the same systems.
 
 It prints a `kernels` JSON line, the card line, and last
 {"ok": true, "device": {...}}. It imports nothing of JAX.
@@ -44,7 +52,13 @@ REPLACES = {
     "gather_gram_cg": "cumf_als_tpu/ops/pallas_solve.py:299",
     "gather_gram_out": "cumf_als_tpu/ops/pallas_solve.py:534",
     "solve_cg_reg": "cumf_als_tpu/ops/pallas_solve.py:1105",
+    "solve_cg": "cumf_als_tpu/ops/pallas_solve.py:1097",
+    "gather_gram_aug_out": "cumf_als_tpu/ops/pallas_solve.py:610",
+    "solve_cg_aug": "cumf_als_tpu/ops/pallas_solve.py:1122",
+    "gather_gram_cg_aug": "cumf_als_tpu/ops/pallas_solve.py:345",
 }
+SPLIT_KERNELS = ("gather_gram_cg", "gather_gram_out", "solve_cg_reg")
+AUG_KERNELS = ("gather_gram_cg_aug", "gather_gram_aug_out", "solve_cg_aug")
 
 
 def log(msg: str) -> None:
@@ -88,26 +102,30 @@ def card_line() -> str:
 
 
 # ------------------------------------------------------------ phase 2 --
-def check_k1(cs, table_ext, ch, theta, cfg, label):
-    """K1 on one theta-phase chunk: kernel vs plain."""
+def check_k1(cs, table_ext, ch, theta, cfg, label, aug=False):
+    """K1 (or, with aug, K6) on one theta-phase chunk: kernel vs plain."""
     k = ch.n_real
     x0 = torch.nn.functional.pad(theta.index_select(0, ch.rows_real),
                                  (0, 0, 0, ch.rows.shape[0] - k))
     args = (table_ext, ch.cols, ch.vals, ch.nnz, x0, cfg.lam)
     kw = dict(cg_iters=cfg.cg_iters, cg_tol=cfg.cg_tol)
-    x, se = cs.gather_gram_cg(*args, **kw)
-    px, pse = cs.gather_gram_cg_plain(*args, **kw)
+    plain_fn = cs.gather_gram_cg_aug_plain if aug else \
+        cs.gather_gram_cg_plain
+    x, se = cs.gather_gram_cg(*args, aug=aug, **kw)
+    px, pse = plain_fn(*args, **kw)
     err = (x - px).abs().max().item()
     se_rel = ((se - pse).abs() / pse.abs().clamp_min(1.0)).max().item()
-    ms = time_ms(lambda: cs.gather_gram_cg(*args, **kw))
-    plain = time_ms(lambda: cs.gather_gram_cg_plain(*args, **kw), reps=3)
+    lane_ok = not aug or bool((x[:, -1] == 0).all())
+    ms = time_ms(lambda: cs.gather_gram_cg(*args, aug=aug, **kw))
+    plain = time_ms(lambda: plain_fn(*args, **kw), reps=3)
     r, p = ch.cols.shape
     f = table_ext.shape[1]
     flops = 2.0 * float(ch.nnz.sum().item()) * f * f
     bms, by = bound_ms(nbytes(table_ext, ch.cols, ch.vals, ch.nnz, x0, x,
                               se), flops, table_ext.dtype)
-    ok = err <= 2e-3 and se_rel <= 1e-3
-    log(f"[K1 gather_gram_cg] {label} chunk R={r} P={p}: max|dx|={err:.3e} "
+    ok = err <= 2e-3 and se_rel <= 1e-3 and lane_ok
+    name = "K6 gather_gram_cg_aug" if aug else "K1 gather_gram_cg"
+    log(f"[{name}] {label} chunk R={r} P={p}: max|dx|={err:.3e} "
         f"(limit 2e-3), max rel dse={se_rel:.3e} (limit 1e-3); kernel "
         f"{ms:.3f} ms, plain {plain:.3f} ms, bound {bms:.4f} ms ({by}); "
         f"{'OK' if ok else 'FAIL'}")
@@ -180,10 +198,93 @@ def check_k3(cs, a_buf, b_buf, x0_full, row_nnz, lo, batch, cfg):
                     bound_by=by, library_ms=None)
 
 
+def check_k5a(cs, tp, ch):
+    """K5a on one X-phase panel chunk, f32 A': kernel vs plain, and
+    torch.bmm on a pre-gathered, pre-augmented G as the yardstick (it
+    leaves out the gather and the value splice, and writes a bf16 A')."""
+    args = (tp, ch.cols, ch.vals)
+    a = cs.gather_gram_aug_out(*args)
+    pa = cs.gather_gram_aug_out_plain(*args)
+    err = (a - pa).abs().max().item()
+    ok = bool(((a - pa).abs() <= 1e-5 * torch.maximum(a.abs(), pa.abs())
+               + 1e-5).all())
+    del a, pa
+    ms = time_ms(lambda: cs.gather_gram_aug_out(*args))
+    plain = time_ms(lambda: cs.gather_gram_aug_out_plain(*args), reps=3)
+    r, p = ch.cols.shape
+    f = tp.shape[1]
+    g = cs.augment_g(tp.index_select(0, ch.cols.reshape(-1).long())
+                     .reshape(r, p, f), ch.vals)
+    gt = g.transpose(1, 2)
+    lib = time_ms(lambda: torch.bmm(gt, g))
+    del g, gt
+    flops = 2.0 * float(ch.nnz.sum().item()) * f * f
+    bms, by = bound_ms(nbytes(tp, ch.cols, ch.vals) + r * f * f * 4, flops,
+                       tp.dtype)
+    log(f"[K5a gather_gram_aug_out] panel {ch.panel} chunk R={r} P={p}, "
+        f"f32 A': max|dA'|={err:.3e} (limit rtol 1e-5 + 1e-5: {ok}); "
+        f"kernel {ms:.3f} ms, plain {plain:.3f} ms, torch.bmm on "
+        f"pre-gathered, pre-augmented G (no gather, no splice, bf16 out) "
+        f"{lib:.3f} ms, bound {bms:.4f} ms ({by}); "
+        f"{'OK' if ok else 'FAIL'}")
+    return ok, dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                    bound_by=by, library_ms=lib)
+
+
+def check_k5b(cs, a, diag, x0, cfg):
+    """K5b on one solve slice of the augmented X-phase accumulator."""
+    kw = dict(cg_iters=cfg.cg_iters, cg_tol=cfg.cg_tol)
+    x = cs.solve_cg_aug(a, diag, x0, **kw)
+    px = cs.solve_cg_aug_plain(a, diag, x0, **kw)
+    err = (x - px).abs().max().item()
+    lane_ok = bool((x[:, -1] == 0).all())
+    ms = time_ms(lambda: cs.solve_cg_aug(a, diag, x0, **kw))
+    plain = time_ms(lambda: cs.solve_cg_aug_plain(a, diag, x0, **kw),
+                    reps=3)
+    batch, f, _ = a.shape
+    # the least CG work: one matvec per system
+    bms, by = bound_ms(nbytes(a, diag, x0, x), 2.0 * batch * f * f, a.dtype)
+    ok = err <= 2e-3 and lane_ok
+    log(f"[K5b solve_cg_aug] slice of {batch} systems, A' {a.dtype}: "
+        f"max|dx|={err:.3e} (limit 2e-3), lane f-1 of x zero: {lane_ok}; "
+        f"kernel {ms:.3f} ms, plain {plain:.3f} ms, bound {bms:.4f} ms "
+        f"({by}); {'OK' if ok else 'FAIL'}")
+    return ok, dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                    bound_by=by, library_ms=None)
+
+
+def check_k4(cs, solve, a_reg, b, x0, cfg):
+    """K4 through the public dispatcher, on one solve slice with the
+    diagonal already added."""
+    kw = dict(solver="cg", cg_iters=cfg.cg_iters, cg_tol=cfg.cg_tol,
+              backend="pallas")
+    before = cs.LAUNCHES["solve_cg"]
+    x = solve(a_reg, b, x0, **kw)
+    rose = cs.LAUNCHES["solve_cg"] == before + 1
+    px = cs.solve_cg_plain(a_reg, b, x0, cfg.cg_iters, cfg.cg_tol)
+    err = (x - px).abs().max().item()
+    ms = time_ms(lambda: solve(a_reg, b, x0, **kw))
+    plain = time_ms(lambda: cs.solve_cg_plain(a_reg, b, x0, cfg.cg_iters,
+                                              cfg.cg_tol), reps=3)
+    batch, f, _ = a_reg.shape
+    bms, by = bound_ms(nbytes(a_reg, b, x0, x), 2.0 * batch * f * f,
+                       a_reg.dtype)
+    ok = err <= 2e-3 and rose
+    log(f"[K4 solve_cg] ops.solve.solve without diag, slice of {batch} "
+        f"systems, A {a_reg.dtype}: max|dx|={err:.3e} (limit 2e-3), the "
+        f"dispatcher launched the kernel: {rose}; kernel {ms:.3f} ms, "
+        f"plain {plain:.3f} ms, bound {bms:.4f} ms ({by}); "
+        f"{'OK' if ok else 'FAIL'}")
+    return ok, dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                    bound_by=by, library_ms=None)
+
+
 def phase_totals(cs, al, theta_t, x_t):
-    """Device time summed over one phase's chunks (CUDA events): K1 over
-    the theta phase; K2 alone over the X phase; and the X phase's whole
-    Gram step (K2 + the index_add_ scatter into the accumulators)."""
+    """Device time summed over one phase's chunks (CUDA events): the
+    fused kernel (K1, or K6 when the config takes the augmented form)
+    over the theta phase; the Gram kernel alone (K2 or K5a) over the X
+    phase; and the X phase's whole Gram step (that kernel + the
+    index_add_ scatter into the accumulators)."""
     cfg = al.cfg
     f = cfg.f_pad
 
@@ -198,13 +299,14 @@ def phase_totals(cs, al, theta_t, x_t):
 
     table_ext = torch.cat([x_t.to(torch.bfloat16),
                            x_t.new_zeros((1, f), dtype=torch.bfloat16)])
+    aug_direct = cs.aug_enabled(cfg)
 
     def k1_phase():
         for ch in al.plan_theta[1]:
             x0 = torch.zeros((ch.rows.shape[0], f), device="cuda")
             cs.gather_gram_cg(table_ext, ch.cols, ch.vals, ch.nnz, x0,
                               cfg.lam, cg_iters=cfg.cg_iters,
-                              cg_tol=cfg.cg_tol)
+                              cg_tol=cfg.cg_tol, aug=aug_direct)
 
     plan, chunks, _ = al.plan_x
     s = plan.panel_size
@@ -215,10 +317,13 @@ def phase_totals(cs, al, theta_t, x_t):
     a_dtype = al._accum_dtype(sum(c.rows.shape[0] for c in chunks),
                               plan.num_rows)
 
+    gram = cs.gather_gram_aug_out if al._use_panel_aug() else \
+        cs.gather_gram_out
+
     def k2_phase():
         for ch in chunks:
             tp = torch.cat([th16[ch.panel * s:(ch.panel + 1) * s], zero])
-            cs.gather_gram_out(tp, ch.cols, ch.vals, out_dtype=a_dtype)
+            gram(tp, ch.cols, ch.vals, out_dtype=a_dtype)
 
     return (timed(k1_phase), timed(k2_phase),
             timed(lambda: al.accumulate_panels(theta_t, al.plan_x)))
@@ -236,6 +341,7 @@ def main() -> int:
     from cumf_als_tpu_torch.models.als import ALS
     from cumf_als_tpu_torch.ops import _build
     from cumf_als_tpu_torch.ops import cuda_solve as cs
+    from cumf_als_tpu_torch.ops.solve import solve
     from cumf_als_tpu_torch.ops.tiling import PanelPlan, UpdatePlan
     from cumf_als_tpu_torch.utils.io import transpose_csr
 
@@ -273,7 +379,8 @@ def main() -> int:
             isinstance(al.plan_theta[0], UpdatePlan)):
         raise AssertionError("expected the panel X route and direct theta")
 
-    # ---- 2. each kernel against its plain version, at main-path shapes
+    # ---- 2a. the split kernels against their plain versions, at
+    # main-path shapes
     x0_np, th0_np = init_factors(cfg.m, cfg.n, cfg.f, seed=0)
     gen = torch.Generator(device="cuda").manual_seed(1)
     theta_t = al._pad_f(th0_np)
@@ -283,10 +390,29 @@ def main() -> int:
     table_ext = torch.cat([x_t.to(torch.bfloat16),
                            torch.zeros((1, cfg.f_pad), dtype=torch.bfloat16,
                                        device="cuda")])
-    chunks_t = al.plan_theta[1]
-    widest = max(chunks_t, key=lambda c: c.width)
-    populous = max(chunks_t, key=lambda c: c.rows.shape[0] * c.width)
+
+    def theta_chunks(model):
+        chunks = model.plan_theta[1]
+        return (max(chunks, key=lambda c: c.width),
+                max(chunks, key=lambda c: c.rows.shape[0] * c.width))
+
+    def x_chunk_and_panel(model):
+        plan, chunks, _ = model.plan_x
+        ch = max(chunks, key=lambda c: c.rows.shape[0] * c.width)
+        s = plan.panel_size
+        th16 = theta_t.to(torch.bfloat16)
+        return ch, torch.cat([th16[ch.panel * s:(ch.panel + 1) * s],
+                              th16.new_zeros((1, cfg.f_pad))])
+
+    def totals(model, names):
+        k1_tot, k2_tot, gram_tot = phase_totals(cs, model, theta_t, x_t)
+        log(f"[phase totals] {names[0]} over the {len(model.plan_theta[1])} "
+            f"theta chunks {k1_tot:.1f} ms; {names[1]} over the "
+            f"{len(model.plan_x[1])} X chunks {k2_tot:.1f} ms; X-phase Gram "
+            f"step ({names[1]} + index_add_) {gram_tot:.1f} ms")
+
     results, ok_all = {}, True
+    widest, populous = theta_chunks(al)
     ok, _ = check_k1(cs, table_ext, widest, theta_t, cfg, "widest")
     ok_all &= ok
     ok, results["gather_gram_cg"] = check_k1(cs, table_ext, populous,
@@ -294,16 +420,12 @@ def main() -> int:
     ok_all &= ok
 
     plan_x, chunks_x, aux_x = al.plan_x
-    ch2 = max(chunks_x, key=lambda c: c.rows.shape[0] * c.width)
-    s = plan_x.panel_size
-    th16 = theta_t.to(torch.bfloat16)
-    tp = torch.cat([th16[ch2.panel * s:(ch2.panel + 1) * s],
-                    th16.new_zeros((1, cfg.f_pad))])
+    ch2, tp = x_chunk_and_panel(al)
     a_dtype = al._accum_dtype(sum(c.rows.shape[0] for c in chunks_x),
                               plan_x.num_rows)
     ok, results["gather_gram_out"] = check_k2(cs, tp, ch2, a_dtype)
     ok_all &= ok
-    del tp
+    del tp, ch2, widest, populous
 
     a_buf, b_buf = al.accumulate_panels(theta_t, al.plan_x)
     x0_full = torch.zeros((aux_x["m_pad"], cfg.f_pad), device="cuda")
@@ -312,64 +434,174 @@ def main() -> int:
         aux_x["solve_batch"], cfg)
     ok_all &= ok
     del a_buf, b_buf, x0_full
-    k1_tot, k2_tot, gram_tot = phase_totals(cs, al, theta_t, x_t)
-    log(f"[phase totals] K1 over the {len(chunks_t)} theta chunks "
-        f"{k1_tot:.1f} ms; K2 over the {len(chunks_x)} X chunks "
-        f"{k2_tot:.1f} ms; X-phase Gram step (K2 + index_add_) "
-        f"{gram_tot:.1f} ms")
-    del theta_t, x_t, table_ext, th16
+    totals(al, ("K1", "K2"))
     torch.cuda.empty_cache()
     if not ok_all:
         raise AssertionError("a kernel disagrees with its plain version")
 
-    # ---- 3. small Netflix-shaped run: card against CPU
+    # ---- 3. small Netflix-shaped runs: card against CPU. The f32 limits
+    # are those of the CPU tests: the card's f32 index_add_ adds with
+    # atomics in an order that changes from run to run, which moves the
+    # accumulators by rounding only.
     str_, ste = workload_ratings("netflix", scale=0.01, seed=1)
     scfg = cfg.replace(m=str_.num_rows, n=str_.num_cols, nnz=str_.nnz,
                        nnz_test=ste.nnz, panel_size=2048, verbose=False,
                        debug_timing=False)
     sx0, sth0 = init_factors(scfg.m, scfg.n, scfg.f, seed=0)
-    small = {}
-    for dev in ("cuda", "cpu"):
-        model = ALS(scfg, str_, None, ste, device=dev)
-        assert isinstance(model.plan_x[0], PanelPlan)
-        assert isinstance(model.plan_theta[0], UpdatePlan)
-        small[dev] = model.run(sx0, sth0).history
-    for hg, hc in zip(small["cuda"], small["cpu"]):
-        dtr = abs(hg.train_rmse - hc.train_rmse)
-        dte = abs(hg.test_rmse - hc.test_rmse)
-        log(f"[small] iter {hg.iteration}: card train {hg.train_rmse:.6f} "
-            f"test {hg.test_rmse:.6f} | cpu train {hc.train_rmse:.6f} "
-            f"test {hc.test_rmse:.6f} (limits 5e-3, 1e-2)")
-        if not (dtr <= 5e-3 and dte <= 1e-2):
-            raise AssertionError("card and CPU runs disagree")
+    for label, extra, aug_panel, lim_tr, lim_te in (
+            ("bf16", {}, False, 5e-3, 1e-2),
+            ("f32 aug auto", dict(gram_dtype="f32"), True, 1e-3, 1e-3),
+            ("f32 aug force", dict(gram_dtype="f32", aug_gram="force"),
+             True, 1e-3, 1e-3)):
+        small = {}
+        for dev in ("cuda", "cpu"):
+            model = ALS(scfg.replace(**extra), str_, None, ste, device=dev)
+            assert isinstance(model.plan_x[0], PanelPlan)
+            assert isinstance(model.plan_theta[0], UpdatePlan)
+            assert model._use_panel_aug() == aug_panel
+            small[dev] = model.run(sx0, sth0).history
+        for hg, hc in zip(small["cuda"], small["cpu"]):
+            dtr = abs(hg.train_rmse - hc.train_rmse)
+            dte = abs(hg.test_rmse - hc.test_rmse)
+            log(f"[small {label}] iter {hg.iteration}: card train "
+                f"{hg.train_rmse:.6f} test {hg.test_rmse:.6f} | cpu train "
+                f"{hc.train_rmse:.6f} test {hc.test_rmse:.6f} (limits "
+                f"{lim_tr:g}, {lim_te:g})")
+            if not (dtr <= lim_tr and dte <= lim_te):
+                raise AssertionError("card and CPU runs disagree")
 
-    # ---- 4. the main path at full width
-    torch.cuda.reset_peak_memory_stats()
+    def full_width(model, label, expect, absent):
+        """One full-width path: ALS.run with every launch count read
+        around it alone."""
+        torch.cuda.reset_peak_memory_stats()
+        cs.reset_launch_counts()
+        res = model.run(x0_np, th0_np)
+        torch.cuda.synchronize()
+        launches = dict(cs.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        per_iter = [h.x_seconds + h.theta_seconds for h in res.history]
+        for h in res.history:
+            log(f"[{label}] iter {h.iteration}: x {h.x_seconds:.4f} s, "
+                f"theta {h.theta_seconds:.4f} s, rmse {h.rmse_seconds:.4f} "
+                f"s, train {h.train_rmse:.6f}, test {h.test_rmse:.6f}")
+        log(f"[{label}] seconds per iteration (x + theta): "
+            f"{[round(t, 4) for t in per_iter]}, median "
+            f"{statistics.median(per_iter):.4f}; peak device memory "
+            f"{peak / 2**30:.2f} GiB; launches {launches}")
+        tr = [h.train_rmse for h in res.history]
+        if not np.all(np.isfinite(tr + [h.test_rmse for h in res.history])):
+            raise AssertionError(f"{label}: non-finite RMSE")
+        if not tr[-1] < tr[0]:
+            raise AssertionError(f"{label}: train RMSE did not fall")
+        for name in expect:
+            if launches[name] < ITERS:
+                raise AssertionError(
+                    f"{label}: {name} launched {launches[name]} times in "
+                    f"{ITERS} iterations")
+        for name in absent:
+            if launches[name]:
+                raise AssertionError(
+                    f"{label}: {name} launched {launches[name]} times on a "
+                    f"path that does not run it")
+        return res.history, launches
+
+    # ---- 4a. the bf16 path at full width (split buffers: K1, K2, K3)
+    log(f"[main] data {gen_s:.1f} s, plans {plan_s:.1f} s")
+    hist_main, launches = full_width(al, "main", SPLIT_KERNELS,
+                                     AUG_KERNELS + ("solve_cg",))
+    del al, plan_x, chunks_x, aux_x   # frees the plans on the card
+    torch.cuda.empty_cache()
+
+    # ---- 2b. the augmented kernels and K4 against their plain versions,
+    # on the plans of this slice's configuration
+    cfg_aug = cfg.replace(gram_dtype="f32", aug_gram="force")
+    t0 = time.monotonic()
+    al_aug = ALS(cfg_aug, train, csc, test, device="cuda")
+    log(f"[aug] plans of the f32 aug_gram=force configuration "
+        f"{time.monotonic() - t0:.1f} s")
+    if not (isinstance(al_aug.plan_x[0], PanelPlan) and
+            isinstance(al_aug.plan_theta[0], UpdatePlan) and
+            al_aug._use_panel_aug() and cs.aug_enabled(cfg_aug)):
+        raise AssertionError("expected the aug panel X route and the aug "
+                             "direct theta route")
+    widest, populous = theta_chunks(al_aug)
+    ok, _ = check_k1(cs, table_ext, widest, theta_t, cfg_aug, "widest",
+                     aug=True)
+    ok_all &= ok
+    ok, results["gather_gram_cg_aug"] = check_k1(
+        cs, table_ext, populous, theta_t, cfg_aug, "most populous", aug=True)
+    ok_all &= ok
+    ch5, tp = x_chunk_and_panel(al_aug)
+    ok, results["gather_gram_aug_out"] = check_k5a(cs, tp, ch5)
+    ok_all &= ok
+    del tp, ch5, widest, populous
+
+    aux_x = al_aug.plan_x[2]
+    batch, m_pad = aux_x["solve_batch"], aux_x["m_pad"]
+    a_aug, none = al_aug.accumulate_panels(theta_t, al_aug.plan_x)
+    if none is not None or a_aug.dtype != torch.float32:
+        raise AssertionError("expected one f32 augmented accumulator")
+    x0_full = torch.zeros((m_pad, cfg.f_pad), device="cuda")
+    nnzf = aux_x["row_nnz_pad"].float()
+    diag_full = nnzf * cfg.lam + (nnzf == 0).float()
+    ok, results["solve_cg_aug"] = check_k5b(
+        cs, a_aug[:batch], diag_full[:batch], x0_full[:batch], cfg_aug)
+    ok_all &= ok
+
+    def regularized(lo):
+        """Systems [lo, lo + batch) unpacked, diagonal already added."""
+        ua, ub, _ = cs.unpack_aug(a_aug[lo:lo + batch])
+        ua.diagonal(dim1=1, dim2=2).add_(diag_full[lo:lo + batch, None])
+        return ua, ub
+
+    a_reg, b_reg = regularized(0)
+    ok, results["solve_cg"] = check_k4(cs, solve, a_reg, b_reg,
+                                       x0_full[:batch], cfg_aug)
+    ok_all &= ok
+    del a_reg, b_reg
+    if not ok_all:
+        raise AssertionError("a kernel disagrees with its plain version")
+
+    # K4's path: the dispatcher without a diagonal over every solve slice,
+    # held against the augmented solve of the same systems (K5b adds the
+    # same diagonal to the same f32 entries, so the two agree closely)
+    kw = dict(solver="cg", cg_iters=cfg.cg_iters, cg_tol=cfg.cg_tol,
+              backend="pallas")
     cs.reset_launch_counts()
-    res = al.run(x0_np, th0_np)
+    k4_err = 0.0
+    for lo in range(0, m_pad, batch):
+        a_reg, b_reg = regularized(lo)
+        x4 = solve(a_reg, b_reg, x0_full[lo:lo + batch], **kw)
+        del a_reg, b_reg
+        x5 = solve(a_aug[lo:lo + batch], None, x0_full[lo:lo + batch],
+                   diag=diag_full[lo:lo + batch], aug=True, **kw)
+        k4_err = max(k4_err, (x4 - x5).abs().max().item())
+        if not bool(torch.isfinite(x4).all()):
+            raise AssertionError("K4 path: non-finite solution")
     torch.cuda.synchronize()
-    launches = dict(cs.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
-    per_iter = [h.x_seconds + h.theta_seconds for h in res.history]
-    for h in res.history:
-        log(f"[main] iter {h.iteration}: x {h.x_seconds:.4f} s, theta "
-            f"{h.theta_seconds:.4f} s, rmse {h.rmse_seconds:.4f} s, train "
-            f"{h.train_rmse:.6f}, test {h.test_rmse:.6f}")
-    log(f"[main] seconds per iteration (x + theta): "
-        f"{[round(t, 4) for t in per_iter]}, median "
-        f"{statistics.median(per_iter):.4f}; data {gen_s:.1f} s, plans "
-        f"{plan_s:.1f} s; peak device memory {peak / 2**30:.2f} GiB; "
-        f"launches {launches}")
-    tr = [h.train_rmse for h in res.history]
-    if not np.all(np.isfinite(tr + [h.test_rmse for h in res.history])):
-        raise AssertionError("non-finite RMSE")
-    if not tr[-1] < tr[0]:
-        raise AssertionError("train RMSE did not fall")
-    for name in REPLACES:
-        if launches[name] < ITERS:
-            raise AssertionError(f"{name} launched {launches[name]} times "
-                                 f"in {ITERS} iterations")
+    k4_launches = cs.LAUNCHES["solve_cg"]
+    log(f"[K4 path] ops.solve.solve(cg, pallas, no diag) over "
+        f"{m_pad // batch} slices of {batch} systems: {k4_launches} "
+        f"launches, max|x - x_aug|={k4_err:.3e} (limit 1e-5)")
+    if k4_launches < m_pad // batch or k4_err > 1e-5:
+        raise AssertionError("K4 path failed")
+    del a_aug, x0_full, diag_full, nnzf
+    totals(al_aug, ("K6", "K5a"))
+    del theta_t, x_t, table_ext
+    torch.cuda.empty_cache()
 
+    # ---- 4b. this slice's path at full width (f32 accumulators,
+    # aug_gram="force": K5a, K5b, K6)
+    hist_aug, launches_aug = full_width(al_aug, "aug", AUG_KERNELS,
+                                        SPLIT_KERNELS + ("solve_cg",))
+    for hm, ha in zip(hist_main, hist_aug):
+        log(f"[main | aug] iter {hm.iteration}: train {hm.train_rmse:.6f} | "
+            f"{ha.train_rmse:.6f}, test {hm.test_rmse:.6f} | "
+            f"{ha.test_rmse:.6f} (no limit: bf16 and f32 accumulators "
+            f"round differently by design)")
+
+    launches.update({k: launches_aug[k] for k in AUG_KERNELS})
+    launches["solve_cg"] = k4_launches
     kernels = [dict(name=name, route="cuda",
                     source=f"cumf_als_tpu_torch/csrc/{name}.cu",
                     replaces=REPLACES[name], launches=launches[name],

@@ -14,9 +14,14 @@ and have no effect here:
 - ``plan_cache_dir``: plans are rebuilt each run (no plan cache yet);
 - ``wide_kernel``: the wide-F kernels are not ported yet.
 
-``aug_gram`` has no effect either: the augmented-lane accumulators are
-not ported, so every path keeps A and b in separate buffers, which the
-JAX package also does whenever its accumulators are bf16.
+``aug_gram`` selects the augmented-lane form as in the JAX package
+(``ops/cuda_solve.aug_enabled`` and ``panel_aug_enabled``): the rating
+value rides the free lane f_pad-1 of the gathered rows, so one Gram
+carries A, b and sum v^2. "auto" turns it on for the panel route when
+the solver is CG, ``gram_dtype`` is "f32" and F < f_pad (one accumulator
+instead of split (A, b) buffers); "force" also turns it on with bf16
+accumulators and on the direct route's fused kernel; "off" keeps split
+buffers everywhere.
 """
 
 from __future__ import annotations
@@ -91,7 +96,7 @@ class ALSConfig:
     # updated factor's full (A, b) accumulators fit panel_budget_bytes,
     # partial Grams per table panel are scatter-added into them.
     use_panels: str = "auto"       # auto | never
-    aug_gram: str = "auto"         # auto | off | force; no effect (above)
+    aug_gram: str = "auto"         # auto | off | force (see above)
     panel_size: int = 1 << 16
     panel_budget_bytes: int = 2 << 30
     split_gather: str = "auto"     # auto | off | force

@@ -1,5 +1,7 @@
-// Shared device code of the three ALS kernels (gather_gram_cg.cu,
-// gather_gram_out.cu, cg_solve_reg.cu).
+// Shared device code of the seven ALS kernels: the split-buffer forms
+// gather_gram_cg.cu, gather_gram_out.cu and solve_cg_reg.cu, the
+// already-regularized solve solve_cg.cu, and the augmented-lane forms
+// gather_gram_cg_aug.cu, gather_gram_aug_out.cu and solve_cg_aug.cu.
 //
 // One thread block owns one f x f system, f = 16 * NB with NB in 1..8
 // (f a multiple of 16, at most 128). The 256 threads form a 16 x 16
@@ -14,6 +16,12 @@
 // p.Ap == 0, beta guarded by rsold <= 0. A block holds one system, so the
 // per-system freeze of the Pallas loop is a `break` here: the frozen
 // iterations of the Pallas loop change nothing, so results are the same.
+//
+// The augmented-lane layout (pallas_solve.py:_kernel_aug): the true
+// factor width is at most f - 1, so lane f - 1 of every table row is
+// zero and carries the slot's rating value instead. One Gram A' over all
+// f lanes then holds A (rows and columns < f - 1), b (row and column
+// f - 1) and sum v^2 (the corner), and no separate b or r2 sums run.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -65,8 +73,12 @@ __device__ __forceinline__ void zero_acc(float (&a)[NB][NB]) {
 }
 
 // Stage slots [lo, lo + nt) of one row: ids and values first, then the
-// table rows they name, widened to f32.
-template <int NB, typename TT, typename VT>
+// table rows they name, widened to f32. With AUG, lane F - 1 of slot t
+// gets the slot's value in place of the table's (zero) entry, rounded to
+// the table's storage dtype first (as `(vals * mask).astype(g.dtype)`
+// does): a bf16 table stores 3.3 as bf16(3.3), and b and sum v^2 of the
+// augmented form come from that stored value.
+template <int NB, bool AUG, typename TT, typename VT>
 __device__ __forceinline__ void load_tile(Smem<NB>& s, const TT* table,
                                           const int32_t* cols,
                                           const VT* vals, int lo, int nt) {
@@ -80,15 +92,18 @@ __device__ __forceinline__ void load_tile(Smem<NB>& s, const TT* table,
   for (int i = tid; i < nt * F; i += kThreads) {
     const int t = i / F;
     const int j = i - t * F;
-    s.g[i] = to_f32(table[(int64_t)s.c[t] * F + j]);
+    if (AUG && j == F - 1)
+      s.g[i] = to_f32(from_f32<TT>(s.v[t]));
+    else
+      s.g[i] = to_f32(table[(int64_t)s.c[t] * F + j]);
   }
   __syncthreads();
 }
 
 // A += sum_t g_t g_t^T over the staged tile (register tile of this
-// thread), b += sum_t v_t g_t (threads tid < F), r2 += sum_t v_t^2
-// (thread F).
-template <int NB>
+// thread) and, unless AUG (where the Gram itself carries them),
+// b += sum_t v_t g_t (threads tid < F), r2 += sum_t v_t^2 (thread F).
+template <int NB, bool AUG>
 __device__ __forceinline__ void accumulate_tile(const Smem<NB>& s, int nt,
                                                 float (&a)[NB][NB],
                                                 float& b_acc,
@@ -109,6 +124,7 @@ __device__ __forceinline__ void accumulate_tile(const Smem<NB>& s, int nt,
 #pragma unroll
       for (int l = 0; l < NB; ++l) a[k][l] = fmaf(gi[k], gj[l], a[k][l]);
   }
+  if constexpr (AUG) return;
   if (tid < F) {
     for (int t = 0; t < nt; ++t) b_acc = fmaf(s.v[t], s.g[t * F + tid], b_acc);
   } else if (tid == F) {
@@ -116,18 +132,63 @@ __device__ __forceinline__ void accumulate_tile(const Smem<NB>& s, int nt,
   }
 }
 
-// Gather + Gram over slots [0, n) of one row.
-template <int NB, typename TT, typename VT>
+// Gather + Gram over slots [0, n) of one row. With AUG, b_acc and r2_acc
+// stay untouched.
+template <int NB, bool AUG, typename TT, typename VT>
 __device__ __forceinline__ void gram_row(Smem<NB>& s, const TT* table,
                                          const int32_t* cols, const VT* vals,
                                          int n, float (&a)[NB][NB],
                                          float& b_acc, float& r2_acc) {
   for (int lo = 0; lo < n; lo += kTile) {
     const int nt = min(kTile, n - lo);
-    load_tile<NB>(s, table, cols, vals, lo, nt);
-    accumulate_tile<NB>(s, nt, a, b_acc, r2_acc);
+    load_tile<NB, AUG>(s, table, cols, vals, lo, nt);
+    accumulate_tile<NB, AUG>(s, nt, a, b_acc, r2_acc);
     __syncthreads();
   }
+}
+
+// This thread's register tile of one stored system (f32 or bf16), as f32.
+template <int NB, typename AT>
+__device__ __forceinline__ void load_system(const AT* src,
+                                            float (&a)[NB][NB]) {
+  constexpr int F = 16 * NB;
+  const int ty = threadIdx.x >> 4;
+  const int tx = threadIdx.x & 15;
+#pragma unroll
+  for (int k = 0; k < NB; ++k)
+#pragma unroll
+    for (int l = 0; l < NB; ++l)
+      a[k][l] = to_f32(src[(ty + 16 * k) * F + tx * NB + l]);
+}
+
+// Unpack an augmented A' held in registers: row F - 1 goes to s.b (lanes
+// < F - 1; s.b[F - 1] = 0, not sum v^2), the corner (sum v^2) to
+// s.red[1], and only then row and column F - 1 are zeroed in the
+// registers. Row F - 1 lives in the 16 threads with ty == 15 (k ==
+// NB - 1), the corner in the one with tx == 15 (l == NB - 1). The caller
+// synchronizes before reading s.b or s.red[1].
+template <int NB>
+__device__ __forceinline__ void unpack_aug(Smem<NB>& s, float (&a)[NB][NB]) {
+  constexpr int F = 16 * NB;
+  const int ty = threadIdx.x >> 4;
+  const int tx = threadIdx.x & 15;
+  if (ty == 15) {
+#pragma unroll
+    for (int l = 0; l < NB; ++l) {
+      const int col = tx * NB + l;
+      if (col < F - 1) {
+        s.b[col] = a[NB - 1][l];
+      } else {
+        s.b[col] = 0.f;
+        s.red[1] = a[NB - 1][l];
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < NB; ++k)
+#pragma unroll
+    for (int l = 0; l < NB; ++l)
+      if (ty + 16 * k == F - 1 || tx * NB + l == F - 1) a[k][l] = 0.f;
 }
 
 template <int NB>

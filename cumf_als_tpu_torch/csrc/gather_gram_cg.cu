@@ -47,7 +47,7 @@ __global__ void __launch_bounds__(cumf::kThreads)
   float a[NB][NB];
   cumf::zero_acc<NB>(a);
   float b_acc = 0.f, r2_acc = 0.f;
-  cumf::gram_row<NB>(s, table, cols + (int64_t)row * p,
+  cumf::gram_row<NB, false>(s, table, cols + (int64_t)row * p,
                      vals + (int64_t)row * p, n, a, b_acc, r2_acc);
 
   const float nnzf = (float)nnz[row];

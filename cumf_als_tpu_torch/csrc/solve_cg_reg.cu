@@ -32,16 +32,9 @@ __global__ void __launch_bounds__(cumf::kThreads)
   __shared__ cumf::Smem<NB> s;
   const int row = blockIdx.x;
   const int tid = threadIdx.x;
-  const int ty = tid >> 4;
-  const int tx = tid & 15;
 
   float a[NB][NB];
-  const AT* src = a_in + (int64_t)row * F * F;
-#pragma unroll
-  for (int k = 0; k < NB; ++k)
-#pragma unroll
-    for (int l = 0; l < NB; ++l)
-      a[k][l] = cumf::to_f32(src[(ty + 16 * k) * F + tx * NB + l]);
+  cumf::load_system<NB>(a_in + (int64_t)row * F * F, a);
   cumf::add_diag<NB>(a, diag[row]);
   if (tid < F) {
     s.b[tid] = b[(int64_t)row * F + tid];

@@ -7,12 +7,18 @@ reference's stdout contract. Each phase takes one of two routes, chosen
 as in the JAX package:
 
   - direct: every row's Gram is formed whole and solved at once, chunk
-    by chunk (kernel K1, ``gather_gram_cg``, on the "pallas" backend);
+    by chunk (kernel K1, ``gather_gram_cg``, on the "pallas" backend;
+    its augmented-lane form K6 with ``aug_gram="force"``);
   - panel: when the gather table is large and the updated factor's full
-    (A, b) accumulators fit ``panel_budget_bytes``, partial Grams per
-    table panel (kernel K2, ``gather_gram_out``) are scatter-added into
-    the accumulators, which are then solved slice by slice (kernel K3,
-    ``solve_cg_reg``).
+    accumulators fit ``panel_budget_bytes``, partial Grams per table
+    panel are scatter-added into the accumulators, which are then solved
+    slice by slice. With split buffers (bf16 accumulators, or
+    ``aug_gram="off"``) these are kernels K2 ``gather_gram_out`` and K3
+    ``solve_cg_reg`` over (A, b); with f32 accumulators and CG (the
+    default configuration) the route keeps ONE augmented accumulator A'
+    that carries b in row f-1 and sum v^2 in its corner (kernels K5a
+    ``gather_gram_aug_out`` and K5b ``solve_cg_aug``; see
+    ``ops/cuda_solve.panel_aug_enabled`` for the gates).
 
 The split and batched-panel strategies are chosen as in the JAX package
 but not ported yet: building their plans raises.
@@ -116,26 +122,36 @@ def _solve_slice(a_buf, b_buf, x0_full, row_nnz, lo: int, lam: float,
                  backend: str):
     """Solve systems [lo, lo + batch) of the panel accumulators. A is the
     raw (possibly bf16) Gram; the Tikhonov diagonal is applied at solve
-    time (in the kernel on the "pallas" backend)."""
-    a = a_buf[lo:lo + batch]
-    b = b_buf[lo:lo + batch]
-    x0 = x0_full[lo:lo + batch]
+    time (in the kernel on the "pallas" backend). b_buf None means a_buf
+    is the augmented accumulator (the JAX package's _solve_slice_aug): b
+    then unpacks from row f-1 inside the solve. Rows with no ratings get
+    diag 1 and are zeroed after the solve."""
+    aug = b_buf is None
     nnzf = row_nnz[lo:lo + batch].float()
     diag = nnzf * lam + (nnzf == 0).float()
-    out = solve(a, b, x0, solver=solver, cg_iters=cg_iters, cg_tol=cg_tol,
-                backend=backend, diag=diag)
+    out = solve(a_buf[lo:lo + batch], None if aug else b_buf[lo:lo + batch],
+                x0_full[lo:lo + batch], solver=solver, cg_iters=cg_iters,
+                cg_tol=cg_tol, backend=backend, diag=diag, aug=aug)
     return out * (nnzf > 0).float()[:, None]
 
 
 def _se_terms(a_buf, b_buf, x_new, batch: int) -> torch.Tensor:
     """-2 sum x.b + sum x^T A x over all rows, A the raw Gram
     accumulators; adding sum r^2 completes the train squared error.
-    Summed in slices of `batch` rows to bound the f32 copy of A."""
+    Summed in slices of `batch` rows to bound the f32 copy of A.
+
+    b_buf None means a_buf is the augmented accumulator (the JAX
+    package's _se_terms_aug): b is row f-1 of A'. Lane f-1 of x_new is
+    identically zero, so the sum v^2 corner and the value row/column of
+    A' add nothing to either term and A' needs no mask here."""
+    f = a_buf.shape[-1]
     total = torch.zeros((), dtype=torch.float32, device=x_new.device)
     for lo in range(0, x_new.shape[0], batch):
         x = x_new[lo:lo + batch].float()
-        aq = torch.einsum("rfg,rg->rf", a_buf[lo:lo + batch].float(), x)
-        total = total + (x * aq).sum() - 2.0 * (x * b_buf[lo:lo + batch]).sum()
+        a = a_buf[lo:lo + batch].float()
+        b = a[:, f - 1, :] if b_buf is None else b_buf[lo:lo + batch]
+        aq = torch.einsum("rfg,rg->rf", a, x)
+        total = total + (x * aq).sum() - 2.0 * (x * b).sum()
     return total
 
 
@@ -292,10 +308,21 @@ class ALS:
         return self._update_phase_direct(table, current, plan_pair,
                                          collect_rmse_terms)
 
+    def _use_panel_aug(self) -> bool:
+        """Augmented-lane panel phase: one combined A' accumulator, b
+        rides row f-1 through accumulation and into the solve."""
+        return cuda_solve.panel_aug_enabled(self.cfg)
+
     def accumulate_panels(self, table, plan_pair):
-        """The panel route's Gram step: per-panel partial (A, b) of every
-        chunk (kernel K2 on the "pallas" backend), scatter-added into the
-        phase accumulators a_buf (m_pad, f, f) and b_buf (m_pad, f)."""
+        """The panel route's Gram step: the per-panel partial of every
+        chunk, scatter-added into the phase accumulators. Split buffers:
+        partial (A, b) (kernel K2 on the "pallas" backend) into a_buf
+        (m_pad, f, f) and b_buf (m_pad, f). Augmented: partial A' (kernel
+        K5a on "pallas", augment_g + f32 einsum on "xla") into a_buf
+        alone; b_buf is then None.
+
+        On a card index_add_ adds with atomics in an order that changes
+        from run to run, so f32 accumulators repeat to rounding only."""
         cfg = self.cfg
         plan, chunks, aux = plan_pair
         f = cfg.f_pad
@@ -308,30 +335,36 @@ class ALS:
         zero_row = table.new_zeros((1, f))
         a_buf = torch.zeros((aux["m_pad"], f, f), dtype=a_dtype,
                             device=self.device)
-        b_buf = torch.zeros((aux["m_pad"], f), dtype=torch.float32,
-                            device=self.device)
+        aug = self._use_panel_aug()
+        b_buf = None if aug else torch.zeros(
+            (aux["m_pad"], f), dtype=torch.float32, device=self.device)
+        pallas = cfg.backend == "pallas"
         by_panel = {}
         for ch in chunks:
             by_panel.setdefault(ch.panel, []).append(ch)
         for p, group in sorted(by_panel.items()):
             tp = torch.cat([table_pad[p * s:(p + 1) * s], zero_row], dim=0)
             for ch in group:
-                if cfg.backend == "pallas":
-                    a_part, b_part = cuda_solve.gather_gram_out(
-                        tp, ch.cols, ch.vals, out_dtype=a_dtype)
-                else:
-                    a_part, b_part = cuda_solve.gather_gram_out_plain(
-                        tp, ch.cols, ch.vals, out_dtype=a_dtype)
                 # dummy rows carry id m, which lies inside a_buf (m_pad > m)
+                if aug:
+                    gram = cuda_solve.gather_gram_aug_out if pallas else \
+                        cuda_solve.gather_gram_aug_out_plain
+                    a_part = gram(tp, ch.cols, ch.vals, out_dtype=a_dtype)
+                else:
+                    gram = cuda_solve.gather_gram_out if pallas else \
+                        cuda_solve.gather_gram_out_plain
+                    a_part, b_part = gram(tp, ch.cols, ch.vals,
+                                          out_dtype=a_dtype)
+                    b_buf.index_add_(0, ch.rows, b_part)
                 a_buf.index_add_(0, ch.rows, a_part)
-                b_buf.index_add_(0, ch.rows, b_part)
-                del a_part, b_part
+                del a_part   # up to 1 GiB: free it before the next chunk
         return a_buf, b_buf
 
     def _update_phase_panelized(self, table, current, plan_pair,
                                 collect_rmse_terms: bool = False):
         """Panel Grams into full accumulators, then batched solves of the
-        accumulators, slice by slice (kernel K3 on the "pallas" backend)."""
+        accumulators, slice by slice (on the "pallas" backend kernel K3,
+        or K5b over an augmented accumulator)."""
         cfg = self.cfg
         plan, _chunks, aux = plan_pair
         m, m_pad = plan.num_rows, aux["m_pad"]
@@ -357,6 +390,7 @@ class ALS:
         cfg = self.cfg
         plan, chunks, _aux = plan_pair
         use_kernel = cfg.backend == "pallas" and cfg.solver == "cg"
+        use_aug = use_kernel and cuda_solve.aug_enabled(cfg)
         if cfg.factor_dtype == "bf16":   # cast the table before the gather
             table = table.to(torch.bfloat16)
         table_ext = extend_table(table)
@@ -369,7 +403,7 @@ class ALS:
             if use_kernel:
                 solved, se = cuda_solve.gather_gram_cg(
                     table_ext, ch.cols, ch.vals, ch.nnz, x0, cfg.lam,
-                    cg_iters=cfg.cg_iters, cg_tol=cfg.cg_tol)
+                    cg_iters=cfg.cg_iters, cg_tol=cfg.cg_tol, aug=use_aug)
                 se = se.sum()
             else:
                 a, b = gram_rhs(table_ext, ch.cols, ch.vals, ch.nnz,

@@ -36,6 +36,16 @@ KERNELS = {
                          _I, _I, _I, _VP]),
     "solve_cg_reg": ("cumf_solve_cg_reg",
                      [_VP, _I, _VP, _VP, _VP, _VP, _I, _I, _I, _F, _VP]),
+    "solve_cg": ("cumf_solve_cg",
+                 [_VP, _I, _VP, _VP, _VP, _I, _I, _I, _F, _VP]),
+    "gather_gram_aug_out": ("cumf_gather_gram_aug_out",
+                            [_VP, _I, _VP, _VP, _I, _VP, _I,
+                             _I, _I, _I, _VP]),
+    "solve_cg_aug": ("cumf_solve_cg_aug",
+                     [_VP, _I, _VP, _VP, _VP, _I, _I, _I, _F, _VP]),
+    "gather_gram_cg_aug": ("cumf_gather_gram_cg_aug",
+                           [_VP, _I, _VP, _VP, _I, _VP, _VP, _VP, _VP,
+                            _I, _I, _I, _F, _I, _F, _VP]),
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from cumf_als_tpu_torch.ops import cuda_solve
+
 
 def solve_cholesky(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched SPD solve via Cholesky. a: (R, f, f), b: (R, f)."""
@@ -61,21 +63,35 @@ def solve_cg(a: torch.Tensor, b: torch.Tensor, x0: torch.Tensor,
 
 
 def solve(a, b, x0, solver: str = "cg", cg_iters: int = 6,
-          cg_tol: float = 1e-4, backend: str = "xla", diag=None):
+          cg_tol: float = 1e-4, backend: str = "xla", diag=None,
+          aug: bool = False):
     """Dispatch one batched solve.
 
     diag: optional (R,) Tikhonov diagonal; `a` is then the RAW Gram and
-    the regularizer is added at solve time. With solver "cg", backend
-    "pallas" and a diagonal, the solve is kernel K3
-    (ops/cuda_solve.solve_cg_reg), which adds it on the f32 copy of A in
-    the kernel, so a bf16 A is never widened in device memory; K3's
-    plain version serves tensors on the CPU. Without a diagonal (the
-    already-regularized form, TPU kernel B4, not ported yet) and on the
-    "xla" backend, the plain torch CG runs."""
-    if solver == "cg" and backend == "pallas" and diag is not None:
-        from cumf_als_tpu_torch.ops.cuda_solve import solve_cg_reg
-        return solve_cg_reg(a, diag.float(), b, x0, cg_iters=cg_iters,
-                            cg_tol=cg_tol)
+    the regularizer is added at solve time.
+    aug: `a` is the augmented accumulator carrying b in row f-1 (pass
+    b=None); requires diag.
+
+    With solver "cg" and backend "pallas" the solve is one of three
+    kernels of ops/cuda_solve (their plain versions for tensors on the
+    CPU; on a CUDA tensor the kernel launches or the call raises):
+    `solve_cg_aug` (K5b) with aug, which unpacks b and masks row/column
+    f-1 in the kernel; `solve_cg_reg` (K3) with a diagonal, which adds
+    it on the f32 copy of A in the kernel, so a bf16 A is never widened
+    in device memory; `solve_cg` (K4) without one, on `a` as given.
+    Every other combination runs in plain torch: an aug `a` is unpacked
+    first (one A-sized pass), then the diagonal is added."""
+    if aug and diag is None:
+        raise ValueError("aug solve requires diag")
+    if solver == "cg" and backend == "pallas":
+        kw = dict(cg_iters=cg_iters, cg_tol=cg_tol)
+        if aug:
+            return cuda_solve.solve_cg_aug(a, diag.float(), x0, **kw)
+        if diag is not None:
+            return cuda_solve.solve_cg_reg(a, diag.float(), b, x0, **kw)
+        return cuda_solve.solve_cg(a, b, x0, **kw)
+    if aug:
+        a, b, _ = cuda_solve.unpack_aug(a)
     if diag is not None:
         f = a.shape[-1]
         a = a.float() + diag.float()[:, None, None] * torch.eye(

@@ -4,7 +4,10 @@ kernels run in interpret mode) and the numpy oracle.
 The problem is the transposed `small_problem` (45 rows, 60 columns), so
 that with panel_size=40 the X phase gathers from a 60-row table and
 takes the panel route while the theta phase (a 45-row table) stays
-direct: both routes of the main path run, as on the Netflix shape."""
+direct: both routes of the main path run, as on the Netflix shape. With
+f32 accumulators and aug_gram="auto" (the defaults) the panel route
+keeps one augmented accumulator; tests/test_torch_als_aug.py holds the
+tests of the augmented routes and their gates."""
 
 import contextlib
 import io
