@@ -6,7 +6,7 @@ Phases, each of which must pass (any failure exits non-zero before the
 result line):
 
 1. card and build: the card's name and power limit, the torch/CUDA
-   versions, and the build of every CUDA kernel from csrc/ (seven);
+   versions, and the build of every CUDA kernel from csrc/ (nine);
 2. each kernel against its plain PyTorch version on the card, on real
    chunks of the Netflix-shaped plans, with kernel, plain, yardstick and
    bound times: the widest and the most populous theta-phase chunk for
@@ -26,7 +26,19 @@ result line):
       kernels K5a, K5b, K6;
    and K4's path, the public dispatcher `ops.solve.solve` without a
    diagonal, over every solve slice of the X-phase accumulators, held
-   against the augmented solve of the same systems.
+   against the augmented solve of the same systems;
+5. the factor widths above 128, on the same data at F=200 (f_pad 256,
+   f2 = 96), X phase on the split route (4 table parts of 131,072 rows)
+   and theta on the direct route:
+   a. K7, K1 at f=256 and K8 against their plain versions on the most
+      populous and the widest theta chunk and (K7) the most populous
+      split X chunk, K8 also against K1 at f=256 on the same G;
+   b. small runs (scale 0.01, F=130, forced split X route with 3 parts)
+      on the card against the CPU, wide_kernel on and off;
+   c. `ALS.run` for 3 iterations with wide_kernel="on" (K7 alone), then
+      2 iterations with wide_kernel="off" (K1 alone);
+   d. K8's path: `fused_gram_cg_cat` over every theta chunk on a G
+      gathered with torch, each held against K1 at f=256.
 
 It prints a `kernels` JSON line, the card line, and last
 {"ok": true, "device": {...}}. It imports nothing of JAX.
@@ -56,9 +68,13 @@ REPLACES = {
     "gather_gram_aug_out": "cumf_als_tpu/ops/pallas_solve.py:610",
     "solve_cg_aug": "cumf_als_tpu/ops/pallas_solve.py:1122",
     "gather_gram_cg_aug": "cumf_als_tpu/ops/pallas_solve.py:345",
+    "gather_gram_cg_wide": "cumf_als_tpu/ops/pallas_solve.py:804",
+    "fused_gram_cg_cat": "cumf_als_tpu/ops/pallas_solve.py:956",
 }
 SPLIT_KERNELS = ("gather_gram_cg", "gather_gram_out", "solve_cg_reg")
 AUG_KERNELS = ("gather_gram_cg_aug", "gather_gram_aug_out", "solve_cg_aug")
+WIDE_KERNELS = ("gather_gram_cg_wide", "fused_gram_cg_cat")
+DEV = "cuda"
 
 
 def log(msg: str) -> None:
@@ -279,6 +295,98 @@ def check_k4(cs, solve, a_reg, b, x0, cfg):
                     bound_by=by, library_ms=None)
 
 
+def chunk_x0(ch, current):
+    """The warm start of one chunk: the rows' current factors, zeros for
+    the dummy tail rows."""
+    return torch.nn.functional.pad(
+        current.index_select(0, ch.rows_real),
+        (0, 0, 0, ch.rows.shape[0] - ch.n_real))
+
+
+def check_fused_256(cs, table_ext, ch, current, cfg, label, f2=None):
+    """K7 (with f2) or K1 at f=256 on one chunk of a 256-lane table:
+    kernel vs plain, limits as K1's; K7's dead lanes and empty rows must
+    be exactly 0. The operations counted are those of the live lanes:
+    2 * nnz * (128 + f2)^2 for K7, 2 * nnz * 256^2 for K1."""
+    x0 = chunk_x0(ch, current)
+    args = (table_ext, ch.cols, ch.vals, ch.nnz, x0, cfg.lam)
+    kw = dict(cg_iters=cfg.cg_iters, cg_tol=cfg.cg_tol)
+    if f2 is None:
+        name, live = "K1 gather_gram_cg f=256", 256
+        fn, plain_fn = cs.gather_gram_cg, cs.gather_gram_cg_plain
+    else:
+        name, live = f"K7 gather_gram_cg_wide f2={f2}", 128 + f2
+        args = args + (f2,)
+        fn, plain_fn = cs.gather_gram_cg_wide, cs.gather_gram_cg_wide_plain
+    x, se = fn(*args, **kw)
+    px, pse = plain_fn(*args, **kw)
+    err = (x - px).abs().max().item()
+    se_rel = ((se - pse).abs() / pse.abs().clamp_min(1.0)).max().item()
+    zero_ok = bool((x[:, live:] == 0).all()) and \
+        bool((x[ch.nnz == 0] == 0).all())
+    del px, pse
+    ms = time_ms(lambda: fn(*args, **kw))
+    plain = time_ms(lambda: plain_fn(*args, **kw), reps=3)
+    r, p = ch.cols.shape
+    flops = 2.0 * float(ch.nnz.sum().item()) * live * live
+    item = table_ext.element_size()
+    bms, by = bound_ms(table_ext.shape[0] * live * item + r * live * 4 +
+                       nbytes(ch.cols, ch.vals, ch.nnz, x, se), flops,
+                       table_ext.dtype)
+    ok = err <= 2e-3 and se_rel <= 1e-3 and zero_ok
+    log(f"[{name}] {label} chunk R={r} P={p}: max|dx|={err:.3e} (limit "
+        f"2e-3), max rel dse={se_rel:.3e} (limit 1e-3), dead lanes and "
+        f"empty rows exactly 0: {zero_ok}; kernel {ms:.3f} ms, plain "
+        f"{plain:.3f} ms, bound {bms:.4f} ms ({by}); "
+        f"{'OK' if ok else 'FAIL'}")
+    return ok, dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                    bound_by=by, library_ms=None)
+
+
+def gathered_slabs(table_ext, ch, f2):
+    """G of one chunk, gathered with torch into the two lane slabs K8
+    takes: g1 (R, P, 128) and the packed g2 (R, P, f2)."""
+    r, p = ch.cols.shape
+    idx = ch.cols.reshape(-1).long()
+    g1 = table_ext[:, :128].index_select(0, idx).reshape(r, p, 128)
+    g2 = table_ext[:, 128:128 + f2].index_select(0, idx).reshape(r, p, f2)
+    return g1, g2
+
+
+def check_k8(cs, table_ext, ch, current, cfg, f2, label):
+    """K8 on the gathered G of one theta chunk: kernel vs plain, and
+    against K1 at f=256 on the same rows (rtol 1e-5 + 1e-6)."""
+    x0 = chunk_x0(ch, current)
+    g1, g2 = gathered_slabs(table_ext, ch, f2)
+    args = (g1, g2, ch.vals, ch.nnz, x0, cfg.lam)
+    kw = dict(cg_iters=cfg.cg_iters, cg_tol=cfg.cg_tol)
+    x, se = cs.fused_gram_cg_cat(*args, **kw)
+    px, pse = cs.fused_gram_cg_cat_plain(*args, **kw)
+    err = (x - px).abs().max().item()
+    se_rel = ((se - pse).abs() / pse.abs().clamp_min(1.0)).max().item()
+    del px, pse
+    mx, mse = cs.gather_gram_cg(table_ext, ch.cols, ch.vals, ch.nnz, x0,
+                                cfg.lam, **kw)
+    mono_ok = bool(((x - mx).abs() <= 1e-5 * mx.abs() + 1e-6).all()) and \
+        bool(((se - mse).abs() <= 1e-5 * mse.abs() + 1e-6).all())
+    mono_err = (x - mx).abs().max().item()
+    del mx, mse
+    ms = time_ms(lambda: cs.fused_gram_cg_cat(*args, **kw))
+    plain = time_ms(lambda: cs.fused_gram_cg_cat_plain(*args, **kw), reps=3)
+    r, p = ch.cols.shape
+    bms, by = bound_ms(nbytes(g1, g2, ch.vals, ch.nnz, x0, x, se),
+                       2.0 * r * p * 256 * 256, g1.dtype)
+    ok = err <= 2e-3 and se_rel <= 1e-3 and mono_ok
+    log(f"[K8 fused_gram_cg_cat f2={f2}] {label} chunk R={r} P={p}, G "
+        f"{g1.dtype}: max|dx|={err:.3e} (limit 2e-3), max rel dse="
+        f"{se_rel:.3e} (limit 1e-3), against K1 at f=256 max|dx|="
+        f"{mono_err:.3e} (limit rtol 1e-5 + 1e-6: {mono_ok}); kernel "
+        f"{ms:.3f} ms, plain {plain:.3f} ms, bound {bms:.4f} ms ({by}); "
+        f"{'OK' if ok else 'FAIL'}")
+    return ok, dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                    bound_by=by, library_ms=None)
+
+
 def phase_totals(cs, al, theta_t, x_t):
     """Device time summed over one phase's chunks (CUDA events): the
     fused kernel (K1, or K6 when the config takes the augmented form)
@@ -329,6 +437,234 @@ def phase_totals(cs, al, theta_t, x_t):
             timed(lambda: al.accumulate_panels(theta_t, al.plan_x)))
 
 
+def full_width(cs, model, label, expect, absent, x0, th0, iters=ITERS):
+    """One full-width path: ALS.run with every launch count read around
+    it alone."""
+    torch.cuda.reset_peak_memory_stats()
+    cs.reset_launch_counts()
+    res = model.run(x0, th0)
+    torch.cuda.synchronize()
+    launches = dict(cs.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    per_iter = [h.x_seconds + h.theta_seconds for h in res.history]
+    for h in res.history:
+        log(f"[{label}] iter {h.iteration}: x {h.x_seconds:.4f} s, "
+            f"theta {h.theta_seconds:.4f} s, rmse {h.rmse_seconds:.4f} "
+            f"s, train {h.train_rmse:.6f}, test {h.test_rmse:.6f}")
+    log(f"[{label}] seconds per iteration (x + theta): "
+        f"{[round(t, 4) for t in per_iter]}, median "
+        f"{statistics.median(per_iter):.4f}; peak device memory "
+        f"{peak / 2**30:.2f} GiB; launches {launches}")
+    tr = [h.train_rmse for h in res.history]
+    if len(tr) != iters or \
+            not np.all(np.isfinite(tr + [h.test_rmse for h in res.history])):
+        raise AssertionError(f"{label}: non-finite RMSE")
+    if not tr[-1] < tr[0]:
+        raise AssertionError(f"{label}: train RMSE did not fall")
+    for name in expect:
+        if launches[name] < iters:
+            raise AssertionError(
+                f"{label}: {name} launched {launches[name]} times in "
+                f"{iters} iterations")
+    for name in absent:
+        if launches[name]:
+            raise AssertionError(
+                f"{label}: {name} launched {launches[name]} times on a "
+                f"path that does not run it")
+    return res.history, launches
+
+
+def wide_paths(cs, ALS, cfg, train, csc, test, small_train, small_test,
+               results):
+    """Phase 5: the F > 128 path. Fills results[...] for K7 and K8, adds
+    K1's numbers at f=256 to its entry, and returns the launch counts
+    of K7 (the wide_kernel="on" run) and K8 (its own path)."""
+    import copy
+
+    from cumf_als_tpu_torch.data.synthetic import init_factors
+    from cumf_als_tpu_torch.models import als as als_mod
+    from cumf_als_tpu_torch.ops.tiling import SplitPlan, UpdatePlan
+
+    cfg_w = cfg.replace(f=200, wide_kernel="on")
+    f2 = cs.wide_f2(cfg_w.f)
+    split_s = []
+    build_split_plan = als_mod.build_split_plan
+
+    def timed_split_plan(*a, **k):
+        t0 = time.monotonic()
+        plan = build_split_plan(*a, **k)
+        split_s.append(time.monotonic() - t0)
+        return plan
+
+    als_mod.build_split_plan = timed_split_plan
+    try:
+        al = ALS(cfg_w, train, csc, test, device=DEV)
+    finally:
+        als_mod.build_split_plan = build_split_plan
+    plan_x, chunks_x, aux_x = al.plan_x
+    log(f"[wide] F={cfg_w.f} f_pad={cfg_w.f_pad} f2={f2}: plans "
+        f"{al.plan_seconds:.1f} s, of which the numpy build_split_plan "
+        f"{sum(split_s):.1f} s; X phase: {type(plan_x).__name__} "
+        f"({len(chunks_x)} chunks, {plan_x.n_parts} parts of "
+        f"{plan_x.part_size} rows, expansion {plan_x.expansion:.3f}), "
+        f"theta phase: {type(al.plan_theta[0]).__name__} "
+        f"({len(al.plan_theta[1])} chunks)")
+    if not (isinstance(plan_x, SplitPlan) and plan_x.n_parts == 4 and
+            plan_x.part_size == 131072 and
+            isinstance(al.plan_theta[0], UpdatePlan) and
+            cs.wide_enabled(cfg_w) and cfg_w.f_pad == 256):
+        raise AssertionError("expected the split X route with 4 parts of "
+                             "131072 rows and the direct theta route")
+
+    # ---- 5a. the three kernels against their plain versions
+    x0_np, th0_np = init_factors(cfg_w.m, cfg_w.n, cfg_w.f, seed=0)
+    gen = torch.Generator(device=DEV).manual_seed(2)
+    theta_t = al._pad_f(th0_np)
+    # a stand-in X for the theta-phase table: the real X starts at zero
+    x_t = al._pad_f(0.2 * torch.rand((cfg_w.m, cfg_w.f), generator=gen,
+                                     device=DEV).cpu().numpy())
+
+    def ext16(t):
+        return torch.cat([t.to(torch.bfloat16),
+                          t.new_zeros((1, t.shape[1]),
+                                      dtype=torch.bfloat16)])
+
+    x_ext = ext16(x_t)
+    chunks_t = al.plan_theta[1]
+    widest = max(chunks_t, key=lambda c: c.width)
+    populous = max(chunks_t, key=lambda c: c.rows.shape[0] * c.width)
+    ok_all = True
+    ok, _ = check_fused_256(cs, x_ext, widest, theta_t, cfg_w,
+                            "theta widest", f2=f2)
+    ok_all &= ok
+    ok, results["gather_gram_cg_wide"] = check_fused_256(
+        cs, x_ext, populous, theta_t, cfg_w, "theta most populous", f2=f2)
+    ok_all &= ok
+    ch_x = max(chunks_x, key=lambda c: c.rows.shape[0] * c.width)
+    parts = plan_x.chunks[chunks_x.index(ch_x)].parts
+    th_perm_ext = ext16(theta_t.index_select(0, aux_x["perm"]))
+    ok, _ = check_fused_256(cs, th_perm_ext, ch_x, x_t, cfg_w,
+                            f"split X (parts {parts}) most populous", f2=f2)
+    ok_all &= ok
+    del th_perm_ext
+    ok, _ = check_fused_256(cs, x_ext, widest, theta_t, cfg_w,
+                            "theta widest")
+    ok_all &= ok
+    ok, k1_256 = check_fused_256(cs, x_ext, populous, theta_t, cfg_w,
+                                 "theta most populous")
+    ok_all &= ok
+    ok, _ = check_k8(cs, x_ext, widest, theta_t, cfg_w, f2, "theta widest")
+    ok_all &= ok
+    ok, results["fused_gram_cg_cat"] = check_k8(
+        cs, x_ext, populous, theta_t, cfg_w, f2, "theta most populous")
+    ok_all &= ok
+    if not ok_all:
+        raise AssertionError("a kernel disagrees with its plain version")
+
+    # where the two phases spend their time: K7 chunk by chunk (CUDA
+    # events), with the share of the chunks that hold fewer rows than the
+    # card has SMs (one block solves one row, so those leave SMs idle)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    th_perm_ext = ext16(theta_t.index_select(0, aux_x["perm"]))
+    for label, chunks, table, current in (
+            ("theta", chunks_t, x_ext, theta_t),
+            ("split X", chunks_x, th_perm_ext, x_t)):
+        total = few = 0.0
+        n_few = 0
+        for ch in chunks:
+            x0 = chunk_x0(ch, current)
+            ms = time_ms(lambda: cs.gather_gram_cg_wide(
+                table, ch.cols, ch.vals, ch.nnz, x0, cfg_w.lam, f2,
+                cg_iters=cfg_w.cg_iters, cg_tol=cfg_w.cg_tol), reps=1)
+            total += ms
+            if ch.n_real < sms:
+                few += ms
+                n_few += 1
+        log(f"[wide phase totals] K7 over the {len(chunks)} {label} chunks "
+            f"{total:.1f} ms, of which {few:.1f} ms in the {n_few} chunks "
+            f"with fewer than {sms} rows (the widest chunk: "
+            f"{max(c.width for c in chunks)} slots)")
+    del th_perm_ext
+    torch.cuda.empty_cache()
+
+    # ---- 5b. small runs with both new routes: card against CPU
+    scfg = cfg.replace(m=small_train.num_rows, n=small_train.num_cols,
+                       nnz=small_train.nnz, nnz_test=small_test.nnz, f=130,
+                       panel_size=2048, split_gather="force", verbose=False,
+                       debug_timing=False)
+    sx0, sth0 = init_factors(scfg.m, scfg.n, scfg.f, seed=0)
+    for label, extra, lim_tr, lim_te in (
+            ("bf16 wide on", dict(wide_kernel="on"), 5e-3, 1e-2),
+            ("f32 wide on", dict(wide_kernel="on", factor_dtype="f32",
+                                 gram_dtype="f32"), 1e-3, 1e-3),
+            ("f32 wide off", dict(wide_kernel="off", factor_dtype="f32",
+                                  gram_dtype="f32"), 1e-3, 1e-3)):
+        item = 2 if extra.get("factor_dtype", "bf16") == "bf16" else 4
+        part_rows = -(-scfg.n // 3 // 8) * 8
+        c = scfg.replace(gather_part_bytes=part_rows * 256 * item, **extra)
+        small = {}
+        for dev in (DEV, "cpu"):
+            model = ALS(c, small_train, None, small_test, device=dev)
+            assert isinstance(model.plan_x[0], SplitPlan)
+            assert model.plan_x[0].n_parts == 3
+            assert isinstance(model.plan_theta[0], UpdatePlan)
+            assert cs.wide_enabled(c) == (extra["wide_kernel"] == "on")
+            small[dev] = model.run(sx0, sth0).history
+        for hg, hc in zip(small[DEV], small["cpu"]):
+            dtr = abs(hg.train_rmse - hc.train_rmse)
+            dte = abs(hg.test_rmse - hc.test_rmse)
+            log(f"[small F=130 split, {label}] iter {hg.iteration}: card "
+                f"train {hg.train_rmse:.6f} test {hg.test_rmse:.6f} | cpu "
+                f"train {hc.train_rmse:.6f} test {hc.test_rmse:.6f} (limits "
+                f"{lim_tr:g}, {lim_te:g})")
+            if not (dtr <= lim_tr and dte <= lim_te):
+                raise AssertionError("card and CPU runs disagree")
+
+    # ---- 5c. the F = 200 path at full width
+    others = SPLIT_KERNELS + AUG_KERNELS + ("solve_cg",)
+    _, launches_on = full_width(
+        cs, al, "wide on", ("gather_gram_cg_wide",),
+        others + ("fused_gram_cg_cat",), x0_np, th0_np)
+    al_off = copy.copy(al)     # the same plans; wide_kernel steers no plan
+    al_off.cfg = cfg_w.replace(wide_kernel="off", iters=2)
+    _, launches_off = full_width(
+        cs, al_off, "wide off", ("gather_gram_cg",),
+        others[1:] + WIDE_KERNELS, x0_np, th0_np, iters=2)
+
+    # ---- 5d. K8's path: no route of ALS calls it (as in the JAX
+    # package), so its public wrapper runs over every theta chunk on a G
+    # gathered with torch, each chunk held against K1 at f=256
+    kw = dict(cg_iters=cfg_w.cg_iters, cg_tol=cfg_w.cg_tol)
+    cs.reset_launch_counts()
+    worst = 0.0
+    k8_ok = True
+    for ch in chunks_t:
+        x0 = chunk_x0(ch, theta_t)
+        g1, g2 = gathered_slabs(x_ext, ch, f2)
+        x8, se8 = cs.fused_gram_cg_cat(g1, g2, ch.vals, ch.nnz, x0,
+                                       cfg_w.lam, **kw)
+        del g1, g2
+        x1, se1 = cs.gather_gram_cg(x_ext, ch.cols, ch.vals, ch.nnz, x0,
+                                    cfg_w.lam, **kw)
+        worst = max(worst, (x8 - x1).abs().max().item())
+        k8_ok &= bool(((x8 - x1).abs() <= 1e-5 * x1.abs() + 1e-6).all())
+        k8_ok &= bool(((se8 - se1).abs() <= 1e-5 * se1.abs() + 1e-6).all())
+        k8_ok &= bool(torch.isfinite(x8).all())
+    torch.cuda.synchronize()
+    k8_launches = cs.LAUNCHES["fused_gram_cg_cat"]
+    log(f"[K8 path] fused_gram_cg_cat over the {len(chunks_t)} theta "
+        f"chunks: {k8_launches} launches, max|x - x_K1|={worst:.3e} (limit "
+        f"rtol 1e-5 + 1e-6: {k8_ok})")
+    if k8_launches < len(chunks_t) or not k8_ok:
+        raise AssertionError("K8 path failed")
+
+    results["gather_gram_cg"].update(
+        {f"f256_{k}": v for k, v in k1_256.items()},
+        f256_launches=launches_off["gather_gram_cg"])
+    return {"gather_gram_cg_wide": launches_on["gather_gram_cg_wide"],
+            "fused_gram_cg_cat": k8_launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -352,6 +688,8 @@ def main() -> int:
         f"{torch.__version__} cuda {torch.version.cuda}")
     t0 = time.monotonic()
     _build.build(force=True)
+    if set(_build.KERNELS) != set(REPLACES):
+        raise AssertionError("the kernel table and this script disagree")
     log(f"[build] {len(_build.KERNELS)} kernels built in "
         f"{time.monotonic() - t0:.1f} s")
 
@@ -470,45 +808,11 @@ def main() -> int:
             if not (dtr <= lim_tr and dte <= lim_te):
                 raise AssertionError("card and CPU runs disagree")
 
-    def full_width(model, label, expect, absent):
-        """One full-width path: ALS.run with every launch count read
-        around it alone."""
-        torch.cuda.reset_peak_memory_stats()
-        cs.reset_launch_counts()
-        res = model.run(x0_np, th0_np)
-        torch.cuda.synchronize()
-        launches = dict(cs.LAUNCHES)
-        peak = torch.cuda.max_memory_allocated()
-        per_iter = [h.x_seconds + h.theta_seconds for h in res.history]
-        for h in res.history:
-            log(f"[{label}] iter {h.iteration}: x {h.x_seconds:.4f} s, "
-                f"theta {h.theta_seconds:.4f} s, rmse {h.rmse_seconds:.4f} "
-                f"s, train {h.train_rmse:.6f}, test {h.test_rmse:.6f}")
-        log(f"[{label}] seconds per iteration (x + theta): "
-            f"{[round(t, 4) for t in per_iter]}, median "
-            f"{statistics.median(per_iter):.4f}; peak device memory "
-            f"{peak / 2**30:.2f} GiB; launches {launches}")
-        tr = [h.train_rmse for h in res.history]
-        if not np.all(np.isfinite(tr + [h.test_rmse for h in res.history])):
-            raise AssertionError(f"{label}: non-finite RMSE")
-        if not tr[-1] < tr[0]:
-            raise AssertionError(f"{label}: train RMSE did not fall")
-        for name in expect:
-            if launches[name] < ITERS:
-                raise AssertionError(
-                    f"{label}: {name} launched {launches[name]} times in "
-                    f"{ITERS} iterations")
-        for name in absent:
-            if launches[name]:
-                raise AssertionError(
-                    f"{label}: {name} launched {launches[name]} times on a "
-                    f"path that does not run it")
-        return res.history, launches
-
     # ---- 4a. the bf16 path at full width (split buffers: K1, K2, K3)
     log(f"[main] data {gen_s:.1f} s, plans {plan_s:.1f} s")
-    hist_main, launches = full_width(al, "main", SPLIT_KERNELS,
-                                     AUG_KERNELS + ("solve_cg",))
+    hist_main, launches = full_width(
+        cs, al, "main", SPLIT_KERNELS,
+        AUG_KERNELS + WIDE_KERNELS + ("solve_cg",), x0_np, th0_np)
     del al, plan_x, chunks_x, aux_x   # frees the plans on the card
     torch.cuda.empty_cache()
 
@@ -592,16 +896,25 @@ def main() -> int:
 
     # ---- 4b. this slice's path at full width (f32 accumulators,
     # aug_gram="force": K5a, K5b, K6)
-    hist_aug, launches_aug = full_width(al_aug, "aug", AUG_KERNELS,
-                                        SPLIT_KERNELS + ("solve_cg",))
+    hist_aug, launches_aug = full_width(
+        cs, al_aug, "aug", AUG_KERNELS,
+        SPLIT_KERNELS + WIDE_KERNELS + ("solve_cg",), x0_np, th0_np)
     for hm, ha in zip(hist_main, hist_aug):
         log(f"[main | aug] iter {hm.iteration}: train {hm.train_rmse:.6f} | "
             f"{ha.train_rmse:.6f}, test {hm.test_rmse:.6f} | "
             f"{ha.test_rmse:.6f} (no limit: bf16 and f32 accumulators "
             f"round differently by design)")
 
+    del al_aug, aux_x   # frees the plans on the card
+    torch.cuda.empty_cache()
+
+    # ---- 5. the factor widths above 128
+    wide_launches = wide_paths(cs, ALS, cfg, train, csc, test, str_, ste,
+                               results)
+
     launches.update({k: launches_aug[k] for k in AUG_KERNELS})
     launches["solve_cg"] = k4_launches
+    launches.update(wide_launches)
     kernels = [dict(name=name, route="cuda",
                     source=f"cumf_als_tpu_torch/csrc/{name}.cu",
                     replaces=REPLACES[name], launches=launches[name],

@@ -8,11 +8,19 @@ and have no effect here:
 - ``gram_precision``: the port's Gram sums are full f32 on every path;
 - ``fuse_phase``, ``fuse_max_chunks``: PyTorch runs eagerly, chunk by
   chunk;
-- ``split_gather``, ``gather_part_bytes``, ``split_min_table_bytes``,
-  ``split_max_groups``: they steer the strategy choice exactly as in the
-  JAX package, but the split route itself is not ported yet (it raises);
-- ``plan_cache_dir``: plans are rebuilt each run (no plan cache yet);
-- ``wide_kernel``: the wide-F kernels are not ported yet.
+- ``plan_cache_dir``: plans are rebuilt each run (no plan cache yet).
+
+``split_gather``, ``gather_part_bytes``, ``split_min_table_bytes`` and
+``split_max_groups`` steer the strategy choice and the split plan
+exactly as in the JAX package; on the device the split route addresses
+the permuted table in one id space (ops/tiling.flatten_split_chunk).
+
+``wide_kernel`` has the JAX package's effect: "on" sends factor widths
+128 < F <= 256 (f_pad 256) on the fused routes through the kernel that
+computes the 128 + wide_f2(F) live lanes only
+(``ops/cuda_solve.wide_enabled``); "off", the default, runs them through
+the monolithic fused kernel at 256 lanes. The route is opt-in as in the
+JAX package.
 
 ``aug_gram`` selects the augmented-lane form as in the JAX package
 (``ops/cuda_solve.aug_enabled`` and ``panel_aug_enabled``): the rating
@@ -103,7 +111,7 @@ class ALSConfig:
     gather_part_bytes: int = 64 << 20
     split_min_table_bytes: int = 128 << 20
     split_max_groups: int = 96
-    wide_kernel: str = "off"       # off | on; no effect
+    wide_kernel: str = "off"       # off | on (see above)
     fuse_phase: bool = True        # no effect
     fuse_max_chunks: int = 256     # no effect
 

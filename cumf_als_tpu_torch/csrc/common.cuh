@@ -1,7 +1,9 @@
-// Shared device code of the seven ALS kernels: the split-buffer forms
-// gather_gram_cg.cu, gather_gram_out.cu and solve_cg_reg.cu, the
+// Shared device code of the ALS kernels at f <= 128: the split-buffer
+// forms gather_gram_cg.cu, gather_gram_out.cu and solve_cg_reg.cu, the
 // already-regularized solve solve_cg.cu, and the augmented-lane forms
 // gather_gram_cg_aug.cu, gather_gram_aug_out.cu and solve_cg_aug.cu.
+// The CG loop and the dot product here also serve the 256-lane kernels
+// of wide.cuh.
 //
 // One thread block owns one f x f system, f = 16 * NB with NB in 1..8
 // (f a multiple of 16, at most 128). The 256 threads form a 16 x 16
@@ -226,58 +228,86 @@ __device__ __forceinline__ void matvec(const float (&a)[NB][NB],
   __syncthreads();
 }
 
-// u . v over F entries, computed by warp 0 and returned to every thread.
-template <int NB>
-__device__ __forceinline__ float dot(Smem<NB>& s, const float* u,
-                                     const float* v) {
-  constexpr int F = 16 * NB;
+// u . v over F entries, computed by warp 0 and returned to every thread
+// of the block; red is one float of shared scratch.
+template <int F>
+__device__ __forceinline__ float dot_n(float* red, const float* u,
+                                       const float* v) {
   if (threadIdx.x < 32) {
     float sum = 0.f;
     for (int i = threadIdx.x; i < F; i += 32) sum = fmaf(u[i], v[i], sum);
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    if (threadIdx.x == 0) s.red[0] = sum;
+    if (threadIdx.x == 0) red[0] = sum;
   }
   __syncthreads();
-  const float out = s.red[0];
+  const float out = red[0];
   __syncthreads();
   return out;
 }
+
+template <int NB>
+__device__ __forceinline__ float dot(Smem<NB>& s, const float* u,
+                                     const float* v) {
+  return dot_n<16 * NB>(s.red, u, v);
+}
+
+// CG on one F x F system from the warm start in x, right-hand side b;
+// r, p, ap are F floats of shared scratch each, red one float. mv(v, out)
+// writes out = A v for the whole block and ends in a barrier. Leaves the
+// solution in x.
+template <int F, typename MatVec>
+__device__ __forceinline__ void cg_loop(const float* b, float* x, float* r,
+                                        float* p, float* ap, float* red,
+                                        const MatVec& mv, int cg_iters,
+                                        float cg_tol) {
+  const int tid = threadIdx.x;
+  mv(x, ap);
+  if (tid < F) {
+    const float ri = b[tid] - ap[tid];
+    r[tid] = ri;
+    p[tid] = ri;
+  }
+  __syncthreads();
+  float rsold = dot_n<F>(red, r, r);
+  for (int it = 0; it < cg_iters; ++it) {
+    mv(p, ap);
+    const float pap = dot_n<F>(red, p, ap);
+    // the Pallas guard, literally: a zero p.Ap gives alpha 0, a NaN one
+    // gives NaN (so a NaN system stays NaN)
+    const float nonzero = fabsf(pap) > 0.f ? 1.f : 0.f;
+    const float alpha = nonzero * rsold / (pap + (1.f - nonzero));
+    if (tid < F) {
+      x[tid] = x[tid] + alpha * p[tid];
+      r[tid] = r[tid] - alpha * ap[tid];
+    }
+    __syncthreads();
+    const float rsnew = dot_n<F>(red, r, r);
+    if (!(rsnew >= cg_tol)) break;  // per-system exit, after the update
+    const float beta = rsnew / (rsold + (rsold <= 0.f ? 1.f : 0.f));
+    if (tid < F) p[tid] = r[tid] + beta * p[tid];
+    __syncthreads();
+    rsold = rsnew;
+  }
+}
+
+// The register-resident A of this file as cg_loop's matvec.
+template <int NB>
+struct RegMatvec {
+  const float (&a)[NB][NB];
+  __device__ __forceinline__ void operator()(const float* v,
+                                             float* out) const {
+    matvec<NB>(a, v, out);
+  }
+};
 
 // CG on the register-resident A from the warm start in s.x, right-hand
 // side s.b. Leaves the solution in s.x.
 template <int NB>
 __device__ __forceinline__ void cg(Smem<NB>& s, const float (&a)[NB][NB],
                                    int cg_iters, float cg_tol) {
-  constexpr int F = 16 * NB;
-  const int tid = threadIdx.x;
-  matvec<NB>(a, s.x, s.ap);
-  if (tid < F) {
-    const float ri = s.b[tid] - s.ap[tid];
-    s.r[tid] = ri;
-    s.p[tid] = ri;
-  }
-  __syncthreads();
-  float rsold = dot<NB>(s, s.r, s.r);
-  for (int it = 0; it < cg_iters; ++it) {
-    matvec<NB>(a, s.p, s.ap);
-    const float pap = dot<NB>(s, s.p, s.ap);
-    // the Pallas guard, literally: a zero p.Ap gives alpha 0, a NaN one
-    // gives NaN (so a NaN system stays NaN)
-    const float nonzero = fabsf(pap) > 0.f ? 1.f : 0.f;
-    const float alpha = nonzero * rsold / (pap + (1.f - nonzero));
-    if (tid < F) {
-      s.x[tid] = s.x[tid] + alpha * s.p[tid];
-      s.r[tid] = s.r[tid] - alpha * s.ap[tid];
-    }
-    __syncthreads();
-    const float rsnew = dot<NB>(s, s.r, s.r);
-    if (!(rsnew >= cg_tol)) break;  // per-system exit, after the update
-    const float beta = rsnew / (rsold + (rsold <= 0.f ? 1.f : 0.f));
-    if (tid < F) s.p[tid] = s.r[tid] + beta * s.p[tid];
-    __syncthreads();
-    rsold = rsnew;
-  }
+  const RegMatvec<NB> mv{a};
+  cg_loop<16 * NB>(s.b, s.x, s.r, s.p, s.ap, s.red, mv, cg_iters, cg_tol);
 }
 
 }  // namespace cumf

@@ -16,6 +16,10 @@
 // tail of its row (ops/tiling.py, _materialize_chunk), and pad slots
 // gather the zero row with value 0, so they add nothing.
 //
+// f = 256 (one factor width above 128, padded to 256 lanes) takes the
+// triangle-of-tiles body of wide.cuh with all 256 lanes live: a 256 x 256
+// A does not fit the register layout of common.cuh.
+//
 // Bound on an H100: the Gram work, 2 * sum(nnz) * f^2 FLOPs, is ~3.3
 // TFLOP per Netflix theta phase at f = 128, i.e. ~3.3 ms on the bf16
 // tensor cores (989 TFLOP/s). The bytes are small: the gathered table
@@ -24,7 +28,7 @@
 // the CUDA cores from a shared-memory tile (no wgmma, no TMA, no
 // pipelining); those come in a later change.
 
-#include "common.cuh"
+#include "wide.cuh"
 
 namespace {
 
@@ -80,6 +84,24 @@ __global__ void __launch_bounds__(cumf::kThreads)
   }
 }
 
+template <typename TT, typename VT>
+__global__ void __launch_bounds__(cumf::wide::Shape<32>::THREADS)
+    gather_gram_cg_256_kernel(const TT* __restrict__ table,
+                              const int32_t* __restrict__ cols,
+                              const VT* __restrict__ vals,
+                              const int32_t* __restrict__ nnz,
+                              const float* __restrict__ x0,
+                              float* __restrict__ x_out,
+                              float* __restrict__ se_out, int p, float lam,
+                              int cg_iters, float cg_tol) {
+  __shared__ cumf::wide::Smem<32> s;
+  const int64_t row = blockIdx.x;
+  cumf::wide::gather_row<32>(
+      s, table, cols + row * p, vals + row * p, min(nnz[row], p),
+      (float)nnz[row], lam, x0 + row * cumf::wide::kStride,
+      x_out + row * cumf::wide::kStride, se_out + row, cg_iters, cg_tol);
+}
+
 template <int NB, typename TT, typename VT>
 void launch(const void* table, const void* cols, const void* vals,
             const void* nnz, const void* x0, void* x_out, void* se_out,
@@ -96,6 +118,14 @@ int dispatch(int f, const void* table, const void* cols, const void* vals,
              const void* nnz, const void* x0, void* x_out, void* se_out,
              int r, int p, float lam, int cg_iters, float cg_tol,
              cudaStream_t stream) {
+  if (f == 256) {
+    gather_gram_cg_256_kernel<TT, VT>
+        <<<r, cumf::wide::Shape<32>::THREADS, 0, stream>>>(
+            (const TT*)table, (const int32_t*)cols, (const VT*)vals,
+            (const int32_t*)nnz, (const float*)x0, (float*)x_out,
+            (float*)se_out, p, lam, cg_iters, cg_tol);
+    return (int)cudaGetLastError();
+  }
 #define CUMF_LAUNCH(NB)                                                   \
   launch<NB, TT, VT>(table, cols, vals, nnz, x0, x_out, se_out, r, p, lam, \
                      cg_iters, cg_tol, stream)

@@ -1,0 +1,276 @@
+// Device code of the 256-lane kernels: gather_gram_cg.cu at f = 256,
+// gather_gram_cg_wide.cu and fused_gram_cg_cat.cu.
+//
+// One thread block owns one system of FL = 8 * T live lanes out of the
+// 256 lanes of a factor row (T = 20, 24, 28 or 32: FL = 160, 192, 224,
+// 256). A 256 x 256 f32 A (256 KB) fits neither the registers of the
+// 256 threads of common.cuh (an NB = 16 tile is 256 accumulators a
+// thread) nor a block's shared memory, so only the upper triangle of A
+// is kept, cut into 8 x 8 tiles: tile (ti, tj), ti <= tj, lives in the
+// 64 registers of one thread, T (T + 1) / 2 threads in all (528 at
+// T = 32, rounded up to whole warps). The Gram sum therefore does about
+// half the FMAs of the full square. A diagonal tile holds its full
+// 8 x 8 block (both halves come out bit-identical, the products being
+// commutative and summed in one order).
+//
+// A matvec uses every off-diagonal tile twice, as itself for rows
+// 8 ti.. and transposed for rows 8 tj..: each thread writes its partial
+// 8-vectors into a T x T x 8 table in shared memory (which reuses the
+// space of the Gram's staging tile), and FL threads then sum one row of
+// that table each, in a fixed order, so a result repeats bit for bit.
+// The CG loop is common.cuh's cg_loop, the transcription of
+// pallas_solve.py:_cg_loop; the two-block loop _cg_loop_wide is the same
+// arithmetic on the leading FL x FL block, with the sums in another
+// order.
+#pragma once
+
+#include "common.cuh"
+
+namespace cumf {
+namespace wide {
+
+constexpr int kB = 8;         // tile edge
+constexpr int kStride = 256;  // lanes of a table, x0 and x row (f_pad)
+
+template <int T>
+struct Shape {
+  static constexpr int FL = kB * T;
+  static constexpr int TILES = T * (T + 1) / 2;
+  static constexpr int THREADS = (TILES + 31) / 32 * 32;
+};
+
+// Shared-memory workspace of one block (38 KB at T = 32).
+template <int T>
+struct alignas(16) Smem {
+  static constexpr int FL = Shape<T>::FL;
+  union {  // first member: 16-byte aligned for the float4 reads of g
+    float g[kTile * FL];     // staged rows of the current tile, f32
+    float part[T * T * kB];  // per-tile partial matvec results
+  };
+  float v[kTile];
+  int32_t c[kTile];
+  float b[FL];
+  float x[FL];
+  float r[FL];
+  float p[FL];
+  float ap[FL];
+  float red[2];
+};
+
+// The tile of this thread; threads past the last tile hold none.
+struct Tile {
+  int ti, tj;
+  bool on;
+};
+
+template <int T>
+__device__ __forceinline__ Tile tile_of() {
+  Tile t;
+  int rem = threadIdx.x;
+  t.on = rem < Shape<T>::TILES;
+  if (!t.on) rem = 0;
+  int ti = 0;
+  while (rem >= T - ti) {  // row ti of the triangle holds T - ti tiles
+    rem -= T - ti;
+    ++ti;
+  }
+  t.ti = ti;
+  t.tj = ti + rem;
+  return t;
+}
+
+// Stage slots [lo, lo + nt) of one row from a kStride-lane table: ids
+// and values first, then lanes < FL of the rows they name, widened to
+// f32. Lanes >= FL are never read.
+template <int T, typename TT, typename VT>
+__device__ __forceinline__ void load_tile_table(Smem<T>& s, const TT* table,
+                                                const int32_t* cols,
+                                                const VT* vals, int lo,
+                                                int nt) {
+  constexpr int FL = Shape<T>::FL;
+  const int tid = threadIdx.x;
+  if (tid < nt) {
+    s.c[tid] = cols[lo + tid];
+    s.v[tid] = to_f32(vals[lo + tid]);
+  }
+  __syncthreads();
+  for (int i = tid; i < nt * FL; i += Shape<T>::THREADS) {
+    const int t = i / FL;
+    const int j = i - t * FL;
+    s.g[i] = to_f32(table[(int64_t)s.c[t] * kStride + j]);
+  }
+  __syncthreads();
+}
+
+// Stage slots [lo, lo + nt) of one row from an already gathered,
+// lane-packed G: g1 holds lanes 0..127 and g2 lanes 128..128 + f2 - 1 of
+// each slot; the lanes above are zero. All 256 lanes are staged.
+template <typename GT, typename VT>
+__device__ __forceinline__ void load_tile_cat(Smem<32>& s, const GT* g1,
+                                              const GT* g2, int f2,
+                                              const VT* vals, int lo,
+                                              int nt) {
+  const int tid = threadIdx.x;
+  if (tid < nt) s.v[tid] = to_f32(vals[lo + tid]);
+  for (int i = tid; i < nt * kStride; i += Shape<32>::THREADS) {
+    const int t = i / kStride;
+    const int j = i - t * kStride;
+    float val = 0.f;
+    if (j < 128)
+      val = to_f32(g1[(int64_t)(lo + t) * 128 + j]);
+    else if (j < 128 + f2)
+      val = to_f32(g2[(int64_t)(lo + t) * f2 + (j - 128)]);
+    s.g[i] = val;
+  }
+  __syncthreads();
+}
+
+// This thread's tile of A += sum_t g_t g_t^T over the staged tile, and
+// b += sum_t v_t g_t (threads tid < FL), r2 += sum_t v_t^2 (thread FL).
+template <int T>
+__device__ __forceinline__ void accumulate_tile(const Smem<T>& s, int nt,
+                                                const Tile& tl,
+                                                float (&a)[kB][kB],
+                                                float& b_acc,
+                                                float& r2_acc) {
+  constexpr int FL = Shape<T>::FL;
+  const int tid = threadIdx.x;
+  if (tl.on) {
+    const float* gi_p = s.g + tl.ti * kB;
+    const float* gj_p = s.g + tl.tj * kB;
+    for (int t = 0; t < nt; ++t) {
+      const float4 i0 = *reinterpret_cast<const float4*>(gi_p + t * FL);
+      const float4 i1 = *reinterpret_cast<const float4*>(gi_p + t * FL + 4);
+      const float4 j0 = *reinterpret_cast<const float4*>(gj_p + t * FL);
+      const float4 j1 = *reinterpret_cast<const float4*>(gj_p + t * FL + 4);
+      const float gi[kB] = {i0.x, i0.y, i0.z, i0.w, i1.x, i1.y, i1.z, i1.w};
+      const float gj[kB] = {j0.x, j0.y, j0.z, j0.w, j1.x, j1.y, j1.z, j1.w};
+#pragma unroll
+      for (int k = 0; k < kB; ++k)
+#pragma unroll
+        for (int l = 0; l < kB; ++l) a[k][l] = fmaf(gi[k], gj[l], a[k][l]);
+    }
+  }
+  if (tid < FL) {
+    for (int t = 0; t < nt; ++t) b_acc = fmaf(s.v[t], s.g[t * FL + tid], b_acc);
+  } else if (tid == FL) {
+    for (int t = 0; t < nt; ++t) r2_acc = fmaf(s.v[t], s.v[t], r2_acc);
+  }
+}
+
+// out = A v from the triangle of register tiles (see the head of this
+// file). Ends in a barrier.
+template <int T>
+struct TriMatvec {
+  const float (&a)[kB][kB];
+  const Tile& tl;
+  float* part;
+  __device__ __forceinline__ void operator()(const float* v,
+                                             float* out) const {
+    constexpr int FL = Shape<T>::FL;
+    const int tid = threadIdx.x;
+    if (tl.on) {
+      float vj[kB];
+#pragma unroll
+      for (int l = 0; l < kB; ++l) vj[l] = v[tl.tj * kB + l];
+      float* dst = part + (tl.ti * T + tl.tj) * kB;
+#pragma unroll
+      for (int k = 0; k < kB; ++k) {
+        float sum = 0.f;
+#pragma unroll
+        for (int l = 0; l < kB; ++l) sum = fmaf(a[k][l], vj[l], sum);
+        dst[k] = sum;
+      }
+      if (tl.ti != tl.tj) {
+        float vi[kB];
+#pragma unroll
+        for (int k = 0; k < kB; ++k) vi[k] = v[tl.ti * kB + k];
+        float* dtr = part + (tl.tj * T + tl.ti) * kB;
+#pragma unroll
+        for (int l = 0; l < kB; ++l) {
+          float sum = 0.f;
+#pragma unroll
+          for (int k = 0; k < kB; ++k) sum = fmaf(a[k][l], vi[k], sum);
+          dtr[l] = sum;
+        }
+      }
+    }
+    __syncthreads();
+    if (tid < FL) {
+      const float* src = part + (tid >> 3) * T * kB + (tid & 7);
+      float sum = 0.f;
+      for (int j = 0; j < T; ++j) sum += src[j * kB];
+      out[tid] = sum;
+    }
+    __syncthreads();
+  }
+};
+
+// Everything after the Gram sum of one row: A += diag I, CG from x0,
+// x *= [nnz > 0], x written over all kStride lanes (exact zeros at
+// lanes >= FL), and the train-error identity over the live lanes.
+template <int T>
+__device__ __forceinline__ void solve_and_store(
+    Smem<T>& s, const Tile& tl, float (&a)[kB][kB], float b_acc,
+    float r2_acc, float nnzf, float lam, const float* x0_row, float* x_row,
+    float* se_row, int cg_iters, float cg_tol) {
+  constexpr int FL = Shape<T>::FL;
+  const int tid = threadIdx.x;
+  const float diag = nnzf * lam + (nnzf == 0.f ? 1.f : 0.f);
+  if (tl.on && tl.ti == tl.tj) {
+#pragma unroll
+    for (int k = 0; k < kB; ++k) a[k][k] += diag;
+  }
+  if (tid < FL) {
+    s.b[tid] = b_acc;
+    s.x[tid] = x0_row[tid];
+  } else if (tid == FL) {
+    s.red[1] = r2_acc;
+  }
+  __syncthreads();
+  const float r2 = s.red[1];
+
+  const TriMatvec<T> mv{a, tl, s.part};
+  cg_loop<FL>(s.b, s.x, s.r, s.p, s.ap, s.red, mv, cg_iters, cg_tol);
+
+  const float live = nnzf > 0.f ? 1.f : 0.f;
+  if (tid < FL) s.x[tid] *= live;
+  __syncthreads();
+  for (int i = tid; i < kStride; i += Shape<T>::THREADS)
+    x_row[i] = i < FL ? s.x[i] : 0.f;
+
+  // train-error identity (cumf_als_tpu/ops/rmse.py, fused_sq_err)
+  mv(s.x, s.ap);
+  const float cross = dot_n<FL>(s.red, s.x, s.b);
+  const float xax = dot_n<FL>(s.red, s.x, s.ap);
+  const float xx = dot_n<FL>(s.red, s.x, s.x);
+  if (tid == 0) {
+    const float se = r2 - 2.f * cross + (xax - diag * xx);
+    se_row[0] = se < 0.f ? 0.f : se;  // max(se, 0); NaN stays NaN
+  }
+}
+
+// One row, gathered from a kStride-lane table: Gram over slots [0, n),
+// then solve_and_store. The body of gather_gram_cg at f = 256 (T = 32)
+// and of gather_gram_cg_wide.
+template <int T, typename TT, typename VT>
+__device__ __forceinline__ void gather_row(
+    Smem<T>& s, const TT* table, const int32_t* cols, const VT* vals, int n,
+    float nnzf, float lam, const float* x0_row, float* x_row, float* se_row,
+    int cg_iters, float cg_tol) {
+  const Tile tl = tile_of<T>();
+  float a[kB][kB];
+  zero_acc<kB>(a);
+  float b_acc = 0.f, r2_acc = 0.f;
+  for (int lo = 0; lo < n; lo += kTile) {
+    const int nt = min(kTile, n - lo);
+    load_tile_table<T>(s, table, cols, vals, lo, nt);
+    accumulate_tile<T>(s, nt, tl, a, b_acc, r2_acc);
+    __syncthreads();
+  }
+  solve_and_store<T>(s, tl, a, b_acc, r2_acc, nnzf, lam, x0_row, x_row,
+                     se_row, cg_iters, cg_tol);
+}
+
+}  // namespace wide
+}  // namespace cumf

@@ -8,7 +8,14 @@ as in the JAX package:
 
   - direct: every row's Gram is formed whole and solved at once, chunk
     by chunk (kernel K1, ``gather_gram_cg``, on the "pallas" backend;
-    its augmented-lane form K6 with ``aug_gram="force"``);
+    its augmented-lane form K6 with ``aug_gram="force"``; for factor
+    widths 128 < F <= 256 K1 at 256 lanes or, with
+    ``wide_kernel="on"``, the live-lanes kernel K7
+    ``gather_gram_cg_wide``);
+  - split: the direct route over a popularity-permuted gather table cut
+    into fixed-size parts, for phases whose gather table and
+    accumulators are both large (the X phase of the Netflix shape at
+    F > 128); same kernels as the direct route;
   - panel: when the gather table is large and the updated factor's full
     accumulators fit ``panel_budget_bytes``, partial Grams per table
     panel are scatter-added into the accumulators, which are then solved
@@ -20,8 +27,8 @@ as in the JAX package:
     ``gather_gram_aug_out`` and K5b ``solve_cg_aug``; see
     ``ops/cuda_solve.panel_aug_enabled`` for the gates).
 
-The split and batched-panel strategies are chosen as in the JAX package
-but not ported yet: building their plans raises.
+The batched-panel strategy is chosen as in the JAX package but not
+ported yet: building its plan raises.
 """
 
 from __future__ import annotations
@@ -40,8 +47,11 @@ from cumf_als_tpu_torch.ops import cuda_solve
 from cumf_als_tpu_torch.ops.gram import extend_table, gram_rhs
 from cumf_als_tpu_torch.ops.rmse import fused_sq_err, rmse_direct
 from cumf_als_tpu_torch.ops.solve import solve
-from cumf_als_tpu_torch.ops.tiling import (PanelPlan, build_panel_plan,
-                                           build_update_plan)
+from cumf_als_tpu_torch.ops.tiling import (PanelPlan, SplitPlan,
+                                           build_panel_plan,
+                                           build_split_plan,
+                                           build_update_plan,
+                                           flatten_split_chunk)
 from cumf_als_tpu_torch.utils.io import COOMatrix, CSRMatrix, transpose_csr
 from cumf_als_tpu_torch.utils.timing import seconds, sync
 
@@ -258,6 +268,14 @@ class ALS:
                                      chunk_nnz=chunk_nnz,
                                      chunk_rows=cfg.chunk_rows,
                                      octave_points=cfg.octave_points)
+        elif strategy == "split":
+            plan = build_split_plan(csr, part_size=cfg.split_part_rows(),
+                                    min_width=cfg.min_bucket_width,
+                                    max_width=cfg.max_bucket_width,
+                                    chunk_nnz=chunk_nnz,
+                                    chunk_rows=cfg.chunk_rows,
+                                    octave_points=cfg.octave_points,
+                                    max_groups=cfg.split_max_groups)
         else:
             raise NotImplementedError(
                 f"the {strategy!r} phase strategy is not ported yet "
@@ -266,6 +284,13 @@ class ALS:
 
     def _device_plan(self, plan):
         aux = {}
+        if isinstance(plan, SplitPlan):
+            aux["perm"] = torch.from_numpy(
+                plan.perm.astype(np.int64)).to(self.device)
+            # one id space over the permuted table, live slots first
+            return plan, [DeviceChunk(flatten_split_chunk(c, plan),
+                                      plan.num_rows, self.device)
+                          for c in plan.chunks], aux
         if isinstance(plan, PanelPlan):
             # the solve batch hugs the row count (a multiple of 8)
             batch = min(self.cfg.chunk_rows,
@@ -302,6 +327,9 @@ class ALS:
     # ----- one phase -----
     def _update_phase(self, table, current, plan_pair,
                       collect_rmse_terms: bool):
+        if isinstance(plan_pair[0], SplitPlan):
+            return self._update_phase_split(table, current, plan_pair,
+                                            collect_rmse_terms)
         if isinstance(plan_pair[0], PanelPlan):
             return self._update_phase_panelized(table, current, plan_pair,
                                                 collect_rmse_terms)
@@ -381,36 +409,64 @@ class ALS:
             se = _se_terms(a_buf, b_buf, new_pad, batch) + self._sum_r2()
         return new_pad[:m].contiguous(), se
 
+    def _update_phase_split(self, table, current, plan_pair,
+                            collect_rmse_terms: bool):
+        """Direct solves over the popularity-permuted gather table of a
+        SplitPlan: every row is still seen whole by one fused
+        gather + Gram + CG instance, so no partial-Gram accumulators
+        exist. The device chunks address the permuted table in one id
+        space (ops/tiling.flatten_split_chunk), so once the table is
+        permuted the chunk loop is the direct route's, with the same
+        four ways to solve a chunk."""
+        _plan, chunks, aux = plan_pair
+        return self._solve_chunks(table.index_select(0, aux["perm"]),
+                                  current, chunks, collect_rmse_terms)
+
     def _update_phase_direct(self, table, current, plan_pair,
                              collect_rmse_terms: bool):
         """Solve every row of `current` against the fixed `table`, chunk
-        by chunk, writing solved rows back in place. Returns the factor
-        and, when requested, the summed train squared error (a device
-        scalar)."""
+        by chunk. Returns the factor and, when requested, the summed
+        train squared error (a device scalar)."""
+        return self._solve_chunks(table, current, plan_pair[1],
+                                  collect_rmse_terms)
+
+    def _solve_chunks(self, table, current, chunks,
+                      collect_rmse_terms: bool):
+        """The chunk loop of the direct and split routes, writing solved
+        rows back in place. A chunk is solved, on the "pallas" backend
+        with CG, by one fused kernel: K7 over the live lanes when
+        `wide_enabled` (which wins over aug), else K6 when `aug_enabled`,
+        else K1; otherwise by gather + einsum + `solve` + the train-error
+        identity in plain torch."""
         cfg = self.cfg
-        plan, chunks, _aux = plan_pair
         use_kernel = cfg.backend == "pallas" and cfg.solver == "cg"
-        use_aug = use_kernel and cuda_solve.aug_enabled(cfg)
+        use_wide = use_kernel and cuda_solve.wide_enabled(cfg)
+        use_aug = use_kernel and not use_wide and cuda_solve.aug_enabled(cfg)
         if cfg.factor_dtype == "bf16":   # cast the table before the gather
             table = table.to(torch.bfloat16)
         table_ext = extend_table(table)
+        kw = dict(cg_iters=cfg.cg_iters, cg_tol=cfg.cg_tol)
         se_acc = torch.zeros((), dtype=torch.float32, device=self.device)
         for ch in chunks:
             k = ch.n_real
             x0 = current.index_select(0, ch.rows_real)
             if k < ch.rows.shape[0]:   # dummy tail rows start from zero
                 x0 = F.pad(x0, (0, 0, 0, ch.rows.shape[0] - k))
-            if use_kernel:
+            if use_wide:
+                solved, se = cuda_solve.gather_gram_cg_wide(
+                    table_ext, ch.cols, ch.vals, ch.nnz, x0, cfg.lam,
+                    cuda_solve.wide_f2(cfg.f), **kw)
+                se = se.sum()
+            elif use_kernel:
                 solved, se = cuda_solve.gather_gram_cg(
                     table_ext, ch.cols, ch.vals, ch.nnz, x0, cfg.lam,
-                    cg_iters=cfg.cg_iters, cg_tol=cfg.cg_tol, aug=use_aug)
+                    aug=use_aug, **kw)
                 se = se.sum()
             else:
                 a, b = gram_rhs(table_ext, ch.cols, ch.vals, ch.nnz,
                                 cfg.lam, gram_dtype=cfg.gram_dtype)
                 solved = solve(a, b, x0, solver=cfg.solver,
-                               cg_iters=cfg.cg_iters, cg_tol=cfg.cg_tol,
-                               backend=cfg.backend)
+                               backend=cfg.backend, **kw)
                 solved = solved * (ch.nnz > 0).float()[:, None]
                 se = fused_sq_err(a, b, ch.vals, ch.nnz, cfg.lam, solved) \
                     if collect_rmse_terms else 0.0

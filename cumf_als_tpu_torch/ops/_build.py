@@ -46,7 +46,14 @@ KERNELS = {
     "gather_gram_cg_aug": ("cumf_gather_gram_cg_aug",
                            [_VP, _I, _VP, _VP, _I, _VP, _VP, _VP, _VP,
                             _I, _I, _I, _F, _I, _F, _VP]),
+    "gather_gram_cg_wide": ("cumf_gather_gram_cg_wide",
+                            [_VP, _I, _VP, _VP, _I, _VP, _VP, _VP, _VP,
+                             _I, _I, _I, _F, _I, _F, _VP]),
+    "fused_gram_cg_cat": ("cumf_fused_gram_cg_cat",
+                          [_VP, _VP, _I, _VP, _I, _VP, _VP, _VP, _VP,
+                           _I, _I, _I, _F, _I, _F, _VP]),
 }
+HEADERS = ("common.cuh", "wide.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -74,7 +81,7 @@ def _stale(name: str) -> bool:
     if not os.path.exists(lib):
         return True
     newest = max(os.path.getmtime(os.path.join(CSRC, s))
-                 for s in (f"{name}.cu", "common.cuh"))
+                 for s in (f"{name}.cu", *HEADERS))
     return os.path.getmtime(lib) < newest
 
 

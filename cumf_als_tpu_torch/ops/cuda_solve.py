@@ -11,6 +11,8 @@ wrapper                      TPU kernel it replaces      CUDA source
 ``gather_gram_aug_out``      ``_gram_kernel_aug``        csrc/gather_gram_aug_out.cu
 ``solve_cg_aug``             ``_cg_solve_aug_kernel``    csrc/solve_cg_aug.cu
 ``gather_gram_cg(aug=True)`` ``_kernel_aug``             csrc/gather_gram_cg_aug.cu
+``gather_gram_cg_wide``      ``_kernel_wide``            csrc/gather_gram_cg_wide.cu
+``fused_gram_cg_cat``        ``_kernel_cat``             csrc/fused_gram_cg_cat.cu
 ===========================  ==========================  ==========================
 
 (TPU kernels: cumf_als_tpu/ops/pallas_solve.py.) Each wrapper takes its
@@ -27,9 +29,20 @@ The wrappers cannot check a whole table cheaply; `aug_enabled` and
 `panel_aug_enabled` are the gates that guarantee the free lane, and
 models/als.py calls the aug forms only behind them.
 
+Factor widths 128 < F <= 256 pad to f = 256 lanes. ``gather_gram_cg``
+takes f = 256 as it takes the narrower widths (its kernel switches to
+the triangle-of-tiles body of csrc/wide.cuh); ``gather_gram_cg_wide``
+solves only the 128 + f2 live lanes (f2 = `wide_f2(F)`) and returns
+exact zeros above them; ``fused_gram_cg_cat`` is the 256-lane body over
+an already gathered, lane-packed G. `wide_enabled` is the opt-in gate of
+the second. The panel and solve kernels (K2-K5b) and the augmented fused
+kernel (K6) take f <= 128 only.
+
 The row gather runs inside the kernels, so the wrappers keep the
 contracts of the JAX wrappers (`gather_gram_cg`, `gather_gram_out`,
-`gather_gram_aug_out`), not those of the inner ``pallas_call``.
+`gather_gram_aug_out`, `gather_gram_cg_wide`), not those of the inner
+``pallas_call``; ``fused_gram_cg_cat`` has no gather wrapper there and
+keeps its own.
 Importing this module builds and loads nothing (see ops/_build.py).
 """
 
@@ -79,10 +92,14 @@ def _check(name: str, t: torch.Tensor, shape, dtypes) -> None:
         raise ValueError(f"{name}: not contiguous")
 
 
-def _check_f(f: int) -> None:
+def _check_f(name: str, f: int, wide_ok: bool = False) -> None:
+    """f must be a multiple of 16 up to 128; `wide_ok` also admits 256."""
+    if wide_ok and f == 256:
+        return
     if f % 16 or not 16 <= f <= 128:
-        raise ValueError(f"the kernels take f a multiple of 16 up to 128, "
-                         f"got {f}")
+        raise ValueError(f"{name}: the kernel takes f a multiple of 16 up "
+                         f"to 128{' or f = 256' if wide_ok else ''}, got "
+                         f"{f}")
 
 
 def _launch(name: str, *args) -> None:
@@ -123,6 +140,26 @@ def panel_aug_enabled(cfg) -> bool:
             cfg.f >= cfg.f_pad:
         return False
     return cfg.gram_dtype == "f32" or cfg.aug_gram == "force"
+
+
+def wide_f2(f: int) -> int:
+    """Packed lane width of the second factor block for true width f
+    (128 < f <= 256): the remainder padded to a multiple of 32
+    (pallas_solve.wide_f2)."""
+    return min(128, -(-(f - 128) // 32) * 32)
+
+
+def wide_enabled(cfg) -> bool:
+    """Whether the fused routes (direct and split) take the two-block
+    wide-F kernel K7 (pallas_solve.wide_enabled): explicit opt-in only
+    (wide_kernel="on"), 128 < F <= 256 (so f_pad is 256), CG, backend
+    "pallas". The route is opt-in as in the JAX package; with it off,
+    those widths run K1 at f = 256."""
+    if cfg.wide_kernel != "on":
+        return False
+    if not 128 < cfg.f <= 256 or cfg.f_pad != 256:
+        return False
+    return cfg.solver == "cg" and cfg.backend == "pallas"
 
 
 # ----------------------------------------------------------------- CG --
@@ -231,7 +268,8 @@ def gather_gram_cg(table_ext, cols, vals, nnz, x0, lam: float,
     train squared error (pallas_solve.gather_gram_cg).
 
     table_ext (n+1, f) f32/bf16, zero-extended (a bf16 run casts the
-    table before the gather, as models/als.py does); cols (R, P) int32,
+    table before the gather, as models/als.py does), f a multiple of 16
+    up to 128, or 256 (without aug); cols (R, P) int32,
     pad id n, pad slots at each row's tail; vals (R, P) f32/bf16; nnz
     (R,) int32; x0 (R, f) f32. Returns x (R, f) f32 and se (R, 1) f32.
 
@@ -245,7 +283,8 @@ def gather_gram_cg(table_ext, cols, vals, nnz, x0, lam: float,
         return plain(table_ext, cols, vals, nnz, x0, lam, cg_iters, cg_tol)
     r, p = cols.shape
     f = table_ext.shape[1]
-    _check_f(f)
+    name = "gather_gram_cg_aug" if aug else "gather_gram_cg"
+    _check_f(name, f, wide_ok=not aug)
     _check("table_ext", table_ext, table_ext.shape, _FLOATS)
     _check("cols", cols, (r, p), (torch.int32,))
     _check("vals", vals, (r, p), _FLOATS)
@@ -254,8 +293,7 @@ def gather_gram_cg(table_ext, cols, vals, nnz, x0, lam: float,
     x = torch.empty((r, f), dtype=torch.float32, device=x0.device)
     se = torch.empty((r, 1), dtype=torch.float32, device=x0.device)
     if r:
-        _launch("gather_gram_cg_aug" if aug else "gather_gram_cg",
-                table_ext.data_ptr(), _bf16(table_ext),
+        _launch(name, table_ext.data_ptr(), _bf16(table_ext),
                 cols.data_ptr(), vals.data_ptr(), _bf16(vals),
                 nnz.data_ptr(), x0.data_ptr(), x.data_ptr(), se.data_ptr(),
                 r, p, f, float(lam), int(cg_iters), float(cg_tol))
@@ -283,7 +321,7 @@ def gather_gram_out(table_ext, cols, vals,
         return gather_gram_out_plain(table_ext, cols, vals, out_dtype)
     r, p = cols.shape
     f = table_ext.shape[1]
-    _check_f(f)
+    _check_f("gather_gram_out", f)
     if out_dtype not in _FLOATS:
         raise ValueError(f"out_dtype {out_dtype} not in {_FLOATS}")
     _check("table_ext", table_ext, table_ext.shape, _FLOATS)
@@ -314,7 +352,7 @@ def solve_cg_reg(a, diag, b, x0, cg_iters: int = 6, cg_tol: float = 1e-4):
     if _on_cpu(a, diag, b, x0):
         return solve_cg_reg_plain(a, diag, b, x0, cg_iters, cg_tol)
     r, f, _ = a.shape
-    _check_f(f)
+    _check_f("solve_cg_reg", f)
     _check("a", a, (r, f, f), _FLOATS)
     _check("diag", diag, (r,), (torch.float32,))
     _check("b", b, (r, f), (torch.float32,))
@@ -341,7 +379,7 @@ def solve_cg(a, b, x0, cg_iters: int = 6, cg_tol: float = 1e-4):
     if _on_cpu(a, b, x0):
         return solve_cg_plain(a, b, x0, cg_iters, cg_tol)
     r, f, _ = a.shape
-    _check_f(f)
+    _check_f("solve_cg", f)
     _check("a", a, (r, f, f), _FLOATS)
     _check("b", b, (r, f), (torch.float32,))
     _check("x0", x0, (r, f), (torch.float32,))
@@ -374,7 +412,7 @@ def gather_gram_aug_out(table_ext, cols, vals,
         return gather_gram_aug_out_plain(table_ext, cols, vals, out_dtype)
     r, p = cols.shape
     f = table_ext.shape[1]
-    _check_f(f)
+    _check_f("gather_gram_aug_out", f)
     if out_dtype not in _FLOATS:
         raise ValueError(f"out_dtype {out_dtype} not in {_FLOATS}")
     _check("table_ext", table_ext, table_ext.shape, _FLOATS)
@@ -407,7 +445,7 @@ def solve_cg_aug(a_aug, diag, x0, cg_iters: int = 6, cg_tol: float = 1e-4):
     if _on_cpu(a_aug, diag, x0):
         return solve_cg_aug_plain(a_aug, diag, x0, cg_iters, cg_tol)
     r, f, _ = a_aug.shape
-    _check_f(f)
+    _check_f("solve_cg_aug", f)
     _check("a_aug", a_aug, (r, f, f), _FLOATS)
     _check("diag", diag, (r,), (torch.float32,))
     _check("x0", x0, (r, f), (torch.float32,))
@@ -417,3 +455,172 @@ def solve_cg_aug(a_aug, diag, x0, cg_iters: int = 6, cg_tol: float = 1e-4):
                 diag.data_ptr(), x0.data_ptr(), x.data_ptr(), r, f,
                 int(cg_iters), float(cg_tol))
     return x
+
+
+# ------------------------------------ K7 gather_gram_cg_wide / K8 cat --
+def cg_loop_wide_plain(a11, a12, a22, b1, b2, x1, x2, cg_iters: int,
+                       cg_tol: float):
+    """pallas_solve._cg_loop_wide in plain torch: cg_loop_plain on the
+    two-block system [[A11, A12], [A12^T, A22]], the carries split in
+    (128, f2) halves and every dot product summed half by half."""
+    def matvec(p1, p2):
+        y1 = torch.einsum("rfg,rg->rf", a11, p1) + \
+            torch.einsum("rfg,rg->rf", a12, p2)
+        y2 = torch.einsum("rfg,rf->rg", a12, p1) + \
+            torch.einsum("rfg,rg->rf", a22, p2)
+        return y1, y2
+
+    def dot(u1, u2, v1, v2):
+        return (u1 * v1).sum(-1, keepdim=True) + \
+            (u2 * v2).sum(-1, keepdim=True)
+
+    ax1, ax2 = matvec(x1, x2)
+    r1, r2 = b1 - ax1, b2 - ax2
+    p1, p2 = r1, r2
+    rsold = dot(r1, r2, r1, r2)
+    active = torch.ones_like(rsold)
+    for _ in range(cg_iters):
+        ap1, ap2 = matvec(p1, p2)
+        pap = dot(p1, p2, ap1, ap2)
+        nonzero = (pap.abs() > 0).float()
+        alpha = active * nonzero * rsold / (pap + (1.0 - nonzero))
+        x1, x2 = x1 + alpha * p1, x2 + alpha * p2
+        r1, r2 = r1 - alpha * ap1, r2 - alpha * ap2
+        rsnew = dot(r1, r2, r1, r2)
+        still = active * (rsnew >= cg_tol).float()
+        beta = still * rsnew / (rsold + (rsold <= 0).float())
+        p1 = still * (r1 + beta * p1) + (1.0 - still) * p1
+        p2 = still * (r2 + beta * p2) + (1.0 - still) * p2
+        rsold = still * rsnew + (1.0 - still) * rsold
+        active = still
+    return x1, x2
+
+
+def fused_gram_cg_wide_plain(g1, g2, vals, nnz, x01, x02, lam: float,
+                             cg_iters: int = 6, cg_tol: float = 1e-4):
+    """pallas_solve.fused_gram_cg_wide in plain torch: g1 (R, P, 128) and
+    g2 (R, P, f2) are the lane blocks of the gathered rows. Three f32
+    einsums (A11, A12, A22), the diagonal on A11 and A22, the two-block
+    CG, and the train error on the blocked system. Returns x1 (R, 128),
+    x2 (R, f2), se (R, 1)."""
+    g1, g2, v = g1.float(), g2.float(), vals.float()
+    a11 = torch.einsum("rpf,rpg->rfg", g1, g1)
+    a12 = torch.einsum("rpf,rpg->rfg", g1, g2)
+    a22 = torch.einsum("rpf,rpg->rfg", g2, g2)
+    b1 = torch.einsum("rp,rpf->rf", v, g1)
+    b2 = torch.einsum("rp,rpf->rf", v, g2)
+    r2 = (v * v).sum(-1, keepdim=True)
+    del g1, g2
+    nnzf = nnz.float()
+    diag = nnzf * lam + (nnzf == 0).float()
+    a11 = a11 + diag[:, None, None] * _eye(a11.shape[-1], a11.device)
+    a22 = a22 + diag[:, None, None] * _eye(a22.shape[-1], a22.device)
+    x1, x2 = cg_loop_wide_plain(a11, a12, a22, b1, b2, x01.float(),
+                                x02.float(), cg_iters, cg_tol)
+    live = (nnzf > 0).float()[:, None]
+    x1, x2 = x1 * live, x2 * live
+    cross = (x1 * b1).sum(-1, keepdim=True) + (x2 * b2).sum(-1, keepdim=True)
+    aq1 = torch.einsum("rfg,rg->rf", a11, x1) + \
+        torch.einsum("rfg,rg->rf", a12, x2)
+    aq2 = torch.einsum("rfg,rf->rg", a12, x1) + \
+        torch.einsum("rfg,rg->rf", a22, x2)
+    quad = (x1 * aq1).sum(-1, keepdim=True) + \
+        (x2 * aq2).sum(-1, keepdim=True) - diag[:, None] * (
+            (x1 * x1).sum(-1, keepdim=True) + (x2 * x2).sum(-1, keepdim=True))
+    return x1, x2, torch.clamp_min(r2 - 2.0 * cross + quad, 0.0)
+
+
+def gather_gram_cg_wide_plain(table_ext, cols, vals, nnz, x0, lam: float,
+                              f2: int, cg_iters: int = 6,
+                              cg_tol: float = 1e-4):
+    """Plain version of K7: index_select on the two lane ranges, then
+    fused_gram_cg_wide_plain; lanes >= 128 + f2 of x are zero."""
+    r, p = cols.shape
+    idx = cols.reshape(-1).long()
+    g1 = table_ext[:, :128].index_select(0, idx).reshape(r, p, 128)
+    g2 = table_ext[:, 128:128 + f2].index_select(0, idx).reshape(r, p, f2)
+    x1, x2, se = fused_gram_cg_wide_plain(
+        g1, g2, vals, nnz, x0[:, :128], x0[:, 128:128 + f2], lam, cg_iters,
+        cg_tol)
+    return torch.cat([x1, x2, x1.new_zeros((r, 128 - f2))], dim=1), se
+
+
+def gather_gram_cg_wide(table_ext, cols, vals, nnz, x0, lam: float, f2: int,
+                        cg_iters: int = 6, cg_tol: float = 1e-4):
+    """Solve one chunk of rows at a factor width 128 < F <= 256 over its
+    128 + f2 live lanes only (pallas_solve.gather_gram_cg_wide):
+    gather + two-block Gram + regularized CG + per-row train error.
+
+    table_ext (n+1, 256) f32/bf16, zero-extended (a bf16 run casts the
+    table before the gather); cols (R, P) int32, pad id n, pad slots at
+    each row's tail; vals (R, P) f32/bf16; nnz (R,) int32; x0 (R, 256)
+    f32; f2 = wide_f2(F) in {32, 64, 96, 128}. Lanes >= 128 + f2 of the
+    table and of x0 are neither read nor computed. Returns x (R, 256) f32
+    with lanes >= 128 + f2 exactly 0 and se (R, 1) f32."""
+    if f2 not in (32, 64, 96, 128):
+        raise ValueError(f"gather_gram_cg_wide: f2 must be 32, 64, 96 or "
+                         f"128, got {f2}")
+    if _on_cpu(table_ext, cols, vals, nnz, x0):
+        return gather_gram_cg_wide_plain(table_ext, cols, vals, nnz, x0,
+                                         lam, f2, cg_iters, cg_tol)
+    r, p = cols.shape
+    _check("table_ext", table_ext, (table_ext.shape[0], 256), _FLOATS)
+    _check("cols", cols, (r, p), (torch.int32,))
+    _check("vals", vals, (r, p), _FLOATS)
+    _check("nnz", nnz, (r,), (torch.int32,))
+    _check("x0", x0, (r, 256), (torch.float32,))
+    x = torch.empty((r, 256), dtype=torch.float32, device=x0.device)
+    se = torch.empty((r, 1), dtype=torch.float32, device=x0.device)
+    if r:
+        _launch("gather_gram_cg_wide", table_ext.data_ptr(),
+                _bf16(table_ext), cols.data_ptr(), vals.data_ptr(),
+                _bf16(vals), nnz.data_ptr(), x0.data_ptr(), x.data_ptr(),
+                se.data_ptr(), r, p, int(f2), float(lam), int(cg_iters),
+                float(cg_tol))
+    return x, se
+
+
+def fused_gram_cg_cat_plain(g1, g2, vals, nnz, x0, lam: float,
+                            cg_iters: int = 6, cg_tol: float = 1e-4):
+    """Plain version of K8: cat + zero pad to 256 lanes, f32 einsums,
+    then the monolithic tail (_solve_and_se)."""
+    r, p, _ = g1.shape
+    g = torch.cat([g1, g2, g1.new_zeros((r, p, 128 - g2.shape[2]))],
+                  dim=2).float()
+    v = vals.float()
+    a = torch.einsum("rpf,rpg->rfg", g, g)
+    b = torch.einsum("rp,rpf->rf", v, g)
+    r2 = (v * v).sum(-1, keepdim=True)
+    del g
+    return _solve_and_se(a, b, r2, nnz, x0, lam, cg_iters, cg_tol)
+
+
+def fused_gram_cg_cat(g1, g2, vals, nnz, x0, lam: float, cg_iters: int = 6,
+                      cg_tol: float = 1e-4):
+    """Fused Gram + CG over a lane-packed, already gathered G
+    (pallas_solve.fused_gram_cg_cat): g1 (R, P, 128) and g2 (R, P, f2),
+    f2 <= 128, both f32 or both bf16, joined to 256 lanes with zeros
+    above 128 + f2; vals (R, P) f32/bf16; nnz (R,) int32; x0 (R, 256)
+    f32. Solves the full 256-lane system (the dead lanes carry the
+    diagonal only). Returns x (R, 256) f32 and se (R, 1) f32."""
+    if _on_cpu(g1, g2, vals, nnz, x0):
+        return fused_gram_cg_cat_plain(g1, g2, vals, nnz, x0, lam, cg_iters,
+                                       cg_tol)
+    r, p, _ = g1.shape
+    f2 = g2.shape[2] if g2.dim() == 3 else 0
+    if not 1 <= f2 <= 128:
+        raise ValueError(f"fused_gram_cg_cat: g2 must hold 1 to 128 lanes, "
+                         f"got shape {tuple(g2.shape)}")
+    _check("g1", g1, (r, p, 128), _FLOATS)
+    _check("g2", g2, (r, p, f2), (g1.dtype,))
+    _check("vals", vals, (r, p), _FLOATS)
+    _check("nnz", nnz, (r,), (torch.int32,))
+    _check("x0", x0, (r, 256), (torch.float32,))
+    x = torch.empty((r, 256), dtype=torch.float32, device=x0.device)
+    se = torch.empty((r, 1), dtype=torch.float32, device=x0.device)
+    if r:
+        _launch("fused_gram_cg_cat", g1.data_ptr(), g2.data_ptr(),
+                _bf16(g1), vals.data_ptr(), _bf16(vals), nnz.data_ptr(),
+                x0.data_ptr(), x.data_ptr(), se.data_ptr(), r, p, f2,
+                float(lam), int(cg_iters), float(cg_tol))
+    return x, se

@@ -10,11 +10,13 @@ contract the kernels rely on:
   - `cols` pads with the id one past the gather table, whose row is
     zero, and `vals` pads with 0, so pad slots add nothing;
   - pad slots sit at the tail of each row (the kernels may stop at the
-    row's nnz);
+    row's nnz); a SplitChunk pads each part's segment at its own tail
+    instead and is compacted (flatten_split_chunk) before a kernel sees
+    it;
   - ragged tail rows of a chunk have `rows == num_rows`, `nnz == 0` and
     all-pad slots; the write-back skips them.
 
-The split and batched-panel plans are not ported yet.
+The batched-panel plan is not ported yet.
 """
 
 from __future__ import annotations
@@ -298,6 +300,287 @@ def build_panel_plan(csr: CSRMatrix, panel_size: int = 1 << 16,
                      chunks=chunks,
                      row_nnz=row_nnz.astype(np.int32),
                      true_nnz=int(row_nnz.sum()), padded_nnz=padded)
+
+
+@dataclasses.dataclass
+class SplitChunk:
+    """A bucket chunk whose gather indices are split across fixed-size
+    *parts* of the (permuted) gather table. The row's G block is the
+    concatenation of the per-part gathers along the contraction axis, so
+    one fused Gram+CG instance still sees the whole row and no partial
+    Gram accumulators exist on this route.
+
+    Contract:
+      - `parts[i]` is the part id of `cols[i]` (ascending);
+      - `cols[i]` is (R, widths[i]) int32 LOCAL to that part, padded
+        with part_size (each part's gather table carries one zero
+        extension row at index part_size);
+      - `vals` is (R, sum(widths)) f32, segment i aligned with cols[i]
+        in concatenation order, 0-padded;
+      - dummy tail rows have rows == num_rows and nnz == 0.
+
+    Every segment pads at its OWN tail, so inside one row live slots of
+    a later part follow pad slots of an earlier one, and `nnz` is the
+    row's true total: a consumer that stops at nnz must compact the row
+    first (flatten_split_chunk).
+    """
+    parts: tuple          # included part ids, ascending
+    widths: tuple         # per included part: padded width
+    rows: np.ndarray      # (R,) int32
+    nnz: np.ndarray       # (R,) int32 true total row lengths
+    cols: tuple           # per included part: (R, W_i) int32 part-local
+    vals: np.ndarray      # (R, sum(widths)) float32
+
+    @property
+    def num_rows(self) -> int:
+        return int(self.rows.shape[0])
+
+    @property
+    def width(self) -> int:
+        return int(sum(self.widths))
+
+    @property
+    def padded_nnz(self) -> int:
+        return self.num_rows * self.width
+
+
+@dataclasses.dataclass
+class SplitPlan:
+    """Direct (non-accumulating) phase layout over a popularity-permuted,
+    part-split gather table, for phases whose gather table AND
+    accumulators are both large. `perm` maps permuted slot -> original
+    table row; part k of the permuted table is rows [k*part_size,
+    (k+1)*part_size). The popularity ordering concentrates the nonzero
+    mass in part 0, which keeps the per-part padding tails small."""
+    num_rows: int
+    num_cols: int          # gather-table rows (original space)
+    part_size: int
+    n_parts: int
+    perm: np.ndarray       # (num_cols,) int32
+    chunks: List[SplitChunk]
+    true_nnz: int
+    padded_nnz: int
+
+    @property
+    def expansion(self) -> float:
+        return self.padded_nnz / max(1, self.true_nnz)
+
+
+def flatten_split_chunk(chunk: SplitChunk, plan: SplitPlan) -> PlanChunk:
+    """A SplitChunk in the layout of the direct route, for kernels that
+    gather themselves and stop at each row's nnz.
+
+    With the gather inside the kernels there is no per-part gather to
+    keep small, so the per-part column blocks are joined into ONE id
+    space over the permuted table (part k's local id c becomes
+    k * part_size + c, every pad slot the id num_cols of the one zero
+    row), and each row is compacted: live slots first, in their stored
+    order, pad slots at the tail."""
+    s, pad = plan.part_size, plan.num_cols
+    cols = np.concatenate(
+        [np.where(c == s, pad, c + k * s)
+         for k, c in zip(chunk.parts, chunk.cols)], axis=1).astype(np.int32)
+    order = np.argsort(cols == pad, axis=1, kind="stable")
+    return PlanChunk(width=chunk.width, rows=chunk.rows, nnz=chunk.nnz,
+                     cols=np.take_along_axis(cols, order, axis=1),
+                     vals=np.take_along_axis(chunk.vals, order, axis=1))
+
+
+def _merge_tuple_groups(raw_groups, grid_w, max_groups: int):
+    """Greedy min-cost merging of lexicographically adjacent width-tuple
+    groups: (a) until the group count is at most max_groups, and (b)
+    beyond that whenever a merge SAVES padding: merging two groups pads
+    every row to the elementwise-max tuple, but NOT merging pays each
+    group's ragged chunk tail (8-row minimum + mantissa rounding), which
+    dominates for the long tail of tiny tuple groups.
+
+    raw_groups: [(lo, hi, widx)] over the lex-sorted row order, widx the
+    per-part width-grid INDEX tuple (0 = part unused). Returns
+    [(lo, hi, per-part grid widths)].
+    """
+    import heapq
+
+    n = len(raw_groups)
+    if n == 0:
+        return []
+    lo = [g[0] for g in raw_groups]
+    hi = [g[1] for g in raw_groups]
+    wid = [g[2] for g in raw_groups]
+    rows = [h - l for l, h in zip(lo, hi)]
+    nxt = list(range(1, n)) + [-1]
+    prv = [-1] + list(range(n - 1))
+    alive = [True] * n
+    ver = [0] * n
+
+    def wsum(i):
+        return int(grid_w(wid[i]).sum())
+
+    def ragged(r, s):
+        # padding the ragged chunk tail costs: dummy rows up to the
+        # 8-row floor plus ~6% mantissa rounding of one chunk
+        return (max(8, -(-r // 8) * 8) - r) * s + (s * min(r, 128)) // 16
+
+    def cost(i, j):
+        wm = np.maximum(wid[i], wid[j])
+        sm = int(grid_w(wm).sum())
+        merge_pad = rows[i] * (sm - wsum(i)) + rows[j] * (sm - wsum(j))
+        save = ragged(rows[i], wsum(i)) + ragged(rows[j], wsum(j)) \
+            - ragged(rows[i] + rows[j], sm)
+        return merge_pad - save
+
+    heap = []
+    for i in range(n - 1):
+        heapq.heappush(heap, (cost(i, i + 1), ver[i], ver[i + 1], i,
+                              i + 1))
+    count = n
+    while heap:
+        c, vi, vj, i, j = heapq.heappop(heap)
+        if not (alive[i] and alive[j]) or ver[i] != vi or ver[j] != vj \
+                or nxt[i] != j:
+            continue
+        if c >= 0 and count <= max_groups:
+            break
+        # merge j into i
+        wid[i] = np.maximum(wid[i], wid[j])
+        hi[i] = hi[j]
+        rows[i] += rows[j]
+        alive[j] = False
+        nxt[i] = nxt[j]
+        if nxt[i] >= 0:
+            prv[nxt[i]] = i
+        ver[i] += 1
+        count -= 1
+        if prv[i] >= 0:
+            heapq.heappush(heap, (cost(prv[i], i), ver[prv[i]], ver[i],
+                                  prv[i], i))
+        if nxt[i] >= 0:
+            heapq.heappush(heap, (cost(i, nxt[i]), ver[i], ver[nxt[i]],
+                                  i, nxt[i]))
+    return [(lo[i], hi[i], grid_w(wid[i])) for i in range(n) if alive[i]]
+
+
+def build_split_plan(
+    csr: CSRMatrix,
+    part_size: int,
+    min_width: int = 8,
+    max_width: int = 1 << 18,
+    chunk_nnz: int = 1 << 22,
+    chunk_rows: int = 1 << 14,
+    octave_points: int = 8,
+    by_popularity: bool = True,
+    max_groups: int = 96,
+) -> SplitPlan:
+    """The split route's plan: rows grouped by their quantized per-part
+    width tuple, so every row in a group pads each part to ITS OWN
+    quantized width; adjacent groups merge (_merge_tuple_groups) to
+    bound the number of chunk shapes; per chunk, one padded column block
+    per included part."""
+    m, n = csr.num_rows, csr.num_cols
+    row_nnz = np.diff(csr.indptr).astype(np.int64)
+    nnz_total = int(row_nnz.sum())
+    n_parts = max(1, -(-n // part_size))
+
+    # Popularity permutation of the gather table: most-rated columns
+    # first, so part 0 carries most of the mass.
+    if by_popularity and n_parts > 1:
+        pop = np.bincount(csr.indices, minlength=n)
+        perm = np.argsort(-pop, kind="stable").astype(np.int32)
+    else:
+        perm = np.arange(n, dtype=np.int32)
+    rank = np.empty(n, np.int32)
+    rank[perm] = np.arange(n, dtype=np.int32)
+
+    # Per-nonzero part/local ids and a stable (row, part) grouping.
+    new_flat = rank[csr.indices]
+    part_flat = (new_flat // part_size).astype(np.int32)
+    local_flat = (new_flat - part_flat.astype(np.int64) * part_size
+                  ).astype(np.int32)
+    row_ids = np.repeat(np.arange(m, dtype=np.int64), row_nnz)
+    key = row_ids * n_parts + part_flat
+    order = np.argsort(key, kind="stable")
+    h = np.bincount(key, minlength=m * n_parts).reshape(m, n_parts)
+    grp_off = np.zeros(m * n_parts + 1, np.int64)
+    np.cumsum(h.reshape(-1), out=grp_off[1:])
+    del key, row_ids, new_flat
+
+    max_nnz = int(row_nnz.max()) if row_nnz.size else 0
+    widths = make_width_grid(min_width, max_nnz, max_width=max_width,
+                             octave_points=octave_points)
+    warr = np.asarray(widths, np.int64)
+
+    # rows in lexicographic order of their width-index tuples
+    nonempty = np.nonzero(row_nnz > 0)[0]
+    nw = len(warr)
+    qidx = np.minimum(np.searchsorted(warr, h[nonempty]), nw - 1)
+    qidx = np.where(h[nonempty] > 0, qidx + 1, 0).astype(np.int32)
+    o = np.lexsort(tuple(qidx[:, k]
+                         for k in range(n_parts - 1, -1, -1)))
+    nonempty = nonempty[o]
+    q_sorted = qidx[o]
+
+    local_sorted = local_flat[order]
+    vals_sorted = np.asarray(csr.data, np.float32)[order]
+
+    if nonempty.size:
+        change = np.any(q_sorted[1:] != q_sorted[:-1], axis=1)
+        bounds = np.concatenate([[0], np.flatnonzero(change) + 1,
+                                 [nonempty.size]])
+    else:
+        bounds = np.asarray([0, 0])
+
+    def _grid_w(widx):
+        return np.where(widx > 0, warr[np.maximum(widx - 1, 0)], 0)
+
+    groups = _merge_tuple_groups(
+        [(int(bounds[i]), int(bounds[i + 1]),
+          q_sorted[int(bounds[i])].copy())
+         for i in range(len(bounds) - 1)
+         if bounds[i] < bounds[i + 1]],
+        _grid_w, max_groups)
+
+    chunks: List[SplitChunk] = []
+    padded_total = 0
+    for g_lo, g_hi, wq in groups:
+        rows_g = nonempty[g_lo:g_hi]
+        width = int(wq.sum())
+        rows_per_chunk = _rows_per_chunk(width, chunk_nnz, chunk_rows)
+        inc = np.nonzero(wq)[0]
+        for lo in range(0, rows_g.size, rows_per_chunk):
+            rows_c = rows_g[lo:lo + rows_per_chunk]
+            r = rows_c.size
+            r_pad = rows_per_chunk if r == rows_per_chunk else \
+                _round_rows(r, rows_per_chunk)
+            hc = h[rows_c]                       # (r, n_parts)
+            cols_parts, vals_parts = [], []
+            rows_out = np.full(r_pad, m, np.int32)
+            rows_out[:r] = rows_c
+            nnz_out = np.zeros(r_pad, np.int32)
+            nnz_out[:r] = row_nnz[rows_c]
+            for k in inc:
+                wk = int(wq[k])
+                ck = np.full((r_pad, wk), part_size, np.int32)
+                vk = np.zeros((r_pad, wk), np.float32)
+                offs = grp_off[rows_c * n_parts + k]
+                lens = hc[:, k]
+                arange_w = np.arange(wk, dtype=np.int64)[None, :]
+                idx = offs[:, None] + arange_w
+                mask = arange_w < lens[:, None]
+                idx = np.where(mask, idx, 0)
+                ck[:r] = np.where(mask, local_sorted[idx], part_size)
+                vk[:r] = np.where(mask, vals_sorted[idx], 0.0)
+                cols_parts.append(ck)
+                vals_parts.append(vk)
+            vals_cat = np.concatenate(vals_parts, axis=1) if vals_parts \
+                else np.zeros((r_pad, 0), np.float32)
+            chunk = SplitChunk(parts=tuple(int(k) for k in inc),
+                               widths=tuple(int(wq[k]) for k in inc),
+                               rows=rows_out, nnz=nnz_out,
+                               cols=tuple(cols_parts), vals=vals_cat)
+            chunks.append(chunk)
+            padded_total += chunk.padded_nnz
+    return SplitPlan(num_rows=m, num_cols=n, part_size=part_size,
+                     n_parts=n_parts, perm=perm, chunks=chunks,
+                     true_nnz=nnz_total, padded_nnz=padded_total)
 
 
 def _materialize_chunk(csr: CSRMatrix, rows: np.ndarray, width: int,

@@ -345,9 +345,15 @@ def test_new_plain_routes_count_no_launch():
     diag = nnz.float() + 1.0
     cs.solve_cg_aug(a, diag, x0)
     cs.solve_cg(a, x0, x0)
+    wide = torch.zeros((table.shape[0], 256))
+    x0w = torch.zeros((x0.shape[0], 256))
+    cs.gather_gram_cg_wide(wide, cols, vals, nnz, x0w, LAM, 32)
+    g = torch.zeros(cols.shape + (128,))
+    cs.fused_gram_cg_cat(g, g[:, :, :32].contiguous(), vals, nnz, x0w, LAM)
     assert set(cs.LAUNCHES) == {
         "gather_gram_cg", "gather_gram_out", "solve_cg_reg", "solve_cg",
-        "gather_gram_aug_out", "solve_cg_aug", "gather_gram_cg_aug"}
+        "gather_gram_aug_out", "solve_cg_aug", "gather_gram_cg_aug",
+        "gather_gram_cg_wide", "fused_gram_cg_cat"}
     assert sum(cs.LAUNCHES.values()) == 0
 
 

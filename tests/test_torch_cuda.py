@@ -7,7 +7,9 @@ suite's conftest:
 
 Tolerances as in tests/test_torch_kernels.py and tests/test_torch_aug.py:
 rtol 1e-5 for an f32 A or A' and for b, one bf16 ulp for a bf16 A or A',
-2e-3 absolute for x and se at CG-6."""
+2e-3 absolute for x and se at CG-6; the 256-lane kernels (K7, K8, K1 at
+f = 256) as in tests/test_torch_wide.py: dead lanes and empty rows
+exactly 0, K8 against K1 at f = 256 on the same G rtol 1e-5."""
 
 import numpy as np
 import pytest
@@ -119,6 +121,67 @@ def test_aug_kernels_match_plain(card, f, dtype):
         "solve_cg_aug": 1, "solve_cg": 1}
 
 
+def _wide_chunk(f_true, dtype, seed=2):
+    """A chunk over a 256-lane table whose lanes >= f_true are zero, and
+    a warm start that is zero there too."""
+    cpu = _chunk(256, seed=seed)
+    cpu[0][:, f_true:] = 0.0
+    cpu[4][:, f_true:] = 0.0
+    cpu[0] = cpu[0].to(dtype)
+    cpu[2] = cpu[2].to(dtype)
+    return cpu
+
+
+@pytest.mark.parametrize("f_true", [130, 161, 200, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_kernel_matches_plain(card, f_true, dtype):
+    """K7 at every f2 (32, 64, 96, 128) against its plain version."""
+    f2 = cs.wide_f2(f_true)
+    cpu = _wide_chunk(f_true, dtype)
+    gpu = [t.to(card) for t in cpu]
+    x, se = cs.gather_gram_cg_wide(*gpu, LAM, f2)
+    px, pse = cs.gather_gram_cg_wide(*cpu, LAM, f2)
+    torch.testing.assert_close(x.cpu(), px, atol=2e-3, rtol=0)
+    torch.testing.assert_close(se.cpu(), pse, atol=2e-3, rtol=1e-4)
+    assert torch.all(x[3] == 0) and torch.all(x[:, 128 + f2:] == 0)
+    # the kernel reads no lane >= 128 + f2: garbage there changes nothing
+    dirty = gpu[0].clone()
+    dirty[:, 128 + f2:] = 7.0
+    x0_dirty = gpu[4].clone()
+    x0_dirty[:, 128 + f2:] = 7.0
+    x2, se2 = cs.gather_gram_cg_wide(dirty, gpu[1], gpu[2], gpu[3],
+                                     x0_dirty, LAM, f2)
+    assert torch.equal(x2, x) and torch.equal(se2, se)
+    assert cs.LAUNCHES == dict.fromkeys(cs.LAUNCHES, 0) | {
+        "gather_gram_cg_wide": 2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_at_256_and_cat_kernel_match_plain(card, dtype):
+    """K1 at f = 256 and K8 against their plain versions, and K8 against
+    K1 at f = 256 on the same G (every slot within nnz, as K8 walks all
+    P slots)."""
+    cpu = _wide_chunk(200, dtype, seed=3)
+    gpu = [t.to(card) for t in cpu]
+    x, se = cs.gather_gram_cg(*gpu, LAM)
+    px, pse = cs.gather_gram_cg(*cpu, LAM)
+    torch.testing.assert_close(x.cpu(), px, atol=2e-3, rtol=0)
+    torch.testing.assert_close(se.cpu(), pse, atol=2e-3, rtol=1e-4)
+    assert torch.all(x[3] == 0)
+    f2 = cs.wide_f2(200)
+    g = cpu[0].index_select(0, cpu[1].reshape(-1).long()).reshape(R, P, 256)
+    g1, g2 = g[:, :, :128].contiguous(), g[:, :, 128:128 + f2].contiguous()
+    cat_cpu = (g1, g2, cpu[2], cpu[3], cpu[4])
+    xc, sec = cs.fused_gram_cg_cat(*(t.to(card) for t in cat_cpu), LAM)
+    pxc, psec = cs.fused_gram_cg_cat(*cat_cpu, LAM)
+    torch.testing.assert_close(xc.cpu(), pxc, atol=2e-3, rtol=0)
+    torch.testing.assert_close(sec.cpu(), psec, atol=2e-3, rtol=1e-4)
+    torch.testing.assert_close(xc, x, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(sec, se, rtol=1e-5, atol=1e-6)
+    assert cs.LAUNCHES == dict.fromkeys(cs.LAUNCHES, 0) | {
+        "gather_gram_cg": 1, "fused_gram_cg_cat": 1}
+
+
 def test_solve_dispatch_launches_a_kernel_or_raises(card):
     """On the card, solve(cg, pallas) launches K3, K4 or K5b and never
     runs the plain torch CG; what the kernels do not take raises."""
@@ -161,4 +224,23 @@ def test_wrappers_reject_what_the_kernels_do_not_take(card):
                           aug=True)
     with pytest.raises(ValueError):     # int64 ids
         cs.gather_gram_aug_out(table, cols.long(), vals)
+    # f = 256: K1 alone takes it; K6 and the panel kernels name themselves
+    wide = torch.zeros((N + 1, 256), device=card)
+    x0w = torch.zeros((R, 256), device=card)
+    with pytest.raises(ValueError, match="gather_gram_cg_aug"):
+        cs.gather_gram_cg(wide, cols, vals, nnz, x0w, LAM, aug=True)
+    with pytest.raises(ValueError, match="gather_gram_out"):
+        cs.gather_gram_out(wide, cols, vals)
+    with pytest.raises(ValueError, match="gather_gram_aug_out"):
+        cs.gather_gram_aug_out(wide, cols, vals)
+    with pytest.raises(ValueError):     # a 128-lane table
+        cs.gather_gram_cg_wide(table, cols, vals, nnz, x0w, LAM, 32)
+    with pytest.raises(ValueError):     # f2 off the grid
+        cs.gather_gram_cg_wide(wide, cols, vals, nnz, x0w, LAM, 48)
+    g1 = torch.zeros((R, P, 128), device=card)
+    with pytest.raises(ValueError):     # g2 of another dtype than g1
+        cs.fused_gram_cg_cat(g1, g1[:, :, :32].bfloat16().contiguous(),
+                             vals, nnz, x0w, LAM)
+    with pytest.raises(ValueError):     # a strided g2
+        cs.fused_gram_cg_cat(g1, g1[:, :, :32], vals, nnz, x0w, LAM)
     assert sum(cs.LAUNCHES.values()) == 0

@@ -190,11 +190,22 @@ def test_phase_strategy_matches(jax_fused_available, medium_problem, fields,
 
 
 def test_unported_strategies_raise(medium_problem):
+    """The batched-panel strategy still raises; the split strategy builds
+    its plan."""
     train, test = medium_problem
     cfg = ALSConfig(m=train.num_rows, n=train.num_cols, f=16,
                     panel_size=64, panel_budget_bytes=1 << 20)
+    al = ALS.__new__(ALS)
+    al.cfg = cfg
+    assert al._phase_strategy(_port_csr(train)) == "batched_panel"
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         ALS(cfg, _port_csr(train), None, None, device="cpu")
+    split = ALS(cfg.replace(backend="pallas",
+                            gather_part_bytes=64 * 128 * 4,
+                            split_min_table_bytes=0), _port_csr(train),
+                None, None, device="cpu")
+    assert isinstance(split.plan_x[0], tiling.SplitPlan)
+    assert isinstance(split.plan_theta[0], tiling.SplitPlan)
 
 
 def test_panel_route_matches_direct(medium_problem):

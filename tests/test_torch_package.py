@@ -102,6 +102,26 @@ def test_interop_round_trip(tmp_path):
             from_reference(fields, x, th)
 
 
+@pytest.mark.parametrize("f,f_pad", [(130, 256), (200, 256), (256, 256)])
+def test_interop_pads_wide_factors(f, f_pad):
+    """F > 128 pads to 256 lanes both ways, as in the JAX package."""
+    import dataclasses
+    jcfg = JConfig(m=30, n=20, f=f, wide_kernel="on", backend="pallas")
+    assert jcfg.f_pad == f_pad
+    x0, th0 = init_factors(30, 20, f, seed=3)
+    cfg, xt, tt = from_reference(dataclasses.asdict(jcfg), x0, th0,
+                                 device="cpu")
+    assert cfg.f_pad == f_pad and cfg.wide_kernel == "on"
+    assert xt.shape == (30, f_pad) and tt.shape == (20, f_pad)
+    assert torch.all(xt[:, f:] == 0) and torch.all(tt[:, f:] == 0)
+    fields, x2, th2 = to_reference(cfg, xt, tt)
+    assert JConfig(**fields) == jcfg
+    np.testing.assert_array_equal(x2, x0)
+    np.testing.assert_array_equal(th2, th0)
+    with pytest.raises(ValueError):     # neither F nor f_pad wide
+        from_reference(fields, x0[:, :128], th0, device="cpu")
+
+
 def test_resume_from_jax_checkpoint_matches_jax(tmp_path):
     """A port run resumed from a JAX checkpoint takes the same next step
     as the JAX run resumed from it."""
