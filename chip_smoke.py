@@ -6,11 +6,19 @@ Phases, each of which must pass (any failure exits non-zero before the
 result line):
 
 1. card and build: the card's name and power limit, the torch/CUDA
-   versions, and the build of every CUDA kernel from csrc/ (nine);
+   versions, and the build of every CUDA kernel from csrc/ (nine) with
+   `-Xptxas -v`: registers, spills and added wgmma waits of the
+   tensor-core Gram kernels;
 2. each kernel against its plain PyTorch version on the card, on real
    chunks of the Netflix-shaped plans, with kernel, plain, yardstick and
    bound times: the widest and the most populous theta-phase chunk for
-   K1 and K6, the most populous X-phase panel chunk for K2 and K5a, one
+   K1 and K6; for K2 and K5a the most populous, the widest and the
+   fewest-row X-phase panel chunk (the most populous with a bf16 and an
+   f32 A, the widest and the fewest-row one also with a float32 table,
+   which keeps the FMA body), small chunks at the edges of their 64-slot
+   tile (integer
+   tables: bit for bit, the proof of the tile layout), and their time
+   over the whole X phase split by chunks under and over 132 rows; one
    full solve slice of the X-phase accumulators for K3 (split, bf16),
    K5b (augmented, f32) and K4 (the same slice unpacked and regularized
    beforehand, through `ops.solve.solve` without a diagonal);
@@ -42,6 +50,13 @@ result line):
 
 It prints a `kernels` JSON line, the card line, and last
 {"ok": true, "device": {...}}. It imports nothing of JAX.
+
+    python3 chip_smoke.py --gram
+
+is the short call after a change to K2, K5a or csrc/gram_mma.cuh: it
+builds those two kernels alone (with the ptxas report), runs the edge
+cases and three synthetic chunk shapes against the plain versions with
+their times, and prints no result line.
 """
 
 from __future__ import annotations
@@ -74,6 +89,7 @@ REPLACES = {
 SPLIT_KERNELS = ("gather_gram_cg", "gather_gram_out", "solve_cg_reg")
 AUG_KERNELS = ("gather_gram_cg_aug", "gather_gram_aug_out", "solve_cg_aug")
 WIDE_KERNELS = ("gather_gram_cg_wide", "fused_gram_cg_cat")
+GRAM_KERNELS = ("gather_gram_out", "gather_gram_aug_out")
 DEV = "cuda"
 
 
@@ -97,6 +113,58 @@ def time_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def keep_busy(n: int) -> None:
+    """Queue n large matrix products (~1.5 ms each) on the current stream,
+    so that what the host launches next waits on the device and the
+    events between those launches read device time alone."""
+    busy = torch.ones((8192, 8192), dtype=torch.bfloat16, device=DEV)
+    for _ in range(n):
+        torch.mm(busy, busy)
+
+
+def queued_ms(fn, reps: int = 5) -> float:
+    """Median device time of fn over `reps` launches queued behind other
+    work, after one warm-up: for a kernel that can be shorter than the
+    host's work to launch it."""
+    fn()
+    torch.cuda.synchronize()
+    keep_busy(8)
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+    marks[0].record()
+    for i in range(reps):
+        fn()
+        marks[i + 1].record()
+    torch.cuda.synchronize()
+    return statistics.median(marks[i].elapsed_time(marks[i + 1])
+                             for i in range(reps))
+
+
+def gram_limit(a: torch.Tensor, a_plain: torch.Tensor, p: int, body: str):
+    """What a card's K2 or K5a is held to against the plain version: the
+    elementwise limit on |A - A_plain| and its name, for rows of p slots
+    run in `body`. Both bodies add in another order than the plain
+    version (the tensor cores also truncate where they align the terms
+    of a 16-slot step), so the error follows the size of the sum, not of
+    the value: an entry whose terms cancel keeps the error of its large
+    partial sums. The terms of A_ij sum in magnitude to at most
+    sqrt(A_ii A_jj) (Cauchy-Schwarz), so the limit is steps x 2^-23 x
+    sqrt(A_ii A_jj) + 1e-5: one f32 ulp of the sum's size for each
+    accumulation step (a slot in the FMA body, 16 slots on the tensor
+    cores) and 4 for the plain version's own rounding. A bf16 A adds one
+    bf16 ulp of the larger value: both sides round an f32 sum to
+    nearest."""
+    af, pf = a.float(), a_plain.float()
+    steps = (p if body == "fma" else -(-p // 16)) + 4
+    d = pf.diagonal(dim1=-2, dim2=-1).clamp_min(0).sqrt()
+    lim = steps * 2.0 ** -23 * d[..., :, None] * d[..., None, :] + 1e-5
+    name = f"{steps} x 2^-23 sqrt(A_ii A_jj) + 1e-5"
+    if a.dtype != torch.bfloat16:
+        return lim, name
+    big = torch.maximum(af.abs(), pf.abs())
+    ulp = torch.exp2(torch.floor(torch.log2(big.clamp_min(1e-30))) - 7)
+    return lim + ulp, name + " + one bf16 ulp"
+
+
 def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -115,6 +183,72 @@ def card_line() -> str:
     if out.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {out.stderr}")
     return out.stdout.strip().splitlines()[0]
+
+
+# ------------------------------------------------------------ phase 1 --
+def ptxas_lines(build_log):
+    """What ptxas reports for the tensor-core entry functions of K2 and
+    K5a (registers, spills, and static shared memory where it names any;
+    the tiles are dynamic shared memory), and every warning of the
+    build."""
+    import re
+    for name in GRAM_KERNELS:
+        lines = build_log.get(name, "").splitlines()
+        regs, spills, smem = [], [], []
+        for i, line in enumerate(lines):
+            if "Compiling entry function" in line and "mma_kernel" in line:
+                info = " ".join(lines[i + 1:i + 5])
+                regs += [int(x) for x in re.findall(r"Used (\d+) registers",
+                                                    info)]
+                spills += [int(x) for x in re.findall(
+                    r"(\d+) bytes spill stores", info)]
+                smem += [int(x) for x in re.findall(r"(\d+) bytes smem",
+                                                    info)]
+        # C7517: ptxas makes every turn of the tile loop wait for all of
+        # its wgmma where plain code touches the sums inside the loop;
+        # the one wait it may add stands at a row's end
+        waits = sum("C7517" in line and "mma_kernel" in line
+                    for line in lines)
+        log(f"[ptxas] {name}, the {len(regs)} tensor-core entry functions: "
+            f"registers {min(regs)}-{max(regs)}, spill stores "
+            f"{max(spills)} bytes, static shared memory "
+            f"{max(smem, default=0)} bytes (dynamic: the ring of tiles), "
+            f"wgmma waits added by ptxas (C7517): {waits}")
+    for name, out in build_log.items():
+        for line in out.splitlines():
+            if "warning" in line.lower() or "Potential" in line:
+                log(f"[ptxas] {name}: {line.strip()[:300]}")
+
+
+def gram_synthetic(cs):
+    """K2 and K5a at the shapes of the most populous X panel chunk
+    (R=2304, P=576, a 65,537-row bf16 panel) and of two chunks of few
+    long rows, on data made from a seed, without the plans: kernel vs
+    plain and the times."""
+    from types import SimpleNamespace
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    r, p, n = 2304, 4096, 65536
+    tp = (0.3 * torch.randn((n + 1, 128), generator=gen, device=DEV)
+          ).to(torch.bfloat16)
+    tp[n] = 0
+    tp[:, 127] = 0
+    nnz = torch.randint(p // 2, p + 1, (r,), generator=gen, device=DEV,
+                        dtype=torch.int32)
+    nnz[5] = 0
+    mask = torch.arange(p, device=DEV)[None, :] < nnz[:, None]
+    cols = torch.where(mask, torch.randint(0, n, (r, p), generator=gen,
+                                           device=DEV), n).to(torch.int32)
+    vals = (torch.randint(2, 11, (r, p), generator=gen, device=DEV) / 2.0
+            * mask).float()
+    ok = True
+    for rows, slots in ((2304, 576), (32, 3840), (8, 4096)):
+        ch = SimpleNamespace(cols=cols[:rows, :slots].contiguous(),
+                             vals=vals[:rows, :slots].contiguous(),
+                             nnz=nnz[:rows].clamp(max=slots), panel=0)
+        for aug in (False, True):
+            for a_dtype in (torch.bfloat16, torch.float32):
+                ok &= check_gram(cs, tp, ch, a_dtype, aug, "synthetic")[0]
+    return ok
 
 
 # ------------------------------------------------------------ phase 2 --
@@ -149,42 +283,76 @@ def check_k1(cs, table_ext, ch, theta, cfg, label, aug=False):
                     bound_by=by, library_ms=None)
 
 
-def check_k2(cs, tp, ch, a_dtype):
-    """K2 on one X-phase panel chunk: kernel vs plain, and torch.bmm on a
-    pre-gathered G as the yardstick (it leaves out the gather and b)."""
+def check_gram(cs, tp, ch, a_dtype, aug, label):
+    """K2 (or, with aug, K5a) on one X-phase panel chunk: kernel vs plain,
+    and torch.bmm on a pre-gathered (and, with aug, pre-augmented) G as
+    the yardstick: it leaves out the gather, the value splice and b, and
+    writes A in G's dtype. All three times are device time (`queued_ms`:
+    on a few-row chunk the kernel is shorter than the host's work to
+    launch it). A is held to `gram_limit`, b to 1e-5 relative;
+    the line prints the measured error relative to the size of the sum,
+    max |dA_ij| / sqrt(A_ii A_jj), in units of 2^-23."""
     args = (tp, ch.cols, ch.vals)
-    a, b = cs.gather_gram_out(*args, out_dtype=a_dtype)
-    pa, pb = cs.gather_gram_out_plain(*args, out_dtype=a_dtype)
+    if aug:
+        name, fn, plain_fn = ("K5a gather_gram_aug_out",
+                              cs.gather_gram_aug_out,
+                              cs.gather_gram_aug_out_plain)
+        a, b = fn(*args, out_dtype=a_dtype), None
+        pa = plain_fn(*args, out_dtype=a_dtype)
+    else:
+        name, fn, plain_fn = ("K2 gather_gram_out", cs.gather_gram_out,
+                              cs.gather_gram_out_plain)
+        a, b = fn(*args, out_dtype=a_dtype)
+        pa, pb = plain_fn(*args, out_dtype=a_dtype)
     af, paf = a.float(), pa.float()
-    err = (af - paf).abs().max().item()
-    big = torch.maximum(af.abs(), paf.abs())
-    # one bf16 ulp of the larger value (both round one f32 sum)
-    ulp = torch.exp2(torch.floor(torch.log2(big.clamp_min(1e-30))) - 7)
-    a_ok = bool(((af - paf).abs() <= (ulp if a_dtype == torch.bfloat16
-                                      else 1e-5 * big + 1e-5)).all())
-    b_rel = ((b - pb).abs() / pb.abs().clamp_min(1.0)).max().item()
-    del af, paf, big, ulp, a, pa
-    ms = time_ms(lambda: cs.gather_gram_out(*args, out_dtype=a_dtype))
-    plain = time_ms(lambda: cs.gather_gram_out_plain(
-        *args, out_dtype=a_dtype), reps=3)
+    diff = (af - paf).abs()
+    err = diff.max().item()
+    body = cs.gram_body(tp)
+    lim, limit = gram_limit(a, pa, ch.cols.shape[1], body)
+    a_ok = bool((diff <= lim).all())
+    d = paf.diagonal(dim1=1, dim2=2).clamp_min(0).sqrt()
+    of_sum = (diff / (d[:, :, None] * d[:, None, :]).clamp_min(1e-30)
+              )[diff > 0]
+    of_sum = of_sum.max().item() / 2.0 ** -23 if of_sum.numel() else 0.0
+    del lim
+    pad_rows = ch.nnz == 0
+    zero_ok = bool((af[pad_rows] == 0).all())
+    b_rel = 0.0
+    if b is not None:
+        b_rel = ((b - pb).abs() / pb.abs().clamp_min(1.0)).max().item()
+        zero_ok &= bool((b[pad_rows] == 0).all())
+    del af, paf, diff, d, a, pa
+    ms = queued_ms(lambda: fn(*args, out_dtype=a_dtype))
+    plain = queued_ms(lambda: plain_fn(*args, out_dtype=a_dtype), reps=3)
     r, p = ch.cols.shape
     f = tp.shape[1]
     g = tp.index_select(0, ch.cols.reshape(-1).long()).reshape(r, p, f)
+    if aug:
+        g = cs.augment_g(g, ch.vals)
     gt = g.transpose(1, 2)
-    lib = time_ms(lambda: torch.bmm(gt, g))
+    lib = queued_ms(lambda: torch.bmm(gt, g))
     del g, gt
     flops = 2.0 * float(ch.nnz.sum().item()) * f * f
     out_bytes = r * f * f * torch.tensor([], dtype=a_dtype).element_size()
-    bms, by = bound_ms(nbytes(tp, ch.cols, ch.vals) + out_bytes + r * f * 4,
-                       flops, tp.dtype)
-    ok = a_ok and b_rel <= 1e-5
-    log(f"[K2 gather_gram_out] panel {ch.panel} chunk R={r} P={p}: "
-        f"max|dA|={err:.3e} (limit one bf16 ulp: {a_ok}), max rel db="
-        f"{b_rel:.3e} (limit 1e-5); kernel {ms:.3f} ms, plain {plain:.3f} "
-        f"ms, torch.bmm on pre-gathered G (no gather, no b) {lib:.3f} ms, "
-        f"bound {bms:.4f} ms ({by}); {'OK' if ok else 'FAIL'}")
+    if not aug:
+        out_bytes += r * f * 4
+    bms, by = bound_ms(nbytes(tp, ch.cols, ch.vals) + out_bytes, flops,
+                       tp.dtype)
+    gathered = r * p * f * tp.element_size()
+    rate = gathered / (ms * 1e-3) / 1e12
+    ok = a_ok and b_rel <= 1e-5 and zero_ok
+    log(f"[{name}] {label}: panel {ch.panel} chunk R={r} P={p}, table "
+        f"{tp.dtype}, A {a_dtype}, body {body}: max|dA|={err:.3e} (limit "
+        f"{limit}: {a_ok}), max |dA_ij|/sqrt(A_ii A_jj)={of_sum:.2f} x 2^-23, "
+        f"max rel db={b_rel:.3e} (limit 1e-5), rows of pad slots only "
+        f"exactly 0: {zero_ok}; device time: kernel {ms:.3f} ms, plain "
+        f"{plain:.3f} ms, torch.bmm on pre-gathered G (no gather, no "
+        f"{'splice' if aug else 'b'}, A in G's dtype) {lib:.3f} ms, bound "
+        f"{bms:.4f} ms ({by}); gathered from the L2 {gathered / 1e6:.1f} "
+        f"MB, {rate:.3f} TB/s; {'OK' if ok else 'FAIL'}")
     return ok, dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
-                    bound_by=by, library_ms=lib)
+                    bound_by=by, library_ms=lib, body=body,
+                    gathered_bytes=gathered, gathered_tb_per_s=rate)
 
 
 def check_k3(cs, a_buf, b_buf, x0_full, row_nnz, lo, batch, cfg):
@@ -214,37 +382,83 @@ def check_k3(cs, a_buf, b_buf, x0_full, row_nnz, lo, batch, cfg):
                     bound_by=by, library_ms=None)
 
 
-def check_k5a(cs, tp, ch):
-    """K5a on one X-phase panel chunk, f32 A': kernel vs plain, and
-    torch.bmm on a pre-gathered, pre-augmented G as the yardstick (it
-    leaves out the gather and the value splice, and writes a bf16 A')."""
-    args = (tp, ch.cols, ch.vals)
-    a = cs.gather_gram_aug_out(*args)
-    pa = cs.gather_gram_aug_out_plain(*args)
-    err = (a - pa).abs().max().item()
-    ok = bool(((a - pa).abs() <= 1e-5 * torch.maximum(a.abs(), pa.abs())
-               + 1e-5).all())
-    del a, pa
-    ms = time_ms(lambda: cs.gather_gram_aug_out(*args))
-    plain = time_ms(lambda: cs.gather_gram_aug_out_plain(*args), reps=3)
-    r, p = ch.cols.shape
-    f = tp.shape[1]
-    g = cs.augment_g(tp.index_select(0, ch.cols.reshape(-1).long())
-                     .reshape(r, p, f), ch.vals)
-    gt = g.transpose(1, 2)
-    lib = time_ms(lambda: torch.bmm(gt, g))
-    del g, gt
-    flops = 2.0 * float(ch.nnz.sum().item()) * f * f
-    bms, by = bound_ms(nbytes(tp, ch.cols, ch.vals) + r * f * f * 4, flops,
-                       tp.dtype)
-    log(f"[K5a gather_gram_aug_out] panel {ch.panel} chunk R={r} P={p}, "
-        f"f32 A': max|dA'|={err:.3e} (limit rtol 1e-5 + 1e-5: {ok}); "
-        f"kernel {ms:.3f} ms, plain {plain:.3f} ms, torch.bmm on "
-        f"pre-gathered, pre-augmented G (no gather, no splice, bf16 out) "
-        f"{lib:.3f} ms, bound {bms:.4f} ms ({by}); "
-        f"{'OK' if ok else 'FAIL'}")
-    return ok, dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
-                    bound_by=by, library_ms=lib)
+def gram_edges(cs):
+    """K2 and K5a at the edges of the 64-slot tile, on small chunks made
+    from a seed: P = 8, 24, 72, 136 (one k-step, a ragged last tile, one
+    slot group past a tile, two tiles and a half k-step), P = 520 and
+    1288 (long rows: 9 and 21 tiles through the ring of 4), R = 1 and a
+    chunk with a row of pad slots only. The table holds small integers
+    and the values halves, so every sum is exact in f32 whatever its
+    order: the kernels must equal their plain versions bit for bit, which
+    proves the tile layout (a misplaced piece changes a sum). Then the
+    same shapes on a random table within `gram_limit`, for a bf16 and a
+    float32 table."""
+    rng = np.random.RandomState(7)
+    n, f = 300, 128
+    worst = {}
+    ok_all = True
+    for p in (8, 24, 72, 136, 520, 1288):
+        for r in (1, 5):
+            nnz = rng.randint(1, p + 1, (r,))
+            if r > 1:
+                nnz[2] = 0          # a row of pad slots only
+                nnz[0] = p          # a full row
+            mask = np.arange(p)[None, :] < nnz[:, None]
+            cols = torch.from_numpy(np.where(
+                mask, rng.randint(0, n, (r, p)), n).astype(np.int32)).to(DEV)
+            vals = torch.from_numpy((np.round(rng.uniform(1, 5, (r, p)) * 2)
+                                     / 2 * mask).astype(np.float32)).to(DEV)
+            for kind in ("integers", "random"):
+                if kind == "integers":
+                    tab = rng.randint(-4, 5, (n + 1, f)).astype(np.float32)
+                else:
+                    tab = (rng.standard_normal((n + 1, f)) * 0.3
+                           ).astype(np.float32)
+                tab[n] = 0.0
+                tab[:, f - 1] = 0.0     # the free lane of the aug form
+                for t_dtype, v_dtype, a_dtype in (
+                        (torch.bfloat16, torch.float32, torch.float32),
+                        (torch.bfloat16, torch.bfloat16, torch.bfloat16),
+                        (torch.float32, torch.float32, torch.float32)):
+                    table = torch.from_numpy(tab).to(DEV).to(t_dtype)
+                    args = (table, cols, vals.to(v_dtype))
+                    a, b = cs.gather_gram_out(*args, out_dtype=a_dtype)
+                    pa, pb = cs.gather_gram_out_plain(*args,
+                                                      out_dtype=a_dtype)
+                    a5 = cs.gather_gram_aug_out(*args, out_dtype=a_dtype)
+                    pa5 = cs.gather_gram_aug_out_plain(*args,
+                                                       out_dtype=a_dtype)
+                    pairs = (("K2 A", a, pa), ("K2 b", b, pb),
+                             ("K5a A'", a5, pa5))
+                    for what, got, want in pairs:
+                        got, want = got.float(), want.float()
+                        diff = (got - want).abs()
+                        big = torch.maximum(got.abs(), want.abs())
+                        if kind == "integers":
+                            ok = bool((diff == 0).all())
+                        elif what == "K2 b":
+                            ok = bool((diff <= 1e-5 * big + 1e-5).all())
+                        else:
+                            ok = bool((diff <= gram_limit(
+                                a if what == "K2 A" else a5, want, p,
+                                cs.gram_body(table))[0]).all())
+                        ok &= bool((got[nnz == 0] == 0).all())
+                        key = (what, kind)
+                        worst[key] = max(worst.get(key, 0.0),
+                                         diff.max().item())
+                        if not ok:
+                            log(f"[gram edges] FAIL {what} P={p} R={r} "
+                                f"{kind} table {t_dtype} vals {v_dtype} A "
+                                f"{a_dtype}: max|d|={diff.max().item():.3e}")
+                        ok_all &= ok
+    log(f"[gram edges] P in (8, 24, 72, 136, 520, 1288) x R in (1, 5, one "
+        f"row of pad slots only) x (bf16 table f32 A, bf16 table bf16 vals "
+        f"bf16 A, f32 table f32 A), f=128: integer tables equal the plain "
+        f"version bit for bit (the layout proof), random tables within gram_limit "
+        f"(b: rtol 1e-5 + 1e-5); worst |d| "
+        f"{ {' '.join(k): round(v, 9) for k, v in worst.items()} }; "
+        f"{'OK' if ok_all else 'FAIL'}")
+    return ok_all
 
 
 def check_k5b(cs, a, diag, x0, cfg):
@@ -391,8 +605,11 @@ def phase_totals(cs, al, theta_t, x_t):
     """Device time summed over one phase's chunks (CUDA events): the
     fused kernel (K1, or K6 when the config takes the augmented form)
     over the theta phase; the Gram kernel alone (K2 or K5a) over the X
-    phase; and the X phase's whole Gram step (that kernel + the
-    index_add_ scatter into the accumulators)."""
+    phase, chunk by chunk (the panels' tables made outside the timing),
+    split by chunks with fewer rows than the card has SMs, with the
+    bytes gathered and written; and the X phase's
+    whole Gram step (that kernel + the index_add_ scatter into the
+    accumulators)."""
     cfg = al.cfg
     f = cfg.f_pad
 
@@ -428,12 +645,48 @@ def phase_totals(cs, al, theta_t, x_t):
     gram = cs.gather_gram_aug_out if al._use_panel_aug() else \
         cs.gather_gram_out
 
-    def k2_phase():
-        for ch in chunks:
-            tp = torch.cat([th16[ch.panel * s:(ch.panel + 1) * s], zero])
-            gram(tp, ch.cols, ch.vals, out_dtype=a_dtype)
+    # The Gram kernel chunk by chunk, with the share of the chunks that
+    # hold fewer rows than the card has SMs (one block takes one row, so
+    # those leave SMs idle). A chunk's kernel can be shorter than the
+    # host's work to launch it, so the launches queue up behind a run of
+    # large matrix products and the events between them read device time.
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tables = {p: torch.cat([th16[p * s:(p + 1) * s], zero])
+              for p in sorted({ch.panel for ch in chunks})}
+    for ch in chunks[:3]:       # warm-up: the first launch loads the kernel
+        gram(tables[ch.panel], ch.cols, ch.vals, out_dtype=a_dtype)
+    torch.cuda.synchronize()
+    keep_busy(80)
+    marks = [torch.cuda.Event(enable_timing=True)
+             for _ in range(len(chunks) + 1)]
+    marks[0].record()
+    for i, ch in enumerate(chunks):
+        gram(tables[ch.panel], ch.cols, ch.vals, out_dtype=a_dtype)
+        marks[i + 1].record()
+    queued = not marks[0].query()   # the device had not reached them yet
+    torch.cuda.synchronize()
+    if not queued:
+        raise AssertionError("the Gram launches did not queue behind the "
+                             "matrix products: the events between them "
+                             "would read the host's time")
+    del tables
+    split = dict(total=0.0, few=0.0, n_few=0, gathered=0, written=0,
+                 sms=sms,
+                 widest=max(c.cols.shape[1] for c in chunks))
+    a_item = torch.tensor([], dtype=a_dtype).element_size()
+    few = []
+    for i, ch in enumerate(chunks):
+        ms = marks[i].elapsed_time(marks[i + 1])
+        split["total"] += ms
+        if ch.cols.shape[0] < sms:
+            split["few"] += ms
+            split["n_few"] += 1
+            few.append((ms, tuple(ch.cols.shape)))
+        split["gathered"] += ch.cols.numel() * f * 2
+        split["written"] += ch.cols.shape[0] * f * f * a_item
+    split["longest_few"] = sorted(few, reverse=True)[:4]
 
-    return (timed(k1_phase), timed(k2_phase),
+    return (timed(k1_phase), split,
             timed(lambda: al.accumulate_panels(theta_t, al.plan_x)))
 
 
@@ -686,12 +939,20 @@ def main() -> int:
     log(f"[card] {card}")
     log(f"[versions] python {sys.version.split()[0]} torch "
         f"{torch.__version__} cuda {torch.version.cuda}")
+    gram_only = sys.argv[1:] == ["--gram"]
     t0 = time.monotonic()
-    _build.build(force=True)
+    _build.build(GRAM_KERNELS if gram_only else None, force=True,
+                 ptxas_info=True)
     if set(_build.KERNELS) != set(REPLACES):
         raise AssertionError("the kernel table and this script disagree")
-    log(f"[build] {len(_build.KERNELS)} kernels built in "
+    log(f"[build] {len(_build.BUILD_LOG)} kernels built in "
         f"{time.monotonic() - t0:.1f} s")
+    ptxas_lines(_build.BUILD_LOG)
+    if gram_only:
+        ok = gram_edges(cs) and gram_synthetic(cs)
+        log(f"[gram] {'OK' if ok else 'FAIL'} (the short call: no result "
+            f"line)")
+        return 0 if ok else 1
 
     # ---- data and plans of the full Netflix shape (shared by 2 and 4)
     t0 = time.monotonic()
@@ -734,20 +995,67 @@ def main() -> int:
         return (max(chunks, key=lambda c: c.width),
                 max(chunks, key=lambda c: c.rows.shape[0] * c.width))
 
-    def x_chunk_and_panel(model):
-        plan, chunks, _ = model.plan_x
-        ch = max(chunks, key=lambda c: c.rows.shape[0] * c.width)
-        s = plan.panel_size
-        th16 = theta_t.to(torch.bfloat16)
-        return ch, torch.cat([th16[ch.panel * s:(ch.panel + 1) * s],
-                              th16.new_zeros((1, cfg.f_pad))])
-
     def totals(model, names):
-        k1_tot, k2_tot, gram_tot = phase_totals(cs, model, theta_t, x_t)
+        k1_tot, x, gram_tot = phase_totals(cs, model, theta_t, x_t)
+        n_x = len(model.plan_x[1])
         log(f"[phase totals] {names[0]} over the {len(model.plan_theta[1])} "
-            f"theta chunks {k1_tot:.1f} ms; {names[1]} over the "
-            f"{len(model.plan_x[1])} X chunks {k2_tot:.1f} ms; X-phase Gram "
-            f"step ({names[1]} + index_add_) {gram_tot:.1f} ms")
+            f"theta chunks {k1_tot:.1f} ms; {names[1]} over the {n_x} X "
+            f"chunks {x['total']:.1f} ms, of which {x['few']:.1f} ms in the "
+            f"{x['n_few']} chunks with fewer than {x['sms']} rows (the "
+            f"longest of them, ms and (R, P): "
+            f"{[(round(m, 3), rp) for m, rp in x['longest_few']]}; device "
+            f"time between events, launches queued behind other work); "
+            f"the widest chunk: {x['widest']} slots; it "
+            f"gathered "
+            f"{x['gathered'] / 1e9:.2f} GB from the L2 and wrote "
+            f"{x['written'] / 1e9:.2f} GB, "
+            f"{x['gathered'] / x['total'] / 1e9:.3f} TB/s gathered over the "
+            f"phase; X-phase Gram step ({names[1]} + index_add_) "
+            f"{gram_tot:.1f} ms")
+
+    def x_chunks_and_panels(model):
+        """The most populous, the widest and the fewest-row chunk of the
+        X phase, each with its panel's zero-extended bf16 table."""
+        plan, chunks, _ = model.plan_x
+        s = plan.panel_size
+        th16 = torch.nn.functional.pad(
+            theta_t.to(torch.bfloat16),
+            (0, 0, 0, plan.n_panels * s - theta_t.shape[0]))
+        picks = (("most populous",
+                  max(chunks, key=lambda c: c.rows.shape[0] * c.width)),
+                 ("widest", max(chunks, key=lambda c: c.width)),
+                 ("fewest rows", min(chunks, key=lambda c: c.rows.shape[0])))
+        return [(label, ch, torch.cat(
+            [th16[ch.panel * s:(ch.panel + 1) * s],
+             th16.new_zeros((1, cfg.f_pad))])) for label, ch in picks]
+
+    def check_grams(model, aug, a_dtype, key):
+        """K2 (or, with aug, K5a) on the three chunks (the most populous fills
+        results[key], the other two add their times to it), on the most
+        populous also with the other A dtype, and on the widest and the
+        fewest-row chunk with a float32 table, which takes the FMA body."""
+        ok_all = True
+        for label, ch, tp in x_chunks_and_panels(model):
+            ok, res = check_gram(cs, tp, ch, a_dtype, aug, label)
+            ok_all &= ok
+            if label == "most populous":
+                results[key] = res
+                other = torch.float32 if a_dtype == torch.bfloat16 else \
+                    torch.bfloat16
+                ok, res = check_gram(cs, tp, ch, other, aug, label)
+                ok_all &= ok
+                tag = "f32_out" if other == torch.float32 else "bf16_out"
+                results[key].update({f"{tag}_{k}": res[k]
+                                     for k in ("ms", "max_abs_err")})
+            else:
+                tag = label.split()[0]
+                results[key].update(
+                    {f"{tag}_{k}": v for k, v in res.items()},
+                    **{f"{tag}_shape": list(ch.cols.shape)})
+                ok, _ = check_gram(cs, tp.float(), ch, torch.float32, aug,
+                                   label + ", float32 table")
+                ok_all &= ok
+        return ok_all
 
     results, ok_all = {}, True
     widest, populous = theta_chunks(al)
@@ -758,12 +1066,11 @@ def main() -> int:
     ok_all &= ok
 
     plan_x, chunks_x, aux_x = al.plan_x
-    ch2, tp = x_chunk_and_panel(al)
     a_dtype = al._accum_dtype(sum(c.rows.shape[0] for c in chunks_x),
                               plan_x.num_rows)
-    ok, results["gather_gram_out"] = check_k2(cs, tp, ch2, a_dtype)
-    ok_all &= ok
-    del tp, ch2, widest, populous
+    ok_all &= gram_edges(cs)
+    ok_all &= check_grams(al, False, a_dtype, "gather_gram_out")
+    del widest, populous
 
     a_buf, b_buf = al.accumulate_panels(theta_t, al.plan_x)
     x0_full = torch.zeros((aux_x["m_pad"], cfg.f_pad), device="cuda")
@@ -835,10 +1142,9 @@ def main() -> int:
     ok, results["gather_gram_cg_aug"] = check_k1(
         cs, table_ext, populous, theta_t, cfg_aug, "most populous", aug=True)
     ok_all &= ok
-    ch5, tp = x_chunk_and_panel(al_aug)
-    ok, results["gather_gram_aug_out"] = check_k5a(cs, tp, ch5)
-    ok_all &= ok
-    del tp, ch5, widest, populous
+    ok_all &= check_grams(al_aug, True, torch.float32,
+                          "gather_gram_aug_out")
+    del widest, populous
 
     aux_x = al_aug.plan_x[2]
     batch, m_pad = aux_x["solve_batch"], aux_x["m_pad"]

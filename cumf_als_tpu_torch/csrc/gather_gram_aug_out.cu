@@ -4,8 +4,7 @@
 // cumf_als_tpu/ops/pallas_solve.py, reached through
 // `gather_gram_aug_out`. The row gather runs inside the kernel, so the
 // wrapper keeps that function's contract: (table panel, cols, vals) in,
-// one raw partial A' out. Per row r (one thread block each), over all P
-// slots:
+// one raw partial A' out. Per row r, over all P slots:
 //   g = table[cols], lane f - 1 of each gathered row = the slot's value
 //       rounded to the table's dtype (the table's own lane f - 1 must be
 //       zero: the true factor width is at most f - 1)
@@ -21,12 +20,25 @@
 // 2 R P f^2 = 43.5 GFLOP, i.e. 0.044 ms on the bf16 tensor cores
 // (989 TFLOP/s), and 151 MB of f32 A' written, i.e. 0.045 ms at
 // 3.35 TB/s: bytes and operations tie (with a bf16 A' the operations
-// bound).
-// What this design does about it: nothing yet. The Gram is f32 FMAs on
-// the CUDA cores from a shared-memory tile (no wgmma, no TMA, no
-// pipelining); those come in a later change.
+// bound). What the device-memory bound does not show: the panel stays in
+// the L2, but every slot still moves its 256-byte table row from the L2
+// to an SM, 340 MB for that chunk, and a tensor-core Gram waits for that
+// gather and for the write of A'.
+// What this design does about it. A bf16 table at f = 128 (the main
+// path) takes the body of gram_mma.cuh: the row's slots are gathered
+// with cp.async into a ring of swizzled bf16 tiles, several tiles in
+// flight, the slot's value (rounded to bf16, as the table stores it) is
+// stored over lane 127 of its gathered row once the row has landed, and
+// A' = G^T G runs on the tensor cores (wgmma m64n128k16, both operands
+// the same MN-major tile, two warpgroups of 64 rows of A' each). With a
+// bf16 G every product, v g and v v included, is exact in f32. Two
+// blocks share an SM and each walks its rows as one stream of tiles, so
+// the next row's gather and this row's write-out overlap the Gram.
+// A float32 table, and a bf16 table at f < 128, keep the f32 FMA body of
+// common.cuh (gram_row). The entry point chooses by dtype and f alone.
 
 #include "common.cuh"
+#include "gram_mma.cuh"
 
 namespace {
 
@@ -94,6 +106,10 @@ extern "C" int cumf_gather_gram_aug_out(const void* table, int table_bf16,
                                         int out_bf16, int r, int p, int f,
                                         void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  // the tensor-core body where it takes the table, else the FMA body
+  if (table_bf16 && f == cumf::mma::kF)
+    return cumf::mma::run<true>(table, cols, vals, vals_bf16, a_out,
+                                out_bf16, nullptr, r, p, st);
   if (table_bf16 && vals_bf16)
     return dispatch_out<__nv_bfloat16, __nv_bfloat16>(
         out_bf16, f, table, cols, vals, a_out, r, p, st);

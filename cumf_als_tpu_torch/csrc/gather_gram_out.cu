@@ -4,8 +4,7 @@
 // cumf_als_tpu/ops/pallas_solve.py, reached through `gather_gram_out`.
 // The row gather runs inside the kernel, so the wrapper keeps the
 // contract of `gather_gram_out`: (table panel, cols, vals) in, raw
-// (A, b) partials out. Per row r (one thread block each), over all P
-// slots:
+// (A, b) partials out. Per row r, over all P slots:
 //   A = sum_p g g^T, accumulated in f32 and written in A's dtype
 //       (bf16 through round-to-nearest-even, as astype does)
 //   b = sum_p v g, in f32
@@ -13,16 +12,27 @@
 // so they add nothing. The caller scatter-adds the partials into the
 // phase accumulators (models/als.py).
 //
-// Bound on an H100: the Gram work is 2 * sum(nnz) * f^2 FLOPs, ~3.3
-// TFLOP per Netflix X phase at f = 128, i.e. ~3.3 ms on the bf16 tensor
-// cores (989 TFLOP/s); the panel read is small (a 65,537 x 128 bf16
-// panel, 16.8 MB, stays in L2) and the partials written are R f^2
-// elements per chunk.
-// What this design does about it: nothing yet. The Gram is f32 FMAs on
-// the CUDA cores from a shared-memory tile (no wgmma, no TMA, no
-// pipelining); those come in a later change.
+// Bound on an H100, at the X panel chunk R = 2304, P = 576, f = 128 with
+// a bf16 A: 2 R P f^2 = 43.5 GFLOP, i.e. 0.044 ms on the bf16 tensor
+// cores (989 TFLOP/s): operations bound it. What the device-memory bound
+// does not show: the panel (65,537 x 128 bf16, 16.8 MB) stays in the L2,
+// but every slot still moves its 256-byte table row from the L2 to an
+// SM, 340 MB for that chunk, and that gather, not the arithmetic, is
+// what a tensor-core Gram then waits for.
+// What this design does about it. A bf16 table at f = 128 (the main
+// path) takes the body of gram_mma.cuh: the row's slots are gathered
+// with cp.async into a ring of swizzled bf16 tiles, several tiles in
+// flight, and A = G^T G runs on the tensor cores (wgmma m64n128k16, both
+// operands the same MN-major tile, two warpgroups of 64 rows of A each);
+// b is summed from the same tile on the CUDA cores while the wgmma runs.
+// Two blocks share an SM and each walks its rows as one stream of tiles,
+// so the next row's gather and this row's write-out overlap the Gram.
+// A float32 table, and a bf16 table at f < 128, keep the f32 FMA body of
+// common.cuh (gram_row): bf16 tensor cores would round a float32 table.
+// The entry point chooses by dtype and f alone.
 
 #include "common.cuh"
+#include "gram_mma.cuh"
 
 namespace {
 
@@ -92,6 +102,10 @@ extern "C" int cumf_gather_gram_out(const void* table, int table_bf16,
                                     void* b_out, int r, int p, int f,
                                     void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  // the tensor-core body where it takes the table, else the FMA body
+  if (table_bf16 && f == cumf::mma::kF)
+    return cumf::mma::run<false>(table, cols, vals, vals_bf16, a_out,
+                                 out_bf16, b_out, r, p, st);
   if (table_bf16 && vals_bf16)
     return dispatch_out<__nv_bfloat16, __nv_bfloat16>(
         out_bf16, f, table, cols, vals, a_out, b_out, r, p, st);

@@ -53,11 +53,13 @@ KERNELS = {
                           [_VP, _VP, _I, _VP, _I, _VP, _VP, _VP, _VP,
                            _I, _I, _I, _F, _I, _F, _VP]),
 }
-HEADERS = ("common.cuh", "wide.cuh")
+HEADERS = ("common.cuh", "wide.cuh", "gram_mma.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 _loaded: Dict[str, ctypes._CFuncPtr] = {}
+# kernel name -> what nvcc printed at its last build in this process
+BUILD_LOG: Dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -85,10 +87,12 @@ def _stale(name: str) -> bool:
     return os.path.getmtime(lib) < newest
 
 
-def build(names: Optional[Iterable[str]] = None,
-          force: bool = False) -> float:
+def build(names: Optional[Iterable[str]] = None, force: bool = False,
+          ptxas_info: bool = False) -> float:
     """Compile the named kernels (default: all) in parallel; returns the
-    wall seconds."""
+    wall seconds. With `ptxas_info`, nvcc runs with ``-Xptxas -v`` and
+    BUILD_LOG[name] holds each entry function's registers, spills and
+    shared memory."""
     names = list(KERNELS if names is None else names)
     todo = [n for n in names if force or _stale(n)]
     t0 = time.monotonic()
@@ -99,13 +103,15 @@ def build(names: Optional[Iterable[str]] = None,
     procs = []
     for name in todo:
         tmp = _lib_path(name) + f".{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if ptxas_info else []),
+               "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
         procs.append((name, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
     failed = []
     for name, tmp, proc in procs:
         out, _ = proc.communicate()
+        BUILD_LOG[name] = out
         if proc.returncode != 0:
             failed.append(f"{name}:\n{out}")
             continue

@@ -38,6 +38,17 @@ an already gathered, lane-packed G. `wide_enabled` is the opt-in gate of
 the second. The panel and solve kernels (K2-K5b) and the augmented fused
 kernel (K6) take f <= 128 only.
 
+The panel Grams K2 and K5a are bound by operations on an H100 (by the
+write of A as well when A is f32), and what feeds them is the L2: the
+panel stays there, but every slot moves its 256-byte table row to an SM.
+For a bf16 table at f = 128, the main path, they gather with cp.async
+into a ring of swizzled bf16 tiles and run the Gram on the tensor cores
+(csrc/gram_mma.cuh); a float32 table and a bf16 table at f < 128 keep
+the f32 FMA body of csrc/common.cuh. `gram_body` is that rule. One block
+takes one row at a time, so a chunk with fewer rows than the card has
+SMs leaves SMs idle. The fused kernels K1, K6, K7 and K8 still run the
+FMA body.
+
 The row gather runs inside the kernels, so the wrappers keep the
 contracts of the JAX wrappers (`gather_gram_cg`, `gather_gram_out`,
 `gather_gram_aug_out`, `gather_gram_cg_wide`), not those of the inner
@@ -70,7 +81,7 @@ def reset_launch_counts() -> None:
 
 def _on_cpu(*tensors) -> bool:
     """True when every tensor lies on the CPU, False when every one lies
-    on one CUDA device; raises on anything else."""
+    on the current CUDA device; raises on anything else."""
     devs = {t.device for t in tensors}
     if len(devs) != 1:
         raise ValueError(f"tensors on several devices: {sorted(map(str, devs))}")
@@ -79,6 +90,10 @@ def _on_cpu(*tensors) -> bool:
         return True
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    if dev.index not in (None, torch.cuda.current_device()):
+        # the kernels launch on the current device's current stream
+        raise ValueError(f"tensors on {dev}, but the current device is "
+                         f"cuda:{torch.cuda.current_device()}")
     return False
 
 
@@ -300,7 +315,29 @@ def gather_gram_cg(table_ext, cols, vals, nnz, x0, lam: float,
     return x, se
 
 
-# -------------------------------------------------- K2 gather_gram_out --
+# ------------------------------------------- K2 / K5a the panel Grams --
+def gram_body(table_ext: torch.Tensor) -> str:
+    """Which Gram body the panel kernels K2 and K5a run for this table on
+    a card, by its dtype and width alone: "wgmma" (csrc/gram_mma.cuh:
+    cp.async gather into swizzled bf16 tiles, tensor-core Gram) for a
+    bf16 table at f = 128, the width of the main path; "fma" (the f32
+    FMA body of csrc/common.cuh) for a float32 table, which bf16 tensor
+    cores would round, and for a bf16 table at f < 128. A caller cannot
+    choose, and neither body gives way to the other or to the plain
+    version."""
+    if table_ext.dtype == torch.bfloat16 and table_ext.shape[1] == 128:
+        return "wgmma"
+    return "fma"
+
+
+def _check_gram_table(table_ext: torch.Tensor) -> None:
+    """The tensor-core body copies 16 bytes at a time: the table's rows
+    must lie on 16-byte boundaries."""
+    if gram_body(table_ext) == "wgmma" and table_ext.data_ptr() % 16:
+        raise ValueError("table_ext: its storage must start on a 16-byte "
+                         "boundary")
+
+
 def gather_gram_out_plain(table_ext, cols, vals,
                           out_dtype: torch.dtype = torch.float32):
     """Plain version of K2: index_select, f32 einsum, A cast at the end."""
@@ -316,7 +353,9 @@ def gather_gram_out(table_ext, cols, vals,
     (pallas_solve.gather_gram_out). table_ext (s+1, f) f32/bf16 with a
     zero row at the pad id s; cols (R, P) int32 panel-local; vals (R, P)
     f32/bf16. Returns A (R, f, f) in out_dtype (summed in f32) and
-    b (R, f) f32."""
+    b (R, f) f32. On a card the Gram runs in the body `gram_body` names;
+    on the tensor cores the bf16 products are exact and the f32 sums are
+    taken in the hardware's order."""
     if _on_cpu(table_ext, cols, vals):
         return gather_gram_out_plain(table_ext, cols, vals, out_dtype)
     r, p = cols.shape
@@ -330,6 +369,7 @@ def gather_gram_out(table_ext, cols, vals,
     a = torch.empty((r, f, f), dtype=out_dtype, device=cols.device)
     b = torch.empty((r, f), dtype=torch.float32, device=cols.device)
     if r:
+        _check_gram_table(table_ext)
         _launch("gather_gram_out", table_ext.data_ptr(), _bf16(table_ext),
                 cols.data_ptr(), vals.data_ptr(), _bf16(vals),
                 a.data_ptr(), _bf16(a), b.data_ptr(), r, p, f)
@@ -407,7 +447,8 @@ def gather_gram_aug_out(table_ext, cols, vals,
     < f); cols (R, P) int32 panel-local; vals (R, P) f32/bf16, rounded to
     the table's dtype as they enter lane f-1. Returns A' (R, f, f) in
     out_dtype (summed in f32): A in rows/columns < f-1, b in row and
-    column f-1, sum v^2 in the corner."""
+    column f-1, sum v^2 in the corner. On a card the Gram runs in the
+    body `gram_body` names."""
     if _on_cpu(table_ext, cols, vals):
         return gather_gram_aug_out_plain(table_ext, cols, vals, out_dtype)
     r, p = cols.shape
@@ -420,6 +461,7 @@ def gather_gram_aug_out(table_ext, cols, vals,
     _check("vals", vals, (r, p), _FLOATS)
     a = torch.empty((r, f, f), dtype=out_dtype, device=cols.device)
     if r:
+        _check_gram_table(table_ext)
         _launch("gather_gram_aug_out", table_ext.data_ptr(),
                 _bf16(table_ext), cols.data_ptr(), vals.data_ptr(),
                 _bf16(vals), a.data_ptr(), _bf16(a), r, p, f)

@@ -9,7 +9,14 @@ Tolerances as in tests/test_torch_kernels.py and tests/test_torch_aug.py:
 rtol 1e-5 for an f32 A or A' and for b, one bf16 ulp for a bf16 A or A',
 2e-3 absolute for x and se at CG-6; the 256-lane kernels (K7, K8, K1 at
 f = 256) as in tests/test_torch_wide.py: dead lanes and empty rows
-exactly 0, K8 against K1 at f = 256 on the same G rtol 1e-5."""
+exactly 0, K8 against K1 at f = 256 on the same G rtol 1e-5.
+
+The panel Grams K2 and K5a run their tensor-core body for a bf16 table
+at f = 128 (`cs.gram_body`). There the products are exact and the f32
+sums are taken in the hardware's order, so the error follows the size of
+the sum, not of the value: `gram_limit` states the limit for each body.
+An integer table makes every sum exact and the comparison bit for bit:
+the proof of the tile layout."""
 
 import numpy as np
 import pytest
@@ -51,6 +58,37 @@ def _within_bf16_ulp(a, b):
                                              - 7)).all())
 
 
+def gram_limit(a, a_plain, p, body):
+    """What a card's K2 or K5a is held to against the plain version: the
+    elementwise limit on |A - A_plain| and its name, for rows of p slots
+    run in `body`. Both bodies add in another order than the plain
+    version, so the error follows the size of the sum, not of the value:
+    an entry whose terms cancel keeps the error of its large partial
+    sums. The terms of A_ij sum in magnitude to at most sqrt(A_ii A_jj)
+    (Cauchy-Schwarz), so the limit is steps x 2^-23 x sqrt(A_ii A_jj) +
+    1e-5: one f32 ulp of the sum's size for each accumulation step (a
+    slot in the FMA body, 16 slots on the tensor cores) and 4 for the
+    plain version's own rounding. A bf16 A adds one bf16 ulp of the
+    larger value: both sides round an f32 sum to nearest."""
+    af, pf = a.float(), a_plain.float()
+    steps = (p if body == "fma" else -(-p // 16)) + 4
+    d = pf.diagonal(dim1=-2, dim2=-1).clamp_min(0).sqrt()
+    lim = steps * 2.0 ** -23 * d[..., :, None] * d[..., None, :] + 1e-5
+    name = f"{steps} x 2^-23 sqrt(A_ii A_jj) + 1e-5"
+    if a.dtype != torch.bfloat16:
+        return lim, name
+    big = torch.maximum(af.abs(), pf.abs())
+    ulp = torch.exp2(torch.floor(torch.log2(big.clamp_min(1e-30))) - 7)
+    return lim + ulp, name + " + one bf16 ulp"
+
+
+def _assert_gram_close(a, pa, p, body):
+    """A (or A') of a card kernel against the plain version's, within
+    `gram_limit` for the body that ran."""
+    lim, _ = gram_limit(a.cpu(), pa, p, body)
+    assert bool(((a.float().cpu() - pa.float()).abs() <= lim).all())
+
+
 @pytest.mark.parametrize("f", [16, 48, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernels_match_plain(card, f, dtype):
@@ -66,10 +104,7 @@ def test_kernels_match_plain(card, f, dtype):
     a, b = cs.gather_gram_out(*gpu[:3], out_dtype=dtype)
     pa, pb = cs.gather_gram_out(*cpu[:3], out_dtype=dtype)
     assert a.dtype == dtype
-    if dtype == torch.float32:
-        torch.testing.assert_close(a.cpu(), pa, rtol=1e-5, atol=1e-5)
-    else:
-        assert _within_bf16_ulp(a, pa)
+    _assert_gram_close(a, pa, P, cs.gram_body(gpu[0]))
     torch.testing.assert_close(b.cpu(), pb, rtol=1e-5, atol=1e-5)
     diag = cpu[3].float() * LAM + (cpu[3] == 0).float()
     x3 = cs.solve_cg_reg(a, diag.to(card), b, gpu[4])
@@ -99,10 +134,7 @@ def test_aug_kernels_match_plain(card, f, dtype):
     a = cs.gather_gram_aug_out(*gpu[:3], out_dtype=dtype)
     pa = cs.gather_gram_aug_out(*cpu[:3], out_dtype=dtype)
     assert a.dtype == dtype
-    if dtype == torch.float32:
-        torch.testing.assert_close(a.cpu(), pa, rtol=1e-5, atol=1e-5)
-    else:
-        assert _within_bf16_ulp(a, pa)
+    _assert_gram_close(a, pa, P, cs.gram_body(gpu[0]))
     diag = cpu[3].float() * LAM + (cpu[3] == 0).float()
     x5 = cs.solve_cg_aug(a, diag.to(card), gpu[4])
     px5 = cs.solve_cg_aug(a.cpu(), diag, cpu[4])
@@ -119,6 +151,68 @@ def test_aug_kernels_match_plain(card, f, dtype):
     assert cs.LAUNCHES == dict.fromkeys(cs.LAUNCHES, 0) | {
         "gather_gram_cg_aug": 1, "gather_gram_aug_out": 1,
         "solve_cg_aug": 1, "solve_cg": 1}
+
+
+def _edge_chunk(p, r, kind, seed=0):
+    """The chunk of tests/test_torch_gram.py: r rows of p slots at
+    f = 128, pad slots at each row's tail; with r > 1 row 0 is full and
+    row 2 holds pad slots only; lane 127 of the table free for the aug
+    form. kind "integers": a table of small integers, so that every sum
+    is exact in f32 in any order."""
+    n, f = 60, 128
+    rng = np.random.RandomState(seed + 131 * p + r)
+    if kind == "integers":
+        table = rng.randint(-4, 5, (n + 1, f)).astype(np.float32)
+    else:
+        table = (rng.standard_normal((n + 1, f)) * 0.3).astype(np.float32)
+    table[n] = 0.0
+    table[:, f - 1] = 0.0
+    nnz = rng.randint(1, p + 1, (r,))
+    if r > 1:
+        nnz[0], nnz[2] = p, 0
+    mask = np.arange(p)[None, :] < nnz[:, None]
+    cols = np.where(mask, rng.randint(0, n, (r, p)), n).astype(np.int32)
+    vals = (np.round(rng.uniform(1, 5, (r, p)) * 2) / 2).astype(np.float32)
+    if kind != "integers":
+        vals[0, 0] = 3.3            # not exact in bf16
+    return (torch.from_numpy(table), torch.from_numpy(cols),
+            torch.from_numpy(vals * mask), torch.from_numpy(nnz == 0))
+
+
+@pytest.mark.parametrize("p", [8, 24, 72, 136, 520, 1288])
+@pytest.mark.parametrize("r", [1, 5])
+@pytest.mark.parametrize("table_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["integers", "random"])
+def test_gram_kernels_at_the_tile_edges(card, p, r, table_dtype, out_dtype,
+                                        kind):
+    """K2 and K5a against their plain versions at the edges of the
+    64-slot tile, in both bodies (a bf16 table runs the tensor cores, a
+    float32 table the FMAs), and at P = 520 and 1288 with rows of 9 and
+    21 tiles through the ring of 4: bit for bit on an integer table,
+    within `_assert_gram_close` on a random one; rows of pad slots only
+    exactly 0."""
+    table, cols, vals, empty = _edge_chunk(p, r, kind)
+    cpu = (table.to(table_dtype), cols, vals)
+    gpu = tuple(t.to(card) for t in cpu)
+    body = cs.gram_body(gpu[0])
+    assert body == ("wgmma" if table_dtype == torch.bfloat16 else "fma")
+    a, b = cs.gather_gram_out(*gpu, out_dtype=out_dtype)
+    pa, pb = cs.gather_gram_out(*cpu, out_dtype=out_dtype)
+    a5 = cs.gather_gram_aug_out(*gpu, out_dtype=out_dtype)
+    pa5 = cs.gather_gram_aug_out(*cpu, out_dtype=out_dtype)
+    assert a.dtype == a5.dtype == out_dtype and b.dtype == torch.float32
+    if kind == "integers":
+        assert torch.equal(a.cpu(), pa) and torch.equal(b.cpu(), pb)
+        assert torch.equal(a5.cpu(), pa5)
+    else:
+        _assert_gram_close(a, pa, p, body)
+        _assert_gram_close(a5, pa5, p, body)
+        torch.testing.assert_close(b.cpu(), pb, rtol=1e-5, atol=1e-5)
+    for out in (a, b, a5):
+        assert torch.all(out[empty.to(card)] == 0)
+    assert cs.LAUNCHES == dict.fromkeys(cs.LAUNCHES, 0) | {
+        "gather_gram_out": 1, "gather_gram_aug_out": 1}
 
 
 def _wide_chunk(f_true, dtype, seed=2):

@@ -183,3 +183,59 @@ def test_cli_resume_from_checkpoint(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "resuming from checkpoint at iteration 1" in out
     assert "Train RMSE in iter 2" in out and "iter 1:" not in out
+
+
+def test_every_included_header_rebuilds_its_kernels():
+    """An edited header must rebuild on the card: every `#include "..."`
+    of csrc/ names a header of _build.HEADERS (the names `_stale` looks
+    at), every header there exists, and every kernel has its source."""
+    import re
+    from cumf_als_tpu_torch.ops import _build
+    sources = sorted(f for f in os.listdir(_build.CSRC)
+                     if f.endswith((".cu", ".cuh")))
+    assert sources
+    included = set()
+    for name in sources:
+        with open(os.path.join(_build.CSRC, name)) as fh:
+            included |= set(re.findall(r'#include\s+"([^"]+)"', fh.read()))
+    assert included and included <= set(_build.HEADERS)
+    assert "gram_mma.cuh" in included
+    for name in _build.HEADERS:
+        assert os.path.exists(os.path.join(_build.CSRC, name))
+    for name in _build.KERNELS:
+        assert os.path.exists(os.path.join(_build.CSRC, f"{name}.cu"))
+    assert {f[:-3] for f in sources if f.endswith(".cu")} == \
+        set(_build.KERNELS)
+
+
+@pytest.mark.parametrize("dtype,f,body", [
+    (torch.bfloat16, 128, "wgmma"), (torch.float32, 128, "fma"),
+    (torch.bfloat16, 112, "fma"), (torch.bfloat16, 16, "fma"),
+    (torch.float32, 64, "fma")])
+def test_gram_body_goes_by_dtype_and_width_alone(dtype, f, body):
+    """The tensor-core Gram body takes a bf16 table at f = 128; every
+    other table the panel kernels take keeps the FMA body."""
+    from cumf_als_tpu_torch.ops import cuda_solve as cs
+    assert cs.gram_body(torch.zeros((3, f), dtype=dtype)) == body
+
+
+from cumf_als_tpu_torch.ops import _build  # noqa: E402
+
+
+@pytest.mark.parametrize("name", sorted(_build.KERNELS))
+def test_c_entry_point_takes_what_ctypes_passes(name):
+    """The argument list of each kernel's `extern "C"` entry point in
+    csrc/ against the ctypes argument types of `_build.KERNELS`: ctypes
+    checks neither the count nor the kinds, so a mismatch would pass
+    garbage to the kernel."""
+    import ctypes
+    import re
+    symbol, argtypes = _build.KERNELS[name]
+    with open(os.path.join(_build.CSRC, f"{name}.cu")) as fh:
+        src = fh.read()
+    found = re.search(r'extern "C" int ' + symbol + r"\(([^)]*)\)", src)
+    assert found, f"{symbol} not declared in {name}.cu"
+    kinds = {"int": ctypes.c_int, "float": ctypes.c_float}
+    want = [ctypes.c_void_p if "*" in arg else kinds[arg.split()[0]]
+            for arg in found.group(1).split(",")]
+    assert want == argtypes
