@@ -8,11 +8,14 @@ result line):
 1. card and build: the card's name and power limit, the torch/CUDA
    versions, and the build of every CUDA kernel from csrc/ (nine) with
    `-Xptxas -v`: registers, spills and added wgmma waits of the
-   tensor-core Gram kernels;
+   tensor-core entry functions of K1, K2, K5a and K6;
 2. each kernel against its plain PyTorch version on the card, on real
    chunks of the Netflix-shaped plans, with kernel, plain, yardstick and
-   bound times: the widest and the most populous theta-phase chunk for
-   K1 and K6; for K2 and K5a the most populous, the widest and the
+   bound times: the widest, the most populous and the fewest-row
+   theta-phase chunk for K1 and K6 (device time, `queued_ms`), small
+   chunks whose rows stop at the edges of the 64-slot tile, and their
+   time over the whole theta phase split by chunks under and over 132
+   rows; for K2 and K5a the most populous, the widest and the
    fewest-row X-phase panel chunk (the most populous with a bf16 and an
    f32 A, the widest and the fewest-row one also with a float32 table,
    which keeps the FMA body), small chunks at the edges of their 64-slot
@@ -28,7 +31,9 @@ result line):
 4. two paths at full width, `ALS.run` for 3 iterations each on the
    Netflix workload at scale 1.0 (~99M ratings, F=100, bf16 factors,
    backend "pallas", CG), X phase on the panel route and theta on the
-   direct route, every kernel's launch count read around each run alone:
+   direct route, every kernel's launch count read around each run alone,
+   train RMSE after the third iteration held to the recorded trajectory
+   (within 1e-3) and test RMSE falling:
    a. bf16 Gram accumulators: split buffers, kernels K1, K2, K3;
    b. f32 accumulators with aug_gram="force": the augmented-lane forms,
       kernels K5a, K5b, K6;
@@ -57,6 +62,15 @@ is the short call after a change to K2, K5a or csrc/gram_mma.cuh: it
 builds those two kernels alone (with the ptxas report), runs the edge
 cases and three synthetic chunk shapes against the plain versions with
 their times, and prints no result line.
+
+    python3 chip_smoke.py --theta
+
+is the short call after a change to K1, K6 or csrc/frag_cg.cuh (or to
+gram_mma.cuh, which they share): it builds those two kernels alone (with
+the ptxas report), runs the edge grid (rows that stop at different nnz
+inside one chunk), times three synthetic chunk shapes and the most
+populous, the widest and the fewest-row chunk of the real Netflix theta
+plan against the plain versions, and prints no result line.
 """
 
 from __future__ import annotations
@@ -90,6 +104,10 @@ SPLIT_KERNELS = ("gather_gram_cg", "gather_gram_out", "solve_cg_reg")
 AUG_KERNELS = ("gather_gram_cg_aug", "gather_gram_aug_out", "solve_cg_aug")
 WIDE_KERNELS = ("gather_gram_cg_wide", "fused_gram_cg_cat")
 GRAM_KERNELS = ("gather_gram_out", "gather_gram_aug_out")
+THETA_KERNELS = ("gather_gram_cg", "gather_gram_cg_aug")
+# train RMSE after iteration 3 of the full-width F=100 paths, as recorded
+# before K1 and K6 moved to the tensor cores (PERF.md)
+RECORDED_TRAIN_RMSE = {"main": 0.428662, "aug": 0.428668}
 DEV = "cuda"
 
 
@@ -187,13 +205,17 @@ def card_line() -> str:
 
 # ------------------------------------------------------------ phase 1 --
 def ptxas_lines(build_log):
-    """What ptxas reports for the tensor-core entry functions of K2 and
-    K5a (registers, spills, and static shared memory where it names any;
-    the tiles are dynamic shared memory), and every warning of the
-    build."""
+    """What ptxas reports for the tensor-core entry functions of K1, K2,
+    K5a and K6 (registers and spill stores of each instantiation, static
+    shared memory where it names any; the tiles are dynamic shared
+    memory), and every warning of the build. Returns False if one of
+    them spills or ptxas added a wgmma wait."""
     import re
-    for name in GRAM_KERNELS:
-        lines = build_log.get(name, "").splitlines()
+    ok = True
+    for name in GRAM_KERNELS + THETA_KERNELS:
+        if name not in build_log:
+            continue
+        lines = build_log[name].splitlines()
         regs, spills, smem = [], [], []
         for i, line in enumerate(lines):
             if "Compiling entry function" in line and "mma_kernel" in line:
@@ -206,18 +228,19 @@ def ptxas_lines(build_log):
                                                     info)]
         # C7517: ptxas makes every turn of the tile loop wait for all of
         # its wgmma where plain code touches the sums inside the loop;
-        # the one wait it may add stands at a row's end
-        waits = sum("C7517" in line and "mma_kernel" in line
-                    for line in lines)
+        # only these entry functions issue wgmma, so every such note of
+        # the build counts
+        waits = sum("C7517" in line for line in lines)
+        ok &= bool(regs) and max(spills, default=0) == 0 and waits == 0
         log(f"[ptxas] {name}, the {len(regs)} tensor-core entry functions: "
-            f"registers {min(regs)}-{max(regs)}, spill stores "
-            f"{max(spills)} bytes, static shared memory "
-            f"{max(smem, default=0)} bytes (dynamic: the ring of tiles), "
-            f"wgmma waits added by ptxas (C7517): {waits}")
+            f"registers {regs}, spill stores {spills} bytes, static shared "
+            f"memory {max(smem, default=0)} bytes (dynamic: the ring of "
+            f"tiles), wgmma waits added by ptxas (C7517): {waits}")
     for name, out in build_log.items():
         for line in out.splitlines():
             if "warning" in line.lower() or "Potential" in line:
                 log(f"[ptxas] {name}: {line.strip()[:300]}")
+    return ok
 
 
 def gram_synthetic(cs):
@@ -253,10 +276,13 @@ def gram_synthetic(cs):
 
 # ------------------------------------------------------------ phase 2 --
 def check_k1(cs, table_ext, ch, theta, cfg, label, aug=False):
-    """K1 (or, with aug, K6) on one theta-phase chunk: kernel vs plain."""
-    k = ch.n_real
-    x0 = torch.nn.functional.pad(theta.index_select(0, ch.rows_real),
-                                 (0, 0, 0, ch.rows.shape[0] - k))
+    """K1 (or, with aug, K6) on one theta-phase chunk: kernel vs plain,
+    x within 2e-3 and se within 1e-3 relative; rows without ratings
+    exactly 0 in x and se, and with aug lane f-1 of x exactly 0. Kernel
+    and plain are timed by one clock, device time behind queued work
+    (`queued_ms`): a few-row chunk's kernel is not much longer than the
+    host's work to launch it."""
+    x0 = chunk_x0(ch, theta)
     args = (table_ext, ch.cols, ch.vals, ch.nnz, x0, cfg.lam)
     kw = dict(cg_iters=cfg.cg_iters, cg_tol=cfg.cg_tol)
     plain_fn = cs.gather_gram_cg_aug_plain if aug else \
@@ -265,22 +291,129 @@ def check_k1(cs, table_ext, ch, theta, cfg, label, aug=False):
     px, pse = plain_fn(*args, **kw)
     err = (x - px).abs().max().item()
     se_rel = ((se - pse).abs() / pse.abs().clamp_min(1.0)).max().item()
-    lane_ok = not aug or bool((x[:, -1] == 0).all())
-    ms = time_ms(lambda: cs.gather_gram_cg(*args, aug=aug, **kw))
-    plain = time_ms(lambda: plain_fn(*args, **kw), reps=3)
+    empty = ch.nnz == 0
+    zero_ok = bool((x[empty] == 0).all()) and bool((se[empty] == 0).all())
+    if aug:
+        zero_ok &= bool((x[:, -1] == 0).all())
+    del px, pse
+    ms = queued_ms(lambda: cs.gather_gram_cg(*args, aug=aug, **kw))
+    plain = queued_ms(lambda: plain_fn(*args, **kw), reps=3)
     r, p = ch.cols.shape
     f = table_ext.shape[1]
     flops = 2.0 * float(ch.nnz.sum().item()) * f * f
     bms, by = bound_ms(nbytes(table_ext, ch.cols, ch.vals, ch.nnz, x0, x,
                               se), flops, table_ext.dtype)
-    ok = err <= 2e-3 and se_rel <= 1e-3 and lane_ok
+    ok = err <= 2e-3 and se_rel <= 1e-3 and zero_ok
     name = "K6 gather_gram_cg_aug" if aug else "K1 gather_gram_cg"
-    log(f"[{name}] {label} chunk R={r} P={p}: max|dx|={err:.3e} "
-        f"(limit 2e-3), max rel dse={se_rel:.3e} (limit 1e-3); kernel "
-        f"{ms:.3f} ms, plain {plain:.3f} ms, bound {bms:.4f} ms ({by}); "
-        f"{'OK' if ok else 'FAIL'}")
+    log(f"[{name}] {label} chunk R={r} P={p}, table {table_ext.dtype}, "
+        f"body {cs.gram_body(table_ext)}: max|dx|={err:.3e} (limit 2e-3), "
+        f"max rel dse={se_rel:.3e} (limit 1e-3), {int(empty.sum())} rows "
+        f"without ratings{' and lane f-1' if aug else ''} exactly 0: "
+        f"{zero_ok}; device time: kernel {ms:.3f} ms, plain {plain:.3f} "
+        f"ms, bound {bms:.4f} ms ({by}); {'OK' if ok else 'FAIL'}")
     return ok, dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
                     bound_by=by, library_ms=None)
+
+
+def theta_chunk(p, seed, aug, vals_dtype, n=60, f=128):
+    """A theta chunk of P = p slots whose rows stop at the edges of the
+    64-slot tile, made from a seed: one row for each nnz in (0, 1, 15,
+    16, 17, 63, 64, 65, 128, 129, p) up to p, pad slots at each row's
+    tail (the zero row n, value 0), and a dummy tail row without ratings
+    whose warm start is zero, as a plan's chunk ends. The table is bf16
+    (the tensor-core body); with aug its lane f-1 is free and one value
+    (3.3) is not exact in bf16."""
+    rng = np.random.RandomState(seed + 17 * p)
+    nnz = np.array([k for k in (0, 1, 15, 16, 17, 63, 64, 65, 128, 129)
+                    if k < p] + [p, 0], dtype=np.int32)
+    r = len(nnz)
+    table = (rng.standard_normal((n + 1, f)) * 0.3).astype(np.float32)
+    table[n] = 0.0
+    mask = np.arange(p)[None, :] < nnz[:, None]
+    cols = np.where(mask, rng.randint(0, n, (r, p)), n).astype(np.int32)
+    vals = (np.round(rng.uniform(1, 5, (r, p)) * 2) / 2).astype(np.float32)
+    vals[-2, 0] = 3.3
+    x0 = (rng.standard_normal((r, f)) * 0.1).astype(np.float32)
+    x0[-1] = 0.0
+    if aug:
+        table[:, f - 1] = 0.0
+        x0[:, f - 1] = 0.0
+    return (torch.from_numpy(table).to(DEV).to(torch.bfloat16),
+            torch.from_numpy(cols).to(DEV),
+            torch.from_numpy(vals * mask).to(DEV).to(vals_dtype),
+            torch.from_numpy(nnz).to(DEV), torch.from_numpy(x0).to(DEV))
+
+
+def theta_edges(cs, lam=0.048):
+    """K1 and K6 against their plain versions on `theta_chunk`s: P = 64,
+    256 and 520 (1, 4 and 9 tiles; rows of 0 to P slots in one chunk), f32
+    and bf16 values: x within 2e-3, se within 1e-3 relative, rows without
+    ratings exactly 0 in x and se, K6's lane 127 of x exactly 0."""
+    ok_all = True
+    worst = {}
+    for p in (64, 256, 520):
+        for aug in (False, True):
+            for v_dtype in (torch.float32, torch.bfloat16):
+                args = theta_chunk(p, 5, aug, v_dtype)
+                x, se = cs.gather_gram_cg(*args, lam, aug=aug)
+                plain = cs.gather_gram_cg_aug_plain if aug else \
+                    cs.gather_gram_cg_plain
+                px, pse = plain(*args, lam)
+                err = (x - px).abs().max().item()
+                se_rel = ((se - pse).abs() / pse.abs().clamp_min(1.0)
+                          ).max().item()
+                empty = args[3] == 0
+                ok = err <= 2e-3 and se_rel <= 1e-3 and \
+                    bool((x[empty] == 0).all()) and \
+                    bool((se[empty] == 0).all())
+                if aug:
+                    ok &= bool((x[:, -1] == 0).all())
+                key = "K6" if aug else "K1"
+                w = worst.setdefault(key, [0.0, 0.0])
+                w[0], w[1] = max(w[0], err), max(w[1], se_rel)
+                if not ok:
+                    log(f"[theta edges] FAIL {key} P={p} vals {v_dtype}: "
+                        f"max|dx|={err:.3e} max rel dse={se_rel:.3e}")
+                ok_all &= ok
+    log(f"[theta edges] K1 and K6, P in (64, 256, 520) x vals (f32, bf16), "
+        f"bf16 table, f=128, rows of nnz (0, 1, 15, 16, 17, 63, 64, 65, "
+        f"128, 129, P) and a dummy tail row: worst (max|dx|, max rel dse) "
+        f"{ {k: [float(f'{e:.3e}') for e in v] for k, v in worst.items()} } "
+        f"(limits 2e-3, 1e-3); rows without ratings exactly 0, K6 lane 127 "
+        f"exactly 0; {'OK' if ok_all else 'FAIL'}")
+    return ok_all
+
+
+def theta_synthetic(cs, lam=0.048):
+    """K1 and K6 at the shapes of the most populous (R=16384, P=256) and
+    the widest (R=8, P=8192) theta chunk and of a few-row one (R=4,
+    P=1024), on data made from a seed without the plans, each row of
+    between P/2 and P ratings: kernel vs plain and the times."""
+    from types import SimpleNamespace
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    n = 17770
+    tab = (0.3 * torch.randn((n + 1, 128), generator=gen, device=DEV)
+           ).to(torch.bfloat16)
+    tab[n] = 0
+    tab[:, 127] = 0
+    cfg = SimpleNamespace(lam=lam, cg_iters=6, cg_tol=1e-4)
+    ok = True
+    for r, p in ((16384, 256), (8, 8192), (4, 1024)):
+        nnz = torch.randint(p // 2 + 1, p + 1, (r,), generator=gen,
+                            device=DEV, dtype=torch.int32)
+        mask = torch.arange(p, device=DEV)[None, :] < nnz[:, None]
+        cols = torch.where(mask, torch.randint(0, n, (r, p), generator=gen,
+                                               device=DEV), n)
+        vals = torch.randint(2, 11, (r, p), generator=gen, device=DEV) / 2.0
+        ch = SimpleNamespace(
+            cols=cols.to(torch.int32), vals=(vals * mask).float(), nnz=nnz,
+            n_real=r, rows=torch.arange(r, device=DEV),
+            rows_real=torch.arange(r, device=DEV))
+        theta = 0.1 * torch.randn((r, 128), generator=gen, device=DEV)
+        theta[:, 127] = 0
+        for aug in (False, True):
+            ok &= check_k1(cs, tab, ch, theta, cfg, "synthetic", aug=aug)[0]
+    return ok
 
 
 def check_gram(cs, tp, ch, a_dtype, aug, label):
@@ -601,37 +734,71 @@ def check_k8(cs, table_ext, ch, current, cfg, f2, label):
                     bound_by=by, library_ms=None)
 
 
+def queued_each(calls):
+    """Device time of each of `calls`, launched in turn behind a run of
+    large matrix products so that the events between them read device
+    time (a chunk's kernel can be shorter than the host's work to launch
+    it); the first three run once before as a warm-up."""
+    for call in calls[:3]:      # the first launch loads the kernel
+        call()
+    torch.cuda.synchronize()
+    keep_busy(80)
+    marks = [torch.cuda.Event(enable_timing=True)
+             for _ in range(len(calls) + 1)]
+    marks[0].record()
+    for i, call in enumerate(calls):
+        call()
+        marks[i + 1].record()
+    queued = not marks[0].query()   # the device had not reached them yet
+    torch.cuda.synchronize()
+    if not queued:
+        raise AssertionError("the launches did not queue behind the matrix "
+                             "products: the events between them would "
+                             "read the host's time")
+    return [marks[i].elapsed_time(marks[i + 1]) for i in range(len(calls))]
+
+
+def split_by_rows(times, chunks, sms):
+    """Sum of per-chunk times, and of those of the chunks with fewer rows
+    than the card has SMs (one block takes one row at a time, so those
+    leave SMs idle), with the longest four of them, ms and (R, P)."""
+    split = dict(total=sum(times), few=0.0, n_few=0, sms=sms,
+                 widest=max(c.cols.shape[1] for c in chunks))
+    few = []
+    for ms, ch in zip(times, chunks):
+        if ch.cols.shape[0] < sms:
+            split["few"] += ms
+            split["n_few"] += 1
+            few.append((ms, tuple(ch.cols.shape)))
+    split["longest_few"] = sorted(few, reverse=True)[:4]
+    return split
+
+
 def phase_totals(cs, al, theta_t, x_t):
-    """Device time summed over one phase's chunks (CUDA events): the
-    fused kernel (K1, or K6 when the config takes the augmented form)
-    over the theta phase; the Gram kernel alone (K2 or K5a) over the X
-    phase, chunk by chunk (the panels' tables made outside the timing),
-    split by chunks with fewer rows than the card has SMs, with the
-    bytes gathered and written; and the X phase's
-    whole Gram step (that kernel + the index_add_ scatter into the
-    accumulators)."""
+    """Device time of one phase's kernel chunk by chunk (`queued_each`),
+    split by chunks with fewer rows than the card has SMs: the fused
+    kernel (K1, or K6 when the config takes the augmented form) over the
+    theta phase, from the warm starts of theta_t's shape; the Gram
+    kernel alone (K2 or K5a) over the X phase (the panels' tables made
+    outside the timing), with the bytes gathered and written; and the X
+    phase's whole Gram step (that kernel + the index_add_ scatter into
+    the accumulators)."""
     cfg = al.cfg
     f = cfg.f_pad
-
-    def timed(fn):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     table_ext = torch.cat([x_t.to(torch.bfloat16),
                            x_t.new_zeros((1, f), dtype=torch.bfloat16)])
     aug_direct = cs.aug_enabled(cfg)
-
-    def k1_phase():
-        for ch in al.plan_theta[1]:
-            x0 = torch.zeros((ch.rows.shape[0], f), device="cuda")
-            cs.gather_gram_cg(table_ext, ch.cols, ch.vals, ch.nnz, x0,
-                              cfg.lam, cg_iters=cfg.cg_iters,
-                              cg_tol=cfg.cg_tol, aug=aug_direct)
+    chunks_t = al.plan_theta[1]
+    x0s = [torch.zeros((ch.rows.shape[0], f), device="cuda")
+           for ch in chunks_t]
+    theta = split_by_rows(queued_each([
+        lambda ch=ch, x0=x0: cs.gather_gram_cg(
+            table_ext, ch.cols, ch.vals, ch.nnz, x0, cfg.lam,
+            cg_iters=cfg.cg_iters, cg_tol=cfg.cg_tol, aug=aug_direct)
+        for ch, x0 in zip(chunks_t, x0s)]), chunks_t, sms)
+    del x0s, table_ext
 
     plan, chunks, _ = al.plan_x
     s = plan.panel_size
@@ -641,58 +808,32 @@ def phase_totals(cs, al, theta_t, x_t):
     zero = th16.new_zeros((1, f))
     a_dtype = al._accum_dtype(sum(c.rows.shape[0] for c in chunks),
                               plan.num_rows)
-
     gram = cs.gather_gram_aug_out if al._use_panel_aug() else \
         cs.gather_gram_out
-
-    # The Gram kernel chunk by chunk, with the share of the chunks that
-    # hold fewer rows than the card has SMs (one block takes one row, so
-    # those leave SMs idle). A chunk's kernel can be shorter than the
-    # host's work to launch it, so the launches queue up behind a run of
-    # large matrix products and the events between them read device time.
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     tables = {p: torch.cat([th16[p * s:(p + 1) * s], zero])
               for p in sorted({ch.panel for ch in chunks})}
-    for ch in chunks[:3]:       # warm-up: the first launch loads the kernel
-        gram(tables[ch.panel], ch.cols, ch.vals, out_dtype=a_dtype)
-    torch.cuda.synchronize()
-    keep_busy(80)
-    marks = [torch.cuda.Event(enable_timing=True)
-             for _ in range(len(chunks) + 1)]
-    marks[0].record()
-    for i, ch in enumerate(chunks):
-        gram(tables[ch.panel], ch.cols, ch.vals, out_dtype=a_dtype)
-        marks[i + 1].record()
-    queued = not marks[0].query()   # the device had not reached them yet
-    torch.cuda.synchronize()
-    if not queued:
-        raise AssertionError("the Gram launches did not queue behind the "
-                             "matrix products: the events between them "
-                             "would read the host's time")
+    split = split_by_rows(queued_each([
+        lambda ch=ch: gram(tables[ch.panel], ch.cols, ch.vals,
+                           out_dtype=a_dtype) for ch in chunks]), chunks, sms)
     del tables
-    split = dict(total=0.0, few=0.0, n_few=0, gathered=0, written=0,
-                 sms=sms,
-                 widest=max(c.cols.shape[1] for c in chunks))
     a_item = torch.tensor([], dtype=a_dtype).element_size()
-    few = []
-    for i, ch in enumerate(chunks):
-        ms = marks[i].elapsed_time(marks[i + 1])
-        split["total"] += ms
-        if ch.cols.shape[0] < sms:
-            split["few"] += ms
-            split["n_few"] += 1
-            few.append((ms, tuple(ch.cols.shape)))
-        split["gathered"] += ch.cols.numel() * f * 2
-        split["written"] += ch.cols.shape[0] * f * f * a_item
-    split["longest_few"] = sorted(few, reverse=True)[:4]
+    split["gathered"] = sum(ch.cols.numel() * f * 2 for ch in chunks)
+    split["written"] = sum(ch.cols.shape[0] * f * f * a_item
+                           for ch in chunks)
 
-    return (timed(k1_phase), split,
-            timed(lambda: al.accumulate_panels(theta_t, al.plan_x)))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    al.accumulate_panels(theta_t, al.plan_x)
+    end.record()
+    end.synchronize()
+    return theta, split, start.elapsed_time(end)
 
 
 def full_width(cs, model, label, expect, absent, x0, th0, iters=ITERS):
     """One full-width path: ALS.run with every launch count read around
-    it alone."""
+    it alone; a path of RECORDED_TRAIN_RMSE must reach that train RMSE
+    after its last iteration (within 1e-3) and lower its test RMSE."""
     torch.cuda.reset_peak_memory_stats()
     cs.reset_launch_counts()
     res = model.run(x0, th0)
@@ -714,6 +855,14 @@ def full_width(cs, model, label, expect, absent, x0, th0, iters=ITERS):
         raise AssertionError(f"{label}: non-finite RMSE")
     if not tr[-1] < tr[0]:
         raise AssertionError(f"{label}: train RMSE did not fall")
+    if label in RECORDED_TRAIN_RMSE:
+        want = RECORDED_TRAIN_RMSE[label]
+        te = [h.test_rmse for h in res.history]
+        log(f"[{label}] train RMSE after iteration {iters} {tr[-1]:.6f}, "
+            f"recorded {want} (limit 1e-3); test RMSE "
+            f"{[round(t, 6) for t in te]}")
+        if abs(tr[-1] - want) > 1e-3 or not te[-1] < te[0]:
+            raise AssertionError(f"{label}: the RMSE trajectory moved")
     for name in expect:
         if launches[name] < iters:
             raise AssertionError(
@@ -939,20 +1088,32 @@ def main() -> int:
     log(f"[card] {card}")
     log(f"[versions] python {sys.version.split()[0]} torch "
         f"{torch.__version__} cuda {torch.version.cuda}")
-    gram_only = sys.argv[1:] == ["--gram"]
+    short = {(): None, ("--gram",): GRAM_KERNELS,
+             ("--theta",): THETA_KERNELS}
+    if tuple(sys.argv[1:]) not in short:
+        print("usage: chip_smoke.py [--gram | --theta]", file=sys.stderr)
+        return 2
+    only = short[tuple(sys.argv[1:])]
     t0 = time.monotonic()
-    _build.build(GRAM_KERNELS if gram_only else None, force=True,
-                 ptxas_info=True)
+    _build.build(only, force=True, ptxas_info=True)
     if set(_build.KERNELS) != set(REPLACES):
         raise AssertionError("the kernel table and this script disagree")
     log(f"[build] {len(_build.BUILD_LOG)} kernels built in "
         f"{time.monotonic() - t0:.1f} s")
-    ptxas_lines(_build.BUILD_LOG)
-    if gram_only:
-        ok = gram_edges(cs) and gram_synthetic(cs)
+    ptxas_ok = ptxas_lines(_build.BUILD_LOG)
+    if only == GRAM_KERNELS:
+        ok = ptxas_ok and gram_edges(cs) and gram_synthetic(cs)
         log(f"[gram] {'OK' if ok else 'FAIL'} (the short call: no result "
             f"line)")
         return 0 if ok else 1
+    if only == THETA_KERNELS:
+        ok = theta_edges(cs) and theta_synthetic(cs)
+        if not ok:
+            log("[theta] FAIL (the short call: no result line)")
+            return 1
+    elif not ptxas_ok:
+        raise AssertionError("a tensor-core kernel spills or waits for "
+                             "every wgmma")
 
     # ---- data and plans of the full Netflix shape (shared by 2 and 4)
     t0 = time.monotonic()
@@ -990,16 +1151,38 @@ def main() -> int:
                            torch.zeros((1, cfg.f_pad), dtype=torch.bfloat16,
                                        device="cuda")])
 
-    def theta_chunks(model):
+    def check_theta(model, c, aug, key):
+        """K1 (or, with aug, K6) on the widest, the most populous (fills
+        results[key]) and the fewest-row theta chunk of the model's
+        plan."""
         chunks = model.plan_theta[1]
-        return (max(chunks, key=lambda c: c.width),
-                max(chunks, key=lambda c: c.rows.shape[0] * c.width))
+        ok_all = True
+        for label, ch in (
+                ("widest", max(chunks, key=lambda c: c.width)),
+                ("most populous",
+                 max(chunks, key=lambda c: c.rows.shape[0] * c.width)),
+                ("fewest rows", min(chunks, key=lambda c: c.rows.shape[0]))):
+            ok, res = check_k1(cs, table_ext, ch, theta_t, c, label, aug=aug)
+            ok_all &= ok
+            if label == "most populous":
+                results[key] = dict(res, **results.get(key, {}))
+            else:
+                tag = label.split()[0]
+                results.setdefault(key, {}).update(
+                    {f"{tag}_{k}": res[k] for k in ("ms", "max_abs_err",
+                                                    "bound_ms")},
+                    **{f"{tag}_shape": list(ch.cols.shape)})
+        return ok_all
 
     def totals(model, names):
-        k1_tot, x, gram_tot = phase_totals(cs, model, theta_t, x_t)
+        th, x, gram_tot = phase_totals(cs, model, theta_t, x_t)
         n_x = len(model.plan_x[1])
         log(f"[phase totals] {names[0]} over the {len(model.plan_theta[1])} "
-            f"theta chunks {k1_tot:.1f} ms; {names[1]} over the {n_x} X "
+            f"theta chunks {th['total']:.1f} ms, of which {th['few']:.1f} ms "
+            f"in the {th['n_few']} chunks with fewer than {th['sms']} rows "
+            f"(the longest of them, ms and (R, P): "
+            f"{[(round(m, 3), rp) for m, rp in th['longest_few']]}); "
+            f"{names[1]} over the {n_x} X "
             f"chunks {x['total']:.1f} ms, of which {x['few']:.1f} ms in the "
             f"{x['n_few']} chunks with fewer than {x['sms']} rows (the "
             f"longest of them, ms and (R, P): "
@@ -1058,19 +1241,21 @@ def main() -> int:
         return ok_all
 
     results, ok_all = {}, True
-    widest, populous = theta_chunks(al)
-    ok, _ = check_k1(cs, table_ext, widest, theta_t, cfg, "widest")
-    ok_all &= ok
-    ok, results["gather_gram_cg"] = check_k1(cs, table_ext, populous,
-                                             theta_t, cfg, "most populous")
-    ok_all &= ok
+    ok_all &= check_theta(al, cfg, False, "gather_gram_cg")
+    if only == THETA_KERNELS:
+        # K6 on the same chunks: lane 127 of the table is free at F=100
+        ok_all &= check_theta(al, cfg, True, "gather_gram_cg_aug")
+        ok_all &= ptxas_ok
+        log(f"[theta] {'OK' if ok_all else 'FAIL'} (the short call: no "
+            f"result line)")
+        return 0 if ok_all else 1
+    ok_all &= theta_edges(cs)
 
     plan_x, chunks_x, aux_x = al.plan_x
     a_dtype = al._accum_dtype(sum(c.rows.shape[0] for c in chunks_x),
                               plan_x.num_rows)
     ok_all &= gram_edges(cs)
     ok_all &= check_grams(al, False, a_dtype, "gather_gram_out")
-    del widest, populous
 
     a_buf, b_buf = al.accumulate_panels(theta_t, al.plan_x)
     x0_full = torch.zeros((aux_x["m_pad"], cfg.f_pad), device="cuda")
@@ -1135,16 +1320,9 @@ def main() -> int:
             al_aug._use_panel_aug() and cs.aug_enabled(cfg_aug)):
         raise AssertionError("expected the aug panel X route and the aug "
                              "direct theta route")
-    widest, populous = theta_chunks(al_aug)
-    ok, _ = check_k1(cs, table_ext, widest, theta_t, cfg_aug, "widest",
-                     aug=True)
-    ok_all &= ok
-    ok, results["gather_gram_cg_aug"] = check_k1(
-        cs, table_ext, populous, theta_t, cfg_aug, "most populous", aug=True)
-    ok_all &= ok
+    ok_all &= check_theta(al_aug, cfg_aug, True, "gather_gram_cg_aug")
     ok_all &= check_grams(al_aug, True, torch.float32,
                           "gather_gram_aug_out")
-    del widest, populous
 
     aux_x = al_aug.plan_x[2]
     batch, m_pad = aux_x["solve_batch"], aux_x["m_pad"]

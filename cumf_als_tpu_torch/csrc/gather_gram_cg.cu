@@ -7,7 +7,7 @@
 // the contract of `gather_gram_cg`: the gathered G never exists in
 // device memory.
 //
-// Per row r of a chunk (one thread block each):
+// Per row r of a chunk (one thread block at a time):
 //   A = sum_p g g^T (f32), b = sum_p v g, r2 = sum_p v^2, g = table[cols]
 //   A += (nnz*lam + [nnz == 0]) I
 //   x = CG(A, b, x0), then x *= [nnz > 0]
@@ -16,18 +16,25 @@
 // tail of its row (ops/tiling.py, _materialize_chunk), and pad slots
 // gather the zero row with value 0, so they add nothing.
 //
-// f = 256 (one factor width above 128, padded to 256 lanes) takes the
-// triangle-of-tiles body of wide.cuh with all 256 lanes live: a 256 x 256
-// A does not fit the register layout of common.cuh.
-//
 // Bound on an H100: the Gram work, 2 * sum(nnz) * f^2 FLOPs, is ~3.3
 // TFLOP per Netflix theta phase at f = 128, i.e. ~3.3 ms on the bf16
 // tensor cores (989 TFLOP/s). The bytes are small: the gathered table
 // (17,771 x 128 bf16 = 4.5 MB on that phase) stays in L2.
-// What this design does about it: nothing yet. The Gram is f32 FMAs on
-// the CUDA cores from a shared-memory tile (no wgmma, no TMA, no
-// pipelining); those come in a later change.
+// What this design does about it. A bf16 table at f = 128 (the main
+// path) takes the body of frag_cg.cuh: gram_mma.cuh's cp.async gather
+// and wgmma Gram over the row's first min(nnz, P) slots, b and sum v^2
+// summed beside it, and the CG and the train error read A from the wgmma
+// fragment in registers (3 block barriers a CG step). Two blocks share
+// an SM, each walking its rows as one stream of tiles, so the next row's
+// gather and the other block's Gram overlap this row's CG.
+// A float32 table and a bf16 table at f < 128 keep the f32 FMA body of
+// common.cuh, one block a row: bf16 tensor cores would round a float32
+// table. f = 256 (one factor width above 128, padded to 256 lanes) takes
+// the triangle-of-tiles body of wide.cuh with all 256 lanes live: a
+// 256 x 256 A does not fit the register layout of common.cuh. The entry
+// point chooses by dtype and f alone.
 
+#include "frag_cg.cuh"
 #include "wide.cuh"
 
 namespace {
@@ -143,6 +150,11 @@ extern "C" int cumf_gather_gram_cg(const void* table, int table_bf16,
                                    int r, int p, int f, float lam,
                                    int cg_iters, float cg_tol, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  // the tensor-core body where it takes the table, else the FMA bodies
+  if (table_bf16 && f == cumf::mma::kF)
+    return cumf::mma::run_cg<false>(table, cols, vals, vals_bf16, nnz, x0,
+                                    x_out, se_out, r, p, lam, cg_iters,
+                                    cg_tol, st);
   if (table_bf16 && vals_bf16)
     return dispatch<__nv_bfloat16, __nv_bfloat16>(
         f, table, cols, vals, nnz, x0, x_out, se_out, r, p, lam, cg_iters,

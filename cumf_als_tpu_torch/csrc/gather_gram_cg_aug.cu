@@ -9,7 +9,7 @@
 // must be zero: the true factor width is at most f - 1), rounded to the
 // table's dtype first.
 //
-// Per row r of a chunk (one thread block each):
+// Per row r of a chunk (one thread block at a time):
 //   A' = sum_p g g^T (f32), g = table[cols] with lane f - 1 = value
 //   b = row f - 1 of A' (lane f - 1 zeroed), r2 = the corner of A'
 //   A = A' with row and column f - 1 zeroed, + (nnz*lam + [nnz == 0]) I
@@ -22,12 +22,18 @@
 // Bound on an H100: as gather_gram_cg.cu, the Gram work 2 * sum(nnz) *
 // f^2 FLOPs, ~3.3 TFLOP per Netflix theta phase at f = 128, i.e. ~3.3 ms
 // on the bf16 tensor cores (989 TFLOP/s); the bytes are small.
-// What this design does about it: nothing yet. The Gram is f32 FMAs on
-// the CUDA cores from a shared-memory tile (no wgmma, no TMA, no
-// pipelining). The augmented form saves the separate b and r2 passes
-// over each tile; the value enters lane f - 1 while the tile is staged.
+// What this design does about it. A bf16 table at f = 128 (the main
+// path) takes the body of frag_cg.cuh, as K1 does: the value, rounded to
+// bf16, rides lane 127 of the cp.async-gathered tile (as in K5a), one
+// wgmma Gram gives A, b and r2, and the CG reads A from the wgmma
+// fragment in registers, b and r2 taken out of row 127 before the
+// matvec masks row and column 127. A float32 table and a bf16 table at
+// f < 128 keep the f32 FMA body of common.cuh, one block a row, where the
+// value enters lane f - 1 while the tile is staged. The entry point
+// chooses by dtype and f alone.
 
 #include "common.cuh"
+#include "frag_cg.cuh"
 
 namespace {
 
@@ -116,6 +122,11 @@ extern "C" int cumf_gather_gram_cg_aug(const void* table, int table_bf16,
                                        float lam, int cg_iters, float cg_tol,
                                        void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  // the tensor-core body where it takes the table, else the FMA body
+  if (table_bf16 && f == cumf::mma::kF)
+    return cumf::mma::run_cg<true>(table, cols, vals, vals_bf16, nnz, x0,
+                                   x_out, se_out, r, p, lam, cg_iters,
+                                   cg_tol, st);
   if (table_bf16 && vals_bf16)
     return dispatch<__nv_bfloat16, __nv_bfloat16>(
         f, table, cols, vals, nnz, x0, x_out, se_out, r, p, lam, cg_iters,

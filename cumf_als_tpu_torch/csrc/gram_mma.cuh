@@ -1,7 +1,10 @@
-// The tensor-core Gram body of the panel kernels gather_gram_out.cu (K2)
-// and gather_gram_aug_out.cu (K5a): A = G^T G over the gathered (P, 128)
-// bf16 slab of one row, as a 128 x 128 x P product on Hopper's warpgroup
-// MMA, fed by an asynchronous gather.
+// The tensor-core Gram body: A = G^T G over the gathered (P, 128) bf16
+// slab of one row, as a 128 x 128 x P product on Hopper's warpgroup MMA,
+// fed by an asynchronous gather. The panel kernels gather_gram_out.cu
+// (K2) and gather_gram_aug_out.cu (K5a) write the row's sums out
+// (gram_mma_kernel below); the fused kernels gather_gram_cg.cu (K1) and
+// gather_gram_cg_aug.cu (K6) solve on them where they lie
+// (frag_cg.cuh).
 //
 // It takes a bf16 table at f = 128 only (the width of the main path).
 // A float32 table keeps common.cuh's gram_row (bf16 tensor cores would
@@ -12,9 +15,11 @@
 // A block of 256 threads (two warpgroups) takes one row at a time, two
 // blocks an SM, each block walking its share of the chunk's rows as one
 // stream of tiles: the gather of the next row is in flight while the last
-// tiles of this one are multiplied and its sums are written. A chunk with
-// fewer rows than the card has SMs leaves SMs idle: one block walks all
-// the slots of its row.
+// tiles of this one are multiplied and its sums are written (or solved).
+// A row holds the slots its caller names (all P of them in K2 and K5a,
+// the first min(nnz, P) in K1 and K6), and a row without slots has no
+// tiles. A chunk with fewer rows than the card has SMs leaves SMs idle:
+// one block walks all the slots of its row.
 //
 // The tile. 64 slots of the row make one 16 KB tile in shared memory,
 // kept bf16 as gathered. It is stored [slot][lane] as two halves of
@@ -36,19 +41,21 @@
 // kAhead tiles of loads in flight, one tile under the tensor cores and
 // one draining (wgmma.wait_group 1). The ids of the next tile to copy
 // and the values of the tiles in flight wait in registers. Slots beyond
-// P in the last tile are zero-filled (cp.async with a source size of 0);
-// pad slots inside P name the table's zero row and need nothing. Inside
-// the loop over a row's tiles nothing but wgmma touches the sums (a row's
-// first wgmma overwrites them instead of a zeroing store): plain code on
-// those registers there makes ptxas wait for every wgmma at each turn
-// (its note C7517).
+// the row's last in its last tile are zero-filled (cp.async with a source
+// size of 0); pad slots among the row's slots name the table's zero row
+// and need nothing. Inside the loop over a row's tiles nothing but wgmma
+// touches the sums (a row's first wgmma overwrites them instead of a
+// zeroing store): plain code on those registers there makes ptxas wait
+// for every wgmma at each turn (its note C7517).
 //
 // What rides along. The thread that copied the last piece of a slot owns
 // the slot's value: after its own copies have landed it stores the value
 // as f32 into the tile's value line (WITH_B: b = sum v g is summed from
 // the bf16 tile on the CUDA cores, two lanes a thread, a quarter of the
-// slots each, while the tile's wgmma runs), and with AUG it stores the
-// value, rounded to bf16 as the table stores it, over lane 127 of the slot.
+// slots each, while the tile's wgmma runs; WITH_R2, the fused kernel
+// K1, also has the owner add v^2 to its part of r2 = sum v^2 in shared
+// memory), and with AUG it stores the value, rounded to bf16 as the
+// table stores it, over lane 127 of the slot.
 // Then fence.proxy.async (cp.async and plain stores write through the
 // generic proxy, wgmma reads through the async proxy), the block's
 // barrier, and wgmma.fence before the first wgmma.
@@ -57,8 +64,7 @@
 // columns, as the m64n128 fragment: thread t of the warpgroup (warp
 // t / 32, lane t % 32) keeps acc[4 i + {0, 1}] = A[16 warp + lane / 4]
 // [8 i + 2 (lane % 4) + {0, 1}] and acc[4 i + {2, 3}] the same columns of
-// the row 8 below. K1 and K6 can take this body when their solve reads
-// that fragment.
+// the row 8 below. The CG of K1 and K6 (frag_cg.cuh) reads A there.
 #pragma once
 
 #include "common.cuh"
@@ -84,6 +90,7 @@ struct Smem {
   unsigned char tiles[kStages][kTileBytes];
   float v[kStages][kSlots];  // the slots' values, f32
   float b[3][kF];            // WITH_B: b of the slots' upper quarters
+  float r2[16];              // WITH_R2: r2 of each value owner's slots
 };
 constexpr int kSmemBytes = (int)sizeof(Smem) + 1024;
 
@@ -187,23 +194,46 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
       : "l"(desc_a), "l"(desc_b), "r"(add));
 }
 
-// Gather + Gram over the rows that fall to this block, each of p slots.
-// The block takes rows blockIdx.x, blockIdx.x + gridDim.x, ... as ONE
-// stream of tiles (every row `tiles_per_row` of them), so that the gather
-// of the next row is in flight while this one's last tiles are multiplied
-// and its sums are written.
+// The slots of a row that the stream walks: every slot of the panel
+// kernels' rows, the first min(nnz, p) of the fused kernels' (the plans
+// put every pad slot at the tail of its row).
+struct AllSlots {
+  int p;
+  __device__ __forceinline__ int operator()(int) const { return p; }
+};
+struct LiveSlots {
+  const int32_t* nnz;
+  int p;
+  __device__ __forceinline__ int operator()(int row) const {
+    return min(__ldg(nnz + row), p);
+  }
+};
+
+// Gather + Gram over the rows that fall to this block, row r over its
+// first row_len(r) slots of p. The block takes rows blockIdx.x,
+// blockIdx.x + gridDim.x, ... as ONE stream of tiles (a row of n slots
+// gives ceil(n / 64) of them, a row of none gives none), so that the
+// gather of the next row is in flight while this one's last tiles are
+// multiplied and its sums are written.
 // Per row: acc (this thread's part of the fragment described at the head
 // of this file) = G^T G; with AUG the slot's value replaces lane 127 of
 // its gathered row; with WITH_B, b0 and b1 = sum v g over this thread's
 // quarter of the slots (thread t: lanes 2 (t % 64) and 2 (t % 64) + 1,
-// slots 16 (t / 64) .. + 15 of every tile). After a row's last wgmma
-// the whole block calls done(row, acc, b0, b1), which may use barriers but
-// must not write acc, and the sums start again.
-template <bool AUG, bool WITH_B, typename VT, typename RowDone>
+// slots 16 (t / 64) .. + 15 of every tile); with WITH_R2, s.r2[t / 16]
+// = sum v^2 over the slots that thread t owns (the 16 threads
+// t % 16 == 15), in shared memory, where it costs no register in the
+// tile loop. After a row's last wgmma the whole block calls done(row, n,
+// acc, b0, b1), which may use barriers but must not write acc, and must
+// have read s.r2 before its last barrier; then the sums start again. A
+// row of n = 0 slots ran no wgmma: acc still holds the last row's sums,
+// and done() must read them as zeros.
+template <bool AUG, bool WITH_B, bool WITH_R2, typename VT, typename RowLen,
+          typename RowDone>
 __device__ __forceinline__ void gram_stream(Smem& s,
                                             const __nv_bfloat16* table,
                                             const int32_t* cols,
                                             const VT* vals, int p, int rows,
+                                            const RowLen& row_len,
                                             const RowDone& done) {
   const int tid = threadIdx.x;
   const int piece = tid & 15;       // which 16 bytes of a table row
@@ -211,28 +241,26 @@ __device__ __forceinline__ void gram_stream(Smem& s,
   const int wg = tid >> 7;
   const bool owner = piece == 15;   // owns the values of its slots
   const uint32_t tiles_s = smem_u32(&s.tiles[0][0]);
-  const int tiles_per_row = (p + kSlots - 1) / kSlots;
-  const int my_rows =
-      rows > (int)blockIdx.x
-          ? (rows - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x
-          : 0;
-  const int n_tiles = my_rows * tiles_per_row;  // of this block's stream
 
-  // A place in the stream: tile `tile` of row `row`, which holds slots
-  // [first, first + n) of cols and vals; n <= 0 past the stream.
+  // A place in the stream: a tile of row `row`, which holds slots
+  // [first, first + n) of cols and vals (n: the row's slots left);
+  // past the stream row >= rows and n = 0. The wrappers keep
+  // rows * p below 2^31.
   struct Cursor {
-    int row, tile, n;
-    int64_t first;
+    int row, n, first;
   };
+  // enter row c.row, or the first row after it that has slots
   auto enter_row = [&](Cursor& c) {
-    c.tile = 0;
-    c.first = (int64_t)c.row * p;
-    c.n = c.row < rows ? p : 0;
+    for (;; c.row += gridDim.x) {
+      c.first = c.row * p;
+      c.n = c.row < rows ? row_len(c.row) : 0;
+      if (c.n > 0 || c.row >= rows) return;
+    }
   };
   auto step = [&](Cursor& c) {
     c.first += kSlots;
     c.n -= kSlots;
-    if (++c.tile == tiles_per_row) {
+    if (c.n <= 0) {
       c.row += gridDim.x;
       enter_row(c);
     }
@@ -249,9 +277,10 @@ __device__ __forceinline__ void gram_stream(Smem& s,
       v[i] = owner && slot0 + i < c.n ? to_f32(vals[c.first + slot0 + i])
                                       : 0.f;
   };
-  // Start the copies of stream tile q, whose ids are `id`.
-  auto start_copies = [&](int q, const int (&id)[kSlotsPerThread]) {
-    if (q < n_tiles) {
+  // Start the copies of stream tile q, at cursor c, whose ids are `id`.
+  auto start_copies = [&](int q, const Cursor& c,
+                          const int (&id)[kSlotsPerThread]) {
+    if (c.row < rows) {
       const uint32_t base = tiles_s + (q % kStages) * kTileBytes;
 #pragma unroll
       for (int i = 0; i < kSlotsPerThread; ++i) {
@@ -273,57 +302,61 @@ __device__ __forceinline__ void gram_stream(Smem& s,
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.f;
   float b_sum[2][2] = {{0.f, 0.f}, {0.f, 0.f}};  // WITH_B: [sum][lane]
+  if (WITH_R2 && owner) s.r2[tid >> 4] = 0.f;
   int id[kSlotsPerThread];
   float v_queue[kAhead][kSlotsPerThread];  // values of the tiles in flight
-  Cursor use;  // the tile the tensor cores take next
-  use.row = blockIdx.x;
-  enter_row(use);
-  Cursor ahead = use;  // the tile whose ids load next
+  Cursor ahead;  // the tile whose ids load next
+  ahead.row = blockIdx.x;
+  enter_row(ahead);
 #pragma unroll
   for (int a = 0; a < kAhead; ++a) {
     load_ids(ahead, id);
-    start_copies(a, id);
+    start_copies(a, ahead, id);
     load_vals(ahead, v_queue[a]);
     step(ahead);
   }
   load_ids(ahead, id);
 
   int q = 0;  // the stream tile the tensor cores take next
-  for (int done_rows = 0; done_rows < my_rows; ++done_rows) {
-    const int row = use.row;
+  for (int row = blockIdx.x; row < rows; row += gridDim.x) {
+    const int n = row_len(row);
     // the tiles of one row; inside this loop nothing but wgmma touches acc
-    for (int t = 0; t < tiles_per_row; ++t, ++q) {
+    for (int lo = 0; lo < n; lo += kSlots, ++q) {
       const int buf = q % kStages;
       unsigned char* tile = s.tiles[buf];
       cp_async_wait<kAhead - 1>();  // this thread's copies of tile q landed
       if (owner) {
+        float sq = 0.f;  // WITH_R2: this tile's part
 #pragma unroll
         for (int i = 0; i < kSlotsPerThread; ++i) {
           if constexpr (WITH_B) s.v[buf][slot0 + i] = v_queue[0][i];
+          if constexpr (WITH_R2)
+            sq = fmaf(v_queue[0][i], v_queue[0][i], sq);
           if constexpr (AUG)
             *reinterpret_cast<__nv_bfloat16*>(
                 tile + tile_offset(slot0 + i, kF - 1)) =
                 __float2bfloat16(v_queue[0][i]);
         }
+        if constexpr (WITH_R2) s.r2[tid >> 4] += sq;
       }
       fence_proxy_async();
       // Tile q is whole; every thread has left the wgmma wait of iteration
       // q - 1, so the wgmma of tile q - 2 is done and its buffer is free.
       __syncthreads();
       float v_new[kSlotsPerThread];
-      start_copies(q + kAhead, id);  // `ahead` is at stream tile q + kAhead
+      start_copies(q + kAhead, ahead, id);  // `ahead` is at tile q + kAhead
       load_vals(ahead, v_new);
       step(ahead);
       load_ids(ahead, id);
 
-      const int k_steps = (min(kSlots, max(use.n, 0)) + 15) / 16;
+      const int k_steps = (min(kSlots, n - lo) + 15) / 16;
       const uint32_t base = tiles_s + buf * kTileBytes;
       wgmma_fence();
       for (int k = 0; k < k_steps; ++k)
         wgmma_m64n128k16(acc,
                          descriptor(base + wg * kHalfBytes + k * kKStepBytes),
                          descriptor(base + k * kKStepBytes),
-                         t > 0 || k > 0);
+                         lo > 0 || k > 0);
       wgmma_commit();
       if constexpr (WITH_B) {
         // this thread's two lanes over its quarter of the tile's slots: 8
@@ -351,7 +384,6 @@ __device__ __forceinline__ void gram_stream(Smem& s,
         }
       }
       wgmma_wait<1>();
-      step(use);
 #pragma unroll
       for (int i = 0; i < kSlotsPerThread; ++i) {
 #pragma unroll
@@ -361,8 +393,9 @@ __device__ __forceinline__ void gram_stream(Smem& s,
     }
     wgmma_wait<0>();
     use_acc(acc);
-    done(row, acc, b_sum[0][0] + b_sum[1][0], b_sum[0][1] + b_sum[1][1]);
+    done(row, n, acc, b_sum[0][0] + b_sum[1][0], b_sum[0][1] + b_sum[1][1]);
     b_sum[0][0] = b_sum[0][1] = b_sum[1][0] = b_sum[1][1] = 0.f;
+    if (WITH_R2 && owner) s.r2[tid >> 4] = 0.f;
   }
 }
 
@@ -431,9 +464,9 @@ __global__ void __launch_bounds__(kThreads, 2)
                     float* __restrict__ b_out, int p, int rows) {
   extern __shared__ unsigned char smem_raw[];
   Smem& s = aligned_smem(smem_raw);
-  gram_stream<AUG, !AUG>(
-      s, table, cols, vals, p, rows,
-      [&](int row, const float (&acc)[64], float b0, float b1) {
+  gram_stream<AUG, !AUG, false>(
+      s, table, cols, vals, p, rows, AllSlots{p},
+      [&](int row, int, const float (&acc)[64], float b0, float b1) {
         store_fragment<OT>(acc, a_out + (int64_t)row * kF * kF);
         if constexpr (!AUG) {
           // b: the four quarters of the slots, added in a fixed order

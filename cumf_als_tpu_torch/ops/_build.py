@@ -53,7 +53,7 @@ KERNELS = {
                           [_VP, _VP, _I, _VP, _I, _VP, _VP, _VP, _VP,
                            _I, _I, _I, _F, _I, _F, _VP]),
 }
-HEADERS = ("common.cuh", "wide.cuh", "gram_mma.cuh")
+HEADERS = ("common.cuh", "wide.cuh", "gram_mma.cuh", "frag_cg.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 

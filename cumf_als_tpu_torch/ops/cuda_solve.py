@@ -38,16 +38,18 @@ an already gathered, lane-packed G. `wide_enabled` is the opt-in gate of
 the second. The panel and solve kernels (K2-K5b) and the augmented fused
 kernel (K6) take f <= 128 only.
 
-The panel Grams K2 and K5a are bound by operations on an H100 (by the
-write of A as well when A is f32), and what feeds them is the L2: the
-panel stays there, but every slot moves its 256-byte table row to an SM.
-For a bf16 table at f = 128, the main path, they gather with cp.async
-into a ring of swizzled bf16 tiles and run the Gram on the tensor cores
-(csrc/gram_mma.cuh); a float32 table and a bf16 table at f < 128 keep
-the f32 FMA body of csrc/common.cuh. `gram_body` is that rule. One block
+The Gram kernels K1, K2, K5a and K6 are bound by operations on an H100
+(K2 and K5a by the write of A as well when A is f32), and what feeds
+them is the L2: the table stays there, but every slot moves its 256-byte
+table row to an SM. For a bf16 table at f = 128, the main path, they
+gather with cp.async into a ring of swizzled bf16 tiles and run the Gram
+on the tensor cores (csrc/gram_mma.cuh); K1 and K6 stop each row at its
+nnz and run the CG on the wgmma fragment in registers
+(csrc/frag_cg.cuh). A float32 table and a bf16 table at f < 128 keep the
+f32 FMA body of csrc/common.cuh. `gram_body` is that rule. One block
 takes one row at a time, so a chunk with fewer rows than the card has
-SMs leaves SMs idle. The fused kernels K1, K6, K7 and K8 still run the
-FMA body.
+SMs leaves SMs idle. K7, K8 and K1 at f = 256 run the FMA body of
+csrc/wide.cuh.
 
 The row gather runs inside the kernels, so the wrappers keep the
 contracts of the JAX wrappers (`gather_gram_cg`, `gather_gram_out`,
@@ -292,7 +294,10 @@ def gather_gram_cg(table_ext, cols, vals, nnz, x0, lam: float,
     "gather_gram_cg_aug"): lane f-1 of the table must be all zero (true
     factor width < f) and lane f-1 of x0 zero; the values ride lane f-1
     of G, rounded to the table's dtype, and lane f-1 of x comes back
-    exactly 0."""
+    exactly 0. On a card the Gram runs in the body `gram_body` names (f
+    = 256 in that of csrc/wide.cuh); on the tensor cores the bf16
+    products are exact and the f32 sums are taken in the hardware's
+    order."""
     if _on_cpu(table_ext, cols, vals, nnz, x0):
         plain = gather_gram_cg_aug_plain if aug else gather_gram_cg_plain
         return plain(table_ext, cols, vals, nnz, x0, lam, cg_iters, cg_tol)
@@ -308,6 +313,7 @@ def gather_gram_cg(table_ext, cols, vals, nnz, x0, lam: float,
     x = torch.empty((r, f), dtype=torch.float32, device=x0.device)
     se = torch.empty((r, 1), dtype=torch.float32, device=x0.device)
     if r:
+        _check_gram_table(table_ext, cols)
         _launch(name, table_ext.data_ptr(), _bf16(table_ext),
                 cols.data_ptr(), vals.data_ptr(), _bf16(vals),
                 nnz.data_ptr(), x0.data_ptr(), x.data_ptr(), se.data_ptr(),
@@ -317,25 +323,32 @@ def gather_gram_cg(table_ext, cols, vals, nnz, x0, lam: float,
 
 # ------------------------------------------- K2 / K5a the panel Grams --
 def gram_body(table_ext: torch.Tensor) -> str:
-    """Which Gram body the panel kernels K2 and K5a run for this table on
-    a card, by its dtype and width alone: "wgmma" (csrc/gram_mma.cuh:
-    cp.async gather into swizzled bf16 tiles, tensor-core Gram) for a
-    bf16 table at f = 128, the width of the main path; "fma" (the f32
-    FMA body of csrc/common.cuh) for a float32 table, which bf16 tensor
-    cores would round, and for a bf16 table at f < 128. A caller cannot
-    choose, and neither body gives way to the other or to the plain
-    version."""
+    """Which Gram body the kernels K1, K2, K5a and K6 run for this table
+    on a card, by its dtype and width alone: "wgmma" (csrc/gram_mma.cuh:
+    cp.async gather into swizzled bf16 tiles, tensor-core Gram; for K1
+    and K6 the CG on the fragment of csrc/frag_cg.cuh) for a bf16 table
+    at f = 128, the width of the main path; "fma" (the f32 FMA bodies of
+    csrc/common.cuh, and for K1 at f = 256 of csrc/wide.cuh) for a
+    float32 table, which bf16 tensor cores would round, and for every
+    other width. A caller cannot choose, and neither body gives way to
+    the other or to the plain version."""
     if table_ext.dtype == torch.bfloat16 and table_ext.shape[1] == 128:
         return "wgmma"
     return "fma"
 
 
-def _check_gram_table(table_ext: torch.Tensor) -> None:
+def _check_gram_table(table_ext: torch.Tensor, cols: torch.Tensor) -> None:
     """The tensor-core body copies 16 bytes at a time: the table's rows
-    must lie on 16-byte boundaries."""
-    if gram_body(table_ext) == "wgmma" and table_ext.data_ptr() % 16:
+    must lie on 16-byte boundaries. It counts a chunk's slots in 32
+    bits."""
+    if gram_body(table_ext) != "wgmma":
+        return
+    if table_ext.data_ptr() % 16:
         raise ValueError("table_ext: its storage must start on a 16-byte "
                          "boundary")
+    if cols.numel() >= 2 ** 31:
+        raise ValueError(f"cols: {cols.numel()} slots, the kernel takes "
+                         f"fewer than 2^31")
 
 
 def gather_gram_out_plain(table_ext, cols, vals,
@@ -369,7 +382,7 @@ def gather_gram_out(table_ext, cols, vals,
     a = torch.empty((r, f, f), dtype=out_dtype, device=cols.device)
     b = torch.empty((r, f), dtype=torch.float32, device=cols.device)
     if r:
-        _check_gram_table(table_ext)
+        _check_gram_table(table_ext, cols)
         _launch("gather_gram_out", table_ext.data_ptr(), _bf16(table_ext),
                 cols.data_ptr(), vals.data_ptr(), _bf16(vals),
                 a.data_ptr(), _bf16(a), b.data_ptr(), r, p, f)
@@ -461,7 +474,7 @@ def gather_gram_aug_out(table_ext, cols, vals,
     _check("vals", vals, (r, p), _FLOATS)
     a = torch.empty((r, f, f), dtype=out_dtype, device=cols.device)
     if r:
-        _check_gram_table(table_ext)
+        _check_gram_table(table_ext, cols)
         _launch("gather_gram_aug_out", table_ext.data_ptr(),
                 _bf16(table_ext), cols.data_ptr(), vals.data_ptr(),
                 _bf16(vals), a.data_ptr(), _bf16(a), r, p, f)

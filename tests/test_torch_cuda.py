@@ -11,12 +11,14 @@ rtol 1e-5 for an f32 A or A' and for b, one bf16 ulp for a bf16 A or A',
 f = 256) as in tests/test_torch_wide.py: dead lanes and empty rows
 exactly 0, K8 against K1 at f = 256 on the same G rtol 1e-5.
 
-The panel Grams K2 and K5a run their tensor-core body for a bf16 table
-at f = 128 (`cs.gram_body`). There the products are exact and the f32
-sums are taken in the hardware's order, so the error follows the size of
-the sum, not of the value: `gram_limit` states the limit for each body.
-An integer table makes every sum exact and the comparison bit for bit:
-the proof of the tile layout."""
+The Gram kernels K1, K2, K5a and K6 run their tensor-core body for a
+bf16 table at f = 128 (`cs.gram_body`). There the products are exact
+and the f32 sums are taken in the hardware's order, so the error follows
+the size of the sum, not of the value: `gram_limit` states the limit for
+each body. An integer table makes every sum exact and the comparison bit
+for bit: the proof of the tile layout. K1 and K6 stop each row at its
+nnz; `theta_chunk` puts rows that stop at the edges of the 64-slot tile
+into one chunk, x within 2e-3 and se within 1e-3 relative."""
 
 import numpy as np
 import pytest
@@ -213,6 +215,66 @@ def test_gram_kernels_at_the_tile_edges(card, p, r, table_dtype, out_dtype,
         assert torch.all(out[empty.to(card)] == 0)
     assert cs.LAUNCHES == dict.fromkeys(cs.LAUNCHES, 0) | {
         "gather_gram_out": 1, "gather_gram_aug_out": 1}
+
+
+THETA_NNZ = (0, 1, 15, 16, 17, 63, 64, 65, 128, 129)
+
+
+def theta_chunk(p, aug, seed=0):
+    """A theta chunk of P = p slots at f = 128 whose rows stop at the
+    edges of the fused kernels' 64-slot tile: one row for each nnz of
+    THETA_NNZ up to p and one of p, pad slots at each row's tail (the
+    zero row N, value 0), and a dummy tail row without ratings whose warm
+    start is zero, as a plan's chunk ends. With aug the table's lane 127
+    and the warm start's are free (zero), and one value (3.3) is not
+    exact in bf16. Returns numpy arrays: table, cols, vals, nnz, x0."""
+    f = 128
+    rng = np.random.RandomState(seed + 17 * p)
+    nnz = np.array([k for k in THETA_NNZ if k < p] + [p, 0], dtype=np.int32)
+    r = len(nnz)
+    table = (rng.standard_normal((N + 1, f)) * 0.3).astype(np.float32)
+    table[N] = 0.0
+    mask = np.arange(p)[None, :] < nnz[:, None]
+    cols = np.where(mask, rng.randint(0, N, (r, p)), N).astype(np.int32)
+    vals = (np.round(rng.uniform(1, 5, (r, p)) * 2) / 2).astype(np.float32)
+    vals[-2, 0] = 3.3
+    x0 = (rng.standard_normal((r, f)) * 0.1).astype(np.float32)
+    x0[-1] = 0.0
+    if aug:
+        table[:, f - 1] = 0.0
+        x0[:, f - 1] = 0.0
+    return table, cols, vals * mask, nnz, x0
+
+
+@pytest.mark.parametrize("p", [64, 256, 520])
+@pytest.mark.parametrize("aug", [False, True])
+@pytest.mark.parametrize("table_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("vals_dtype", [torch.float32, torch.bfloat16])
+def test_fused_kernels_where_rows_stop(card, p, aug, table_dtype,
+                                       vals_dtype):
+    """K1 (or, with aug, K6) against its plain version on `theta_chunk`:
+    rows of 0 to P slots in one chunk, a bf16 table in the tensor-core
+    body (rows of 1, 4 and 9 tiles), a float32 table in the FMA body; x
+    within 2e-3, se within 1e-3 relative (the limits of the Netflix
+    chunks in chip_smoke.py); rows without ratings exactly 0 in x and
+    se, and K6's lane 127 of x exactly 0."""
+    table, cols, vals, nnz, x0 = (torch.from_numpy(a) for a in
+                                  theta_chunk(p, aug))
+    cpu = (table.to(table_dtype), cols, vals.to(vals_dtype), nnz, x0)
+    gpu = tuple(t.to(card) for t in cpu)
+    assert cs.gram_body(gpu[0]) == (
+        "wgmma" if table_dtype == torch.bfloat16 else "fma")
+    x, se = cs.gather_gram_cg(*gpu, LAM, aug=aug)
+    px, pse = cs.gather_gram_cg(*cpu, LAM, aug=aug)
+    x, se = x.cpu(), se.cpu()
+    torch.testing.assert_close(x, px, atol=2e-3, rtol=0)
+    assert bool(((se - pse).abs() <= 1e-3 * pse.abs().clamp_min(1.0)).all())
+    empty = nnz == 0
+    assert torch.all(x[empty] == 0) and torch.all(se[empty] == 0)
+    if aug:
+        assert torch.all(x[:, 127] == 0)
+    name = "gather_gram_cg_aug" if aug else "gather_gram_cg"
+    assert cs.LAUNCHES == dict.fromkeys(cs.LAUNCHES, 0) | {name: 1}
 
 
 def _wide_chunk(f_true, dtype, seed=2):

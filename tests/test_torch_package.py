@@ -213,10 +213,35 @@ def test_every_included_header_rebuilds_its_kernels():
     (torch.bfloat16, 112, "fma"), (torch.bfloat16, 16, "fma"),
     (torch.float32, 64, "fma")])
 def test_gram_body_goes_by_dtype_and_width_alone(dtype, f, body):
-    """The tensor-core Gram body takes a bf16 table at f = 128; every
-    other table the panel kernels take keeps the FMA body."""
+    """The tensor-core Gram body (K1, K2, K5a, K6) takes a bf16 table at
+    f = 128; every other table these kernels take keeps an FMA body."""
     from cumf_als_tpu_torch.ops import cuda_solve as cs
     assert cs.gram_body(torch.zeros((3, f), dtype=dtype)) == body
+
+
+@pytest.mark.parametrize("case", ["aligned", "offset", "too many slots",
+                                  "float32"])
+def test_tensor_core_body_checks_what_its_copies_need(case):
+    """The wrappers' check before a launch on the tensor-core body: its
+    16-byte copies need table rows on 16-byte boundaries, and it counts
+    a chunk's slots in 32 bits. A float32 table (the FMA body) is not
+    held to either."""
+    from cumf_als_tpu_torch.ops import cuda_solve as cs
+    flat = torch.zeros(9 * 128 + 1, dtype=torch.bfloat16)
+    table = flat[:-1].view(9, 128)
+    cols = torch.zeros((4, 8), dtype=torch.int32)
+    if case == "offset":
+        table = flat[1:].view(9, 128)        # 2 bytes past a boundary
+    many = torch.zeros((1, 1), dtype=torch.int32).expand(2 ** 16, 2 ** 15)
+    if case == "too many slots":
+        cols = many
+    elif case == "float32":
+        table, cols = torch.zeros(9 * 128 + 1)[1:].view(9, 128), many
+    if case in ("aligned", "float32"):
+        cs._check_gram_table(table, cols)
+    else:
+        with pytest.raises(ValueError):
+            cs._check_gram_table(table, cols)
 
 
 from cumf_als_tpu_torch.ops import _build  # noqa: E402
