@@ -6,9 +6,10 @@ Phases, each of which must pass (any failure exits non-zero before the
 result line):
 
 1. card and build: the card's name and power limit, the torch/CUDA
-   versions, and the build of every CUDA kernel from csrc/ (nine) with
-   `-Xptxas -v`: registers, spills and added wgmma waits of the
-   tensor-core entry functions of K1, K2, K5a and K6;
+   versions, and the build of every CUDA kernel from csrc/ (eleven)
+   with `-Xptxas -v`: registers, spills and added wgmma waits of the
+   tensor-core entry functions of K1, K2, K5a and K6, registers and
+   spills of the 256-lane entry functions;
 2. each kernel against its plain PyTorch version on the card, on real
    chunks of the Netflix-shaped plans, with kernel, plain, yardstick and
    bound times: the widest, the most populous and the fewest-row
@@ -45,11 +46,20 @@ result line):
    and theta on the direct route:
    a. K7, K1 at f=256 and K8 against their plain versions on the most
       populous and the widest theta chunk and (K7) the most populous
-      split X chunk, K8 also against K1 at f=256 on the same G;
+      split X chunk, K8 also against K1 at f=256 on the same G; the
+      row cut of K7 and of K1 at f=256 (`wide_span_gram` +
+      `wide_span_solve`, taken where a chunk has fewer rows than the
+      card has SMs) on the split X chunk with the fewest rows, one of
+      about 32 rows and the widest theta chunk, against the plain cut
+      route and the uncut kernel; each pass alone on one chunk (pass 1
+      through the record layout); the span-edge grid; both kernels'
+      time over both phases, cut and uncut, split by chunks under and
+      over the SM count;
    b. small runs (scale 0.01, F=130, forced split X route with 3 parts)
-      on the card against the CPU, wide_kernel on and off;
-   c. `ALS.run` for 3 iterations with wide_kernel="on" (K7 alone), then
-      2 iterations with wide_kernel="off" (K1 alone);
+      on the card against the CPU, wide_kernel on and off, the cut
+      taken in each card run;
+   c. `ALS.run` for 3 iterations with wide_kernel="on" (K7 and the
+      cut), then 2 iterations with wide_kernel="off" (K1 and the cut);
    d. K8's path: `fused_gram_cg_cat` over every theta chunk on a G
       gathered with torch, each held against K1 at f=256.
 
@@ -71,6 +81,15 @@ the ptxas report), runs the edge grid (rows that stop at different nnz
 inside one chunk), times three synthetic chunk shapes and the most
 populous, the widest and the fewest-row chunk of the real Netflix theta
 plan against the plain versions, and prints no result line.
+
+    python3 chip_smoke.py --wide
+
+is the short call after a change to csrc/wide.cuh or the row cut: it
+builds K1, K7 and the two passes of the cut alone (with the ptxas
+report), runs the span-edge grid and synthetic few-row chunks (cut
+against uncut, with times), then the few-row chunks of the real
+Netflix F=200 plans (phase 5a's cut checks), and prints no result
+line.
 """
 
 from __future__ import annotations
@@ -99,12 +118,17 @@ REPLACES = {
     "gather_gram_cg_aug": "cumf_als_tpu/ops/pallas_solve.py:345",
     "gather_gram_cg_wide": "cumf_als_tpu/ops/pallas_solve.py:804",
     "fused_gram_cg_cat": "cumf_als_tpu/ops/pallas_solve.py:956",
+    # the two passes of the row cut of K7 and of K1 at 256 lanes
+    "wide_span_gram": "cumf_als_tpu/ops/pallas_solve.py:804",
+    "wide_span_solve": "cumf_als_tpu/ops/pallas_solve.py:804",
 }
 SPLIT_KERNELS = ("gather_gram_cg", "gather_gram_out", "solve_cg_reg")
 AUG_KERNELS = ("gather_gram_cg_aug", "gather_gram_aug_out", "solve_cg_aug")
 WIDE_KERNELS = ("gather_gram_cg_wide", "fused_gram_cg_cat")
 GRAM_KERNELS = ("gather_gram_out", "gather_gram_aug_out")
 THETA_KERNELS = ("gather_gram_cg", "gather_gram_cg_aug")
+SPAN_KERNELS = ("wide_span_gram", "wide_span_solve")
+WIDE_SHORT = ("gather_gram_cg", "gather_gram_cg_wide") + SPAN_KERNELS
 # train RMSE after iteration 3 of the full-width F=100 paths, as recorded
 # before K1 and K6 moved to the tensor cores (PERF.md)
 RECORDED_TRAIN_RMSE = {"main": 0.428662, "aug": 0.428668}
@@ -193,6 +217,23 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def wide_work(table_ext, ch, fl):
+    """What one launch of the 256-lane body (csrc/wide.cuh: K1 at f=256,
+    K7, pass 1 of the row cut) must do on chunk `ch` at fl live lanes:
+    the bytes it reads (each distinct table row its live slots name, once,
+    at fl lanes; the live slots' ids and values; nnz) and its operations
+    (the Gram's upper triangle of 8x8 tiles, nnz fl (fl + 8), and b, 2
+    nnz fl). The warm start and the outputs are the caller's to add."""
+    r, p = ch.cols.shape
+    live = torch.arange(p, device=ch.cols.device)[None, :] < \
+        ch.nnz.long()[:, None]
+    rows = torch.unique(ch.cols[live]).numel()
+    slots = float(ch.nnz.sum().item())
+    read = rows * fl * table_ext.element_size() + \
+        slots * (4 + ch.vals.element_size()) + nbytes(ch.nnz)
+    return read, slots * fl * (fl + 8) + 2.0 * slots * fl
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -236,6 +277,24 @@ def ptxas_lines(build_log):
             f"registers {regs}, spill stores {spills} bytes, static shared "
             f"memory {max(smem, default=0)} bytes (dynamic: the ring of "
             f"tiles), wgmma waits added by ptxas (C7517): {waits}")
+    for name in WIDE_SHORT:
+        if name not in build_log:
+            continue
+        lines = build_log[name].splitlines()
+        regs, spills = [], []
+        for i, line in enumerate(lines):
+            if "Compiling entry function" in line and any(
+                    k in line for k in ("_256_kernel", "wide_kernel",
+                                        "span_gram_kernel",
+                                        "span_solve_kernel")):
+                info = " ".join(lines[i + 1:i + 5])
+                regs += [int(x) for x in re.findall(r"Used (\d+) registers",
+                                                    info)]
+                spills += [int(x) for x in re.findall(
+                    r"(\d+) bytes spill stores", info)]
+        log(f"[ptxas] {name}, the {len(regs)} 256-lane entry functions "
+            f"(csrc/wide.cuh): registers {sorted(set(regs))}, spill stores "
+            f"up to {max(spills, default=0)} bytes")
     for name, out in build_log.items():
         for line in out.splitlines():
             if "warning" in line.lower() or "Potential" in line:
@@ -651,10 +710,11 @@ def chunk_x0(ch, current):
 
 
 def check_fused_256(cs, table_ext, ch, current, cfg, label, f2=None):
-    """K7 (with f2) or K1 at f=256 on one chunk of a 256-lane table:
-    kernel vs plain, limits as K1's; K7's dead lanes and empty rows must
-    be exactly 0. The operations counted are those of the live lanes:
-    2 * nnz * (128 + f2)^2 for K7, 2 * nnz * 256^2 for K1."""
+    """K7 (with f2) or K1 at f=256 on one chunk of a 256-lane table, as
+    the wrapper routes it (the row cut on a chunk with fewer rows than
+    the card has SMs): kernel vs the uncut plain version, limits as K1's;
+    K7's dead lanes and empty rows must be exactly 0. The bound counts
+    the live lanes (`wide_work`): 128 + f2 for K7, 256 for K1."""
     x0 = chunk_x0(ch, current)
     args = (table_ext, ch.cols, ch.vals, ch.nnz, x0, cfg.lam)
     kw = dict(cg_iters=cfg.cg_iters, cg_tol=cfg.cg_tol)
@@ -675,13 +735,15 @@ def check_fused_256(cs, table_ext, ch, current, cfg, label, f2=None):
     ms = time_ms(lambda: fn(*args, **kw))
     plain = time_ms(lambda: plain_fn(*args, **kw), reps=3)
     r, p = ch.cols.shape
-    flops = 2.0 * float(ch.nnz.sum().item()) * live * live
-    item = table_ext.element_size()
-    bms, by = bound_ms(table_ext.shape[0] * live * item + r * live * 4 +
-                       nbytes(ch.cols, ch.vals, ch.nnz, x, se), flops,
+    read, flops = wide_work(table_ext, ch, live)
+    bms, by = bound_ms(read + r * live * 4 + nbytes(x, se), flops,
                        table_ext.dtype)
     ok = err <= 2e-3 and se_rel <= 1e-3 and zero_ok
-    log(f"[{name}] {label} chunk R={r} P={p}: max|dx|={err:.3e} (limit "
+    n_spans, span = cs.row_spans(r, p, sm_count())
+    route = f"cut, S={n_spans} spans of {span} slots" if n_spans > 1 \
+        else "uncut"
+    log(f"[{name}] {label} chunk R={r} P={p} ({route}): max|dx|={err:.3e} "
+        f"(limit "
         f"2e-3), max rel dse={se_rel:.3e} (limit 1e-3), dead lanes and "
         f"empty rows exactly 0: {zero_ok}; kernel {ms:.3f} ms, plain "
         f"{plain:.3f} ms, bound {bms:.4f} ms ({by}); "
@@ -702,7 +764,8 @@ def gathered_slabs(table_ext, ch, f2):
 
 def check_k8(cs, table_ext, ch, current, cfg, f2, label):
     """K8 on the gathered G of one theta chunk: kernel vs plain, and
-    against K1 at f=256 on the same rows (rtol 1e-5 + 1e-6)."""
+    against K1's uncut kernel at f=256 on the same rows (rtol 1e-5 +
+    1e-6: K8 keeps that body)."""
     x0 = chunk_x0(ch, current)
     g1, g2 = gathered_slabs(table_ext, ch, f2)
     args = (g1, g2, ch.vals, ch.nnz, x0, cfg.lam)
@@ -713,7 +776,7 @@ def check_k8(cs, table_ext, ch, current, cfg, f2, label):
     se_rel = ((se - pse).abs() / pse.abs().clamp_min(1.0)).max().item()
     del px, pse
     mx, mse = cs.gather_gram_cg(table_ext, ch.cols, ch.vals, ch.nnz, x0,
-                                cfg.lam, **kw)
+                                cfg.lam, spans=1, **kw)   # the uncut body
     mono_ok = bool(((x - mx).abs() <= 1e-5 * mx.abs() + 1e-6).all()) and \
         bool(((se - mse).abs() <= 1e-5 * mse.abs() + 1e-6).all())
     mono_err = (x - mx).abs().max().item()
@@ -721,8 +784,9 @@ def check_k8(cs, table_ext, ch, current, cfg, f2, label):
     ms = time_ms(lambda: cs.fused_gram_cg_cat(*args, **kw))
     plain = time_ms(lambda: cs.fused_gram_cg_cat_plain(*args, **kw), reps=3)
     r, p = ch.cols.shape
+    slots = float(ch.nnz.sum().item())   # the Gram's upper triangle, as K1
     bms, by = bound_ms(nbytes(g1, g2, ch.vals, ch.nnz, x0, x, se),
-                       2.0 * r * p * 256 * 256, g1.dtype)
+                       slots * 256 * (256 + 8) + 2.0 * slots * 256, g1.dtype)
     ok = err <= 2e-3 and se_rel <= 1e-3 and mono_ok
     log(f"[K8 fused_gram_cg_cat f2={f2}] {label} chunk R={r} P={p}, G "
         f"{g1.dtype}: max|dx|={err:.3e} (limit 2e-3), max rel dse="
@@ -772,6 +836,289 @@ def split_by_rows(times, chunks, sms):
             few.append((ms, tuple(ch.cols.shape)))
     split["longest_few"] = sorted(few, reverse=True)[:4]
     return split
+
+
+def sm_count() -> int:
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def cut_runner(cs, table_ext, ch, x0, cfg, f2):
+    """fn(spans=None) solving one chunk through K7 (with f2) or K1 at
+    f=256, and the kernel's name and live lanes."""
+    args = (table_ext, ch.cols, ch.vals, ch.nnz, x0, cfg.lam)
+    kw = dict(cg_iters=cfg.cg_iters, cg_tol=cfg.cg_tol)
+    if f2 is None:
+        return (lambda spans=None: cs.gather_gram_cg(*args, spans=spans, **kw),
+                "gather_gram_cg", 256)
+    return (lambda spans=None: cs.gather_gram_cg_wide(*args, f2, spans=spans,
+                                                      **kw),
+            "gather_gram_cg_wide", 128 + f2)
+
+
+def check_cut(cs, table_ext, ch, current, cfg, label, f2=None):
+    """The row cut of K7 (with f2) or of K1 at f=256 on one chunk with
+    fewer rows than the card has SMs, as the wrapper chooses it
+    (`row_spans`): the launch counts show the two passes and not the
+    uncut kernel; x within 2e-3 and se within 1e-3 relative of the plain
+    cut route and of the uncut kernel; rows without ratings and K7's dead
+    lanes exactly 0. Cut, uncut and plain timed as device time
+    (`queued_ms`)."""
+    x0 = chunk_x0(ch, current)
+    r, p = ch.cols.shape
+    n_spans, span = cs.row_spans(r, p, sm_count())
+    fn, name, fl = cut_runner(cs, table_ext, ch, x0, cfg, f2)
+    kw = dict(cg_iters=cfg.cg_iters, cg_tol=cfg.cg_tol)
+    cs.reset_launch_counts()
+    x, se = fn()
+    torch.cuda.synchronize()
+    took = n_spans > 1 and cs.LAUNCHES["wide_span_gram"] == 1 and \
+        cs.LAUNCHES["wide_span_solve"] == 1 and cs.LAUNCHES[name] == 0
+    px, pse = cs.row_cut_plain(table_ext, ch.cols, ch.vals, ch.nnz, x0,
+                               cfg.lam, fl, n_spans, span, **kw)
+    ux, use = fn(spans=1)
+
+    def errs(x2, se2):
+        return ((x - x2).abs().max().item(),
+                ((se - se2).abs() / se2.abs().clamp_min(1.0)).max().item())
+
+    err, se_rel = errs(px, pse)
+    uerr, use_rel = errs(ux, use)
+    empty = ch.nnz == 0
+    zero_ok = bool((x[:, fl:] == 0).all()) and bool((x[empty] == 0).all()) \
+        and bool((se[empty] == 0).all())
+    del px, pse, ux, use
+    ms = queued_ms(fn)
+    uncut = queued_ms(lambda: fn(spans=1))
+    plain = queued_ms(lambda: cs.row_cut_plain(
+        table_ext, ch.cols, ch.vals, ch.nnz, x0, cfg.lam, fl, n_spans,
+        span, **kw), reps=3)
+    read, flops = wide_work(table_ext, ch, fl)
+    bms, by = bound_ms(read + r * fl * 4 + nbytes(x, se), flops,
+                       table_ext.dtype)
+    ok = took and zero_ok and max(err, uerr) <= 2e-3 and \
+        max(se_rel, use_rel) <= 1e-3
+    tag = "K1 gather_gram_cg f=256" if f2 is None else \
+        f"K7 gather_gram_cg_wide f2={f2}"
+    log(f"[cut {tag}] {label} chunk R={r} P={p}: S={n_spans} spans of "
+        f"{span} slots, the two passes launched and not the uncut kernel: "
+        f"{took}; against the plain cut route max|dx|={err:.3e}, max rel "
+        f"dse={se_rel:.3e}; against the uncut kernel max|dx|={uerr:.3e}, "
+        f"max rel dse={use_rel:.3e} (limits 2e-3, 1e-3); dead lanes and "
+        f"empty rows exactly 0: {zero_ok}; device time: cut {ms:.3f} ms, "
+        f"uncut {uncut:.3f} ms, plain {plain:.3f} ms, bound {bms:.4f} ms "
+        f"({by}); {'OK' if ok else 'FAIL'}")
+    return ok, dict(ms=ms, uncut_ms=uncut, plain_ms=plain, bound_ms=bms,
+                    bound_by=by, max_abs_err=err, spans=n_spans,
+                    span_len=span, shape=[r, p])
+
+
+def check_span_passes(cs, table_ext, ch, current, cfg, f2, label):
+    """Each pass of the row cut alone on one chunk (K7's lanes). Pass 1
+    (`span_grams`) against `span_gram_plain`, read through the record
+    layout of csrc/wide.cuh (`span_record_unpack`): every live span's A
+    within `gram_limit`'s FMA steps for a span's slots, b and r2 within
+    rtol 1e-5 + 1e-5. Pass 2 (`span_solve`) on pass 1's own records
+    against `span_solve_plain` on the same records unpacked: x within
+    2e-3, se within 1e-3 relative. Returns the kernels-line entries of
+    the two passes."""
+    fl = 128 + f2
+    x0 = chunk_x0(ch, current)
+    r, p = ch.cols.shape
+    n_spans, span = cs.row_spans(r, p, sm_count())
+    gargs = (table_ext, ch.cols, ch.vals, ch.nnz, fl, n_spans, span)
+    part = cs.span_grams(*gargs)
+    live = cs._span_live(ch.nnz, p, n_spans, span)
+    plain_parts = [cs.span_gram_plain(table_ext, ch.cols, ch.vals, ch.nnz,
+                                      k * span, (k + 1) * span, fl)
+                   for k in range(n_spans)]
+    pa = torch.stack([q[0] for q in plain_parts], dim=1)[live]
+    pb = torch.stack([q[1] for q in plain_parts], dim=1)[live]
+    pr2 = torch.stack([q[2] for q in plain_parts], dim=1)[live]
+    del plain_parts
+    a, b, r2 = cs.span_record_unpack(part[live], fl)
+    lim, limit = gram_limit(a, pa, span, "fma")
+    diff = (a - pa).abs()
+    a_err = diff.max().item()
+    a_ok = bool((diff <= lim).all())
+    b_ok = bool(((b - pb).abs() <= 1e-5 * pb.abs() + 1e-5).all()) and \
+        bool(((r2 - pr2).abs() <= 1e-5 * pr2.abs() + 1e-5).all())
+    n_live = int(live.sum().item())
+    del lim, diff, a, b, r2, pa, pb, pr2
+    kw = dict(cg_iters=cfg.cg_iters, cg_tol=cfg.cg_tol)
+    x, se = cs.span_solve(part, ch.nnz, x0, cfg.lam, p, span, **kw)
+    ua, ub, ur2 = cs.span_record_unpack(
+        torch.where(live[:, :, None], part, torch.zeros_like(part)), fl)
+    card_parts = [(ua[:, k], ub[:, k], ur2[:, k]) for k in range(n_spans)]
+    px, pse = cs.span_solve_plain(card_parts, ch.nnz, x0, cfg.lam, **kw)
+    x_err = (x - px).abs().max().item()
+    se_rel = ((se - pse).abs() / pse.abs().clamp_min(1.0)).max().item()
+    ms1 = queued_ms(lambda: cs.span_grams(*gargs))
+    plain1 = queued_ms(lambda: [cs.span_gram_plain(
+        table_ext, ch.cols, ch.vals, ch.nnz, k * span, (k + 1) * span, fl)
+        for k in range(n_spans)], reps=3)
+    ms2 = queued_ms(lambda: cs.span_solve(part, ch.nnz, x0, cfg.lam, p,
+                                          span, **kw))
+    plain2 = queued_ms(lambda: cs.span_solve_plain(
+        card_parts, ch.nnz, x0, cfg.lam, **kw), reps=3)
+    del ua, ub, ur2, card_parts
+    rec_bytes = n_live * cs.span_record_floats(fl) * 4
+    read, flops = wide_work(table_ext, ch, fl)
+    b1, by1 = bound_ms(read + rec_bytes, flops, table_ext.dtype)
+    # pass 2: the records once, and the CG's cg_iters + 2 matvecs a row
+    b2, by2 = bound_ms(rec_bytes + nbytes(ch.nnz, x, se) + r * fl * 4,
+                       r * (cfg.cg_iters + 2) * 2.0 * fl * fl, torch.float32)
+    ok1 = a_ok and b_ok
+    ok2 = x_err <= 2e-3 and se_rel <= 1e-3
+    log(f"[span passes f2={f2}] {label} chunk R={r} P={p}, S={n_spans} "
+        f"spans of {span} slots, {n_live} live: pass 1 max|dA|={a_err:.3e} "
+        f"(limit {limit}: {a_ok}), b and r2 within rtol 1e-5 + 1e-5: "
+        f"{b_ok}; pass 2 on the same records max|dx|={x_err:.3e}, max rel "
+        f"dse={se_rel:.3e} (limits 2e-3, 1e-3); device time: pass 1 "
+        f"{ms1:.3f} ms (plain {plain1:.3f}, bound {b1:.4f} ms, {by1}), "
+        f"pass 2 {ms2:.3f} ms (plain {plain2:.3f}, bound {b2:.4f} ms, "
+        f"{by2}); {'OK' if ok1 and ok2 else 'FAIL'}")
+    return ok1 and ok2, {
+        "wide_span_gram": dict(max_abs_err=a_err, ms=ms1, plain_ms=plain1,
+                               bound_ms=b1, bound_by=by1, library_ms=None,
+                               shape=[r, p], spans=n_spans, span_len=span),
+        "wide_span_solve": dict(max_abs_err=x_err, ms=ms2, plain_ms=plain2,
+                                bound_ms=b2, bound_by=by2, library_ms=None,
+                                shape=[r, p], spans=n_spans, span_len=span)}
+
+
+def span_edges(cs, lam=0.048):
+    """The row cut forced at the S and P of the card tests (`CUTS` of
+    tests/test_torch_cuda.py: S = 2, 3, 7) on their chunks (`cut_chunk`:
+    rows that stop at nnz 0, 1, 31, 32, 33, on the span edge, one past it
+    and at P, and a dummy tail row), for T = 20, 24, 28, 32 (K7 at f2 =
+    32, 64, 96, 128) and K1 at f=256, f32 and bf16 tables: against the
+    plain cut route and the uncut kernel, x within 2e-3, se within 1e-3
+    relative; empty rows and dead lanes exactly 0; a second run bit for
+    bit."""
+    from pathlib import Path
+    from types import SimpleNamespace
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from test_torch_cuda import CUTS, cut_chunk
+    cfg = SimpleNamespace(lam=lam, cg_iters=6, cg_tol=1e-4)
+    kw = dict(cg_iters=6, cg_tol=1e-4)
+    worst = [0.0, 0.0, 0.0, 0.0]
+    ok_all = True
+    for p, spans in CUTS:
+        n_spans, span = cs._cut(-(-p // 32), spans, 32)
+        for f_true, f2 in ((130, 32), (161, 64), (200, 96), (256, 128),
+                           (200, None)):
+            for dtype in (torch.float32, torch.bfloat16):
+                table, cols, vals, nnz, x0 = (t.to(DEV) for t in cut_chunk(
+                    f_true, dtype, p, span, seed=f_true))
+                ch = SimpleNamespace(cols=cols, vals=vals, nnz=nnz)
+                fn, _, fl = cut_runner(cs, table, ch, x0, cfg, f2)
+                x, se = fn(spans=n_spans)
+                px, pse = cs.row_cut_plain(table, cols, vals, nnz, x0, lam,
+                                           fl, n_spans, span, **kw)
+                ux, use = fn(spans=1)
+                x2, se2 = fn(spans=n_spans)
+                e = [(x - px).abs().max().item(),
+                     ((se - pse).abs() / pse.abs().clamp_min(1.0)).max().item(),
+                     (x - ux).abs().max().item(),
+                     ((se - use).abs() / use.abs().clamp_min(1.0)).max().item()]
+                worst = [max(w, v) for w, v in zip(worst, e)]
+                ok = max(e[0], e[2]) <= 2e-3 and max(e[1], e[3]) <= 1e-3 \
+                    and torch.equal(x, x2) and torch.equal(se, se2) and \
+                    bool((x[:, fl:] == 0).all()) and \
+                    bool((x[nnz == 0] == 0).all()) and \
+                    bool((se[nnz == 0] == 0).all())
+                if not ok:
+                    log(f"[span edges] FAIL P={p} S={n_spans} f_true="
+                        f"{f_true} f2={f2} {dtype}: {e}")
+                ok_all &= ok
+    log(f"[span edges] the cut forced at S = 2, 3, 7 (P = 300, 300, 448), "
+        f"rows of nnz (0, 1, 31, 32, 33, L, L + 1, P) and a dummy tail row, "
+        f"K7 at f2 = 32, 64, 96, 128 and K1 at f=256, f32 and bf16 tables: "
+        f"worst against the plain cut route max|dx|={worst[0]:.3e}, max rel "
+        f"dse={worst[1]:.3e}, against the uncut kernel {worst[2]:.3e}, "
+        f"{worst[3]:.3e} (limits 2e-3, 1e-3); repeats bit for bit, empty "
+        f"rows and dead lanes exactly 0; {'OK' if ok_all else 'FAIL'}")
+    return ok_all
+
+
+def wide_synthetic(cs, lam=0.048):
+    """K7 (f2 = 96) and K1 at f=256 on seeded few-row chunks at the
+    shapes of the Netflix F=200 plans' few-row chunks (the widest theta
+    chunk R=8 P=8192, split X chunks of about 32 rows, one long row),
+    each row of between P/2 and P ratings over a bf16 table: the cut the
+    wrapper chooses against the uncut kernel (x within 2e-3, se within
+    1e-3 relative), both as device time."""
+    from types import SimpleNamespace
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    n = 131072
+    tab = (0.2 * torch.rand((n + 1, 256), generator=gen, device=DEV)
+           ).to(torch.bfloat16)
+    tab[n] = 0
+    tab[:, 200:] = 0
+    cfg = SimpleNamespace(lam=lam, cg_iters=6, cg_tol=1e-4)
+    ok_all = True
+    for r, p in ((8, 8192), (32, 16384), (100, 4096), (1, 241664)):
+        nnz = torch.randint(p // 2 + 1, p + 1, (r,), generator=gen,
+                            device=DEV, dtype=torch.int32)
+        mask = torch.arange(p, device=DEV)[None, :] < nnz[:, None]
+        cols = torch.where(mask, torch.randint(0, n, (r, p), generator=gen,
+                                               device=DEV), n)
+        vals = torch.randint(2, 11, (r, p), generator=gen, device=DEV) / 2.0
+        ch = SimpleNamespace(cols=cols.to(torch.int32),
+                             vals=(vals * mask).float(), nnz=nnz)
+        x0 = 0.1 * torch.rand((r, 256), generator=gen, device=DEV)
+        x0[:, 200:] = 0
+        n_spans, span = cs.row_spans(r, p, sm_count())
+        for f2 in (96, None):
+            fn, _, _ = cut_runner(cs, tab, ch, x0, cfg, f2)
+            x, se = fn()
+            ux, use = fn(spans=1)
+            err = (x - ux).abs().max().item()
+            se_rel = ((se - use).abs() / use.abs().clamp_min(1.0)).max().item()
+            ok = err <= 2e-3 and se_rel <= 1e-3
+            ok_all &= ok
+            ms = queued_ms(fn)
+            uncut = queued_ms(lambda: fn(spans=1))
+            log(f"[wide synthetic] {'K7 f2=96' if f2 else 'K1 f=256'} R={r} "
+                f"P={p}: S={n_spans} spans of {span} slots; against the "
+                f"uncut kernel max|dx|={err:.3e}, max rel dse={se_rel:.3e}; "
+                f"device time cut {ms:.3f} ms, uncut {uncut:.3f} ms; "
+                f"{'OK' if ok else 'FAIL'}")
+    return ok_all
+
+
+def cut_totals(cs, label, chunks, table, current, cfg, f2):
+    """Device time of K7 (with f2) or of K1 at f=256 over one phase's
+    chunks (`queued_each`), as the wrappers choose (the cut on chunks
+    with fewer rows than the card has SMs) and uncut (spans=1), each
+    split by chunks under and over the SM count, with the spans chosen
+    for each chunk under it."""
+    sms = sm_count()
+    x0s = [chunk_x0(ch, current) for ch in chunks]
+    runs = [cut_runner(cs, table, ch, x0, cfg, f2)[0]
+            for ch, x0 in zip(chunks, x0s)]
+    cut = queued_each(runs)
+    uncut = queued_each([lambda fn=fn: fn(spans=1) for fn in runs])
+    del x0s, runs
+    few = [i for i, ch in enumerate(chunks) if ch.cols.shape[0] < sms]
+    spans = [cs.row_spans(*chunks[i].cols.shape, sms)[0] for i in few]
+    tot = dict(cut=sum(cut), uncut=sum(uncut), n=len(chunks), n_few=len(few),
+               cut_few=sum(cut[i] for i in few),
+               uncut_few=sum(uncut[i] for i in few),
+               spans=sorted(set(spans)))
+    longest = sorted(((uncut[i], cut[i], tuple(chunks[i].cols.shape), sp)
+                      for i, sp in zip(few, spans)), reverse=True)[:4]
+    kern = "K1 f=256" if f2 is None else f"K7 f2={f2}"
+    log(f"[wide phase totals] {kern} over the {len(chunks)} {label} chunks: "
+        f"as routed {tot['cut']:.1f} ms, of which {tot['cut_few']:.1f} ms in "
+        f"the {len(few)} chunks with fewer than {sms} rows (cut) and "
+        f"{tot['cut'] - tot['cut_few']:.1f} ms in the others; uncut "
+        f"{tot['uncut']:.1f} ms, of which {tot['uncut_few']:.1f} ms in those "
+        f"{len(few)} chunks; spans chosen under {sms} rows: {tot['spans']}; "
+        f"the longest of them uncut (ms uncut, ms cut, (R, P), S): "
+        f"{[(round(u, 3), round(c, 3), rp, sp) for u, c, rp, sp in longest]}"
+        f" (device time between events, launches queued behind other work)")
+    return tot
 
 
 def phase_totals(cs, al, theta_t, x_t):
@@ -876,13 +1223,17 @@ def full_width(cs, model, label, expect, absent, x0, th0, iters=ITERS):
     return res.history, launches
 
 
-def wide_paths(cs, ALS, cfg, train, csc, test, small_train, small_test,
-               results):
-    """Phase 5: the F > 128 path. Fills results[...] for K7 and K8, adds
-    K1's numbers at f=256 to its entry, and returns the launch counts
-    of K7 (the wide_kernel="on" run) and K8 (its own path)."""
-    import copy
+def ext16(t):
+    """A bf16 gather table: t and one zero row."""
+    return torch.cat([t.to(torch.bfloat16),
+                      t.new_zeros((1, t.shape[1]), dtype=torch.bfloat16)])
 
+
+def wide_setup(cs, ALS, cfg, train, csc, test):
+    """The F=200 model on the Netflix data (f_pad 256, f2 = 96; X on the
+    split route, theta direct), its initial factors, and the stand-in
+    tables of the kernel checks: returns al, cfg_w, f2, x0_np, th0_np,
+    theta_t, x_t, x_ext."""
     from cumf_als_tpu_torch.data.synthetic import init_factors
     from cumf_als_tpu_torch.models import als as als_mod
     from cumf_als_tpu_torch.ops.tiling import SplitPlan, UpdatePlan
@@ -904,34 +1255,82 @@ def wide_paths(cs, ALS, cfg, train, csc, test, small_train, small_test,
     finally:
         als_mod.build_split_plan = build_split_plan
     plan_x, chunks_x, aux_x = al.plan_x
+    sms = sm_count()
     log(f"[wide] F={cfg_w.f} f_pad={cfg_w.f_pad} f2={f2}: plans "
         f"{al.plan_seconds:.1f} s, of which the numpy build_split_plan "
         f"{sum(split_s):.1f} s; X phase: {type(plan_x).__name__} "
         f"({len(chunks_x)} chunks, {plan_x.n_parts} parts of "
-        f"{plan_x.part_size} rows, expansion {plan_x.expansion:.3f}), "
-        f"theta phase: {type(al.plan_theta[0]).__name__} "
-        f"({len(al.plan_theta[1])} chunks)")
+        f"{plan_x.part_size} rows, expansion {plan_x.expansion:.3f}; "
+        f"{sum(c.cols.shape[0] < sms for c in chunks_x)} chunks under {sms} "
+        f"rows), theta phase: {type(al.plan_theta[0]).__name__} "
+        f"({len(al.plan_theta[1])} chunks; "
+        f"{sum(c.cols.shape[0] < sms for c in al.plan_theta[1])} under "
+        f"{sms} rows)")
     if not (isinstance(plan_x, SplitPlan) and plan_x.n_parts == 4 and
             plan_x.part_size == 131072 and
             isinstance(al.plan_theta[0], UpdatePlan) and
             cs.wide_enabled(cfg_w) and cfg_w.f_pad == 256):
         raise AssertionError("expected the split X route with 4 parts of "
                              "131072 rows and the direct theta route")
-
-    # ---- 5a. the three kernels against their plain versions
     x0_np, th0_np = init_factors(cfg_w.m, cfg_w.n, cfg_w.f, seed=0)
     gen = torch.Generator(device=DEV).manual_seed(2)
     theta_t = al._pad_f(th0_np)
     # a stand-in X for the theta-phase table: the real X starts at zero
     x_t = al._pad_f(0.2 * torch.rand((cfg_w.m, cfg_w.f), generator=gen,
                                      device=DEV).cpu().numpy())
+    return al, cfg_w, f2, x0_np, th0_np, theta_t, x_t, ext16(x_t)
 
-    def ext16(t):
-        return torch.cat([t.to(torch.bfloat16),
-                          t.new_zeros((1, t.shape[1]),
-                                      dtype=torch.bfloat16)])
 
-    x_ext = ext16(x_t)
+def cut_checks(cs, al, cfg_w, f2, theta_t, x_t, x_ext):
+    """The row cut on the few-row chunks of the F=200 plans: the split X chunk with the fewest rows, the split X
+    chunk under the SM count nearest 32 rows, and the widest theta chunk,
+    each for K7 and K1 at f=256 (`check_cut`), and each pass alone on the
+    chunk of about 32 rows (`check_span_passes`). Returns (ok, the two
+    passes' kernels-line entries, the cut results by chunk)."""
+    sms = sm_count()
+    chunks_x = al.plan_x[1]
+    few_x = [c for c in chunks_x if c.cols.shape[0] < sms]
+    picks = (("split X fewest rows", "x",
+              min(chunks_x, key=lambda c: (c.cols.shape[0], -c.width))),
+             ("split X about 32 rows", "x",
+              min(few_x, key=lambda c: (abs(c.cols.shape[0] - 32),
+                                        -c.width))),
+             ("theta widest", "theta",
+              max(al.plan_theta[1], key=lambda c: c.width)))
+    th_perm_ext = ext16(theta_t.index_select(0, al.plan_x[2]["perm"]))
+    tables = {"x": (th_perm_ext, x_t), "theta": (x_ext, theta_t)}
+    ok_all = True
+    cuts = {}
+    for label, phase, ch in picks:
+        table, current = tables[phase]
+        for kf2 in (f2, None):
+            ok, res = check_cut(cs, table, ch, current, cfg_w, label, f2=kf2)
+            ok_all &= ok
+            cuts[f"{'K7' if kf2 else 'K1_f256'} {label}"] = res
+    ok, passes = check_span_passes(cs, th_perm_ext, picks[1][2], x_t, cfg_w,
+                                   f2, picks[1][0])
+    ok_all &= ok
+    del th_perm_ext
+    torch.cuda.empty_cache()
+    return ok_all, passes, cuts
+
+
+def wide_paths(cs, ALS, cfg, train, csc, test, small_train, small_test,
+               results):
+    """Phase 5: the F > 128 path. Fills results[...] for K7, K8 and the
+    two passes of the row cut, adds K1's numbers at f=256 to its entry,
+    and returns the launch counts of K7 and the cut (the wide_kernel="on"
+    run) and of K8 (its own path)."""
+    import copy
+
+    from cumf_als_tpu_torch.data.synthetic import init_factors
+    from cumf_als_tpu_torch.ops.tiling import SplitPlan, UpdatePlan
+
+    al, cfg_w, f2, x0_np, th0_np, theta_t, x_t, x_ext = wide_setup(
+        cs, ALS, cfg, train, csc, test)
+    plan_x, chunks_x, aux_x = al.plan_x
+
+    # ---- 5a. the kernels against their plain versions
     chunks_t = al.plan_theta[1]
     widest = max(chunks_t, key=lambda c: c.width)
     populous = max(chunks_t, key=lambda c: c.rows.shape[0] * c.width)
@@ -945,8 +1344,12 @@ def wide_paths(cs, ALS, cfg, train, csc, test, small_train, small_test,
     ch_x = max(chunks_x, key=lambda c: c.rows.shape[0] * c.width)
     parts = plan_x.chunks[chunks_x.index(ch_x)].parts
     th_perm_ext = ext16(theta_t.index_select(0, aux_x["perm"]))
-    ok, _ = check_fused_256(cs, th_perm_ext, ch_x, x_t, cfg_w,
-                            f"split X (parts {parts}) most populous", f2=f2)
+    ok, split_k7 = check_fused_256(cs, th_perm_ext, ch_x, x_t, cfg_w,
+                                   f"split X (parts {parts}) most populous",
+                                   f2=f2)
+    ok_all &= ok
+    ok, split_k1 = check_fused_256(cs, th_perm_ext, ch_x, x_t, cfg_w,
+                                   f"split X (parts {parts}) most populous")
     ok_all &= ok
     del th_perm_ext
     ok, _ = check_fused_256(cs, x_ext, widest, theta_t, cfg_w,
@@ -960,36 +1363,31 @@ def wide_paths(cs, ALS, cfg, train, csc, test, small_train, small_test,
     ok, results["fused_gram_cg_cat"] = check_k8(
         cs, x_ext, populous, theta_t, cfg_w, f2, "theta most populous")
     ok_all &= ok
+    ok_all &= span_edges(cs)
+    ok, passes, cuts = cut_checks(cs, al, cfg_w, f2, theta_t, x_t, x_ext)
+    ok_all &= ok
+    results.update(passes)
+    results["gather_gram_cg_wide"].update(
+        split_x_ms=split_k7["ms"], split_x_bound_ms=split_k7["bound_ms"],
+        cut={k: v for k, v in cuts.items() if k.startswith("K7")})
     if not ok_all:
         raise AssertionError("a kernel disagrees with its plain version")
 
-    # where the two phases spend their time: K7 chunk by chunk (CUDA
-    # events), with the share of the chunks that hold fewer rows than the
-    # card has SMs (one block solves one row, so those leave SMs idle)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # where the two phases spend their time: K7 and K1 at f=256 chunk by
+    # chunk, as routed (the cut under the SM count) and uncut
     th_perm_ext = ext16(theta_t.index_select(0, aux_x["perm"]))
-    for label, chunks, table, current in (
-            ("theta", chunks_t, x_ext, theta_t),
-            ("split X", chunks_x, th_perm_ext, x_t)):
-        total = few = 0.0
-        n_few = 0
-        for ch in chunks:
-            x0 = chunk_x0(ch, current)
-            ms = time_ms(lambda: cs.gather_gram_cg_wide(
-                table, ch.cols, ch.vals, ch.nnz, x0, cfg_w.lam, f2,
-                cg_iters=cfg_w.cg_iters, cg_tol=cfg_w.cg_tol), reps=1)
-            total += ms
-            if ch.n_real < sms:
-                few += ms
-                n_few += 1
-        log(f"[wide phase totals] K7 over the {len(chunks)} {label} chunks "
-            f"{total:.1f} ms, of which {few:.1f} ms in the {n_few} chunks "
-            f"with fewer than {sms} rows (the widest chunk: "
-            f"{max(c.width for c in chunks)} slots)")
+    totals = {}
+    for kf2 in (f2, None):
+        for label, chunks, table, current in (
+                ("theta", chunks_t, x_ext, theta_t),
+                ("split X", chunks_x, th_perm_ext, x_t)):
+            totals[(kf2, label)] = cut_totals(cs, label, chunks, table,
+                                              current, cfg_w, kf2)
     del th_perm_ext
     torch.cuda.empty_cache()
 
-    # ---- 5b. small runs with both new routes: card against CPU
+    # ---- 5b. small runs with both new routes: card against CPU, the cut
+    # taken in each card run
     scfg = cfg.replace(m=small_train.num_rows, n=small_train.num_cols,
                        nnz=small_train.nnz, nnz_test=small_test.nnz, f=130,
                        panel_size=2048, split_gather="force", verbose=False,
@@ -1011,7 +1409,10 @@ def wide_paths(cs, ALS, cfg, train, csc, test, small_train, small_test,
             assert model.plan_x[0].n_parts == 3
             assert isinstance(model.plan_theta[0], UpdatePlan)
             assert cs.wide_enabled(c) == (extra["wide_kernel"] == "on")
+            cs.reset_launch_counts()
             small[dev] = model.run(sx0, sth0).history
+            if dev == DEV:
+                counts = {k: cs.LAUNCHES[k] for k in SPAN_KERNELS}
         for hg, hc in zip(small[DEV], small["cpu"]):
             dtr = abs(hg.train_rmse - hc.train_rmse)
             dte = abs(hg.test_rmse - hc.test_rmse)
@@ -1021,17 +1422,26 @@ def wide_paths(cs, ALS, cfg, train, csc, test, small_train, small_test,
                 f"{lim_tr:g}, {lim_te:g})")
             if not (dtr <= lim_tr and dte <= lim_te):
                 raise AssertionError("card and CPU runs disagree")
+        log(f"[small F=130 split, {label}] the cut's launches in the card "
+            f"run: {counts}")
+        if min(counts.values()) == 0:
+            raise AssertionError("the card run did not take the row cut")
 
     # ---- 5c. the F = 200 path at full width
     others = SPLIT_KERNELS + AUG_KERNELS + ("solve_cg",)
     _, launches_on = full_width(
-        cs, al, "wide on", ("gather_gram_cg_wide",),
+        cs, al, "wide on", ("gather_gram_cg_wide",) + SPAN_KERNELS,
         others + ("fused_gram_cg_cat",), x0_np, th0_np)
     al_off = copy.copy(al)     # the same plans; wide_kernel steers no plan
     al_off.cfg = cfg_w.replace(wide_kernel="off", iters=2)
     _, launches_off = full_width(
-        cs, al_off, "wide off", ("gather_gram_cg",),
+        cs, al_off, "wide off", ("gather_gram_cg",) + SPAN_KERNELS,
         others[1:] + WIDE_KERNELS, x0_np, th0_np, iters=2)
+    log(f"[wide cut] launches of the cut's two passes: wide on (3 "
+        f"iterations) {[launches_on[k] for k in SPAN_KERNELS]}, K7 "
+        f"{launches_on['gather_gram_cg_wide']}; wide off (2 iterations) "
+        f"{[launches_off[k] for k in SPAN_KERNELS]}, K1 "
+        f"{launches_off['gather_gram_cg']}")
 
     # ---- 5d. K8's path: no route of ALS calls it (as in the JAX
     # package), so its public wrapper runs over every theta chunk on a G
@@ -1046,8 +1456,9 @@ def wide_paths(cs, ALS, cfg, train, csc, test, small_train, small_test,
         x8, se8 = cs.fused_gram_cg_cat(g1, g2, ch.vals, ch.nnz, x0,
                                        cfg_w.lam, **kw)
         del g1, g2
+        # K8 keeps the uncut body: against K1's uncut kernel
         x1, se1 = cs.gather_gram_cg(x_ext, ch.cols, ch.vals, ch.nnz, x0,
-                                    cfg_w.lam, **kw)
+                                    cfg_w.lam, spans=1, **kw)
         worst = max(worst, (x8 - x1).abs().max().item())
         k8_ok &= bool(((x8 - x1).abs() <= 1e-5 * x1.abs() + 1e-6).all())
         k8_ok &= bool(((se8 - se1).abs() <= 1e-5 * se1.abs() + 1e-6).all())
@@ -1062,9 +1473,19 @@ def wide_paths(cs, ALS, cfg, train, csc, test, small_train, small_test,
 
     results["gather_gram_cg"].update(
         {f"f256_{k}": v for k, v in k1_256.items()},
-        f256_launches=launches_off["gather_gram_cg"])
+        f256_split_x_ms=split_k1["ms"],
+        f256_split_x_bound_ms=split_k1["bound_ms"],
+        f256_launches=launches_off["gather_gram_cg"],
+        f256_cut={k: v for k, v in cuts.items() if k.startswith("K1")})
+    for k in SPAN_KERNELS:
+        results[k]["launches_wide_off"] = launches_off[k]
+    results["gather_gram_cg_wide"]["phase_totals"] = {
+        label: v for (kf2, label), v in totals.items() if kf2}
+    results["gather_gram_cg"]["f256_phase_totals"] = {
+        label: v for (kf2, label), v in totals.items() if kf2 is None}
     return {"gather_gram_cg_wide": launches_on["gather_gram_cg_wide"],
-            "fused_gram_cg_cat": k8_launches}
+            "fused_gram_cg_cat": k8_launches,
+            **{k: launches_on[k] for k in SPAN_KERNELS}}
 
 
 def main() -> int:
@@ -1089,9 +1510,10 @@ def main() -> int:
     log(f"[versions] python {sys.version.split()[0]} torch "
         f"{torch.__version__} cuda {torch.version.cuda}")
     short = {(): None, ("--gram",): GRAM_KERNELS,
-             ("--theta",): THETA_KERNELS}
+             ("--theta",): THETA_KERNELS, ("--wide",): WIDE_SHORT}
     if tuple(sys.argv[1:]) not in short:
-        print("usage: chip_smoke.py [--gram | --theta]", file=sys.stderr)
+        print("usage: chip_smoke.py [--gram | --theta | --wide]",
+              file=sys.stderr)
         return 2
     only = short[tuple(sys.argv[1:])]
     t0 = time.monotonic()
@@ -1111,6 +1533,11 @@ def main() -> int:
         if not ok:
             log("[theta] FAIL (the short call: no result line)")
             return 1
+    elif only == WIDE_SHORT:
+        ok = span_edges(cs) and wide_synthetic(cs)
+        if not ok:
+            log("[wide] FAIL (the short call: no result line)")
+            return 1
     elif not ptxas_ok:
         raise AssertionError("a tensor-core kernel spills or waits for "
                              "every wgmma")
@@ -1125,6 +1552,13 @@ def main() -> int:
                           solver="cg", factor_dtype="bf16",
                           gram_dtype="bf16", verbose=True,
                           debug_timing=True)
+    if only == WIDE_SHORT:
+        al, cfg_w, f2, _, _, theta_t, x_t, x_ext = wide_setup(
+            cs, ALS, cfg, train, csc, test)
+        ok = cut_checks(cs, al, cfg_w, f2, theta_t, x_t, x_ext)[0]
+        log(f"[wide] {'OK' if ok else 'FAIL'} (the short call: no result "
+            f"line)")
+        return 0 if ok else 1
     t0 = time.monotonic()
     al = ALS(cfg, train, csc, test, device="cuda")
     plan_s = time.monotonic() - t0
@@ -1304,7 +1738,8 @@ def main() -> int:
     log(f"[main] data {gen_s:.1f} s, plans {plan_s:.1f} s")
     hist_main, launches = full_width(
         cs, al, "main", SPLIT_KERNELS,
-        AUG_KERNELS + WIDE_KERNELS + ("solve_cg",), x0_np, th0_np)
+        AUG_KERNELS + WIDE_KERNELS + SPAN_KERNELS + ("solve_cg",), x0_np,
+        th0_np)
     del al, plan_x, chunks_x, aux_x   # frees the plans on the card
     torch.cuda.empty_cache()
 
@@ -1382,7 +1817,8 @@ def main() -> int:
     # aug_gram="force": K5a, K5b, K6)
     hist_aug, launches_aug = full_width(
         cs, al_aug, "aug", AUG_KERNELS,
-        SPLIT_KERNELS + WIDE_KERNELS + ("solve_cg",), x0_np, th0_np)
+        SPLIT_KERNELS + WIDE_KERNELS + SPAN_KERNELS + ("solve_cg",), x0_np,
+        th0_np)
     for hm, ha in zip(hist_main, hist_aug):
         log(f"[main | aug] iter {hm.iteration}: train {hm.train_rmse:.6f} | "
             f"{ha.train_rmse:.6f}, test {hm.test_rmse:.6f} | "

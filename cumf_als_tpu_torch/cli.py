@@ -62,18 +62,32 @@ def build_parser() -> argparse.ArgumentParser:
                    help="'cuda' (default) or 'cpu'")
     p.add_argument("--mesh", type=int, default=0,
                    help="shard over N devices (not ported yet)")
+    p.add_argument("--x-placement", choices=["host", "device"],
+                   default=None,
+                   help="sharded out-of-core X placement (not ported yet)")
     p.add_argument("--out-of-core", action="store_true",
                    help="keep X host-resident (not ported yet)")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--plan-cache", default="auto",
+                   help="plan cache directory ('auto' = <DATA_DIR>/"
+                        ".plan_cache, 'off'); accepted, no effect yet: "
+                        "plans are rebuilt each run")
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--checkpoint-every", type=int, default=0)
     p.add_argument("--resume", action="store_true")
+    p.add_argument("--profile-dir", default=None,
+                   help="profiler trace directory (not ported yet)")
     p.add_argument("--quiet", action="store_true")
     return p
 
 
 def config_from_args(a) -> ALSConfig:
+    import os
+    plan_cache = None if a.plan_cache == "off" else (
+        os.path.join(a.DATA_DIR, ".plan_cache")
+        if a.plan_cache == "auto" else a.plan_cache)
     return ALSConfig(
+        plan_cache_dir=plan_cache,
         m=a.M, n=a.N, f=a.F, nnz=a.NNZ, nnz_test=a.NNZ_TEST,
         lam=a.lambda_, x_batch=a.X_BATCH, theta_batch=a.THETA_BATCH,
         data_dir=a.DATA_DIR, iters=a.iters, solver=a.solver,
@@ -108,6 +122,13 @@ def main(argv=None) -> int:
         print(USAGE)
         return 0
     args = build_parser().parse_args(argv)
+    if args.profile_dir is not None:
+        raise NotImplementedError(
+            "--profile-dir: profiler traces are not ported yet (ROADMAP A9)")
+    if args.x_placement is not None:
+        raise NotImplementedError(
+            "--x-placement: sharded out-of-core training is not ported yet "
+            "(ROADMAP A12)")
     cfg = config_from_args(args)
     print(f"M = {cfg.m}, N = {cfg.n}, F = {cfg.f}, NNZ = {cfg.nnz}, "
           f"NNZ_TEST = {cfg.nnz_test}, lambda = {cfg.lam:f}\n"

@@ -31,8 +31,10 @@
 // common.cuh, one block a row: bf16 tensor cores would round a float32
 // table. f = 256 (one factor width above 128, padded to 256 lanes) takes
 // the triangle-of-tiles body of wide.cuh with all 256 lanes live: a
-// 256 x 256 A does not fit the register layout of common.cuh. The entry
-// point chooses by dtype and f alone.
+// 256 x 256 A does not fit the register layout of common.cuh; on a
+// chunk with fewer rows than the card has SMs the wrapper takes the row
+// cut of that body instead (wide_span_gram.cu, wide_span_solve.cu). The
+// entry point chooses by dtype and f alone.
 
 #include "frag_cg.cuh"
 #include "wide.cuh"

@@ -25,7 +25,10 @@
 // cores); the gathered table stays in L2. What this design does about
 // it: the triangle of 8 x 8 register tiles of wide.cuh computes only
 // the upper half of A with f32 FMAs on the CUDA cores; no wgmma, TMA or
-// pipelining yet.
+// pipelining yet. One block takes one row, so on a chunk with fewer rows
+// than the card has SMs the wrapper takes the row cut instead
+// (wide_span_gram.cu, wide_span_solve.cu: the same body, a row's slots
+// cut across blocks).
 
 #include "wide.cuh"
 

@@ -1,5 +1,6 @@
 // Device code of the 256-lane kernels: gather_gram_cg.cu at f = 256,
-// gather_gram_cg_wide.cu and fused_gram_cg_cat.cu.
+// gather_gram_cg_wide.cu, fused_gram_cg_cat.cu and the two passes of
+// the row cut, wide_span_gram.cu and wide_span_solve.cu.
 //
 // One thread block owns one system of FL = 8 * T live lanes out of the
 // 256 lanes of a factor row (T = 20, 24, 28 or 32: FL = 160, 192, 224,
@@ -22,6 +23,17 @@
 // pallas_solve.py:_cg_loop; the two-block loop _cg_loop_wide is the same
 // arithmetic on the leading FL x FL block, with the sums in another
 // order.
+//
+// The row cut (wide_span_gram.cu, wide_span_solve.cu). One block a row
+// leaves SMs idle in a chunk with fewer rows than the card has SMs (a
+// block holds 64 accumulators in each of its 224-544 threads, so few
+// blocks share an SM). So the wrappers (ops/cuda_solve.py, `row_spans`) may cut each row's
+// slots into spans of L slots, L a whole number of kTile tiles. Pass 1
+// (span_gram) runs the tile loop of gather_row over one span in a block
+// of its own and writes that span's sums into a record in scratch
+// memory; a span at or past the row's nnz writes nothing. Pass 2
+// (span_solve) adds a row's live records in span order 0, 1, ... and
+// runs solve_and_store. No atomics: a result repeats bit for bit.
 #pragma once
 
 #include "common.cuh"
@@ -250,6 +262,26 @@ __device__ __forceinline__ void solve_and_store(
   }
 }
 
+// This thread's tile of the Gram over slots [lo, hi) of one row,
+// gathered from a kStride-lane table, with b and r2 beside it.
+template <int T, typename TT, typename VT>
+__device__ __forceinline__ void gram_slots(Smem<T>& s, const TT* table,
+                                           const int32_t* cols,
+                                           const VT* vals, int lo, int hi,
+                                           const Tile& tl,
+                                           float (&a)[kB][kB],
+                                           float& b_acc, float& r2_acc) {
+  zero_acc<kB>(a);
+  b_acc = 0.f;
+  r2_acc = 0.f;
+  for (int t0 = lo; t0 < hi; t0 += kTile) {
+    const int nt = min(kTile, hi - t0);
+    load_tile_table<T>(s, table, cols, vals, t0, nt);
+    accumulate_tile<T>(s, nt, tl, a, b_acc, r2_acc);
+    __syncthreads();
+  }
+}
+
 // One row, gathered from a kStride-lane table: Gram over slots [0, n),
 // then solve_and_store. The body of gather_gram_cg at f = 256 (T = 32)
 // and of gather_gram_cg_wide.
@@ -260,13 +292,77 @@ __device__ __forceinline__ void gather_row(
     int cg_iters, float cg_tol) {
   const Tile tl = tile_of<T>();
   float a[kB][kB];
+  float b_acc, r2_acc;
+  gram_slots<T>(s, table, cols, vals, 0, n, tl, a, b_acc, r2_acc);
+  solve_and_store<T>(s, tl, a, b_acc, r2_acc, nnzf, lam, x0_row, x_row,
+                     se_row, cg_iters, cg_tol);
+}
+
+// The scratch record of one span, in floats: entry k * 8 + l of tile i
+// at [(k * 8 + l) * TILES + i] (neighbouring threads write neighbouring
+// floats), then b (FL floats) at B, then r2 at R2.
+template <int T>
+struct SpanRecord {
+  static constexpr int B = kB * kB * Shape<T>::TILES;
+  static constexpr int R2 = B + Shape<T>::FL;
+  static constexpr int SIZE = R2 + 1;  // 34,049 floats at T = 32
+};
+
+// Pass 1 of the row cut: the Gram over slots [lo, hi) of one row into
+// its record.
+template <int T, typename TT, typename VT>
+__device__ __forceinline__ void span_gram(Smem<T>& s, const TT* table,
+                                          const int32_t* cols,
+                                          const VT* vals, int lo, int hi,
+                                          float* rec) {
+  using Rec = SpanRecord<T>;
+  constexpr int FL = Shape<T>::FL;
+  const int tid = threadIdx.x;
+  const Tile tl = tile_of<T>();
+  float a[kB][kB];
+  float b_acc, r2_acc;
+  gram_slots<T>(s, table, cols, vals, lo, hi, tl, a, b_acc, r2_acc);
+  if (tl.on) {
+#pragma unroll
+    for (int k = 0; k < kB; ++k)
+#pragma unroll
+      for (int l = 0; l < kB; ++l)
+        rec[(k * kB + l) * Shape<T>::TILES + tid] = a[k][l];
+  }
+  if (tid < FL)
+    rec[Rec::B + tid] = b_acc;
+  else if (tid == FL)
+    rec[Rec::R2] = r2_acc;
+}
+
+// Pass 2 of the row cut: the sums of a row's `live` records (spans 0 ..
+// live - 1, in that order), then solve_and_store. A row without slots
+// has no live record and solves A = 0, b = 0, r2 = 0 as gather_row does.
+template <int T>
+__device__ __forceinline__ void span_solve(
+    Smem<T>& s, const float* recs, int live, float nnzf, float lam,
+    const float* x0_row, float* x_row, float* se_row, int cg_iters,
+    float cg_tol) {
+  using Rec = SpanRecord<T>;
+  constexpr int FL = Shape<T>::FL;
+  const int tid = threadIdx.x;
+  const Tile tl = tile_of<T>();
+  float a[kB][kB];
   zero_acc<kB>(a);
   float b_acc = 0.f, r2_acc = 0.f;
-  for (int lo = 0; lo < n; lo += kTile) {
-    const int nt = min(kTile, n - lo);
-    load_tile_table<T>(s, table, cols, vals, lo, nt);
-    accumulate_tile<T>(s, nt, tl, a, b_acc, r2_acc);
-    __syncthreads();
+  for (int sp = 0; sp < live; ++sp) {
+    const float* rec = recs + (int64_t)sp * Rec::SIZE;
+    if (tl.on) {
+#pragma unroll
+      for (int k = 0; k < kB; ++k)
+#pragma unroll
+        for (int l = 0; l < kB; ++l)
+          a[k][l] += rec[(k * kB + l) * Shape<T>::TILES + tid];
+    }
+    if (tid < FL)
+      b_acc += rec[Rec::B + tid];
+    else if (tid == FL)
+      r2_acc += rec[Rec::R2];
   }
   solve_and_store<T>(s, tl, a, b_acc, r2_acc, nnzf, lam, x0_row, x_row,
                      se_row, cg_iters, cg_tol);

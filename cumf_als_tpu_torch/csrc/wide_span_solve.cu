@@ -1,0 +1,64 @@
+// Pass 2 of the row cut of the 256-lane body (wide.cuh): one block a
+// row adds the records that wide_span_gram.cu wrote for the row's live
+// spans, in span order, then runs the tail of gather_row unchanged:
+//   A += (nnz*lam + [nnz == 0]) I
+//   x[:FL] = CG(A, b, x0[:FL]) * [nnz > 0],  x[FL:] = 0 exactly
+//   se = max(r2 - 2 x.b + x^T (A - diag I) x, 0)
+// Span s of row r is live iff s * span_len < min(nnz[r], P); a row
+// without slots has none and solves to x = 0, se = 0.
+//
+// Replaces, with pass 1, the TPU kernel `_kernel_wide` (and `_kernel` at
+// 256 lanes) of cumf_als_tpu/ops/pallas_solve.py (see wide_span_gram.cu).
+// Bound on an H100: the bytes of the records it reads (136 KB a live span
+// at FL = 256) and of x0, x and se; the CG is small beside the Gram of
+// pass 1. What this design does about it: every thread reads its own
+// tile's entries of a record, neighbouring threads neighbouring floats.
+
+#include "wide.cuh"
+
+namespace {
+
+template <int T>
+__global__ void __launch_bounds__(cumf::wide::Shape<T>::THREADS)
+    wide_span_solve_kernel(const float* __restrict__ part,
+                           const int32_t* __restrict__ nnz,
+                           const float* __restrict__ x0,
+                           float* __restrict__ x_out,
+                           float* __restrict__ se_out, int p, int spans,
+                           int span_len, float lam, int cg_iters,
+                           float cg_tol) {
+  __shared__ cumf::wide::Smem<T> s;
+  const int64_t row = blockIdx.x;
+  const int n = min(nnz[row], p);
+  const int live = min(spans, (n + span_len - 1) / span_len);
+  cumf::wide::span_solve<T>(
+      s, part + row * spans * cumf::wide::SpanRecord<T>::SIZE, live,
+      (float)nnz[row], lam, x0 + row * cumf::wide::kStride,
+      x_out + row * cumf::wide::kStride, se_out + row, cg_iters, cg_tol);
+}
+
+}  // namespace
+
+extern "C" int cumf_wide_span_solve(const void* part, const void* nnz,
+                                    const void* x0, void* x_out,
+                                    void* se_out, int r, int p, int fl,
+                                    int spans, int span_len, float lam,
+                                    int cg_iters, float cg_tol,
+                                    void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+#define CUMF_LAUNCH(T)                                                    \
+  wide_span_solve_kernel<T>                                               \
+      <<<r, cumf::wide::Shape<T>::THREADS, 0, st>>>(                      \
+          (const float*)part, (const int32_t*)nnz, (const float*)x0,      \
+          (float*)x_out, (float*)se_out, p, spans, span_len, lam,         \
+          cg_iters, cg_tol)
+  switch (fl) {  // T = FL / 8
+    case 160: CUMF_LAUNCH(20); break;
+    case 192: CUMF_LAUNCH(24); break;
+    case 224: CUMF_LAUNCH(28); break;
+    case 256: CUMF_LAUNCH(32); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef CUMF_LAUNCH
+  return (int)cudaGetLastError();
+}

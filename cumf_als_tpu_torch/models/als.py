@@ -45,6 +45,7 @@ import torch.nn.functional as F
 from cumf_als_tpu_torch.config import ALSConfig
 from cumf_als_tpu_torch.ops import cuda_solve
 from cumf_als_tpu_torch.ops.gram import extend_table, gram_rhs
+from cumf_als_tpu_torch.ops.precision import full_f32
 from cumf_als_tpu_torch.ops.rmse import fused_sq_err, rmse_direct
 from cumf_als_tpu_torch.ops.solve import solve
 from cumf_als_tpu_torch.ops.tiling import (PanelPlan, SplitPlan,
@@ -153,14 +154,17 @@ def _se_terms(a_buf, b_buf, x_new, batch: int) -> torch.Tensor:
     b_buf None means a_buf is the augmented accumulator (the JAX
     package's _se_terms_aug): b is row f-1 of A'. Lane f-1 of x_new is
     identically zero, so the sum v^2 corner and the value row/column of
-    A' add nothing to either term and A' needs no mask here."""
+    A' add nothing to either term and A' needs no mask here. The
+    products are full float32 whatever TF32 setting the caller chose, as
+    the JAX package sums them at Precision.HIGHEST."""
     f = a_buf.shape[-1]
     total = torch.zeros((), dtype=torch.float32, device=x_new.device)
     for lo in range(0, x_new.shape[0], batch):
         x = x_new[lo:lo + batch].float()
         a = a_buf[lo:lo + batch].float()
         b = a[:, f - 1, :] if b_buf is None else b_buf[lo:lo + batch]
-        aq = torch.einsum("rfg,rg->rf", a, x)
+        with full_f32():
+            aq = torch.einsum("rfg,rg->rf", a, x)
         total = total + (x * aq).sum() - 2.0 * (x * b).sum()
     return total
 

@@ -52,6 +52,12 @@ KERNELS = {
     "fused_gram_cg_cat": ("cumf_fused_gram_cg_cat",
                           [_VP, _VP, _I, _VP, _I, _VP, _VP, _VP, _VP,
                            _I, _I, _I, _F, _I, _F, _VP]),
+    "wide_span_gram": ("cumf_wide_span_gram",
+                       [_VP, _I, _VP, _VP, _I, _VP, _VP,
+                        _I, _I, _I, _I, _I, _VP]),
+    "wide_span_solve": ("cumf_wide_span_solve",
+                        [_VP, _VP, _VP, _VP, _VP,
+                         _I, _I, _I, _I, _I, _F, _I, _F, _VP]),
 }
 HEADERS = ("common.cuh", "wide.cuh", "gram_mma.cuh", "frag_cg.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

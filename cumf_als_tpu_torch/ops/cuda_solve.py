@@ -13,13 +13,21 @@ wrapper                      TPU kernel it replaces      CUDA source
 ``gather_gram_cg(aug=True)`` ``_kernel_aug``             csrc/gather_gram_cg_aug.cu
 ``gather_gram_cg_wide``      ``_kernel_wide``            csrc/gather_gram_cg_wide.cu
 ``fused_gram_cg_cat``        ``_kernel_cat``             csrc/fused_gram_cg_cat.cu
+(row cut of K1 at f = 256    ``_kernel_wide``,           csrc/wide_span_gram.cu,
+and of K7, two passes)       ``_kernel`` at 256 lanes    csrc/wide_span_solve.cu
 ===========================  ==========================  ==========================
 
 (TPU kernels: cumf_als_tpu/ops/pallas_solve.py.) Each wrapper takes its
 plain version for tensors on the CPU and launches its kernel for tensors
-on a CUDA device; anything else raises. There is no fallback from the
-kernel to the plain version. On the card the plain versions are only
-called to check the kernels against them.
+on a CUDA device; anything else raises. The two passes of the row cut
+are the card half of ``gather_gram_cg`` at f = 256 and
+``gather_gram_cg_wide``, whose CPU tensors take the uncut plain
+versions: their wrappers take card tensors only, and `row_cut_plain` is
+the plain version of the pair. There is no fallback from the kernel to
+the plain version. On the card the plain versions are only called to
+check the kernels against them. The plain versions' float32 products
+run in full float32 whatever TF32 setting the caller chose
+(`full_f32`), as the JAX package's run at Precision.HIGHEST.
 
 The augmented-lane ("aug") forms need a free lane: the true factor width
 is at most f - 1, so lane f - 1 of the gather table is all zero and
@@ -49,7 +57,12 @@ nnz and run the CG on the wgmma fragment in registers
 f32 FMA body of csrc/common.cuh. `gram_body` is that rule. One block
 takes one row at a time, so a chunk with fewer rows than the card has
 SMs leaves SMs idle. K7, K8 and K1 at f = 256 run the FMA body of
-csrc/wide.cuh.
+csrc/wide.cuh, one block a row; on a chunk with fewer rows than the card
+has SMs, K1 at f = 256 and K7 cut each row's slots into spans across
+blocks instead (`row_spans`): pass 1 (``wide_span_gram``) writes each
+span's Gram to scratch, pass 2 (``wide_span_solve``) adds a row's spans
+in a fixed order and solves, so a result repeats bit for bit. Each pass
+counts its own launches; the uncut kernel's count stays where it is.
 
 The row gather runs inside the kernels, so the wrappers keep the
 contracts of the JAX wrappers (`gather_gram_cg`, `gather_gram_out`,
@@ -61,11 +74,13 @@ Importing this module builds and loads nothing (see ops/_build.py).
 
 from __future__ import annotations
 
-from typing import Dict
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from cumf_als_tpu_torch.ops import _build
+from cumf_als_tpu_torch.ops.precision import full_f32
 
 # launches of each kernel since the last reset_launch_counts()
 LAUNCHES: Dict[str, int] = {name: 0 for name in _build.KERNELS}
@@ -97,6 +112,14 @@ def _on_cpu(*tensors) -> bool:
         raise ValueError(f"tensors on {dev}, but the current device is "
                          f"cuda:{torch.cuda.current_device()}")
     return False
+
+
+def _on_card(name: str, *tensors) -> None:
+    """Raises unless the tensors lie on the current CUDA device: a
+    kernel that is only ever the card half of another wrapper's route."""
+    if _on_cpu(*tensors):
+        raise ValueError(f"{name}: takes card tensors only (on the CPU the "
+                         f"row cut's plain version is row_cut_plain)")
 
 
 def _check(name: str, t: torch.Tensor, shape, dtypes) -> None:
@@ -180,6 +203,7 @@ def wide_enabled(cfg) -> bool:
 
 
 # ----------------------------------------------------------------- CG --
+@full_f32()
 def cg_loop_plain(a: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
                   cg_iters: int, cg_tol: float) -> torch.Tensor:
     """pallas_solve._cg_loop in plain torch: batched CG on f32 A (R, f, f)
@@ -241,6 +265,7 @@ def unpack_aug(a_aug: torch.Tensor):
 
 
 # ----------------------------------------- K1 / K6 gather_gram_cg(_aug) --
+@full_f32()
 def _solve_and_se(a, b, r2, nnz, x0, lam, cg_iters, cg_tol):
     """The tail the fused kernels share: regularize the raw f32 A, CG,
     zero the empty rows, and the per-row train squared error."""
@@ -256,6 +281,7 @@ def _solve_and_se(a, b, r2, nnz, x0, lam, cg_iters, cg_tol):
     return x, torch.clamp_min(r2 - 2.0 * cross + quad, 0.0)
 
 
+@full_f32()
 def gather_gram_cg_plain(table_ext, cols, vals, nnz, x0, lam: float,
                          cg_iters: int = 6, cg_tol: float = 1e-4):
     """Plain version of K1: index_select, f32 einsum, masked CG, se."""
@@ -268,6 +294,7 @@ def gather_gram_cg_plain(table_ext, cols, vals, nnz, x0, lam: float,
     return _solve_and_se(a, b, r2, nnz, x0, lam, cg_iters, cg_tol)
 
 
+@full_f32()
 def gather_gram_cg_aug_plain(table_ext, cols, vals, nnz, x0, lam: float,
                              cg_iters: int = 6, cg_tol: float = 1e-4):
     """Plain version of K6: index_select, augment_g, ONE f32 einsum, then
@@ -280,7 +307,7 @@ def gather_gram_cg_aug_plain(table_ext, cols, vals, nnz, x0, lam: float,
 
 def gather_gram_cg(table_ext, cols, vals, nnz, x0, lam: float,
                    cg_iters: int = 6, cg_tol: float = 1e-4,
-                   aug: bool = False):
+                   aug: bool = False, spans: Optional[int] = None):
     """Solve one chunk of rows: gather + Gram + regularized CG + per-row
     train squared error (pallas_solve.gather_gram_cg).
 
@@ -297,19 +324,32 @@ def gather_gram_cg(table_ext, cols, vals, nnz, x0, lam: float,
     exactly 0. On a card the Gram runs in the body `gram_body` names (f
     = 256 in that of csrc/wide.cuh); on the tensor cores the bf16
     products are exact and the f32 sums are taken in the hardware's
-    order."""
+    order.
+
+    At f = 256 a chunk with fewer rows than the card has SMs takes the
+    row cut (`row_spans`); `spans` forces the number of spans a row is
+    cut into (1: the uncut kernel) and is taken at f = 256 only. Tensors
+    on the CPU take the plain version whatever `spans` says."""
+    name = "gather_gram_cg_aug" if aug else "gather_gram_cg"
+    _check_spans(name, spans, table_ext.shape[1] == 256 and not aug)
     if _on_cpu(table_ext, cols, vals, nnz, x0):
         plain = gather_gram_cg_aug_plain if aug else gather_gram_cg_plain
         return plain(table_ext, cols, vals, nnz, x0, lam, cg_iters, cg_tol)
     r, p = cols.shape
     f = table_ext.shape[1]
-    name = "gather_gram_cg_aug" if aug else "gather_gram_cg"
     _check_f(name, f, wide_ok=not aug)
     _check("table_ext", table_ext, table_ext.shape, _FLOATS)
     _check("cols", cols, (r, p), (torch.int32,))
     _check("vals", vals, (r, p), _FLOATS)
     _check("nnz", nnz, (r,), (torch.int32,))
     _check("x0", x0, (r, f), (torch.float32,))
+    if r and f == 256 and not aug:
+        n_spans, span_len = _chunk_spans(x0.device, r, p, spans)
+        if n_spans > 1:
+            part = span_grams(table_ext, cols, vals, nnz, 256, n_spans,
+                              span_len)
+            return span_solve(part, nnz, x0, lam, p, span_len, cg_iters,
+                              cg_tol)
     x = torch.empty((r, f), dtype=torch.float32, device=x0.device)
     se = torch.empty((r, 1), dtype=torch.float32, device=x0.device)
     if r:
@@ -351,6 +391,7 @@ def _check_gram_table(table_ext: torch.Tensor, cols: torch.Tensor) -> None:
                          f"fewer than 2^31")
 
 
+@full_f32()
 def gather_gram_out_plain(table_ext, cols, vals,
                           out_dtype: torch.dtype = torch.float32):
     """Plain version of K2: index_select, f32 einsum, A cast at the end."""
@@ -445,6 +486,7 @@ def solve_cg(a, b, x0, cg_iters: int = 6, cg_tol: float = 1e-4):
 
 
 # --------------------------------------------- K5a gather_gram_aug_out --
+@full_f32()
 def gather_gram_aug_out_plain(table_ext, cols, vals,
                               out_dtype: torch.dtype = torch.float32):
     """Plain version of K5a: index_select, augment_g, f32 einsum, cast."""
@@ -513,6 +555,7 @@ def solve_cg_aug(a_aug, diag, x0, cg_iters: int = 6, cg_tol: float = 1e-4):
 
 
 # ------------------------------------ K7 gather_gram_cg_wide / K8 cat --
+@full_f32()
 def cg_loop_wide_plain(a11, a12, a22, b1, b2, x1, x2, cg_iters: int,
                        cg_tol: float):
     """pallas_solve._cg_loop_wide in plain torch: cg_loop_plain on the
@@ -551,6 +594,7 @@ def cg_loop_wide_plain(a11, a12, a22, b1, b2, x1, x2, cg_iters: int,
     return x1, x2
 
 
+@full_f32()
 def fused_gram_cg_wide_plain(g1, g2, vals, nnz, x01, x02, lam: float,
                              cg_iters: int = 6, cg_tol: float = 1e-4):
     """pallas_solve.fused_gram_cg_wide in plain torch: g1 (R, P, 128) and
@@ -601,7 +645,8 @@ def gather_gram_cg_wide_plain(table_ext, cols, vals, nnz, x0, lam: float,
 
 
 def gather_gram_cg_wide(table_ext, cols, vals, nnz, x0, lam: float, f2: int,
-                        cg_iters: int = 6, cg_tol: float = 1e-4):
+                        cg_iters: int = 6, cg_tol: float = 1e-4,
+                        spans: Optional[int] = None):
     """Solve one chunk of rows at a factor width 128 < F <= 256 over its
     128 + f2 live lanes only (pallas_solve.gather_gram_cg_wide):
     gather + two-block Gram + regularized CG + per-row train error.
@@ -611,10 +656,14 @@ def gather_gram_cg_wide(table_ext, cols, vals, nnz, x0, lam: float, f2: int,
     each row's tail; vals (R, P) f32/bf16; nnz (R,) int32; x0 (R, 256)
     f32; f2 = wide_f2(F) in {32, 64, 96, 128}. Lanes >= 128 + f2 of the
     table and of x0 are neither read nor computed. Returns x (R, 256) f32
-    with lanes >= 128 + f2 exactly 0 and se (R, 1) f32."""
+    with lanes >= 128 + f2 exactly 0 and se (R, 1) f32. A chunk with
+    fewer rows than the card has SMs takes the row cut (`row_spans`);
+    `spans` forces the number of spans (1: the uncut kernel), on a card
+    only."""
     if f2 not in (32, 64, 96, 128):
         raise ValueError(f"gather_gram_cg_wide: f2 must be 32, 64, 96 or "
                          f"128, got {f2}")
+    _check_spans("gather_gram_cg_wide", spans, True)
     if _on_cpu(table_ext, cols, vals, nnz, x0):
         return gather_gram_cg_wide_plain(table_ext, cols, vals, nnz, x0,
                                          lam, f2, cg_iters, cg_tol)
@@ -624,6 +673,13 @@ def gather_gram_cg_wide(table_ext, cols, vals, nnz, x0, lam: float, f2: int,
     _check("vals", vals, (r, p), _FLOATS)
     _check("nnz", nnz, (r,), (torch.int32,))
     _check("x0", x0, (r, 256), (torch.float32,))
+    if r:
+        n_spans, span_len = _chunk_spans(x0.device, r, p, spans)
+        if n_spans > 1:
+            part = span_grams(table_ext, cols, vals, nnz, 128 + f2, n_spans,
+                              span_len)
+            return span_solve(part, nnz, x0, lam, p, span_len, cg_iters,
+                              cg_tol)
     x = torch.empty((r, 256), dtype=torch.float32, device=x0.device)
     se = torch.empty((r, 1), dtype=torch.float32, device=x0.device)
     if r:
@@ -635,6 +691,203 @@ def gather_gram_cg_wide(table_ext, cols, vals, nnz, x0, lam: float, f2: int,
     return x, se
 
 
+# ------------------- the row cut of the 256-lane body (K1 at 256, K7) --
+SPAN_TILE = 32    # slots a tile of csrc/wide.cuh stages (kTile)
+
+
+def _cut(tiles: int, want: int, tile: int) -> Tuple[int, int]:
+    """(S, L) for rows of `tiles` tiles cut into at most `want` spans of
+    whole tiles; the last span may be shorter."""
+    if tiles <= 1 or want <= 1:
+        return 1, max(tiles, 1) * tile
+    per = -(-tiles // want)
+    return -(-tiles // per), per * tile
+
+
+def row_spans(r: int, p: int, sms: int, tile: int = SPAN_TILE,
+              min_tiles: int = 4, target: int = 4) -> Tuple[int, int]:
+    """The row cut of a chunk of R rows of P slots on a card of `sms`
+    SMs, from the shape alone (no read of nnz from the card): S, the
+    spans a row is cut into, and L, the slots of a span, a whole number
+    of `tile`-slot tiles; span s covers slots [s L, (s + 1) L), and the
+    S spans cover [0, P) once. S = 1 (the uncut kernel, one block a row)
+    when R >= sms; else R S is about `target` blocks an SM, with no span
+    under `min_tiles` tiles unless P is (then S = 1). The plans put a
+    row's live slots first, so span s of row r is live iff
+    s L < min(nnz[r], P). The defaults are measured: over the 67 split X
+    chunks under 132 rows of the Netflix F=200 plans, on an H100 SXM at
+    700 W, K7 took 103.0 ms at target 4 against 112.4 at 2 and 129.9 at
+    1, min_tiles 2-8 within 5% (PERF.md, the row cut's findings)."""
+    tiles = -(-p // tile)
+    want = 1 if r >= sms else -(-target * sms // max(r, 1))
+    return _cut(tiles, min(want, max(1, tiles // min_tiles)), tile)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _check_spans(name: str, spans, allowed: bool) -> None:
+    if spans is None:
+        return
+    if not allowed:
+        raise ValueError(f"{name}: spans applies to the 256-lane body "
+                         f"only")
+    if not 1 <= int(spans) <= 65535:
+        raise ValueError(f"{name}: spans must be 1 to 65535, got {spans}")
+
+
+def _chunk_spans(device, r: int, p: int, spans) -> Tuple[int, int]:
+    """`row_spans` on this card, or the cut `spans` forces."""
+    if spans is None:
+        index = device.index if device.index is not None else \
+            torch.cuda.current_device()
+        return row_spans(r, p, _sm_count(index))
+    return _cut(-(-p // SPAN_TILE), int(spans), SPAN_TILE)
+
+
+def span_record_floats(fl: int) -> int:
+    """Floats of one span's record in scratch (SpanRecord of
+    csrc/wide.cuh): 64 entries for each of the T (T + 1) / 2 tiles of
+    the upper triangle (T = fl / 8), then b (fl), then r2 (1)."""
+    t = fl // 8
+    return 64 * (t * (t + 1) // 2) + fl + 1
+
+
+def _triangle(fl: int, device):
+    """Tile row and column of each tile of csrc/wide.cuh's `tile_of`:
+    (ti, tj), ti <= tj, row-major over the upper triangle of T = fl / 8
+    tiles a side."""
+    t = fl // 8
+    pairs = [(i, j) for i in range(t) for j in range(i, t)]
+    return (torch.tensor([i for i, _ in pairs], device=device),
+            torch.tensor([j for _, j in pairs], device=device))
+
+
+def span_record_unpack(rec: torch.Tensor, fl: int):
+    """(A, b, r2) of span records (..., span_record_floats(fl)), read
+    through the tile layout of csrc/wide.cuh: entry k * 8 + l of tile i
+    at [(k * 8 + l) * TILES + i]; A (..., fl, fl) is the upper triangle
+    of tiles mirrored, b (..., fl), r2 (..., 1)."""
+    t = fl // 8
+    ti, tj = _triangle(fl, rec.device)
+    n = ti.numel()
+    lead = rec.shape[:-1]
+    blocks = rec[..., :64 * n].reshape(-1, 8, 8, n).permute(0, 3, 1, 2)
+    a = rec.new_zeros((blocks.shape[0], t, t, 8, 8))
+    a[:, tj, ti] = blocks.transpose(-1, -2)
+    a[:, ti, tj] = blocks      # a diagonal tile holds its full block
+    a = a.permute(0, 1, 3, 2, 4).reshape(*lead, fl, fl)
+    return a, rec[..., 64 * n:64 * n + fl], rec[..., -1:]
+
+
+@full_f32()
+def span_gram_plain(table_ext, cols, vals, nnz, lo: int, hi: int, fl: int):
+    """Plain version of pass 1 (``wide_span_gram``) for one span: the
+    dense A (R, fl, fl), b (R, fl) and r2 (R, 1) of slots
+    [lo, min(hi, nnz[r], P)) of each row over table lanes < fl, in f32
+    einsums."""
+    r = cols.shape[0]
+    c = cols[:, lo:hi]
+    live = (torch.arange(lo, lo + c.shape[1], device=cols.device)[None, :]
+            < nnz.long()[:, None]).float()
+    g = table_ext[:, :fl].index_select(0, c.reshape(-1).long()).reshape(
+        r, c.shape[1], fl).float() * live[:, :, None]
+    v = vals[:, lo:hi].float() * live
+    a = torch.einsum("rpf,rpg->rfg", g, g)
+    b = torch.einsum("rp,rpf->rf", v, g)
+    return a, b, (v * v).sum(-1, keepdim=True)
+
+
+def span_solve_plain(parts, nnz, x0, lam: float, cg_iters: int = 6,
+                     cg_tol: float = 1e-4):
+    """Plain version of pass 2 (``wide_span_solve``): the (A, b, r2) of
+    `parts` summed in span order, then the tail of the fused kernels
+    (`_solve_and_se`) on the fl live lanes. x0 (R, 256); returns x
+    (R, 256) with lanes >= fl exactly 0, and se (R, 1)."""
+    a, b, r2 = parts[0]
+    for pa, pb, pr in parts[1:]:
+        a, b, r2 = a + pa, b + pb, r2 + pr
+    fl = a.shape[-1]
+    x, se = _solve_and_se(a, b, r2, nnz, x0[:, :fl], lam, cg_iters, cg_tol)
+    return torch.nn.functional.pad(x, (0, x0.shape[1] - fl)), se
+
+
+def row_cut_plain(table_ext, cols, vals, nnz, x0, lam: float, fl: int,
+                  spans: int, span_len: int, cg_iters: int = 6,
+                  cg_tol: float = 1e-4):
+    """The CPU reference of the row cut: `span_gram_plain` over spans
+    0 .. spans - 1 of `span_len` slots, then `span_solve_plain`."""
+    parts = [span_gram_plain(table_ext, cols, vals, nnz, s * span_len,
+                             (s + 1) * span_len, fl) for s in range(spans)]
+    return span_solve_plain(parts, nnz, x0, lam, cg_iters, cg_tol)
+
+
+def _span_live(nnz, p: int, spans: int, span_len: int) -> torch.Tensor:
+    """(R, spans) bool: span s of row r holds slots, s L < min(nnz, P)."""
+    starts = torch.arange(spans, device=nnz.device) * span_len
+    return starts[None, :] < nnz.long().clamp(max=p)[:, None]
+
+
+def span_grams(table_ext, cols, vals, nnz, fl: int, spans: int,
+               span_len: int) -> torch.Tensor:
+    """Pass 1 of the row cut: the records (R, spans,
+    span_record_floats(fl)) of the Gram of every span, span s of a row
+    over slots [s L, min((s + 1) L, nnz, P)), L = `span_len` (a multiple
+    of 32). table_ext (n+1, 256) f32/bf16, cols, vals (R, P), nnz (R,)
+    int32, all on the card; fl in (160, 192, 224, 256), the live lanes.
+    A span with no slots is left as `torch.empty` made it (pass 2 reads
+    only live spans)."""
+    if fl not in (160, 192, 224, 256):
+        raise ValueError(f"wide_span_gram: fl must be 160, 192, 224 or 256, "
+                         f"got {fl}")
+    if span_len <= 0 or span_len % SPAN_TILE:
+        raise ValueError(f"wide_span_gram: span_len must be a positive "
+                         f"multiple of {SPAN_TILE}, got {span_len}")
+    _on_card("wide_span_gram", table_ext, cols, vals, nnz)
+    r, p = cols.shape
+    _check("table_ext", table_ext, (table_ext.shape[0], 256), _FLOATS)
+    _check("cols", cols, (r, p), (torch.int32,))
+    _check("vals", vals, (r, p), _FLOATS)
+    _check("nnz", nnz, (r,), (torch.int32,))
+    part = torch.empty((r, spans, span_record_floats(fl)),
+                       dtype=torch.float32, device=cols.device)
+    if r:
+        _launch("wide_span_gram", table_ext.data_ptr(), _bf16(table_ext),
+                cols.data_ptr(), vals.data_ptr(), _bf16(vals),
+                nnz.data_ptr(), part.data_ptr(), r, p, fl, spans, span_len)
+    return part
+
+
+def span_solve(part, nnz, x0, lam: float, p: int, span_len: int,
+               cg_iters: int = 6, cg_tol: float = 1e-4):
+    """Pass 2 of the row cut: each row's live records of `part` (from
+    `span_grams` over P = `p` slots) summed in span order, the
+    regularized CG from x0 (R, 256) f32 and the train error, as
+    `gather_gram_cg_wide` and `gather_gram_cg` at f = 256 return them:
+    x (R, 256) with lanes >= fl exactly 0, and se (R, 1). Card tensors
+    only."""
+    r, spans, size = part.shape
+    sizes = {span_record_floats(fl): fl for fl in (160, 192, 224, 256)}
+    if size not in sizes:
+        raise ValueError(f"wide_span_solve: records of {size} floats")
+    fl = sizes[size]
+    _on_card("wide_span_solve", part, nnz, x0)
+    _check("part", part, part.shape, (torch.float32,))
+    _check("nnz", nnz, (r,), (torch.int32,))
+    _check("x0", x0, (r, 256), (torch.float32,))
+    x = torch.empty((r, 256), dtype=torch.float32, device=x0.device)
+    se = torch.empty((r, 1), dtype=torch.float32, device=x0.device)
+    if r:
+        _launch("wide_span_solve", part.data_ptr(), nnz.data_ptr(),
+                x0.data_ptr(), x.data_ptr(), se.data_ptr(), r, int(p), fl,
+                spans, int(span_len), float(lam), int(cg_iters),
+                float(cg_tol))
+    return x, se
+
+
+@full_f32()
 def fused_gram_cg_cat_plain(g1, g2, vals, nnz, x0, lam: float,
                             cg_iters: int = 6, cg_tol: float = 1e-4):
     """Plain version of K8: cat + zero pad to 256 lanes, f32 einsums,

@@ -9,6 +9,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from cumf_als_tpu_torch.ops.precision import full_f32
+
 
 def rmse_direct(x: torch.Tensor, theta: torch.Tensor, rows, cols, vals,
                 chunk: int = 1 << 21) -> float:
@@ -38,12 +40,14 @@ def fused_sq_err(a, b, vals, nnz, lam: float, x_new) -> torch.Tensor:
         se_j = sum_i r_ij^2 - 2 x_j.b_j + x_j^T (A_j - diag_j I) x_j
 
     with A_j the regularized Gram (diag_j = nnz_j*lam + [nnz_j == 0]),
-    evaluated per row and clamped at 0. Returns a device scalar."""
+    evaluated per row and clamped at 0, in full float32 (`full_f32`).
+    Returns a device scalar."""
     xt = x_new.float()
     v32 = vals.float()   # vals may arrive bf16: square in f32
     r2 = (v32 * v32).sum(-1)
     cross = (xt * b).sum(-1)
-    aq = torch.einsum("rfg,rg->rf", a.float(), xt)
+    with full_f32():
+        aq = torch.einsum("rfg,rg->rf", a.float(), xt)
     quad = (xt * aq).sum(-1)
     nnzf = nnz.float()
     diag = nnzf * lam + (nnzf == 0).float()

@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from cumf_als_tpu_torch.ops import cuda_solve
+from cumf_als_tpu_torch.ops.precision import full_f32
 
 
 def solve_cholesky(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -31,11 +32,12 @@ def solve_cg(a: torch.Tensor, b: torch.Tensor, x0: torch.Tensor,
     """Batched CG with the semantics of the JAX package's solve_cg.
 
     a: (R, f, f) f32 or bf16; b, x0: (R, f) f32. As there, the matvec
-    takes p in A's storage dtype and sums in f32."""
+    takes p in A's storage dtype and sums in full f32 (`full_f32`)."""
     af = a.float()
 
     def matvec(p):
-        return torch.einsum("rfg,rg->rf", af, p.to(a.dtype).float())
+        with full_f32():
+            return torch.einsum("rfg,rg->rf", af, p.to(a.dtype).float())
 
     x = x0.float()
     r = b.float() - matvec(x)

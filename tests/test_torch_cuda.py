@@ -400,3 +400,218 @@ def test_wrappers_reject_what_the_kernels_do_not_take(card):
     with pytest.raises(ValueError):     # a strided g2
         cs.fused_gram_cg_cat(g1, g1[:, :, :32], vals, nnz, x0w, LAM)
     assert sum(cs.LAUNCHES.values()) == 0
+
+
+# ----------------------- the row cut of the 256-lane body (K1, K7) --
+def cut_chunk(f_true, dtype, p, span, seed=0, n=60):
+    """A chunk over a 256-lane table of true width f_true (lanes above
+    zero, in the table and the warm start) whose rows stop at nnz 0, 1,
+    31, 32, 33, on the span edge `span`, one past it, and at P = p, pad
+    slots at each row's tail (the zero row n, value 0), and a dummy tail
+    row without ratings whose warm start is zero; on the CPU."""
+    rng = np.random.RandomState(seed + p)
+    nnz = np.array([0, 1, 31, 32, 33, span, span + 1, p, 0], np.int32)
+    r = len(nnz)
+    table = np.zeros((n + 1, 256), np.float32)
+    table[:n, :f_true] = rng.standard_normal((n, f_true)) * 0.3
+    mask = np.arange(p)[None, :] < nnz[:, None]
+    cols = np.where(mask, rng.randint(0, n, (r, p)), n).astype(np.int32)
+    vals = (np.round(rng.uniform(1, 5, (r, p)) * 2) / 2 * mask
+            ).astype(np.float32)
+    x0 = np.zeros((r, 256), np.float32)
+    x0[:-1, :f_true] = rng.standard_normal((r - 1, f_true)) * 0.1
+    return [torch.from_numpy(table).to(dtype), torch.from_numpy(cols),
+            torch.from_numpy(vals).to(dtype), torch.from_numpy(nnz),
+            torch.from_numpy(x0)]
+
+
+CUTS = [(300, 2), (300, 3), (448, 7)]      # (P, spans): S = 2, 3, 7
+
+
+@pytest.mark.parametrize("p,spans", CUTS)
+@pytest.mark.parametrize("f_true,kernel", [
+    (130, "K7"), (161, "K7"), (200, "K7"), (256, "K7"), (200, "K1")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_row_cut_matches_plain_and_the_uncut_kernel(card, p, spans, f_true,
+                                                    kernel, dtype):
+    """The cut forced at S = 2, 3, 7 for T = 20, 24, 28, 32 (K7 at f2 =
+    32, 64, 96, 128) and K1 at f = 256, on the span-edge grid: against
+    the plain cut route and against the uncut kernel, x within 2e-3 and
+    se within 2e-3 + 1e-4 relative; empty rows and dead lanes exactly 0;
+    a second run repeats the first bit for bit; the launch counts show
+    the two passes, and the uncut kernel only where it ran."""
+    n_spans, span = cs._cut(-(-p // 32), spans, 32)
+    assert n_spans == spans
+    cpu = cut_chunk(f_true, dtype, p, span, seed=f_true)
+    gpu = [t.to(card) for t in cpu]
+    if kernel == "K7":
+        f2 = cs.wide_f2(f_true)
+        fl, name = 128 + f2, "gather_gram_cg_wide"
+
+        def run(spans):
+            return cs.gather_gram_cg_wide(*gpu, LAM, f2, spans=spans)
+    else:
+        fl, name = 256, "gather_gram_cg"
+
+        def run(spans):
+            return cs.gather_gram_cg(*gpu, LAM, spans=spans)
+    x, se = run(spans)
+    torch.cuda.synchronize()
+    assert cs.LAUNCHES == dict.fromkeys(cs.LAUNCHES, 0) | {
+        "wide_span_gram": 1, "wide_span_solve": 1}
+    px, pse = cs.row_cut_plain(*cpu, LAM, fl, spans, span)
+    torch.testing.assert_close(x.cpu(), px, atol=2e-3, rtol=0)
+    torch.testing.assert_close(se.cpu(), pse, atol=2e-3, rtol=1e-4)
+    ux, use = run(1)
+    assert cs.LAUNCHES[name] == 1 and cs.LAUNCHES["wide_span_gram"] == 1
+    torch.testing.assert_close(x, ux, atol=2e-3, rtol=0)
+    torch.testing.assert_close(se, use, atol=2e-3, rtol=1e-4)
+    empty = gpu[3] == 0
+    assert torch.all(x[empty] == 0) and torch.all(se[empty] == 0)
+    assert torch.all(x[:, fl:] == 0)
+    x2, se2 = run(spans)
+    assert torch.equal(x2, x) and torch.equal(se2, se)
+
+
+@pytest.mark.parametrize("fl", [160, 192, 224, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_span_gram_alone_through_the_record_layout(card, fl, dtype):
+    """Pass 1 alone against its plain version, read through the tile
+    layout of csrc/wide.cuh (`span_record_unpack`): every live span's A
+    within `gram_limit`'s FMA steps for its slots, b and r2 within rtol
+    1e-5 + 1e-5."""
+    p, spans = 448, 7
+    n_spans, span = cs._cut(-(-p // 32), spans, 32)
+    cpu = cut_chunk(fl, dtype, p, span, seed=fl)
+    part = cs.span_grams(*(t.to(card) for t in cpu[:4]), fl, n_spans, span)
+    assert cs.LAUNCHES["wide_span_gram"] == 1
+    live = cs._span_live(cpu[3], p, n_spans, span)
+    a, b, r2 = cs.span_record_unpack(part.cpu()[live], fl)
+    want = [cs.span_gram_plain(*cpu[:4], k * span, (k + 1) * span, fl)
+            for k in range(n_spans)]
+    pa, pb, pr2 = (torch.stack([w[i] for w in want], dim=1)[live]
+                   for i in range(3))
+    _assert_gram_close(a, pa, span, "fma")
+    torch.testing.assert_close(b, pb, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(r2, pr2, rtol=1e-5, atol=1e-5)
+
+
+def _unpinned(monkeypatch):
+    """Every `full_f32` pin of the port's host products made a no-op: the
+    port as it would be without them (a reading, not a route)."""
+    import contextlib
+
+    from cumf_als_tpu_torch.models import als as als_mod
+    from cumf_als_tpu_torch.ops import gram, rmse, solve
+    for mod in (als_mod, gram, rmse, solve):
+        monkeypatch.setattr(mod, "full_f32", contextlib.nullcontext)
+
+
+@pytest.mark.parametrize("route", ["panel", "xla"])
+def test_tf32_does_not_reach_the_f32_sums(card, monkeypatch, route):
+    """With TF32 switched on for float32 matrix products, train RMSE at
+    scale 0.01 is what it is with TF32 off; the caller's switch is as it
+    was. "panel": the pallas panel route (f32 split accumulators, whose
+    train error `_se_terms` forms with a batched matrix-vector product),
+    within 1e-5 (the card's f32 index_add_ adds in an order that changes
+    from run to run). "xla": the direct routes of backend "xla"
+    (`gram_rhs`, the plain `solve_cg`, `fused_sq_err`), bit for bit, and
+    with the pins removed (`_unpinned`) TF32 moves it: the Gram's batched
+    product runs in TF32 when allowed. Both readings are printed."""
+    from cumf_als_tpu_torch.config import NETFLIX
+    from cumf_als_tpu_torch.data.synthetic import (init_factors,
+                                                   workload_ratings)
+    from cumf_als_tpu_torch.models.als import ALS
+    from cumf_als_tpu_torch.ops.tiling import PanelPlan, UpdatePlan
+    train, test = workload_ratings("netflix", scale=0.01, seed=1)
+    cfg = NETFLIX.replace(m=train.num_rows, n=train.num_cols, nnz=train.nnz,
+                          nnz_test=test.nnz, iters=2, backend="pallas",
+                          solver="cg", factor_dtype="f32", gram_dtype="f32",
+                          aug_gram="off", verbose=False, debug_timing=False)
+    cfg = cfg.replace(panel_size=2048) if route == "panel" else \
+        cfg.replace(backend="xla")
+    x0, th0 = init_factors(cfg.m, cfg.n, cfg.f, seed=0)
+    model = ALS(cfg, train, None, test, device=card)
+    assert isinstance(model.plan_x[0],
+                      PanelPlan if route == "panel" else UpdatePlan)
+    off = [h.train_rmse for h in model.run(x0, th0).history]
+    legacy = torch.get_float32_matmul_precision()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        on = [h.train_rmse for h in model.run(x0, th0).history]
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+        _unpinned(monkeypatch)
+        bare = [h.train_rmse for h in model.run(x0, th0).history]
+    finally:
+        torch.set_float32_matmul_precision(legacy)
+    print(f"[tf32 rmse] {route}: train RMSE by iteration: TF32 off {off}; "
+          f"TF32 on {on}; TF32 on without the pins {bare}; max |on - off| "
+          f"{max(abs(u - v) for u, v in zip(on, off)):.3e}, without the "
+          f"pins {max(abs(u - v) for u, v in zip(bare, off)):.3e}",
+          flush=True)
+    if route == "panel":
+        assert np.allclose(on, off, rtol=0, atol=1e-5), (on, off)
+    else:
+        assert on == off and bare != off, (on, off, bare)
+
+
+def _products(card):
+    """The four pinned host products on seeded card tensors (512 rows of
+    256 slots, f = 128): name -> call."""
+    from cumf_als_tpu_torch.models import als as als_mod
+    from cumf_als_tpu_torch.ops import gram, rmse, solve
+    rng = np.random.default_rng(7)
+    r, p, f, n = 512, 256, 128, 4096
+    table = (rng.standard_normal((n + 1, f)) * 0.3).astype(np.float32)
+    table[n] = 0.0
+    cols = rng.integers(0, n + 1, (r, p)).astype(np.int32)
+    vals = (np.round(rng.uniform(1, 5, (r, p)) * 2) / 2).astype(np.float32)
+    x = (rng.standard_normal((r, f)) * 0.1).astype(np.float32)
+    table, cols, vals, x = (torch.from_numpy(t).to(card)
+                            for t in (table, cols, vals, x))
+    nnz = torch.full((r,), p, dtype=torch.int32, device=card)
+    a, b = gram.gram_rhs(table, cols, vals, nnz, LAM)
+    return {
+        "gram_rhs": lambda: gram.gram_rhs(table, cols, vals, nnz, LAM),
+        "fused_sq_err": lambda: rmse.fused_sq_err(a, b, vals, nnz, LAM, x),
+        "solve_cg": lambda: solve.solve_cg(a, b, x),
+        "_se_terms": lambda: als_mod._se_terms(a, b, x, 128),
+    }
+
+
+@pytest.mark.parametrize("name", ["gram_rhs", "fused_sq_err", "solve_cg",
+                                  "_se_terms"])
+def test_tf32_does_not_reach_a_pinned_product(card, monkeypatch, name):
+    """Each pinned host product gives, with TF32 switched on, what it
+    gives with TF32 off, bit for bit (the same full-f32 cuBLAS call on the
+    same inputs). With its pin removed (`_unpinned`) `gram_rhs`, a
+    batched matrix product, differs under TF32: the pin is what holds it.
+    The other three are batched matrix-vector products, which cuBLAS ran
+    without TF32 on an H100 either way (PERF.md): for them the pin
+    guards against another library's choice, and only the reading is
+    printed."""
+    with torch.no_grad():
+        call = _products(card)[name]
+        legacy = torch.get_float32_matmul_precision()
+        torch.set_float32_matmul_precision("highest")
+        try:
+            off = call()
+            torch.backends.cuda.matmul.allow_tf32 = True
+            on = call()
+            _unpinned(monkeypatch)
+            bare = call()
+        finally:
+            torch.set_float32_matmul_precision(legacy)
+    off, on, bare = ([t.float() for t in (v if isinstance(v, tuple) else (v,))]
+                     for v in (off, on, bare))
+
+    def rel(u, v):
+        return max(((a - b).abs().max() / b.abs().max()).item()
+                   for a, b in zip(u, v))
+
+    print(f"[tf32 product] {name}: TF32 on, pinned: max rel diff "
+          f"{rel(on, off):.3e}; pin removed: {rel(bare, off):.3e}",
+          flush=True)
+    assert all(torch.equal(u, v) for u, v in zip(on, off))
+    if name == "gram_rhs":
+        assert not all(torch.equal(u, v) for u, v in zip(bare, off))
