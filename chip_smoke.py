@@ -6,10 +6,11 @@ Phases, each of which must pass (any failure exits non-zero before the
 result line):
 
 1. card and build: the card's name and power limit, the torch/CUDA
-   versions, and the build of every CUDA kernel from csrc/ (eleven)
+   versions, and the build of every CUDA kernel from csrc/ (twelve)
    with `-Xptxas -v`: registers, spills and added wgmma waits of the
-   tensor-core entry functions of K1, K2, K5a and K6, registers and
-   spills of the 256-lane entry functions;
+   tensor-core entry functions of K1, K2, K5a, K6 and the tensor-core
+   pass 1 of the 256-lane body, registers and spills of the other
+   256-lane entry functions;
 2. each kernel against its plain PyTorch version on the card, on real
    chunks of the Netflix-shaped plans, with kernel, plain, yardstick and
    bound times: the widest, the most populous and the fewest-row
@@ -43,25 +44,34 @@ result line):
    against the augmented solve of the same systems;
 5. the factor widths above 128, on the same data at F=200 (f_pad 256,
    f2 = 96), X phase on the split route (4 table parts of 131,072 rows)
-   and theta on the direct route:
-   a. K7, K1 at f=256 and K8 against their plain versions on the most
-      populous and the widest theta chunk and (K7) the most populous
-      split X chunk, K8 also against K1 at f=256 on the same G; the
-      row cut of K7 and of K1 at f=256 (`wide_span_gram` +
-      `wide_span_solve`, taken where a chunk has fewer rows than the
-      card has SMs) on the split X chunk with the fewest rows, one of
-      about 32 rows and the widest theta chunk, against the plain cut
-      route and the uncut kernel; each pass alone on one chunk (pass 1
-      through the record layout); the span-edge grid; both kernels'
-      time over both phases, cut and uncut, split by chunks under and
-      over the SM count;
+   and theta on the direct route. K7 and K1 at f=256 on a bf16 table
+   run as two passes on every chunk, pass 1 on the tensor cores
+   (`wide_span_gram_mma`) and pass 2 (`wide_span_solve`), one span a
+   row on a chunk of as many rows as the card has SMs and the row cut
+   below that; a float32 table keeps the FMA body (the uncut kernels,
+   or the cut with `wide_span_gram`):
+   a. K7 and K1 at f=256 as routed against their plain versions on the
+      widest and the most populous theta chunk and the most populous
+      split X chunk, and their uncut FMA kernels on a float32 copy of
+      the table; K8 against its plain version and against K1 at f=256
+      on a float32 copy of the table; the tensor-core pass 1 bit for bit
+      on integer tables; the cut on the split X chunk with the fewest
+      rows, one of about 32 rows and the widest theta chunk, against the
+      plain cut route and one span a row; each pass alone (pass 1
+      through the record layout) on the chunk of about 32 rows (bf16
+      and float32 tables) and the most populous theta chunk; the
+      span-edge grid; both kernels' time over both phases, as routed
+      and with one span a row, split by chunks under and over the SM
+      count; the FMA body's earlier times printed beside;
    b. small runs (scale 0.01, F=130, forced split X route with 3 parts)
-      on the card against the CPU, wide_kernel on and off, the cut
-      taken in each card run;
-   c. `ALS.run` for 3 iterations with wide_kernel="on" (K7 and the
-      cut), then 2 iterations with wide_kernel="off" (K1 and the cut);
+      on the card against the CPU: bf16 wide_kernel on (the two passes
+      alone), float32 wide_kernel on and off (the FMA kernels);
+   c. `ALS.run` for 3 iterations with wide_kernel="on", then 2
+      iterations with wide_kernel="off": every chunk runs the two
+      passes (pass 1 on the tensor cores) and no other 256-lane kernel;
    d. K8's path: `fused_gram_cg_cat` over every theta chunk on a G
-      gathered with torch, each held against K1 at f=256.
+      gathered with torch from a float32 copy of the table, each held
+      against K1 at f=256 on that copy.
 
 It prints a `kernels` JSON line, the card line, and last
 {"ok": true, "device": {...}}. It imports nothing of JAX.
@@ -84,12 +94,12 @@ plan against the plain versions, and prints no result line.
 
     python3 chip_smoke.py --wide
 
-is the short call after a change to csrc/wide.cuh or the row cut: it
-builds K1, K7 and the two passes of the cut alone (with the ptxas
-report), runs the span-edge grid and synthetic few-row chunks (cut
-against uncut, with times), then the few-row chunks of the real
-Netflix F=200 plans (phase 5a's cut checks), and prints no result
-line.
+is the short call after a change to csrc/wide.cuh or the passes: it
+builds K1, K7 and the three pass kernels alone (with the ptxas report),
+runs the tensor-core pass 1 on integer tables, the span-edge grid and
+synthetic few-row chunks (cut against one span a row, with times), then
+the few-row chunks of the real Netflix F=200 plans and each pass alone
+(phase 5a's cut checks), and prints no result line.
 """
 
 from __future__ import annotations
@@ -118,20 +128,59 @@ REPLACES = {
     "gather_gram_cg_aug": "cumf_als_tpu/ops/pallas_solve.py:345",
     "gather_gram_cg_wide": "cumf_als_tpu/ops/pallas_solve.py:804",
     "fused_gram_cg_cat": "cumf_als_tpu/ops/pallas_solve.py:956",
-    # the two passes of the row cut of K7 and of K1 at 256 lanes
+    # the two passes of the row cut of K7 and of K1 at 256 lanes (pass 1
+    # on the FMA body or on the tensor cores)
     "wide_span_gram": "cumf_als_tpu/ops/pallas_solve.py:804",
+    "wide_span_gram_mma": "cumf_als_tpu/ops/pallas_solve.py:804",
     "wide_span_solve": "cumf_als_tpu/ops/pallas_solve.py:804",
 }
+# the Gram body each kernel's measured launches ran ("cg": a solve alone)
+BODY = {"gather_gram_cg": "wgmma", "gather_gram_out": "wgmma",
+        "solve_cg_reg": "cg", "solve_cg": "cg", "gather_gram_aug_out": "wgmma",
+        "solve_cg_aug": "cg", "gather_gram_cg_aug": "wgmma",
+        "gather_gram_cg_wide": "fma", "fused_gram_cg_cat": "fma",
+        "wide_span_gram": "fma", "wide_span_gram_mma": "wgmma",
+        "wide_span_solve": "cg"}
 SPLIT_KERNELS = ("gather_gram_cg", "gather_gram_out", "solve_cg_reg")
 AUG_KERNELS = ("gather_gram_cg_aug", "gather_gram_aug_out", "solve_cg_aug")
 WIDE_KERNELS = ("gather_gram_cg_wide", "fused_gram_cg_cat")
 GRAM_KERNELS = ("gather_gram_out", "gather_gram_aug_out")
 THETA_KERNELS = ("gather_gram_cg", "gather_gram_cg_aug")
-SPAN_KERNELS = ("wide_span_gram", "wide_span_solve")
+SPAN_KERNELS = ("wide_span_gram", "wide_span_gram_mma", "wide_span_solve")
+# the route of K7 and K1 at f=256 on a bf16 table: the two passes, pass 1
+# on the tensor cores
+MMA_PASSES = ("wide_span_gram_mma", "wide_span_solve")
 WIDE_SHORT = ("gather_gram_cg", "gather_gram_cg_wide") + SPAN_KERNELS
+# the device times (ms) of the 256-lane kernels on the same chunks on the
+# FMA body, before the tensor-core pass 1 (the bracketed times of PERF.md
+# §6; NVIDIA H100 80GB HBM3, 700.00 W):
+# (kernel, chunk) -> as routed then (the cut on a chunk under 132 rows),
+# and uncut
+FMA_MS = {
+    ("K7", "theta most populous"): (11.499, 11.499),
+    ("K7", "theta widest"): (0.121, 2.413),
+    ("K7", "split X most populous"): (10.892, 10.892),
+    ("K7", "split X fewest rows"): (4.803, 91.325),
+    ("K7", "split X about 32 rows"): (1.774, 6.638),
+    ("K1", "theta most populous"): (13.049, 13.049),
+    ("K1", "theta widest"): (0.153, 2.769),
+    ("K1", "split X most populous"): (11.936, 11.936),
+    ("K1", "split X fewest rows"): (5.028, 99.214),
+    ("K1", "split X about 32 rows"): (1.866, 7.216),
+    ("pass 1", "split X about 32 rows"): (1.723, 1.723),
+    ("pass 2", "split X about 32 rows"): (0.050, 0.050),
+    # phase totals as routed: (theta, split X)
+    ("K7", "phase totals"): (292.0, 348.6),
+    ("K1", "phase totals"): (336.6, 379.9),
+}
 # train RMSE after iteration 3 of the full-width F=100 paths, as recorded
 # before K1 and K6 moved to the tensor cores (PERF.md)
 RECORDED_TRAIN_RMSE = {"main": 0.428662, "aug": 0.428668}
+# and of the F=200 paths after their last iteration (3 with wide_kernel
+# "on", 2 with "off"), read from a run of the parent of the tensor-core
+# pass 1 on the card (PERF.md §2): only the order of the Gram's f32
+# sums has moved since
+RECORDED_TRAIN_RMSE.update({"wide on": 0.425421, "wide off": 0.516026})
 DEV = "cuda"
 
 
@@ -247,13 +296,14 @@ def card_line() -> str:
 # ------------------------------------------------------------ phase 1 --
 def ptxas_lines(build_log):
     """What ptxas reports for the tensor-core entry functions of K1, K2,
-    K5a and K6 (registers and spill stores of each instantiation, static
-    shared memory where it names any; the tiles are dynamic shared
-    memory), and every warning of the build. Returns False if one of
-    them spills or ptxas added a wgmma wait."""
+    K5a, K6 and the tensor-core pass 1 of the 256-lane body (registers
+    and spill stores of each instantiation, static shared memory where it
+    names any; the tiles are dynamic shared memory), and every warning of
+    the build. Returns False if one of them spills or ptxas added a wgmma
+    wait."""
     import re
     ok = True
-    for name in GRAM_KERNELS + THETA_KERNELS:
+    for name in GRAM_KERNELS + THETA_KERNELS + ("wide_span_gram_mma",):
         if name not in build_log:
             continue
         lines = build_log[name].splitlines()
@@ -272,13 +322,16 @@ def ptxas_lines(build_log):
         # only these entry functions issue wgmma, so every such note of
         # the build counts
         waits = sum("C7517" in line for line in lines)
+        # C7519: a warpgroup.arrive ptxas placed itself (no wait)
+        arrives = sum("C7519" in line for line in lines)
         ok &= bool(regs) and max(spills, default=0) == 0 and waits == 0
         log(f"[ptxas] {name}, the {len(regs)} tensor-core entry functions: "
             f"registers {regs}, spill stores {spills} bytes, static shared "
             f"memory {max(smem, default=0)} bytes (dynamic: the ring of "
-            f"tiles), wgmma waits added by ptxas (C7517): {waits}")
+            f"tiles), wgmma waits added by ptxas (C7517): {waits}, "
+            f"warpgroup arrives added by ptxas (C7519): {arrives}")
     for name in WIDE_SHORT:
-        if name not in build_log:
+        if name not in build_log or name == "wide_span_gram_mma":
             continue
         lines = build_log[name].splitlines()
         regs, spills = [], []
@@ -709,20 +762,46 @@ def chunk_x0(ch, current):
         (0, 0, 0, ch.rows.shape[0] - ch.n_real))
 
 
-def check_fused_256(cs, table_ext, ch, current, cfg, label, f2=None):
+def route_of(cs, table_ext, r, p, spans=None):
+    """How the wrappers of K7 and K1 at f=256 run a chunk of R rows of P
+    slots on this table: (text, S, L)."""
+    n_spans, span = cs._chunk_spans(torch.device(DEV, 0), r, p, spans,
+                                    **cs.span_plan(table_ext))
+    if cs.gram_body(table_ext) == "wgmma":
+        return (f"two passes, S={n_spans} span(s) of {span} slots, pass 1 "
+                f"on the tensor cores", n_spans, span)
+    if n_spans > 1:
+        return (f"two passes, S={n_spans} spans of {span} slots, pass 1 on "
+                f"the FMA body", n_spans, span)
+    return "uncut kernel, FMA body", n_spans, span
+
+
+def fma_note(kernel, label, which=0):
+    """The FMA body's earlier time of this kernel on this chunk (FMA_MS),
+    as text."""
+    old = FMA_MS.get((kernel, label))
+    return f"FMA body before: {old[which]:.3f} ms" if old else \
+        "FMA body before: not measured"
+
+
+def check_fused_256(cs, table_ext, ch, current, cfg, label, f2=None,
+                    chunk=None):
     """K7 (with f2) or K1 at f=256 on one chunk of a 256-lane table, as
-    the wrapper routes it (the row cut on a chunk with fewer rows than
-    the card has SMs): kernel vs the uncut plain version, limits as K1's;
-    K7's dead lanes and empty rows must be exactly 0. The bound counts
-    the live lanes (`wide_work`): 128 + f2 for K7, 256 for K1."""
+    the wrapper routes it (a bf16 table: the two passes, pass 1 on the
+    tensor cores; a float32 table: the uncut kernel, or the cut on a
+    chunk with fewer rows than the card has SMs): kernel vs the uncut
+    plain version, limits as K1's; K7's dead lanes and empty rows must be
+    exactly 0. The bound counts the live lanes (`wide_work`): 128 + f2
+    for K7, 256 for K1, whatever body runs it. `chunk` names the chunk in
+    FMA_MS, whose time is printed beside."""
     x0 = chunk_x0(ch, current)
     args = (table_ext, ch.cols, ch.vals, ch.nnz, x0, cfg.lam)
     kw = dict(cg_iters=cfg.cg_iters, cg_tol=cfg.cg_tol)
     if f2 is None:
-        name, live = "K1 gather_gram_cg f=256", 256
+        name, live, key = "K1 gather_gram_cg f=256", 256, "K1"
         fn, plain_fn = cs.gather_gram_cg, cs.gather_gram_cg_plain
     else:
-        name, live = f"K7 gather_gram_cg_wide f2={f2}", 128 + f2
+        name, live, key = f"K7 gather_gram_cg_wide f2={f2}", 128 + f2, "K7"
         args = args + (f2,)
         fn, plain_fn = cs.gather_gram_cg_wide, cs.gather_gram_cg_wide_plain
     x, se = fn(*args, **kw)
@@ -732,24 +811,23 @@ def check_fused_256(cs, table_ext, ch, current, cfg, label, f2=None):
     zero_ok = bool((x[:, live:] == 0).all()) and \
         bool((x[ch.nnz == 0] == 0).all())
     del px, pse
-    ms = time_ms(lambda: fn(*args, **kw))
-    plain = time_ms(lambda: plain_fn(*args, **kw), reps=3)
+    ms = queued_ms(lambda: fn(*args, **kw))
+    plain = queued_ms(lambda: plain_fn(*args, **kw), reps=3)
     r, p = ch.cols.shape
     read, flops = wide_work(table_ext, ch, live)
     bms, by = bound_ms(read + r * live * 4 + nbytes(x, se), flops,
                        table_ext.dtype)
     ok = err <= 2e-3 and se_rel <= 1e-3 and zero_ok
-    n_spans, span = cs.row_spans(r, p, sm_count())
-    route = f"cut, S={n_spans} spans of {span} slots" if n_spans > 1 \
-        else "uncut"
-    log(f"[{name}] {label} chunk R={r} P={p} ({route}): max|dx|={err:.3e} "
-        f"(limit "
-        f"2e-3), max rel dse={se_rel:.3e} (limit 1e-3), dead lanes and "
-        f"empty rows exactly 0: {zero_ok}; kernel {ms:.3f} ms, plain "
-        f"{plain:.3f} ms, bound {bms:.4f} ms ({by}); "
+    route = route_of(cs, table_ext, r, p)[0]
+    log(f"[{name}] {label} chunk R={r} P={p}, table {table_ext.dtype} "
+        f"({route}): max|dx|={err:.3e} (limit 2e-3), max rel dse="
+        f"{se_rel:.3e} (limit 1e-3), dead lanes and empty rows exactly 0: "
+        f"{zero_ok}; device time {ms:.3f} ms ({fma_note(key, chunk)}), "
+        f"plain {plain:.3f} ms, bound {bms:.4f} ms ({by}); "
         f"{'OK' if ok else 'FAIL'}")
     return ok, dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
-                    bound_by=by, library_ms=None)
+                    bound_by=by, library_ms=None, shape=[r, p],
+                    body=cs.gram_body(table_ext))
 
 
 def gathered_slabs(table_ext, ch, f2):
@@ -764,8 +842,9 @@ def gathered_slabs(table_ext, ch, f2):
 
 def check_k8(cs, table_ext, ch, current, cfg, f2, label):
     """K8 on the gathered G of one theta chunk: kernel vs plain, and
-    against K1's uncut kernel at f=256 on the same rows (rtol 1e-5 +
-    1e-6: K8 keeps that body)."""
+    against K1's uncut kernel at f=256 on the same rows of a float32 copy
+    of the table (rtol 1e-5 + 1e-6: K8 keeps that FMA body, which K1
+    runs on a float32 table)."""
     x0 = chunk_x0(ch, current)
     g1, g2 = gathered_slabs(table_ext, ch, f2)
     args = (g1, g2, ch.vals, ch.nnz, x0, cfg.lam)
@@ -775,8 +854,8 @@ def check_k8(cs, table_ext, ch, current, cfg, f2, label):
     err = (x - px).abs().max().item()
     se_rel = ((se - pse).abs() / pse.abs().clamp_min(1.0)).max().item()
     del px, pse
-    mx, mse = cs.gather_gram_cg(table_ext, ch.cols, ch.vals, ch.nnz, x0,
-                                cfg.lam, spans=1, **kw)   # the uncut body
+    mx, mse = cs.gather_gram_cg(table_ext.float(), ch.cols, ch.vals, ch.nnz,
+                                x0, cfg.lam, spans=1, **kw)  # the FMA body
     mono_ok = bool(((x - mx).abs() <= 1e-5 * mx.abs() + 1e-6).all()) and \
         bool(((se - mse).abs() <= 1e-5 * mse.abs() + 1e-6).all())
     mono_err = (x - mx).abs().max().item()
@@ -858,24 +937,29 @@ def cut_runner(cs, table_ext, ch, x0, cfg, f2):
 def check_cut(cs, table_ext, ch, current, cfg, label, f2=None):
     """The row cut of K7 (with f2) or of K1 at f=256 on one chunk with
     fewer rows than the card has SMs, as the wrapper chooses it
-    (`row_spans`): the launch counts show the two passes and not the
+    (`row_spans` in the pass-1 body's tiles): the launch counts show the
+    two passes (pass 1 on the tensor cores for a bf16 table) and not the
     uncut kernel; x within 2e-3 and se within 1e-3 relative of the plain
-    cut route and of the uncut kernel; rows without ratings and K7's dead
-    lanes exactly 0. Cut, uncut and plain timed as device time
-    (`queued_ms`)."""
+    cut route and of the uncut kernel (on a bf16 table: on a float32
+    copy of it, the FMA body); rows without ratings and K7's dead lanes
+    exactly 0. The cut, one span a row (spans=1; on a bf16 table the two
+    passes at S = 1) and the plain route timed as device time
+    (`queued_ms`), the FMA body's earlier times beside."""
     x0 = chunk_x0(ch, current)
     r, p = ch.cols.shape
-    n_spans, span = cs.row_spans(r, p, sm_count())
+    route, n_spans, span = route_of(cs, table_ext, r, p)
     fn, name, fl = cut_runner(cs, table_ext, ch, x0, cfg, f2)
+    pass1 = "wide_span_gram_mma" if cs.gram_body(table_ext) == "wgmma" \
+        else "wide_span_gram"
     kw = dict(cg_iters=cfg.cg_iters, cg_tol=cfg.cg_tol)
     cs.reset_launch_counts()
     x, se = fn()
     torch.cuda.synchronize()
-    took = n_spans > 1 and cs.LAUNCHES["wide_span_gram"] == 1 and \
+    took = n_spans > 1 and cs.LAUNCHES[pass1] == 1 and \
         cs.LAUNCHES["wide_span_solve"] == 1 and cs.LAUNCHES[name] == 0
     px, pse = cs.row_cut_plain(table_ext, ch.cols, ch.vals, ch.nnz, x0,
                                cfg.lam, fl, n_spans, span, **kw)
-    ux, use = fn(spans=1)
+    ux, use = cut_runner(cs, table_ext.float(), ch, x0, cfg, f2)[0](spans=1)
 
     def errs(x2, se2):
         return ((x - x2).abs().max().item(),
@@ -899,32 +983,40 @@ def check_cut(cs, table_ext, ch, current, cfg, label, f2=None):
         max(se_rel, use_rel) <= 1e-3
     tag = "K1 gather_gram_cg f=256" if f2 is None else \
         f"K7 gather_gram_cg_wide f2={f2}"
-    log(f"[cut {tag}] {label} chunk R={r} P={p}: S={n_spans} spans of "
-        f"{span} slots, the two passes launched and not the uncut kernel: "
-        f"{took}; against the plain cut route max|dx|={err:.3e}, max rel "
-        f"dse={se_rel:.3e}; against the uncut kernel max|dx|={uerr:.3e}, "
-        f"max rel dse={use_rel:.3e} (limits 2e-3, 1e-3); dead lanes and "
-        f"empty rows exactly 0: {zero_ok}; device time: cut {ms:.3f} ms, "
-        f"uncut {uncut:.3f} ms, plain {plain:.3f} ms, bound {bms:.4f} ms "
-        f"({by}); {'OK' if ok else 'FAIL'}")
+    key = "K1" if f2 is None else "K7"
+    one = route_of(cs, table_ext, r, p, spans=1)[0]
+    log(f"[cut {tag}] {label} chunk R={r} P={p}: {route}, the two passes "
+        f"launched and not the uncut kernel: {took}; against the plain cut "
+        f"route max|dx|={err:.3e}, max rel dse={se_rel:.3e}; against the "
+        f"uncut FMA kernel (float32 table) max|dx|={uerr:.3e}, max rel dse="
+        f"{use_rel:.3e} (limits 2e-3, 1e-3); dead lanes and empty rows "
+        f"exactly 0: {zero_ok}; device time: cut {ms:.3f} ms "
+        f"({fma_note(key, label)}), one span a row ({one}) {uncut:.3f} ms "
+        f"({fma_note(key, label, 1)} uncut), "
+        f"plain {plain:.3f} ms, bound {bms:.4f} ms ({by}); "
+        f"{'OK' if ok else 'FAIL'}")
     return ok, dict(ms=ms, uncut_ms=uncut, plain_ms=plain, bound_ms=bms,
                     bound_by=by, max_abs_err=err, spans=n_spans,
                     span_len=span, shape=[r, p])
 
 
 def check_span_passes(cs, table_ext, ch, current, cfg, f2, label):
-    """Each pass of the row cut alone on one chunk (K7's lanes). Pass 1
-    (`span_grams`) against `span_gram_plain`, read through the record
-    layout of csrc/wide.cuh (`span_record_unpack`): every live span's A
-    within `gram_limit`'s FMA steps for a span's slots, b and r2 within
-    rtol 1e-5 + 1e-5. Pass 2 (`span_solve`) on pass 1's own records
-    against `span_solve_plain` on the same records unpacked: x within
-    2e-3, se within 1e-3 relative. Returns the kernels-line entries of
-    the two passes."""
+    """Each pass of the row cut alone on one chunk (K7's lanes), with the
+    spans `row_spans` gives it in the tiles of the body that takes the
+    table. Pass 1 (`span_grams`: on the tensor cores for a bf16 table, on
+    the FMA body for a float32 one) against `span_gram_plain`, read
+    through the record layout of csrc/wide.cuh (`span_record_unpack`):
+    every live span's A within `gram_limit`'s steps for a span's slots in
+    that body, b and r2 within rtol 1e-5 + 1e-5. Pass 2 (`span_solve`) on
+    pass 1's own records against `span_solve_plain` on the same records
+    unpacked: x within 2e-3, se within 1e-3 relative. Returns the
+    kernels-line entries of the two passes, keyed by kernel name."""
     fl = 128 + f2
     x0 = chunk_x0(ch, current)
     r, p = ch.cols.shape
-    n_spans, span = cs.row_spans(r, p, sm_count())
+    _, n_spans, span = route_of(cs, table_ext, r, p)
+    body = cs.gram_body(table_ext)
+    pass1 = "wide_span_gram_mma" if body == "wgmma" else "wide_span_gram"
     gargs = (table_ext, ch.cols, ch.vals, ch.nnz, fl, n_spans, span)
     part = cs.span_grams(*gargs)
     live = cs._span_live(ch.nnz, p, n_spans, span)
@@ -936,7 +1028,7 @@ def check_span_passes(cs, table_ext, ch, current, cfg, f2, label):
     pr2 = torch.stack([q[2] for q in plain_parts], dim=1)[live]
     del plain_parts
     a, b, r2 = cs.span_record_unpack(part[live], fl)
-    lim, limit = gram_limit(a, pa, span, "fma")
+    lim, limit = gram_limit(a, pa, span, body)
     diff = (a - pa).abs()
     a_err = diff.max().item()
     a_ok = bool((diff <= lim).all())
@@ -952,6 +1044,7 @@ def check_span_passes(cs, table_ext, ch, current, cfg, f2, label):
     px, pse = cs.span_solve_plain(card_parts, ch.nnz, x0, cfg.lam, **kw)
     x_err = (x - px).abs().max().item()
     se_rel = ((se - pse).abs() / pse.abs().clamp_min(1.0)).max().item()
+    del px, pse
     ms1 = queued_ms(lambda: cs.span_grams(*gargs))
     plain1 = queued_ms(lambda: [cs.span_gram_plain(
         table_ext, ch.cols, ch.vals, ch.nnz, k * span, (k + 1) * span, fl)
@@ -960,7 +1053,7 @@ def check_span_passes(cs, table_ext, ch, current, cfg, f2, label):
                                           span, **kw))
     plain2 = queued_ms(lambda: cs.span_solve_plain(
         card_parts, ch.nnz, x0, cfg.lam, **kw), reps=3)
-    del ua, ub, ur2, card_parts
+    del ua, ub, ur2, card_parts, part
     rec_bytes = n_live * cs.span_record_floats(fl) * 4
     read, flops = wide_work(table_ext, ch, fl)
     b1, by1 = bound_ms(read + rec_bytes, flops, table_ext.dtype)
@@ -969,21 +1062,64 @@ def check_span_passes(cs, table_ext, ch, current, cfg, f2, label):
                        r * (cfg.cg_iters + 2) * 2.0 * fl * fl, torch.float32)
     ok1 = a_ok and b_ok
     ok2 = x_err <= 2e-3 and se_rel <= 1e-3
-    log(f"[span passes f2={f2}] {label} chunk R={r} P={p}, S={n_spans} "
-        f"spans of {span} slots, {n_live} live: pass 1 max|dA|={a_err:.3e} "
-        f"(limit {limit}: {a_ok}), b and r2 within rtol 1e-5 + 1e-5: "
-        f"{b_ok}; pass 2 on the same records max|dx|={x_err:.3e}, max rel "
-        f"dse={se_rel:.3e} (limits 2e-3, 1e-3); device time: pass 1 "
-        f"{ms1:.3f} ms (plain {plain1:.3f}, bound {b1:.4f} ms, {by1}), "
-        f"pass 2 {ms2:.3f} ms (plain {plain2:.3f}, bound {b2:.4f} ms, "
-        f"{by2}); {'OK' if ok1 and ok2 else 'FAIL'}")
+    log(f"[span passes f2={f2}] {label} chunk R={r} P={p}, table "
+        f"{table_ext.dtype}, S={n_spans} spans of {span} slots, {n_live} "
+        f"live: pass 1 ({pass1}, body {body}) max|dA|={a_err:.3e} (limit "
+        f"{limit}: {a_ok}), b and r2 within rtol 1e-5 + 1e-5: {b_ok}; pass "
+        f"2 on the same records max|dx|={x_err:.3e}, max rel dse="
+        f"{se_rel:.3e} (limits 2e-3, 1e-3); device time: pass 1 {ms1:.3f} "
+        f"ms ({fma_note('pass 1', label)}; plain {plain1:.3f}, bound "
+        f"{b1:.4f} ms, {by1}), pass 2 {ms2:.3f} ms "
+        f"({fma_note('pass 2', label)}; plain {plain2:.3f}, bound {b2:.4f} "
+        f"ms, {by2}); {'OK' if ok1 and ok2 else 'FAIL'}")
     return ok1 and ok2, {
-        "wide_span_gram": dict(max_abs_err=a_err, ms=ms1, plain_ms=plain1,
-                               bound_ms=b1, bound_by=by1, library_ms=None,
-                               shape=[r, p], spans=n_spans, span_len=span),
+        pass1: dict(max_abs_err=a_err, ms=ms1, plain_ms=plain1,
+                    bound_ms=b1, bound_by=by1, library_ms=None,
+                    shape=[r, p], spans=n_spans, span_len=span),
         "wide_span_solve": dict(max_abs_err=x_err, ms=ms2, plain_ms=plain2,
                                 bound_ms=b2, bound_by=by2, library_ms=None,
                                 shape=[r, p], spans=n_spans, span_len=span)}
+
+
+def span_gram_edges(cs):
+    """The tensor-core pass 1 against `span_gram_plain` on the card
+    tests' integer tables (`span_int_chunk` of tests/test_torch_cuda.py:
+    small integers in lanes < FL, NaN above, rows that stop at nnz 0, 1,
+    63, 64, 65 and P): bit for bit (every sum is exact), at FL = 160, 192,
+    224, 256, P = 63, 64, 65, 127, 129 (`SPAN_P`), one span a row and a
+    forced cut of two; the proof of its tiling, record layout and
+    zero-fill."""
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from test_torch_cuda import SPAN_P, span_int_chunk
+    ok_all, n = True, 0
+    for p in SPAN_P:
+        for fl in (160, 192, 224, 256):
+            table, cols, vals, nnz = (t.to(DEV) for t in
+                                      span_int_chunk(fl, p))
+            for spans in (1, 2):
+                n_spans, span = cs._cut(-(-p // 64), spans, 64)
+                part = cs.span_grams(table, cols, vals, nnz, fl, n_spans,
+                                     span)
+                live = cs._span_live(nnz, p, n_spans, span)
+                a, b, r2 = cs.span_record_unpack(part[live], fl)
+                want = [cs.span_gram_plain(table, cols, vals, nnz, k * span,
+                                           (k + 1) * span, fl)
+                        for k in range(n_spans)]
+                pa, pb, pr2 = (torch.stack([w[i] for w in want], dim=1)[live]
+                               for i in range(3))
+                ok = torch.equal(a, pa) and torch.equal(b, pb) and \
+                    torch.equal(r2, pr2)
+                if not ok:
+                    log(f"[span gram edges] FAIL FL={fl} P={p} S={n_spans}: "
+                        f"max|dA|={(a - pa).abs().max().item():.3e}")
+                ok_all &= ok
+                n += 1
+    log(f"[span gram edges] the tensor-core pass 1 on integer tables, "
+        f"{n} cases (FL = 160, 192, 224, 256; P = {SPAN_P}; S = 1 and 2; "
+        f"NaN in lanes >= FL): equal to span_gram_plain bit for bit: "
+        f"{ok_all}; {'OK' if ok_all else 'FAIL'}")
+    return ok_all
 
 
 def span_edges(cs, lam=0.048):
@@ -991,10 +1127,11 @@ def span_edges(cs, lam=0.048):
     tests/test_torch_cuda.py: S = 2, 3, 7) on their chunks (`cut_chunk`:
     rows that stop at nnz 0, 1, 31, 32, 33, on the span edge, one past it
     and at P, and a dummy tail row), for T = 20, 24, 28, 32 (K7 at f2 =
-    32, 64, 96, 128) and K1 at f=256, f32 and bf16 tables: against the
-    plain cut route and the uncut kernel, x within 2e-3, se within 1e-3
-    relative; empty rows and dead lanes exactly 0; a second run bit for
-    bit."""
+    32, 64, 96, 128) and K1 at f=256, f32 and bf16 tables (spans of whole
+    tiles of the pass-1 body: 32 slots on the FMA body, 64 on the tensor
+    cores): against the plain cut route and one span a row (spans=1),
+    x within 2e-3, se within 1e-3 relative; empty rows and dead lanes
+    exactly 0; a second run bit for bit."""
     from pathlib import Path
     from types import SimpleNamespace
     sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
@@ -1004,10 +1141,11 @@ def span_edges(cs, lam=0.048):
     worst = [0.0, 0.0, 0.0, 0.0]
     ok_all = True
     for p, spans in CUTS:
-        n_spans, span = cs._cut(-(-p // 32), spans, 32)
         for f_true, f2 in ((130, 32), (161, 64), (200, 96), (256, 128),
                            (200, None)):
             for dtype in (torch.float32, torch.bfloat16):
+                tile = 64 if dtype == torch.bfloat16 else 32
+                n_spans, span = cs._cut(-(-p // tile), spans, tile)
                 table, cols, vals, nnz, x0 = (t.to(DEV) for t in cut_chunk(
                     f_true, dtype, p, span, seed=f_true))
                 ch = SimpleNamespace(cols=cols, vals=vals, nnz=nnz)
@@ -1035,7 +1173,7 @@ def span_edges(cs, lam=0.048):
         f"rows of nnz (0, 1, 31, 32, 33, L, L + 1, P) and a dummy tail row, "
         f"K7 at f2 = 32, 64, 96, 128 and K1 at f=256, f32 and bf16 tables: "
         f"worst against the plain cut route max|dx|={worst[0]:.3e}, max rel "
-        f"dse={worst[1]:.3e}, against the uncut kernel {worst[2]:.3e}, "
+        f"dse={worst[1]:.3e}, against one span a row {worst[2]:.3e}, "
         f"{worst[3]:.3e} (limits 2e-3, 1e-3); repeats bit for bit, empty "
         f"rows and dead lanes exactly 0; {'OK' if ok_all else 'FAIL'}")
     return ok_all
@@ -1046,8 +1184,11 @@ def wide_synthetic(cs, lam=0.048):
     shapes of the Netflix F=200 plans' few-row chunks (the widest theta
     chunk R=8 P=8192, split X chunks of about 32 rows, one long row),
     each row of between P/2 and P ratings over a bf16 table: the cut the
-    wrapper chooses against the uncut kernel (x within 2e-3, se within
-    1e-3 relative), both as device time."""
+    wrapper chooses (pass 1 on the tensor cores) against the uncut FMA
+    kernel on a float32 copy of the table (x within 2e-3, se within 1e-3
+    relative; one span a row on the tensor cores is no reference for a
+    long row, PERF.md), and the cut and one span a row (spans=1)
+    as device time."""
     from types import SimpleNamespace
     gen = torch.Generator(device=DEV).manual_seed(5)
     n = 131072
@@ -1068,11 +1209,11 @@ def wide_synthetic(cs, lam=0.048):
                              vals=(vals * mask).float(), nnz=nnz)
         x0 = 0.1 * torch.rand((r, 256), generator=gen, device=DEV)
         x0[:, 200:] = 0
-        n_spans, span = cs.row_spans(r, p, sm_count())
+        route = route_of(cs, tab, r, p)[0]
         for f2 in (96, None):
             fn, _, _ = cut_runner(cs, tab, ch, x0, cfg, f2)
             x, se = fn()
-            ux, use = fn(spans=1)
+            ux, use = cut_runner(cs, tab.float(), ch, x0, cfg, f2)[0](spans=1)
             err = (x - ux).abs().max().item()
             se_rel = ((se - use).abs() / use.abs().clamp_min(1.0)).max().item()
             ok = err <= 2e-3 and se_rel <= 1e-3
@@ -1080,9 +1221,10 @@ def wide_synthetic(cs, lam=0.048):
             ms = queued_ms(fn)
             uncut = queued_ms(lambda: fn(spans=1))
             log(f"[wide synthetic] {'K7 f2=96' if f2 else 'K1 f=256'} R={r} "
-                f"P={p}: S={n_spans} spans of {span} slots; against the "
-                f"uncut kernel max|dx|={err:.3e}, max rel dse={se_rel:.3e}; "
-                f"device time cut {ms:.3f} ms, uncut {uncut:.3f} ms; "
+                f"P={p}: {route}; against the uncut FMA kernel (float32 "
+                f"table) max|dx|={err:.3e}, max rel dse={se_rel:.3e}; device "
+                f"time cut "
+                f"{ms:.3f} ms, one span a row {uncut:.3f} ms; "
                 f"{'OK' if ok else 'FAIL'}")
     return ok_all
 
@@ -1090,9 +1232,10 @@ def wide_synthetic(cs, lam=0.048):
 def cut_totals(cs, label, chunks, table, current, cfg, f2):
     """Device time of K7 (with f2) or of K1 at f=256 over one phase's
     chunks (`queued_each`), as the wrappers choose (the cut on chunks
-    with fewer rows than the card has SMs) and uncut (spans=1), each
-    split by chunks under and over the SM count, with the spans chosen
-    for each chunk under it."""
+    with fewer rows than the card has SMs) and with one span a row
+    (spans=1; on a float32 table the uncut kernel), each split by chunks
+    under and over the SM count, with the spans chosen for each chunk
+    under it; the FMA body's earlier times as routed beside."""
     sms = sm_count()
     x0s = [chunk_x0(ch, current) for ch in chunks]
     runs = [cut_runner(cs, table, ch, x0, cfg, f2)[0]
@@ -1101,7 +1244,7 @@ def cut_totals(cs, label, chunks, table, current, cfg, f2):
     uncut = queued_each([lambda fn=fn: fn(spans=1) for fn in runs])
     del x0s, runs
     few = [i for i, ch in enumerate(chunks) if ch.cols.shape[0] < sms]
-    spans = [cs.row_spans(*chunks[i].cols.shape, sms)[0] for i in few]
+    spans = [route_of(cs, table, *chunks[i].cols.shape)[1] for i in few]
     tot = dict(cut=sum(cut), uncut=sum(uncut), n=len(chunks), n_few=len(few),
                cut_few=sum(cut[i] for i in few),
                uncut_few=sum(uncut[i] for i in few),
@@ -1109,13 +1252,17 @@ def cut_totals(cs, label, chunks, table, current, cfg, f2):
     longest = sorted(((uncut[i], cut[i], tuple(chunks[i].cols.shape), sp)
                       for i, sp in zip(few, spans)), reverse=True)[:4]
     kern = "K1 f=256" if f2 is None else f"K7 f2={f2}"
-    log(f"[wide phase totals] {kern} over the {len(chunks)} {label} chunks: "
-        f"as routed {tot['cut']:.1f} ms, of which {tot['cut_few']:.1f} ms in "
-        f"the {len(few)} chunks with fewer than {sms} rows (cut) and "
-        f"{tot['cut'] - tot['cut_few']:.1f} ms in the others; uncut "
-        f"{tot['uncut']:.1f} ms, of which {tot['uncut_few']:.1f} ms in those "
-        f"{len(few)} chunks; spans chosen under {sms} rows: {tot['spans']}; "
-        f"the longest of them uncut (ms uncut, ms cut, (R, P), S): "
+    old = FMA_MS[("K1" if f2 is None else "K7", "phase totals")][
+        0 if label == "theta" else 1]
+    log(f"[wide phase totals] {kern} over the {len(chunks)} {label} chunks, "
+        f"table {table.dtype} (body {cs.gram_body(table)}): as routed "
+        f"{tot['cut']:.1f} ms (FMA body before: {old} ms), of which "
+        f"{tot['cut_few']:.1f} ms in the {len(few)} chunks with fewer than "
+        f"{sms} rows (cut) and {tot['cut'] - tot['cut_few']:.1f} ms in the "
+        f"others; one span a row {tot['uncut']:.1f} ms, of which "
+        f"{tot['uncut_few']:.1f} ms in those {len(few)} chunks; spans chosen "
+        f"under {sms} rows: {tot['spans']}; the longest of them with one "
+        f"span a row (ms one span, ms cut, (R, P), S): "
         f"{[(round(u, 3), round(c, 3), rp, sp) for u, c, rp, sp in longest]}"
         f" (device time between events, launches queued behind other work)")
     return tot
@@ -1282,11 +1429,14 @@ def wide_setup(cs, ALS, cfg, train, csc, test):
 
 
 def cut_checks(cs, al, cfg_w, f2, theta_t, x_t, x_ext):
-    """The row cut on the few-row chunks of the F=200 plans: the split X chunk with the fewest rows, the split X
-    chunk under the SM count nearest 32 rows, and the widest theta chunk,
-    each for K7 and K1 at f=256 (`check_cut`), and each pass alone on the
-    chunk of about 32 rows (`check_span_passes`). Returns (ok, the two
-    passes' kernels-line entries, the cut results by chunk)."""
+    """The row cut on the few-row chunks of the F=200 plans: the split X
+    chunk with the fewest rows, the split X chunk under the SM count
+    nearest 32 rows, and the widest theta chunk, each for K7 and K1 at
+    f=256 (`check_cut`); each pass alone (`check_span_passes`) on the
+    chunk of about 32 rows with the bf16 table (pass 1 on the tensor
+    cores) and a float32 copy of it (pass 1 on the FMA body), and on the
+    most populous theta chunk (one span a row, the tensor cores). Returns
+    (ok, the passes' kernels-line entries, the cut results by chunk)."""
     sms = sm_count()
     chunks_x = al.plan_x[1]
     few_x = [c for c in chunks_x if c.cols.shape[0] < sms]
@@ -1307,10 +1457,21 @@ def cut_checks(cs, al, cfg_w, f2, theta_t, x_t, x_ext):
             ok, res = check_cut(cs, table, ch, current, cfg_w, label, f2=kf2)
             ok_all &= ok
             cuts[f"{'K7' if kf2 else 'K1_f256'} {label}"] = res
-    ok, passes = check_span_passes(cs, th_perm_ext, picks[1][2], x_t, cfg_w,
-                                   f2, picks[1][0])
+    ok, cut32 = check_span_passes(cs, th_perm_ext, picks[1][2], x_t, cfg_w,
+                                  f2, picks[1][0])
+    ok_all &= ok
+    ok, fma32 = check_span_passes(cs, th_perm_ext.float(), picks[1][2], x_t,
+                                  cfg_w, f2, picks[1][0])
     ok_all &= ok
     del th_perm_ext
+    torch.cuda.empty_cache()
+    populous = max(al.plan_theta[1], key=lambda c: c.rows.shape[0] * c.width)
+    ok, passes = check_span_passes(cs, x_ext, populous, theta_t, cfg_w, f2,
+                                   "theta most populous")
+    ok_all &= ok
+    for k, v in cut32.items():
+        passes[k]["cut_chunk"] = v
+    passes["wide_span_gram"] = fma32["wide_span_gram"]
     torch.cuda.empty_cache()
     return ok_all, passes, cuts
 
@@ -1318,8 +1479,9 @@ def cut_checks(cs, al, cfg_w, f2, theta_t, x_t, x_ext):
 def wide_paths(cs, ALS, cfg, train, csc, test, small_train, small_test,
                results):
     """Phase 5: the F > 128 path. Fills results[...] for K7, K8 and the
-    two passes of the row cut, adds K1's numbers at f=256 to its entry,
-    and returns the launch counts of K7 and the cut (the wide_kernel="on"
+    three pass kernels, adds K1's numbers at f=256 to its entry, and
+    returns the launch counts of the two tensor-core route passes (the
+    wide_kernel="on" run), of the FMA-only kernels (the small float32
     run) and of K8 (its own path)."""
     import copy
 
@@ -1330,45 +1492,52 @@ def wide_paths(cs, ALS, cfg, train, csc, test, small_train, small_test,
         cs, ALS, cfg, train, csc, test)
     plan_x, chunks_x, aux_x = al.plan_x
 
-    # ---- 5a. the kernels against their plain versions
+    # ---- 5a. the kernels against their plain versions: as the wrappers
+    # route a bf16 table (the two passes, pass 1 on the tensor cores), and
+    # the uncut FMA kernels on a float32 copy of the table
     chunks_t = al.plan_theta[1]
     widest = max(chunks_t, key=lambda c: c.width)
     populous = max(chunks_t, key=lambda c: c.rows.shape[0] * c.width)
-    ok_all = True
-    ok, _ = check_fused_256(cs, x_ext, widest, theta_t, cfg_w,
-                            "theta widest", f2=f2)
-    ok_all &= ok
-    ok, results["gather_gram_cg_wide"] = check_fused_256(
-        cs, x_ext, populous, theta_t, cfg_w, "theta most populous", f2=f2)
-    ok_all &= ok
     ch_x = max(chunks_x, key=lambda c: c.rows.shape[0] * c.width)
     parts = plan_x.chunks[chunks_x.index(ch_x)].parts
     th_perm_ext = ext16(theta_t.index_select(0, aux_x["perm"]))
-    ok, split_k7 = check_fused_256(cs, th_perm_ext, ch_x, x_t, cfg_w,
-                                   f"split X (parts {parts}) most populous",
-                                   f2=f2)
-    ok_all &= ok
-    ok, split_k1 = check_fused_256(cs, th_perm_ext, ch_x, x_t, cfg_w,
-                                   f"split X (parts {parts}) most populous")
-    ok_all &= ok
+    ok_all = True
+    routed = {}
+    for kf2, key in ((f2, "K7"), (None, "K1")):
+        for label, table, current, ch, text in (
+                ("theta widest", x_ext, theta_t, widest, "theta widest"),
+                ("theta most populous", x_ext, theta_t, populous,
+                 "theta most populous"),
+                ("split X most populous", th_perm_ext, x_t, ch_x,
+                 f"split X (parts {parts}) most populous")):
+            ok, routed[(key, label)] = check_fused_256(
+                cs, table, ch, current, cfg_w, text, f2=kf2, chunk=label)
+            ok_all &= ok
     del th_perm_ext
-    ok, _ = check_fused_256(cs, x_ext, widest, theta_t, cfg_w,
-                            "theta widest")
+    x_ext32 = x_ext.float()
+    ok, results["gather_gram_cg_wide"] = check_fused_256(
+        cs, x_ext32, populous, theta_t, cfg_w,
+        "theta most populous, float32 table", f2=f2,
+        chunk="theta most populous")
     ok_all &= ok
-    ok, k1_256 = check_fused_256(cs, x_ext, populous, theta_t, cfg_w,
-                                 "theta most populous")
+    ok, k1_256 = check_fused_256(
+        cs, x_ext32, populous, theta_t, cfg_w,
+        "theta most populous, float32 table", chunk="theta most populous")
     ok_all &= ok
+    del x_ext32
     ok, _ = check_k8(cs, x_ext, widest, theta_t, cfg_w, f2, "theta widest")
     ok_all &= ok
     ok, results["fused_gram_cg_cat"] = check_k8(
         cs, x_ext, populous, theta_t, cfg_w, f2, "theta most populous")
     ok_all &= ok
     ok_all &= span_edges(cs)
+    ok_all &= span_gram_edges(cs)
     ok, passes, cuts = cut_checks(cs, al, cfg_w, f2, theta_t, x_t, x_ext)
     ok_all &= ok
     results.update(passes)
     results["gather_gram_cg_wide"].update(
-        split_x_ms=split_k7["ms"], split_x_bound_ms=split_k7["bound_ms"],
+        routed={label: v for (key, label), v in routed.items()
+                if key == "K7"},
         cut={k: v for k, v in cuts.items() if k.startswith("K7")})
     if not ok_all:
         raise AssertionError("a kernel disagrees with its plain version")
@@ -1386,19 +1555,24 @@ def wide_paths(cs, ALS, cfg, train, csc, test, small_train, small_test,
     del th_perm_ext
     torch.cuda.empty_cache()
 
-    # ---- 5b. small runs with both new routes: card against CPU, the cut
-    # taken in each card run
+    # ---- 5b. small runs with both new routes: card against CPU, the two
+    # passes taken in each card run (pass 1 on the tensor cores with bf16
+    # factors, on the FMA body with float32 ones, which also run the
+    # uncut FMA kernels on chunks of 132 rows or more)
     scfg = cfg.replace(m=small_train.num_rows, n=small_train.num_cols,
                        nnz=small_train.nnz, nnz_test=small_test.nnz, f=130,
                        panel_size=2048, split_gather="force", verbose=False,
                        debug_timing=False)
     sx0, sth0 = init_factors(scfg.m, scfg.n, scfg.f, seed=0)
-    for label, extra, lim_tr, lim_te in (
-            ("bf16 wide on", dict(wide_kernel="on"), 5e-3, 1e-2),
+    small_launches = {}
+    for label, extra, lim_tr, lim_te, want in (
+            ("bf16 wide on", dict(wide_kernel="on"), 5e-3, 1e-2, MMA_PASSES),
             ("f32 wide on", dict(wide_kernel="on", factor_dtype="f32",
-                                 gram_dtype="f32"), 1e-3, 1e-3),
+                                 gram_dtype="f32"), 1e-3, 1e-3,
+             ("wide_span_gram", "wide_span_solve", "gather_gram_cg_wide")),
             ("f32 wide off", dict(wide_kernel="off", factor_dtype="f32",
-                                  gram_dtype="f32"), 1e-3, 1e-3)):
+                                  gram_dtype="f32"), 1e-3, 1e-3,
+             ("wide_span_gram", "wide_span_solve", "gather_gram_cg"))):
         item = 2 if extra.get("factor_dtype", "bf16") == "bf16" else 4
         part_rows = -(-scfg.n // 3 // 8) * 8
         c = scfg.replace(gather_part_bytes=part_rows * 256 * item, **extra)
@@ -1412,7 +1586,8 @@ def wide_paths(cs, ALS, cfg, train, csc, test, small_train, small_test,
             cs.reset_launch_counts()
             small[dev] = model.run(sx0, sth0).history
             if dev == DEV:
-                counts = {k: cs.LAUNCHES[k] for k in SPAN_KERNELS}
+                counts = {k: v for k, v in cs.LAUNCHES.items() if v}
+        small_launches[label] = counts
         for hg, hc in zip(small[DEV], small["cpu"]):
             dtr = abs(hg.train_rmse - hc.train_rmse)
             dte = abs(hg.test_rmse - hc.test_rmse)
@@ -1422,42 +1597,54 @@ def wide_paths(cs, ALS, cfg, train, csc, test, small_train, small_test,
                 f"{lim_tr:g}, {lim_te:g})")
             if not (dtr <= lim_tr and dte <= lim_te):
                 raise AssertionError("card and CPU runs disagree")
-        log(f"[small F=130 split, {label}] the cut's launches in the card "
-            f"run: {counts}")
-        if min(counts.values()) == 0:
-            raise AssertionError("the card run did not take the row cut")
+        log(f"[small F=130 split, {label}] launches in the card run: "
+            f"{counts} (expected among them: {list(want)})")
+        if min(counts.get(k, 0) for k in want) == 0:
+            raise AssertionError(f"the card run did not launch {want}")
+        if label.startswith("bf16") and set(counts) - set(MMA_PASSES):
+            raise AssertionError("a bf16 run launched another 256-lane "
+                                 "kernel than the two passes")
 
-    # ---- 5c. the F = 200 path at full width
+    # ---- 5c. the F = 200 path at full width: with a bf16 table every
+    # 256-lane chunk runs the two passes, pass 1 on the tensor cores, and
+    # no uncut kernel and no FMA pass 1
     others = SPLIT_KERNELS + AUG_KERNELS + ("solve_cg",)
+    fma_256 = WIDE_KERNELS + ("wide_span_gram",)
     _, launches_on = full_width(
-        cs, al, "wide on", ("gather_gram_cg_wide",) + SPAN_KERNELS,
-        others + ("fused_gram_cg_cat",), x0_np, th0_np)
+        cs, al, "wide on", MMA_PASSES, others + fma_256, x0_np, th0_np)
     al_off = copy.copy(al)     # the same plans; wide_kernel steers no plan
     al_off.cfg = cfg_w.replace(wide_kernel="off", iters=2)
     _, launches_off = full_width(
-        cs, al_off, "wide off", ("gather_gram_cg",) + SPAN_KERNELS,
-        others[1:] + WIDE_KERNELS, x0_np, th0_np, iters=2)
-    log(f"[wide cut] launches of the cut's two passes: wide on (3 "
-        f"iterations) {[launches_on[k] for k in SPAN_KERNELS]}, K7 "
-        f"{launches_on['gather_gram_cg_wide']}; wide off (2 iterations) "
-        f"{[launches_off[k] for k in SPAN_KERNELS]}, K1 "
-        f"{launches_off['gather_gram_cg']}")
+        cs, al_off, "wide off", MMA_PASSES, others + fma_256, x0_np, th0_np,
+        iters=2)
+    n_chunks = len(chunks_x) + len(chunks_t)
+    log(f"[wide passes] launches of the two passes (pass 1 on the tensor "
+        f"cores, pass 2): wide on (3 iterations) "
+        f"{[launches_on[k] for k in MMA_PASSES]}, wide off (2 iterations) "
+        f"{[launches_off[k] for k in MMA_PASSES]}, over {n_chunks} chunks an "
+        f"iteration ({len(chunks_x)} split X, {len(chunks_t)} theta)")
+    for launches, iters in ((launches_on, ITERS), (launches_off, 2)):
+        if launches["wide_span_gram_mma"] != launches["wide_span_solve"] or \
+                launches["wide_span_gram_mma"] < n_chunks * iters:
+            raise AssertionError("a 256-lane chunk did not run the tensor-"
+                                 "core pass 1")
 
     # ---- 5d. K8's path: no route of ALS calls it (as in the JAX
     # package), so its public wrapper runs over every theta chunk on a G
-    # gathered with torch, each chunk held against K1 at f=256
+    # gathered with torch from a float32 copy of the table, each chunk
+    # held against K1 at f=256 on that copy (the FMA body, which K8 keeps)
     kw = dict(cg_iters=cfg_w.cg_iters, cg_tol=cfg_w.cg_tol)
+    x_ext32 = x_ext.float()
     cs.reset_launch_counts()
     worst = 0.0
     k8_ok = True
     for ch in chunks_t:
         x0 = chunk_x0(ch, theta_t)
-        g1, g2 = gathered_slabs(x_ext, ch, f2)
+        g1, g2 = gathered_slabs(x_ext32, ch, f2)
         x8, se8 = cs.fused_gram_cg_cat(g1, g2, ch.vals, ch.nnz, x0,
                                        cfg_w.lam, **kw)
         del g1, g2
-        # K8 keeps the uncut body: against K1's uncut kernel
-        x1, se1 = cs.gather_gram_cg(x_ext, ch.cols, ch.vals, ch.nnz, x0,
+        x1, se1 = cs.gather_gram_cg(x_ext32, ch.cols, ch.vals, ch.nnz, x0,
                                     cfg_w.lam, spans=1, **kw)
         worst = max(worst, (x8 - x1).abs().max().item())
         k8_ok &= bool(((x8 - x1).abs() <= 1e-5 * x1.abs() + 1e-6).all())
@@ -1465,27 +1652,40 @@ def wide_paths(cs, ALS, cfg, train, csc, test, small_train, small_test,
         k8_ok &= bool(torch.isfinite(x8).all())
     torch.cuda.synchronize()
     k8_launches = cs.LAUNCHES["fused_gram_cg_cat"]
+    del x_ext32
     log(f"[K8 path] fused_gram_cg_cat over the {len(chunks_t)} theta "
-        f"chunks: {k8_launches} launches, max|x - x_K1|={worst:.3e} (limit "
-        f"rtol 1e-5 + 1e-6: {k8_ok})")
+        f"chunks, float32 G: {k8_launches} launches, max|x - x_K1|="
+        f"{worst:.3e} against K1 at f=256 on the float32 table (limit rtol "
+        f"1e-5 + 1e-6: {k8_ok})")
     if k8_launches < len(chunks_t) or not k8_ok:
         raise AssertionError("K8 path failed")
 
     results["gather_gram_cg"].update(
         {f"f256_{k}": v for k, v in k1_256.items()},
-        f256_split_x_ms=split_k1["ms"],
-        f256_split_x_bound_ms=split_k1["bound_ms"],
-        f256_launches=launches_off["gather_gram_cg"],
+        f256_routed={label: v for (key, label), v in routed.items()
+                     if key == "K1"},
+        f256_launches=launches_off["wide_span_gram_mma"],
+        f256_launches_path="ALS.run F=200 wide off (bf16): the two passes",
         f256_cut={k: v for k, v in cuts.items() if k.startswith("K1")})
-    for k in SPAN_KERNELS:
+    for k in MMA_PASSES:
         results[k]["launches_wide_off"] = launches_off[k]
+        results[k]["launches_path"] = "ALS.run F=200 wide on (bf16)"
+    # the FMA-only kernels run on float32 tables: their launches are those
+    # of the small float32 card run of 5b
+    results["gather_gram_cg_wide"]["launches_path"] = \
+        "ALS.run F=130 f32 wide on, scale 0.01 (5b)"
+    results["wide_span_gram"]["launches_path"] = \
+        "ALS.run F=130 f32 wide on, scale 0.01 (5b)"
+    results["fused_gram_cg_cat"]["launches_path"] = "K8's path (5d)"
     results["gather_gram_cg_wide"]["phase_totals"] = {
         label: v for (kf2, label), v in totals.items() if kf2}
     results["gather_gram_cg"]["f256_phase_totals"] = {
         label: v for (kf2, label), v in totals.items() if kf2 is None}
-    return {"gather_gram_cg_wide": launches_on["gather_gram_cg_wide"],
+    f32_on = small_launches["f32 wide on"]
+    return {"gather_gram_cg_wide": f32_on["gather_gram_cg_wide"],
+            "wide_span_gram": f32_on["wide_span_gram"],
             "fused_gram_cg_cat": k8_launches,
-            **{k: launches_on[k] for k in SPAN_KERNELS}}
+            **{k: launches_on[k] for k in MMA_PASSES}}
 
 
 def main() -> int:
@@ -1534,7 +1734,8 @@ def main() -> int:
             log("[theta] FAIL (the short call: no result line)")
             return 1
     elif only == WIDE_SHORT:
-        ok = span_edges(cs) and wide_synthetic(cs)
+        ok = ptxas_ok and span_gram_edges(cs) and span_edges(cs) and \
+            wide_synthetic(cs)
         if not ok:
             log("[wide] FAIL (the short call: no result line)")
             return 1
@@ -1835,10 +2036,10 @@ def main() -> int:
     launches.update({k: launches_aug[k] for k in AUG_KERNELS})
     launches["solve_cg"] = k4_launches
     launches.update(wide_launches)
-    kernels = [dict(name=name, route="cuda",
-                    source=f"cumf_als_tpu_torch/csrc/{name}.cu",
-                    replaces=REPLACES[name], launches=launches[name],
-                    **results[name]) for name in REPLACES]
+    kernels = [{"name": name, "route": "cuda",
+                "source": f"cumf_als_tpu_torch/csrc/{name}.cu",
+                "replaces": REPLACES[name], "launches": launches[name],
+                "body": BODY[name], **results[name]} for name in REPLACES]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

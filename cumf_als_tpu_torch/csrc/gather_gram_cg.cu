@@ -31,9 +31,12 @@
 // common.cuh, one block a row: bf16 tensor cores would round a float32
 // table. f = 256 (one factor width above 128, padded to 256 lanes) takes
 // the triangle-of-tiles body of wide.cuh with all 256 lanes live: a
-// 256 x 256 A does not fit the register layout of common.cuh; on a
-// chunk with fewer rows than the card has SMs the wrapper takes the row
-// cut of that body instead (wide_span_gram.cu, wide_span_solve.cu). The
+// 256 x 256 A does not fit the register layout of common.cuh. The
+// wrapper sends that width here only with a float32 table on a chunk of
+// as many rows as the card has SMs; a bf16 table at f = 256 runs the two
+// passes of the row cut with pass 1 on the tensor cores
+// (wide_span_gram_mma.cu, wide_span_solve.cu), and a float32 one on a
+// chunk of fewer rows the cut on the FMA body (wide_span_gram.cu). The
 // entry point chooses by dtype and f alone.
 
 #include "frag_cg.cuh"

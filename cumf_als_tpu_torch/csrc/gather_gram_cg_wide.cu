@@ -20,15 +20,17 @@
 //   se = max(r2 - 2 x.b + x^T (A - diag I) x, 0)
 // The slot loop stops at nnz[r] (pad slots at the tail of each row).
 //
-// Bound on an H100: the Gram work, 2 * sum(nnz) * FL^2 FLOPs
-// (~9.9 TFLOP per Netflix phase at F = 200, ~10 ms on the bf16 tensor
-// cores); the gathered table stays in L2. What this design does about
-// it: the triangle of 8 x 8 register tiles of wide.cuh computes only
-// the upper half of A with f32 FMAs on the CUDA cores; no wgmma, TMA or
-// pipelining yet. One block takes one row, so on a chunk with fewer rows
-// than the card has SMs the wrapper takes the row cut instead
-// (wide_span_gram.cu, wide_span_solve.cu: the same body, a row's slots
-// cut across blocks).
+// Bound on an H100: the Gram work, the upper triangle sum(nnz) FL
+// (FL + 8) FLOPs (~5 TFLOP per Netflix phase at F = 200), which this
+// kernel runs as f32 FMAs on the CUDA cores (67 TFLOP/s): the triangle of
+// 8 x 8 register tiles of wide.cuh computes only the upper half of A.
+// It serves a float32 table, which the bf16 tensor cores would round:
+// a bf16 table never reaches it, because the wrapper runs such a chunk
+// as the two passes of the row cut with pass 1 on the tensor cores
+// (wide_span_gram_mma.cu, wide_span_solve.cu). One block takes one row,
+// so on a chunk with fewer rows than the card has SMs the wrapper takes
+// the row cut on this body instead (wide_span_gram.cu,
+// wide_span_solve.cu: a row's slots cut across blocks).
 
 #include "wide.cuh"
 

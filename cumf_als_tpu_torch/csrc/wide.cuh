@@ -24,16 +24,20 @@
 // arithmetic on the leading FL x FL block, with the sums in another
 // order.
 //
-// The row cut (wide_span_gram.cu, wide_span_solve.cu). One block a row
-// leaves SMs idle in a chunk with fewer rows than the card has SMs (a
-// block holds 64 accumulators in each of its 224-544 threads, so few
-// blocks share an SM). So the wrappers (ops/cuda_solve.py, `row_spans`) may cut each row's
-// slots into spans of L slots, L a whole number of kTile tiles. Pass 1
-// (span_gram) runs the tile loop of gather_row over one span in a block
-// of its own and writes that span's sums into a record in scratch
-// memory; a span at or past the row's nnz writes nothing. Pass 2
-// (span_solve) adds a row's live records in span order 0, 1, ... and
-// runs solve_and_store. No atomics: a result repeats bit for bit.
+// The row cut (wide_span_gram.cu or wide_span_gram_mma.cu, then
+// wide_span_solve.cu). One block a row leaves SMs idle in a chunk with
+// fewer rows than the card has SMs (a block holds 64 accumulators in
+// each of its 224-544 threads, so few blocks share an SM). So the
+// wrappers (ops/cuda_solve.py, `row_spans`) may cut each row's slots into
+// spans of L slots, L a whole number of the pass-1 body's tiles. Pass 1
+// writes each span's sums into a record in scratch memory (SpanRecord
+// below): span_gram runs the tile loop of gather_row over one span in a
+// block of its own (a float32 table); wide_span_gram_mma.cu runs the
+// span's Gram on the tensor cores (a bf16 table, which takes the two
+// passes on every chunk, one span a row where the chunk fills the card).
+// A span at or past the row's nnz writes nothing. Pass 2 (span_solve)
+// adds a row's live records in span order 0, 1, ... and runs
+// solve_and_store. No atomics: a result repeats bit for bit.
 #pragma once
 
 #include "common.cuh"
@@ -298,18 +302,30 @@ __device__ __forceinline__ void gather_row(
                      se_row, cg_iters, cg_tol);
 }
 
-// The scratch record of one span, in floats: entry k * 8 + l of tile i
-// at [(k * 8 + l) * TILES + i] (neighbouring threads write neighbouring
-// floats), then b (FL floats) at B, then r2 at R2.
+// Index of tile (ti, tj), ti <= tj, in the row-major order of the upper
+// triangle of T tiles a side (the order of tile_of).
+template <int T>
+__host__ __device__ __forceinline__ int tile_index(int ti, int tj) {
+  return ti * T - ti * (ti - 1) / 2 + (tj - ti);
+}
+
+// The scratch record of one span, in floats: tile i's 64 entries at
+// [i * 64 + k * 8 + l] (entry (k, l) of the tile: row 8 ti + k, column
+// 8 tj + l), then b (FL floats) at B, then r2 at R2; the size is rounded
+// up to 64 floats, so every record and every tile starts on a 256-byte
+// boundary. Tile-major, so that one warp of the tensor-core pass 1
+// stores a whole tile (256 contiguous bytes) at once: its lane t holds
+// entries 2 t and 2 t + 1 of the tile in the wgmma fragment.
 template <int T>
 struct SpanRecord {
   static constexpr int B = kB * kB * Shape<T>::TILES;
   static constexpr int R2 = B + Shape<T>::FL;
-  static constexpr int SIZE = R2 + 1;  // 34,049 floats at T = 32
+  static constexpr int SIZE = (R2 + 1 + 63) / 64 * 64;  // 34,112 at T = 32
 };
 
-// Pass 1 of the row cut: the Gram over slots [lo, hi) of one row into
-// its record.
+// Pass 1 of the row cut on the FMA body: the Gram over slots [lo, hi) of
+// one row into its record (thread tid writes tile tid, 64 contiguous
+// floats).
 template <int T, typename TT, typename VT>
 __device__ __forceinline__ void span_gram(Smem<T>& s, const TT* table,
                                           const int32_t* cols,
@@ -323,11 +339,12 @@ __device__ __forceinline__ void span_gram(Smem<T>& s, const TT* table,
   float b_acc, r2_acc;
   gram_slots<T>(s, table, cols, vals, lo, hi, tl, a, b_acc, r2_acc);
   if (tl.on) {
+    float4* dst = reinterpret_cast<float4*>(rec + tid * kB * kB);
 #pragma unroll
-    for (int k = 0; k < kB; ++k)
-#pragma unroll
-      for (int l = 0; l < kB; ++l)
-        rec[(k * kB + l) * Shape<T>::TILES + tid] = a[k][l];
+    for (int k = 0; k < kB; ++k) {
+      dst[2 * k] = make_float4(a[k][0], a[k][1], a[k][2], a[k][3]);
+      dst[2 * k + 1] = make_float4(a[k][4], a[k][5], a[k][6], a[k][7]);
+    }
   }
   if (tid < FL)
     rec[Rec::B + tid] = b_acc;
@@ -353,11 +370,13 @@ __device__ __forceinline__ void span_solve(
   for (int sp = 0; sp < live; ++sp) {
     const float* rec = recs + (int64_t)sp * Rec::SIZE;
     if (tl.on) {
+      const float4* src = reinterpret_cast<const float4*>(rec + tid * kB * kB);
 #pragma unroll
-      for (int k = 0; k < kB; ++k)
-#pragma unroll
-        for (int l = 0; l < kB; ++l)
-          a[k][l] += rec[(k * kB + l) * Shape<T>::TILES + tid];
+      for (int k = 0; k < kB; ++k) {
+        const float4 u = src[2 * k], w = src[2 * k + 1];
+        a[k][0] += u.x; a[k][1] += u.y; a[k][2] += u.z; a[k][3] += u.w;
+        a[k][4] += w.x; a[k][5] += w.y; a[k][6] += w.z; a[k][7] += w.w;
+      }
     }
     if (tid < FL)
       b_acc += rec[Rec::B + tid];

@@ -1,7 +1,9 @@
-// Pass 1 of the row cut of the 256-lane body (wide.cuh): the Gram of one
-// span of one row's slots, written to scratch. With wide_span_solve.cu
-// it serves both kernels of that body on a chunk with fewer rows than
-// the card has SMs: K1 at f = 256 (FL = 256) and K7 (FL = 128 + f2).
+// Pass 1 of the row cut of the 256-lane body (wide.cuh) on the FMA body:
+// the Gram of one span of one row's slots, written to scratch. With
+// wide_span_solve.cu it serves both kernels of that body on a chunk with
+// fewer rows than the card has SMs and a float32 table: K1 at f = 256
+// (FL = 256) and K7 (FL = 128 + f2). A bf16 table takes the tensor-core
+// pass 1 of wide_span_gram_mma.cu instead, on every chunk.
 //
 // Replaces, with pass 2, the TPU kernel `_kernel_wide` (and `_kernel` at
 // 256 lanes) of cumf_als_tpu/ops/pallas_solve.py, reached through
@@ -14,11 +16,12 @@
 // span at or past the row's slots writes nothing (pass 2 reads only
 // live spans). The plans put a row's live slots first.
 //
-// Bound on an H100: the Gram work, 2 * nnz * FL^2 FLOPs of the span,
-// on f32 FMAs (~40x above the bf16 tensor-core bound, as the uncut
-// body); the record (136 KB at FL = 256) is written once and read once.
-// What this design does about it: it fills the SMs that one block a row
-// leaves idle; the arithmetic is the uncut body's.
+// Bound on an H100: the Gram work, the upper triangle nnz FL (FL + 8)
+// FLOPs of the span, on f32 FMAs (67 TFLOP/s: a float32 table, which
+// the bf16 tensor cores would round); the record (136 KB at FL = 256) is
+// written once and read once. What this design does about it: it fills
+// the SMs that one block a row leaves idle; the arithmetic is the uncut
+// body's.
 
 #include "wide.cuh"
 

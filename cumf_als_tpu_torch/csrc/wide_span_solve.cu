@@ -10,9 +10,9 @@
 // Replaces, with pass 1, the TPU kernel `_kernel_wide` (and `_kernel` at
 // 256 lanes) of cumf_als_tpu/ops/pallas_solve.py (see wide_span_gram.cu).
 // Bound on an H100: the bytes of the records it reads (136 KB a live span
-// at FL = 256) and of x0, x and se; the CG is small beside the Gram of
-// pass 1. What this design does about it: every thread reads its own
-// tile's entries of a record, neighbouring threads neighbouring floats.
+// at FL = 256) and of x0, x and se. What this design does about it:
+// every thread reads its own tile's 64 entries, 256 contiguous bytes of
+// the record (16 float4 loads), and keeps them in registers for the CG.
 
 #include "wide.cuh"
 

@@ -55,6 +55,9 @@ KERNELS = {
     "wide_span_gram": ("cumf_wide_span_gram",
                        [_VP, _I, _VP, _VP, _I, _VP, _VP,
                         _I, _I, _I, _I, _I, _VP]),
+    "wide_span_gram_mma": ("cumf_wide_span_gram_mma",
+                           [_VP, _VP, _VP, _I, _VP, _VP,
+                            _I, _I, _I, _I, _I, _VP]),
     "wide_span_solve": ("cumf_wide_span_solve",
                         [_VP, _VP, _VP, _VP, _VP,
                          _I, _I, _I, _I, _I, _F, _I, _F, _VP]),

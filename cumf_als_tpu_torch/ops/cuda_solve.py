@@ -13,8 +13,9 @@ wrapper                      TPU kernel it replaces      CUDA source
 ``gather_gram_cg(aug=True)`` ``_kernel_aug``             csrc/gather_gram_cg_aug.cu
 ``gather_gram_cg_wide``      ``_kernel_wide``            csrc/gather_gram_cg_wide.cu
 ``fused_gram_cg_cat``        ``_kernel_cat``             csrc/fused_gram_cg_cat.cu
-(row cut of K1 at f = 256    ``_kernel_wide``,           csrc/wide_span_gram.cu,
-and of K7, two passes)       ``_kernel`` at 256 lanes    csrc/wide_span_solve.cu
+(K1 at f = 256 and K7 in     ``_kernel_wide``,           csrc/wide_span_gram.cu
+two passes: pass 1 FMA or    ``_kernel`` at 256 lanes    or wide_span_gram_mma.cu,
+tensor cores, then pass 2)                               csrc/wide_span_solve.cu
 ===========================  ==========================  ==========================
 
 (TPU kernels: cumf_als_tpu/ops/pallas_solve.py.) Each wrapper takes its
@@ -56,13 +57,25 @@ nnz and run the CG on the wgmma fragment in registers
 (csrc/frag_cg.cuh). A float32 table and a bf16 table at f < 128 keep the
 f32 FMA body of csrc/common.cuh. `gram_body` is that rule. One block
 takes one row at a time, so a chunk with fewer rows than the card has
-SMs leaves SMs idle. K7, K8 and K1 at f = 256 run the FMA body of
-csrc/wide.cuh, one block a row; on a chunk with fewer rows than the card
-has SMs, K1 at f = 256 and K7 cut each row's slots into spans across
-blocks instead (`row_spans`): pass 1 (``wide_span_gram``) writes each
-span's Gram to scratch, pass 2 (``wide_span_solve``) adds a row's spans
-in a fixed order and solves, so a result repeats bit for bit. Each pass
-counts its own launches; the uncut kernel's count stays where it is.
+SMs leaves SMs idle.
+
+K1 at f = 256 and K7 (the 256-lane body, csrc/wide.cuh) run as two
+passes that meet at a record in scratch memory: pass 1 writes the Gram,
+b and r2 of each span of a row's slots, pass 2 (``wide_span_solve``)
+adds a row's records in span order and runs the CG, so a result repeats
+bit for bit. With a bf16 table (`gram_body` "wgmma") every chunk takes
+them, pass 1 on the tensor cores (``wide_span_gram_mma``: three
+128 x 128 blocks of A, each on gram_mma.cuh's wgmma over a cp.async
+ring) in the spans of `row_spans`: one span a row on a chunk of as many
+rows as the card has SMs, unless a row is longer than
+`SPAN_MAX_TILES_MMA` tiles (the error of the fragment's f32 sums grows
+with the span), and the cut below that; its bound is the gather and the
+record's bytes, no longer the FMA rate. A float32 table keeps the FMA
+body: one block a row (the uncut kernels), or on a chunk with fewer rows
+than the card has SMs the cut with pass 1 on the FMA body
+(``wide_span_gram``). The records of one launch stay under
+`SPAN_SCRATCH_BYTES` (a chunk is cut into batches of rows). K8 keeps the
+uncut FMA body. Each pass counts its own launches.
 
 The row gather runs inside the kernels, so the wrappers keep the
 contracts of the JAX wrappers (`gather_gram_cg`, `gather_gram_out`,
@@ -321,15 +334,17 @@ def gather_gram_cg(table_ext, cols, vals, nnz, x0, lam: float,
     "gather_gram_cg_aug"): lane f-1 of the table must be all zero (true
     factor width < f) and lane f-1 of x0 zero; the values ride lane f-1
     of G, rounded to the table's dtype, and lane f-1 of x comes back
-    exactly 0. On a card the Gram runs in the body `gram_body` names (f
-    = 256 in that of csrc/wide.cuh); on the tensor cores the bf16
-    products are exact and the f32 sums are taken in the hardware's
-    order.
+    exactly 0. On a card the Gram runs in the body `gram_body` names; on
+    the tensor cores the bf16 products are exact and the f32 sums are
+    taken in the hardware's order.
 
-    At f = 256 a chunk with fewer rows than the card has SMs takes the
-    row cut (`row_spans`); `spans` forces the number of spans a row is
-    cut into (1: the uncut kernel) and is taken at f = 256 only. Tensors
-    on the CPU take the plain version whatever `spans` says."""
+    At f = 256 (not aug) a bf16 table takes the two passes of the row
+    cut on every chunk, pass 1 on the tensor cores; a float32 table takes
+    them on a chunk with fewer rows than the card has SMs (`row_spans`)
+    and the uncut kernel otherwise. `spans` forces the number of spans a
+    row is cut into (1: one span a row, which on a float32 table is the
+    uncut kernel) and is taken at f = 256 only. Tensors on the CPU take
+    the plain version whatever `spans` says."""
     name = "gather_gram_cg_aug" if aug else "gather_gram_cg"
     _check_spans(name, spans, table_ext.shape[1] == 256 and not aug)
     if _on_cpu(table_ext, cols, vals, nnz, x0):
@@ -344,12 +359,11 @@ def gather_gram_cg(table_ext, cols, vals, nnz, x0, lam: float,
     _check("nnz", nnz, (r,), (torch.int32,))
     _check("x0", x0, (r, f), (torch.float32,))
     if r and f == 256 and not aug:
-        n_spans, span_len = _chunk_spans(x0.device, r, p, spans)
-        if n_spans > 1:
-            part = span_grams(table_ext, cols, vals, nnz, 256, n_spans,
-                              span_len)
-            return span_solve(part, nnz, x0, lam, p, span_len, cg_iters,
-                              cg_tol)
+        n_spans, span_len = _chunk_spans(x0.device, r, p, spans,
+                                         **span_plan(table_ext))
+        if n_spans > 1 or gram_body(table_ext) == "wgmma":
+            return _row_cut(table_ext, cols, vals, nnz, x0, lam, 256,
+                            n_spans, span_len, cg_iters, cg_tol)
     x = torch.empty((r, f), dtype=torch.float32, device=x0.device)
     se = torch.empty((r, 1), dtype=torch.float32, device=x0.device)
     if r:
@@ -363,16 +377,19 @@ def gather_gram_cg(table_ext, cols, vals, nnz, x0, lam: float,
 
 # ------------------------------------------- K2 / K5a the panel Grams --
 def gram_body(table_ext: torch.Tensor) -> str:
-    """Which Gram body the kernels K1, K2, K5a and K6 run for this table
-    on a card, by its dtype and width alone: "wgmma" (csrc/gram_mma.cuh:
-    cp.async gather into swizzled bf16 tiles, tensor-core Gram; for K1
-    and K6 the CG on the fragment of csrc/frag_cg.cuh) for a bf16 table
-    at f = 128, the width of the main path; "fma" (the f32 FMA bodies of
-    csrc/common.cuh, and for K1 at f = 256 of csrc/wide.cuh) for a
-    float32 table, which bf16 tensor cores would round, and for every
-    other width. A caller cannot choose, and neither body gives way to
-    the other or to the plain version."""
-    if table_ext.dtype == torch.bfloat16 and table_ext.shape[1] == 128:
+    """Which Gram body the kernels K1, K2, K5a, K6 and K7 run for this
+    table on a card, by its dtype and width alone: "wgmma" (cp.async
+    gather into swizzled bf16 tiles, tensor-core Gram) for a bf16 table
+    at f = 128, the width of the main path (csrc/gram_mma.cuh; for K1 and
+    K6 the CG on the fragment of csrc/frag_cg.cuh), and at f = 256 (K1 and
+    K7: pass 1 of the row cut on the tensor cores,
+    csrc/wide_span_gram_mma.cu, then pass 2); "fma" (the f32 FMA bodies
+    of csrc/common.cuh and csrc/wide.cuh) for a float32 table, which bf16
+    tensor cores would round, and for every other width. A caller cannot
+    choose, and neither body gives way to the other or to the plain
+    version."""
+    if table_ext.dtype == torch.bfloat16 and table_ext.shape[1] in (128,
+                                                                   256):
         return "wgmma"
     return "fma"
 
@@ -656,10 +673,12 @@ def gather_gram_cg_wide(table_ext, cols, vals, nnz, x0, lam: float, f2: int,
     each row's tail; vals (R, P) f32/bf16; nnz (R,) int32; x0 (R, 256)
     f32; f2 = wide_f2(F) in {32, 64, 96, 128}. Lanes >= 128 + f2 of the
     table and of x0 are neither read nor computed. Returns x (R, 256) f32
-    with lanes >= 128 + f2 exactly 0 and se (R, 1) f32. A chunk with
-    fewer rows than the card has SMs takes the row cut (`row_spans`);
-    `spans` forces the number of spans (1: the uncut kernel), on a card
-    only."""
+    with lanes >= 128 + f2 exactly 0 and se (R, 1) f32. A bf16 table
+    takes the two passes of the row cut on every chunk, pass 1 on the
+    tensor cores; a float32 table takes them on a chunk with fewer rows
+    than the card has SMs (`row_spans`) and the uncut kernel otherwise.
+    `spans` forces the number of spans (1: one span a row, on a float32
+    table the uncut kernel), on a card only."""
     if f2 not in (32, 64, 96, 128):
         raise ValueError(f"gather_gram_cg_wide: f2 must be 32, 64, 96 or "
                          f"128, got {f2}")
@@ -674,12 +693,11 @@ def gather_gram_cg_wide(table_ext, cols, vals, nnz, x0, lam: float, f2: int,
     _check("nnz", nnz, (r,), (torch.int32,))
     _check("x0", x0, (r, 256), (torch.float32,))
     if r:
-        n_spans, span_len = _chunk_spans(x0.device, r, p, spans)
-        if n_spans > 1:
-            part = span_grams(table_ext, cols, vals, nnz, 128 + f2, n_spans,
-                              span_len)
-            return span_solve(part, nnz, x0, lam, p, span_len, cg_iters,
-                              cg_tol)
+        n_spans, span_len = _chunk_spans(x0.device, r, p, spans,
+                                         **span_plan(table_ext))
+        if n_spans > 1 or gram_body(table_ext) == "wgmma":
+            return _row_cut(table_ext, cols, vals, nnz, x0, lam, 128 + f2,
+                            n_spans, span_len, cg_iters, cg_tol)
     x = torch.empty((r, 256), dtype=torch.float32, device=x0.device)
     se = torch.empty((r, 1), dtype=torch.float32, device=x0.device)
     if r:
@@ -692,7 +710,30 @@ def gather_gram_cg_wide(table_ext, cols, vals, nnz, x0, lam: float, f2: int,
 
 
 # ------------------- the row cut of the 256-lane body (K1 at 256, K7) --
-SPAN_TILE = 32    # slots a tile of csrc/wide.cuh stages (kTile)
+SPAN_TILE = 32       # slots a tile of csrc/wide.cuh stages (kTile)
+SPAN_TILE_MMA = 64   # slots a tile of the tensor-core pass 1 (mma::kSlots)
+# the most tiles of a span on the tensor cores: a span's Gram is summed in
+# one f32 fragment, and the error of its 16-slot steps adds up with their
+# number, so longer rows take more spans (PERF.md, the span cap)
+SPAN_MAX_TILES_MMA = 32
+# the most scratch memory the records of one pass-1 launch take; a chunk
+# whose records would take more runs as batches of rows
+SPAN_SCRATCH_BYTES = 1 << 30
+
+
+def span_plan(table_ext: torch.Tensor) -> Dict[str, int]:
+    """`row_spans`' keywords for the pass 1 that takes this table
+    (`gram_body`; a span is a whole number of its tiles): the FMA body's
+    32-slot tile with the defaults, or the tensor-core pass 1's
+    64-slot tile, spans of at most `SPAN_MAX_TILES_MMA` tiles and the
+    constants measured for it: over the 89 chunks under 132 rows of the
+    Netflix F=200 plans, on an H100 SXM at 700 W, K7 took 18.8 ms at
+    target 1 and min_tiles 8 against 22.7 at the FMA body's 4 and 4
+    (PERF.md, the sweep; scripts/torch_wide_span_sweep.py)."""
+    if gram_body(table_ext) == "wgmma":
+        return dict(tile=SPAN_TILE_MMA, min_tiles=8, target=1,
+                    max_tiles=SPAN_MAX_TILES_MMA)
+    return dict(tile=SPAN_TILE)
 
 
 def _cut(tiles: int, want: int, tile: int) -> Tuple[int, int]:
@@ -705,7 +746,8 @@ def _cut(tiles: int, want: int, tile: int) -> Tuple[int, int]:
 
 
 def row_spans(r: int, p: int, sms: int, tile: int = SPAN_TILE,
-              min_tiles: int = 4, target: int = 4) -> Tuple[int, int]:
+              min_tiles: int = 4, target: int = 4,
+              max_tiles: Optional[int] = None) -> Tuple[int, int]:
     """The row cut of a chunk of R rows of P slots on a card of `sms`
     SMs, from the shape alone (no read of nnz from the card): S, the
     spans a row is cut into, and L, the slots of a span, a whole number
@@ -714,13 +756,20 @@ def row_spans(r: int, p: int, sms: int, tile: int = SPAN_TILE,
     when R >= sms; else R S is about `target` blocks an SM, with no span
     under `min_tiles` tiles unless P is (then S = 1). The plans put a
     row's live slots first, so span s of row r is live iff
-    s L < min(nnz[r], P). The defaults are measured: over the 67 split X
-    chunks under 132 rows of the Netflix F=200 plans, on an H100 SXM at
-    700 W, K7 took 103.0 ms at target 4 against 112.4 at 2 and 129.9 at
-    1, min_tiles 2-8 within 5% (PERF.md, the row cut's findings)."""
+    s L < min(nnz[r], P). `tile` is the pass-1 body's (`span_plan`):
+    32 slots on the FMA body, 64 on the tensor cores, where no span is
+    longer than `max_tiles` tiles either (so S > 1 also where R >= sms
+    when P is). The defaults were measured on the FMA body: over the 67
+    split X chunks under 132 rows of the Netflix F=200 plans, on an H100
+    SXM at 700 W, K7 took 103.0 ms at target 4 against 112.4 at 2 and
+    129.9 at 1, min_tiles 2-8 within 5% (PERF.md, the row cut's
+    findings)."""
     tiles = -(-p // tile)
     want = 1 if r >= sms else -(-target * sms // max(r, 1))
-    return _cut(tiles, min(want, max(1, tiles // min_tiles)), tile)
+    want = min(want, max(1, tiles // min_tiles))
+    if max_tiles:
+        want = max(want, -(-tiles // max_tiles))
+    return _cut(tiles, want, tile)
 
 
 @functools.lru_cache(maxsize=None)
@@ -738,21 +787,24 @@ def _check_spans(name: str, spans, allowed: bool) -> None:
         raise ValueError(f"{name}: spans must be 1 to 65535, got {spans}")
 
 
-def _chunk_spans(device, r: int, p: int, spans) -> Tuple[int, int]:
-    """`row_spans` on this card, or the cut `spans` forces."""
+def _chunk_spans(device, r: int, p: int, spans, tile: int = SPAN_TILE,
+                 **plan) -> Tuple[int, int]:
+    """`row_spans` on this card in tiles of `tile` slots with the other
+    keywords of `span_plan`, or the cut `spans` forces."""
     if spans is None:
         index = device.index if device.index is not None else \
             torch.cuda.current_device()
-        return row_spans(r, p, _sm_count(index))
-    return _cut(-(-p // SPAN_TILE), int(spans), SPAN_TILE)
+        return row_spans(r, p, _sm_count(index), tile, **plan)
+    return _cut(-(-p // tile), int(spans), tile)
 
 
 def span_record_floats(fl: int) -> int:
     """Floats of one span's record in scratch (SpanRecord of
     csrc/wide.cuh): 64 entries for each of the T (T + 1) / 2 tiles of
-    the upper triangle (T = fl / 8), then b (fl), then r2 (1)."""
+    the upper triangle (T = fl / 8), then b (fl), then r2 (1), rounded
+    up to a multiple of 64."""
     t = fl // 8
-    return 64 * (t * (t + 1) // 2) + fl + 1
+    return -(-(64 * (t * (t + 1) // 2) + fl + 1) // 64) * 64
 
 
 def _triangle(fl: int, device):
@@ -768,18 +820,19 @@ def _triangle(fl: int, device):
 def span_record_unpack(rec: torch.Tensor, fl: int):
     """(A, b, r2) of span records (..., span_record_floats(fl)), read
     through the tile layout of csrc/wide.cuh: entry k * 8 + l of tile i
-    at [(k * 8 + l) * TILES + i]; A (..., fl, fl) is the upper triangle
-    of tiles mirrored, b (..., fl), r2 (..., 1)."""
+    at [i * 64 + k * 8 + l]; A (..., fl, fl) is the upper triangle of
+    tiles mirrored, b (..., fl), r2 (..., 1)."""
     t = fl // 8
     ti, tj = _triangle(fl, rec.device)
     n = ti.numel()
     lead = rec.shape[:-1]
-    blocks = rec[..., :64 * n].reshape(-1, 8, 8, n).permute(0, 3, 1, 2)
+    blocks = rec[..., :64 * n].reshape(-1, n, 8, 8)
     a = rec.new_zeros((blocks.shape[0], t, t, 8, 8))
     a[:, tj, ti] = blocks.transpose(-1, -2)
     a[:, ti, tj] = blocks      # a diagonal tile holds its full block
     a = a.permute(0, 1, 3, 2, 4).reshape(*lead, fl, fl)
-    return a, rec[..., 64 * n:64 * n + fl], rec[..., -1:]
+    b = 64 * n
+    return a, rec[..., b:b + fl], rec[..., b + fl:b + fl + 1]
 
 
 @full_f32()
@@ -835,16 +888,20 @@ def span_grams(table_ext, cols, vals, nnz, fl: int, spans: int,
     """Pass 1 of the row cut: the records (R, spans,
     span_record_floats(fl)) of the Gram of every span, span s of a row
     over slots [s L, min((s + 1) L, nnz, P)), L = `span_len` (a multiple
-    of 32). table_ext (n+1, 256) f32/bf16, cols, vals (R, P), nnz (R,)
-    int32, all on the card; fl in (160, 192, 224, 256), the live lanes.
-    A span with no slots is left as `torch.empty` made it (pass 2 reads
-    only live spans)."""
+    of the tile of `span_plan(table_ext)`). table_ext (n+1, 256) f32/bf16, cols,
+    vals (R, P), nnz (R,) int32, all on the card; fl in (160, 192, 224,
+    256), the live lanes. A bf16 table runs on the tensor cores
+    (``wide_span_gram_mma``: the bf16 products are exact, the f32 sums
+    taken in the hardware's order), a float32 table on the FMA body
+    (``wide_span_gram``). A span with no slots is left as `torch.empty`
+    made it (pass 2 reads only live spans)."""
     if fl not in (160, 192, 224, 256):
         raise ValueError(f"wide_span_gram: fl must be 160, 192, 224 or 256, "
                          f"got {fl}")
-    if span_len <= 0 or span_len % SPAN_TILE:
+    tile = span_plan(table_ext)["tile"]
+    if span_len <= 0 or span_len % tile:
         raise ValueError(f"wide_span_gram: span_len must be a positive "
-                         f"multiple of {SPAN_TILE}, got {span_len}")
+                         f"multiple of {tile}, got {span_len}")
     _on_card("wide_span_gram", table_ext, cols, vals, nnz)
     r, p = cols.shape
     _check("table_ext", table_ext, (table_ext.shape[0], 256), _FLOATS)
@@ -853,7 +910,14 @@ def span_grams(table_ext, cols, vals, nnz, fl: int, spans: int,
     _check("nnz", nnz, (r,), (torch.int32,))
     part = torch.empty((r, spans, span_record_floats(fl)),
                        dtype=torch.float32, device=cols.device)
-    if r:
+    if not r:
+        return part
+    if gram_body(table_ext) == "wgmma":
+        _check_gram_table(table_ext, cols)
+        _launch("wide_span_gram_mma", table_ext.data_ptr(), cols.data_ptr(),
+                vals.data_ptr(), _bf16(vals), nnz.data_ptr(),
+                part.data_ptr(), r, p, fl, spans, span_len)
+    else:
         _launch("wide_span_gram", table_ext.data_ptr(), _bf16(table_ext),
                 cols.data_ptr(), vals.data_ptr(), _bf16(vals),
                 nnz.data_ptr(), part.data_ptr(), r, p, fl, spans, span_len)
@@ -885,6 +949,34 @@ def span_solve(part, nnz, x0, lam: float, p: int, span_len: int,
                 spans, int(span_len), float(lam), int(cg_iters),
                 float(cg_tol))
     return x, se
+
+
+def row_batches(spans: int, fl: int,
+                budget: int = SPAN_SCRATCH_BYTES) -> int:
+    """Rows of one batch of the row cut: as many as keep the records of
+    a pass-1 launch (spans records of span_record_floats(fl) floats a
+    row) within `budget` bytes, at least one."""
+    return max(1, budget // (spans * span_record_floats(fl) * 4))
+
+
+def _row_cut(table_ext, cols, vals, nnz, x0, lam, fl, spans, span_len,
+             cg_iters, cg_tol):
+    """The two passes over a chunk, in batches of `row_batches` rows."""
+    r = cols.shape[0]
+    step = row_batches(spans, fl)
+    xs, ses = [], []
+    for lo in range(0, r, step):
+        hi = min(lo + step, r)
+        part = span_grams(table_ext, cols[lo:hi], vals[lo:hi], nnz[lo:hi],
+                          fl, spans, span_len)
+        x, se = span_solve(part, nnz[lo:hi], x0[lo:hi], lam, cols.shape[1],
+                           span_len, cg_iters, cg_tol)
+        del part
+        xs.append(x)
+        ses.append(se)
+    if len(xs) == 1:
+        return xs[0], ses[0]
+    return torch.cat(xs), torch.cat(ses)
 
 
 @full_f32()

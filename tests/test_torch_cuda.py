@@ -12,13 +12,15 @@ f = 256) as in tests/test_torch_wide.py: dead lanes and empty rows
 exactly 0, K8 against K1 at f = 256 on the same G rtol 1e-5.
 
 The Gram kernels K1, K2, K5a and K6 run their tensor-core body for a
-bf16 table at f = 128 (`cs.gram_body`). There the products are exact
-and the f32 sums are taken in the hardware's order, so the error follows
-the size of the sum, not of the value: `gram_limit` states the limit for
-each body. An integer table makes every sum exact and the comparison bit
-for bit: the proof of the tile layout. K1 and K6 stop each row at its
-nnz; `theta_chunk` puts rows that stop at the edges of the 64-slot tile
-into one chunk, x within 2e-3 and se within 1e-3 relative."""
+bf16 table at f = 128, and K1 at f = 256 and K7 theirs (pass 1 of the
+row cut, then pass 2) for a bf16 table at 256 lanes (`cs.gram_body`).
+There the products are exact and the f32 sums are taken in the
+hardware's order, so the error follows the size of the sum, not of the
+value: `gram_limit` states the limit for each body. An integer table
+makes every sum exact and the comparison bit for bit: the proof of the
+tile and record layout. K1 and K6 stop each row at its nnz;
+`theta_chunk` puts rows that stop at the edges of the 64-slot tile into
+one chunk, x within 2e-3 and se within 1e-3 relative."""
 
 import numpy as np
 import pytest
@@ -288,10 +290,22 @@ def _wide_chunk(f_true, dtype, seed=2):
     return cpu
 
 
+def _wide_launches(dtype, uncut: str, n: int) -> dict:
+    """The launch counts of n calls of K7 (uncut = "gather_gram_cg_wide")
+    or K1 at f = 256 (uncut = "gather_gram_cg") with spans=1: a float32
+    table runs the uncut kernel, a bf16 table the two passes, one span a
+    row, pass 1 on the tensor cores."""
+    if dtype == torch.bfloat16:
+        return dict.fromkeys(cs.LAUNCHES, 0) | {"wide_span_gram_mma": n,
+                                                "wide_span_solve": n}
+    return dict.fromkeys(cs.LAUNCHES, 0) | {uncut: n}
+
+
 @pytest.mark.parametrize("f_true", [130, 161, 200, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_wide_kernel_matches_plain(card, f_true, dtype):
-    """K7 at every f2 (32, 64, 96, 128) against its plain version."""
+    """K7 at every f2 (32, 64, 96, 128) against its plain version; a bf16
+    table runs the two passes, pass 1 on the tensor cores."""
     f2 = cs.wide_f2(f_true)
     cpu = _wide_chunk(f_true, dtype)
     gpu = [t.to(card) for t in cpu]
@@ -308,15 +322,20 @@ def test_wide_kernel_matches_plain(card, f_true, dtype):
     x2, se2 = cs.gather_gram_cg_wide(dirty, gpu[1], gpu[2], gpu[3],
                                      x0_dirty, LAM, f2)
     assert torch.equal(x2, x) and torch.equal(se2, se)
-    assert cs.LAUNCHES == dict.fromkeys(cs.LAUNCHES, 0) | {
-        "gather_gram_cg_wide": 2}
+    # not even NaN there (the tensor-core pass 1 zero-fills those pieces)
+    dirty[:, 128 + f2:] = float("nan")
+    x3, se3 = cs.gather_gram_cg_wide(dirty, gpu[1], gpu[2], gpu[3],
+                                     x0_dirty, LAM, f2)
+    assert torch.equal(x3, x) and torch.equal(se3, se)
+    assert cs.LAUNCHES == _wide_launches(dtype, "gather_gram_cg_wide", 3)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k1_at_256_and_cat_kernel_match_plain(card, dtype):
     """K1 at f = 256 and K8 against their plain versions, and K8 against
     K1 at f = 256 on the same G (every slot within nnz, as K8 walks all
-    P slots)."""
+    P slots). K8 keeps the FMA body, so it is held to K1's on a float32
+    copy of the table (the same values), which runs that body."""
     cpu = _wide_chunk(200, dtype, seed=3)
     gpu = [t.to(card) for t in cpu]
     x, se = cs.gather_gram_cg(*gpu, LAM)
@@ -324,6 +343,10 @@ def test_k1_at_256_and_cat_kernel_match_plain(card, dtype):
     torch.testing.assert_close(x.cpu(), px, atol=2e-3, rtol=0)
     torch.testing.assert_close(se.cpu(), pse, atol=2e-3, rtol=1e-4)
     assert torch.all(x[3] == 0)
+    assert cs.LAUNCHES == _wide_launches(dtype, "gather_gram_cg", 1)
+    if dtype == torch.bfloat16:
+        cs.reset_launch_counts()
+        x, se = cs.gather_gram_cg(gpu[0].float(), *gpu[1:], LAM)
     f2 = cs.wide_f2(200)
     g = cpu[0].index_select(0, cpu[1].reshape(-1).long()).reshape(R, P, 256)
     g1, g2 = g[:, :, :128].contiguous(), g[:, :, 128:128 + f2].contiguous()
@@ -435,35 +458,49 @@ CUTS = [(300, 2), (300, 3), (448, 7)]      # (P, spans): S = 2, 3, 7
 def test_row_cut_matches_plain_and_the_uncut_kernel(card, p, spans, f_true,
                                                     kernel, dtype):
     """The cut forced at S = 2, 3, 7 for T = 20, 24, 28, 32 (K7 at f2 =
-    32, 64, 96, 128) and K1 at f = 256, on the span-edge grid: against
-    the plain cut route and against the uncut kernel, x within 2e-3 and
-    se within 2e-3 + 1e-4 relative; empty rows and dead lanes exactly 0;
-    a second run repeats the first bit for bit; the launch counts show
-    the two passes, and the uncut kernel only where it ran."""
-    n_spans, span = cs._cut(-(-p // 32), spans, 32)
+    32, 64, 96, 128) and K1 at f = 256, on the span-edge grid (spans of
+    whole tiles of the pass-1 body: 32 slots on the FMA body of a float32
+    table, 64 on the tensor cores of a bf16 one): against the plain cut
+    route and against one span a row (spans=1: the uncut kernel of a
+    float32 table; with a bf16 table the two passes at S = 1, and the
+    uncut kernel on a float32 copy of the table), x within 2e-3 and se
+    within 2e-3 + 1e-4 relative; empty rows and dead lanes exactly 0; a
+    second run repeats the first bit for bit; the launch counts show the
+    two passes, and the uncut kernel only where it ran."""
+    tile = 64 if dtype == torch.bfloat16 else 32
+    n_spans, span = cs._cut(-(-p // tile), spans, tile)
     assert n_spans == spans
     cpu = cut_chunk(f_true, dtype, p, span, seed=f_true)
     gpu = [t.to(card) for t in cpu]
+    pass1 = "wide_span_gram_mma" if dtype == torch.bfloat16 else \
+        "wide_span_gram"
     if kernel == "K7":
         f2 = cs.wide_f2(f_true)
         fl, name = 128 + f2, "gather_gram_cg_wide"
 
-        def run(spans):
-            return cs.gather_gram_cg_wide(*gpu, LAM, f2, spans=spans)
+        def run(spans, table=gpu[0]):
+            return cs.gather_gram_cg_wide(table, *gpu[1:], LAM, f2,
+                                          spans=spans)
     else:
         fl, name = 256, "gather_gram_cg"
 
-        def run(spans):
-            return cs.gather_gram_cg(*gpu, LAM, spans=spans)
+        def run(spans, table=gpu[0]):
+            return cs.gather_gram_cg(table, *gpu[1:], LAM, spans=spans)
     x, se = run(spans)
     torch.cuda.synchronize()
     assert cs.LAUNCHES == dict.fromkeys(cs.LAUNCHES, 0) | {
-        "wide_span_gram": 1, "wide_span_solve": 1}
+        pass1: 1, "wide_span_solve": 1}
     px, pse = cs.row_cut_plain(*cpu, LAM, fl, spans, span)
     torch.testing.assert_close(x.cpu(), px, atol=2e-3, rtol=0)
     torch.testing.assert_close(se.cpu(), pse, atol=2e-3, rtol=1e-4)
     ux, use = run(1)
-    assert cs.LAUNCHES[name] == 1 and cs.LAUNCHES["wide_span_gram"] == 1
+    if dtype == torch.bfloat16:
+        assert cs.LAUNCHES[pass1] == 2 and cs.LAUNCHES[name] == 0
+        torch.testing.assert_close(x, ux, atol=2e-3, rtol=0)
+        torch.testing.assert_close(se, use, atol=2e-3, rtol=1e-4)
+        ux, use = run(1, gpu[0].float())
+    assert cs.LAUNCHES[name] == 1 and cs.LAUNCHES[pass1] == \
+        (2 if dtype == torch.bfloat16 else 1)
     torch.testing.assert_close(x, ux, atol=2e-3, rtol=0)
     torch.testing.assert_close(se, use, atol=2e-3, rtol=1e-4)
     empty = gpu[3] == 0
@@ -478,22 +515,114 @@ def test_row_cut_matches_plain_and_the_uncut_kernel(card, p, spans, f_true,
 def test_span_gram_alone_through_the_record_layout(card, fl, dtype):
     """Pass 1 alone against its plain version, read through the tile
     layout of csrc/wide.cuh (`span_record_unpack`): every live span's A
-    within `gram_limit`'s FMA steps for its slots, b and r2 within rtol
-    1e-5 + 1e-5."""
+    within `gram_limit`'s steps for its slots in the body that ran (FMA
+    for a float32 table, the tensor cores for a bf16 one), b and r2
+    within rtol 1e-5 + 1e-5."""
     p, spans = 448, 7
-    n_spans, span = cs._cut(-(-p // 32), spans, 32)
+    body = "wgmma" if dtype == torch.bfloat16 else "fma"
+    tile = 64 if body == "wgmma" else 32
+    n_spans, span = cs._cut(-(-p // tile), spans, tile)
     cpu = cut_chunk(fl, dtype, p, span, seed=fl)
     part = cs.span_grams(*(t.to(card) for t in cpu[:4]), fl, n_spans, span)
-    assert cs.LAUNCHES["wide_span_gram"] == 1
+    assert cs.gram_body(cpu[0]) == body
+    assert cs.LAUNCHES["wide_span_gram_mma" if body == "wgmma" else
+                       "wide_span_gram"] == 1
     live = cs._span_live(cpu[3], p, n_spans, span)
     a, b, r2 = cs.span_record_unpack(part.cpu()[live], fl)
     want = [cs.span_gram_plain(*cpu[:4], k * span, (k + 1) * span, fl)
             for k in range(n_spans)]
     pa, pb, pr2 = (torch.stack([w[i] for w in want], dim=1)[live]
                    for i in range(3))
-    _assert_gram_close(a, pa, span, "fma")
+    _assert_gram_close(a, pa, span, body)
     torch.testing.assert_close(b, pb, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(r2, pr2, rtol=1e-5, atol=1e-5)
+
+
+SPAN_P = (63, 64, 65, 127, 129)           # around the 64-slot tile
+SPAN_NNZ = (0, 1, 63, 64, 65)
+
+
+def span_int_chunk(fl, p, seed=0, n=60):
+    """A chunk for the tensor-core pass 1 at the edges of its 64-slot
+    tile: a bf16 256-lane table of small integers in lanes < fl and NaN in
+    lanes >= fl (which the pass must never read), rows that stop at nnz
+    0, 1, 63, 64, 65 (those up to p) and at p, pad slots at each row's
+    tail (the zero row n, value 0) and half-integer values, so that every
+    sum is exact in f32 in any order. Returns CPU tensors: table, cols,
+    vals, nnz."""
+    rng = np.random.RandomState(seed + 7 * p + fl)
+    table = np.full((n + 1, 256), np.nan, np.float32)
+    table[:, :fl] = rng.randint(-4, 5, (n + 1, fl))
+    table[n, :fl] = 0.0
+    nnz = np.array([k for k in SPAN_NNZ if k <= p] + [p], np.int32)
+    r = len(nnz)
+    mask = np.arange(p)[None, :] < nnz[:, None]
+    cols = np.where(mask, rng.randint(0, n, (r, p)), n).astype(np.int32)
+    vals = (np.round(rng.uniform(1, 5, (r, p)) * 2) / 2 * mask
+            ).astype(np.float32)
+    return (torch.from_numpy(table).to(torch.bfloat16),
+            torch.from_numpy(cols), torch.from_numpy(vals),
+            torch.from_numpy(nnz))
+
+
+@pytest.mark.parametrize("p", SPAN_P)
+@pytest.mark.parametrize("fl", [160, 192, 224, 256])
+@pytest.mark.parametrize("spans", [1, 2])
+def test_tensor_core_pass_1_is_exact_on_integer_tables(card, p, fl, spans):
+    """The tensor-core pass 1 equals `span_gram_plain` bit for bit on a
+    table of small integers (every sum exact): A read through the record
+    layout, b and r2, for every live span, at P around the 64-slot tile,
+    rows that stop at nnz 0, 1, 63, 64, 65 and P, one span a row and two
+    (where P has two tiles), with NaN in the table's lanes >= fl. The
+    proof of the three-block tiling, of the record's layout and of the
+    zero-fill at the span's and the live lanes' edges."""
+    table, cols, vals, nnz = span_int_chunk(fl, p)
+    n_spans, span = cs._cut(-(-p // 64), spans, 64)
+    part = cs.span_grams(table.to(card), cols.to(card), vals.to(card),
+                         nnz.to(card), fl, n_spans, span)
+    assert cs.LAUNCHES == dict.fromkeys(cs.LAUNCHES, 0) | {
+        "wide_span_gram_mma": 1}
+    live = cs._span_live(nnz, p, n_spans, span)
+    a, b, r2 = cs.span_record_unpack(part.cpu()[live], fl)
+    want = [cs.span_gram_plain(table, cols, vals, nnz, k * span,
+                               (k + 1) * span, fl) for k in range(n_spans)]
+    pa, pb, pr2 = (torch.stack([w[i] for w in want], dim=1)[live]
+                   for i in range(3))
+    assert torch.equal(a, pa) and torch.equal(b, pb) and \
+        torch.equal(r2, pr2)
+
+
+@pytest.mark.parametrize("f_true,kernel", [(130, "K7"), (200, "K7"),
+                                           (200, "K1")])
+def test_tensor_core_route_ignores_dead_lanes_and_repeats(card, f_true,
+                                                          kernel):
+    """K7 and K1 at f = 256 on a bf16 table (the two passes, pass 1 on
+    the tensor cores, one span a row): the same x and se whether the
+    table's lanes >= FL hold zeros or NaN (K7: FL = 128 + f2; K1 at
+    f = 256 reads all 256 lanes, so its table is dirtied nowhere), and a
+    second run equal to the first bit for bit; within 2e-3 (x) and 2e-3
+    + 1e-4 relative (se) of the plain version."""
+    cpu = _wide_chunk(f_true, torch.bfloat16, seed=5)
+    gpu = [t.to(card) for t in cpu]
+    f2 = cs.wide_f2(f_true)
+
+    def run(table):
+        if kernel == "K7":
+            return cs.gather_gram_cg_wide(table, *gpu[1:], LAM, f2)
+        return cs.gather_gram_cg(table, *gpu[1:], LAM)
+    x, se = run(gpu[0])
+    px, pse = (cs.gather_gram_cg_wide(*cpu, LAM, f2) if kernel == "K7"
+               else cs.gather_gram_cg(*cpu, LAM))
+    torch.testing.assert_close(x.cpu(), px, atol=2e-3, rtol=0)
+    torch.testing.assert_close(se.cpu(), pse, atol=2e-3, rtol=1e-4)
+    x2, se2 = run(gpu[0])
+    assert torch.equal(x2, x) and torch.equal(se2, se)
+    if kernel == "K7":
+        dirty = gpu[0].clone()
+        dirty[:, 128 + f2:] = float("nan")
+        x3, se3 = run(dirty)
+        assert torch.equal(x3, x) and torch.equal(se3, se)
+    assert cs.LAUNCHES["wide_span_gram_mma"] == (3 if kernel == "K7" else 2)
 
 
 def _unpinned(monkeypatch):

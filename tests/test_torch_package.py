@@ -211,10 +211,12 @@ def test_every_included_header_rebuilds_its_kernels():
 @pytest.mark.parametrize("dtype,f,body", [
     (torch.bfloat16, 128, "wgmma"), (torch.float32, 128, "fma"),
     (torch.bfloat16, 112, "fma"), (torch.bfloat16, 16, "fma"),
-    (torch.float32, 64, "fma")])
+    (torch.float32, 64, "fma"), (torch.bfloat16, 256, "wgmma"),
+    (torch.float32, 256, "fma")])
 def test_gram_body_goes_by_dtype_and_width_alone(dtype, f, body):
-    """The tensor-core Gram body (K1, K2, K5a, K6) takes a bf16 table at
-    f = 128; every other table these kernels take keeps an FMA body."""
+    """The tensor-core Gram body (K1, K2, K5a, K6; K1 at f = 256 and K7
+    through pass 1 of the row cut) takes a bf16 table at f = 128 or 256;
+    every other table these kernels take keeps an FMA body."""
     from cumf_als_tpu_torch.ops import cuda_solve as cs
     assert cs.gram_body(torch.zeros((3, f), dtype=dtype)) == body
 

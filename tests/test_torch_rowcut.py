@@ -92,11 +92,127 @@ def test_forced_spans(p, spans, want):
     assert (s - 1) * span < p <= s * span
 
 
+@pytest.mark.parametrize("sms", [132, 8])
+@pytest.mark.parametrize("p", [1, 63, 64, 65, 127, 129, 300, 4096, 8192,
+                               241664])
+def test_row_spans_at_the_tensor_core_tile(sms, p):
+    """At the tensor-core pass 1's 64-slot tile, spans of at most
+    `SPAN_MAX_TILES_MMA` tiles (`span_plan` of a bf16 table): the spans
+    cover [0, P) once, in whole 64-slot tiles; S = 1 whenever R >= sms
+    and P fits one span; no span under min_tiles tiles unless S = 1 or
+    the cap asks for more spans; the forced cut of `spans` keeps whole
+    tiles and ignores the cap."""
+    plan = cs.span_plan(torch.zeros((2, 256), dtype=torch.bfloat16))
+    tile, cap, least = plan["tile"], plan["max_tiles"], plan["min_tiles"]
+    assert (tile, cap) == (cs.SPAN_TILE_MMA, cs.SPAN_MAX_TILES_MMA)
+    assert cs.span_plan(torch.zeros((2, 256))) == dict(tile=cs.SPAN_TILE)
+    tiles = -(-p // 64)
+    for r in (1, 2, 7, 8, 32, 100, sms - 1, sms, 500):
+        if r < 1:
+            continue
+        s, span = cs.row_spans(r, p, sms, **plan)
+        assert span % 64 == 0 and 0 < span <= cap * 64
+        assert (s - 1) * span < max(p, 1) <= s * span
+        if r >= sms:
+            assert s == -(-tiles // cap)
+        elif tiles >= 2 * least:
+            assert s > 1
+        if s > 1 and tiles <= least * cap:
+            assert span >= least * 64
+    for spans in (1, 2, 3, 7):
+        s, span = cs._chunk_spans(torch.device("cuda", 0), 3, p, spans,
+                                  cs.SPAN_TILE_MMA)
+        assert span % 64 == 0 and 1 <= s <= spans
+        assert (s - 1) * span < max(p, 1) <= s * span
+
+
+@pytest.mark.parametrize("dtype,tile", [(torch.bfloat16, 64),
+                                        (torch.float32, 32)])
+def test_span_tile_follows_the_pass_1_body(dtype, tile):
+    """A bf16 256-lane table runs pass 1 on the tensor cores in 64-slot
+    tiles, a float32 one on the FMA body in 32-slot tiles (`span_plan`)."""
+    table = torch.zeros((5, 256), dtype=dtype)
+    assert cs.span_plan(table)["tile"] == tile
+    assert cs.gram_body(table) == ("wgmma" if tile == 64 else "fma")
+
+
+@pytest.mark.parametrize("fl", [160, 192, 224, 256])
+def test_row_batches_keep_the_records_in_budget(fl):
+    """A chunk's records are written in batches of rows whose records fit
+    `SPAN_SCRATCH_BYTES` (one row at least): the populous theta chunk of
+    the Netflix F=200 plans (16,384 rows, one span) takes one batch at
+    160 live lanes, two at 192 and 224, three at 256."""
+    size = cs.span_record_floats(fl) * 4
+    for spans in (1, 7, 528, 60000):
+        step = cs.row_batches(spans, fl)
+        assert step >= 1
+        assert step * spans * size <= cs.SPAN_SCRATCH_BYTES or step == 1
+        assert (step + 1) * spans * size > cs.SPAN_SCRATCH_BYTES
+    assert cs.row_batches(1, fl, budget=10 * size) == 10
+    batches = -(-16384 // cs.row_batches(1, fl))
+    assert batches == -(-16384 * size // cs.SPAN_SCRATCH_BYTES)
+    assert batches == (1 if fl == 160 else 2 if fl < 256 else 3)
+    assert cs.row_batches(66, fl) >= 8
+
+
+def _mma_epilogue(fl):
+    """Where the tensor-core pass 1 (csrc/wide_span_gram_mma.cu) writes
+    each accumulator: for block z (0: (0, 0), 1: (0, 1), 2: (1, 1)),
+    warpgroup g, warp w, lane t, fragment column tile i and half h, the
+    entry (row, column) of A that acc[4 i + 2 h + j] holds (the m64n128
+    fragment: row 128 bi + 64 g + 16 w + 8 h + t // 4, column 128 bj +
+    8 i + 2 (t % 4) + j) and the record index it is stored at, if it is
+    stored (tile (ti, tj) with ti <= tj < T: index tile * 64 + 2 t + j).
+    Returns {record index: (row, column)}, and the number of stores."""
+    t_side = fl // 8
+    pairs = [(i, j) for i in range(t_side) for j in range(i, t_side)]
+    index = {pair: k for k, pair in enumerate(pairs)}
+    where, stores = {}, 0
+    for z, (bi, bj) in enumerate(((0, 0), (0, 1), (1, 1))):
+        for g in range(2):
+            for w in range(4):
+                for i in range(16):
+                    for h in range(2):
+                        ti = 16 * bi + 8 * g + 2 * w + h
+                        tj = 16 * bj + i
+                        if not ti <= tj < t_side:
+                            continue
+                        for lane in range(32):
+                            for j in range(2):
+                                row = 128 * bi + 64 * g + 16 * w + 8 * h + \
+                                    lane // 4
+                                col = 128 * bj + 8 * i + 2 * (lane % 4) + j
+                                where[index[(ti, tj)] * 64 + 2 * lane + j] = \
+                                    (row, col)
+                                stores += 1
+    return where, stores
+
+
+@pytest.mark.parametrize("fl", [160, 192, 224, 256])
+def test_tensor_core_epilogue_writes_every_entry_once(fl):
+    """The record index map of the tensor-core pass 1's epilogue: every
+    entry of the upper triangle of 8 x 8 tiles inside the fl live lanes
+    is stored exactly once, at the place `span_record_unpack` reads it
+    from (entry (k, l) of tile (ti, tj) is A[8 ti + k, 8 tj + l])."""
+    where, stores = _mma_epilogue(fl)
+    t_side = fl // 8
+    n_tiles = t_side * (t_side + 1) // 2
+    assert stores == len(where) == 64 * n_tiles
+    assert sorted(where) == list(range(64 * n_tiles))
+    a = torch.arange(fl * fl, dtype=torch.float32).reshape(fl, fl)
+    a = torch.triu(a) + torch.triu(a, 1).T      # symmetric, distinct
+    rec = torch.zeros(cs.span_record_floats(fl))
+    for idx, (row, col) in where.items():
+        rec[idx] = a[row, col]
+    ua, _, _ = cs.span_record_unpack(rec, fl)
+    assert torch.equal(ua, a)
+
+
 def _record(a, b, r2):
     """Span records of dense A (R, fl, fl), b (R, fl), r2 (R, 1), written
     index by index in the tile layout of csrc/wide.cuh: entry k * 8 + l
-    of tile i at [(k * 8 + l) * TILES + i], the tiles row-major over the
-    upper triangle, b then r2 after them."""
+    of tile i at [i * 64 + k * 8 + l], the tiles row-major over the
+    upper triangle, b then r2 after them, the rest zero."""
     fl = a.shape[-1]
     t = fl // 8
     pairs = [(i, j) for i in range(t) for j in range(i, t)]
@@ -105,10 +221,10 @@ def _record(a, b, r2):
     an = a.numpy()
     for i, (ti, tj) in enumerate(pairs):
         for k in range(8):
-            rec[:, (k * 8 + np.arange(8)) * tiles + i] = \
+            rec[:, i * 64 + k * 8 + np.arange(8)] = \
                 an[:, ti * 8 + k, tj * 8:tj * 8 + 8]
     rec[:, 64 * tiles:64 * tiles + fl] = b.numpy()
-    rec[:, -1] = r2.numpy()[:, 0]
+    rec[:, 64 * tiles + fl] = r2.numpy()[:, 0]
     return _t(rec)
 
 
@@ -124,12 +240,13 @@ def test_record_layout_round_trip():
         r2 = _t(rng.standard_normal((3, 1)).astype(np.float32))
         rec = _record(a, b, r2)
         t = fl // 8
-        assert cs.span_record_floats(fl) == 64 * t * (t + 1) // 2 + fl + 1
-        # tile 1 is (0, 1): its entry (k, l) = (2, 5) is A[2, 8 + 5]
         tiles = t * (t + 1) // 2
-        assert rec[0, (2 * 8 + 5) * tiles + 1] == a[0, 2, 13]
+        size = cs.span_record_floats(fl)
+        assert size % 64 == 0 and 0 <= size - (64 * tiles + fl + 1) < 64
+        # tile 1 is (0, 1): its entry (k, l) = (2, 5) is A[2, 8 + 5]
+        assert rec[0, 64 + 2 * 8 + 5] == a[0, 2, 13]
         # the last tile is (T-1, T-1)
-        assert rec[0, (7 * 8 + 7) * tiles + tiles - 1] == a[0, -1, -1]
+        assert rec[0, 64 * tiles - 1] == a[0, -1, -1]
         ua, ub, ur2 = cs.span_record_unpack(rec, fl)
         assert torch.equal(ua, a) and torch.equal(ub, b) and \
             torch.equal(ur2, r2)
