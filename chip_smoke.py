@@ -24,8 +24,9 @@ result line):
    tile (integer
    tables: bit for bit, the proof of the tile layout), and their time
    over the whole X phase split by chunks under and over 132 rows; one
-   full solve slice of the X-phase accumulators for K3 (split, bf16),
-   K5b (augmented, f32) and K4 (the same slice unpacked and regularized
+   full solve slice of the X-phase accumulators for K3 (split, bf16, at
+   cg_iters 0 and 6, and the same slice widened to float32), K5b
+   (augmented, f32) and K4 (the same slice unpacked and regularized
    beforehand, through `ops.solve.solve` without a diagonal);
 3. small Netflix-shaped runs (scale 0.01, lowered panel_size so both
    routes engage) on the card against the same runs on the CPU: bf16
@@ -53,9 +54,11 @@ result line):
    a. K7 and K1 at f=256 as routed against their plain versions on the
       widest and the most populous theta chunk and the most populous
       split X chunk, and their uncut FMA kernels on a float32 copy of
-      the table; K8 against its plain version and against K1 at f=256
-      on a float32 copy of the table; the tensor-core pass 1 bit for bit
-      on integer tables; the cut on the split X chunk with the fewest
+      the table; K8 against its plain version, on a bf16 G (the two
+      passes) equal to K1 at f=256 as routed on the bf16 table and on a
+      float32 G (the FMA kernel) against K1's uncut kernel on a float32
+      copy of the table; the tensor-core pass 1 bit for bit on integer
+      tables; the cut on the split X chunk with the fewest
       rows, one of about 32 rows and the widest theta chunk, against the
       plain cut route and one span a row; each pass alone (pass 1
       through the record layout) on the chunk of about 32 rows (bf16
@@ -70,8 +73,10 @@ result line):
       iterations with wide_kernel="off": every chunk runs the two
       passes (pass 1 on the tensor cores) and no other 256-lane kernel;
    d. K8's path: `fused_gram_cg_cat` over every theta chunk on a G
-      gathered with torch from a float32 copy of the table, each held
-      against K1 at f=256 on that copy.
+      gathered with torch from the bf16 table (the two passes, pass 1 on
+      the tensor cores reading the two slabs), each equal bit for bit to
+      K1 at f=256 as routed on that table, and one chunk on a float32 G
+      (the FMA kernel) against K1's uncut kernel on a float32 copy.
 
 It prints a `kernels` JSON line, the card line, and last
 {"ok": true, "device": {...}}. It imports nothing of JAX.
@@ -135,12 +140,15 @@ REPLACES = {
     "wide_span_solve": "cumf_als_tpu/ops/pallas_solve.py:804",
 }
 # the Gram body each kernel's measured launches ran ("cg": a solve alone)
+# ("bulk-cg": K3's persistent blocks on bulk-async copies, csrc/bulk_cg.cuh;
+# K8's own kernel is the FMA body a float32 G takes: a bf16 G launches the
+# two passes, pass 1 on the tensor cores, which count under their names)
 BODY = {"gather_gram_cg": "wgmma", "gather_gram_out": "wgmma",
-        "solve_cg_reg": "cg", "solve_cg": "cg", "gather_gram_aug_out": "wgmma",
-        "solve_cg_aug": "cg", "gather_gram_cg_aug": "wgmma",
-        "gather_gram_cg_wide": "fma", "fused_gram_cg_cat": "fma",
-        "wide_span_gram": "fma", "wide_span_gram_mma": "wgmma",
-        "wide_span_solve": "cg"}
+        "solve_cg_reg": "bulk-cg", "solve_cg": "cg",
+        "gather_gram_aug_out": "wgmma", "solve_cg_aug": "cg",
+        "gather_gram_cg_aug": "wgmma", "gather_gram_cg_wide": "fma",
+        "fused_gram_cg_cat": "fma", "wide_span_gram": "fma",
+        "wide_span_gram_mma": "wgmma", "wide_span_solve": "cg"}
 SPLIT_KERNELS = ("gather_gram_cg", "gather_gram_out", "solve_cg_reg")
 AUG_KERNELS = ("gather_gram_cg_aug", "gather_gram_aug_out", "solve_cg_aug")
 WIDE_KERNELS = ("gather_gram_cg_wide", "fused_gram_cg_cat")
@@ -173,6 +181,11 @@ FMA_MS = {
     ("K7", "phase totals"): (292.0, 348.6),
     ("K1", "phase totals"): (336.6, 379.9),
 }
+# K3's and K8's times before their redesign, by CUDA events around one
+# launch (the bracketed times of PERF.md §6; NVIDIA H100 80GB HBM3,
+# 700.00 W): K3 on the first X solve slice (16,384 bf16 systems), K8 on
+# theta most populous with a bf16 G
+BEFORE_MS = {"K3": 0.541, "K8": 16.209}
 # train RMSE after iteration 3 of the full-width F=100 paths, as recorded
 # before K1 and K6 moved to the tensor cores (PERF.md)
 RECORDED_TRAIN_RMSE = {"main": 0.428662, "aug": 0.428668}
@@ -298,7 +311,8 @@ def ptxas_lines(build_log):
     """What ptxas reports for the tensor-core entry functions of K1, K2,
     K5a, K6 and the tensor-core pass 1 of the 256-lane body (registers
     and spill stores of each instantiation, static shared memory where it
-    names any; the tiles are dynamic shared memory), and every warning of
+    names any; the tiles are dynamic shared memory), the registers and
+    spills of the 256-lane entry functions and of K3, and every warning of
     the build. Returns False if one of them spills or ptxas added a wgmma
     wait."""
     import re
@@ -348,6 +362,20 @@ def ptxas_lines(build_log):
         log(f"[ptxas] {name}, the {len(regs)} 256-lane entry functions "
             f"(csrc/wide.cuh): registers {sorted(set(regs))}, spill stores "
             f"up to {max(spills, default=0)} bytes")
+    if "solve_cg_reg" in build_log:
+        lines = build_log["solve_cg_reg"].splitlines()
+        regs, spills = [], []
+        for i, line in enumerate(lines):
+            if "Compiling entry function" in line and \
+                    "solve_cg_reg_kernel" in line:
+                info = " ".join(lines[i + 1:i + 5])
+                regs += [int(x) for x in re.findall(r"Used (\d+) registers",
+                                                    info)]
+                spills += [int(x) for x in re.findall(
+                    r"(\d+) bytes spill stores", info)]
+        log(f"[ptxas] solve_cg_reg, the {len(regs)} entry functions of K3 "
+            f"(csrc/bulk_cg.cuh, f = 16..128, bf16 and f32 A): registers "
+            f"{regs}, spill stores {spills} bytes")
     for name, out in build_log.items():
         for line in out.splitlines():
             if "warning" in line.lower() or "Potential" in line:
@@ -601,30 +629,52 @@ def check_gram(cs, tp, ch, a_dtype, aug, label):
 
 
 def check_k3(cs, a_buf, b_buf, x0_full, row_nnz, lo, batch, cfg):
-    """K3 on one solve slice of the X-phase accumulators."""
-    a = a_buf[lo:lo + batch]
+    """K3 on one solve slice of the X-phase accumulators, at the run's
+    cg_iters and at 0 (at 0 the kernel still loads A and forms b - A x0,
+    so the difference is the CG), with the slice's A as stored and
+    widened to float32 (what a gram_dtype="f32" run without aug feeds
+    K3); the stored dtype's numbers fill the entry, the float32 ones go
+    under f32_*."""
     b = b_buf[lo:lo + batch]
     x0 = x0_full[lo:lo + batch]
     nnzf = row_nnz[lo:lo + batch].float()
     diag = nnzf * cfg.lam + (nnzf == 0).float()
-    kw = dict(cg_iters=cfg.cg_iters, cg_tol=cfg.cg_tol)
-    x = cs.solve_cg_reg(a, diag, b, x0, **kw)
-    px = cs.solve_cg_reg_plain(a, diag, b, x0, **kw)
-    err = (x - px).abs().max().item()
-    ms = time_ms(lambda: cs.solve_cg_reg(a, diag, b, x0, **kw))
-    plain = time_ms(lambda: cs.solve_cg_reg_plain(a, diag, b, x0, **kw),
-                    reps=3)
-    f = a.shape[-1]
-    # the least CG work: one matvec per system
-    bms, by = bound_ms(nbytes(a, diag, b, x0, x), 2.0 * batch * f * f,
-                       a.dtype)
-    ok = err <= 2e-3
-    log(f"[K3 solve_cg_reg] slice of {batch} systems, A {a.dtype}: "
-        f"max|dx|={err:.3e} (limit 2e-3); kernel {ms:.3f} ms, plain "
-        f"{plain:.3f} ms, bound {bms:.4f} ms ({by}); "
-        f"{'OK' if ok else 'FAIL'}")
-    return ok, dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
-                    bound_by=by, library_ms=None)
+    ok_all, out = True, {}
+    for a in (a_buf[lo:lo + batch], a_buf[lo:lo + batch].float()):
+        kw = dict(cg_iters=cfg.cg_iters, cg_tol=cfg.cg_tol)
+        x = cs.solve_cg_reg(a, diag, b, x0, **kw)
+        px = cs.solve_cg_reg_plain(a, diag, b, x0, **kw)
+        err = (x - px).abs().max().item()
+        del px
+        ms = time_ms(lambda: cs.solve_cg_reg(a, diag, b, x0, **kw))
+        ms0 = time_ms(lambda: cs.solve_cg_reg(a, diag, b, x0, cg_iters=0,
+                                              cg_tol=cfg.cg_tol))
+        plain = time_ms(lambda: cs.solve_cg_reg_plain(a, diag, b, x0, **kw),
+                        reps=3)
+        f = a.shape[-1]
+        # the least CG work: one matvec per system
+        bms, by = bound_ms(nbytes(a, diag, b, x0, x), 2.0 * batch * f * f,
+                           a.dtype)
+        ok = err <= 2e-3
+        per_sm = cs.cg_reg_blocks_per_sm(a.device, f, a.dtype)
+        before = f"before: {BEFORE_MS['K3']:.3f} ms" if a.dtype == \
+            torch.bfloat16 else "before: not measured"
+        log(f"[K3 solve_cg_reg] slice of {batch} systems, A {a.dtype}: "
+            f"max|dx|={err:.3e} (limit 2e-3); kernel {ms:.3f} ms ({before}), "
+            f"at cg_iters 0 {ms0:.3f} ms (the CG: {ms - ms0:.3f} ms), plain "
+            f"{plain:.3f} ms, bound {bms:.4f} ms ({by}), {bms / ms:.0%} of "
+            f"the bound; {per_sm} blocks an SM (the kernel's occupancy "
+            f"query); {'OK' if ok else 'FAIL'}")
+        ok_all &= ok
+        res = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                   bound_by=by, library_ms=None, ms_cg0=ms0,
+                   blocks_per_sm=per_sm)
+        if out:
+            out.update({f"f32_{k}": v for k, v in res.items()})
+        else:
+            out = res
+        del a, x
+    return ok_all, out
 
 
 def gram_edges(cs):
@@ -841,40 +891,66 @@ def gathered_slabs(table_ext, ch, f2):
 
 
 def check_k8(cs, table_ext, ch, current, cfg, f2, label):
-    """K8 on the gathered G of one theta chunk: kernel vs plain, and
-    against K1's uncut kernel at f=256 on the same rows of a float32 copy
-    of the table (rtol 1e-5 + 1e-6: K8 keeps that FMA body, which K1
-    runs on a float32 table)."""
+    """K8 on the gathered G of one theta chunk, G gathered from the bf16
+    table and from a float32 copy of it: each against its plain version
+    (x 2e-3, se 1e-3 relative); the bf16 G (the two passes) equal bit
+    for bit to K1 at f=256 as routed on the bf16 table (-0 equals +0),
+    the float32 G (the FMA kernel) against K1's uncut kernel at f=256 on
+    the float32 copy (rtol 1e-5 + 1e-6: the same FMA body). The float32
+    numbers fill the entry (the kernel of csrc/fused_gram_cg_cat.cu,
+    whose launches it counts), the bf16 ones (the two passes) go under
+    bf16_*."""
     x0 = chunk_x0(ch, current)
-    g1, g2 = gathered_slabs(table_ext, ch, f2)
-    args = (g1, g2, ch.vals, ch.nnz, x0, cfg.lam)
     kw = dict(cg_iters=cfg.cg_iters, cg_tol=cfg.cg_tol)
-    x, se = cs.fused_gram_cg_cat(*args, **kw)
-    px, pse = cs.fused_gram_cg_cat_plain(*args, **kw)
-    err = (x - px).abs().max().item()
-    se_rel = ((se - pse).abs() / pse.abs().clamp_min(1.0)).max().item()
-    del px, pse
-    mx, mse = cs.gather_gram_cg(table_ext.float(), ch.cols, ch.vals, ch.nnz,
-                                x0, cfg.lam, spans=1, **kw)  # the FMA body
-    mono_ok = bool(((x - mx).abs() <= 1e-5 * mx.abs() + 1e-6).all()) and \
-        bool(((se - mse).abs() <= 1e-5 * mse.abs() + 1e-6).all())
-    mono_err = (x - mx).abs().max().item()
-    del mx, mse
-    ms = time_ms(lambda: cs.fused_gram_cg_cat(*args, **kw))
-    plain = time_ms(lambda: cs.fused_gram_cg_cat_plain(*args, **kw), reps=3)
     r, p = ch.cols.shape
-    slots = float(ch.nnz.sum().item())   # the Gram's upper triangle, as K1
-    bms, by = bound_ms(nbytes(g1, g2, ch.vals, ch.nnz, x0, x, se),
-                       slots * 256 * (256 + 8) + 2.0 * slots * 256, g1.dtype)
-    ok = err <= 2e-3 and se_rel <= 1e-3 and mono_ok
-    log(f"[K8 fused_gram_cg_cat f2={f2}] {label} chunk R={r} P={p}, G "
-        f"{g1.dtype}: max|dx|={err:.3e} (limit 2e-3), max rel dse="
-        f"{se_rel:.3e} (limit 1e-3), against K1 at f=256 max|dx|="
-        f"{mono_err:.3e} (limit rtol 1e-5 + 1e-6: {mono_ok}); kernel "
-        f"{ms:.3f} ms, plain {plain:.3f} ms, bound {bms:.4f} ms ({by}); "
-        f"{'OK' if ok else 'FAIL'}")
-    return ok, dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
-                    bound_by=by, library_ms=None)
+    ok_all, out = True, {}
+    for table in (table_ext, table_ext.float()):
+        g1, g2 = gathered_slabs(table, ch, f2)
+        args = (g1, g2, ch.vals, ch.nnz, x0, cfg.lam)
+        x, se = cs.fused_gram_cg_cat(*args, **kw)
+        px, pse = cs.fused_gram_cg_cat_plain(*args, **kw)
+        err = (x - px).abs().max().item()
+        se_rel = ((se - pse).abs() / pse.abs().clamp_min(1.0)).max().item()
+        del px, pse
+        if cs.cat_body(g1.dtype, f2) == "wgmma":
+            mx, mse = cs.gather_gram_cg(table, ch.cols, ch.vals, ch.nnz, x0,
+                                        cfg.lam, **kw)
+            same_ok = torch.equal(x, mx) and torch.equal(se, mse)
+            same = f"equal to K1 at f=256 routed on the bf16 table: {same_ok}"
+            route = "two passes, pass 1 on the tensor cores"
+        else:
+            mx, mse = cs.gather_gram_cg(table, ch.cols, ch.vals, ch.nnz, x0,
+                                        cfg.lam, spans=1, **kw)
+            same_ok = bool(((x - mx).abs() <= 1e-5 * mx.abs() + 1e-6).all()) \
+                and bool(((se - mse).abs() <= 1e-5 * mse.abs() + 1e-6).all())
+            same = (f"against K1's uncut kernel at f=256 max|dx|="
+                    f"{(x - mx).abs().max().item():.3e} (limit rtol 1e-5 + "
+                    f"1e-6: {same_ok})")
+            route = "uncut FMA kernel"
+        del mx, mse
+        ms = time_ms(lambda: cs.fused_gram_cg_cat(*args, **kw))
+        plain = time_ms(lambda: cs.fused_gram_cg_cat_plain(*args, **kw),
+                        reps=3)
+        slots = float(r * p)   # the Gram's upper triangle over every slot
+        bms, by = bound_ms(nbytes(g1, g2, ch.vals, ch.nnz, x0, x, se),
+                           slots * 256 * (256 + 8) + 2.0 * slots * 256,
+                           g1.dtype)
+        ok = err <= 2e-3 and se_rel <= 1e-3 and same_ok
+        before = f"before: {BEFORE_MS['K8']:.3f} ms" if \
+            g1.dtype == torch.bfloat16 and label == "theta most populous" \
+            else "before: not measured"
+        log(f"[K8 fused_gram_cg_cat f2={f2}] {label} chunk R={r} P={p}, G "
+            f"{g1.dtype} ({route}): max|dx|={err:.3e} (limit 2e-3), max "
+            f"rel dse={se_rel:.3e} (limit 1e-3), {same}; kernel {ms:.3f} ms "
+            f"({before}), plain {plain:.3f} ms, bound {bms:.4f} ms ({by}); "
+            f"{'OK' if ok else 'FAIL'}")
+        ok_all &= ok
+        res = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                   bound_by=by, library_ms=None)
+        prefix = "" if g1.dtype == torch.float32 else "bf16_"
+        out.update({f"{prefix}{k}": v for k, v in res.items()})
+        del g1, g2, args, x, se, table
+    return ok_all, out
 
 
 def queued_each(calls):
@@ -1631,34 +1707,57 @@ def wide_paths(cs, ALS, cfg, train, csc, test, small_train, small_test,
 
     # ---- 5d. K8's path: no route of ALS calls it (as in the JAX
     # package), so its public wrapper runs over every theta chunk on a G
-    # gathered with torch from a float32 copy of the table, each chunk
-    # held against K1 at f=256 on that copy (the FMA body, which K8 keeps)
+    # gathered with torch from the bf16 table (the two passes, pass 1 on
+    # the tensor cores reading the slabs, counted under their own names;
+    # the FMA kernel never), each chunk equal bit for bit to K1 at f=256
+    # as routed on that table; then the populous chunk once on a float32
+    # G (the FMA kernel, once) against K1's uncut kernel on a float32 copy
+    # of the table (the FMA body both keep)
     kw = dict(cg_iters=cfg_w.cg_iters, cg_tol=cfg_w.cg_tol)
-    x_ext32 = x_ext.float()
-    cs.reset_launch_counts()
-    worst = 0.0
     k8_ok = True
+    k8_launches = dict.fromkeys(("fused_gram_cg_cat",) + MMA_PASSES, 0)
     for ch in chunks_t:
         x0 = chunk_x0(ch, theta_t)
-        g1, g2 = gathered_slabs(x_ext32, ch, f2)
+        g1, g2 = gathered_slabs(x_ext, ch, f2)
+        cs.reset_launch_counts()
         x8, se8 = cs.fused_gram_cg_cat(g1, g2, ch.vals, ch.nnz, x0,
                                        cfg_w.lam, **kw)
+        torch.cuda.synchronize()
+        for k in k8_launches:
+            k8_launches[k] += cs.LAUNCHES[k]
         del g1, g2
-        x1, se1 = cs.gather_gram_cg(x_ext32, ch.cols, ch.vals, ch.nnz, x0,
-                                    cfg_w.lam, spans=1, **kw)
-        worst = max(worst, (x8 - x1).abs().max().item())
-        k8_ok &= bool(((x8 - x1).abs() <= 1e-5 * x1.abs() + 1e-6).all())
-        k8_ok &= bool(((se8 - se1).abs() <= 1e-5 * se1.abs() + 1e-6).all())
+        x1, se1 = cs.gather_gram_cg(x_ext, ch.cols, ch.vals, ch.nnz, x0,
+                                    cfg_w.lam, **kw)
+        k8_ok &= torch.equal(x8, x1) and torch.equal(se8, se1)
         k8_ok &= bool(torch.isfinite(x8).all())
-    torch.cuda.synchronize()
-    k8_launches = cs.LAUNCHES["fused_gram_cg_cat"]
-    del x_ext32
     log(f"[K8 path] fused_gram_cg_cat over the {len(chunks_t)} theta "
-        f"chunks, float32 G: {k8_launches} launches, max|x - x_K1|="
-        f"{worst:.3e} against K1 at f=256 on the float32 table (limit rtol "
-        f"1e-5 + 1e-6: {k8_ok})")
-    if k8_launches < len(chunks_t) or not k8_ok:
+        f"chunks, bf16 G: launches {k8_launches}, every chunk equal bit for "
+        f"bit to K1 at f=256 routed on the bf16 table: {k8_ok}")
+    if k8_launches["fused_gram_cg_cat"] or \
+            min(k8_launches[k] for k in MMA_PASSES) < len(chunks_t) or \
+            not k8_ok:
         raise AssertionError("K8 path failed")
+    x_ext32 = x_ext.float()
+    x0 = chunk_x0(populous, theta_t)
+    g1, g2 = gathered_slabs(x_ext32, populous, f2)
+    cs.reset_launch_counts()
+    x8, se8 = cs.fused_gram_cg_cat(g1, g2, populous.vals, populous.nnz, x0,
+                                   cfg_w.lam, **kw)
+    fma_ok = {k: v for k, v in cs.LAUNCHES.items() if v} == {
+        "fused_gram_cg_cat": 1}
+    k8_launches["fused_gram_cg_cat"] += cs.LAUNCHES["fused_gram_cg_cat"]
+    del g1, g2
+    x1, se1 = cs.gather_gram_cg(x_ext32, populous.cols, populous.vals,
+                                populous.nnz, x0, cfg_w.lam, spans=1, **kw)
+    worst = (x8 - x1).abs().max().item()
+    fma_ok &= bool(((x8 - x1).abs() <= 1e-5 * x1.abs() + 1e-6).all())
+    fma_ok &= bool(((se8 - se1).abs() <= 1e-5 * se1.abs() + 1e-6).all())
+    del x_ext32, x8, se8, x1, se1
+    log(f"[K8 path] theta most populous on a float32 G (the FMA kernel): "
+        f"max|x - x_K1|={worst:.3e} against K1's uncut kernel at f=256 on "
+        f"the float32 table (limit rtol 1e-5 + 1e-6: {fma_ok})")
+    if not fma_ok:
+        raise AssertionError("K8 path failed on a float32 G")
 
     results["gather_gram_cg"].update(
         {f"f256_{k}": v for k, v in k1_256.items()},
@@ -1676,7 +1775,13 @@ def wide_paths(cs, ALS, cfg, train, csc, test, small_train, small_test,
         "ALS.run F=130 f32 wide on, scale 0.01 (5b)"
     results["wide_span_gram"]["launches_path"] = \
         "ALS.run F=130 f32 wide on, scale 0.01 (5b)"
-    results["fused_gram_cg_cat"]["launches_path"] = "K8's path (5d)"
+    results["fused_gram_cg_cat"].update(
+        launches_path="K8's path (5d): the float32-G chunk; its "
+        f"{len(chunks_t)} bf16-G chunks launch the two passes "
+        "(launches_k8_path of wide_span_gram_mma and wide_span_solve)",
+        bf16_route="wide_span_gram_mma + wide_span_solve")
+    for k in MMA_PASSES:
+        results[k]["launches_k8_path"] = k8_launches[k]
     results["gather_gram_cg_wide"]["phase_totals"] = {
         label: v for (kf2, label), v in totals.items() if kf2}
     results["gather_gram_cg"]["f256_phase_totals"] = {
@@ -1684,7 +1789,7 @@ def wide_paths(cs, ALS, cfg, train, csc, test, small_train, small_test,
     f32_on = small_launches["f32 wide on"]
     return {"gather_gram_cg_wide": f32_on["gather_gram_cg_wide"],
             "wide_span_gram": f32_on["wide_span_gram"],
-            "fused_gram_cg_cat": k8_launches,
+            "fused_gram_cg_cat": k8_launches["fused_gram_cg_cat"],
             **{k: launches_on[k] for k in MMA_PASSES}}
 
 

@@ -4,13 +4,12 @@
 // Replaces the TPU kernel `_kernel_cat` of
 // cumf_als_tpu/ops/pallas_solve.py, reached through `fused_gram_cg_cat`:
 // G arrives as two slabs, g1 (R, P, 128) and the packed remainder
-// g2 (R, P, f2), is joined to 256 lanes (lanes >= 128 + f2 zero) while
-// it is staged, and the body is the monolithic one of gather_gram_cg.cu
-// at f = 256. Unlike the other fused kernels this one gathers nothing:
-// the JAX package has no gather wrapper for it, so it keeps the contract
-// of `fused_gram_cg_cat` and reads G from device memory.
+// g2 (R, P, f2), joined to 256 lanes (lanes >= 128 + f2 zero). Unlike
+// the other fused kernels this one gathers nothing: the JAX package has
+// no gather wrapper for it, so it keeps the contract of
+// `fused_gram_cg_cat` and reads G from device memory.
 //
-// Per row r (one thread block each), over all P slots:
+// Per row r, over all P slots (not only nnz):
 //   g = [g1, g2, 0]  (256 lanes)
 //   A = sum_p g g^T (f32), b = sum_p v g, r2 = sum_p v^2
 //   A += (nnz*lam + [nnz == 0]) I
@@ -20,10 +19,19 @@
 //
 // Bound on an H100: bytes. G is read once, R * P * (128 + f2) elements
 // (1.9 GB for 16,384 rows of 256 slots in bf16 at f2 = 96: 0.56 ms at
-// 3.35 TB/s), against 2 * R * P * 256^2 FLOPs. What this design does
-// about it: G streams through the 32-slot staging tile once; the Gram is
-// the triangle of register tiles of wide.cuh (f32 FMAs), not yet fast
-// enough for the bytes to matter.
+// 3.35 TB/s), against 2 * R * P * 256^2 FLOPs.
+// What the design does about it. A bf16 G whose f2 is a multiple of 32
+// (what `wide_f2` gives) runs as K1 at 256 lanes does on a bf16 table:
+// the two passes of the row cut, pass 1 on the tensor cores
+// (wide_span_gram_mma.cu, reading the slabs where K1 gathers the table,
+// every slot up to P) into records of all 256 lanes, pass 2
+// (wide_span_solve.cu, every span live) adding them in span order and
+// solving; ops/cuda_solve.py `fused_gram_cg_cat` takes that route, and
+// on a G gathered from a bf16 table (zero past nnz) its result equals
+// K1's bit for bit. This file is the rest: a float32 G (which bf16
+// tensor cores would round) or another f2, one block a row, G streamed
+// through the 32-slot staging tile of wide.cuh once, the Gram on the
+// triangle of register tiles (f32 FMAs), which the FMA rate bounds.
 
 #include "wide.cuh"
 

@@ -9,7 +9,17 @@
 //
 // Replaces, with pass 2, the TPU kernel `_kernel_wide` (and `_kernel` at
 // 256 lanes) of cumf_als_tpu/ops/pallas_solve.py, reached through
-// `gather_gram_cg_wide` and `gather_gram_cg`.
+// `gather_gram_cg_wide` and `gather_gram_cg`, and `_kernel_cat`, reached
+// through `fused_gram_cg_cat` (K8, see fused_gram_cg_cat.cu).
+//
+// Two sources (template PACKED). The gather (K1, K7): slot t of a row
+// names table row cols[t], whose 256 lanes are one contiguous row of the
+// table. The packed G of K8: the row's slots are already gathered into
+// two slabs, g1 (R, P, 128) and g2 (R, P, f2), so slot t's lanes 0..127
+// are g1's row r * P + t and lanes 128..128 + f2 - 1 g2's; lanes above
+// are zero (their pieces are zero-filled, as dead lanes are). No ids are
+// read, and a span of a packed row covers every slot up to P, not up to
+// nnz: K8 sums G over all P slots (`_kernel_cat`); FL = 256 there.
 //
 // The work. Span s of row r covers slots [lo, hi) = [s L, min((s + 1) L,
 // nnz[r], P)) of the row (the plans put a row's live slots first); over
@@ -80,19 +90,22 @@ __device__ __forceinline__ Smem& aligned_smem(unsigned char* raw) {
   return *reinterpret_cast<Smem*>(p);
 }
 
-template <int T, typename VT>
+// table: the gather table, or g1 when PACKED; g2 and f2: the second slab
+// when PACKED (unused otherwise), cols and nnz: unused when PACKED.
+template <int T, typename VT, bool PACKED>
 __global__ void __launch_bounds__(mma::kThreads, 2)
     wide_span_gram_mma_kernel(const __nv_bfloat16* __restrict__ table,
+                              const __nv_bfloat16* __restrict__ g2,
                               const int32_t* __restrict__ cols,
                               const VT* __restrict__ vals,
                               const int32_t* __restrict__ nnz,
                               float* __restrict__ part, int p,
-                              int span_len) {
+                              int span_len, int f2) {
   constexpr int FL = cumf::wide::Shape<T>::FL;
   using Rec = cumf::wide::SpanRecord<T>;
   const int64_t row = blockIdx.x;
   const int blk = blockIdx.z;  // 0: (0, 0), 1: (0, 1), 2: (1, 1)
-  const int n = min(__ldg(nnz + row), p);
+  const int n = PACKED ? p : min(__ldg(nnz + row), p);
   const int lo = (int)blockIdx.y * span_len;
   if (lo >= n) return;  // a dead span: the same answer for every thread
   const int len = min(span_len, n - lo);
@@ -110,18 +123,23 @@ __global__ void __launch_bounds__(mma::kThreads, 2)
   // the lanes of the X tile, and whether this thread's piece of the X and
   // the Y tile is live (FL is a multiple of 32: a piece is live or dead)
   const int x_lane = blk == 2 ? mma::kF : 0;
-  const bool x_live = x_lane + piece * 8 < FL;
-  const bool y_live = mma::kF + piece * 8 < FL;
-  const int32_t* row_cols = cols + row * p + lo;
+  const bool y_live =
+      PACKED ? piece * 8 < f2 : mma::kF + piece * 8 < FL;
+  const bool x_live = PACKED ? blk != 2 || y_live : x_lane + piece * 8 < FL;
+  const int32_t* row_cols = PACKED ? nullptr : cols + row * p + lo;
   const VT* row_vals = vals + row * p + lo;
   const uint32_t tiles_s = mma::smem_u32(&s.tiles[0][0][0]);
 
-  // ids of tile q's slots, -1 beyond the span
+  // ids of tile q's slots (PACKED: the slots' places in the span), -1
+  // beyond the span
   auto load_ids = [&](int q, int (&id)[mma::kSlotsPerThread]) {
 #pragma unroll
     for (int i = 0; i < mma::kSlotsPerThread; ++i) {
       const int t = q * mma::kSlots + slot0 + i;
-      id[i] = q < tiles && t < len ? __ldg(row_cols + t) : -1;
+      if constexpr (PACKED)
+        id[i] = q < tiles && t < len ? t : -1;
+      else
+        id[i] = q < tiles && t < len ? __ldg(row_cols + t) : -1;
     }
   };
   auto load_vals = [&](int q, float (&v)[mma::kSlotsPerThread]) {
@@ -139,13 +157,27 @@ __global__ void __launch_bounds__(mma::kThreads, 2)
 #pragma unroll
       for (int i = 0; i < mma::kSlotsPerThread; ++i) {
         const bool live = id[i] >= 0;
-        const __nv_bfloat16* src =
-            table + (int64_t)(live ? id[i] : 0) * kRowLanes + piece * 8;
         const uint32_t dst = base + mma::tile_offset(slot0 + i, piece * 8);
-        mma::cp_async16(dst, src + x_lane, live && x_live ? 16 : 0);
-        if (off_diag)
-          mma::cp_async16(dst + mma::kTileBytes, src + mma::kF,
-                          live && y_live ? 16 : 0);
+        if constexpr (PACKED) {
+          // slot (row, lo + id) of the two slabs; a dead piece of g2
+          // points at the slot's first, and reads nothing
+          const int64_t slot = row * p + lo + (live ? id[i] : 0);
+          const __nv_bfloat16* lo_half = table + slot * mma::kF + piece * 8;
+          const __nv_bfloat16* hi_half =
+              g2 + slot * f2 + (y_live ? piece * 8 : 0);
+          mma::cp_async16(dst, blk == 2 ? hi_half : lo_half,
+                          live && x_live ? 16 : 0);
+          if (off_diag)
+            mma::cp_async16(dst + mma::kTileBytes, hi_half,
+                            live && y_live ? 16 : 0);
+        } else {
+          const __nv_bfloat16* src =
+              table + (int64_t)(live ? id[i] : 0) * kRowLanes + piece * 8;
+          mma::cp_async16(dst, src + x_lane, live && x_live ? 16 : 0);
+          if (off_diag)
+            mma::cp_async16(dst + mma::kTileBytes, src + mma::kF,
+                            live && y_live ? 16 : 0);
+        }
       }
     }
     mma::cp_async_commit();
@@ -285,40 +317,47 @@ __global__ void __launch_bounds__(mma::kThreads, 2)
   }
 }
 
-template <int T, typename VT>
-int launch(const void* table, const void* cols, const void* vals,
-           const void* nnz, void* part, int r, int p, int spans,
-           int span_len, cudaStream_t stream) {
+template <int T, typename VT, bool PACKED>
+int launch(const void* table, const void* g2, const void* cols,
+           const void* vals, const void* nnz, void* part, int r, int p,
+           int spans, int span_len, int f2, cudaStream_t stream) {
   // the ring is dynamic shared memory above 48 KB: allowed once per
   // instantiation
   static const cudaError_t allowed = cudaFuncSetAttribute(
-      wide_span_gram_mma_kernel<T, VT>,
+      wide_span_gram_mma_kernel<T, VT, PACKED>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (allowed != cudaSuccess) return (int)allowed;
-  wide_span_gram_mma_kernel<T, VT>
+  wide_span_gram_mma_kernel<T, VT, PACKED>
       <<<dim3(r, spans, 3), mma::kThreads, kSmemBytes, stream>>>(
-          (const __nv_bfloat16*)table, (const int32_t*)cols,
-          (const VT*)vals, (const int32_t*)nnz, (float*)part, p, span_len);
+          (const __nv_bfloat16*)table, (const __nv_bfloat16*)g2,
+          (const int32_t*)cols, (const VT*)vals, (const int32_t*)nnz,
+          (float*)part, p, span_len, f2);
   return (int)cudaGetLastError();
 }
 
 template <typename VT>
-int dispatch(int fl, const void* table, const void* cols, const void* vals,
-             const void* nnz, void* part, int r, int p, int spans,
-             int span_len, cudaStream_t stream) {
+int dispatch(int fl, const void* table, const void* g2, const void* cols,
+             const void* vals, const void* nnz, void* part, int r, int p,
+             int spans, int span_len, int f2, cudaStream_t stream) {
+  if (g2 != nullptr) {  // the packed G of K8: 256 lanes, f2 in 32..128
+    if (fl != 256 || f2 < 32 || f2 > 128 || f2 % 32)
+      return (int)cudaErrorInvalidValue;
+    return launch<32, VT, true>(table, g2, cols, vals, nnz, part, r, p,
+                                spans, span_len, f2, stream);
+  }
   switch (fl) {  // T = FL / 8
     case 160:
-      return launch<20, VT>(table, cols, vals, nnz, part, r, p, spans,
-                            span_len, stream);
+      return launch<20, VT, false>(table, g2, cols, vals, nnz, part, r, p,
+                                   spans, span_len, f2, stream);
     case 192:
-      return launch<24, VT>(table, cols, vals, nnz, part, r, p, spans,
-                            span_len, stream);
+      return launch<24, VT, false>(table, g2, cols, vals, nnz, part, r, p,
+                                   spans, span_len, f2, stream);
     case 224:
-      return launch<28, VT>(table, cols, vals, nnz, part, r, p, spans,
-                            span_len, stream);
+      return launch<28, VT, false>(table, g2, cols, vals, nnz, part, r, p,
+                                   spans, span_len, f2, stream);
     case 256:
-      return launch<32, VT>(table, cols, vals, nnz, part, r, p, spans,
-                            span_len, stream);
+      return launch<32, VT, false>(table, g2, cols, vals, nnz, part, r, p,
+                                   spans, span_len, f2, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -326,17 +365,21 @@ int dispatch(int fl, const void* table, const void* cols, const void* vals,
 
 }  // namespace
 
-// table: (n + 1, 256) bf16, rows on 16-byte boundaries; span_len a
-// multiple of 64 (mma::kSlots).
-extern "C" int cumf_wide_span_gram_mma(const void* table, const void* cols,
-                                       const void* vals, int vals_bf16,
-                                       const void* nnz, void* part, int r,
-                                       int p, int fl, int spans,
-                                       int span_len, void* stream) {
+// The gather (g2 null): table (n + 1, 256) bf16, rows on 16-byte
+// boundaries, cols and nnz as K1 takes them. The packed G of K8 (g2 not
+// null): table is g1 (R, P, 128), g2 (R, P, f2) bf16, both on 16-byte
+// boundaries, f2 a multiple of 32, fl 256; cols and nnz are not read.
+// span_len a multiple of 64 (mma::kSlots).
+extern "C" int cumf_wide_span_gram_mma(const void* table, const void* g2,
+                                       const void* cols, const void* vals,
+                                       int vals_bf16, const void* nnz,
+                                       void* part, int r, int p, int fl,
+                                       int f2, int spans, int span_len,
+                                       void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (vals_bf16)
-    return dispatch<__nv_bfloat16>(fl, table, cols, vals, nnz, part, r, p,
-                                   spans, span_len, st);
-  return dispatch<float>(fl, table, cols, vals, nnz, part, r, p, spans,
-                         span_len, st);
+    return dispatch<__nv_bfloat16>(fl, table, g2, cols, vals, nnz, part, r,
+                                   p, spans, span_len, f2, st);
+  return dispatch<float>(fl, table, g2, cols, vals, nnz, part, r, p, spans,
+                         span_len, f2, st);
 }

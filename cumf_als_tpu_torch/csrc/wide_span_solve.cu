@@ -5,10 +5,13 @@
 //   x[:FL] = CG(A, b, x0[:FL]) * [nnz > 0],  x[FL:] = 0 exactly
 //   se = max(r2 - 2 x.b + x^T (A - diag I) x, 0)
 // Span s of row r is live iff s * span_len < min(nnz[r], P); a row
-// without slots has none and solves to x = 0, se = 0.
+// without slots has none and solves to x = 0, se = 0. With all_slots
+// (K8, whose pass 1 sums every slot of a packed G up to P) every span is
+// live, and nnz sets only the regularizer and the [nnz > 0] mask.
 //
 // Replaces, with pass 1, the TPU kernel `_kernel_wide` (and `_kernel` at
-// 256 lanes) of cumf_als_tpu/ops/pallas_solve.py (see wide_span_gram.cu).
+// 256 lanes, and `_kernel_cat`) of cumf_als_tpu/ops/pallas_solve.py (see
+// wide_span_gram.cu and wide_span_gram_mma.cu).
 // Bound on an H100: the bytes of the records it reads (136 KB a live span
 // at FL = 256) and of x0, x and se. What this design does about it:
 // every thread reads its own tile's 64 entries, 256 contiguous bytes of
@@ -25,11 +28,11 @@ __global__ void __launch_bounds__(cumf::wide::Shape<T>::THREADS)
                            const float* __restrict__ x0,
                            float* __restrict__ x_out,
                            float* __restrict__ se_out, int p, int spans,
-                           int span_len, float lam, int cg_iters,
-                           float cg_tol) {
+                           int span_len, int all_slots, float lam,
+                           int cg_iters, float cg_tol) {
   __shared__ cumf::wide::Smem<T> s;
   const int64_t row = blockIdx.x;
-  const int n = min(nnz[row], p);
+  const int n = all_slots ? p : min(nnz[row], p);
   const int live = min(spans, (n + span_len - 1) / span_len);
   cumf::wide::span_solve<T>(
       s, part + row * spans * cumf::wide::SpanRecord<T>::SIZE, live,
@@ -42,16 +45,16 @@ __global__ void __launch_bounds__(cumf::wide::Shape<T>::THREADS)
 extern "C" int cumf_wide_span_solve(const void* part, const void* nnz,
                                     const void* x0, void* x_out,
                                     void* se_out, int r, int p, int fl,
-                                    int spans, int span_len, float lam,
-                                    int cg_iters, float cg_tol,
+                                    int spans, int span_len, int all_slots,
+                                    float lam, int cg_iters, float cg_tol,
                                     void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
 #define CUMF_LAUNCH(T)                                                    \
   wide_span_solve_kernel<T>                                               \
       <<<r, cumf::wide::Shape<T>::THREADS, 0, st>>>(                      \
           (const float*)part, (const int32_t*)nnz, (const float*)x0,      \
-          (float*)x_out, (float*)se_out, p, spans, span_len, lam,         \
-          cg_iters, cg_tol)
+          (float*)x_out, (float*)se_out, p, spans, span_len, all_slots,   \
+          lam, cg_iters, cg_tol)
   switch (fl) {  // T = FL / 8
     case 160: CUMF_LAUNCH(20); break;
     case 192: CUMF_LAUNCH(24); break;

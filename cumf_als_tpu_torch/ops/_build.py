@@ -35,7 +35,8 @@ KERNELS = {
                         [_VP, _I, _VP, _VP, _I, _VP, _I, _VP,
                          _I, _I, _I, _VP]),
     "solve_cg_reg": ("cumf_solve_cg_reg",
-                     [_VP, _I, _VP, _VP, _VP, _VP, _I, _I, _I, _F, _VP]),
+                     [_VP, _I, _VP, _VP, _VP, _VP, _I, _I, _I, _F, _I,
+                      _VP]),
     "solve_cg": ("cumf_solve_cg",
                  [_VP, _I, _VP, _VP, _VP, _I, _I, _I, _F, _VP]),
     "gather_gram_aug_out": ("cumf_gather_gram_aug_out",
@@ -56,13 +57,21 @@ KERNELS = {
                        [_VP, _I, _VP, _VP, _I, _VP, _VP,
                         _I, _I, _I, _I, _I, _VP]),
     "wide_span_gram_mma": ("cumf_wide_span_gram_mma",
-                           [_VP, _VP, _VP, _I, _VP, _VP,
-                            _I, _I, _I, _I, _I, _VP]),
+                           [_VP, _VP, _VP, _VP, _I, _VP, _VP,
+                            _I, _I, _I, _I, _I, _I, _VP]),
     "wide_span_solve": ("cumf_wide_span_solve",
                         [_VP, _VP, _VP, _VP, _VP,
-                         _I, _I, _I, _I, _I, _F, _I, _F, _VP]),
+                         _I, _I, _I, _I, _I, _I, _F, _I, _F, _VP]),
 }
-HEADERS = ("common.cuh", "wide.cuh", "gram_mma.cuh", "frag_cg.cuh")
+# query name -> the kernel whose library holds it, its C entry point and
+# its argument types (a query launches nothing and counts no launch)
+QUERIES = {
+    "solve_cg_reg_blocks_per_sm": ("solve_cg_reg",
+                                   "cumf_solve_cg_reg_blocks_per_sm",
+                                   [_I, _I, _VP]),
+}
+HEADERS = ("common.cuh", "wide.cuh", "gram_mma.cuh", "frag_cg.cuh",
+           "bulk_cg.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -131,12 +140,14 @@ def build(names: Optional[Iterable[str]] = None, force: bool = False,
 
 
 def load(name: str):
-    """The C entry point of kernel `name`, built first if needed."""
+    """The C entry point of kernel `name`, or of query `name` in its
+    kernel's library, built first if needed."""
     fn = _loaded.get(name)
     if fn is None:
-        build([name])
-        symbol, argtypes = KERNELS[name]
-        fn = getattr(ctypes.CDLL(_lib_path(name)), symbol)
+        lib, symbol, argtypes = (name, *KERNELS[name]) if name in KERNELS \
+            else QUERIES[name]
+        build([lib])
+        fn = getattr(ctypes.CDLL(_lib_path(lib)), symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _loaded[name] = fn

@@ -13,9 +13,9 @@ wrapper                      TPU kernel it replaces      CUDA source
 ``gather_gram_cg(aug=True)`` ``_kernel_aug``             csrc/gather_gram_cg_aug.cu
 ``gather_gram_cg_wide``      ``_kernel_wide``            csrc/gather_gram_cg_wide.cu
 ``fused_gram_cg_cat``        ``_kernel_cat``             csrc/fused_gram_cg_cat.cu
-(K1 at f = 256 and K7 in     ``_kernel_wide``,           csrc/wide_span_gram.cu
-two passes: pass 1 FMA or    ``_kernel`` at 256 lanes    or wide_span_gram_mma.cu,
-tensor cores, then pass 2)                               csrc/wide_span_solve.cu
+(K1 at f = 256, K7 and K8    ``_kernel_wide``,           csrc/wide_span_gram.cu
+in two passes: pass 1 FMA    ``_kernel`` at 256 lanes,   or wide_span_gram_mma.cu,
+or tensor cores, pass 2)     ``_kernel_cat``             csrc/wide_span_solve.cu
 ===========================  ==========================  ==========================
 
 (TPU kernels: cumf_als_tpu/ops/pallas_solve.py.) Each wrapper takes its
@@ -74,8 +74,17 @@ record's bytes, no longer the FMA rate. A float32 table keeps the FMA
 body: one block a row (the uncut kernels), or on a chunk with fewer rows
 than the card has SMs the cut with pass 1 on the FMA body
 (``wide_span_gram``). The records of one launch stay under
-`SPAN_SCRATCH_BYTES` (a chunk is cut into batches of rows). K8 keeps the
-uncut FMA body. Each pass counts its own launches.
+`SPAN_SCRATCH_BYTES` (a chunk is cut into batches of rows). K8 takes
+the same two passes for a bf16 G whose f2 is a multiple of 32
+(`cat_body`): pass 1 reads the two slabs g1 and g2 where the gather
+reads the table, and sums every slot up to P, as `_kernel_cat` does; a
+float32 G keeps the uncut FMA body. Each pass counts its own launches.
+
+K3 (``solve_cg_reg``) runs persistent blocks (`cg_reg_grid`) that bring
+each system's A, b and x0 into a ring of two shared-memory stages with
+bulk-async copies and run the CG with A in registers and two block-wide
+barriers a step (csrc/bulk_cg.cuh); K4 and K5b keep the
+one-block-a-system CG of csrc/common.cuh.
 
 The row gather runs inside the kernels, so the wrappers keep the
 contracts of the JAX wrappers (`gather_gram_cg`, `gather_gram_out`,
@@ -87,6 +96,7 @@ Importing this module builds and loads nothing (see ops/_build.py).
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Dict, Optional, Tuple
 
@@ -456,10 +466,44 @@ def solve_cg_reg_plain(a, diag, b, x0, cg_iters: int = 6,
     return cg_loop_plain(af, b.float(), x0.float(), cg_iters, cg_tol)
 
 
+@functools.lru_cache(maxsize=None)
+def _cg_reg_blocks_per_sm(index: int, f: int, a_bf16: int) -> int:
+    out = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = _build.load("solve_cg_reg_blocks_per_sm")(
+            f, a_bf16, ctypes.addressof(out))
+    if err or out.value < 1:
+        raise RuntimeError(f"solve_cg_reg: occupancy query at f = {f}: "
+                           f"CUDA error {err}, {out.value} blocks an SM")
+    return out.value
+
+
+def cg_reg_blocks_per_sm(device, f: int, dtype: torch.dtype) -> int:
+    """Blocks of K3 at this f and A dtype that fit one SM of the card
+    `device` names, as the kernel's own occupancy query gives them from
+    its registers and shared memory (csrc/solve_cg_reg.cu): two at
+    f = 128 with a bf16 A, one with an f32 A (two rings of two stages
+    pass the SM's shared memory), more at smaller f (three at f = 96
+    with an f32 A)."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    return _cg_reg_blocks_per_sm(index, f, int(dtype == torch.bfloat16))
+
+
+def cg_reg_grid(r: int, sms: int, per_sm: int) -> int:
+    """Persistent blocks of one K3 launch over R systems: one a system up
+    to the blocks that fit the card at once, `per_sm` on each of `sms`
+    SMs; above that each block walks R / grid systems."""
+    return max(1, min(r, per_sm * sms))
+
+
 def solve_cg_reg(a, diag, b, x0, cg_iters: int = 6, cg_tol: float = 1e-4):
     """Batched CG on the raw Gram plus a per-system diagonal
     (pallas_solve.solve_cg_pallas with diag). a (R, f, f) f32/bf16,
-    diag (R,) f32, b and x0 (R, f) f32. Returns x (R, f) f32."""
+    diag (R,) f32, b and x0 (R, f) f32. Returns x (R, f) f32. On a card
+    the kernel copies each system's A, b and x0 whole into shared memory
+    (csrc/bulk_cg.cuh): their storage must start on 16-byte
+    boundaries."""
     if _on_cpu(a, diag, b, x0):
         return solve_cg_reg_plain(a, diag, b, x0, cg_iters, cg_tol)
     r, f, _ = a.shape
@@ -468,11 +512,17 @@ def solve_cg_reg(a, diag, b, x0, cg_iters: int = 6, cg_tol: float = 1e-4):
     _check("diag", diag, (r,), (torch.float32,))
     _check("b", b, (r, f), (torch.float32,))
     _check("x0", x0, (r, f), (torch.float32,))
+    for name, t in (("a", a), ("b", b), ("x0", x0)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"solve_cg_reg: the storage of {name} must "
+                             f"start on a 16-byte boundary")
     x = torch.empty((r, f), dtype=torch.float32, device=a.device)
     if r:
+        grid = cg_reg_grid(r, _sms(a.device),
+                           cg_reg_blocks_per_sm(a.device, f, a.dtype))
         _launch("solve_cg_reg", a.data_ptr(), _bf16(a), diag.data_ptr(),
                 b.data_ptr(), x0.data_ptr(), x.data_ptr(), r, f,
-                int(cg_iters), float(cg_tol))
+                int(cg_iters), float(cg_tol), grid)
     return x
 
 
@@ -730,10 +780,12 @@ def span_plan(table_ext: torch.Tensor) -> Dict[str, int]:
     Netflix F=200 plans, on an H100 SXM at 700 W, K7 took 18.8 ms at
     target 1 and min_tiles 8 against 22.7 at the FMA body's 4 and 4
     (PERF.md, the sweep; scripts/torch_wide_span_sweep.py)."""
-    if gram_body(table_ext) == "wgmma":
-        return dict(tile=SPAN_TILE_MMA, min_tiles=8, target=1,
-                    max_tiles=SPAN_MAX_TILES_MMA)
-    return dict(tile=SPAN_TILE)
+    return dict(_SPAN_PLANS[gram_body(table_ext)])
+
+
+_SPAN_PLANS = {"wgmma": dict(tile=SPAN_TILE_MMA, min_tiles=8, target=1,
+                             max_tiles=SPAN_MAX_TILES_MMA),
+               "fma": dict(tile=SPAN_TILE)}
 
 
 def _cut(tiles: int, want: int, tile: int) -> Tuple[int, int]:
@@ -777,6 +829,13 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def _sms(device) -> int:
+    """The SM count of the card `device` names (its current one if none)."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    return _sm_count(index)
+
+
 def _check_spans(name: str, spans, allowed: bool) -> None:
     if spans is None:
         return
@@ -792,9 +851,7 @@ def _chunk_spans(device, r: int, p: int, spans, tile: int = SPAN_TILE,
     """`row_spans` on this card in tiles of `tile` slots with the other
     keywords of `span_plan`, or the cut `spans` forces."""
     if spans is None:
-        index = device.index if device.index is not None else \
-            torch.cuda.current_device()
-        return row_spans(r, p, _sm_count(index), tile, **plan)
+        return row_spans(r, p, _sms(device), tile, **plan)
     return _cut(-(-p // tile), int(spans), tile)
 
 
@@ -914,9 +971,10 @@ def span_grams(table_ext, cols, vals, nnz, fl: int, spans: int,
         return part
     if gram_body(table_ext) == "wgmma":
         _check_gram_table(table_ext, cols)
-        _launch("wide_span_gram_mma", table_ext.data_ptr(), cols.data_ptr(),
-                vals.data_ptr(), _bf16(vals), nnz.data_ptr(),
-                part.data_ptr(), r, p, fl, spans, span_len)
+        _launch("wide_span_gram_mma", table_ext.data_ptr(), None,
+                cols.data_ptr(), vals.data_ptr(), _bf16(vals),
+                nnz.data_ptr(), part.data_ptr(), r, p, fl, 0, spans,
+                span_len)
     else:
         _launch("wide_span_gram", table_ext.data_ptr(), _bf16(table_ext),
                 cols.data_ptr(), vals.data_ptr(), _bf16(vals),
@@ -925,13 +983,16 @@ def span_grams(table_ext, cols, vals, nnz, fl: int, spans: int,
 
 
 def span_solve(part, nnz, x0, lam: float, p: int, span_len: int,
-               cg_iters: int = 6, cg_tol: float = 1e-4):
+               cg_iters: int = 6, cg_tol: float = 1e-4,
+               all_slots: bool = False):
     """Pass 2 of the row cut: each row's live records of `part` (from
     `span_grams` over P = `p` slots) summed in span order, the
     regularized CG from x0 (R, 256) f32 and the train error, as
     `gather_gram_cg_wide` and `gather_gram_cg` at f = 256 return them:
-    x (R, 256) with lanes >= fl exactly 0, and se (R, 1). Card tensors
-    only."""
+    x (R, 256) with lanes >= fl exactly 0, and se (R, 1). A span is live
+    below min(nnz, P), or with `all_slots` (K8's records from
+    `cat_span_grams`, over every slot) below P; nnz sets the regularizer
+    either way. Card tensors only."""
     r, spans, size = part.shape
     sizes = {span_record_floats(fl): fl for fl in (160, 192, 224, 256)}
     if size not in sizes:
@@ -946,8 +1007,8 @@ def span_solve(part, nnz, x0, lam: float, p: int, span_len: int,
     if r:
         _launch("wide_span_solve", part.data_ptr(), nnz.data_ptr(),
                 x0.data_ptr(), x.data_ptr(), se.data_ptr(), r, int(p), fl,
-                spans, int(span_len), float(lam), int(cg_iters),
-                float(cg_tol))
+                spans, int(span_len), int(all_slots), float(lam),
+                int(cg_iters), float(cg_tol))
     return x, se
 
 
@@ -959,24 +1020,34 @@ def row_batches(spans: int, fl: int,
     return max(1, budget // (spans * span_record_floats(fl) * 4))
 
 
-def _row_cut(table_ext, cols, vals, nnz, x0, lam, fl, spans, span_len,
-             cg_iters, cg_tol):
-    """The two passes over a chunk, in batches of `row_batches` rows."""
-    r = cols.shape[0]
+def _two_passes(grams, nnz, x0, lam, fl, p, spans, span_len, cg_iters,
+                cg_tol, all_slots=False):
+    """The two passes over a chunk of P = `p` slots a row, in batches of
+    `row_batches` rows: grams(lo, hi) is pass 1 over rows [lo, hi)."""
+    r = x0.shape[0]
     step = row_batches(spans, fl)
     xs, ses = [], []
     for lo in range(0, r, step):
         hi = min(lo + step, r)
-        part = span_grams(table_ext, cols[lo:hi], vals[lo:hi], nnz[lo:hi],
-                          fl, spans, span_len)
-        x, se = span_solve(part, nnz[lo:hi], x0[lo:hi], lam, cols.shape[1],
-                           span_len, cg_iters, cg_tol)
+        part = grams(lo, hi)
+        x, se = span_solve(part, nnz[lo:hi], x0[lo:hi], lam, p, span_len,
+                           cg_iters, cg_tol, all_slots)
         del part
         xs.append(x)
         ses.append(se)
     if len(xs) == 1:
         return xs[0], ses[0]
     return torch.cat(xs), torch.cat(ses)
+
+
+def _row_cut(table_ext, cols, vals, nnz, x0, lam, fl, spans, span_len,
+             cg_iters, cg_tol):
+    """The two passes over a chunk gathered from a table (K1, K7)."""
+    def grams(lo, hi):
+        return span_grams(table_ext, cols[lo:hi], vals[lo:hi], nnz[lo:hi],
+                          fl, spans, span_len)
+    return _two_passes(grams, nnz, x0, lam, fl, cols.shape[1], spans,
+                       span_len, cg_iters, cg_tol)
 
 
 @full_f32()
@@ -995,14 +1066,101 @@ def fused_gram_cg_cat_plain(g1, g2, vals, nnz, x0, lam: float,
     return _solve_and_se(a, b, r2, nnz, x0, lam, cg_iters, cg_tol)
 
 
-def fused_gram_cg_cat(g1, g2, vals, nnz, x0, lam: float, cg_iters: int = 6,
+def cat_body(dtype: torch.dtype, f2: int) -> str:
+    """Which body K8 runs on a card, by G's dtype and f2 alone: "wgmma"
+    (the two passes of the row cut, pass 1 on the tensor cores reading
+    the two slabs, `cat_span_grams`, then `span_solve` over all 256
+    lanes) for a bf16 G whose f2 is a multiple of 32, as `wide_f2` gives
+    it; "fma" (the uncut kernel of csrc/fused_gram_cg_cat.cu) for a
+    float32 G, which bf16 tensor cores would round, and for any other
+    f2. A caller cannot choose, and neither gives way to the other."""
+    if dtype == torch.bfloat16 and f2 % 32 == 0:
+        return "wgmma"
+    return "fma"
+
+
+@full_f32()
+def cat_span_gram_plain(g1, g2, vals, lo: int, hi: int):
+    """Plain version of pass 1 on a packed G (``cat_span_grams``) for
+    one span: the dense A (R, 256, 256), b (R, 256) and r2 (R, 1) of
+    slots [lo, min(hi, P)) of each row, every slot whatever nnz, lanes
+    >= 128 + f2 zero."""
+    r = g1.shape[0]
+    g1, g2 = g1[:, lo:hi], g2[:, lo:hi]
+    g = torch.cat([g1, g2, g1.new_zeros((r, g1.shape[1],
+                                         128 - g2.shape[2]))], dim=2).float()
+    v = vals[:, lo:hi].float()
+    a = torch.einsum("rpf,rpg->rfg", g, g)
+    b = torch.einsum("rp,rpf->rf", v, g)
+    return a, b, (v * v).sum(-1, keepdim=True)
+
+
+def cat_row_cut_plain(g1, g2, vals, nnz, x0, lam: float, spans: int,
+                      span_len: int, cg_iters: int = 6,
                       cg_tol: float = 1e-4):
+    """The CPU reference of K8's route on the card: `cat_span_gram_plain`
+    over spans 0 .. spans - 1 of `span_len` slots, then
+    `span_solve_plain` on the 256 lanes."""
+    parts = [cat_span_gram_plain(g1, g2, vals, s * span_len,
+                                 (s + 1) * span_len) for s in range(spans)]
+    return span_solve_plain(parts, nnz, x0, lam, cg_iters, cg_tol)
+
+
+def cat_span_grams(g1, g2, vals, spans: int, span_len: int) -> torch.Tensor:
+    """Pass 1 of K8's route: the records (R, spans,
+    span_record_floats(256)) of the Gram of every span of a packed bf16
+    G, span s of a row over slots [s L, min((s + 1) L, P)), every slot
+    whatever nnz (``wide_span_gram_mma`` reading g1 and g2 where the
+    gather reads the table). g1 (R, P, 128) and g2 (R, P, f2) bf16 on
+    16-byte boundaries, f2 a multiple of 32; vals (R, P); L a multiple of
+    `SPAN_TILE_MMA`. Card tensors only."""
+    if span_len <= 0 or span_len % SPAN_TILE_MMA:
+        raise ValueError(f"wide_span_gram: span_len must be a positive "
+                         f"multiple of {SPAN_TILE_MMA}, got {span_len}")
+    _on_card("wide_span_gram", g1, g2, vals)
+    r, p, _ = g1.shape
+    f2 = g2.shape[2]
+    if cat_body(g1.dtype, f2) != "wgmma":
+        raise ValueError(f"wide_span_gram: a packed G must be bf16 with f2 "
+                         f"a multiple of 32, got {g1.dtype}, f2 = {f2}")
+    _check("g1", g1, (r, p, 128), (torch.bfloat16,))
+    _check("g2", g2, (r, p, f2), (torch.bfloat16,))
+    _check("vals", vals, (r, p), _FLOATS)
+    for name, t in (("g1", g1), ("g2", g2)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"wide_span_gram: the storage of {name} must "
+                             f"start on a 16-byte boundary")
+    part = torch.empty((r, spans, span_record_floats(256)),
+                       dtype=torch.float32, device=g1.device)
+    if r:
+        _launch("wide_span_gram_mma", g1.data_ptr(), g2.data_ptr(), None,
+                vals.data_ptr(), _bf16(vals), None, part.data_ptr(), r, p,
+                256, f2, spans, span_len)
+    return part
+
+
+def fused_gram_cg_cat(g1, g2, vals, nnz, x0, lam: float, cg_iters: int = 6,
+                      cg_tol: float = 1e-4, spans: Optional[int] = None):
     """Fused Gram + CG over a lane-packed, already gathered G
     (pallas_solve.fused_gram_cg_cat): g1 (R, P, 128) and g2 (R, P, f2),
     f2 <= 128, both f32 or both bf16, joined to 256 lanes with zeros
     above 128 + f2; vals (R, P) f32/bf16; nnz (R,) int32; x0 (R, 256)
-    f32. Solves the full 256-lane system (the dead lanes carry the
-    diagonal only). Returns x (R, 256) f32 and se (R, 1) f32."""
+    f32. The Gram sums every one of the P slots (nnz sets only the
+    regularizer and the [nnz > 0] mask). Solves the full 256-lane system
+    (the dead lanes carry the diagonal only). Returns x (R, 256) f32 and
+    se (R, 1) f32.
+
+    On a card the body is `cat_body`'s: a bf16 G with f2 a multiple of
+    32 takes the two passes of the row cut in the spans of K1 at 256
+    lanes on a bf16 table (`row_spans` with the tensor-core plan), pass 1
+    on the tensor cores (the bf16 products exact, the f32 sums in the
+    hardware's order); its launches count under the passes' own
+    counters (``wide_span_gram_mma``, ``wide_span_solve``), and
+    ``fused_gram_cg_cat`` counts the FMA kernel's alone. `spans` forces
+    the number of spans there (1: one span a row). Any other G takes the
+    uncut FMA kernel, which `spans` cannot cut. Tensors on the CPU take
+    the plain version whatever `spans` says."""
+    _check_spans("fused_gram_cg_cat", spans, True)
     if _on_cpu(g1, g2, vals, nnz, x0):
         return fused_gram_cg_cat_plain(g1, g2, vals, nnz, x0, lam, cg_iters,
                                        cg_tol)
@@ -1016,6 +1174,20 @@ def fused_gram_cg_cat(g1, g2, vals, nnz, x0, lam: float, cg_iters: int = 6,
     _check("vals", vals, (r, p), _FLOATS)
     _check("nnz", nnz, (r,), (torch.int32,))
     _check("x0", x0, (r, 256), (torch.float32,))
+    passes = cat_body(g1.dtype, f2) == "wgmma"
+    if not passes and spans not in (None, 1):
+        raise ValueError("fused_gram_cg_cat: spans cuts the bf16 route "
+                         "only (f2 a multiple of 32); the FMA kernel takes "
+                         "one block a row")
+    if r and passes:
+        n_spans, span_len = _chunk_spans(x0.device, r, p, spans,
+                                         **_SPAN_PLANS["wgmma"])
+
+        def grams(lo, hi):
+            return cat_span_grams(g1[lo:hi], g2[lo:hi], vals[lo:hi],
+                                  n_spans, span_len)
+        return _two_passes(grams, nnz, x0, lam, 256, p, n_spans, span_len,
+                           cg_iters, cg_tol, all_slots=True)
     x = torch.empty((r, 256), dtype=torch.float32, device=x0.device)
     se = torch.empty((r, 1), dtype=torch.float32, device=x0.device)
     if r:

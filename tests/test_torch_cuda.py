@@ -333,9 +333,10 @@ def test_wide_kernel_matches_plain(card, f_true, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k1_at_256_and_cat_kernel_match_plain(card, dtype):
     """K1 at f = 256 and K8 against their plain versions, and K8 against
-    K1 at f = 256 on the same G (every slot within nnz, as K8 walks all
-    P slots). K8 keeps the FMA body, so it is held to K1's on a float32
-    copy of the table (the same values), which runs that body."""
+    K1 at f = 256 on the same G (zero past nnz, as K8 walks all P slots).
+    A bf16 G takes the two passes K1 takes on a bf16 table, so there the
+    two are equal bit for bit; a float32 G keeps the FMA body, held to
+    K1's uncut FMA kernel on the float32 table within rtol 1e-5."""
     cpu = _wide_chunk(200, dtype, seed=3)
     gpu = [t.to(card) for t in cpu]
     x, se = cs.gather_gram_cg(*gpu, LAM)
@@ -344,9 +345,7 @@ def test_k1_at_256_and_cat_kernel_match_plain(card, dtype):
     torch.testing.assert_close(se.cpu(), pse, atol=2e-3, rtol=1e-4)
     assert torch.all(x[3] == 0)
     assert cs.LAUNCHES == _wide_launches(dtype, "gather_gram_cg", 1)
-    if dtype == torch.bfloat16:
-        cs.reset_launch_counts()
-        x, se = cs.gather_gram_cg(gpu[0].float(), *gpu[1:], LAM)
+    cs.reset_launch_counts()
     f2 = cs.wide_f2(200)
     g = cpu[0].index_select(0, cpu[1].reshape(-1).long()).reshape(R, P, 256)
     g1, g2 = g[:, :, :128].contiguous(), g[:, :, 128:128 + f2].contiguous()
@@ -355,10 +354,14 @@ def test_k1_at_256_and_cat_kernel_match_plain(card, dtype):
     pxc, psec = cs.fused_gram_cg_cat(*cat_cpu, LAM)
     torch.testing.assert_close(xc.cpu(), pxc, atol=2e-3, rtol=0)
     torch.testing.assert_close(sec.cpu(), psec, atol=2e-3, rtol=1e-4)
-    torch.testing.assert_close(xc, x, rtol=1e-5, atol=1e-6)
-    torch.testing.assert_close(sec, se, rtol=1e-5, atol=1e-6)
-    assert cs.LAUNCHES == dict.fromkeys(cs.LAUNCHES, 0) | {
-        "gather_gram_cg": 1, "fused_gram_cg_cat": 1}
+    if dtype == torch.bfloat16:
+        assert torch.equal(xc, x) and torch.equal(sec, se)
+        assert cs.LAUNCHES == _wide_launches(dtype, "", 1)
+    else:
+        torch.testing.assert_close(xc, x, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(sec, se, rtol=1e-5, atol=1e-6)
+        assert cs.LAUNCHES == dict.fromkeys(cs.LAUNCHES, 0) | {
+            "fused_gram_cg_cat": 1}
 
 
 def test_solve_dispatch_launches_a_kernel_or_raises(card):
@@ -744,3 +747,231 @@ def test_tf32_does_not_reach_a_pinned_product(card, monkeypatch, name):
     assert all(torch.equal(u, v) for u, v in zip(on, off))
     if name == "gram_rhs":
         assert not all(torch.equal(u, v) for u, v in zip(bare, off))
+
+
+# ---------- K3 on its persistent, bulk-async design (csrc/bulk_cg.cuh) --
+def k3_systems(r, f, dtype, seed=0):
+    """R regularized systems on the CPU: A = M M^T (M of f/4 + 1 columns,
+    so the CG has work to do), stored in `dtype`, diag 0.5 to 2, b and a
+    warm start."""
+    rng = np.random.RandomState(seed + f)
+    m = rng.standard_normal((r, f, f // 4 + 1)).astype(np.float32) * (
+        2.0 / np.sqrt(f))
+    a = torch.from_numpy(np.einsum("rik,rjk->rij", m, m)).to(dtype)
+    diag = torch.from_numpy(rng.uniform(0.5, 2.0, r).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((r, f)).astype(np.float32))
+    x0 = torch.from_numpy((rng.standard_normal((r, f)) * 0.1
+                           ).astype(np.float32))
+    return a, diag, b, x0
+
+
+def _k3_grid(card, f, dtype):
+    return cs.cg_reg_grid(1 << 30, cs._sms(card),
+                          cs.cg_reg_blocks_per_sm(card, f, dtype))
+
+
+@pytest.mark.parametrize("f,dtype,least,most", [
+    (128, torch.bfloat16, 2, 2), (128, torch.float32, 1, 1),
+    (112, torch.float32, 2, 2), (96, torch.float32, 3, 3),
+    (16, torch.float32, 2, 8), (64, torch.bfloat16, 2, 8)])
+def test_k3_blocks_per_sm(card, f, dtype, least, most):
+    """The kernel's occupancy query: at least two blocks an SM (its
+    launch bounds) unless two rings of two stages of A, b and x0 pass
+    half the SM's 228 KB, as an f32 A at f = 128 does (2 x 65.5 KB of
+    stages a block: one block); more where a block's registers and
+    stages leave room (three at f = 96 with an f32 A), at most the SM's
+    2,048 threads. It launches nothing."""
+    assert least <= cs.cg_reg_blocks_per_sm(card, f, dtype) <= most
+    assert cs.LAUNCHES == dict.fromkeys(cs.LAUNCHES, 0)
+
+
+@pytest.mark.parametrize("f", list(range(16, 129, 16)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_matches_plain_at_every_width(card, f, dtype):
+    """K3 against `solve_cg_reg_plain` (x within 2e-3) at every f it
+    takes, with a bf16 and a float32 A; one launch."""
+    cpu = k3_systems(40, f, dtype)
+    x = cs.solve_cg_reg(*(t.to(card) for t in cpu))
+    px = cs.solve_cg_reg(*cpu)
+    torch.testing.assert_close(x.cpu(), px, atol=2e-3, rtol=0)
+    assert cs.LAUNCHES == dict.fromkeys(cs.LAUNCHES, 0) | {"solve_cg_reg": 1}
+
+
+@pytest.mark.parametrize("f", [48, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("where", ["one", "below", "equal", "above",
+                                   "thrice"])
+def test_k3_around_the_persistent_grid(card, f, dtype, where):
+    """R = 1, and R one below, equal to, one above and about three times
+    the persistent grid (every block walks one system, some one more, or
+    three or four), at f = 128, where a float32 A holds one block an SM
+    and a bf16 one two, and at f = 48, where more fit; within 2e-3 of
+    the plain version."""
+    grid = _k3_grid(card, f, dtype)
+    r = {"one": 1, "below": grid - 1, "equal": grid, "above": grid + 1,
+         "thrice": 3 * grid + 5}[where]
+    cpu = k3_systems(r, f, dtype, seed=r)
+    x = cs.solve_cg_reg(*(t.to(card) for t in cpu))
+    px = cs.solve_cg_reg(*cpu)
+    torch.testing.assert_close(x.cpu(), px, atol=2e-3, rtol=0)
+
+
+@pytest.mark.parametrize("f", [48, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_zero_and_nan_systems_iters_0_and_repeat(card, f, dtype):
+    """An all-zero system with diag 0 returns its x0 exactly (p.Ap = 0,
+    alpha 0); a NaN in one system leaves that system all NaN and the
+    others as the plain version has them; cg_iters 0 returns x0 exactly;
+    a second run equals the first bit for bit (over more systems than the
+    persistent grid, so blocks walk several)."""
+    r = _k3_grid(card, f, dtype) + 7
+    a, diag, b, x0 = k3_systems(r, f, dtype, seed=3)
+    a[2] = 0.0
+    diag[2] = 0.0
+    a[4, 5, 7] = float("nan")
+    gpu = [t.to(card) for t in (a, diag, b, x0)]
+    x = cs.solve_cg_reg(*gpu)
+    assert torch.equal(x[2].cpu(), x0[2])
+    assert bool(torch.isnan(x[4]).all())
+    px = cs.solve_cg_reg(a, diag, b, x0)
+    keep = torch.ones(r, dtype=torch.bool)
+    keep[4] = False
+    torch.testing.assert_close(x.cpu()[keep], px[keep], atol=2e-3, rtol=0)
+    again = cs.solve_cg_reg(*gpu)      # (NaN equals nothing, so row 4 apart)
+    assert torch.equal(again[keep.to(card)], x[keep.to(card)])
+    assert bool(torch.isnan(again[4]).all())
+    x_0 = cs.solve_cg_reg(*gpu, cg_iters=0)
+    assert torch.equal(x_0.cpu(), x0)
+    assert torch.equal(cs.solve_cg_reg(a, diag, b, x0, cg_iters=0), x0)
+
+
+def test_k3_takes_storage_on_16_byte_boundaries_only(card):
+    """The bulk copies need each system's bytes on 16-byte boundaries:
+    a view that starts 4 bytes past one raises before any launch."""
+    a, diag, b, x0 = (t.to(card) for t in k3_systems(4, 16, torch.float32))
+    flat = torch.zeros(a.numel() + 1, device=card)
+    shifted = flat[1:].view(a.shape)
+    shifted.copy_(a)
+    with pytest.raises(ValueError, match="16-byte"):
+        cs.solve_cg_reg(shifted, diag, b, x0)
+    assert cs.LAUNCHES["solve_cg_reg"] == 0
+
+
+# ------------------------- K8 on the two passes of the row cut (bf16 G) --
+def cat_slabs(table, cols, f2):
+    """G of a chunk gathered from a 256-lane table into K8's two slabs."""
+    r, p = cols.shape
+    g = table.index_select(0, cols.reshape(-1).long()).reshape(r, p, 256)
+    return g[:, :, :128].contiguous(), g[:, :, 128:128 + f2].contiguous()
+
+
+def _se_rel(se, pse):
+    return ((se - pse).abs() / pse.abs().clamp_min(1.0)).max().item()
+
+
+@pytest.mark.parametrize("f2", [32, 96, 128])
+@pytest.mark.parametrize("spans", [1, 2, 5])
+def test_cat_two_passes_equal_k1_at_256_routed(card, f2, spans):
+    """K8 on a bf16 G gathered from a bf16 table (zeros past nnz) equals
+    K1 at f = 256 as routed on that table, forced to the same spans, bit
+    for bit (`torch.equal`; -0 equals +0: K8 adds zero records where K1
+    has none); both within 2e-3 (x) and 1e-3 relative (se) of the plain
+    version. The call launches the two passes once each and never the
+    FMA kernel (`fused_gram_cg_cat`'s counter stays 0)."""
+    table, cols, vals, nnz, x0 = cut_chunk(128 + f2, torch.bfloat16, 300,
+                                           64, seed=f2)
+    g1, g2 = cat_slabs(table, cols, f2)
+    gpu = [t.to(card) for t in (table, cols, vals, nnz, x0, g1, g2)]
+    x1, se1 = cs.gather_gram_cg(*gpu[:5], LAM, spans=spans)
+    cs.reset_launch_counts()
+    x8, se8 = cs.fused_gram_cg_cat(gpu[5], gpu[6], *gpu[2:5], LAM,
+                                   spans=spans)
+    assert cs.LAUNCHES == dict.fromkeys(cs.LAUNCHES, 0) | {
+        "wide_span_gram_mma": 1, "wide_span_solve": 1}
+    assert torch.equal(x8, x1) and torch.equal(se8, se1)
+    px, pse = cs.fused_gram_cg_cat(g1, g2, vals, nnz, x0, LAM)
+    torch.testing.assert_close(x8.cpu(), px, atol=2e-3, rtol=0)
+    assert _se_rel(se8.cpu(), pse) <= 1e-3
+
+
+@pytest.mark.parametrize("f2", [32, 64, 96, 128])
+def test_cat_sums_the_slots_past_nnz(card, f2):
+    """A G and values that are not zero past nnz: K8 sums every one of
+    the P slots (nnz sets only the regularizer and the mask), as
+    `_kernel_cat` and the plain version do, and matches the plain
+    version there (x 2e-3, se 1e-3 relative), at S = 1 and 4; a row with
+    nnz 0 still solves to x = 0."""
+    rng = np.random.RandomState(f2)
+    r, p = 12, 200
+    g1 = torch.from_numpy((rng.standard_normal((r, p, 128)) * 0.3
+                           ).astype(np.float32)).bfloat16()
+    g2 = torch.from_numpy((rng.standard_normal((r, p, f2)) * 0.3
+                           ).astype(np.float32)).bfloat16()
+    vals = torch.from_numpy((np.round(rng.uniform(1, 5, (r, p)) * 2) / 2
+                             ).astype(np.float32))
+    nnz = torch.from_numpy(rng.randint(1, p, r).astype(np.int32))
+    nnz[3] = 0
+    x0 = torch.from_numpy((rng.standard_normal((r, 256)) * 0.1
+                           ).astype(np.float32))
+    cpu = (g1, g2, vals, nnz, x0)
+    px, pse = cs.fused_gram_cg_cat(*cpu, LAM)
+    for spans in (1, 4):
+        x, se = cs.fused_gram_cg_cat(*(t.to(card) for t in cpu), LAM,
+                                     spans=spans)
+        torch.testing.assert_close(x.cpu(), px, atol=2e-3, rtol=0)
+        assert _se_rel(se.cpu(), pse) <= 1e-3
+        assert torch.all(x[3] == 0)
+    assert cs.LAUNCHES["wide_span_gram_mma"] == 2
+    assert cs.LAUNCHES["fused_gram_cg_cat"] == 0
+
+
+@pytest.mark.parametrize("dtype,f2", [(torch.float32, 96),
+                                      (torch.bfloat16, 40)])
+def test_cat_float32_or_odd_f2_takes_the_fma_kernel(card, dtype, f2):
+    """A float32 G, or a bf16 G whose f2 is not a multiple of 32, takes
+    the uncut FMA kernel of csrc/fused_gram_cg_cat.cu (its own counter
+    alone), within 2e-3 of the plain version; `spans` cannot cut it."""
+    table, cols, vals, nnz, x0 = cut_chunk(128 + f2, dtype, 300, 64)
+    g1, g2 = cat_slabs(table, cols, f2)
+    assert cs.cat_body(dtype, f2) == "fma"
+    gpu = [t.to(card) for t in (g1, g2, vals, nnz, x0)]
+    x, se = cs.fused_gram_cg_cat(*gpu, LAM)
+    assert cs.LAUNCHES == dict.fromkeys(cs.LAUNCHES, 0) | {
+        "fused_gram_cg_cat": 1}
+    px, pse = cs.fused_gram_cg_cat(g1, g2, vals, nnz, x0, LAM)
+    torch.testing.assert_close(x.cpu(), px, atol=2e-3, rtol=0)
+    assert _se_rel(se.cpu(), pse) <= 1e-3
+    with pytest.raises(ValueError, match="spans"):
+        cs.fused_gram_cg_cat(*gpu, LAM, spans=2)
+
+
+@pytest.mark.parametrize("p", SPAN_P)
+@pytest.mark.parametrize("f2", [32, 64, 96, 128])
+@pytest.mark.parametrize("spans", [1, 2])
+def test_packed_pass_1_is_exact_on_integer_g(card, p, f2, spans):
+    """Pass 1 on a packed bf16 G of small integers equals
+    `cat_span_gram_plain` bit for bit (every sum exact): A read through
+    the record layout, b and r2, for every span, at P around the 64-slot
+    tile, with G and values not zero past nnz (the pass sums every slot
+    up to P). The proof of the slabs' addressing and of the zero-fill
+    above 128 + f2."""
+    rng = np.random.RandomState(p + f2)
+    r = 5
+    g1 = torch.from_numpy(rng.randint(-4, 5, (r, p, 128)).astype(
+        np.float32)).bfloat16()
+    g2 = torch.from_numpy(rng.randint(-4, 5, (r, p, f2)).astype(
+        np.float32)).bfloat16()
+    vals = torch.from_numpy((np.round(rng.uniform(1, 5, (r, p)) * 2) / 2
+                             ).astype(np.float32))
+    n_spans, span = cs._cut(-(-p // 64), spans, 64)
+    part = cs.cat_span_grams(g1.to(card), g2.to(card), vals.to(card),
+                             n_spans, span)
+    assert cs.LAUNCHES == dict.fromkeys(cs.LAUNCHES, 0) | {
+        "wide_span_gram_mma": 1}
+    a, b, r2 = cs.span_record_unpack(part.cpu(), 256)
+    want = [cs.cat_span_gram_plain(g1, g2, vals, k * span, (k + 1) * span)
+            for k in range(n_spans)]
+    pa, pb, pr2 = (torch.stack([w[i] for w in want], dim=1)
+                   for i in range(3))
+    assert torch.equal(a, pa) and torch.equal(b, pb) and \
+        torch.equal(r2, pr2)

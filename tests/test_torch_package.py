@@ -266,3 +266,21 @@ def test_c_entry_point_takes_what_ctypes_passes(name):
     want = [ctypes.c_void_p if "*" in arg else kinds[arg.split()[0]]
             for arg in found.group(1).split(",")]
     assert want == argtypes
+
+
+@pytest.mark.parametrize("name", sorted(_build.QUERIES))
+def test_c_query_takes_what_ctypes_passes(name):
+    """The same check for each query `_build.QUERIES` loads from a
+    kernel's library (an occupancy query beside the kernel)."""
+    import ctypes
+    import re
+    lib, symbol, argtypes = _build.QUERIES[name]
+    assert lib in _build.KERNELS
+    with open(os.path.join(_build.CSRC, f"{lib}.cu")) as fh:
+        src = fh.read()
+    found = re.search(r'extern "C" int ' + symbol + r"\(([^)]*)\)", src)
+    assert found, f"{symbol} not declared in {lib}.cu"
+    kinds = {"int": ctypes.c_int, "float": ctypes.c_float}
+    want = [ctypes.c_void_p if "*" in arg else kinds[arg.split()[0]]
+            for arg in found.group(1).split(",")]
+    assert want == argtypes
