@@ -90,7 +90,7 @@ class ALSConfig:
     chunk_nnz: int = 1 << 22
     # rows per chunk: bounds the per-chunk (R, f, f) Gram partials
     chunk_rows: int = 1 << 14
-    batch_rows: int = 0            # batched-panel route (not ported yet)
+    batch_rows: int = 0            # batched-panel route (0: by gram_dtype)
     octave_points: int = 8
     # panel subrows longer than this split into exact segments
     split_width: int = 4096

@@ -131,6 +131,19 @@ WORKLOAD_SHAPES = {
     "yahoo": dict(m=1_000_990, n=624_961, nnz=252_800_275,
                   nnz_test=4_003_960, skew=(0.45, 0.4),
                   rating_range=(0.0, 100.0)),
+    # hugewiki at 1/25 scale: same tall-skinny shape (m >> n), the
+    # out-of-core X regime; quick smoke form of the full workload
+    "hugewiki_mini": dict(m=2_000_000, n=39_780, nnz=124_000_000,
+                          nnz_test=2_000_000, skew=(0.35, 0.45),
+                          rating_range=(1.0, 5.0)),
+    # the full hugewiki workload (reference hugewiki.cu:27-42): 3.1B
+    # training ratings; all flat indexing is int64 (nnz > 2^31). The
+    # JAX package generates it with its native generator; this numpy
+    # path makes full scale impractical until the port has one (ROADMAP
+    # A10)
+    "hugewiki": dict(m=50_082_603, n=39_780, nnz=3_101_144_313,
+                     nnz_test=344_573_330, skew=(0.35, 0.45),
+                     rating_range=(1.0, 5.0)),
     "netflix_cal": dict(m=17770, n=480_189, nnz=99_072_112,
                         nnz_test=1_408_395, skew=(0.5, 0.35),
                         rating_range=(1.0, 5.0), rank=10,

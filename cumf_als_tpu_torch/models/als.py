@@ -25,10 +25,14 @@ as in the JAX package:
     default configuration) the route keeps ONE augmented accumulator A'
     that carries b in row f-1 and sum v^2 in its corner (kernels K5a
     ``gather_gram_aug_out`` and K5b ``solve_cg_aug``; see
-    ``ops/cuda_solve.panel_aug_enabled`` for the gates).
-
-The batched-panel strategy is chosen as in the JAX package but not
-ported yet: building its plan raises.
+    ``ops/cuda_solve.panel_aug_enabled`` for the gates);
+  - batched panel: when both sides are big (the gather table passes the
+    panel size, the full accumulators pass the budget) and the phase
+    does not go direct or split, rows are taken in batches of
+    ``batch_rows`` in descending nnz order, each batch through the panel
+    route's Gram step into one reusable (B, f, f) accumulator, then
+    solved and written back by global row id. Cholesky and LU reach it
+    on either backend, CG on "xla" (on "pallas" CG goes direct).
 """
 
 from __future__ import annotations
@@ -48,7 +52,9 @@ from cumf_als_tpu_torch.ops.gram import extend_table, gram_rhs
 from cumf_als_tpu_torch.ops.precision import full_f32
 from cumf_als_tpu_torch.ops.rmse import fused_sq_err, rmse_direct
 from cumf_als_tpu_torch.ops.solve import solve
-from cumf_als_tpu_torch.ops.tiling import (PanelPlan, SplitPlan,
+from cumf_als_tpu_torch.ops.tiling import (BatchedPanelPlan, PanelPlan,
+                                           SplitPlan,
+                                           build_batched_panel_plan,
                                            build_panel_plan,
                                            build_split_plan,
                                            build_update_plan,
@@ -247,6 +253,14 @@ class ALS:
                   file=sys.stderr, flush=True)
         return torch.float32
 
+    def _batch_rows(self) -> int:
+        """Row-batch size of the batched-panel route: cfg.batch_rows, else
+        2^17 rows with bf16 accumulators and 2^16 with float32."""
+        cfg = self.cfg
+        if cfg.batch_rows:
+            return cfg.batch_rows
+        return 1 << 17 if cfg.gram_dtype == "bf16" else 1 << 16
+
     def _chunk_nnz(self, csr: CSRMatrix, batch: int) -> int:
         """Per-phase chunk budget: x_batch / theta_batch act as a minimum
         number of chunks, capping padded slots per chunk at nnz/batch."""
@@ -281,9 +295,14 @@ class ALS:
                                     octave_points=cfg.octave_points,
                                     max_groups=cfg.split_max_groups)
         else:
-            raise NotImplementedError(
-                f"the {strategy!r} phase strategy is not ported yet "
-                f"(ROADMAP A8)")
+            # sparse-bucket promotion keeps each batch's sub-plan from
+            # scattering its work over many tiny chunks
+            plan = build_batched_panel_plan(
+                csr, panel_size=cfg.panel_size,
+                batch_rows=self._batch_rows(),
+                min_width=cfg.min_bucket_width, chunk_nnz=chunk_nnz,
+                chunk_rows=cfg.chunk_rows, split_width=cfg.split_width,
+                octave_points=cfg.octave_points, min_bucket_rows=16)
         return self._device_plan(plan)
 
     def _device_plan(self, plan):
@@ -295,6 +314,18 @@ class ALS:
             return plan, [DeviceChunk(flatten_split_chunk(c, plan),
                                       plan.num_rows, self.device)
                           for c in plan.chunks], aux
+        if isinstance(plan, BatchedPanelPlan):
+            # per batch: the live global ids (a prefix: padding ids, equal
+            # to num_rows, fill the tail), row_nnz and the device chunks
+            aux["batches"] = [
+                (torch.from_numpy(
+                    b.global_ids[:b.plan.num_rows].astype(np.int64)).to(
+                        self.device),
+                 torch.from_numpy(b.row_nnz).to(self.device),
+                 [DeviceChunk(c, b.plan.num_rows, self.device)
+                  for c in b.plan.chunks])
+                for b in plan.batches]
+            return plan, [], aux
         if isinstance(plan, PanelPlan):
             # the solve batch hugs the row count (a multiple of 8)
             batch = min(self.cfg.chunk_rows,
@@ -337,6 +368,9 @@ class ALS:
         if isinstance(plan_pair[0], PanelPlan):
             return self._update_phase_panelized(table, current, plan_pair,
                                                 collect_rmse_terms)
+        if isinstance(plan_pair[0], BatchedPanelPlan):
+            return self._update_phase_batched_panel(
+                table, current, plan_pair, collect_rmse_terms)
         return self._update_phase_direct(table, current, plan_pair,
                                          collect_rmse_terms)
 
@@ -345,52 +379,108 @@ class ALS:
         rides row f-1 through accumulation and into the solve."""
         return cuda_solve.panel_aug_enabled(self.cfg)
 
+    def _panel_table(self, table, n_panels: int, panel_size: int):
+        """The gather table in the factor dtype, padded to whole panels."""
+        if self.cfg.factor_dtype == "bf16":
+            table = table.to(torch.bfloat16)
+        return F.pad(table, (0, 0, 0, n_panels * panel_size - table.shape[0]))
+
     def accumulate_panels(self, table, plan_pair):
-        """The panel route's Gram step: the per-panel partial of every
-        chunk, scatter-added into the phase accumulators. Split buffers:
-        partial (A, b) (kernel K2 on the "pallas" backend) into a_buf
-        (m_pad, f, f) and b_buf (m_pad, f). Augmented: partial A' (kernel
-        K5a on "pallas", augment_g + f32 einsum on "xla") into a_buf
-        alone; b_buf is then None.
+        """The panel route's Gram step over the whole phase: full
+        accumulators a_buf (m_pad, f, f) and, with split buffers, b_buf
+        (m_pad, f) (None when augmented), filled by `accumulate_into`."""
+        plan, chunks, aux = plan_pair
+        a_dtype = self._accum_dtype(sum(c.rows.shape[0] for c in chunks),
+                                    plan.num_rows)
+        a_buf, b_buf = self._accumulators(aux["m_pad"], a_dtype)
+        # dummy rows carry id m, which lies inside a_buf (m_pad > m)
+        self.accumulate_into(
+            a_buf, b_buf,
+            self._panel_table(table, plan.n_panels, plan.panel_size),
+            chunks, plan.panel_size)
+        return a_buf, b_buf
+
+    def _accumulators(self, rows: int, a_dtype):
+        f = self.cfg.f_pad
+        a_buf = torch.zeros((rows, f, f), dtype=a_dtype, device=self.device)
+        b_buf = None if self._use_panel_aug() else torch.zeros(
+            (rows, f), dtype=torch.float32, device=self.device)
+        return a_buf, b_buf
+
+    def accumulate_into(self, a_buf, b_buf, table_pad, chunks,
+                        panel_size: int) -> None:
+        """The Gram step of the panel and batched-panel routes: the
+        per-panel partial of every chunk, scatter-added at the chunk's
+        rows. Split buffers (b_buf given): partial (A, b) (kernel K2 on
+        the "pallas" backend). Augmented (b_buf None): partial A' (kernel
+        K5a on "pallas", augment_g + f32 einsum on "xla"). Every row id of
+        the chunks, dummy rows included, must lie inside a_buf.
 
         On a card index_add_ adds with atomics in an order that changes
         from run to run, so f32 accumulators repeat to rounding only."""
-        cfg = self.cfg
-        plan, chunks, aux = plan_pair
-        f = cfg.f_pad
-        s = plan.panel_size
-        a_dtype = self._accum_dtype(sum(c.rows.shape[0] for c in chunks),
-                                    plan.num_rows)
-        if cfg.factor_dtype == "bf16":
-            table = table.to(torch.bfloat16)
-        table_pad = F.pad(table, (0, 0, 0, plan.n_panels * s - table.shape[0]))
-        zero_row = table.new_zeros((1, f))
-        a_buf = torch.zeros((aux["m_pad"], f, f), dtype=a_dtype,
-                            device=self.device)
-        aug = self._use_panel_aug()
-        b_buf = None if aug else torch.zeros(
-            (aux["m_pad"], f), dtype=torch.float32, device=self.device)
-        pallas = cfg.backend == "pallas"
+        s = panel_size
+        zero_row = table_pad.new_zeros((1, table_pad.shape[1]))
+        pallas = self.cfg.backend == "pallas"
         by_panel = {}
         for ch in chunks:
             by_panel.setdefault(ch.panel, []).append(ch)
         for p, group in sorted(by_panel.items()):
             tp = torch.cat([table_pad[p * s:(p + 1) * s], zero_row], dim=0)
             for ch in group:
-                # dummy rows carry id m, which lies inside a_buf (m_pad > m)
-                if aug:
+                if b_buf is None:
                     gram = cuda_solve.gather_gram_aug_out if pallas else \
                         cuda_solve.gather_gram_aug_out_plain
-                    a_part = gram(tp, ch.cols, ch.vals, out_dtype=a_dtype)
+                    a_part = gram(tp, ch.cols, ch.vals, out_dtype=a_buf.dtype)
                 else:
                     gram = cuda_solve.gather_gram_out if pallas else \
                         cuda_solve.gather_gram_out_plain
                     a_part, b_part = gram(tp, ch.cols, ch.vals,
-                                          out_dtype=a_dtype)
+                                          out_dtype=a_buf.dtype)
                     b_buf.index_add_(0, ch.rows, b_part)
                 a_buf.index_add_(0, ch.rows, a_part)
                 del a_part   # up to 1 GiB: free it before the next chunk
-        return a_buf, b_buf
+
+    def _update_phase_batched_panel(self, table, current, plan_pair,
+                                    collect_rmse_terms: bool = False):
+        """Row batch by row batch: the batch's panel Grams into one
+        reusable (B + 1, f, f) accumulator (row B takes the dummy rows of
+        a full batch, whose id is B), x0 gathered by global id, solves in
+        slices of min(B, chunk_rows), then the solved rows written back
+        by global id. Padding ids are not in the live prefix, so they are
+        neither read nor written."""
+        cfg = self.cfg
+        plan, _chunks, aux = plan_pair
+        bsz = plan.batch_rows
+        table_pad = self._panel_table(
+            table, -(-plan.num_cols // plan.panel_size), plan.panel_size)
+        a_dtype = self._accum_dtype(
+            sum(c.rows.shape[0] for _, _, chunks in aux["batches"]
+                for c in chunks), plan.num_rows)
+        sb = min(bsz, cfg.chunk_rows)
+        se = torch.zeros((), dtype=torch.float32, device=self.device)
+        a_full, b_full = self._accumulators(bsz + 1, a_dtype)
+        a_buf = a_full[:bsz]
+        b_buf = None if b_full is None else b_full[:bsz]
+        for gids, row_nnz, chunks in aux["batches"]:
+            a_full.zero_()
+            if b_full is not None:
+                b_full.zero_()
+            self.accumulate_into(a_full, b_full, table_pad, chunks,
+                                 plan.panel_size)
+            x0 = F.pad(current.index_select(0, gids),
+                       (0, 0, 0, bsz - gids.shape[0]))
+            outs = [_solve_slice(a_buf, b_buf, x0, row_nnz, lo, cfg.lam,
+                                 sb, cfg.solver, cfg.cg_iters, cfg.cg_tol,
+                                 cfg.backend)
+                    for lo in range(0, bsz, sb)]
+            solved = torch.cat(outs, dim=0) if len(outs) > 1 else outs[0]
+            if collect_rmse_terms:
+                se = se + _se_terms(a_buf, b_buf, solved, sb)
+            current.index_copy_(0, gids,
+                                solved[:gids.shape[0]].to(current.dtype))
+        if collect_rmse_terms:
+            se = se + self._sum_r2()
+        return current, se
 
     def _update_phase_panelized(self, table, current, plan_pair,
                                 collect_rmse_terms: bool = False):

@@ -16,7 +16,8 @@ def rmse_direct(x: torch.Tensor, theta: torch.Tensor, rows, cols, vals,
                 chunk: int = 1 << 21) -> float:
     """sqrt(mean(e^2)) over the given COO entries (host numpy arrays),
     chunked so the factor gathers stay bounded. Partial sums stay on the
-    device; one scalar is read at the end."""
+    device; one scalar is read at the end. Each chunk is copied (the
+    arrays may be a read-only memory-mapped data set)."""
     nnz = int(vals.shape[0])
     if nnz == 0:
         return 0.0
@@ -24,9 +25,9 @@ def rmse_direct(x: torch.Tensor, theta: torch.Tensor, rows, cols, vals,
     total = torch.zeros((), dtype=torch.float32, device=dev)
     for lo in range(0, nnz, chunk):
         hi = min(lo + chunk, nnz)
-        r = torch.from_numpy(np.ascontiguousarray(rows[lo:hi])).to(dev)
-        c = torch.from_numpy(np.ascontiguousarray(cols[lo:hi])).to(dev)
-        v = torch.from_numpy(np.ascontiguousarray(vals[lo:hi])).to(dev)
+        r = torch.from_numpy(np.array(rows[lo:hi])).to(dev)
+        c = torch.from_numpy(np.array(cols[lo:hi])).to(dev)
+        v = torch.from_numpy(np.array(vals[lo:hi])).to(dev)
         pred = (x.index_select(0, r.long()).float() *
                 theta.index_select(0, c.long()).float()).sum(-1)
         e = v.float() - pred

@@ -15,8 +15,6 @@ contract the kernels rely on:
     it;
   - ragged tail rows of a chunk have `rows == num_rows`, `nnz == 0` and
     all-pad slots; the write-back skips them.
-
-The batched-panel plan is not ported yet.
 """
 
 from __future__ import annotations
@@ -201,11 +199,16 @@ def build_panel_plan(csr: CSRMatrix, panel_size: int = 1 << 16,
                      min_width: int = 8, chunk_nnz: int = 1 << 22,
                      chunk_rows: int = 1 << 14,
                      split_width: int = 4096,
-                     octave_points: int = 4) -> PanelPlan:
+                     octave_points: int = 4,
+                     min_bucket_rows: int = 0) -> PanelPlan:
     """Split each row's column list at panel boundaries (cols are sorted
     within rows, so subrows are contiguous slices), cut subrows longer
     than `split_width` into exact segments plus a remainder, then bucket
-    subrows by width per (panel, width) group."""
+    subrows by width per (panel, width) group.
+
+    `min_bucket_rows` merges a (panel, width) group of fewer subrows into
+    the next width up. The batched-panel plan uses it (one sub-plan per
+    row batch would otherwise scatter its work over many tiny chunks)."""
     m = csr.num_rows
     n_panels = -(-csr.num_cols // panel_size)
     row_nnz = np.diff(csr.indptr).astype(np.int64)
@@ -256,6 +259,23 @@ def build_panel_plan(csr: CSRMatrix, panel_size: int = 1 << 16,
     widths = make_width_grid(min_width, max_len,
                              octave_points=octave_points)
     widx = np.searchsorted(widths, sub_len)
+
+    # Sparse-bucket promotion: a (panel, width) group with fewer than
+    # min_bucket_rows subrows joins the next width up.
+    if min_bucket_rows > 1 and sub_len.size:
+        nw = len(widths)
+        counts = np.bincount(sub_panel.astype(np.int64) * nw + widx,
+                             minlength=n_panels * nw).reshape(n_panels,
+                                                              nw)
+        fmap = np.tile(np.arange(nw), (n_panels, 1))
+        for p in range(n_panels):
+            c = counts[p].astype(np.int64)
+            for b in range(nw - 1):
+                if 0 < c[b] < min_bucket_rows:
+                    c[b + 1] += c[b]
+                    c[b] = 0
+                    fmap[p, fmap[p] == b] = b + 1
+        widx = fmap[sub_panel, widx]
 
     # group subrows by (panel, width) with one argsort
     group = sub_panel.astype(np.int64) * len(widths) + widx
@@ -581,6 +601,85 @@ def build_split_plan(
     return SplitPlan(num_rows=m, num_cols=n, part_size=part_size,
                      n_parts=n_parts, perm=perm, chunks=chunks,
                      true_nnz=nnz_total, padded_nnz=padded_total)
+
+
+@dataclasses.dataclass
+class RowBatch:
+    """One row batch of a BatchedPanelPlan: a panel sub-plan whose rows
+    are batch-local (0..b-1, dummy tail rows carry id b)."""
+    global_ids: np.ndarray   # (batch_rows,) int32, == num_rows for padding
+    row_nnz: np.ndarray      # (batch_rows,) int32 total nnz
+    plan: PanelPlan          # rows local to the batch
+
+
+@dataclasses.dataclass
+class BatchedPanelPlan:
+    """Layout for phases where both sides are big: the gather table
+    passes panel_size (so it is read in panels) and the updated factor's
+    full accumulators pass the budget (so rows are taken in batches of
+    `batch_rows` with one reusable (B, f, f) accumulator). Rows are
+    sorted by nnz, so a batch's rows have similar widths."""
+    num_rows: int
+    num_cols: int
+    panel_size: int
+    batch_rows: int
+    batches: List[RowBatch]
+    true_nnz: int
+    padded_nnz: int
+
+    @property
+    def expansion(self) -> float:
+        return self.padded_nnz / max(1, self.true_nnz)
+
+
+def build_batched_panel_plan(csr: CSRMatrix, panel_size: int = 1 << 16,
+                             batch_rows: int = 1 << 14,
+                             min_width: int = 8,
+                             chunk_nnz: int = 1 << 22,
+                             chunk_rows: int = 1 << 14,
+                             split_width: int = 4096,
+                             octave_points: int = 4,
+                             min_bucket_rows: int = 16
+                             ) -> BatchedPanelPlan:
+    """Nonempty rows in descending nnz order (stable), cut into batches
+    of `batch_rows`; each batch's rows, renumbered 0..b-1, get their own
+    panel plan."""
+    row_nnz = np.diff(csr.indptr).astype(np.int64)
+    order = np.argsort(-row_nnz, kind="stable")
+    order = order[row_nnz[order] > 0]
+    batches: List[RowBatch] = []
+    padded = true = 0
+    for lo in range(0, order.size, batch_rows):
+        ids = order[lo:lo + batch_rows]
+        b = ids.size
+        lens = row_nnz[ids]
+        sub_indptr = np.zeros(b + 1, np.int64)
+        np.cumsum(lens, out=sub_indptr[1:])
+        total = int(sub_indptr[-1])
+        # ragged gather of the batch rows' nonzeros
+        pos = (np.arange(total, dtype=np.int64)
+               - np.repeat(sub_indptr[:-1], lens)
+               + np.repeat(np.asarray(csr.indptr)[ids].astype(np.int64),
+                           lens))
+        sub = CSRMatrix(indptr=sub_indptr, indices=csr.indices[pos],
+                        data=csr.data[pos], num_rows=b,
+                        num_cols=csr.num_cols)
+        plan = build_panel_plan(sub, panel_size, min_width, chunk_nnz,
+                                chunk_rows, split_width=split_width,
+                                octave_points=octave_points,
+                                min_bucket_rows=min_bucket_rows)
+        gids = np.full(batch_rows, csr.num_rows, np.int32)
+        gids[:b] = ids
+        nnz_b = np.zeros(batch_rows, np.int32)
+        nnz_b[:b] = lens
+        batches.append(RowBatch(global_ids=gids, row_nnz=nnz_b,
+                                plan=plan))
+        padded += plan.padded_nnz
+        true += plan.true_nnz
+    return BatchedPanelPlan(num_rows=csr.num_rows, num_cols=csr.num_cols,
+                            panel_size=panel_size, batch_rows=batch_rows,
+                            batches=batches, true_nnz=true,
+                            padded_nnz=padded)
 
 
 def _materialize_chunk(csr: CSRMatrix, rows: np.ndarray, width: int,

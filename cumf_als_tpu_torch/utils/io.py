@@ -126,7 +126,11 @@ def write_dataset(data_dir: str, train_csr: CSRMatrix,
 
 def _stable_argsort(keys: np.ndarray) -> np.ndarray:
     """np.argsort(keys, kind="stable"), multi-threaded (a stable sort has
-    one answer, so the permutation is the same)."""
+    one answer, so the permutation is the same). Read-only keys (a
+    memory-mapped data set) are copied: a tensor must not share
+    read-only pages."""
+    if not keys.flags.writeable:
+        keys = keys.copy()
     return torch.sort(torch.from_numpy(keys), stable=True)[1].numpy()
 
 

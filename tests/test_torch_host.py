@@ -61,9 +61,22 @@ def test_synthetic_ratings_bit_identical(numpy_dataplane, kw):
     _assert_same_arrays(jte, te)
 
 
-def test_workload_ratings_bit_identical(numpy_dataplane):
-    jtr, jte = jsyn.workload_ratings("netflix", scale=0.001, seed=2)
-    tr, te = syn.workload_ratings("netflix", scale=0.001, seed=2)
+def test_workload_tables_equal():
+    assert sorted(syn.WORKLOAD_SHAPES) == sorted(jsyn.WORKLOAD_SHAPES)
+    for name, shape in jsyn.WORKLOAD_SHAPES.items():
+        assert syn.WORKLOAD_SHAPES[name] == shape, name
+
+
+@pytest.mark.parametrize("name", sorted(jsyn.WORKLOAD_SHAPES))
+def test_workload_ratings_bit_identical(numpy_dataplane, name):
+    """Every workload at a scale of ~30k requested ratings (far under the
+    2^26 where the JAX package may switch to its native generator)."""
+    shape = jsyn.WORKLOAD_SHAPES[name]
+    scale = 3e4 / shape["nnz"]
+    assert (shape["nnz"] + shape["nnz_test"]) * scale < 2 ** 26
+    jtr, jte = jsyn.workload_ratings(name, scale=scale, seed=2)
+    tr, te = syn.workload_ratings(name, scale=scale, seed=2)
+    assert tr.nnz > 0 and te.nnz > 0
     _assert_same_arrays(jtr, tr)
     _assert_same_arrays(jte, te)
 
@@ -104,7 +117,10 @@ def test_update_plan_bit_identical(numpy_dataplane, medium_problem, kw):
 @pytest.mark.parametrize("kw", [
     dict(panel_size=64, chunk_nnz=1 << 11, chunk_rows=128),
     dict(panel_size=48, chunk_nnz=512, split_width=16, octave_points=8),
-    dict(panel_size=32, split_width=0)])
+    dict(panel_size=32, split_width=0),
+    dict(panel_size=48, chunk_nnz=512, min_bucket_rows=16),
+    dict(panel_size=64, chunk_nnz=1 << 11, chunk_rows=128,
+         min_bucket_rows=4)])
 def test_panel_plan_bit_identical(numpy_dataplane, medium_problem, kw):
     train, _ = medium_problem
     for jcsr in (train, j_transpose(train)):
@@ -117,6 +133,40 @@ def test_panel_plan_bit_identical(numpy_dataplane, medium_problem, kw):
         np.testing.assert_array_equal(jp.row_nnz, p.row_nnz)
         _same_chunks(jp.chunks, p.chunks,
                      ("panel", "width", "rows", "nnz", "cols", "vals"))
+
+
+@pytest.mark.parametrize("native", [False, True])
+@pytest.mark.parametrize("kw", [
+    dict(panel_size=64, batch_rows=64, chunk_nnz=512),
+    dict(panel_size=48, batch_rows=100, chunk_nnz=1 << 11, chunk_rows=32,
+         split_width=16, octave_points=8),
+    dict(panel_size=32, batch_rows=37, min_bucket_rows=4)])
+def test_batched_panel_plan_bit_identical(medium_problem, monkeypatch, kw,
+                                          native):
+    """The batched-panel plan, array for array the JAX package's, with its
+    numpy fallback and (where built) its native dataplane."""
+    if not native:
+        monkeypatch.setattr(jnative, "available", lambda: False)
+    elif not jnative.available():
+        pytest.skip("the JAX package's native dataplane is not built")
+    train, _ = medium_problem
+    for jcsr in (train, j_transpose(train)):
+        jp = jtiling.build_batched_panel_plan(jcsr, **kw)
+        p = tiling.build_batched_panel_plan(_port_csr(jcsr), **kw)
+        assert (jp.num_rows, jp.num_cols, jp.panel_size, jp.batch_rows,
+                jp.true_nnz, jp.padded_nnz, len(jp.batches)) == \
+            (p.num_rows, p.num_cols, p.panel_size, p.batch_rows,
+             p.true_nnz, p.padded_nnz, len(p.batches))
+        assert any(b.global_ids[-1] < jcsr.num_rows for b in p.batches)
+        for jb, b in zip(jp.batches, p.batches):
+            for name in ("global_ids", "row_nnz"):
+                x, y = getattr(jb, name), getattr(b, name)
+                assert x.dtype == y.dtype, name
+                np.testing.assert_array_equal(x, y, err_msg=name)
+            assert (jb.plan.num_rows, jb.plan.n_panels, jb.plan.padded_nnz) \
+                == (b.plan.num_rows, b.plan.n_panels, b.plan.padded_nnz)
+            _same_chunks(jb.plan.chunks, b.plan.chunks,
+                         ("panel", "width", "rows", "nnz", "cols", "vals"))
 
 
 def test_native_plans_match_fallback(medium_problem, monkeypatch):
@@ -177,6 +227,12 @@ STRATEGY_CASES = [
     (dict(split_gather="force", gather_part_bytes=64 * 128 * 4), "split"),
     (dict(split_gather="off", panel_size=64, panel_budget_bytes=1 << 20,
           backend="pallas", solver="cholesky"), "batched_panel"),
+    (dict(panel_size=64, panel_budget_bytes=1 << 20, backend="pallas",
+          solver="cholesky"), "batched_panel"),
+    (dict(panel_size=64, panel_budget_bytes=1 << 20, backend="pallas",
+          solver="lu", gram_dtype="bf16"), "batched_panel"),
+    (dict(panel_size=64, panel_budget_bytes=1 << 20, solver="lu",
+          gram_dtype="bf16", batch_rows=32), "batched_panel"),
 ]
 
 
@@ -189,23 +245,32 @@ def test_phase_strategy_matches(jax_fused_available, medium_problem, fields,
     assert got_j == got == want
 
 
-def test_unported_strategies_raise(medium_problem):
-    """The batched-panel strategy still raises; the split strategy builds
-    its plan."""
+def test_split_strategy_builds_its_plan(medium_problem):
+    """The split strategy builds its plan for both phases."""
     train, test = medium_problem
     cfg = ALSConfig(m=train.num_rows, n=train.num_cols, f=16,
                     panel_size=64, panel_budget_bytes=1 << 20)
-    al = ALS.__new__(ALS)
-    al.cfg = cfg
-    assert al._phase_strategy(_port_csr(train)) == "batched_panel"
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        ALS(cfg, _port_csr(train), None, None, device="cpu")
     split = ALS(cfg.replace(backend="pallas",
                             gather_part_bytes=64 * 128 * 4,
                             split_min_table_bytes=0), _port_csr(train),
                 None, None, device="cpu")
     assert isinstance(split.plan_x[0], tiling.SplitPlan)
     assert isinstance(split.plan_theta[0], tiling.SplitPlan)
+
+
+PLAN_OF = {"direct": tiling.UpdatePlan, "panel": PanelPlan,
+           "split": tiling.SplitPlan,
+           "batched_panel": tiling.BatchedPanelPlan}
+
+
+@pytest.mark.parametrize("fields,want", STRATEGY_CASES)
+def test_phase_plan_follows_strategy(medium_problem, fields, want):
+    """Every strategy builds its plan: the X phase's plan is the class of
+    the strategy chosen for it, on the CPU."""
+    train, _ = medium_problem
+    cfg = ALSConfig(m=train.num_rows, n=train.num_cols, f=16, **fields)
+    al = ALS(cfg, _port_csr(train), None, None, device="cpu")
+    assert type(al.plan_x[0]) is PLAN_OF[want]
 
 
 def test_panel_route_matches_direct(medium_problem):

@@ -28,6 +28,7 @@ import cumf_als_tpu_torch as pkg
 from cumf_als_tpu_torch.data.synthetic import init_factors, synthetic_ratings
 import cumf_als_tpu_torch.cli, cumf_als_tpu_torch.interop
 import cumf_als_tpu_torch.ops.cuda_solve, cumf_als_tpu_torch.ops._build
+import cumf_als_tpu_torch.bench, cumf_als_tpu_torch.data.prepare
 tr, te = synthetic_ratings(m=30, n=20, nnz=300, nnz_test=40, seed=1)
 cfg = pkg.ALSConfig(m=30, n=20, f=16, iters=2, verbose=False,
                     debug_timing=False, backend="pallas")
