@@ -6,7 +6,8 @@ Phases, each of which must pass (any failure exits non-zero before the
 result line):
 
 1. card and build: the card's name and power limit, the torch/CUDA
-   versions, and the build of every CUDA kernel from csrc/ (twelve)
+   versions, the build of the native data plane (`g++`; without it the
+   run fails), and the build of every CUDA kernel from csrc/ (twelve)
    with `-Xptxas -v`: registers, spills and added wgmma waits of the
    tensor-core entry functions of K1, K2, K5a, K6 and the tensor-core
    pass 1 of the 256-lane body, registers and spills of the other
@@ -96,12 +97,28 @@ result line):
    train RMSE within 1e-3);
 8. the bench's accuracy contracts: `--workload netflix_cal --scale 0.25
    --accuracy-check` and `--workload ml10m_cal --accuracy-check` must
-   both pass.
+   both pass;
+9. out-of-core training: `hugewiki_mini` at scale 1.0 (2,000,000 x 39,780, 124M
+   ratings, the native generator's data, counts and CRC-32s pinned to
+   the JAX package's); `OutOfCoreALS` (X in pinned host memory, K1 on
+   the streamed X chunks, K2 on the streamed X panels, K3 on the theta
+   slices) and the in-core `ALS` (X and theta direct, K1) for 3
+   iterations each at F=100, lambda 0.048, bf16 factors, CG, "pallas":
+   train and test RMSE within 2e-3 at every iteration, x and theta
+   within rtol/atol 2e-2, K1, K2 and K3 launched exactly as the plans
+   say (chunks and slices times iterations, read around the out-of-core
+   run alone), the out-of-core peak device memory below the in-core
+   one, the X store pinned and no device tensor of X's rows live after
+   the run; then `python -m cumf_als_tpu_torch.bench --workload
+   hugewiki_mini --out-of-core --iters 3` once (the root bench's keys,
+   its train RMSE within 2e-3 of the phase's run). The plans and the
+   CSC go through the bench's plan cache.
 
-The full Netflix data comes through the bench's loader
-(`bench.load_workload("netflix", 1.0)`), which generates it once into
-.bench_cache/torch/ and memory-maps it; its counts and CRC-32s are held
-to the recorded ones of `workload_ratings("netflix", 1.0, 0)`.
+The data sets come through the bench's loader (`bench.load_workload`),
+which generates each once into .bench_cache/torch/ and memory-maps it;
+their counts and CRC-32s are held to those of the JAX package's
+`workload_ratings(name, 1.0, 0)` (both pass 2^26 ratings, so both come
+from the native generator).
 
 It prints a `kernels` JSON line, the card line, and last
 {"ok": true, "device": {...}}. It imports nothing of JAX.
@@ -121,6 +138,11 @@ the ptxas report), runs the edge grid (rows that stop at different nnz
 inside one chunk), times three synthetic chunk shapes and the most
 populous, the widest and the fewest-row chunk of the real Netflix theta
 plan against the plain versions, and prints no result line.
+
+    python3 chip_smoke.py --ooc
+
+is the short call for the out-of-core path: it builds K1, K2 and K3
+alone, runs phase 9 and prints no result line.
 
     python3 chip_smoke.py --wide
 
@@ -213,14 +235,13 @@ FMA_MS = {
 # 700.00 W): K3 on the first X solve slice (16,384 bf16 systems), K8 on
 # theta most populous with a bf16 G
 BEFORE_MS = {"K3": 0.541, "K8": 16.209}
-# train RMSE after iteration 3 of the full-width F=100 paths, as recorded
-# before K1 and K6 moved to the tensor cores (PERF.md)
-RECORDED_TRAIN_RMSE = {"main": 0.428662, "aug": 0.428668}
-# and of the F=200 paths after their last iteration (3 with wide_kernel
-# "on", 2 with "off"), read from a run of the parent of the tensor-core
-# pass 1 on the card (PERF.md §2): only the order of the Gram's f32
-# sums has moved since
-RECORDED_TRAIN_RMSE.update({"wide on": 0.425421, "wide off": 0.516026})
+# train RMSE after the last iteration of the full-width Netflix paths
+# (3 iterations at F=100, main and aug; at F=200 3 with wide_kernel "on"
+# and 2 with "off"), read on the card from the native generator's data
+# (99,077,413 ratings; PERF.md §2 has the values read on the earlier
+# numpy-path data beside them)
+RECORDED_TRAIN_RMSE = {"main": 0.428543, "aug": 0.428718,
+                       "wide on": 0.425283, "wide off": 0.514406}
 # phase 6 with f32 accumulators: the largest relative difference of a
 # row's x between the batched-panel and panel routes after one X phase
 # (3.0e-6 read on the card, and 2.9e-6 between two runs of the panel
@@ -236,11 +257,19 @@ BENCH_KEYS = ["metric", "value", "unit", "vs_baseline",
               "backend", "device"]
 REPEAT_KEYS = ["repeats", "spread_min", "spread_max"]
 ACCURACY_KEYS = ["accuracy_check", "accuracy_contract"]
-# workload_ratings("netflix", 1.0, 0): counts and each member's CRC-32
-# (bench.dataset_crc32), read from a run on the card
-RECORDED_NETFLIX = {"nnz": 99_072_112, "nnz_test": 1_408_395, "crc32": {
-    "indptr": 1782986681, "indices": 2023570813, "data": 1374199786,
-    "trow": 3285702697, "tcol": 3111117483, "tdata": 666843433}}
+# the JAX package's workload_ratings(name, 1.0, 0): counts and each
+# member's CRC-32 (bench.dataset_crc32), computed from cumf_als_tpu with
+# its native generator (both workloads pass 2^26 ratings), which the
+# port's data must equal bit for bit
+RECORDED_NETFLIX = {"nnz": 99_077_413, "nnz_test": 1_408_586, "crc32": {
+    "indptr": 3106220693, "indices": 2907137272, "data": 1322421219,
+    "trow": 3812812321, "tcol": 2404904807, "tdata": 330818980}}
+RECORDED_HUGEWIKI_MINI = {
+    "nnz": 124_000_582, "nnz_test": 1_999_293, "crc32": {
+        "indptr": 1898438497, "indices": 2973046940, "data": 3688028508,
+        "trow": 2441910573, "tcol": 2051445344, "tdata": 241349327}}
+# iterations of each run of the out-of-core phase
+OOC_ITERS = 3
 
 
 def log(msg: str) -> None:
@@ -677,13 +706,14 @@ def check_k3(cs, a_buf, b_buf, x0_full, row_nnz, lo, batch, cfg):
     so the difference is the CG), with the slice's A as stored and
     widened to float32 (what a gram_dtype="f32" run without aug feeds
     K3); the stored dtype's numbers fill the entry, the float32 ones go
-    under f32_*."""
+    under f32_* (a float32 A is checked once)."""
     b = b_buf[lo:lo + batch]
     x0 = x0_full[lo:lo + batch]
     nnzf = row_nnz[lo:lo + batch].float()
     diag = nnzf * cfg.lam + (nnzf == 0).float()
     ok_all, out = True, {}
-    for a in (a_buf[lo:lo + batch], a_buf[lo:lo + batch].float()):
+    a_s = a_buf[lo:lo + batch]
+    for a in (a_s,) if a_s.dtype == torch.float32 else (a_s, a_s.float()):
         kw = dict(cg_iters=cfg.cg_iters, cg_tol=cfg.cg_tol)
         x = cs.solve_cg_reg(a, diag, b, x0, **kw)
         px = cs.solve_cg_reg_plain(a, diag, b, x0, **kw)
@@ -1836,25 +1866,6 @@ def wide_paths(cs, ALS, cfg, train, csc, test, small_train, small_test,
             **{k: launches_on[k] for k in MMA_PASSES}}
 
 
-def netflix_data(bench):
-    """The full Netflix data set through the bench's loader, held to the
-    recorded counts and CRC-32s (and to those its cache recorded when it
-    was written)."""
-    train, test = bench.load_workload("netflix", 1.0)
-    crc = bench.dataset_crc32(train, test)
-    with open(os.path.join(bench.dataset_dir("netflix", 1.0),
-                           "meta.json")) as fh:
-        written = json.load(fh)["crc32"]
-    log(f"[data] the bench's cache: nnz {train.nnz}, nnz_test {test.nnz}, "
-        f"CRC-32 {crc}")
-    want = RECORDED_NETFLIX
-    if (train.nnz, test.nnz) != (want["nnz"], want["nnz_test"]) or \
-            crc != written or crc != want["crc32"]:
-        raise AssertionError("the cached Netflix data is not the recorded "
-                             "workload_ratings('netflix', 1.0, 0)")
-    return train, test
-
-
 def run_bench(args, label):
     """`python -m cumf_als_tpu_torch.bench ARGS` in a subprocess from this
     checkout; its stderr is logged, its JSON line returned."""
@@ -1897,6 +1908,228 @@ def bench_accuracy():
                 line["accuracy_check"] != "pass":
             raise AssertionError(f"bench accuracy: {args[1]} "
                                  f"{line.get('accuracy_check')}")
+
+
+def workload_data(bench, name, want):
+    """A workload at scale 1.0 through the bench's loader, held to its
+    recorded counts and CRC-32s (and to those its cache recorded when it
+    was written). Returns the data and the loader's seconds."""
+    t0 = time.monotonic()
+    train, test = bench.load_workload(name, 1.0)
+    load_s = time.monotonic() - t0
+    crc = bench.dataset_crc32(train, test)
+    with open(os.path.join(bench.dataset_dir(name, 1.0), "meta.json")) as fh:
+        meta = json.load(fh)
+    log(f"[data] {name}: the bench's cache ({meta['entry']['generator']} "
+        f"generator): nnz {train.nnz}, nnz_test {test.nnz}, CRC-32 {crc}; "
+        f"{load_s:.1f} s to load (generating it on first use)")
+    if (train.nnz, test.nnz) != (want["nnz"], want["nnz_test"]) or \
+            crc != meta["crc32"] or crc != want["crc32"]:
+        raise AssertionError(f"the cached {name} data is not the recorded "
+                             f"workload_ratings({name!r}, 1.0, 0)")
+    return train, test, load_s
+
+
+def ooc_run(cs, model, label, expect):
+    """model.run for OOC_ITERS iterations with the launch counts and the
+    peak device memory read around it alone; `expect`: the launches each
+    kernel must make (every other kernel none)."""
+    x0, th0 = init_factors_np(model)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cs.reset_launch_counts()
+    res = model.run(x0, th0)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in cs.LAUNCHES.items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    per_iter = [h.x_seconds + h.theta_seconds for h in res.history]
+    for h in res.history:
+        log(f"[{label}] iter {h.iteration}: x {h.x_seconds:.4f} s, theta "
+            f"{h.theta_seconds:.4f} s, rmse {h.rmse_seconds:.4f} s, train "
+            f"{h.train_rmse:.6f}, test {h.test_rmse:.6f}")
+    log(f"[{label}] seconds per iteration (x + theta): "
+        f"{[round(t, 4) for t in per_iter]}, median "
+        f"{statistics.median(per_iter):.4f}; peak device memory "
+        f"{peak / 2**30:.2f} GiB ({base / 2**30:.2f} GiB allocated before "
+        f"the run); launches {launches}")
+    if launches != {k: v for k, v in expect.items() if v}:
+        raise AssertionError(f"{label}: launches {launches}, expected "
+                             f"{expect}")
+    if not all(np.isfinite([h.train_rmse for h in res.history] +
+                           [h.test_rmse for h in res.history])):
+        raise AssertionError(f"{label}: non-finite RMSE")
+    return res, launches, peak
+
+
+def init_factors_np(model):
+    from cumf_als_tpu_torch.data.synthetic import init_factors
+    cfg = model.cfg
+    return init_factors(cfg.m, cfg.n, cfg.f, seed=0)
+
+
+def cuda_tensors_of_rows(rows: int):
+    """Shapes of the live CUDA tensors with `rows` rows (by their type
+    alone: some objects warn when their attributes are read)."""
+    import gc
+    gc.collect()
+    return [tuple(t.shape) for t in gc.get_objects()
+            if issubclass(type(t), torch.Tensor) and t.is_cuda and t.dim()
+            and t.shape[0] == rows]
+
+
+def ooc_kernel_checks(cs, ooc, theta_np):
+    """K1, K2 and K3 against their plain versions at the shapes the
+    out-of-core path gives them. K1 on the X chunk with the most ratings
+    at iteration 0's state (table: the initial theta; warm start: the
+    initial X), as the Netflix checks hold K1 at the initial factors;
+    K2 and K3 on the state the run left: the theta panel chunk with the
+    most ratings (table: its X panel from the host store, A in the run's
+    accumulator dtype), and the first solve slice of the theta
+    accumulators that X gives (warm start: the run's theta). Returns ok
+    and each kernel's numbers."""
+    from types import SimpleNamespace
+    from cumf_als_tpu_torch.ops.gram import extend_table
+    cfg, dev = ooc.cfg, torch.device(DEV)
+    n, f_pad = ooc.plan_theta.num_rows, cfg.f_pad
+
+    def padded(arr):
+        out = torch.zeros((arr.shape[0], f_pad), dtype=torch.float32)
+        out[:, :cfg.f] = torch.from_numpy(np.asarray(arr, np.float32))
+        return out.to(dev)
+
+    def most_rated(plan):
+        return max(range(len(plan.chunks)),
+                   key=lambda i: int(plan.chunks[i].nnz.sum()))
+
+    x0, th0 = init_factors_np(ooc)
+    theta0 = padded(th0) * torch.from_numpy(
+        ooc.plan_theta.row_nnz > 0).to(dev)[:, None]
+    i = most_rated(ooc.plan_x)
+    (c,), _ = ooc._host_x.upload(i, i + 1, dev)
+    k = c.n_real
+    ch = SimpleNamespace(cols=c.cols, vals=c.vals, nnz=c.nnz, rows=c.rows,
+                         n_real=k, rows_real=torch.arange(k, device=dev))
+    current = padded(x0[c.rows[:k].cpu().numpy()])   # all rated rows
+    ok1, k1 = check_k1(cs, extend_table(theta0.to(torch.bfloat16)), ch,
+                       current, cfg, f"out-of-core X chunk {i} of "
+                       f"{len(ooc.plan_x.chunks)}, iteration 0")
+    del current, ch, c, theta0
+    theta = padded(theta_np)
+
+    j = most_rated(ooc.plan_theta)
+    (c,), _ = ooc._host_th.upload(j, j + 1, dev)
+    s = ooc.plan_theta.panel_size
+    lo, hi = c.panel * s, min(c.panel * s + s, ooc.plan_theta.num_cols)
+    tp = torch.zeros((s + 1, f_pad), dtype=torch.bfloat16, device=dev)
+    tp[:hi - lo] = ooc.x_store[lo:hi].to(dev)
+    ok2, k2 = check_gram(cs, tp, c, ooc.accum_dtype, False,
+                         f"out-of-core theta chunk {j} of "
+                         f"{len(ooc.plan_theta.chunks)}")
+    del tp, c
+
+    a_buf, b_buf = ooc.theta_accumulators()
+    theta_pad = torch.nn.functional.pad(theta, (0, 0, 0, ooc.n_pad - n))
+    ok3, k3 = check_k3(cs, a_buf, b_buf, theta_pad, ooc._theta_nnz_pad, 0,
+                       ooc.solve_batch, cfg)
+    del a_buf, b_buf, theta_pad, theta
+    torch.cuda.empty_cache()
+    return ok1 and ok2 and ok3, {"gather_gram_cg": k1,
+                                 "gather_gram_out": k2, "solve_cg_reg": k3}
+
+
+def out_of_core(cs, bench):
+    """Phase 9: OutOfCoreALS at full width on hugewiki_mini (scale 1.0,
+    the native generator's data, CRC-32s pinned), against the in-core ALS
+    with the same settings (X and theta direct), then once through the
+    bench. Returns the out-of-core run's launches and the numbers of K1,
+    K2 and K3 held against their plain versions at its shapes."""
+    from cumf_als_tpu_torch import native
+    from cumf_als_tpu_torch.config import ALSConfig
+    from cumf_als_tpu_torch.models.als import ALS
+    from cumf_als_tpu_torch.models.out_of_core import OutOfCoreALS
+    from cumf_als_tpu_torch.utils.plan_cache import cached_transpose
+    if not native.available():
+        raise AssertionError("the native data plane is not built")
+    train, test, load_s = workload_data(bench, "hugewiki_mini",
+                                        RECORDED_HUGEWIKI_MINI)
+    cfg = ALSConfig(m=train.num_rows, n=train.num_cols, f=100,
+                    nnz=train.nnz, nnz_test=test.nnz, lam=0.048,
+                    iters=OOC_ITERS, solver="cg", backend="pallas",
+                    factor_dtype="bf16", gram_dtype="bf16",
+                    plan_cache_dir=bench.plan_cache_dir(), verbose=False,
+                    debug_timing=False)
+    t0 = time.monotonic()
+    csc = cached_transpose(cfg.plan_cache_dir, train)
+    csc_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    ooc = OutOfCoreALS(cfg.replace(host_offload_x=True), train, csc, test,
+                       device="cuda")
+    log(f"[ooc] set-up with the native library: data {load_s:.1f} s, CSC "
+        f"{csc_s:.1f} s, out-of-core plans and pinned buffers "
+        f"{time.monotonic() - t0:.1f} s (cached in {cfg.plan_cache_dir}); "
+        f"X phase {len(ooc.plan_x.chunks)} chunks, theta phase "
+        f"{len(ooc.plan_theta.chunks)} chunks over "
+        f"{ooc.plan_theta.n_panels} X panels of "
+        f"{ooc.plan_theta.panel_size} rows, {ooc.n_slices} solve slices of "
+        f"{ooc.solve_batch}; theta accumulators {ooc.accum_dtype}")
+    if not ooc.x_store.is_pinned():
+        raise AssertionError("the X store is not pinned host memory")
+    n = OOC_ITERS
+    expect = {"gather_gram_cg": len(ooc.plan_x.chunks) * n,
+              "gather_gram_out": len(ooc.plan_theta.chunks) * n,
+              "solve_cg_reg": ooc.n_slices * n}
+    res_o, launches, peak_o = ooc_run(cs, ooc, "ooc", expect)
+    full_x = cuda_tensors_of_rows(train.num_rows)
+    log(f"[ooc] live CUDA tensors of X's {train.num_rows} rows after the "
+        f"run: {full_x}")
+    if full_x:
+        raise AssertionError("a device tensor of X's full shape is live")
+    checks_ok, checks = ooc_kernel_checks(cs, ooc, res_o.theta)
+    if not checks_ok:
+        raise AssertionError("a kernel disagrees with its plain version at "
+                             "the out-of-core path's shapes")
+    acc = ooc.accum_dtype
+    del ooc
+    torch.cuda.empty_cache()
+
+    t0 = time.monotonic()
+    inc = ALS(cfg.replace(use_panels="never", train_rmse_method="direct"),
+              train, csc, test, device="cuda")
+    log(f"[in-core] plans {time.monotonic() - t0:.1f} s; X phase "
+        f"{len(inc.plan_x[1])} chunks, theta phase {len(inc.plan_theta[1])} "
+        f"chunks (both direct)")
+    res_i, _, peak_i = ooc_run(cs, inc, "in-core", {
+        "gather_gram_cg": (len(inc.plan_x[1]) + len(inc.plan_theta[1])) * n})
+    del inc
+    torch.cuda.empty_cache()
+    worst = 0.0
+    for ho, hi in zip(res_o.history, res_i.history):
+        d = max(abs(ho.train_rmse - hi.train_rmse),
+                abs(ho.test_rmse - hi.test_rmse))
+        worst = max(worst, d)
+        log(f"[ooc | in-core] iter {ho.iteration}: train {ho.train_rmse:.6f}"
+            f" | {hi.train_rmse:.6f}, test {ho.test_rmse:.6f} | "
+            f"{hi.test_rmse:.6f} (limit 2e-3)")
+    x_ok = np.allclose(res_o.x, res_i.x, rtol=2e-2, atol=2e-2)
+    th_ok = np.allclose(res_o.theta, res_i.theta, rtol=2e-2, atol=2e-2)
+    log(f"[ooc | in-core] max|x diff| {np.abs(res_o.x - res_i.x).max():.3e},"
+        f" max|theta diff| {np.abs(res_o.theta - res_i.theta).max():.3e} "
+        f"(rtol, atol 2e-2); peak device memory {peak_o / 2**30:.2f} | "
+        f"{peak_i / 2**30:.2f} GiB; accumulators {acc} | none (direct)")
+    if worst > 2e-3 or not (x_ok and th_ok):
+        raise AssertionError("out-of-core and in-core runs disagree")
+    if not peak_o < peak_i:
+        raise AssertionError("the out-of-core run's peak device memory is "
+                             "not below the in-core run's")
+    line = run_bench(["--workload", "hugewiki_mini", "--out-of-core",
+                      "--iters", str(OOC_ITERS)], "bench ooc")
+    if list(line) != BENCH_KEYS or \
+            line["device"] != torch.cuda.get_device_name(0):
+        raise AssertionError(f"bench ooc: {line}")
+    if abs(line["train_rmse_final"] - res_o.history[-1].train_rmse) > 2e-3:
+        raise AssertionError("bench ooc: train RMSE off the phase's run")
+    return launches, checks
 
 
 def batched_models(ALS, cfg, train, csc, test, gram_dtype):
@@ -2089,7 +2322,7 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from cumf_als_tpu_torch import bench
+    from cumf_als_tpu_torch import bench, native
     from cumf_als_tpu_torch.config import NETFLIX
     from cumf_als_tpu_torch.data.synthetic import (init_factors,
                                                    workload_ratings)
@@ -2106,9 +2339,10 @@ def main() -> int:
     log(f"[versions] python {sys.version.split()[0]} torch "
         f"{torch.__version__} cuda {torch.version.cuda}")
     short = {(): None, ("--gram",): GRAM_KERNELS,
-             ("--theta",): THETA_KERNELS, ("--wide",): WIDE_SHORT}
+             ("--theta",): THETA_KERNELS, ("--wide",): WIDE_SHORT,
+             ("--ooc",): SPLIT_KERNELS}
     if tuple(sys.argv[1:]) not in short:
-        print("usage: chip_smoke.py [--gram | --theta | --wide]",
+        print("usage: chip_smoke.py [--gram | --theta | --wide | --ooc]",
               file=sys.stderr)
         return 2
     only = short[tuple(sys.argv[1:])]
@@ -2117,6 +2351,13 @@ def main() -> int:
     if set(_build.KERNELS) != set(REPLACES):
         raise AssertionError("the kernel table and this script disagree")
     log(f"[build] {len(_build.BUILD_LOG)} kernels built in "
+        f"{time.monotonic() - t0:.1f} s")
+    # the native data plane: the data sets are the JAX package's only
+    # through it, and the out-of-core plans build through it
+    t0 = time.monotonic()
+    if not native.available():
+        raise AssertionError("the native data plane did not build")
+    log(f"[build] native data plane {native.LIB_PATH} in "
         f"{time.monotonic() - t0:.1f} s")
     ptxas_ok = ptxas_lines(_build.BUILD_LOG)
     if only == GRAM_KERNELS:
@@ -2135,6 +2376,10 @@ def main() -> int:
         if not ok:
             log("[wide] FAIL (the short call: no result line)")
             return 1
+    elif only == SPLIT_KERNELS:
+        out_of_core(cs, bench)
+        log("[ooc] OK (the short call: no result line)")
+        return 0
     elif not ptxas_ok:
         raise AssertionError("a tensor-core kernel spills or waits for "
                              "every wgmma")
@@ -2142,7 +2387,7 @@ def main() -> int:
     # ---- data and plans of the full Netflix shape (shared by 2 and 4),
     # through the bench's loader: generated into its cache on first use
     t0 = time.monotonic()
-    train, test = netflix_data(bench)
+    train, test, _ = workload_data(bench, "netflix", RECORDED_NETFLIX)
     csc = transpose_csr(train)
     gen_s = time.monotonic() - t0
     cfg = NETFLIX.replace(m=train.num_rows, n=train.num_cols, nnz=train.nnz,
@@ -2438,6 +2683,12 @@ def main() -> int:
     # contracts
     bench_main()
     bench_accuracy()
+
+    # ---- 9. out-of-core training on hugewiki_mini
+    ooc_launches, ooc_checks = out_of_core(cs, bench)
+    for name in SPLIT_KERNELS:
+        results[name]["ooc_launches"] = ooc_launches[name]
+        results[name]["ooc_check"] = ooc_checks[name]
 
     launches.update({k: launches_aug[k] for k in AUG_KERNELS})
     launches["solve_cg"] = k4_launches

@@ -18,11 +18,17 @@ each phase, and one line per iteration.
 Data sets are generated once per (workload, scale, seed) and cached under
 .bench_cache/torch/<workload>_s<scale>_seed<seed>/ in the root bench's
 directory format (one .npy per member and meta.json), then read back
-memory-mapped. meta.json records the workload entry the data came from
-and each member's CRC-32: a cache from another entry is regenerated, and
-one whose members no longer match their CRC-32s raises. The JAX package writes its own cache beside it: at 2^26
-ratings and above it may use its native generator, another random
-stream, so the two caches are kept apart.
+memory-mapped. meta.json records the workload entry the data came from,
+with the generator that made it ("native" at 2^26 ratings and above when
+the native data plane is built, else "numpy"), and each member's
+CRC-32: a cache from another entry is regenerated, and one whose members
+no longer match their CRC-32s raises. The JAX package's bench keeps its
+own cache in another layout beside it. Built plans are cached under
+.bench_cache/plans/ (utils/plan_cache.py), the root bench's plan cache,
+whose format and keys the two packages share, unless `--no-plan-cache`.
+
+`--out-of-core` runs OutOfCoreALS (X in host memory, streamed through the
+card) on the workload, as the root bench does.
 
 Runs on the first CUDA device unless `--device cpu` (or `--platform
 cpu`) is given; without a card it raises.
@@ -72,6 +78,12 @@ WORKLOADS = ["netflix", "ml10m", "yahoo", "hugewiki_mini", "hugewiki",
 CACHE_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
     ".bench_cache", "torch")
+# the plan cache beside the data caches: the root bench's, whose format
+# and keys the port shares (utils/plan_cache.py)
+def plan_cache_dir() -> str:
+    return os.path.join(os.path.dirname(CACHE_DIR), "plans")
+
+
 _DSET_MEMBERS = ("indptr", "indices", "data", "trow", "tcol", "tdata")
 # flags of the root bench that steer only the JAX toolchain
 _NO_EFFECT = "accepted; no effect in the port"
@@ -116,11 +128,18 @@ def _read_meta(path: str) -> dict:
 
 def _workload_entry(name: str, scale: float, seed: int) -> dict:
     """What a cached data set was generated from: the workload's table
-    entry, its scale and seed. A cache whose entry differs is stale."""
-    from cumf_als_tpu_torch.data.synthetic import WORKLOAD_SHAPES
+    entry, its scale and seed, and the generator. A cache whose entry
+    differs is stale."""
+    from cumf_als_tpu_torch.data.synthetic import (WORKLOAD_SHAPES,
+                                                   native_generator,
+                                                   workload_shape)
+    shp = workload_shape(name, scale)
+    gen = "native" if native_generator(shp["nnz"] + shp["nnz_test"]) \
+        else "numpy"
     return json.loads(json.dumps({"workload": name, "scale": scale,
                                   "seed": seed,
-                                  "shape": WORKLOAD_SHAPES[name]}))
+                                  "shape": WORKLOAD_SHAPES[name],
+                                  "generator": gen}))
 
 
 def _check_cached(path: str, train, test) -> None:
@@ -200,7 +219,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "its frozen contract (ACCURACY_CONTRACTS); needs "
                         "--iters >= 3")
     p.add_argument("--out-of-core", action="store_true",
-                   help="host-resident X (not ported yet: ROADMAP A11)")
+                   help="X in host memory, streamed through the card "
+                        "(OutOfCoreALS)")
     p.add_argument("--scale", type=float, default=1.0)
     p.add_argument("--f", type=int, default=100)
     p.add_argument("--iters", type=int, default=10)
@@ -216,7 +236,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--use-panels", default="auto", choices=["auto", "never"])
     p.add_argument("--no-fuse-phase", action="store_true", help=_NO_EFFECT)
     p.add_argument("--no-plan-cache", action="store_true",
-                   help=_NO_EFFECT + " (no plan cache yet: ROADMAP A9)")
+                   help="disable the on-disk plan cache")
     p.add_argument("--chunk-nnz", type=int, default=1 << 22)
     p.add_argument("--gram-dtype", default="bf16", choices=["f32", "bf16"])
     p.add_argument("--aug-gram", default="auto",
@@ -286,10 +306,6 @@ def _describe(plan_pair) -> str:
 def main(argv=None) -> int:
     p = build_parser()
     args = p.parse_args(argv)
-    if args.out_of_core:
-        raise NotImplementedError(
-            "--out-of-core: out-of-core training is not ported yet "
-            "(ROADMAP A11)")
     if args.mesh:
         raise NotImplementedError(
             "--mesh: sharded training is not ported yet (ROADMAP A12)")
@@ -303,7 +319,8 @@ def main(argv=None) -> int:
 
     from cumf_als_tpu_torch.config import ALSConfig
     from cumf_als_tpu_torch.data.synthetic import init_factors
-    from cumf_als_tpu_torch.models.als import ALS, resolve_device
+    from cumf_als_tpu_torch.models.als import resolve_device
+    from cumf_als_tpu_torch.models.factory import make_model
 
     dev = resolve_device("cpu" if args.platform == "cpu" else args.device)
     if dev.type == "cuda":
@@ -323,6 +340,9 @@ def main(argv=None) -> int:
                     wide_kernel=args.wide_kernel, backend=args.backend,
                     use_panels=args.use_panels,
                     fuse_phase=not args.no_fuse_phase,
+                    plan_cache_dir=(None if args.no_plan_cache else
+                                    plan_cache_dir()),
+                    host_offload_x=args.out_of_core,
                     train_rmse_method="fused", verbose=False,
                     debug_timing=args.debug_timing,
                     **({"panel_size": args.panel_size}
@@ -332,10 +352,17 @@ def main(argv=None) -> int:
         from cumf_als_tpu_torch.ops import _build
         log(f"[bench] kernels built in {_build.build():.1f} s")
     t0 = time.monotonic()
-    model = ALS(cfg, train, None, test, device=dev)
-    log(f"[bench] plans built in {time.monotonic() - t0:.1f}s; X phase: "
-        f"{_describe(model.plan_x)}, theta phase: "
-        f"{_describe(model.plan_theta)}")
+    model = make_model(cfg, train, None, test, device=dev)
+    if args.out_of_core:
+        log(f"[bench] OOC plans built in {time.monotonic() - t0:.1f}s "
+            f"({model.plan_theta.n_panels} X panels; X phase "
+            f"{len(model.plan_x.chunks)} chunks, theta phase "
+            f"{len(model.plan_theta.chunks)} chunks, "
+            f"{model.n_slices} solve slices)")
+    else:
+        log(f"[bench] plans built in {time.monotonic() - t0:.1f}s; X phase: "
+            f"{_describe(model.plan_x)}, theta phase: "
+            f"{_describe(model.plan_theta)}")
 
     from cumf_als_tpu_torch.ops import cuda_solve
     x0, th0 = init_factors(cfg.m, cfg.n, cfg.f, seed=cfg.seed)

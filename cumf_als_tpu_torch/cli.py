@@ -18,6 +18,7 @@ import sys
 
 from cumf_als_tpu_torch.config import ALSConfig
 from cumf_als_tpu_torch.data.synthetic import init_factors
+from cumf_als_tpu_torch.models.factory import make_model
 from cumf_als_tpu_torch.utils.io import (load_csc_as_csr, load_csr,
                                          load_test_coo)
 from cumf_als_tpu_torch.utils.timing import seconds
@@ -66,17 +67,19 @@ def build_parser() -> argparse.ArgumentParser:
                    default=None,
                    help="sharded out-of-core X placement (not ported yet)")
     p.add_argument("--out-of-core", action="store_true",
-                   help="keep X host-resident (not ported yet)")
+                   help="keep X in host memory and stream it through the "
+                        "card (OutOfCoreALS)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--plan-cache", default="auto",
                    help="plan cache directory ('auto' = <DATA_DIR>/"
-                        ".plan_cache, 'off'); accepted, no effect yet: "
-                        "plans are rebuilt each run")
+                        ".plan_cache, 'off'); the JAX package's format, "
+                        "so either package reads the other's entries")
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--checkpoint-every", type=int, default=0)
     p.add_argument("--resume", action="store_true")
     p.add_argument("--profile-dir", default=None,
-                   help="profiler trace directory (not ported yet)")
+                   help="profiler trace directory (not ported yet: "
+                        "ROADMAP A9, second half)")
     p.add_argument("--quiet", action="store_true")
     return p
 
@@ -102,20 +105,6 @@ def config_from_args(a) -> ALSConfig:
         verbose=not a.quiet, debug_timing=not a.quiet)
 
 
-def make_model(cfg: ALSConfig, train_csr, train_csc=None, test_coo=None,
-               device=None):
-    """The single-device ALS; the sharded and out-of-core models are not
-    ported yet."""
-    if cfg.mesh_shape:
-        raise NotImplementedError(
-            "sharded training is not ported yet (ROADMAP A12)")
-    if cfg.host_offload_x:
-        raise NotImplementedError(
-            "out-of-core training is not ported yet (ROADMAP A11)")
-    from cumf_als_tpu_torch.models.als import ALS
-    return ALS(cfg, train_csr, train_csc, test_coo, device=device)
-
-
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if len(argv) < 9:
@@ -124,7 +113,8 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.profile_dir is not None:
         raise NotImplementedError(
-            "--profile-dir: profiler traces are not ported yet (ROADMAP A9)")
+            "--profile-dir: profiler traces are not ported yet (ROADMAP "
+            "A9, second half)")
     if args.x_placement is not None:
         raise NotImplementedError(
             "--x-placement: sharded out-of-core training is not ported yet "

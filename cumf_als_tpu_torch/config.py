@@ -7,8 +7,11 @@ and have no effect here:
 
 - ``gram_precision``: the port's Gram sums are full f32 on every path;
 - ``fuse_phase``, ``fuse_max_chunks``: PyTorch runs eagerly, chunk by
-  chunk;
-- ``plan_cache_dir``: plans are rebuilt each run (no plan cache yet).
+  chunk.
+
+``plan_cache_dir`` caches the built plans on disk in the JAX package's
+format (utils/plan_cache.py); ``host_offload_x`` selects the out-of-core
+model (models/factory.py).
 
 ``split_gather``, ``gather_part_bytes``, ``split_min_table_bytes`` and
 ``split_max_groups`` steer the strategy choice and the split plan
@@ -115,7 +118,7 @@ class ALSConfig:
     fuse_phase: bool = True        # no effect
     fuse_max_chunks: int = 256     # no effect
 
-    # --- plan cache (not ported yet; no effect) ---
+    # --- plan cache (utils/plan_cache.py; None: plans are built) ---
     plan_cache_dir: Optional[str] = None
 
     # --- checkpoint / resume ---
@@ -126,12 +129,12 @@ class ALSConfig:
     # --- observability ---
     verbose: bool = True       # reference-style stdout contract lines
     debug_timing: bool = True  # per-phase timing lines
-    save_model: bool = False   # Gram/solve dumps (not ported yet)
+    save_model: bool = False   # Gram/solve dumps (not ported: A9, 2nd half)
     save_model_dir: str = "./log"
-    profile_dir: Optional[str] = None  # profiler trace (not ported yet)
+    profile_dir: Optional[str] = None  # trace (not ported: A9, 2nd half)
     metrics_jsonl: Optional[str] = None  # append per-iteration JSON lines
 
-    # --- parallelism and out-of-core (not ported yet) ---
+    # --- parallelism (not ported yet: A12) and out-of-core ---
     mesh_shape: Optional[Tuple[int, ...]] = None
     fused_step: str = "auto"
     mesh_axis_names: Tuple[str, ...] = ("data",)

@@ -1,11 +1,16 @@
 """Synthetic rating matrices shaped like the reference workloads.
 
-A copy of the numpy path of the JAX package's data/synthetic.py: the same
-seed gives the same matrices. Ratings come from a planted low-rank model
-(so ALS convergence is checkable), rows and columns are drawn from
-Zipf-like weights (the heavy degree skew of the real datasets), and
-duplicate (row, col) pairs are dropped, so the achieved nnz can fall
-below the request: read the counts off the returned matrices.
+A copy of the JAX package's data/synthetic.py: the same seed gives the
+same matrices. At 2^26 ratings and above, when the native data plane is
+built, both packages take the native generator (alias sampling, a radix
+sort and one fused emit pass: native/dataplane.cpp), another random
+stream from the same planted model and skew family; below that, or
+without the library, the numpy path. Ratings come from a planted
+low-rank model (so ALS convergence is checkable), rows and columns are
+drawn from Zipf-like weights (the heavy degree skew of the real
+datasets), and duplicate (row, col) pairs are dropped, so the achieved
+nnz can fall below the request: read the counts off the returned
+matrices.
 
 The heavy exact steps (the inverse-CDF lookups, the de-duplication, the
 factor-row gathers, the sorts) run through PyTorch's multi-threaded CPU kernels; they give
@@ -21,6 +26,17 @@ import numpy as np
 import torch
 
 from cumf_als_tpu_torch.utils.io import COOMatrix, CSRMatrix, coo_to_csr
+
+
+# from this many ratings (train + test) on, the native generator runs
+NATIVE_MIN_RATINGS = 1 << 26
+
+
+def native_generator(total: int) -> bool:
+    """Whether `total` ratings are generated natively (when the native
+    data plane's library is built), as in the JAX package."""
+    from cumf_als_tpu_torch import native
+    return total >= NATIVE_MIN_RATINGS and native.available()
 
 
 def _zipf_cdf(size: int, skew: float, rng) -> np.ndarray:
@@ -69,6 +85,9 @@ def synthetic_ratings(
 
     lo, hi = rating_range
     total = nnz + nnz_test
+    if native_generator(total):
+        return _native_synthetic(m, n, nnz, nnz_test, u, v, noise,
+                                 row_skew, col_skew, lo, hi, seed, rng)
     cdf_row = _zipf_cdf(m, row_skew, rng)
     cdf_col = _zipf_cdf(n, col_skew, rng)
 
@@ -109,6 +128,30 @@ def synthetic_ratings(
     return train, test
 
 
+def _native_synthetic(m, n, nnz, nnz_test, u, v, noise, row_skew,
+                      col_skew, lo, hi, seed, rng
+                      ) -> Tuple[CSRMatrix, COOMatrix]:
+    """The native generator's twin of the sampling and emit steps: the
+    train CSR comes out sorted, and the test split is a hash threshold
+    (exact in expectation), so the counts are read off the outputs."""
+    from cumf_als_tpu_torch import native
+    total = nnz + nnz_test
+    row_w = np.arange(1, m + 1, dtype=np.float64) ** (-row_skew)
+    col_w = np.arange(1, n + 1, dtype=np.float64) ** (-col_skew)
+    rng.shuffle(row_w)
+    rng.shuffle(col_w)
+    keys = native.synth_sample_keys(m, n, total, row_w, col_w, seed)
+    achieved = min(keys.shape[0], total)
+    test_frac = nnz_test / max(1, total)
+    indptr, cols, vals, trow, tcol, tvals = native.synth_split_emit(
+        keys, m, n, u, v, noise, lo, hi, seed, achieved, test_frac)
+    train = CSRMatrix(indptr=indptr, indices=cols, data=vals,
+                      num_rows=m, num_cols=n)
+    test = COOMatrix(row=trow, col=tcol, data=tvals,
+                     num_rows=m, num_cols=n)
+    return train, test
+
+
 def init_factors(m: int, n: int, f: int, seed: int = 0,
                  init_scale: float = 0.2) -> Tuple[np.ndarray, np.ndarray]:
     """Initial factors: theta ~ init_scale * U(0, 1), X = 0."""
@@ -138,9 +181,7 @@ WORKLOAD_SHAPES = {
                           rating_range=(1.0, 5.0)),
     # the full hugewiki workload (reference hugewiki.cu:27-42): 3.1B
     # training ratings; all flat indexing is int64 (nnz > 2^31). The
-    # JAX package generates it with its native generator; this numpy
-    # path makes full scale impractical until the port has one (ROADMAP
-    # A10)
+    # native generator makes it practical to generate
     "hugewiki": dict(m=50_082_603, n=39_780, nnz=3_101_144_313,
                      nnz_test=344_573_330, skew=(0.35, 0.45),
                      rating_range=(1.0, 5.0)),
@@ -159,16 +200,23 @@ WORKLOAD_SHAPES = {
 }
 
 
+def workload_shape(name: str, scale: float = 1.0) -> dict:
+    """The workload's table entry, its counts scaled (scale < 1 for
+    smoke runs)."""
+    shp = dict(WORKLOAD_SHAPES[name])
+    if scale != 1.0:
+        for k in ("m", "n", "nnz", "nnz_test"):
+            shp[k] = max(8, int(shp[k] * scale))
+    return shp
+
+
 def workload_ratings(name: str, scale: float = 1.0, seed: int = 0,
                      rank: Optional[int] = None,
                      noise: Optional[float] = None, **overrides):
     """Synthetic dataset shaped like a named workload, optionally scaled
     down (scale < 1). Planted-model parameters: explicit arguments >
     the entry's own > the defaults (rank 10, noise 0.35)."""
-    shp = dict(WORKLOAD_SHAPES[name])
-    if scale != 1.0:
-        for k in ("m", "n", "nnz", "nnz_test"):
-            shp[k] = max(8, int(shp[k] * scale))
+    shp = workload_shape(name, scale)
     params = {}
     for k in ("rank", "noise", "signal_scale"):
         if k in shp:

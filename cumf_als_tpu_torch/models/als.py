@@ -59,8 +59,23 @@ from cumf_als_tpu_torch.ops.tiling import (BatchedPanelPlan, PanelPlan,
                                            build_split_plan,
                                            build_update_plan,
                                            flatten_split_chunk)
-from cumf_als_tpu_torch.utils.io import COOMatrix, CSRMatrix, transpose_csr
+from cumf_als_tpu_torch.utils.io import COOMatrix, CSRMatrix
+from cumf_als_tpu_torch.utils.plan_cache import cached_build, cached_transpose
 from cumf_als_tpu_torch.utils.timing import seconds, sync
+
+
+def refuse_save_model(cfg) -> None:
+    if cfg.save_model:
+        raise NotImplementedError(
+            "save_model dumps are not ported yet (ROADMAP A9, second half)")
+
+
+def host_tensor(arr: np.ndarray) -> torch.Tensor:
+    """torch.from_numpy, copying a read-only array (a plan loaded
+    memory-mapped from the plan cache) rather than sharing its pages."""
+    if not arr.flags.writeable:
+        arr = np.array(arr)
+    return torch.from_numpy(arr)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -87,6 +102,30 @@ class IterationMetrics:
     rmse_seconds: float
 
 
+def end_iteration(cfg: ALSConfig, history: List[IterationMetrics],
+                  metrics: IterationMetrics, factors) -> None:
+    """The end of one iteration of a training loop (ALS.run and
+    OutOfCoreALS.run): the RMSE lines, the history, the metrics JSONL
+    line, the checkpoint (`factors()` gives the unpadded x and theta as
+    numpy), then the non-finite check."""
+    it = metrics.iteration
+    if cfg.verbose:
+        print(f"--------- Train RMSE in iter {it}: {metrics.train_rmse:f}")
+        if np.isfinite(metrics.test_rmse):
+            print(f"--------- Test RMSE in iter {it}: "
+                  f"{metrics.test_rmse:f}")
+    history.append(metrics)
+    if cfg.metrics_jsonl:
+        with open(cfg.metrics_jsonl, "a") as fh:
+            fh.write(json.dumps(dataclasses.asdict(metrics)) + "\n")
+    if cfg.checkpoint_every and cfg.checkpoint_dir and \
+            (it + 1) % cfg.checkpoint_every == 0:
+        from cumf_als_tpu_torch.utils.checkpoint import save_checkpoint
+        save_checkpoint(cfg.checkpoint_dir, it, *factors(), cfg)
+    if not np.isfinite(metrics.train_rmse):
+        raise FloatingPointError(f"non-finite train RMSE at iteration {it}")
+
+
 @dataclasses.dataclass
 class ALSResult:
     x: np.ndarray        # (m, f) un-padded factors
@@ -102,11 +141,20 @@ class ALSResult:
         return np.einsum("ij,ij->i", self.x[rows], self.theta[cols])
 
 
+def sum_r2(csr: CSRMatrix) -> float:
+    """Sum of squared ratings in float64 (natively when the data plane's
+    library is built)."""
+    from cumf_als_tpu_torch import native
+    if native.available():
+        return native.sum_squares(csr.data)
+    return float(np.sum(csr.data.astype(np.float64) ** 2))
+
+
 def _compact_vals(vals: np.ndarray) -> torch.Tensor:
     """Rating values as bf16 when the round trip is exact (star halves
     and integer grids are), else f32, as the JAX package stores them.
     Every consumer widens to f32 before use."""
-    v = torch.from_numpy(vals)
+    v = host_tensor(vals)
     if v.dtype == torch.float32 and v.numel():
         v16 = v.to(torch.bfloat16)
         if torch.equal(v16.float(), v):
@@ -128,10 +176,31 @@ class DeviceChunk:
         self.rows = torch.from_numpy(chunk.rows.astype(np.int64)).to(device)
         self.rows_real = self.rows[:self.n_real]
         self.nnz = torch.from_numpy(chunk.nnz.astype(np.int32)).to(device)
-        self.cols = torch.from_numpy(
+        self.cols = host_tensor(
             np.ascontiguousarray(chunk.cols, np.int32)).to(device)
         self.vals = _compact_vals(
             np.ascontiguousarray(chunk.vals)).to(device)
+
+
+def accumulate_panel(a_buf, b_buf, tp, chunks, pallas: bool) -> None:
+    """One panel's part of the Gram step: each chunk's partial, from the
+    panel's table `tp` (its rows, then one zero row that the pad slots
+    name), scatter-added at the chunk's rows. Split buffers (b_buf
+    given): partial (A, b), kernel K2 when `pallas`; augmented (b_buf
+    None): partial A', kernel K5a when `pallas`."""
+    for ch in chunks:
+        if b_buf is None:
+            gram = cuda_solve.gather_gram_aug_out if pallas else \
+                cuda_solve.gather_gram_aug_out_plain
+            a_part = gram(tp, ch.cols, ch.vals, out_dtype=a_buf.dtype)
+        else:
+            gram = cuda_solve.gather_gram_out if pallas else \
+                cuda_solve.gather_gram_out_plain
+            a_part, b_part = gram(tp, ch.cols, ch.vals,
+                                  out_dtype=a_buf.dtype)
+            b_buf.index_add_(0, ch.rows, b_part)
+        a_buf.index_add_(0, ch.rows, a_part)
+        del a_part   # up to 1 GiB: free it before the next chunk
 
 
 def _solve_slice(a_buf, b_buf, x0_full, row_nnz, lo: int, lam: float,
@@ -189,13 +258,12 @@ class ALS:
     def __init__(self, cfg: ALSConfig, train_csr: CSRMatrix,
                  train_csc: Optional[CSRMatrix] = None,
                  test_coo: Optional[COOMatrix] = None, device=None):
-        if cfg.save_model:
-            raise NotImplementedError(
-                "save_model dumps are not ported yet (ROADMAP A9)")
+        refuse_save_model(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.train_csr = train_csr
-        self.train_csc = train_csc or transpose_csr(train_csr)
+        self.train_csc = train_csc or cached_transpose(cfg.plan_cache_dir,
+                                                       train_csr)
         self.test_coo = test_coo
         t0 = seconds()
         self.plan_x = self._build_phase_plan(self.train_csr, cfg.x_batch)
@@ -270,39 +338,51 @@ class ALS:
         return budget
 
     def _build_phase_plan(self, csr: CSRMatrix, batch: int = 1):
+        """The phase's plan, built (or loaded from `plan_cache_dir`) under
+        the JAX package's cache kind and parameters, so that a cache
+        entry either package writes is the other's too."""
         cfg = self.cfg
         strategy = self._phase_strategy(csr)
         chunk_nnz = self._chunk_nnz(csr, batch)
         if strategy == "panel":
-            plan = build_panel_plan(csr, panel_size=cfg.panel_size,
-                                    min_width=cfg.min_bucket_width,
-                                    chunk_nnz=chunk_nnz,
-                                    chunk_rows=cfg.chunk_rows,
-                                    split_width=cfg.split_width,
-                                    octave_points=cfg.octave_points)
+            kind, build = "panel", build_panel_plan
+            params = dict(panel_size=cfg.panel_size,
+                          min_width=cfg.min_bucket_width,
+                          chunk_nnz=chunk_nnz, chunk_rows=cfg.chunk_rows,
+                          split_width=cfg.split_width,
+                          octave_points=cfg.octave_points)
         elif strategy == "direct":
-            plan = build_update_plan(csr, min_width=cfg.min_bucket_width,
-                                     max_width=cfg.max_bucket_width,
-                                     chunk_nnz=chunk_nnz,
-                                     chunk_rows=cfg.chunk_rows,
-                                     octave_points=cfg.octave_points)
+            kind, build = "update", build_update_plan
+            params = dict(min_width=cfg.min_bucket_width,
+                          max_width=cfg.max_bucket_width,
+                          chunk_nnz=chunk_nnz, chunk_rows=cfg.chunk_rows,
+                          octave_points=cfg.octave_points)
         elif strategy == "split":
-            plan = build_split_plan(csr, part_size=cfg.split_part_rows(),
-                                    min_width=cfg.min_bucket_width,
-                                    max_width=cfg.max_bucket_width,
-                                    chunk_nnz=chunk_nnz,
-                                    chunk_rows=cfg.chunk_rows,
-                                    octave_points=cfg.octave_points,
-                                    max_groups=cfg.split_max_groups)
+            kind, build = "split", build_split_plan
+            params = dict(part_size=cfg.split_part_rows(),
+                          min_width=cfg.min_bucket_width,
+                          max_width=cfg.max_bucket_width,
+                          chunk_nnz=chunk_nnz, chunk_rows=cfg.chunk_rows,
+                          octave_points=cfg.octave_points,
+                          max_groups=cfg.split_max_groups)
         else:
             # sparse-bucket promotion keeps each batch's sub-plan from
-            # scattering its work over many tiny chunks
-            plan = build_batched_panel_plan(
-                csr, panel_size=cfg.panel_size,
-                batch_rows=self._batch_rows(),
-                min_width=cfg.min_bucket_width, chunk_nnz=chunk_nnz,
-                chunk_rows=cfg.chunk_rows, split_width=cfg.split_width,
-                octave_points=cfg.octave_points, min_bucket_rows=16)
+            # scattering its work over many tiny chunks. The JAX key
+            # also names its ragged-tail rule, the mantissa grid, which
+            # is the port's only one.
+            kind = "batched_panel"
+            params = dict(panel_size=cfg.panel_size,
+                          batch_rows=self._batch_rows(),
+                          min_width=cfg.min_bucket_width,
+                          chunk_nnz=chunk_nnz, chunk_rows=cfg.chunk_rows,
+                          split_width=cfg.split_width,
+                          octave_points=cfg.octave_points,
+                          ragged="mantissa", min_bucket_rows=16)
+
+            def build(csr, ragged, **kw):
+                return build_batched_panel_plan(csr, **kw)
+        plan = cached_build(cfg.plan_cache_dir, kind, csr, params,
+                            lambda: build(csr, **params))
         return self._device_plan(plan)
 
     def _device_plan(self, plan):
@@ -321,7 +401,7 @@ class ALS:
                 (torch.from_numpy(
                     b.global_ids[:b.plan.num_rows].astype(np.int64)).to(
                         self.device),
-                 torch.from_numpy(b.row_nnz).to(self.device),
+                 host_tensor(b.row_nnz).to(self.device),
                  [DeviceChunk(c, b.plan.num_rows, self.device)
                   for c in b.plan.chunks])
                 for b in plan.batches]
@@ -355,8 +435,7 @@ class ALS:
         """Sum of squared training ratings (the r^2 term of the fused
         train RMSE), computed once."""
         if not hasattr(self, "_r2"):
-            self._r2 = float(
-                np.sum(self.train_csr.data.astype(np.float64) ** 2))
+            self._r2 = sum_r2(self.train_csr)
         return self._r2
 
     # ----- one phase -----
@@ -426,19 +505,7 @@ class ALS:
             by_panel.setdefault(ch.panel, []).append(ch)
         for p, group in sorted(by_panel.items()):
             tp = torch.cat([table_pad[p * s:(p + 1) * s], zero_row], dim=0)
-            for ch in group:
-                if b_buf is None:
-                    gram = cuda_solve.gather_gram_aug_out if pallas else \
-                        cuda_solve.gather_gram_aug_out_plain
-                    a_part = gram(tp, ch.cols, ch.vals, out_dtype=a_buf.dtype)
-                else:
-                    gram = cuda_solve.gather_gram_out if pallas else \
-                        cuda_solve.gather_gram_out_plain
-                    a_part, b_part = gram(tp, ch.cols, ch.vals,
-                                          out_dtype=a_buf.dtype)
-                    b_buf.index_add_(0, ch.rows, b_part)
-                a_buf.index_add_(0, ch.rows, a_part)
-                del a_part   # up to 1 GiB: free it before the next chunk
+            accumulate_panel(a_buf, b_buf, tp, group, pallas)
 
     def _update_phase_batched_panel(self, table, current, plan_pair,
                                     collect_rmse_terms: bool = False):
@@ -629,33 +696,14 @@ class ALS:
                 train_rmse = rmse_direct(
                     x, theta, self.train_csr.to_coo_rows(),
                     self.train_csr.indices, self.train_csr.data)
-            if cfg.verbose:
-                print(f"--------- Train RMSE in iter {it}: {train_rmse:f}")
             test_rmse = float("nan")
             if self.test_coo is not None and self.test_coo.nnz:
                 test_rmse = rmse_direct(x, theta, self.test_coo.row,
                                         self.test_coo.col,
                                         self.test_coo.data)
-                if cfg.verbose:
-                    print(f"--------- Test RMSE in iter {it}: {test_rmse:f}")
-            trm = seconds() - t0
-            history.append(IterationMetrics(it, train_rmse, test_rmse,
-                                            tx, tth, trm))
-            if cfg.metrics_jsonl:
-                with open(cfg.metrics_jsonl, "a") as fh:
-                    fh.write(json.dumps({
-                        "iteration": it, "train_rmse": train_rmse,
-                        "test_rmse": test_rmse, "x_seconds": tx,
-                        "theta_seconds": tth, "rmse_seconds": trm}) + "\n")
-            if cfg.checkpoint_every and cfg.checkpoint_dir and \
-                    (it + 1) % cfg.checkpoint_every == 0:
-                from cumf_als_tpu_torch.utils.checkpoint import \
-                    save_checkpoint
-                save_checkpoint(cfg.checkpoint_dir, it, self._unpad_f(x),
-                                self._unpad_f(theta), cfg)
-            if not np.isfinite(train_rmse):
-                raise FloatingPointError(
-                    f"non-finite train RMSE at iteration {it}")
+            end_iteration(cfg, history, IterationMetrics(
+                it, train_rmse, test_rmse, tx, tth, seconds() - t0),
+                lambda: (self._unpad_f(x), self._unpad_f(theta)))
         return ALSResult(x=self._unpad_f(x), theta=self._unpad_f(theta),
                          history=history)
 

@@ -1,7 +1,9 @@
 """Row bucketing / padding plans (host numpy).
 
-A copy of the numpy paths of the JAX package's ops/tiling.py, so that a
-plan here is array for array the JAX package's numpy plan. Rows are
+A copy of the JAX package's ops/tiling.py, so that a plan here is array
+for array the JAX package's plan. Chunks are materialized by the native
+data plane when its library is built, else by numpy; the two give the
+same arrays. Rows are
 grouped into buckets of a few widths per octave, each row's column list
 is padded to its bucket's width, and buckets are cut into chunks of at
 most `chunk_nnz` padded slots and `chunk_rows` rows. The padding
@@ -284,6 +286,8 @@ def build_panel_plan(csr: CSRMatrix, panel_size: int = 1 << 16,
     bounds = np.searchsorted(
         group_sorted, np.arange(n_panels * len(widths) + 1))
 
+    from cumf_als_tpu_torch import native
+    use_native = native.available()
     chunks: List[PanelChunk] = []
     padded = 0
     for gid in range(n_panels * len(widths)):
@@ -300,6 +304,14 @@ def build_panel_plan(csr: CSRMatrix, panel_size: int = 1 << 16,
             k = part.size
             r_pad = rows_per_chunk if k == rows_per_chunk else \
                 _round_rows(k, rows_per_chunk)
+            if use_native:
+                rows, nnz, cols, vals = native.materialize_subrows(
+                    csr.indices, csr.data, sub_off[part], sub_len[part],
+                    sub_rows[part], r_pad, width, base, panel_size, m)
+                chunks.append(PanelChunk(panel=p, width=width, rows=rows,
+                                         nnz=nnz, cols=cols, vals=vals))
+                padded += r_pad * width
+                continue
             rows = np.full(r_pad, m, np.int32)
             nnz = np.zeros(r_pad, np.int32)
             cols = np.full((r_pad, width), panel_size, np.int32)
@@ -683,6 +695,20 @@ def build_batched_panel_plan(csr: CSRMatrix, panel_size: int = 1 << 16,
 
 
 def _materialize_chunk(csr: CSRMatrix, rows: np.ndarray, width: int,
+                       r_pad: int) -> PlanChunk:
+    from cumf_als_tpu_torch import native
+    if native.available():
+        rows_in = np.full(r_pad, -1, np.int32)   # -1: a dummy tail row
+        rows_in[:rows.size] = rows
+        rows_out, nnz, cols, vals = native.materialize_chunk(
+            np.asarray(csr.indptr, np.int64), csr.indices, csr.data,
+            rows_in, width, csr.num_cols, csr.num_rows, csr.num_rows)
+        return PlanChunk(width=width, rows=rows_out, nnz=nnz, cols=cols,
+                         vals=vals)
+    return _materialize_numpy(csr, rows, width, r_pad)
+
+
+def _materialize_numpy(csr: CSRMatrix, rows: np.ndarray, width: int,
                        r_pad: int) -> PlanChunk:
     r = rows.size
     nnz = np.diff(csr.indptr)[rows].astype(np.int32)

@@ -8,8 +8,10 @@ scripts emit them:
     R_train_coo.row.bin                     int32
     R_test_coo.{data,row,col}.bin           float32 / int32 / int32
 
-Host-side numpy, a copy of the JAX package's numpy paths (the native
-dataplane is not ported yet).
+Host-side numpy, a copy of the JAX package's module: the transpose and
+the COO -> CSR conversion run the native counting sorts
+(cumf_als_tpu_torch/native) when the library is built, else the numpy
+paths; both give the same arrays.
 """
 
 from __future__ import annotations
@@ -136,8 +138,17 @@ def _stable_argsort(keys: np.ndarray) -> np.ndarray:
 
 def transpose_csr(csr: CSRMatrix) -> CSRMatrix:
     """CSR -> CSR of the transpose (the CSC arrays of the original),
-    counting in int64."""
+    counting in int64; one native counting-sort pass when the library is
+    built."""
     n = csr.num_cols
+    from cumf_als_tpu_torch import native
+    if native.available():
+        indptr, indices, data = native.csr_transpose(
+            csr.num_rows, n, np.asarray(csr.indptr, np.int64),
+            csr.indices, csr.data)
+        out_dtype = np.int32 if csr.nnz < 2**31 else np.int64
+        return CSRMatrix(indptr=indptr.astype(out_dtype), indices=indices,
+                         data=data, num_rows=n, num_cols=csr.num_rows)
     counts = np.bincount(csr.indices, minlength=n).astype(np.int64)
     indptr = np.zeros(n + 1, dtype=np.int64)
     np.cumsum(counts, out=indptr[1:])
@@ -155,8 +166,16 @@ def transpose_csr(csr: CSRMatrix) -> CSRMatrix:
 
 def coo_to_csr(coo: COOMatrix) -> CSRMatrix:
     """COO -> CSR with column indices sorted within each row. Duplicate
-    (row, col) entries are kept as they are."""
+    (row, col) entries are kept as they are. A native two-pass counting
+    sort when the library is built."""
     m = coo.num_rows
+    from cumf_als_tpu_torch import native
+    if native.available():
+        indptr, indices, data = native.coo_to_csr(
+            m, coo.num_cols, coo.row, coo.col, coo.data)
+        out_dtype = np.int32 if coo.nnz < 2**31 else np.int64
+        return CSRMatrix(indptr=indptr.astype(out_dtype), indices=indices,
+                         data=data, num_rows=m, num_cols=coo.num_cols)
     counts = np.bincount(coo.row, minlength=m).astype(np.int64)
     indptr = np.zeros(m + 1, dtype=np.int64)
     np.cumsum(counts, out=indptr[1:])

@@ -142,6 +142,28 @@ def test_stale_cache_is_regenerated(cache, monkeypatch):
             shapes["ml10m"]["nnz"]
 
 
+def test_a_cache_of_the_other_generator_is_regenerated(cache, capsys):
+    """meta.json names the generator, so a cache the numpy path wrote of
+    a workload the native generator now makes (Netflix) is made again.
+    Here a small ml10m cache is marked as the native generator's."""
+    from cumf_als_tpu_torch import native
+    want = "native" if native.available() else "numpy"
+    assert bench._workload_entry("netflix", 1.0, 0)["generator"] == want
+    bench.load_workload("ml10m", 0.005)
+    path = os.path.join(bench.dataset_dir("ml10m", 0.005), "meta.json")
+    with open(path) as fh:
+        meta = json.load(fh)
+    assert meta["entry"]["generator"] == "numpy"   # under 2^26 ratings
+    meta["entry"]["generator"] = "native"
+    with open(path, "w") as fh:
+        json.dump(meta, fh)
+    capsys.readouterr()
+    bench.load_workload("ml10m", 0.005)
+    assert "generated from another workload entry" in capsys.readouterr().err
+    with open(path) as fh:
+        assert json.load(fh)["entry"]["generator"] == "numpy"
+
+
 def test_damaged_cache_raises(cache):
     """A member that no longer matches its CRC-32 is an error, not data."""
     bench.load_workload("ml10m", 0.005)
@@ -208,7 +230,7 @@ def test_tables_match_root():
 
 
 @pytest.mark.parametrize("extra,err,match", [
-    (["--out-of-core"], NotImplementedError, "A11"),
+    (["--out-of-core", "--mesh", "2"], NotImplementedError, "A12"),
     (["--mesh", "2"], NotImplementedError, "A12"),
     (["--platform", "tpu"], ValueError, "cpu")])
 def test_unported_options_raise(cache, extra, err, match):

@@ -1,8 +1,9 @@
 """The port's CLI takes every flag of the JAX package's CLI
-(cumf_als_tpu/cli.py): `--plan-cache` is accepted and has no effect yet
-(plans are rebuilt each run, as `plan_cache_dir` says), and
-`--profile-dir` and `--x-placement` name the ROADMAP items that will
-port them, as `--mesh` does."""
+(cumf_als_tpu/cli.py): `--plan-cache` caches the plans on disk and
+leaves the results as they are, and `--profile-dir` and `--x-placement`
+name the ROADMAP items that will port them, as `--mesh` does."""
+
+import os
 
 import pytest
 
@@ -32,6 +33,9 @@ def test_plan_cache_maps_as_in_the_reference(value):
 
 
 def test_plan_cache_has_no_effect(tmp_path, capsys):
+    """...on the results: every run prints the same RMSE lines, and the
+    cache holds the plans of the runs that name it (the default 'auto'
+    puts it in the data set's directory)."""
     tr, te = synthetic_ratings(m=30, n=20, nnz=300, nnz_test=40, seed=2)
     d = str(tmp_path / "ds")
     write_dataset(d, tr, te)
@@ -39,12 +43,15 @@ def test_plan_cache_has_no_effect(tmp_path, capsys):
             d, "--device", "cpu", "--iters", "2", "--solver", "cholesky"]
     outs = []
     for extra in ([], ["--plan-cache", "off"],
+                  ["--plan-cache", str(tmp_path / "pc")],
                   ["--plan-cache", str(tmp_path / "pc")]):
         assert cli.main(base + extra) == 0
         outs.append([line for line in capsys.readouterr().out.splitlines()
                      if "RMSE" in line])
-    assert outs[0] and outs[0] == outs[1] == outs[2]
-    assert not (tmp_path / "pc").exists()
+    assert outs[0] and outs[0] == outs[1] == outs[2] == outs[3]
+    kinds = {e.split("-")[0] for e in os.listdir(tmp_path / "pc")}
+    assert kinds == {"update"}   # the CLI reads the CSC; both phases direct
+    assert os.listdir(tmp_path / "ds" / ".plan_cache")
 
 
 @pytest.mark.parametrize("flags,item", [

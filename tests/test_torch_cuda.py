@@ -975,3 +975,37 @@ def test_packed_pass_1_is_exact_on_integer_g(card, p, f2, spans):
                    for i in range(3))
     assert torch.equal(a, pa) and torch.equal(b, pb) and \
         torch.equal(r2, pr2)
+
+
+@pytest.mark.parametrize("factor_dtype", ["bf16", "f32"])
+def test_out_of_core_on_the_card_matches_the_cpu(card, factor_dtype):
+    """OutOfCoreALS on the card against the same run on the CPU (the
+    kernels' plain versions), with panels of 16 X rows and X chunks of at
+    most 32 rows, so the two table buffers and the two chunk slots turn
+    over many times in a phase: a buffer refilled while a kernel still
+    reads it shows as a theta or x that is wrong on the card only. K1, K2
+    and K3 each launch as often as the plans say."""
+    from cumf_als_tpu_torch.config import ALSConfig
+    from cumf_als_tpu_torch.data.synthetic import (init_factors,
+                                                   synthetic_ratings)
+    from cumf_als_tpu_torch.models.out_of_core import OutOfCoreALS
+    train, test = synthetic_ratings(m=300, n=220, nnz=12000, nnz_test=1500,
+                                    rank=6, noise=0.1, seed=7)
+    cfg = ALSConfig(m=300, n=220, f=100, lam=0.5, iters=3, verbose=False,
+                    debug_timing=False, panel_size=16, chunk_nnz=1 << 9,
+                    chunk_rows=32, factor_dtype=factor_dtype,
+                    gram_dtype="f32", backend="pallas", solver="cg")
+    x0, th0 = init_factors(300, 220, 100, seed=2)
+    model = OutOfCoreALS(cfg, train, None, test, device=card)
+    assert model.x_store.is_pinned() and model.plan_theta.n_panels == 19
+    res = model.run(x0, th0)
+    assert cs.LAUNCHES == dict.fromkeys(cs.LAUNCHES, 0) | {
+        "gather_gram_cg": 3 * len(model.plan_x.chunks),
+        "gather_gram_out": 3 * len(model.plan_theta.chunks),
+        "solve_cg_reg": 3 * model.n_slices}
+    ref = OutOfCoreALS(cfg, train, None, test, device="cpu").run(x0, th0)
+    for a, b in zip(ref.history, res.history):
+        assert b.train_rmse == pytest.approx(a.train_rmse, abs=1e-4)
+        assert b.test_rmse == pytest.approx(a.test_rmse, abs=1e-4)
+    np.testing.assert_allclose(res.x, ref.x, atol=2e-3)
+    np.testing.assert_allclose(res.theta, ref.theta, atol=2e-3)

@@ -29,12 +29,18 @@ from cumf_als_tpu_torch.data.synthetic import init_factors, synthetic_ratings
 import cumf_als_tpu_torch.cli, cumf_als_tpu_torch.interop
 import cumf_als_tpu_torch.ops.cuda_solve, cumf_als_tpu_torch.ops._build
 import cumf_als_tpu_torch.bench, cumf_als_tpu_torch.data.prepare
+import cumf_als_tpu_torch.native, cumf_als_tpu_torch.utils.plan_cache
+import cumf_als_tpu_torch.models.out_of_core
+from cumf_als_tpu_torch.models.factory import make_model
 tr, te = synthetic_ratings(m=30, n=20, nnz=300, nnz_test=40, seed=1)
 cfg = pkg.ALSConfig(m=30, n=20, f=16, iters=2, verbose=False,
                     debug_timing=False, backend="pallas")
 x0, th0 = init_factors(30, 20, 16)
 res = pkg.do_als(tr, None, te, th0, x0, cfg, device="cpu")
 assert len(res.history) == 2
+ooc = make_model(cfg.replace(host_offload_x=True, panel_size=8), tr, None,
+                 te, device="cpu")
+assert len(ooc.run(x0, th0).history) == 2
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "cumf_als_tpu" or m.startswith("cumf_als_tpu."))
@@ -167,9 +173,13 @@ def test_cli_usage_and_unported_models(tmp_path, capsys):
     d, tr, te = _dataset(tmp_path)
     base = ["30", "20", "16", str(tr.nnz), str(te.nnz), "0.05", "1", "1",
             d, "--device", "cpu", "--iters", "1"]
-    for flag, item in (("--mesh=2", "A12"), ("--out-of-core", "A11")):
-        with pytest.raises(NotImplementedError, match=item):
-            cli.main(base + [flag])
+    for flags in (["--mesh=2"], ["--mesh=2", "--out-of-core"]):
+        with pytest.raises(NotImplementedError, match="A12"):
+            cli.main(base + flags)
+    capsys.readouterr()
+    # out-of-core training is ported: it runs
+    assert cli.main(base + ["--out-of-core"]) == 0
+    assert "*******out-of-core:" in capsys.readouterr().out
 
 
 def test_cli_resume_from_checkpoint(tmp_path, capsys):
