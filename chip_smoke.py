@@ -112,7 +112,28 @@ result line):
    the run; then `python -m cumf_als_tpu_torch.bench --workload
    hugewiki_mini --out-of-core --iters 3` once (the root bench's keys,
    its train RMSE within 2e-3 of the phase's run). The plans and the
-   CSC go through the bench's plan cache.
+   CSC go through the bench's plan cache;
+10. sharded training, `ShardedALS` on the same Netflix data, F=100, bf16,
+   CG, "pallas" (the main configuration), plans and CSC through the
+   bench's plan cache:
+   a. one rank on an NCCL group of one, 3 iterations: X on the panel
+      steps (K2, K3), theta's reduce blocks solved by K1; train and test
+      RMSE within 2e-3 of phase 4a's run at every iteration; K1 on the
+      most populous reduce block against its plain version at phase 2a's
+      limits (initial factors); one more iteration traced by
+      torch.profiler for the device-busy share (`[profile]`, traced);
+   b. two ranks spawned on the one card (both on cuda:0, gloo: NCCL
+      refuses two ranks on one card; the partials go through host
+      memory, so its s/iter is a gloo-over-one-card time, not a
+      multi-GPU one), 2 iterations, one `run` call an iteration: RMSE
+      within 2e-3 of (a), theta's SHA-256 equal on both ranks after each
+      iteration, the gathered X equal to each rank's rows; K2 on rank 0's
+      partial of the most populous reduce block (bf16 A) and K3 on that
+      block summed over both ranks as the all-reduce sums it, against
+      their plain versions.
+   K1, K2 and K3 launch exactly as the plans say in each run (read
+   around the run alone); the counts go into the `kernels` line as
+   `sharded_launches`.
 
 The data sets come through the bench's loader (`bench.load_workload`),
 which generates each once into .bench_cache/torch/ and memory-maps it;
@@ -143,6 +164,12 @@ plan against the plain versions, and prints no result line.
 
 is the short call for the out-of-core path: it builds K1, K2 and K3
 alone, runs phase 9 and prints no result line.
+
+    python3 chip_smoke.py --sharded
+
+is the short call for sharded training: it builds K1, K2 and K3 alone,
+runs phase 4a's main path (its RMSE is (a)'s reference), then phase 10,
+and prints no result line.
 
     python3 chip_smoke.py --wide
 
@@ -700,13 +727,16 @@ def check_gram(cs, tp, ch, a_dtype, aug, label):
                     gathered_bytes=gathered, gathered_tb_per_s=rate)
 
 
-def check_k3(cs, a_buf, b_buf, x0_full, row_nnz, lo, batch, cfg):
+def check_k3(cs, a_buf, b_buf, x0_full, row_nnz, lo, batch, cfg,
+             what="slice"):
     """K3 on one solve slice of the X-phase accumulators, at the run's
     cg_iters and at 0 (at 0 the kernel still loads A and forms b - A x0,
     so the difference is the CG), with the slice's A as stored and
     widened to float32 (what a gram_dtype="f32" run without aug feeds
     K3); the stored dtype's numbers fill the entry, the float32 ones go
-    under f32_* (a float32 A is checked once)."""
+    under f32_* (a float32 A is checked once). `what` names the systems
+    in the log line; the time before K3's redesign, on the main path's
+    X slice, is printed beside a "slice" alone."""
     b = b_buf[lo:lo + batch]
     x0 = x0_full[lo:lo + batch]
     nnzf = row_nnz[lo:lo + batch].float()
@@ -731,8 +761,8 @@ def check_k3(cs, a_buf, b_buf, x0_full, row_nnz, lo, batch, cfg):
         ok = err <= 2e-3
         per_sm = cs.cg_reg_blocks_per_sm(a.device, f, a.dtype)
         before = f"before: {BEFORE_MS['K3']:.3f} ms" if a.dtype == \
-            torch.bfloat16 else "before: not measured"
-        log(f"[K3 solve_cg_reg] slice of {batch} systems, A {a.dtype}: "
+            torch.bfloat16 and what == "slice" else "before: not measured"
+        log(f"[K3 solve_cg_reg] {what} of {batch} systems, A {a.dtype}: "
             f"max|dx|={err:.3e} (limit 2e-3); kernel {ms:.3f} ms ({before}), "
             f"at cg_iters 0 {ms0:.3f} ms (the CG: {ms - ms0:.3f} ms), plain "
             f"{plain:.3f} ms, bound {bms:.4f} ms ({by}), {bms / ms:.0%} of "
@@ -2132,6 +2162,222 @@ def out_of_core(cs, bench):
     return launches, checks
 
 
+def sharded_log(label, history, peak, launches, what):
+    """The per-iteration lines and the summary line of a sharded run."""
+    for h in history:
+        log(f"[{label}] iter {h.iteration}: x {h.x_seconds:.4f} s, theta "
+            f"{h.theta_seconds:.4f} s, rmse {h.rmse_seconds:.4f} s, train "
+            f"{h.train_rmse:.6f}, test {h.test_rmse:.6f}")
+    per_iter = [h.x_seconds + h.theta_seconds for h in history]
+    log(f"[{label}] {what} seconds per iteration (x + theta): "
+        f"{[round(t, 4) for t in per_iter]}, median "
+        f"{statistics.median(per_iter):.4f}; peak device memory "
+        f"{'not measured' if peak is None else f'{peak / 2**30:.2f} GiB'}; "
+        f"launches { {k: v for k, v in launches.items() if v} }")
+
+
+def rmse_gaps(label, hist, ref, ref_label, limit=2e-3):
+    """Train and test RMSE of `hist` against `ref`, iteration by
+    iteration (as far as both go); raises past `limit`."""
+    worst = 0.0
+    for h, r in zip(hist, ref):
+        worst = max(worst, abs(h.train_rmse - r.train_rmse),
+                    abs(h.test_rmse - r.test_rmse))
+        log(f"[{label} | {ref_label}] iter {h.iteration}: train "
+            f"{h.train_rmse:.6f} | {r.train_rmse:.6f}, test "
+            f"{h.test_rmse:.6f} | {r.test_rmse:.6f} (limit {limit:g})")
+    if worst > limit:
+        raise AssertionError(f"{label}: RMSE off {ref_label} by {worst:.3e}")
+    return worst
+
+
+def sharded_profile(model, x0, th0):
+    """The device-busy share of one traced iteration of `model` (its X
+    and theta phases from the initial factors, set up outside the trace):
+    the union of the CUDA activities' intervals over the window's wall
+    time, from torch.profiler (None when the trace holds no device
+    activity). Traced: the profiler's own cost is in the wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    x = model.shard_x(x0 * (np.diff(model.train_csr.indptr) > 0)[:, None])
+    theta = model.replicate_theta(
+        th0 * (np.diff(model.train_csc.indptr) > 0)[:, None])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        x = model.x_phase(theta, x)
+        theta, se = model.theta_phase(x, theta)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, -math.inf
+    for a, b in spans:   # the union of the intervals, in us
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    if not spans:
+        log("[profile] the trace holds no device activity: device-busy "
+            "share not measured")
+        return None
+    share = busy * 1e-6 / wall
+    top = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
+    log(f"[profile] one traced iteration (X and theta phases) of the "
+        f"sharded run at one rank: wall {wall:.4f} s, device busy "
+        f"{busy / 1e3:.1f} ms (the union of {len(spans)} CUDA activities), "
+        f"device-busy share {share:.3f} (traced); most self device time: "
+        f"{[(e.key[:48], round(e.self_device_time_total / 1e3, 2)) for e in top[:6]]}")
+    return share
+
+
+def sharded(cs, bench, cfg, train, test, hist_main):
+    """Phase 10: ShardedALS on the Netflix data at full width (F=100,
+    bf16, CG, "pallas"), (a) at one rank on an NCCL group of one, 3
+    iterations, against phase 4a's ALS run; (b) at two ranks on the one
+    card, both on cuda:0 over gloo (NCCL refuses two ranks on one card),
+    spawned, 2 iterations, against (a). Launch counts equal the plans'
+    counts; K1 (a), K2 and K3 (b) are held to their plain versions at the
+    sharded shapes. Returns the launches and the checks' numbers."""
+    import functools
+
+    import torch.distributed as dist
+
+    from cumf_als_tpu_torch.data.synthetic import init_factors
+    from cumf_als_tpu_torch.parallel.mesh import (Mesh, free_port,
+                                                  init_distributed, spawn)
+    from cumf_als_tpu_torch.parallel.sharded_als import (ShardedALS,
+                                                         run_rank)
+    from cumf_als_tpu_torch.utils.plan_cache import cached_transpose
+    scfg = cfg.replace(plan_cache_dir=bench.plan_cache_dir(), verbose=False,
+                       debug_timing=True, iters=ITERS)
+    t0 = time.monotonic()
+    csc = cached_transpose(scfg.plan_cache_dir, train)   # the ranks' too
+    log(f"[sharded] CSC through the plan cache {time.monotonic() - t0:.1f} "
+        f"s ({scfg.plan_cache_dir})")
+    x0, th0 = init_factors(cfg.m, cfg.n, cfg.f, seed=0)
+    dev = torch.device(DEV, 0)
+    launches, checks = {}, {}
+
+    # (a) one rank on an NCCL group of one
+    mesh = init_distributed("nccl", f"tcp://localhost:{free_port()}", 1, 0,
+                            device=dev)
+    try:
+        t0 = time.monotonic()
+        one = ShardedALS(scfg, train, csc, test, mesh=mesh)
+        if one.x_steps is None or not one.single_fused():
+            raise AssertionError("expected the panel X route and K1 on theta")
+        slices = one._x_m_pad // one._x_solve_batch
+        blocks = one._blocks
+        log(f"[sharded one rank] plans {time.monotonic() - t0:.1f} s "
+            f"(built once into the plan cache); backend "
+            f"{mesh.backend}, world {mesh.world_size}; X {len(one.x_steps)} "
+            f"panel steps over {one.x_n_panels} panels, {slices} solve "
+            f"slices of {one._x_solve_batch}; theta {len(blocks)} reduce "
+            f"blocks, K1 on each")
+        expect = {"gather_gram_cg": ITERS * len(blocks),
+                  "gather_gram_out": ITERS * len(one.x_steps),
+                  "solve_cg_reg": ITERS * slices}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cs.reset_launch_counts()
+        res = one.run(x0, th0)
+        torch.cuda.synchronize()
+        got = {k: v for k, v in cs.LAUNCHES.items() if v}
+        sharded_log("sharded one rank", res.history,
+                    torch.cuda.max_memory_allocated(), got, "NCCL, one card:")
+        if got != expect:
+            raise AssertionError(f"sharded one rank: launches {got}, the "
+                                 f"plans say {expect}")
+        launches["one_rank"] = expect
+        rmse_gaps("sharded one rank", res.history, hist_main, "main")
+        # K1 on the most populous reduce block at the initial factors (a
+        # stand-in X: the real one starts at zero), as phase 2a holds it
+        gen = torch.Generator(device=DEV).manual_seed(1)
+        x_t = one.shard_x((0.2 * torch.rand((cfg.m, cfg.f), generator=gen,
+                                            device=DEV)).cpu().numpy())
+        theta_t = one.replicate_theta(
+            th0 * (np.diff(csc.indptr) > 0)[:, None])
+        i = max(range(len(blocks)),
+                key=lambda k: blocks[k].rows.shape[0] * blocks[k].width)
+        ok, checks["gather_gram_cg"] = check_k1(
+            cs, ext16(x_t), blocks[i], theta_t, scfg,
+            f"sharded one rank: reduce block {i} of {len(blocks)}")
+        if not ok:
+            raise AssertionError("K1 disagrees at the sharded shapes")
+        del x_t, theta_t
+        share = sharded_profile(one, x0, th0)
+        checks["gather_gram_cg"]["device_busy_share_traced"] = share
+        del one
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # (b) two ranks on the one card over gloo, spawned
+    its = 2
+    t0 = time.monotonic()
+    ranks = spawn(2, run_rank, scfg.replace(iters=its),
+                  functools.partial(bench.load_workload, "netflix", 1.0),
+                  x0, th0, backend="gloo", device=DEV + ":0", timeout=900)
+    log(f"[sharded two ranks] spawned, built and ran in "
+        f"{time.monotonic() - t0:.1f} s")
+    for r, out in enumerate(ranks):
+        sharded_log(f"sharded two ranks, rank {r}", out["history"],
+                    out["peak_bytes"], out["launches"],
+                    "gloo over one card (two processes on cuda:0, the "
+                    "partials through host memory; not a multi-GPU time):")
+        want = {"gather_gram_out": its * (out["x_steps"] + out["n_blocks"]),
+                "solve_cg_reg": its * (out["x_slices"] + out["n_blocks"])}
+        got = {k: v for k, v in out["launches"].items() if v}
+        if got != want:
+            raise AssertionError(f"rank {r}: launches {got}, the plans say "
+                                 f"{want}")
+        if not np.array_equal(out["x"][out["own_ids"]], out["own_x"]):
+            raise AssertionError(f"rank {r}: gathered X is not its rows")
+        rmse_gaps(f"sharded two ranks, rank {r}", out["history"],
+                  res.history, "one rank")
+    launches["two_ranks_each"] = want
+    same = ranks[0]["theta_sha256"] == ranks[1]["theta_sha256"] and \
+        np.array_equal(ranks[0]["x"], ranks[1]["x"])
+    log(f"[sharded two ranks] theta SHA-256 after each iteration, rank 0 "
+        f"{[d[:12] for d in ranks[0]['theta_sha256']]}, rank 1 "
+        f"{[d[:12] for d in ranks[1]['theta_sha256']]}: equal bit for bit "
+        f"{same}")
+    if not same:
+        raise AssertionError("the two ranks' theta (or X) differ")
+
+    # K2 on rank 0's most populous theta partial (bf16 A) and K3 on that
+    # block summed over both ranks as the all-reduce sums it (bf16 A: one
+    # rounded add), at the final factors: each rank's view rebuilt here
+    # from the plan cache (a Mesh of that rank with no group)
+    views = [ShardedALS(scfg, train, csc, None,
+                        mesh=Mesh(rank=r, world_size=2, device=dev))
+             for r in range(2)]
+    tables = [ext16(v.shard_x(ranks[0]["x"])) for v in views]
+    blocks = views[0]._blocks
+    i = max(range(len(blocks)),
+            key=lambda k: blocks[k].rows.shape[0] * blocks[k].width)
+    ok2, checks["gather_gram_out"] = check_gram(
+        cs, tables[0], blocks[i], torch.bfloat16, False,
+        f"sharded two ranks: rank 0's partial of reduce block {i} of "
+        f"{len(blocks)}")
+    parts = [cs.gather_gram_out(t, v._blocks[i].cols, v._blocks[i].vals,
+                                out_dtype=torch.bfloat16)
+             for t, v in zip(tables, views)]
+    a = (parts[0][0].float() + parts[1][0].float()).to(torch.bfloat16)
+    b = parts[0][1] + parts[1][1]
+    theta = views[0].replicate_theta(ranks[0]["theta"])
+    ok3, checks["solve_cg_reg"] = check_k3(
+        cs, a, b, chunk_x0(blocks[i], theta), blocks[i].nnz, 0,
+        a.shape[0], scfg, what=f"reduce block {i} summed over the two ranks")
+    del views, tables, parts, a, b, theta
+    torch.cuda.empty_cache()
+    if not (ok2 and ok3):
+        raise AssertionError("K2 or K3 disagrees at the sharded shapes")
+    return launches, checks
+
+
 def batched_models(ALS, cfg, train, csc, test, gram_dtype):
     """The batched-panel model (X in 5 row batches of 4096) and the panel
     model it is held against, both built from a config with this
@@ -2206,6 +2452,7 @@ def x_phase_rows(batched, panel, theta):
     Solutions: both routes start from a sentinel; every row with ratings
     must be written, and the per-row relative difference of x is
     returned (its limit is the caller's)."""
+    from cumf_als_tpu_torch.models.als import accumulate_into
     plan, _, aux = batched.plan_x
     m = plan.num_rows
     if not bool((theta >= 0).all()):
@@ -2226,8 +2473,8 @@ def x_phase_rows(batched, panel, theta):
     for gids, _, chunks in aux["batches"]:
         a_full.zero_()
         b_full.zero_()
-        batched.accumulate_into(a_full, b_full, table_pad, chunks,
-                                plan.panel_size)
+        accumulate_into(a_full, b_full, table_pad, chunks, plan.panel_size,
+                        batched.cfg.backend == "pallas")
         k = gids.shape[0]
         want = a_p.index_select(0, gids).float()
         bound = term_a[gids][:, None, None] * want.abs()
@@ -2340,12 +2587,13 @@ def main() -> int:
         f"{torch.__version__} cuda {torch.version.cuda}")
     short = {(): None, ("--gram",): GRAM_KERNELS,
              ("--theta",): THETA_KERNELS, ("--wide",): WIDE_SHORT,
-             ("--ooc",): SPLIT_KERNELS}
+             ("--ooc",): SPLIT_KERNELS, ("--sharded",): SPLIT_KERNELS}
     if tuple(sys.argv[1:]) not in short:
-        print("usage: chip_smoke.py [--gram | --theta | --wide | --ooc]",
-              file=sys.stderr)
+        print("usage: chip_smoke.py [--gram | --theta | --wide | --ooc | "
+              "--sharded]", file=sys.stderr)
         return 2
     only = short[tuple(sys.argv[1:])]
+    sharded_only = tuple(sys.argv[1:]) == ("--sharded",)
     t0 = time.monotonic()
     _build.build(only, force=True, ptxas_info=True)
     if set(_build.KERNELS) != set(REPLACES):
@@ -2376,7 +2624,7 @@ def main() -> int:
         if not ok:
             log("[wide] FAIL (the short call: no result line)")
             return 1
-    elif only == SPLIT_KERNELS:
+    elif only == SPLIT_KERNELS and not sharded_only:
         out_of_core(cs, bench)
         log("[ooc] OK (the short call: no result line)")
         return 0
@@ -2395,6 +2643,18 @@ def main() -> int:
                           solver="cg", factor_dtype="bf16",
                           gram_dtype="bf16", verbose=True,
                           debug_timing=True)
+    if sharded_only:
+        x0_np, th0_np = init_factors(cfg.m, cfg.n, cfg.f, seed=0)
+        al = ALS(cfg, train, csc, test, device="cuda")
+        hist_main, _ = full_width(
+            cs, al, "main", SPLIT_KERNELS,
+            AUG_KERNELS + WIDE_KERNELS + SPAN_KERNELS + ("solve_cg",),
+            x0_np, th0_np)
+        del al
+        torch.cuda.empty_cache()
+        sharded(cs, bench, cfg, train, test, hist_main)
+        log("[sharded] OK (the short call: no result line)")
+        return 0
     if only == WIDE_SHORT:
         al, cfg_w, f2, _, _, theta_t, x_t, x_ext = wide_setup(
             cs, ALS, cfg, train, csc, test)
@@ -2689,6 +2949,14 @@ def main() -> int:
     for name in SPLIT_KERNELS:
         results[name]["ooc_launches"] = ooc_launches[name]
         results[name]["ooc_check"] = ooc_checks[name]
+
+    # ---- 10. sharded training on the Netflix data: one rank (NCCL), two
+    # ranks on the one card (gloo)
+    sh_launches, sh_checks = sharded(cs, bench, cfg, train, test, hist_main)
+    for name in SPLIT_KERNELS:
+        results[name]["sharded_launches"] = {
+            k: v.get(name, 0) for k, v in sh_launches.items()}
+        results[name]["sharded_check"] = sh_checks[name]
 
     launches.update({k: launches_aug[k] for k in AUG_KERNELS})
     launches["solve_cg"] = k4_launches

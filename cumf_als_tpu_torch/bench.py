@@ -28,7 +28,12 @@ own cache in another layout beside it. Built plans are cached under
 whose format and keys the two packages share, unless `--no-plan-cache`.
 
 `--out-of-core` runs OutOfCoreALS (X in host memory, streamed through the
-card) on the workload, as the root bench does.
+card) on the workload, as the root bench does. `--mesh N` runs ShardedALS
+over N ranks, one process a rank under torchrun (`torchrun
+--nproc-per-node N -m cumf_als_tpu_torch.bench --mesh N`): rank 0 loads
+or generates the data cache while the others wait, then they read it;
+only rank 0 logs and prints the JSON line. `--mesh` with `--out-of-core`
+(sharded out-of-core training) is not ported yet.
 
 Runs on the first CUDA device unless `--device cpu` (or `--platform
 cpu`) is given; without a card it raises.
@@ -161,10 +166,10 @@ def dataset_dir(name: str, scale: float, seed: int = 0) -> str:
     return os.path.join(CACHE_DIR, f"{name}_s{scale:g}_seed{seed}")
 
 
-def load_workload(name: str, scale: float, seed: int = 0):
+def load_workload(name: str, scale: float, seed: int = 0, say=log):
     """The workload's (train CSR, test COO), generated with
     `workload_ratings` and written to the cache on first use, then
-    memory-mapped from it."""
+    memory-mapped from it. `say` logs."""
     import shutil
 
     from cumf_als_tpu_torch.data.synthetic import workload_ratings
@@ -172,17 +177,17 @@ def load_workload(name: str, scale: float, seed: int = 0):
     entry = _workload_entry(name, scale, seed)
     if os.path.isdir(dpath):
         if _read_meta(dpath).get("entry") == entry:
-            log(f"[bench] loading cached dataset {dpath} (mmap)")
+            say(f"[bench] loading cached dataset {dpath} (mmap)")
             train, test = _load_dataset_dir(dpath)
             _check_cached(dpath, train, test)
             return train, test
-        log(f"[bench] cached dataset {dpath} was generated from another "
+        say(f"[bench] cached dataset {dpath} was generated from another "
             "workload entry; regenerating")
         shutil.rmtree(dpath)
-    log(f"[bench] generating synthetic {name} (scale={scale}) ...")
+    say(f"[bench] generating synthetic {name} (scale={scale}) ...")
     t0 = time.monotonic()
     train, test = workload_ratings(name, scale=scale, seed=seed)
-    log(f"[bench] generated nnz={train.nnz} nnz_test={test.nnz} "
+    say(f"[bench] generated nnz={train.nnz} nnz_test={test.nnz} "
         f"in {time.monotonic() - t0:.1f}s")
     tmp = dpath + ".tmp"
     os.makedirs(tmp, exist_ok=True)
@@ -250,7 +255,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help=_NO_EFFECT + " (it steers the sharded model only)")
     p.add_argument("--wide-kernel", default="off", choices=["off", "on"])
     p.add_argument("--mesh", type=int, default=0,
-                   help="shard over N devices (not ported yet: ROADMAP A12)")
+                   help="shard over N ranks (ShardedALS); run under "
+                        "torchrun --nproc-per-node N")
     p.add_argument("--platform", default=None,
                    help="'cpu' means --device cpu; nothing else is taken")
     p.add_argument("--panel-size", type=int, default=None)
@@ -306,26 +312,49 @@ def _describe(plan_pair) -> str:
 def main(argv=None) -> int:
     p = build_parser()
     args = p.parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh: sharded training is not ported yet (ROADMAP A12)")
+    if args.mesh and args.out_of_core:
+        from cumf_als_tpu_torch.models.factory import SHARDED_OOC
+        raise NotImplementedError(SHARDED_OOC)
     if args.platform not in (None, "cpu"):
         raise ValueError(f"--platform {args.platform!r}: the port takes "
                          f"only 'cpu' (the same as --device cpu)")
     if args.accuracy_check and args.iters < 3:
         p.error("--accuracy-check needs --iters >= 3: with fewer the "
                 "convergence test compares iteration 1 with itself")
+    from cumf_als_tpu_torch.models.als import resolve_device
+
+    dev = resolve_device("cpu" if args.platform == "cpu" else args.device)
+    mesh = None
+    if args.mesh:   # before the data is loaded or generated
+        from cumf_als_tpu_torch.parallel.mesh import current_mesh
+        mesh = current_mesh(dev.type).require_world(args.mesh)
+        dev = mesh.device
+    try:
+        return _bench(args, dev, mesh)
+    finally:
+        import torch.distributed as dist
+        if mesh is not None and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _bench(args, dev, mesh) -> int:
+    """The run of main(): on every rank with --mesh, rank 0 alone
+    logging and printing."""
     import torch
 
     from cumf_als_tpu_torch.config import ALSConfig
     from cumf_als_tpu_torch.data.synthetic import init_factors
-    from cumf_als_tpu_torch.models.als import resolve_device
     from cumf_als_tpu_torch.models.factory import make_model
-
-    dev = resolve_device("cpu" if args.platform == "cpu" else args.device)
+    rank = mesh.rank if mesh else 0
+    say = log if rank == 0 else (lambda msg: None)
     if dev.type == "cuda":
-        log(f"[bench] card: {card_line()}")
-    train, test = load_workload(args.workload, args.scale)
+        say(f"[bench] card: {card_line()}")
+    # rank 0 writes the data cache; the other ranks read it after
+    if rank > 0:
+        mesh.barrier()
+    train, test = load_workload(args.workload, args.scale, say=say)
+    if mesh is not None and rank == 0:
+        mesh.barrier()
     cfg = ALSConfig(m=train.num_rows, n=train.num_cols, f=args.f,
                     nnz=train.nnz, nnz_test=test.nnz,
                     lam=LAMBDA[args.workload], iters=args.iters,
@@ -343,6 +372,7 @@ def main(argv=None) -> int:
                     plan_cache_dir=(None if args.no_plan_cache else
                                     plan_cache_dir()),
                     host_offload_x=args.out_of_core,
+                    mesh_shape=(args.mesh,) if args.mesh else None,
                     train_rmse_method="fused", verbose=False,
                     debug_timing=args.debug_timing,
                     **({"panel_size": args.panel_size}
@@ -350,17 +380,22 @@ def main(argv=None) -> int:
     if dev.type == "cuda":
         # built here, not at first use inside the timed run
         from cumf_als_tpu_torch.ops import _build
-        log(f"[bench] kernels built in {_build.build():.1f} s")
+        say(f"[bench] kernels built in {_build.build():.1f} s")
     t0 = time.monotonic()
     model = make_model(cfg, train, None, test, device=dev)
-    if args.out_of_core:
-        log(f"[bench] OOC plans built in {time.monotonic() - t0:.1f}s "
+    if args.mesh:
+        say(f"[bench] sharded plans built in {time.monotonic() - t0:.1f}s "
+            f"({len(model.row_plan.chunks)} chunks, "
+            f"{len(model.reduce_plan.blocks)} reduce blocks, "
+            f"{model.n_dev} devices)")
+    elif args.out_of_core:
+        say(f"[bench] OOC plans built in {time.monotonic() - t0:.1f}s "
             f"({model.plan_theta.n_panels} X panels; X phase "
             f"{len(model.plan_x.chunks)} chunks, theta phase "
             f"{len(model.plan_theta.chunks)} chunks, "
             f"{model.n_slices} solve slices)")
     else:
-        log(f"[bench] plans built in {time.monotonic() - t0:.1f}s; X phase: "
+        say(f"[bench] plans built in {time.monotonic() - t0:.1f}s; X phase: "
             f"{_describe(model.plan_x)}, theta phase: "
             f"{_describe(model.plan_theta)}")
 
@@ -375,16 +410,16 @@ def main(argv=None) -> int:
     launched = {k: v for k, v in cuda_solve.LAUNCHES.items() if v}
     peak = (f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB"
             if dev.type == "cuda" else "not measured (CPU)")
-    log(f"[bench] first run: kernel launches {launched}, peak device "
+    say(f"[bench] first run: kernel launches {launched}, peak device "
         f"memory {peak}")
     for h in res.history:
-        log(f"[bench] iter {h.iteration}: "
+        say(f"[bench] iter {h.iteration}: "
             f"x+theta={h.x_seconds + h.theta_seconds:.3f}s "
             f"train_rmse={h.train_rmse:.4f} test_rmse={h.test_rmse:.4f}")
     run_medians = [run_median(res.history)]
     for rep in range(1, args.repeat):
         run_medians.append(run_median(model.run(x0, th0).history))
-        log(f"[bench] repeat {rep}: {run_medians[-1]:.4f} s/iter")
+        say(f"[bench] repeat {rep}: {run_medians[-1]:.4f} s/iter")
     sec_per_iter = float(np.median(run_medians))
     # effective Gram throughput: 2 phases * 2*nnz*f_pad^2 flops
     gflops = 4.0 * train.nnz * cfg.f_pad ** 2 / sec_per_iter / 1e9
@@ -413,7 +448,8 @@ def main(argv=None) -> int:
     if args.accuracy_check:
         out["accuracy_check"], out["accuracy_contract"] = accuracy_check(
             args.workload, res.history)
-    print(json.dumps(out), flush=True)
+    if rank == 0:
+        print(json.dumps(out), flush=True)
     return 0
 
 

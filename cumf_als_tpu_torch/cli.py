@@ -9,16 +9,23 @@ e.g. for the netflix data set, on the GPU with the CUDA kernels:
 
 Initialization: theta ~ 0.2*U(0,1) at the seed, X = 0. The run uses the
 first CUDA device unless `--device cpu` is given.
+
+Sharded over N ranks (ShardedALS), one process a rank, rank r on
+cuda:r, under torchrun:
+    torchrun --nproc-per-node N -m cumf_als_tpu_torch.cli ... --mesh N
+Only rank 0 prints. `--profile-dir DIR` writes a torch.profiler trace of
+the training loop into DIR (CPU and CUDA activity on a card).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 
 from cumf_als_tpu_torch.config import ALSConfig
 from cumf_als_tpu_torch.data.synthetic import init_factors
-from cumf_als_tpu_torch.models.factory import make_model
+from cumf_als_tpu_torch.models.factory import SHARDED_OOC, make_model
 from cumf_als_tpu_torch.utils.io import (load_csc_as_csr, load_csr,
                                          load_test_coo)
 from cumf_als_tpu_torch.utils.timing import seconds
@@ -62,10 +69,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default) or 'cpu'")
     p.add_argument("--mesh", type=int, default=0,
-                   help="shard over N devices (not ported yet)")
+                   help="shard over N ranks (ShardedALS); run under "
+                        "torchrun --nproc-per-node N")
     p.add_argument("--x-placement", choices=["host", "device"],
                    default=None,
-                   help="sharded out-of-core X placement (not ported yet)")
+                   help="sharded out-of-core X placement (not ported yet: "
+                        "A12, sharded out-of-core)")
     p.add_argument("--out-of-core", action="store_true",
                    help="keep X in host memory and stream it through the "
                         "card (OutOfCoreALS)")
@@ -78,8 +87,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint-every", type=int, default=0)
     p.add_argument("--resume", action="store_true")
     p.add_argument("--profile-dir", default=None,
-                   help="profiler trace directory (not ported yet: "
-                        "ROADMAP A9, second half)")
+                   help="write a torch.profiler trace of the training loop "
+                        "into this directory")
     p.add_argument("--quiet", action="store_true")
     return p
 
@@ -102,7 +111,23 @@ def config_from_args(a) -> ALSConfig:
         host_offload_x=a.out_of_core,
         checkpoint_dir=a.checkpoint_dir,
         checkpoint_every=a.checkpoint_every, resume=a.resume,
-        verbose=not a.quiet, debug_timing=not a.quiet)
+        profile_dir=a.profile_dir, verbose=not a.quiet,
+        debug_timing=not a.quiet)
+
+
+def profiled(profile_dir, device):
+    """A torch.profiler context over the training loop writing its trace
+    into `profile_dir` (the JAX CLI's jax.profiler.trace): CPU and CUDA
+    activity on a card, CPU alone on the CPU. No profile_dir: none."""
+    if not profile_dir:
+        return contextlib.nullcontext()
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    return profile(activities=acts,
+                   on_trace_ready=tensorboard_trace_handler(profile_dir))
 
 
 def main(argv=None) -> int:
@@ -111,21 +136,30 @@ def main(argv=None) -> int:
         print(USAGE)
         return 0
     args = build_parser().parse_args(argv)
-    if args.profile_dir is not None:
-        raise NotImplementedError(
-            "--profile-dir: profiler traces are not ported yet (ROADMAP "
-            "A9, second half)")
-    if args.x_placement is not None:
-        raise NotImplementedError(
-            "--x-placement: sharded out-of-core training is not ported yet "
-            "(ROADMAP A12)")
+    if args.x_placement is not None or (args.mesh and args.out_of_core):
+        raise NotImplementedError(SHARDED_OOC)
     cfg = config_from_args(args)
-    print(f"M = {cfg.m}, N = {cfg.n}, F = {cfg.f}, NNZ = {cfg.nnz}, "
+    rank = 0
+    if args.mesh:   # before any data is read
+        from cumf_als_tpu_torch.parallel.mesh import current_mesh
+        rank = current_mesh(args.device).require_world(args.mesh).rank
+    try:
+        return _train(args, cfg, print if rank == 0 else
+                      (lambda *a, **k: None))
+    finally:
+        import torch.distributed as dist
+        if args.mesh and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _train(args, cfg, say) -> int:
+    """Load, train and report; `say` prints (rank 0) or not."""
+    say(f"M = {cfg.m}, N = {cfg.n}, F = {cfg.f}, NNZ = {cfg.nnz}, "
           f"NNZ_TEST = {cfg.nnz_test}, lambda = {cfg.lam:f}\n"
           f"X_BATCH = {cfg.x_batch}, THETA_BATCH = {cfg.theta_batch}\n"
           f"DATA_DIR = {cfg.data_dir} ")
 
-    print("*******start loading training and testing sets to host.")
+    say("*******start loading training and testing sets to host.")
     test = load_test_coo(cfg.data_dir, cfg.m, cfg.n, cfg.nnz_test)
     csr = load_csr(cfg.data_dir, cfg.m, cfg.n, cfg.nnz)
     csc = load_csc_as_csr(cfg.data_dir, cfg.m, cfg.n, cfg.nnz)
@@ -139,13 +173,14 @@ def main(argv=None) -> int:
         if latest_checkpoint(cfg.checkpoint_dir) is not None:
             x0, theta0, it = load_checkpoint(cfg.checkpoint_dir, cfg=cfg)
             start_iter = it + 1
-            print(f"*******resuming from checkpoint at iteration {it}.")
+            say(f"*******resuming from checkpoint at iteration {it}.")
 
     t0 = seconds()
     model = make_model(cfg, csr, csc, test, device=args.device)
-    model.run(x0, theta0, start_iter=start_iter)
-    print(f"\ndoALS takes seconds: {seconds() - t0:.3f} for F = {cfg.f}")
-    print("\nALS Done.")
+    with profiled(cfg.profile_dir, model.device):
+        model.run(x0, theta0, start_iter=start_iter)
+    say(f"\ndoALS takes seconds: {seconds() - t0:.3f} for F = {cfg.f}")
+    say("\nALS Done.")
     return 0
 
 

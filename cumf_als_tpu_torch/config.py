@@ -6,8 +6,8 @@
 and have no effect here:
 
 - ``gram_precision``: the port's Gram sums are full f32 on every path;
-- ``fuse_phase``, ``fuse_max_chunks``: PyTorch runs eagerly, chunk by
-  chunk.
+- ``fuse_phase``, ``fuse_max_chunks``, ``fused_step``: PyTorch runs
+  eagerly, chunk by chunk.
 
 ``plan_cache_dir`` caches the built plans on disk in the JAX package's
 format (utils/plan_cache.py); ``host_offload_x`` selects the out-of-core
@@ -129,14 +129,16 @@ class ALSConfig:
     # --- observability ---
     verbose: bool = True       # reference-style stdout contract lines
     debug_timing: bool = True  # per-phase timing lines
-    save_model: bool = False   # Gram/solve dumps (not ported: A9, 2nd half)
+    save_model: bool = False   # Gram and factor dumps (ALS only)
     save_model_dir: str = "./log"
-    profile_dir: Optional[str] = None  # trace (not ported: A9, 2nd half)
+    profile_dir: Optional[str] = None  # torch.profiler trace (the CLI)
     metrics_jsonl: Optional[str] = None  # append per-iteration JSON lines
 
-    # --- parallelism (not ported yet: A12) and out-of-core ---
+    # --- parallelism and out-of-core ---
+    # mesh_shape: ShardedALS over prod(mesh_shape) ranks (the world
+    # size); with host_offload_x it is not ported yet
     mesh_shape: Optional[Tuple[int, ...]] = None
-    fused_step: str = "auto"
+    fused_step: str = "auto"       # no effect
     mesh_axis_names: Tuple[str, ...] = ("data",)
     host_offload_x: bool = False
     x_placement: str = "host"

@@ -64,18 +64,26 @@ from cumf_als_tpu_torch.utils.plan_cache import cached_build, cached_transpose
 from cumf_als_tpu_torch.utils.timing import seconds, sync
 
 
-def refuse_save_model(cfg) -> None:
-    if cfg.save_model:
-        raise NotImplementedError(
-            "save_model dumps are not ported yet (ROADMAP A9, second half)")
-
-
 def host_tensor(arr: np.ndarray) -> torch.Tensor:
     """torch.from_numpy, copying a read-only array (a plan loaded
     memory-mapped from the plan cache) rather than sharing its pages."""
     if not arr.flags.writeable:
         arr = np.array(arr)
     return torch.from_numpy(arr)
+
+
+# bf16 partial-Gram accumulators swamp under deep scatter-add chains:
+# past ~16 partials per accumulator row the accumulators are f32 (the JAX
+# package's BF16_ACCUM_MAX_DEPTH, in ALS and the sharded models)
+BF16_ACCUM_MAX_DEPTH = 16
+
+
+def accum_dtype(gram_dtype: str, depth: float) -> torch.dtype:
+    """The Gram accumulators' dtype at `depth` partial adds a row: bf16
+    with gram_dtype "bf16" up to BF16_ACCUM_MAX_DEPTH, else f32."""
+    if gram_dtype == "bf16" and depth <= BF16_ACCUM_MAX_DEPTH:
+        return torch.bfloat16
+    return torch.float32
 
 
 def resolve_device(device=None) -> torch.device:
@@ -203,6 +211,27 @@ def accumulate_panel(a_buf, b_buf, tp, chunks, pallas: bool) -> None:
         del a_part   # up to 1 GiB: free it before the next chunk
 
 
+def accumulate_into(a_buf, b_buf, table_pad, chunks, panel_size: int,
+                    pallas: bool) -> None:
+    """The Gram step of the panel and batched-panel routes (and of the
+    sharded X phase): the per-panel partial of every chunk, scatter-added
+    at the chunk's rows. Split buffers (b_buf given): partial (A, b)
+    (kernel K2 when `pallas`). Augmented (b_buf None): partial A' (kernel
+    K5a when `pallas`, augment_g + f32 einsum otherwise). Every row id of
+    the chunks, dummy rows included, must lie inside a_buf.
+
+    On a card index_add_ adds with atomics in an order that changes from
+    run to run, so f32 accumulators repeat to rounding only."""
+    s = panel_size
+    zero_row = table_pad.new_zeros((1, table_pad.shape[1]))
+    by_panel = {}
+    for ch in chunks:
+        by_panel.setdefault(ch.panel, []).append(ch)
+    for p, group in sorted(by_panel.items()):
+        tp = torch.cat([table_pad[p * s:(p + 1) * s], zero_row], dim=0)
+        accumulate_panel(a_buf, b_buf, tp, group, pallas)
+
+
 def _solve_slice(a_buf, b_buf, x0_full, row_nnz, lo: int, lam: float,
                  batch: int, solver: str, cg_iters: int, cg_tol: float,
                  backend: str):
@@ -251,14 +280,9 @@ class ALS:
     when None), the test COO, an ALSConfig, and the device (CUDA unless
     `device="cpu"`)."""
 
-    # bf16 partial-Gram accumulators swamp under deep scatter-add chains:
-    # past ~16 partials per accumulator row the accumulators are f32.
-    BF16_ACCUM_MAX_DEPTH = 16
-
     def __init__(self, cfg: ALSConfig, train_csr: CSRMatrix,
                  train_csc: Optional[CSRMatrix] = None,
                  test_coo: Optional[COOMatrix] = None, device=None):
-        refuse_save_model(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.train_csr = train_csr
@@ -308,18 +332,16 @@ class ALS:
         return "direct"
 
     def _accum_dtype(self, total_row_slots: int, num_rows: int):
-        if self.cfg.gram_dtype != "bf16":
-            return torch.float32
         depth = total_row_slots / max(1, num_rows)
-        if depth <= self.BF16_ACCUM_MAX_DEPTH:
-            return torch.bfloat16
-        if not getattr(self, "_warned_promote", False):
+        dtype = accum_dtype(self.cfg.gram_dtype, depth)
+        if self.cfg.gram_dtype == "bf16" and dtype == torch.float32 and \
+                not getattr(self, "_warned_promote", False):
             self._warned_promote = True
             print(f"[als] ~{depth:.0f} partial adds per accumulator "
-                  f"row > {self.BF16_ACCUM_MAX_DEPTH}: promoting Gram "
+                  f"row > {BF16_ACCUM_MAX_DEPTH}: promoting Gram "
                   f"accumulators bf16 -> f32 (swamping guard)",
                   file=sys.stderr, flush=True)
-        return torch.float32
+        return dtype
 
     def _batch_rows(self) -> int:
         """Row-batch size of the batched-panel route: cfg.batch_rows, else
@@ -438,6 +460,27 @@ class ALS:
             self._r2 = sum_r2(self.train_csr)
         return self._r2
 
+    # ----- the save_model dumps -----
+    def _dump_gram(self, a, b, what: str) -> None:
+        """The first 1024 rows of a Gram and of its RHS as raw float32
+        files (the JAX package's _dump_gram; the reference's
+        CUMF_SAVE_MODEL dumps, als.cu:33, 49-57, 800-807). `what` names
+        the phase and iteration: "tt_iter003" is theta's Gram, which
+        updates X, "xx_iter003" X's; b goes under "ytheta_iter003" and
+        "yTX_iter003"."""
+        from cumf_als_tpu_torch.utils.checkpoint import save_debug_array
+        k = min(int(a.shape[0]), 1024)
+        save_debug_array(self.cfg.save_model_dir, what,
+                         a[:k].float().cpu().numpy())
+        save_debug_array(self.cfg.save_model_dir,
+                         what.replace("tt", "ytheta").replace("xx", "yTX"),
+                         b[:k].float().cpu().numpy())
+
+    def _dump_due(self) -> Optional[str]:
+        """The tag to dump the current phase's Gram under, if any."""
+        return getattr(self, "_save_tag", None) if self.cfg.save_model \
+            else None
+
     # ----- one phase -----
     def _update_phase(self, table, current, plan_pair,
                       collect_rmse_terms: bool):
@@ -473,10 +516,10 @@ class ALS:
                                     plan.num_rows)
         a_buf, b_buf = self._accumulators(aux["m_pad"], a_dtype)
         # dummy rows carry id m, which lies inside a_buf (m_pad > m)
-        self.accumulate_into(
+        accumulate_into(
             a_buf, b_buf,
             self._panel_table(table, plan.n_panels, plan.panel_size),
-            chunks, plan.panel_size)
+            chunks, plan.panel_size, self.cfg.backend == "pallas")
         return a_buf, b_buf
 
     def _accumulators(self, rows: int, a_dtype):
@@ -485,27 +528,6 @@ class ALS:
         b_buf = None if self._use_panel_aug() else torch.zeros(
             (rows, f), dtype=torch.float32, device=self.device)
         return a_buf, b_buf
-
-    def accumulate_into(self, a_buf, b_buf, table_pad, chunks,
-                        panel_size: int) -> None:
-        """The Gram step of the panel and batched-panel routes: the
-        per-panel partial of every chunk, scatter-added at the chunk's
-        rows. Split buffers (b_buf given): partial (A, b) (kernel K2 on
-        the "pallas" backend). Augmented (b_buf None): partial A' (kernel
-        K5a on "pallas", augment_g + f32 einsum on "xla"). Every row id of
-        the chunks, dummy rows included, must lie inside a_buf.
-
-        On a card index_add_ adds with atomics in an order that changes
-        from run to run, so f32 accumulators repeat to rounding only."""
-        s = panel_size
-        zero_row = table_pad.new_zeros((1, table_pad.shape[1]))
-        pallas = self.cfg.backend == "pallas"
-        by_panel = {}
-        for ch in chunks:
-            by_panel.setdefault(ch.panel, []).append(ch)
-        for p, group in sorted(by_panel.items()):
-            tp = torch.cat([table_pad[p * s:(p + 1) * s], zero_row], dim=0)
-            accumulate_panel(a_buf, b_buf, tp, group, pallas)
 
     def _update_phase_batched_panel(self, table, current, plan_pair,
                                     collect_rmse_terms: bool = False):
@@ -528,12 +550,16 @@ class ALS:
         a_full, b_full = self._accumulators(bsz + 1, a_dtype)
         a_buf = a_full[:bsz]
         b_buf = None if b_full is None else b_full[:bsz]
+        tag = self._dump_due()
         for gids, row_nnz, chunks in aux["batches"]:
             a_full.zero_()
             if b_full is not None:
                 b_full.zero_()
-            self.accumulate_into(a_full, b_full, table_pad, chunks,
-                                 plan.panel_size)
+            accumulate_into(a_full, b_full, table_pad, chunks,
+                            plan.panel_size, cfg.backend == "pallas")
+            if tag:   # the first batch's accumulators
+                self._dump_gram(a_buf, b_buf, tag)
+                tag = None
             x0 = F.pad(current.index_select(0, gids),
                        (0, 0, 0, bsz - gids.shape[0]))
             outs = [_solve_slice(a_buf, b_buf, x0, row_nnz, lo, cfg.lam,
@@ -558,6 +584,8 @@ class ALS:
         plan, _chunks, aux = plan_pair
         m, m_pad = plan.num_rows, aux["m_pad"]
         a_buf, b_buf = self.accumulate_panels(table, plan_pair)
+        if self._dump_due():
+            self._dump_gram(a_buf, b_buf, self._dump_due())
         x0_full = F.pad(current, (0, 0, 0, m_pad - m))
         batch = aux["solve_batch"]
         outs = [_solve_slice(a_buf, b_buf, x0_full, aux["row_nnz_pad"], lo,
@@ -588,8 +616,14 @@ class ALS:
         """Solve every row of `current` against the fixed `table`, chunk
         by chunk. Returns the factor and, when requested, the summed
         train squared error (a device scalar)."""
-        return self._solve_chunks(table, current, plan_pair[1],
-                                  collect_rmse_terms)
+        chunks = plan_pair[1]
+        if chunks and self._dump_due():
+            # the first chunk's Gram in plain torch, regularized, from the
+            # table before its bf16 cast, as the JAX package dumps it
+            ch = chunks[0]
+            self._dump_gram(*gram_rhs(extend_table(table), ch.cols, ch.vals,
+                                      ch.nnz, self.cfg.lam), self._dump_due())
+        return self._solve_chunks(table, current, chunks, collect_rmse_terms)
 
     def _solve_chunks(self, table, current, chunks,
                       collect_rmse_terms: bool):
@@ -666,6 +700,8 @@ class ALS:
                 print(f"---------------------------ALS iteration {it}, "
                       f"update X.----------------------------------")
             t0 = seconds()
+            # tt: theta's Gram, which updates X (the reference's names)
+            self._save_tag = f"tt_iter{it:03d}"
             x, _ = self._update_phase(theta, x, self.plan_x, False)
             if cfg.debug_timing:
                 # an exact per-phase split costs a sync at the boundary
@@ -679,6 +715,7 @@ class ALS:
                 print(f"---------------------------------- ALS iteration "
                       f"{it}, update theta ----------------------------------")
             t0 = seconds()
+            self._save_tag = f"xx_iter{it:03d}"
             want_fused = cfg.train_rmse_method == "fused"
             theta, se_acc = self._update_phase(x, theta, self.plan_theta,
                                                want_fused)
@@ -687,6 +724,13 @@ class ALS:
             if cfg.debug_timing:
                 print(f"update theta run {tth:f} seconds, gridSize: "
                       f"{cfg.n}, blockSize {cfg.f}.")
+            if cfg.save_model:   # the factors of each iteration
+                from cumf_als_tpu_torch.utils.checkpoint import \
+                    save_debug_array
+                save_debug_array(cfg.save_model_dir, f"XT_iter{it:03d}",
+                                 self._unpad_f(x))
+                save_debug_array(cfg.save_model_dir, f"thetaT_iter{it:03d}",
+                                 self._unpad_f(theta))
 
             t0 = seconds()
             if want_fused:

@@ -24,7 +24,8 @@ memory and streams row batches through the GPUs. Here:
     RMSE streams the X rows it needs from the host.
 
 `call_with_vmem_backoff` of the JAX package is a TPU workaround and has
-no counterpart.
+no counterpart. As the JAX package's, this model writes no save_model
+dumps.
 """
 
 from __future__ import annotations
@@ -38,10 +39,11 @@ import numpy as np
 import torch
 
 from cumf_als_tpu_torch.config import ALSConfig
-from cumf_als_tpu_torch.models.als import (ALSResult, IterationMetrics,
+from cumf_als_tpu_torch.models.als import (BF16_ACCUM_MAX_DEPTH,
+                                           ALSResult, IterationMetrics,
                                            _compact_vals, _se_terms,
-                                           _solve_slice, accumulate_panel,
-                                           end_iteration, refuse_save_model,
+                                           _solve_slice, accum_dtype,
+                                           accumulate_panel, end_iteration,
                                            resolve_device, sum_r2)
 from cumf_als_tpu_torch.ops import cuda_solve
 from cumf_als_tpu_torch.ops.gram import extend_table, gram_rhs
@@ -134,15 +136,9 @@ class OutOfCoreALS:
     """Single-device out-of-core ALS: X on the host, theta on the device
     (CUDA unless `device="cpu"`, where every copy is synchronous)."""
 
-    # bf16 partial-Gram accumulators swamp under deep scatter-add chains:
-    # past ~16 partials per accumulator row the accumulators are f32
-    # (the JAX package's ShardedOutOfCoreALS.BF16_ACCUM_MAX_DEPTH)
-    BF16_ACCUM_MAX_DEPTH = 16
-
     def __init__(self, cfg: ALSConfig, train_csr: CSRMatrix,
                  train_csc: Optional[CSRMatrix] = None,
                  test_coo: Optional[COOMatrix] = None, device=None):
-        refuse_save_model(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.train_csr = train_csr
@@ -185,12 +181,10 @@ class OutOfCoreALS:
         self._theta_nnz_pad = torch.from_numpy(nnz_pad).to(self.device)
         depth = (sum(c.rows.shape[0] for c in self.plan_theta.chunks)
                  / max(1, n))
-        self.accum_dtype = torch.bfloat16 if (
-            cfg.gram_dtype == "bf16" and
-            depth <= self.BF16_ACCUM_MAX_DEPTH) else torch.float32
+        self.accum_dtype = accum_dtype(cfg.gram_dtype, depth)
         print(f"[ooc] theta accumulators {self.accum_dtype} (~{depth:.1f} "
               f"partial adds per row, gram_dtype {cfg.gram_dtype}, bf16 up "
-              f"to {self.BF16_ACCUM_MAX_DEPTH})", file=sys.stderr,
+              f"to {BF16_ACCUM_MAX_DEPTH})", file=sys.stderr,
               flush=True)
 
         def host(shape):

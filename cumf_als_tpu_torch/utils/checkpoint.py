@@ -52,3 +52,13 @@ def load_checkpoint(ckpt_dir: str, iteration: Optional[int] = None,
                 f"{_fingerprint(cfg)}")
     with np.load(os.path.join(ckpt_dir, f"ckpt_{iteration:06d}.npz")) as data:
         return data["x"], data["theta"], int(data["iteration"])
+
+
+def save_debug_array(save_dir: str, name: str, arr) -> str:
+    """A raw float32 dump of an intermediate (a Gram chunk, the solved
+    factors) for offline diffing of solver variants: the reference's
+    CUMF_SAVE_MODEL files (als.cu:49-57) in the JAX package's format."""
+    os.makedirs(save_dir, exist_ok=True)
+    path = os.path.join(save_dir, name + ".bin")
+    np.asarray(arr, dtype=np.float32).tofile(path)
+    return path

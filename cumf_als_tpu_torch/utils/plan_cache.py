@@ -1,5 +1,4 @@
-"""On-disk cache of built plans (the JAX package's utils/plan_cache.py,
-single-device half).
+"""On-disk cache of built plans (the JAX package's utils/plan_cache.py).
 
 A plan is stored under a key made from a fingerprint of the data set,
 the builder's kind and its parameters; a later process loads it
@@ -9,10 +8,11 @@ package is read by the other.
 
 Layout per entry:  <cache_dir>/<key>/meta.json + <name>.npy
 
-The single-device kinds are stored and loaded: update, panel, batched
-panel and split plans, and the CSC view (`cached_transpose`). An entry
-of a sharded kind (written by the JAX package's sharded models) raises
-NotImplementedError on load: sharded training is not ported yet.
+Stored and loaded: the update, panel, batched-panel and split plans,
+the CSC view (`cached_transpose`), and the eager sharded plans of
+ShardedALS (a ShardedRowPlan, a ReducePlan, AlignedSteps). An entry of a
+lazy sharded kind (written by the JAX package's sharded out-of-core
+model) raises ShardedEntryError on load: that model is not ported yet.
 """
 
 from __future__ import annotations
@@ -30,15 +30,18 @@ from cumf_als_tpu_torch.ops.tiling import (BatchedPanelPlan, PanelChunk,
                                            PanelPlan, PlanChunk, RowBatch,
                                            SplitChunk, SplitPlan,
                                            UpdatePlan)
+from cumf_als_tpu_torch.parallel.plan import (AlignedPanelChunk,
+                                              AlignedSteps, ReduceBlock,
+                                              ReducePlan, ShardedChunk,
+                                              ShardedRowPlan)
 from cumf_als_tpu_torch.utils.io import CSRMatrix, transpose_csr
 
 _VERSION = 4  # the JAX package's layout version: keys must equal its own
-SHARDED_TYPES = ("sharded_row", "sharded_row_lazy", "reduce",
-                 "aligned_steps", "aligned_steps_lazy")
+LAZY_SHARDED_TYPES = ("sharded_row_lazy", "aligned_steps_lazy")
 
 
 class ShardedEntryError(NotImplementedError):
-    """A cache entry of a sharded plan, which the port cannot load."""
+    """A cache entry of a lazy sharded plan, which the port cannot load."""
 
 
 def dataset_fingerprint(csr: CSRMatrix) -> str:
@@ -110,6 +113,41 @@ def _unpack_chunks(arrays: dict, cls) -> List:
     return out
 
 
+def _pack_dev_chunks(chunks) -> dict:
+    """Chunks whose arrays carry a leading rank axis (rows, nnz (n_dev,
+    R); cols, vals (n_dev, R, P)) in flat buffers, with a manifest of
+    (panel, width, n_dev, R) per chunk (panel -1 for a ShardedChunk)."""
+    meta = np.asarray(
+        [(getattr(c, "panel", -1), c.width, c.rows.shape[0],
+          c.rows.shape[1]) for c in chunks], np.int64).reshape(len(chunks), 4)
+    return {
+        "chunk_meta": meta,
+        "rows": _cat([c.rows.reshape(-1) for c in chunks], np.int32),
+        "nnz": _cat([c.nnz.reshape(-1) for c in chunks], np.int32),
+        "cols": _cat([c.cols.reshape(-1) for c in chunks], np.int32),
+        "vals": _cat([c.vals.reshape(-1) for c in chunks], np.float32),
+    }
+
+
+def _unpack_dev_chunks(arrays: dict, make) -> List:
+    """make(panel, width, rows, nnz, cols, vals) -> one chunk."""
+    meta = np.asarray(arrays["chunk_meta"])
+    rows, nnz = arrays["rows"], arrays["nnz"]
+    cols, vals = arrays["cols"], arrays["vals"]
+    out, ro, co = [], 0, 0
+    for panel, width, n_dev, r in meta:
+        panel, width, n_dev, r = int(panel), int(width), int(n_dev), int(r)
+        out.append(make(
+            panel, width,
+            np.asarray(rows[ro:ro + n_dev * r]).reshape(n_dev, r),
+            np.asarray(nnz[ro:ro + n_dev * r]).reshape(n_dev, r),
+            cols[co:co + n_dev * r * width].reshape(n_dev, r, width),
+            vals[co:co + n_dev * r * width].reshape(n_dev, r, width)))
+        ro += n_dev * r
+        co += n_dev * r * width
+    return out
+
+
 def _write_entry(path: str, meta: dict, arrays: dict) -> None:
     """Atomic write: stage into a temporary directory, rename into
     place."""
@@ -141,9 +179,75 @@ def _read_entry(path: str):
     return meta, arrays
 
 
+def _save_sharded(path: str, plan) -> None:
+    """The eager sharded kinds, in the JAX package's layout (the port
+    builds no lazy plan)."""
+    if isinstance(plan, ShardedRowPlan):
+        arrays = _pack_dev_chunks(plan.chunks)
+        arrays["global_ids"] = plan.global_ids
+        _write_entry(path, {"type": "sharded_row", "n_dev": plan.n_dev,
+                            "m": plan.m, "m_loc": plan.m_loc,
+                            "num_cols": plan.num_cols}, arrays)
+    elif isinstance(plan, ReducePlan):
+        blocks = plan.blocks
+        meta = {"type": "reduce", "n_dev": plan.n_dev, "n": plan.n,
+                "m_loc": plan.m_loc,
+                "block_meta": [(b.width, int(b.rows.shape[0]),
+                                int(b.cols.shape[0])) for b in blocks]}
+        _write_entry(path, meta, {
+            "rows": _cat([b.rows for b in blocks], np.int32),
+            "nnz_total": _cat([b.nnz_total for b in blocks], np.int32),
+            "nnz_local": _cat([b.nnz_local.reshape(-1) for b in blocks],
+                              np.int32),
+            "cols": _cat([b.cols.reshape(-1) for b in blocks], np.int32),
+            "vals": _cat([b.vals.reshape(-1) for b in blocks],
+                         np.float32)})
+    else:
+        _write_entry(path, {"type": "aligned_steps",
+                            "n_panels": plan.n_panels},
+                     _pack_dev_chunks(plan.steps))
+
+
+def _load_sharded(meta: dict, arrays: dict):
+    kind = meta["type"]
+    if kind == "sharded_row":
+        chunks = _unpack_dev_chunks(
+            arrays, lambda panel, width, rows, nnz, cols, vals:
+            ShardedChunk(width=width, rows=rows, nnz=nnz, cols=cols,
+                         vals=vals))
+        return ShardedRowPlan(
+            n_dev=meta["n_dev"], m=meta["m"], m_loc=meta["m_loc"],
+            global_ids=np.asarray(arrays["global_ids"]),
+            num_cols=meta["num_cols"], chunks=chunks)
+    if kind == "reduce":
+        n_dev = meta["n_dev"]
+        blocks, ro, fo = [], 0, 0
+        for width, c, nd in meta["block_meta"]:
+            width, c, nd = int(width), int(c), int(nd)
+            blocks.append(ReduceBlock(
+                width=width, rows=np.asarray(arrays["rows"][ro:ro + c]),
+                nnz_local=np.asarray(arrays["nnz_local"][
+                    ro * n_dev:(ro + c) * n_dev]).reshape(nd, c),
+                nnz_total=np.asarray(arrays["nnz_total"][ro:ro + c]),
+                cols=arrays["cols"][fo:fo + nd * c * width].reshape(
+                    nd, c, width),
+                vals=arrays["vals"][fo:fo + nd * c * width].reshape(
+                    nd, c, width)))
+            ro += c
+            fo += nd * c * width
+        return ReducePlan(n_dev=n_dev, n=meta["n"], m_loc=meta["m_loc"],
+                          blocks=blocks)
+    steps = _unpack_dev_chunks(
+        arrays, lambda panel, width, rows, nnz, cols, vals:
+        AlignedPanelChunk(panel, width, rows, nnz, cols, vals))
+    return AlignedSteps(steps=steps, n_panels=meta["n_panels"])
+
+
 def save_plan(cache_dir: str, key: str, plan) -> None:
     path = os.path.join(cache_dir, key)
-    if isinstance(plan, SplitPlan):
+    if isinstance(plan, (ShardedRowPlan, ReducePlan, AlignedSteps)):
+        _save_sharded(path, plan)
+    elif isinstance(plan, SplitPlan):
         meta = {"type": "split", "num_rows": plan.num_rows,
                 "num_cols": plan.num_cols, "part_size": plan.part_size,
                 "n_parts": plan.n_parts, "true_nnz": plan.true_nnz,
@@ -199,15 +303,19 @@ def save_plan(cache_dir: str, key: str, plan) -> None:
 
 def load_plan(cache_dir: str, key: str):
     """The plan stored under `key`, or None when there is none. An entry
-    of a sharded kind raises ShardedEntryError (a NotImplementedError)."""
+    of a lazy sharded kind raises ShardedEntryError (a
+    NotImplementedError)."""
     meta, arrays = _read_entry(os.path.join(cache_dir, key))
     if meta is None:
         return None
     kind = meta["type"]
-    if kind in SHARDED_TYPES:
+    if kind in LAZY_SHARDED_TYPES:
         raise ShardedEntryError(
-            f"plan cache entry {key} is a sharded {kind!r} plan: sharded "
-            "training is not ported yet (ROADMAP A12)")
+            f"plan cache entry {key} is a lazy sharded {kind!r} plan of "
+            "sharded out-of-core training, which is not ported yet "
+            "(ROADMAP A12, sharded out-of-core)")
+    if kind in ("sharded_row", "reduce", "aligned_steps"):
+        return _load_sharded(meta, arrays)
     if kind == "split":
         chunks, ro, co, vo = [], 0, 0, 0
         for r, parts, widths in meta["chunk_meta"]:
@@ -310,7 +418,7 @@ def cached_build(cache_dir: Optional[str], kind: str, csr: CSRMatrix,
                  params: dict, build_fn):
     """build_fn() memoized on disk under (kind, the data set of `csr`,
     params); cache_dir None builds every time. A corrupt or unreadable
-    entry is rebuilt; an entry of a sharded kind raises."""
+    entry is rebuilt; an entry of a lazy sharded kind raises."""
     if not cache_dir:
         return build_fn()
     key = plan_key(kind, dataset_fingerprint(csr), params)

@@ -230,13 +230,27 @@ def test_tables_match_root():
 
 
 @pytest.mark.parametrize("extra,err,match", [
-    (["--out-of-core", "--mesh", "2"], NotImplementedError, "A12"),
-    (["--mesh", "2"], NotImplementedError, "A12"),
+    (["--out-of-core", "--mesh", "2"], NotImplementedError,
+     "A12, sharded out-of-core"),
+    # --mesh N runs N ranks under torchrun; here the world has one
+    (["--mesh", "2"], ValueError, "world has 1 rank"),
     (["--platform", "tpu"], ValueError, "cpu")])
 def test_unported_options_raise(cache, extra, err, match):
     with pytest.raises(err, match=match):
         bench.main(ARGS + extra)
     assert not os.path.exists(cache)
+
+
+def test_mesh_runs_the_sharded_model(cache, capsys):
+    """--mesh 1 in one process: ShardedALS on a world of one rank, the
+    root bench's keys, the sharded plans' log line."""
+    base, _ = _root_out_keys()
+    assert bench.main(ARGS + ["--mesh", "1", "--iters", "1"]) == 0
+    out = capsys.readouterr()
+    line = json.loads(out.out.strip().splitlines()[-1])
+    assert list(line) == base and np.isfinite(line["train_rmse_final"])
+    assert "[bench] sharded plans built in" in out.err
+    assert "reduce blocks, 1 devices)" in out.err
 
 
 def test_accuracy_check_needs_three_iterations(cache, capsys):

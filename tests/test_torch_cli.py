@@ -55,9 +55,9 @@ def test_plan_cache_has_no_effect(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--profile-dir", "/tmp/trace"], "A9"),
-    (["--x-placement", "host"], "A12"),
-    (["--x-placement", "device"], "A12")])
+    (["--x-placement", "host"], "A12, sharded out-of-core"),
+    (["--x-placement", "device"], "A12, sharded out-of-core"),
+    (["--mesh", "2", "--out-of-core"], "A12, sharded out-of-core")])
 def test_unported_flags_name_their_roadmap_item(flags, item):
     """They raise before any data is read (the directory does not
     exist)."""
@@ -65,3 +65,17 @@ def test_unported_flags_name_their_roadmap_item(flags, item):
             "/nonexistent/ds", "--device", "cpu"] + flags
     with pytest.raises(NotImplementedError, match=item):
         cli.main(argv)
+
+
+def test_profile_dir_traces_the_run(tmp_path, capsys):
+    """--profile-dir (once refused as unported) traces the run into the
+    directory; tests/test_torch_dumps.py reads the trace."""
+    d = str(tmp_path / "ds")
+    tr, te = synthetic_ratings(m=30, n=20, nnz=300, nnz_test=40, seed=1)
+    write_dataset(d, tr, te)
+    argv = ["30", "20", "16", str(tr.nnz), str(te.nnz), "0.05", "1", "1",
+            d, "--device", "cpu", "--iters", "1", "--solver", "cholesky",
+            "--profile-dir", str(tmp_path / "trace")]
+    assert cli.main(argv) == 0
+    assert "ALS Done." in capsys.readouterr().out
+    assert os.listdir(tmp_path / "trace")

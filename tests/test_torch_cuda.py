@@ -1009,3 +1009,54 @@ def test_out_of_core_on_the_card_matches_the_cpu(card, factor_dtype):
         assert b.test_rmse == pytest.approx(a.test_rmse, abs=1e-4)
     np.testing.assert_allclose(res.x, ref.x, atol=2e-3)
     np.testing.assert_allclose(res.theta, ref.theta, atol=2e-3)
+
+
+@pytest.mark.parametrize("gram_dtype", ["bf16", "f32"])
+def test_sharded_world_one_on_the_card_matches_the_cpu(card, gram_dtype):
+    """ShardedALS at one rank on the card against the same run on the CPU,
+    with X on the panel route (panels of 16 theta rows) and theta in
+    reduce blocks of 32 rows solved by K1: bf16 accumulators take K2 and
+    K3, f32 ones the augmented K5a and K5b. Each kernel launches as often
+    as the plans say; two ranks on the card (gloo, both on cuda:0) match
+    two ranks on the CPU, theta equal bit for bit on the two ranks."""
+    from cumf_als_tpu_torch.config import ALSConfig
+    from cumf_als_tpu_torch.data.synthetic import (init_factors,
+                                                   synthetic_ratings)
+    from cumf_als_tpu_torch.parallel.mesh import spawn
+    from cumf_als_tpu_torch.parallel.sharded_als import ShardedALS, run_rank
+    train, test = synthetic_ratings(m=300, n=220, nnz=12000, nnz_test=1500,
+                                    rank=6, noise=0.1, seed=7)
+    cfg = ALSConfig(m=300, n=220, f=100, lam=0.5, iters=3, verbose=False,
+                    debug_timing=False, panel_size=16, chunk_nnz=1 << 9,
+                    chunk_rows=32, factor_dtype="bf16",
+                    gram_dtype=gram_dtype, backend="pallas", solver="cg")
+    x0, th0 = init_factors(300, 220, 100, seed=2)
+    model = ShardedALS(cfg, train, None, test, block_rows=32, device=card)
+    assert model.x_steps is not None and model.single_fused()
+    res = model.run(x0, th0)
+    gram, sol = ("gather_gram_out", "solve_cg_reg") if gram_dtype == \
+        "bf16" else ("gather_gram_aug_out", "solve_cg_aug")
+    slices = model._x_m_pad // model._x_solve_batch
+    assert cs.LAUNCHES == dict.fromkeys(cs.LAUNCHES, 0) | {
+        "gather_gram_cg": 3 * len(model.reduce_plan.blocks),
+        gram: 3 * len(model.x_steps), sol: 3 * slices}
+    ref = ShardedALS(cfg, train, None, test, block_rows=32,
+                     device="cpu").run(x0, th0)
+    for a, b in zip(ref.history, res.history):
+        assert b.train_rmse == pytest.approx(a.train_rmse, abs=1e-4)
+        assert b.test_rmse == pytest.approx(a.test_rmse, abs=1e-4)
+    np.testing.assert_allclose(res.x, ref.x, atol=2e-3)
+    np.testing.assert_allclose(res.theta, ref.theta, atol=2e-3)
+    two = spawn(2, run_rank, cfg, (train, test), x0, th0, 32,
+                backend="gloo", device="cuda:0")
+    ref2 = spawn(2, run_rank, cfg, (train, test), x0, th0, 32,
+                 device="cpu")
+    assert two[0]["theta_sha256"] == two[1]["theta_sha256"]
+    for a, b in zip(ref2[0]["history"], two[0]["history"]):
+        assert b.train_rmse == pytest.approx(a.train_rmse, abs=1e-4)
+        assert b.test_rmse == pytest.approx(a.test_rmse, abs=1e-4)
+    np.testing.assert_allclose(two[0]["theta"], ref2[0]["theta"], atol=2e-3)
+    for r in two:   # at two ranks theta takes partials: no K1
+        assert r["launches"] == dict.fromkeys(cs.LAUNCHES, 0) | {
+            gram: 3 * (r["x_steps"] + r["n_blocks"]),
+            sol: 3 * (r["x_slices"] + r["n_blocks"])}

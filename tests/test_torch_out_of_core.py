@@ -142,10 +142,15 @@ def test_factory_picks_the_model(medium_problem):
                            device="cpu")) is ALS
     assert type(make_model(ALSConfig(host_offload_x=True, **base), train,
                            None, test, device="cpu")) is OutOfCoreALS
-    for offload in (False, True):
-        with pytest.raises(NotImplementedError, match="A12"):
-            make_model(ALSConfig(mesh_shape=(2,), host_offload_x=offload,
-                                 **base), train, None, test, device="cpu")
+    from cumf_als_tpu_torch.parallel.sharded_als import ShardedALS
+    assert type(make_model(ALSConfig(mesh_shape=(1,), **base), train, None,
+                           test, device="cpu")) is ShardedALS
+    with pytest.raises(ValueError, match="world has 1 rank"):
+        make_model(ALSConfig(mesh_shape=(2,), **base), train, None, test,
+                   device="cpu")
+    with pytest.raises(NotImplementedError, match="A12, sharded out-of-core"):
+        make_model(ALSConfig(mesh_shape=(2,), host_offload_x=True, **base),
+                   train, None, test, device="cpu")
     if not torch.cuda.is_available():   # no silent CPU
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make_model(ALSConfig(host_offload_x=True, **base), train)

@@ -31,6 +31,8 @@ import cumf_als_tpu_torch.ops.cuda_solve, cumf_als_tpu_torch.ops._build
 import cumf_als_tpu_torch.bench, cumf_als_tpu_torch.data.prepare
 import cumf_als_tpu_torch.native, cumf_als_tpu_torch.utils.plan_cache
 import cumf_als_tpu_torch.models.out_of_core
+import cumf_als_tpu_torch.parallel.plan, cumf_als_tpu_torch.parallel.mesh
+import cumf_als_tpu_torch.parallel.sharded_als
 from cumf_als_tpu_torch.models.factory import make_model
 tr, te = synthetic_ratings(m=30, n=20, nnz=300, nnz_test=40, seed=1)
 cfg = pkg.ALSConfig(m=30, n=20, f=16, iters=2, verbose=False,
@@ -41,6 +43,9 @@ assert len(res.history) == 2
 ooc = make_model(cfg.replace(host_offload_x=True, panel_size=8), tr, None,
                  te, device="cpu")
 assert len(ooc.run(x0, th0).history) == 2
+sharded = make_model(cfg.replace(mesh_shape=(1,)), tr, None, te,
+                     device="cpu")
+assert len(sharded.run(x0, th0).history) == 2
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "cumf_als_tpu" or m.startswith("cumf_als_tpu."))
@@ -54,6 +59,38 @@ def test_port_imports_no_jax():
                          env=dict(os.environ, PYTHONPATH=REPO))
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
+
+
+SPAWN = r"""
+from cumf_als_tpu_torch.config import ALSConfig
+from cumf_als_tpu_torch.data.synthetic import init_factors, synthetic_ratings
+from cumf_als_tpu_torch.parallel.mesh import spawn
+from cumf_als_tpu_torch.parallel.sharded_als import run_rank
+tr, te = synthetic_ratings(m=30, n=20, nnz=300, nnz_test=40, seed=1)
+cfg = ALSConfig(m=30, n=20, f=16, iters=2, verbose=False,
+                debug_timing=False, backend="pallas")
+x0, th0 = init_factors(30, 20, 16)
+ranks = spawn(2, run_rank, cfg, (tr, te), x0, th0, 8, device="cpu",
+              timeout=120)
+assert ranks[0]["theta_sha256"] == ranks[1]["theta_sha256"]
+print("RANKS OK")
+"""
+
+
+def test_spawned_ranks_import_no_jax(tmp_path):
+    """Two spawned ranks of ShardedALS (parallel.mesh.spawn, run_rank)
+    with jax and the JAX package blocked from import in the parent and
+    in the ranks: packages of those names that raise first on the path."""
+    for name in ("jax", "cumf_als_tpu"):
+        os.makedirs(tmp_path / name)
+        (tmp_path / name / "__init__.py").write_text(
+            f"raise ImportError('{name} is blocked')\n")
+    out = subprocess.run([sys.executable, "-c", SPAWN], cwd=str(tmp_path),
+                         capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ,
+                                  PYTHONPATH=f"{tmp_path}:{REPO}"))
+    assert out.returncode == 0, out.stderr
+    assert "RANKS OK" in out.stdout
 
 
 def _problem():
@@ -173,13 +210,19 @@ def test_cli_usage_and_unported_models(tmp_path, capsys):
     d, tr, te = _dataset(tmp_path)
     base = ["30", "20", "16", str(tr.nnz), str(te.nnz), "0.05", "1", "1",
             d, "--device", "cpu", "--iters", "1"]
-    for flags in (["--mesh=2"], ["--mesh=2", "--out-of-core"]):
-        with pytest.raises(NotImplementedError, match="A12"):
-            cli.main(base + flags)
+    # sharded out-of-core training is not ported; --mesh N needs a
+    # world of N ranks (torchrun)
+    with pytest.raises(NotImplementedError, match="sharded out-of-core"):
+        cli.main(base + ["--mesh=2", "--out-of-core"])
+    with pytest.raises(ValueError, match="world has 1 rank"):
+        cli.main(base + ["--mesh=2"])
     capsys.readouterr()
-    # out-of-core training is ported: it runs
+    # out-of-core and sharded training are ported: they run
     assert cli.main(base + ["--out-of-core"]) == 0
     assert "*******out-of-core:" in capsys.readouterr().out
+    assert cli.main(base + ["--mesh=1"]) == 0
+    assert "*******mesh: 1 devices over axis 'data'." in \
+        capsys.readouterr().out
 
 
 def test_cli_resume_from_checkpoint(tmp_path, capsys):

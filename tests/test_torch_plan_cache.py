@@ -117,18 +117,29 @@ def test_a_port_entry_loads_in_jax(medium_problem, tmp_path, kind):
 
 
 def test_a_sharded_entry_raises_naming_a12(medium_problem, tmp_path):
+    """An eager sharded entry of the JAX package loads (ShardedALS's
+    kinds; tests/test_torch_sharded.py holds them array for array); a
+    lazy one, of sharded out-of-core training, raises naming A12."""
     from cumf_als_tpu.parallel.plan import build_sharded_row_plan
     train = medium_problem[0]
     csr = _port(train)
     params = dict(n_dev=2)
-    key = pc.plan_key("update", pc.dataset_fingerprint(csr), params)
+    key = pc.plan_key("sh_row", pc.dataset_fingerprint(csr), params)
     jpc.save_plan(str(tmp_path), key, build_sharded_row_plan(
         train, 2, chunk_nnz=1 << 10, chunk_rows=64))
-    with pytest.raises(NotImplementedError, match="A12"):
-        pc.load_plan(str(tmp_path), key)
+    plan = pc.load_plan(str(tmp_path), key)
+    assert plan.n_dev == 2 and plan.chunks[0].cols.shape[0] == 2
+    jpc.save_plan(str(tmp_path), "lazy", build_sharded_row_plan(
+        train, 2, chunk_nnz=1 << 10, chunk_rows=64, lazy=True))
+    with pytest.raises(NotImplementedError,
+                       match="A12, sharded out-of-core"):
+        pc.load_plan(str(tmp_path), "lazy")
     # cached_build does not take it for a stale entry and rebuild
+    lazy_key = pc.plan_key("sh_row_lazy", pc.dataset_fingerprint(csr),
+                           params)
+    os.rename(tmp_path / "lazy", tmp_path / lazy_key)
     with pytest.raises(NotImplementedError, match="A12"):
-        pc.cached_build(str(tmp_path), "update", csr, params,
+        pc.cached_build(str(tmp_path), "sh_row_lazy", csr, params,
                         lambda: _build(tiling, "update", csr))
 
 
