@@ -133,7 +133,37 @@ result line):
       their plain versions.
    K1, K2 and K3 launch exactly as the plans say in each run (read
    around the run alone); the counts go into the `kernels` line as
-   `sharded_launches`.
+   `sharded_launches`;
+11. sharded out-of-core training, `ShardedOutOfCoreALS` on the
+   hugewiki_mini data of phase 9, F=100, bf16, CG, "pallas", plans and
+   CSC through the bench's plan cache:
+   a. one rank on an NCCL group of one, X in pinned host memory (bf16),
+      3 iterations: K1 on the X chunks, K2 on the theta steps, K3 once
+      an iteration over all of theta; train and test RMSE within 2e-3 of
+      phase 9's run at every iteration, x and theta within rtol/atol
+      2e-2; K3 on that reduce solve of all theta systems (f32 A) against
+      its plain version;
+   b. X on the card, theta on the direct route, 3 iterations, RMSE
+      within 2e-3 of (a): K1 on the widest direct theta chunk against
+      the device X (its se held to the exact se of its x, in float64),
+      and K2 on a hot-segment chunk of the 16 most rated columns (R =
+      16, P = 2^18, f32 A), against their plain versions;
+      with no column above THETA_SEG_W ratings, one more iteration with
+      it lowered until 8 columns are hot (K2 on their segments, K3 on
+      their solve), RMSE within 2e-3 of (b)'s first;
+   c. (b) on lazy plans in a fresh plan cache: iteration 0 builds the X
+      and theta stream stores, iterations 1 and 2 read them; RMSE within
+      1e-6 of (b);
+   d. two ranks spawned on the one card (gloo, as 10b), X on the host,
+      2 iterations: RMSE within 2e-3 of (a), theta's SHA-256 equal on
+      both ranks after each iteration, X equal on both and holding each
+      rank's rows; the bytes each rank all-reduced an iteration (the
+      mesh's count);
+   then `python -m cumf_als_tpu_torch.bench --workload hugewiki_mini
+   --out-of-core --mesh 1 --iters 3` in a subprocess (the root bench's
+   keys, train RMSE within 2e-3 of (a)). K1, K2 and K3 launch exactly as
+   the plans say in each run; the counts go into the `kernels` line as
+   `sharded_ooc_launches`.
 
 The data sets come through the bench's loader (`bench.load_workload`),
 which generates each once into .bench_cache/torch/ and memory-maps it;
@@ -170,6 +200,13 @@ alone, runs phase 9 and prints no result line.
 is the short call for sharded training: it builds K1, K2 and K3 alone,
 runs phase 4a's main path (its RMSE is (a)'s reference), then phase 10,
 and prints no result line.
+
+    python3 chip_smoke.py --sharded-ooc
+
+is the short call for sharded out-of-core training: it builds K1, K2
+and K3 alone, runs the out-of-core reference of phase 9 (OutOfCoreALS
+on hugewiki_mini, 3 iterations), then phase 11, and prints no result
+line.
 
     python3 chip_smoke.py --wide
 
@@ -514,13 +551,53 @@ def gram_synthetic(cs):
 
 
 # ------------------------------------------------------------ phase 2 --
-def check_k1(cs, table_ext, ch, theta, cfg, label, aug=False):
+def se_witness(table_ext, ch, x, se, steps):
+    """The exact se of the x a K1 returned, Sum (v - g.x)^2 over each
+    real row's slots, taken in float64 from the same table (a bf16 or f32
+    table is exact in float64), against the se it returned. Returns the
+    largest |se - exact| relative to the exact se, and relative to the
+    size of the terms se is taken from (r2 + 2|x.b| + x^T A x), and
+    whether every row is within the rounding of those terms: steps x
+    2^-23 x terms + 1e-5."""
+    rel = of_terms = 0.0
+    ok = True
+    for i in torch.nonzero(ch.nnz > 0)[:, 0].tolist():
+        k = int(ch.nnz[i])
+        g = table_ext.index_select(0, ch.cols[i, :k].long()).double()
+        v = ch.vals[i, :k].double()
+        gx = g @ x[i].double()
+        exact = float(((v - gx) ** 2).sum())
+        terms = float((v * v).sum() + 2 * (v * gx).sum().abs() +
+                      (gx * gx).sum())
+        d = abs(float(se[i, 0]) - exact)
+        rel = max(rel, d / max(exact, 1e-30))
+        of_terms = max(of_terms, d / max(terms, 1e-30))
+        ok &= d <= steps * 2.0 ** -23 * terms + 1e-5
+        del g, gx
+    return rel, of_terms, ok
+
+
+def check_k1(cs, table_ext, ch, theta, cfg, label, aug=False,
+             table_rows=None, se_exact=False):
     """K1 (or, with aug, K6) on one theta-phase chunk: kernel vs plain,
     x within 2e-3 and se within 1e-3 relative; rows without ratings
     exactly 0 in x and se, and with aug lane f-1 of x exactly 0. Kernel
     and plain are timed by one clock, device time behind queued work
     (`queued_ms`): a few-row chunk's kernel is not much longer than the
-    host's work to launch it."""
+    host's work to launch it. `table_rows`, when given, is the number of
+    table rows the bound counts (a large table's rows the chunk names),
+    else the whole table.
+
+    `se_exact` holds se instead to the exact se of the kernel's own x
+    (`se_witness`, float64), within the rounding of the terms se is taken
+    from: se = r2 - 2 x.b + x^T A x (less the ridge) cancels, so its f32
+    error follows r2 + 2|x.b| + x^T A x, not se; steps counts the
+    accumulation steps as `gram_limit` does. For rows of many ratings,
+    where that rounding outgrows 1e-3 of se. The plain version's error
+    against its own exact se is printed beside the kernel's, and so is
+    the reading of a deliberately wrong kernel: the kernel run with the
+    last 1/64 and 1/8 of each real row's slots made pad slots (a K1 that
+    stops its rows early), against the exact se of the whole row."""
     x0 = chunk_x0(ch, theta)
     args = (table_ext, ch.cols, ch.vals, ch.nnz, x0, cfg.lam)
     kw = dict(cg_iters=cfg.cg_iters, cg_tol=cfg.cg_tol)
@@ -530,6 +607,37 @@ def check_k1(cs, table_ext, ch, theta, cfg, label, aug=False):
     px, pse = plain_fn(*args, **kw)
     err = (x - px).abs().max().item()
     se_rel = ((se - pse).abs() / pse.abs().clamp_min(1.0)).max().item()
+    se_ok, se_limit = se_rel <= 1e-3, "1e-3 relative"
+    if se_exact:
+        p_ = ch.cols.shape[1]
+        steps = (p_ if cs.gram_body(table_ext) == "fma" else
+                 -(-p_ // 16)) + 4
+        k_rel, k_terms, se_ok = se_witness(table_ext, ch, x, se, steps)
+        p_rel, p_terms, p_ok = se_witness(table_ext, ch, px, pse, steps)
+        se_limit = (f"none; held instead: |se - the exact se of its x "
+                    f"(float64)| <= {steps} x 2^-23 (r2 + 2|x.b| + x^T A "
+                    f"x) + 1e-5: kernel {se_ok}, {k_rel:.3e} of se, "
+                    f"{k_terms:.3e} of the terms; plain {p_ok}, "
+                    f"{p_rel:.3e} of se, {p_terms:.3e} of the terms")
+        pad = int(ch.cols[int(ch.nnz.argmin()), -1])
+        for frac in (64, 8):
+            cols_w, vals_w = ch.cols.clone(), ch.vals.clone()
+            for i in torch.nonzero(ch.nnz > 0)[:, 0].tolist():
+                k = int(ch.nnz[i])
+                cols_w[i, k - k // frac:k] = pad
+                vals_w[i, k - k // frac:k] = 0
+            xw, sew = cs.gather_gram_cg(table_ext, cols_w, vals_w, ch.nnz,
+                                        x0, cfg.lam, aug=aug, **kw)
+            w_rel, w_terms, w_ok = se_witness(table_ext, ch, xw, sew,
+                                              steps)
+            w_dx = (xw - px).abs().max().item()
+            log(f"[K1 se witness] a deliberately wrong K1 that drops the "
+                f"last 1/{frac} of each real row's slots: |se - exact se "
+                f"of its x over the whole row| {w_rel:.3e} of se, "
+                f"{w_terms:.3e} of the terms, within the se limit: {w_ok}; "
+                f"max|dx| vs plain {w_dx:.3e} (limit 2e-3); the check "
+                f"{'passes' if w_ok and w_dx <= 2e-3 else 'rejects'} it")
+            del cols_w, vals_w, xw, sew
     empty = ch.nnz == 0
     zero_ok = bool((x[empty] == 0).all()) and bool((se[empty] == 0).all())
     if aug:
@@ -540,14 +648,17 @@ def check_k1(cs, table_ext, ch, theta, cfg, label, aug=False):
     r, p = ch.cols.shape
     f = table_ext.shape[1]
     flops = 2.0 * float(ch.nnz.sum().item()) * f * f
-    bms, by = bound_ms(nbytes(table_ext, ch.cols, ch.vals, ch.nnz, x0, x,
-                              se), flops, table_ext.dtype)
-    ok = err <= 2e-3 and se_rel <= 1e-3 and zero_ok
+    table_b = nbytes(table_ext) if table_rows is None else \
+        table_rows * f * table_ext.element_size()
+    bms, by = bound_ms(table_b + nbytes(ch.cols, ch.vals, ch.nnz, x0, x,
+                                        se), flops, table_ext.dtype)
+    ok = err <= 2e-3 and se_ok and zero_ok
     name = "K6 gather_gram_cg_aug" if aug else "K1 gather_gram_cg"
     log(f"[{name}] {label} chunk R={r} P={p}, table {table_ext.dtype}, "
         f"body {cs.gram_body(table_ext)}: max|dx|={err:.3e} (limit 2e-3), "
-        f"max rel dse={se_rel:.3e} (limit 1e-3), {int(empty.sum())} rows "
-        f"without ratings{' and lane f-1' if aug else ''} exactly 0: "
+        f"max rel dse={se_rel:.3e} (limit {se_limit}), "
+        f"{int(empty.sum())} rows without ratings"
+        f"{' and lane f-1' if aug else ''} exactly 0: "
         f"{zero_ok}; device time: kernel {ms:.3f} ms, plain {plain:.3f} "
         f"ms, bound {bms:.4f} ms ({by}); {'OK' if ok else 'FAIL'}")
     return ok, dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
@@ -655,7 +766,7 @@ def theta_synthetic(cs, lam=0.048):
     return ok
 
 
-def check_gram(cs, tp, ch, a_dtype, aug, label):
+def check_gram(cs, tp, ch, a_dtype, aug, label, table_rows=None):
     """K2 (or, with aug, K5a) on one X-phase panel chunk: kernel vs plain,
     and torch.bmm on a pre-gathered (and, with aug, pre-augmented) G as
     the yardstick: it leaves out the gather, the value splice and b, and
@@ -663,7 +774,9 @@ def check_gram(cs, tp, ch, a_dtype, aug, label):
     on a few-row chunk the kernel is shorter than the host's work to
     launch it). A is held to `gram_limit`, b to 1e-5 relative;
     the line prints the measured error relative to the size of the sum,
-    max |dA_ij| / sqrt(A_ii A_jj), in units of 2^-23."""
+    max |dA_ij| / sqrt(A_ii A_jj), in units of 2^-23. `table_rows`, when
+    given, is the number of table rows the bound counts (a large table's
+    rows the chunk names), else the whole table."""
     args = (tp, ch.cols, ch.vals)
     if aug:
         name, fn, plain_fn = ("K5a gather_gram_aug_out",
@@ -708,8 +821,10 @@ def check_gram(cs, tp, ch, a_dtype, aug, label):
     out_bytes = r * f * f * torch.tensor([], dtype=a_dtype).element_size()
     if not aug:
         out_bytes += r * f * 4
-    bms, by = bound_ms(nbytes(tp, ch.cols, ch.vals) + out_bytes, flops,
-                       tp.dtype)
+    table_b = nbytes(tp) if table_rows is None else \
+        table_rows * f * tp.element_size()
+    bms, by = bound_ms(table_b + nbytes(ch.cols, ch.vals) + out_bytes,
+                       flops, tp.dtype)
     gathered = r * p * f * tp.element_size()
     rate = gathered / (ms * 1e-3) / 1e12
     ok = a_ok and b_rel <= 1e-5 and zero_ok
@@ -2072,8 +2187,9 @@ def out_of_core(cs, bench):
     """Phase 9: OutOfCoreALS at full width on hugewiki_mini (scale 1.0,
     the native generator's data, CRC-32s pinned), against the in-core ALS
     with the same settings (X and theta direct), then once through the
-    bench. Returns the out-of-core run's launches and the numbers of K1,
-    K2 and K3 held against their plain versions at its shapes."""
+    bench. Returns the out-of-core run's launches, the numbers of K1, K2
+    and K3 held against their plain versions at its shapes, and the
+    run's result (phase 11's reference)."""
     from cumf_als_tpu_torch import native
     from cumf_als_tpu_torch.config import ALSConfig
     from cumf_als_tpu_torch.models.als import ALS
@@ -2159,7 +2275,7 @@ def out_of_core(cs, bench):
         raise AssertionError(f"bench ooc: {line}")
     if abs(line["train_rmse_final"] - res_o.history[-1].train_rmse) > 2e-3:
         raise AssertionError("bench ooc: train RMSE off the phase's run")
-    return launches, checks
+    return launches, checks, res_o
 
 
 def sharded_log(label, history, peak, launches, what):
@@ -2378,6 +2494,327 @@ def sharded(cs, bench, cfg, train, test, hist_main):
     return launches, checks
 
 
+def sooc_run(cs, model, label, expect, x0, th0):
+    """model.run (ShardedOutOfCoreALS), the launch counts and the peak
+    device memory read around it alone; `expect`: the launches each
+    kernel must make (every other kernel none). Logs each iteration's X
+    and theta seconds."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cs.reset_launch_counts()
+    res = model.run(x0, th0)
+    torch.cuda.synchronize()
+    got = {k: v for k, v in cs.LAUNCHES.items() if v}
+    sharded_log(label, res.history, torch.cuda.max_memory_allocated(), got,
+                "one card:")
+    want = {k: v for k, v in expect.items() if v}
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, the plans say "
+                             f"{want}")
+    if not all(np.isfinite([h.train_rmse for h in res.history] +
+                           [h.test_rmse for h in res.history])):
+        raise AssertionError(f"{label}: non-finite RMSE")
+    return res, got, torch.cuda.max_memory_allocated()
+
+
+def sooc_expect(model, iters):
+    """The launches a ShardedOutOfCoreALS run of `iters` iterations
+    makes on "pallas" with CG: K1 on each X chunk (and, on the direct
+    theta route, on each theta chunk), K2 on each theta step (each hot
+    segment chunk), K3 once (once more with hot columns)."""
+    n_x = len(model.row_plan.chunks)
+    if model._theta_direct:
+        hot = len(model._hot_chunks)
+        return {"gather_gram_cg": iters * (n_x + len(model.th_plan.chunks)),
+                "gather_gram_out": iters * hot,
+                "solve_cg_reg": iters * int(hot > 0)}
+    return {"gather_gram_cg": iters * n_x,
+            "gather_gram_out": iters * len(model.theta_steps),
+            "solve_cg_reg": iters}
+
+
+def hot_k2_chunk(model, dev, p=1 << 18, r=16):
+    """A hot-segment chunk of the direct theta route at P = p: the first
+    p ratings of each of the r most rated theta columns, one segment a
+    row, pad slots naming the device X's zero row m_loc (what
+    _materialize_hot gives a column of more than p ratings)."""
+    from types import SimpleNamespace
+    csc = model.train_csc
+    indptr = np.asarray(csc.indptr, np.int64)
+    lens = np.diff(indptr)
+    top = np.argsort(-lens, kind="stable")[:r]
+    cols = np.full((r, p), model.row_plan.m_loc, np.int32)
+    vals = np.zeros((r, p), np.float32)
+    nnz = np.zeros(r, np.int32)
+    for j, c in enumerate(top):
+        k = int(min(lens[c], p))
+        o = int(indptr[c])
+        cols[j, :k] = csc.indices[o:o + k]
+        vals[j, :k] = csc.data[o:o + k]
+        nnz[j] = k
+    return SimpleNamespace(
+        cols=torch.from_numpy(cols).to(dev),
+        vals=torch.from_numpy(vals).to(dev),
+        nnz=torch.from_numpy(nnz).to(dev), panel=-1), lens[top]
+
+
+def live_rows(ch) -> int:
+    """The distinct table rows the live slots of a chunk name."""
+    p = ch.cols.shape[1]
+    live = torch.arange(p, device=ch.cols.device)[None, :] < \
+        ch.nnz.long()[:, None]
+    return int(torch.unique(ch.cols[live]).numel())
+
+
+def sharded_ooc(cs, bench, ref_ooc=None):
+    """Phase 11: ShardedOutOfCoreALS on hugewiki_mini at full width
+    (F=100, bf16, CG, "pallas"; the data of phase 9, plans and CSC
+    through the bench's plan cache): (a) one rank on an NCCL group of
+    one, X on the host, 3 iterations, against phase 9's OutOfCoreALS run
+    (`ref_ooc`; run here when None); (b) X on the card, theta on the
+    direct route, 3 iterations, against (a), and, when no column passes
+    THETA_SEG_W, one iteration with it lowered until 8 columns are hot,
+    against (b)'s first; (c) (b) on lazy plans with a fresh plan cache
+    (the stream stores built in iteration 0, read after), against (b)
+    within 1e-6; (d) two ranks on the one card over gloo, spawned, X on
+    the host, 2 iterations, against (a); then the port's bench with
+    --mesh 1 --out-of-core. K1 (the widest direct theta chunk against
+    the device X), K2 (a hot-segment chunk, R = 16, P = 2^18, f32 A) and
+    K3 (the reduce solve of all of (a)'s theta systems, f32 A) are held
+    to their plain versions. Returns each run's launches and the
+    checks' numbers."""
+    import functools
+    import shutil
+    from types import SimpleNamespace
+
+    import torch.distributed as dist
+
+    from cumf_als_tpu_torch.config import ALSConfig
+    from cumf_als_tpu_torch.data.synthetic import init_factors
+    from cumf_als_tpu_torch.parallel import sharded_ooc as so
+    from cumf_als_tpu_torch.parallel.mesh import (free_port,
+                                                  init_distributed, spawn)
+    from cumf_als_tpu_torch.utils.plan_cache import cached_transpose
+    t_phase = time.monotonic()
+    train, test, load_s = workload_data(bench, "hugewiki_mini",
+                                        RECORDED_HUGEWIKI_MINI)
+    cfg = ALSConfig(m=train.num_rows, n=train.num_cols, f=100,
+                    nnz=train.nnz, nnz_test=test.nnz, lam=0.048,
+                    iters=OOC_ITERS, solver="cg", backend="pallas",
+                    factor_dtype="bf16", gram_dtype="bf16",
+                    plan_cache_dir=bench.plan_cache_dir(), verbose=False,
+                    debug_timing=True, host_offload_x=True, mesh_shape=(1,))
+    csc = cached_transpose(cfg.plan_cache_dir, train)
+    x0, th0 = init_factors(cfg.m, cfg.n, cfg.f, seed=0)
+    dev = torch.device(DEV, 0)
+    if ref_ooc is None:
+        from cumf_als_tpu_torch.models.out_of_core import OutOfCoreALS
+        ooc = OutOfCoreALS(cfg, train, csc, test, device=dev)
+        ref_ooc = ooc.run(x0, th0)
+        del ooc
+        torch.cuda.empty_cache()
+    launches, checks, runs = {}, {}, {}
+    mesh = init_distributed("nccl", f"tcp://localhost:{free_port()}", 1, 0,
+                            device=dev)
+    try:
+        # (a) X on the host
+        t0 = time.monotonic()
+        a = so.ShardedOutOfCoreALS(cfg, train, csc, test, mesh=mesh)
+        log(f"[sooc a] plans {time.monotonic() - t0:.1f} s (built once into "
+            f"the plan cache); backend {mesh.backend}, world "
+            f"{mesh.world_size}; X {len(a.row_plan.chunks)} chunks, "
+            f"{a.row_plan.m_loc} rows in the host shard ({a.x_store.dtype}, "
+            f"pinned {a.x_store.is_pinned()}); theta {len(a.theta_steps)} "
+            f"steps over {a.n_panels} X panels of {a.panel_size} rows, "
+            f"accumulators {a.accum_dtype} (n_pad {a.n_pad}), one K3 call "
+            f"an iteration")
+        if not (a.x_store.is_pinned() and a.x_store.dtype ==
+                torch.bfloat16):
+            raise AssertionError("the X store is not pinned bf16 memory")
+        res_a, launches["a"], peak_a = sooc_run(
+            cs, a, "sooc a (host)", sooc_expect(a, OOC_ITERS), x0, th0)
+        runs["a"] = res_a.history
+        rmse_gaps("sooc a", res_a.history, ref_ooc.history, "out-of-core")
+        dx = np.abs(res_a.x - ref_ooc.x).max()
+        dth = np.abs(res_a.theta - ref_ooc.theta).max()
+        log(f"[sooc a | out-of-core] max|x diff| {dx:.3e}, max|theta diff| "
+            f"{dth:.3e} (rtol, atol 2e-2); peak device memory "
+            f"{peak_a / 2**30:.2f} GiB")
+        if not (np.allclose(res_a.x, ref_ooc.x, rtol=2e-2, atol=2e-2) and
+                np.allclose(res_a.theta, ref_ooc.theta, rtol=2e-2,
+                            atol=2e-2)):
+            raise AssertionError("sooc a: factors off the out-of-core run")
+        # K3 on the reduce solve of all theta systems, at (a)'s end state
+        acc_a, acc_b = a.theta_accumulators()
+        a_f = acc_a.float()
+        del acc_a
+        theta_a = torch.zeros((cfg.n, cfg.f_pad), device=dev)
+        theta_a[:, :cfg.f] = torch.from_numpy(res_a.theta).to(dev)
+        ok3, checks["solve_cg_reg"] = check_k3(
+            cs, a_f, acc_b, torch.nn.functional.pad(
+                theta_a, (0, 0, 0, a.n_pad - cfg.n)), a._theta_nnz_pad, 0,
+            a.n_pad, cfg, what="the reduce solve of theta, all")
+        del a_f, acc_b, theta_a, a
+        torch.cuda.empty_cache()
+
+        # (b) X on the card, theta direct
+        cfg_d = cfg.replace(x_placement="device")
+        t0 = time.monotonic()
+        b = so.ShardedOutOfCoreALS(cfg_d, train, csc, test, mesh=mesh)
+        widest = max(range(len(b.th_plan.chunks)),
+                     key=lambda i: b.th_plan.chunks[i].width)
+        log(f"[sooc b] plans {time.monotonic() - t0:.1f} s; X on the card "
+            f"({b.m_loc_pad} rows, {b.store_dtype}); theta direct: "
+            f"{len(b.th_plan.chunks)} chunks, the widest P="
+            f"{b.th_plan.chunks[widest].width}; "
+            f"{b._hot_rows.size} columns above THETA_SEG_W = "
+            f"{b.THETA_SEG_W} ratings ({len(b._hot_chunks)} segment "
+            f"chunks)")
+        res_b, launches["b"], peak_b = sooc_run(
+            cs, b, "sooc b (device)", sooc_expect(b, OOC_ITERS), x0, th0)
+        runs["b"] = res_b.history
+        rmse_gaps("sooc b", res_b.history, res_a.history, "sooc a")
+        log(f"[sooc b] peak device memory {peak_b / 2**30:.2f} GiB")
+        # K1 on the widest direct theta chunk against a device X of (b)'s
+        # shape, at the initial factors as phases 2a and 10a hold K1 (a
+        # stand-in X: the real one starts at zero; K1's se limit holds at
+        # the initial factors, not at a converged state)
+        (u,), _ = b._th.upload(widest, widest + 1, dev)
+        c = SimpleNamespace(cols=u.cols, vals=u.vals, nnz=u.nnz, rows=u.rows,
+                            n_real=u.n_real, rows_real=u.rows[:u.n_real])
+        gen = torch.Generator(device=DEV).manual_seed(1)
+        x_t = torch.zeros_like(b._x_dev)
+        x_t[:b.row_plan.m_loc, :cfg.f] = 0.2 * torch.rand(
+            (b.row_plan.m_loc, cfg.f), generator=gen, device=dev)
+        theta_t = torch.zeros((cfg.n, cfg.f_pad), device=dev)
+        theta_t[:, :cfg.f] = torch.from_numpy(th0 * (
+            b.theta_nnz > 0)[:, None]).to(dev)
+        ok1, checks["gather_gram_cg"] = check_k1(
+            cs, x_t, c, theta_t, cfg,
+            f"sooc b: the widest direct theta chunk ({widest} of "
+            f"{len(b.th_plan.chunks)}, {c.n_real} real rows) against a "
+            f"device X of {x_t.shape[0]} rows, initial factors",
+            table_rows=live_rows(c), se_exact=True)
+        del x_t
+        # K2 on a hot-segment chunk at P = 2^18 (f32 A)
+        hot, hot_lens = hot_k2_chunk(b, dev)
+        ok2, checks["gather_gram_out"] = check_gram(
+            cs, b._x_dev, hot, torch.float32, False,
+            f"sooc b: a hot-segment chunk of the 16 most rated columns "
+            f"({hot_lens.min()}..{hot_lens.max()} ratings, the first 2^18 "
+            f"of each)", table_rows=live_rows(hot))
+        del c, u, theta_t, hot
+        if not (ok1 and ok2 and ok3):
+            raise AssertionError("K1, K2 or K3 disagrees at the sharded "
+                                 "out-of-core shapes")
+        if not b._hot_rows.size:   # lower THETA_SEG_W until 8 are hot
+            lens = np.sort(np.diff(np.asarray(csc.indptr)))[::-1]
+            seg = int(lens[7]) - 1
+            cls = so.ShardedOutOfCoreALS
+            saved = cls.THETA_SEG_W
+            cls.THETA_SEG_W = seg
+            try:
+                bh = so.ShardedOutOfCoreALS(cfg_d.replace(iters=1), train,
+                                            csc, test, mesh=mesh)
+            finally:
+                cls.THETA_SEG_W = saved
+            log(f"[sooc b hot] THETA_SEG_W lowered to {seg}: "
+                f"{bh._hot_rows.size} hot columns "
+                f"({bh._hot_nnz.min()}..{bh._hot_nnz.max()} ratings) in "
+                f"{len(bh._hot_chunks)} segment chunks of "
+                f"{len(bh._hot_chunks[0][0])} rows")
+            res_h, launches["b_hot"], _ = sooc_run(
+                cs, bh, "sooc b hot", sooc_expect(bh, 1), x0, th0)
+            runs["b_hot"] = res_h.history
+            rmse_gaps("sooc b hot", res_h.history, res_b.history, "sooc b")
+            del bh
+        del b
+        torch.cuda.empty_cache()
+
+        # (c) (b) on lazy plans, a fresh plan cache: the stream stores
+        lazy_dir = os.path.join(bench.CACHE_DIR, "plans_lazy_smoke")
+        shutil.rmtree(lazy_dir, ignore_errors=True)
+        try:
+            t0 = time.monotonic()
+            lz = so.ShardedOutOfCoreALS(
+                cfg_d.replace(plan_cache_dir=lazy_dir), train, csc, test,
+                mesh=mesh, lazy_nnz_threshold=1)
+            log(f"[sooc c] lazy plans built in {time.monotonic() - t0:.1f} "
+                f"s into a fresh plan cache; stream stores ready: X "
+                f"{lz._x_stream.ready}, theta {lz._theta_stream.ready}")
+            res_c, launches["c"], _ = sooc_run(
+                cs, lz, "sooc c (lazy)", sooc_expect(lz, OOC_ITERS), x0,
+                th0)
+            runs["c"] = res_c.history
+            sizes = {k: os.path.getsize(os.path.join(lazy_dir, "streams", k))
+                     for k in os.listdir(os.path.join(lazy_dir, "streams"))}
+            log(f"[sooc c] stream stores {sizes}; ready: X "
+                f"{lz._x_stream.ready}, theta {lz._theta_stream.ready} "
+                f"(iteration 0 built them, 1 and 2 read them)")
+            if not (lz.lazy and lz._x_stream.ready and
+                    lz._theta_stream.ready):
+                raise AssertionError("sooc c: plans not lazy or the stream "
+                                     "stores not built")
+            rmse_gaps("sooc c", res_c.history, res_b.history, "sooc b",
+                      limit=1e-6)
+            del lz
+        finally:
+            shutil.rmtree(lazy_dir, ignore_errors=True)
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    # (d) two ranks on the one card over gloo, spawned
+    its = 2
+    t0 = time.monotonic()
+    ranks = spawn(2, so.run_rank, cfg.replace(iters=its, mesh_shape=(2,)),
+                  functools.partial(bench.load_workload, "hugewiki_mini",
+                                    1.0),
+                  None, th0, backend="gloo", device=DEV + ":0", timeout=900)
+    log(f"[sooc d] two ranks spawned, loaded the cached data, built and ran "
+        f"in {time.monotonic() - t0:.1f} s")
+    for r, out in enumerate(ranks):
+        sharded_log(f"sooc d, rank {r}", out["history"], out["peak_bytes"],
+                    out["launches"], "gloo over one card (two processes on "
+                    "cuda:0, the partials through host memory; not a "
+                    "multi-GPU time):")
+        want = {"gather_gram_cg": its * out["x_chunks"],
+                "gather_gram_out": its * out["theta_steps"],
+                "solve_cg_reg": its}
+        got = {k: v for k, v in out["launches"].items() if v}
+        if got != want:
+            raise AssertionError(f"sooc d rank {r}: launches {got}, the "
+                                 f"plans say {want}")
+        if not out["own_rows_match"]:
+            raise AssertionError(f"sooc d rank {r}: gathered X is not its "
+                                 f"rows")
+        log(f"[sooc d] rank {r} all-reduces {out['allreduce_bytes']} bytes "
+            f"an iteration (theta's A and b in f32, and the test error)")
+        rmse_gaps(f"sooc d, rank {r}", out["history"], res_a.history,
+                  "sooc a")
+    launches["d_each"] = want
+    same = ranks[0]["theta_sha256"] == ranks[1]["theta_sha256"] and \
+        ranks[0]["x_sha256"] == ranks[1]["x_sha256"]
+    log(f"[sooc d] theta SHA-256 after each iteration, rank 0 "
+        f"{[d[:12] for d in ranks[0]['theta_sha256']]}, rank 1 "
+        f"{[d[:12] for d in ranks[1]['theta_sha256']]}; X equal: "
+        f"{ranks[0]['x_sha256'] == ranks[1]['x_sha256']}")
+    if not same:
+        raise AssertionError("the two ranks' theta (or X) differ")
+    del ranks
+
+    line = run_bench(["--workload", "hugewiki_mini", "--out-of-core",
+                      "--mesh", "1", "--iters", str(OOC_ITERS)],
+                     "bench sharded ooc")
+    if list(line) != BENCH_KEYS or \
+            line["device"] != torch.cuda.get_device_name(0):
+        raise AssertionError(f"bench sharded ooc: {line}")
+    if abs(line["train_rmse_final"] - res_a.history[-1].train_rmse) > 2e-3:
+        raise AssertionError("bench sharded ooc: train RMSE off (a)'s")
+    log(f"[sooc] phase 11 took {time.monotonic() - t_phase:.1f} s")
+    return launches, checks
+
+
 def batched_models(ALS, cfg, train, csc, test, gram_dtype):
     """The batched-panel model (X in 5 row batches of 4096) and the panel
     model it is held against, both built from a config with this
@@ -2587,13 +3024,15 @@ def main() -> int:
         f"{torch.__version__} cuda {torch.version.cuda}")
     short = {(): None, ("--gram",): GRAM_KERNELS,
              ("--theta",): THETA_KERNELS, ("--wide",): WIDE_SHORT,
-             ("--ooc",): SPLIT_KERNELS, ("--sharded",): SPLIT_KERNELS}
+             ("--ooc",): SPLIT_KERNELS, ("--sharded",): SPLIT_KERNELS,
+             ("--sharded-ooc",): SPLIT_KERNELS}
     if tuple(sys.argv[1:]) not in short:
         print("usage: chip_smoke.py [--gram | --theta | --wide | --ooc | "
-              "--sharded]", file=sys.stderr)
+              "--sharded | --sharded-ooc]", file=sys.stderr)
         return 2
     only = short[tuple(sys.argv[1:])]
     sharded_only = tuple(sys.argv[1:]) == ("--sharded",)
+    sooc_only = tuple(sys.argv[1:]) == ("--sharded-ooc",)
     t0 = time.monotonic()
     _build.build(only, force=True, ptxas_info=True)
     if set(_build.KERNELS) != set(REPLACES):
@@ -2624,6 +3063,10 @@ def main() -> int:
         if not ok:
             log("[wide] FAIL (the short call: no result line)")
             return 1
+    elif only == SPLIT_KERNELS and sooc_only:
+        sharded_ooc(cs, bench)
+        log("[sooc] OK (the short call: no result line)")
+        return 0
     elif only == SPLIT_KERNELS and not sharded_only:
         out_of_core(cs, bench)
         log("[ooc] OK (the short call: no result line)")
@@ -2945,7 +3388,7 @@ def main() -> int:
     bench_accuracy()
 
     # ---- 9. out-of-core training on hugewiki_mini
-    ooc_launches, ooc_checks = out_of_core(cs, bench)
+    ooc_launches, ooc_checks, res_ooc = out_of_core(cs, bench)
     for name in SPLIT_KERNELS:
         results[name]["ooc_launches"] = ooc_launches[name]
         results[name]["ooc_check"] = ooc_checks[name]
@@ -2957,6 +3400,16 @@ def main() -> int:
         results[name]["sharded_launches"] = {
             k: v.get(name, 0) for k, v in sh_launches.items()}
         results[name]["sharded_check"] = sh_checks[name]
+
+    # ---- 11. sharded out-of-core training on hugewiki_mini: one rank
+    # (NCCL) with X on the host, on the card, on lazy plans; two ranks on
+    # the one card (gloo)
+    so_launches, so_checks = sharded_ooc(cs, bench, res_ooc)
+    del res_ooc
+    for name in SPLIT_KERNELS:
+        results[name]["sharded_ooc_launches"] = {
+            k: v.get(name, 0) for k, v in so_launches.items()}
+        results[name]["sharded_ooc_check"] = so_checks[name]
 
     launches.update({k: launches_aug[k] for k in AUG_KERNELS})
     launches["solve_cg"] = k4_launches

@@ -32,8 +32,9 @@ card) on the workload, as the root bench does. `--mesh N` runs ShardedALS
 over N ranks, one process a rank under torchrun (`torchrun
 --nproc-per-node N -m cumf_als_tpu_torch.bench --mesh N`): rank 0 loads
 or generates the data cache while the others wait, then they read it;
-only rank 0 logs and prints the JSON line. `--mesh` with `--out-of-core`
-(sharded out-of-core training) is not ported yet.
+only rank 0 logs and prints the JSON line. `--mesh N` with
+`--out-of-core` runs ShardedOutOfCoreALS (each rank's X shard in host
+memory), as the root bench does.
 
 Runs on the first CUDA device unless `--device cpu` (or `--platform
 cpu`) is given; without a card it raises.
@@ -312,9 +313,6 @@ def _describe(plan_pair) -> str:
 def main(argv=None) -> int:
     p = build_parser()
     args = p.parse_args(argv)
-    if args.mesh and args.out_of_core:
-        from cumf_als_tpu_torch.models.factory import SHARDED_OOC
-        raise NotImplementedError(SHARDED_OOC)
     if args.platform not in (None, "cpu"):
         raise ValueError(f"--platform {args.platform!r}: the port takes "
                          f"only 'cpu' (the same as --device cpu)")
@@ -383,7 +381,11 @@ def _bench(args, dev, mesh) -> int:
         say(f"[bench] kernels built in {_build.build():.1f} s")
     t0 = time.monotonic()
     model = make_model(cfg, train, None, test, device=dev)
-    if args.mesh:
+    if args.mesh and args.out_of_core:
+        say(f"[bench] sharded+OOC plans built in "
+            f"{time.monotonic() - t0:.1f}s ({model.n_panels} local X panels "
+            f"x {model.n_dev} devices)")
+    elif args.mesh:
         say(f"[bench] sharded plans built in {time.monotonic() - t0:.1f}s "
             f"({len(model.row_plan.chunks)} chunks, "
             f"{len(model.reduce_plan.blocks)} reduce blocks, "

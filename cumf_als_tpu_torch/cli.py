@@ -13,7 +13,9 @@ first CUDA device unless `--device cpu` is given.
 Sharded over N ranks (ShardedALS), one process a rank, rank r on
 cuda:r, under torchrun:
     torchrun --nproc-per-node N -m cumf_als_tpu_torch.cli ... --mesh N
-Only rank 0 prints. `--profile-dir DIR` writes a torch.profiler trace of
+and with `--out-of-core` each rank's X shard stays in host memory, or on
+its card with `--x-placement device` (ShardedOutOfCoreALS). Only rank 0
+prints. `--profile-dir DIR` writes a torch.profiler trace of
 the training loop into DIR (CPU and CUDA activity on a card).
 """
 
@@ -25,7 +27,7 @@ import sys
 
 from cumf_als_tpu_torch.config import ALSConfig
 from cumf_als_tpu_torch.data.synthetic import init_factors
-from cumf_als_tpu_torch.models.factory import SHARDED_OOC, make_model
+from cumf_als_tpu_torch.models.factory import make_model
 from cumf_als_tpu_torch.utils.io import (load_csc_as_csr, load_csr,
                                          load_test_coo)
 from cumf_als_tpu_torch.utils.timing import seconds
@@ -72,9 +74,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="shard over N ranks (ShardedALS); run under "
                         "torchrun --nproc-per-node N")
     p.add_argument("--x-placement", choices=["host", "device"],
-                   default=None,
-                   help="sharded out-of-core X placement (not ported yet: "
-                        "A12, sharded out-of-core)")
+                   default="host",
+                   help="with --mesh and --out-of-core: 'device' keeps each "
+                        "rank's X shard on its card (the warm start read "
+                        "there)")
     p.add_argument("--out-of-core", action="store_true",
                    help="keep X in host memory and stream it through the "
                         "card (OutOfCoreALS)")
@@ -108,7 +111,7 @@ def config_from_args(a) -> ALSConfig:
         train_rmse_method=a.train_rmse, seed=a.seed,
         backend=a.backend, use_panels=a.use_panels,
         mesh_shape=(a.mesh,) if a.mesh else None,
-        host_offload_x=a.out_of_core,
+        host_offload_x=a.out_of_core, x_placement=a.x_placement,
         checkpoint_dir=a.checkpoint_dir,
         checkpoint_every=a.checkpoint_every, resume=a.resume,
         profile_dir=a.profile_dir, verbose=not a.quiet,
@@ -136,8 +139,6 @@ def main(argv=None) -> int:
         print(USAGE)
         return 0
     args = build_parser().parse_args(argv)
-    if args.x_placement is not None or (args.mesh and args.out_of_core):
-        raise NotImplementedError(SHARDED_OOC)
     cfg = config_from_args(args)
     rank = 0
     if args.mesh:   # before any data is read

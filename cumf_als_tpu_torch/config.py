@@ -136,13 +136,19 @@ class ALSConfig:
 
     # --- parallelism and out-of-core ---
     # mesh_shape: ShardedALS over prod(mesh_shape) ranks (the world
-    # size); with host_offload_x it is not ported yet
+    # size); with host_offload_x, ShardedOutOfCoreALS
     mesh_shape: Optional[Tuple[int, ...]] = None
     fused_step: str = "auto"       # no effect
     mesh_axis_names: Tuple[str, ...] = ("data",)
+    # X in host memory (OutOfCoreALS; each rank's shard with mesh_shape)
     host_offload_x: bool = False
+    # sharded out-of-core: "device" keeps each rank's X shard on its card
     x_placement: str = "host"
+    # sharded out-of-core, device placement: CG starts from the shard's
+    # rows (False: from zero)
     x_warm_start: bool = True
+    # sharded out-of-core: "f16" sends rating values to the card as
+    # float16 (rounded)
     stream_val_dtype: str = "f32"
 
     def __post_init__(self):

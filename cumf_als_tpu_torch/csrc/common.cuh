@@ -104,7 +104,9 @@ __device__ __forceinline__ void load_tile(Smem<NB>& s, const TT* table,
 
 // A += sum_t g_t g_t^T over the staged tile (register tile of this
 // thread) and, unless AUG (where the Gram itself carries them),
-// b += sum_t v_t g_t (threads tid < F), r2 += sum_t v_t^2 (thread F).
+// b += sum_t v_t g_t (threads tid < F), r2 += sum_t v_t^2 (thread F);
+// b and r2 sum the tile apart first, so that a long row's f32 sums
+// round per tile, not per slot.
 template <int NB, bool AUG>
 __device__ __forceinline__ void accumulate_tile(const Smem<NB>& s, int nt,
                                                 float (&a)[NB][NB],
@@ -127,12 +129,21 @@ __device__ __forceinline__ void accumulate_tile(const Smem<NB>& s, int nt,
       for (int l = 0; l < NB; ++l) a[k][l] = fmaf(gi[k], gj[l], a[k][l]);
   }
   if constexpr (AUG) return;
+  float sum = 0.f;
   if (tid < F) {
-    for (int t = 0; t < nt; ++t) b_acc = fmaf(s.v[t], s.g[t * F + tid], b_acc);
+    for (int t = 0; t < nt; ++t) sum = fmaf(s.v[t], s.g[t * F + tid], sum);
+    b_acc += sum;
   } else if (tid == F) {
-    for (int t = 0; t < nt; ++t) r2_acc = fmaf(s.v[t], s.v[t], r2_acc);
+    for (int t = 0; t < nt; ++t) sum = fmaf(s.v[t], s.v[t], sum);
+    r2_acc += sum;
   }
 }
+
+// Tiles whose b and r2 gram_row sums apart before adding them to the
+// row's: three levels of f32 sums (a tile, a group, the row), so that
+// the rounding of b over P = 2^18 slots stays near 1e-6 of b, where one
+// running sum reaches 3e-5.
+constexpr int kTilesPerGroup = 64;
 
 // Gather + Gram over slots [0, n) of one row. With AUG, b_acc and r2_acc
 // stay untouched.
@@ -141,12 +152,22 @@ __device__ __forceinline__ void gram_row(Smem<NB>& s, const TT* table,
                                          const int32_t* cols, const VT* vals,
                                          int n, float (&a)[NB][NB],
                                          float& b_acc, float& r2_acc) {
+  float b_group = 0.f, r2_group = 0.f;
+  int tiles = 0;
   for (int lo = 0; lo < n; lo += kTile) {
     const int nt = min(kTile, n - lo);
     load_tile<NB, AUG>(s, table, cols, vals, lo, nt);
-    accumulate_tile<NB, AUG>(s, nt, a, b_acc, r2_acc);
+    accumulate_tile<NB, AUG>(s, nt, a, b_group, r2_group);
     __syncthreads();
+    if (++tiles == kTilesPerGroup) {
+      b_acc += b_group;
+      r2_acc += r2_group;
+      b_group = r2_group = 0.f;
+      tiles = 0;
+    }
   }
+  b_acc += b_group;
+  r2_acc += r2_group;
 }
 
 // This thread's register tile of one stored system (f32 or bf16), as f32.

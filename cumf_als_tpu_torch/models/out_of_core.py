@@ -72,9 +72,13 @@ class _HostChunks:
     """A plan's chunks packed into flat host tensors (the plan cache's
     packing), pinned for a run on a card, so that one chunk, or the run
     of chunks of one panel, goes to the device in one copy per array.
-    Rating values are compacted as the in-core plans' are."""
+    Rating values are compacted as the in-core plans' are, or rounded to
+    float16 with `f16`; `id_rows` at most 2^16 (the rows of the table the
+    ids name) sends the ids as 16 bits. Either is widened on the card
+    after the copy: the kernels see int32 ids and f32 or bf16 values."""
 
-    def __init__(self, plan, pin: bool):
+    def __init__(self, plan, pin: bool, id_rows: Optional[int] = None,
+                 f16: bool = False):
         packed = _pack_chunks(plan.chunks)
         meta = packed["chunk_meta"]   # (panel, width, rows) per chunk
         self.panel = meta[:, 0].tolist()
@@ -85,10 +89,13 @@ class _HostChunks:
         self.slot_off = np.concatenate([[0], np.cumsum(meta[:, 2] *
                                                        meta[:, 1])])
         self.max_rows = int(meta[:, 2].max()) if len(meta) else 0
+        cols = packed["cols"]
+        if id_rows is not None and id_rows <= 1 << 16:
+            cols = cols.astype(np.uint16).view(np.int16)
         arrays = (torch.from_numpy(packed["rows"].astype(np.int64)),
-                  torch.from_numpy(packed["nnz"]),
-                  torch.from_numpy(packed["cols"]),
-                  _compact_vals(packed["vals"]))
+                  torch.from_numpy(packed["nnz"]), torch.from_numpy(cols),
+                  torch.from_numpy(packed["vals"].astype(np.float16))
+                  if f16 else _compact_vals(packed["vals"]))
         if pin:
             arrays = tuple(a.pin_memory() for a in arrays)
         self.rows, self.nnz, self.cols, self.vals = arrays
@@ -105,6 +112,7 @@ class _HostChunks:
         bases = [t[lo:hi].to(device, non_blocking=True)
                  for t, lo, hi in ((self.rows, r0, r1), (self.nnz, r0, r1),
                                    (self.cols, s0, s1), (self.vals, s0, s1))]
+        bases[2], bases[3] = widen_ids(bases[2]), widen_vals(bases[3])
         rows, nnz, cols, vals = bases
         out = []
         for k in range(i, j):
@@ -115,6 +123,20 @@ class _HostChunks:
                               nnz[a:b], cols[c:d].view(b - a, w),
                               vals[c:d].view(b - a, w)))
         return out, bases
+
+
+def widen_ids(t: torch.Tensor) -> torch.Tensor:
+    """Ids as the kernels take them: int32, from the 16-bit transport
+    form (uint16 bits held as int16) where they came in it."""
+    if t.dtype == torch.int16:
+        return t.to(torch.int32).bitwise_and_(0xFFFF)
+    return t.to(torch.int32) if t.dtype != torch.int32 else t
+
+
+def widen_vals(t: torch.Tensor) -> torch.Tensor:
+    """Values as the kernels take them: float16 transport widened to
+    f32; f32 and bf16 as they are."""
+    return t.float() if t.dtype == torch.float16 else t
 
 
 def _panel_runs(host: _HostChunks):
@@ -132,7 +154,47 @@ def _panel_runs(host: _HostChunks):
     return runs
 
 
-class OutOfCoreALS:
+class Streams:
+    """Two side streams of a card (`_copy` for uploads, `_back` for
+    downloads; None on the CPU, where every copy is synchronous), and the
+    event helpers that order work across them."""
+
+    _copy = _back = None
+
+    def _open_streams(self, device: torch.device) -> None:
+        cuda = device.type == "cuda"
+        self._copy = torch.cuda.Stream(device) if cuda else None
+        self._back = torch.cuda.Stream(device) if cuda else None
+
+    @staticmethod
+    def _on(stream):
+        return torch.cuda.stream(stream) if stream is not None else \
+            contextlib.nullcontext()
+
+    def _record(self):
+        """An event recorded on the current stream (None on the CPU)."""
+        if self._copy is None:
+            return None
+        ev = torch.cuda.Event()
+        ev.record()
+        return ev
+
+    @staticmethod
+    def _wait(event) -> None:
+        """The current stream waits for `event`."""
+        if event is not None:
+            torch.cuda.current_stream().wait_event(event)
+
+    def _keep(self, tensors, stream=None) -> None:
+        """Tensors allocated on one stream and used on `stream` (the
+        current one by default) stay allocated until that use is done."""
+        if self._copy is not None:
+            stream = stream or torch.cuda.current_stream()
+            for t in tensors:
+                t.record_stream(stream)
+
+
+class OutOfCoreALS(Streams):
     """Single-device out-of-core ALS: X on the host, theta on the device
     (CUDA unless `device="cpu"`, where every copy is synchronous)."""
 
@@ -208,38 +270,9 @@ class OutOfCoreALS:
         self._landing = self._tables if t_dtype == torch.float32 else [
             torch.empty((s, f_pad), dtype=torch.float32, device=self.device)
             for _ in range(2)]
-        self._copy = torch.cuda.Stream(self.device) if cuda else None
-        self._back = torch.cuda.Stream(self.device) if cuda else None
+        self._open_streams(self.device)
         sync(self.device)   # the buffers' zeros land before a side stream
         self.plan_seconds = seconds() - t0
-
-    # ----- streams and events (no-ops on the CPU) -----
-    @staticmethod
-    def _on(stream):
-        return torch.cuda.stream(stream) if stream is not None else \
-            contextlib.nullcontext()
-
-    def _record(self):
-        """An event recorded on the current stream (None on the CPU)."""
-        if self._copy is None:
-            return None
-        ev = torch.cuda.Event()
-        ev.record()
-        return ev
-
-    @staticmethod
-    def _wait(event) -> None:
-        """The current stream waits for `event`."""
-        if event is not None:
-            torch.cuda.current_stream().wait_event(event)
-
-    def _keep(self, tensors, stream=None) -> None:
-        """Tensors allocated on one stream and used on `stream` (the
-        current one by default) stay allocated until that use is done."""
-        if self._copy is not None:
-            stream = stream or torch.cuda.current_stream()
-            for t in tensors:
-                t.record_stream(stream)
 
     # ----- phases -----
     def _x_phase(self, theta: torch.Tensor) -> None:

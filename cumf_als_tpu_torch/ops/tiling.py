@@ -178,6 +178,66 @@ class PanelChunk:
     vals: np.ndarray   # (R, P) float32
 
 
+class LazyPanelChunk:
+    """A PanelChunk whose padded (cols, vals) are not held: only its
+    subrows' (offset, length, owner row), 16 bytes a subrow instead of 8
+    a padded slot, and `materialize()` makes the arrays when the chunk
+    is streamed (the reference re-slices its CSR per batch the same way,
+    hugewiki.cu:2508-2516). The hugewiki-scale form of the sharded
+    out-of-core theta steps. `materialize()` gives the eager chunk's
+    arrays, through the native data plane when its library is built."""
+
+    __slots__ = ("panel", "width", "rows", "nnz", "_csr", "_sub_off",
+                 "_sub_len", "_sub_rows", "_r_pad", "_base", "_pad_col")
+
+    def __init__(self, csr: CSRMatrix, panel: int, width: int,
+                 sub_off: np.ndarray, sub_len: np.ndarray,
+                 sub_rows: np.ndarray, r_pad: int, base: int,
+                 pad_col: int):
+        self.panel = panel
+        self.width = width
+        self._csr = csr
+        self._sub_off = sub_off
+        self._sub_len = sub_len.astype(np.int32)
+        self._sub_rows = sub_rows
+        self._r_pad = r_pad
+        self._base = base
+        self._pad_col = pad_col
+        self.rows = np.full(r_pad, csr.num_rows, np.int32)
+        self.rows[:sub_rows.size] = sub_rows
+        self.nnz = np.zeros(r_pad, np.int32)
+        self.nnz[:sub_len.size] = sub_len
+
+    @property
+    def num_rows(self) -> int:
+        return self._r_pad
+
+    @property
+    def padded_nnz(self) -> int:
+        return self._r_pad * self.width
+
+    def materialize(self):
+        """The padded (rows, nnz, cols, vals) of this chunk."""
+        from cumf_als_tpu_torch import native
+        csr = self._csr
+        if native.available():
+            return native.materialize_subrows(
+                csr.indices, csr.data, self._sub_off, self._sub_len,
+                self._sub_rows, self._r_pad, self.width, self._base,
+                self._pad_col, csr.num_rows)
+        k = self._sub_off.shape[0]
+        arange_w = np.arange(self.width, dtype=np.int64)[None, :]
+        cols = np.full((self._r_pad, self.width), self._pad_col, np.int32)
+        vals = np.zeros((self._r_pad, self.width), np.float32)
+        idx = self._sub_off[:, None] + arange_w
+        mask = arange_w < self._sub_len[:, None]
+        idx = np.where(mask, idx, 0)
+        cols[:k] = np.where(mask, csr.indices[idx] - self._base,
+                            self._pad_col)
+        vals[:k] = np.where(mask, csr.data[idx], 0.0)
+        return self.rows.copy(), self.nnz.copy(), cols, vals
+
+
 @dataclasses.dataclass
 class PanelPlan:
     """Panel route layout: each row's (sorted) column list is split at
@@ -202,11 +262,15 @@ def build_panel_plan(csr: CSRMatrix, panel_size: int = 1 << 16,
                      chunk_rows: int = 1 << 14,
                      split_width: int = 4096,
                      octave_points: int = 4,
+                     lazy: bool = False,
                      min_bucket_rows: int = 0) -> PanelPlan:
     """Split each row's column list at panel boundaries (cols are sorted
     within rows, so subrows are contiguous slices), cut subrows longer
     than `split_width` into exact segments plus a remainder, then bucket
     subrows by width per (panel, width) group.
+
+    `lazy` keeps each chunk as a LazyPanelChunk (its subrows alone; the
+    padded arrays materialize when the chunk is streamed).
 
     `min_bucket_rows` merges a (panel, width) group of fewer subrows into
     the next width up. The batched-panel plan uses it (one sub-plan per
@@ -286,8 +350,6 @@ def build_panel_plan(csr: CSRMatrix, panel_size: int = 1 << 16,
     bounds = np.searchsorted(
         group_sorted, np.arange(n_panels * len(widths) + 1))
 
-    from cumf_als_tpu_torch import native
-    use_native = native.available()
     chunks: List[PanelChunk] = []
     padded = 0
     for gid in range(n_panels * len(widths)):
@@ -296,36 +358,18 @@ def build_panel_plan(csr: CSRMatrix, panel_size: int = 1 << 16,
             continue
         p, b = divmod(gid, len(widths))
         width = widths[b]
-        base = p * panel_size
         rows_per_chunk = _rows_per_chunk(width, chunk_nnz, chunk_rows)
-        arange_w = np.arange(width, dtype=np.int64)[None, :]
         for lo_i in range(0, sel.size, rows_per_chunk):
             part = sel[lo_i:lo_i + rows_per_chunk]
             k = part.size
             r_pad = rows_per_chunk if k == rows_per_chunk else \
                 _round_rows(k, rows_per_chunk)
-            if use_native:
-                rows, nnz, cols, vals = native.materialize_subrows(
-                    csr.indices, csr.data, sub_off[part], sub_len[part],
-                    sub_rows[part], r_pad, width, base, panel_size, m)
-                chunks.append(PanelChunk(panel=p, width=width, rows=rows,
-                                         nnz=nnz, cols=cols, vals=vals))
-                padded += r_pad * width
-                continue
-            rows = np.full(r_pad, m, np.int32)
-            nnz = np.zeros(r_pad, np.int32)
-            cols = np.full((r_pad, width), panel_size, np.int32)
-            vals = np.zeros((r_pad, width), np.float32)
-            lens = sub_len[part]
-            idx = sub_off[part][:, None] + arange_w
-            mask = arange_w < lens[:, None]
-            idx = np.where(mask, idx, 0)
-            rows[:k] = sub_rows[part]
-            nnz[:k] = lens
-            cols[:k] = np.where(mask, csr.indices[idx] - base, panel_size)
-            vals[:k] = np.where(mask, csr.data[idx], 0.0)
-            chunks.append(PanelChunk(panel=p, width=width, rows=rows,
-                                     nnz=nnz, cols=cols, vals=vals))
+            chunk = LazyPanelChunk(csr, p, width, sub_off[part],
+                                   sub_len[part], sub_rows[part], r_pad,
+                                   p * panel_size, panel_size)
+            if not lazy:
+                chunk = PanelChunk(p, width, *chunk.materialize())
+            chunks.append(chunk)
             padded += r_pad * width
     return PanelPlan(num_rows=m, num_cols=csr.num_cols,
                      panel_size=panel_size, n_panels=n_panels,

@@ -46,6 +46,8 @@ class Mesh:
     world_size: int
     device: torch.device
     group: Optional[Any] = None   # None: a world of one, no process group
+    # bytes this rank has handed to all_reduce_sum (a world of one: none)
+    reduced_bytes: int = 0
 
     @property
     def backend(self) -> Optional[str]:
@@ -59,6 +61,7 @@ class Mesh:
         the same bits."""
         if self.group is None:
             return t
+        self.reduced_bytes += t.numel() * t.element_size()
         if self._via_host(t):
             h = t.cpu()
             dist.all_reduce(h, group=self.group)

@@ -9,10 +9,13 @@ package is read by the other.
 Layout per entry:  <cache_dir>/<key>/meta.json + <name>.npy
 
 Stored and loaded: the update, panel, batched-panel and split plans,
-the CSC view (`cached_transpose`), and the eager sharded plans of
-ShardedALS (a ShardedRowPlan, a ReducePlan, AlignedSteps). An entry of a
-lazy sharded kind (written by the JAX package's sharded out-of-core
-model) raises ShardedEntryError on load: that model is not ported yet.
+the CSC view (`cached_transpose`), the eager sharded plans of ShardedALS
+and ShardedOutOfCoreALS (a ShardedRowPlan, a ReducePlan, AlignedSteps),
+and the lazy ones of ShardedOutOfCoreALS: a lazy ShardedRowPlan keeps
+each chunk's global row lists, lazy AlignedSteps at one rank each step's
+subrow descriptors, and on load both re-bind to the caller's matrix
+(`csr_for_lazy`). Lazy AlignedSteps over two or more ranks are not
+stored: each process builds them, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -26,23 +29,20 @@ from typing import List, Optional
 
 import numpy as np
 
-from cumf_als_tpu_torch.ops.tiling import (BatchedPanelPlan, PanelChunk,
+from cumf_als_tpu_torch.ops.tiling import (BatchedPanelPlan,
+                                           LazyPanelChunk, PanelChunk,
                                            PanelPlan, PlanChunk, RowBatch,
                                            SplitChunk, SplitPlan,
                                            UpdatePlan)
 from cumf_als_tpu_torch.parallel.plan import (AlignedPanelChunk,
-                                              AlignedSteps, ReduceBlock,
+                                              AlignedSteps,
+                                              LazyAlignedPanelChunk,
+                                              LazyShardedChunk, ReduceBlock,
                                               ReducePlan, ShardedChunk,
                                               ShardedRowPlan)
 from cumf_als_tpu_torch.utils.io import CSRMatrix, transpose_csr
 
 _VERSION = 4  # the JAX package's layout version: keys must equal its own
-LAZY_SHARDED_TYPES = ("sharded_row_lazy", "aligned_steps_lazy")
-
-
-class ShardedEntryError(NotImplementedError):
-    """A cache entry of a lazy sharded plan, which the port cannot load."""
-
 
 def dataset_fingerprint(csr: CSRMatrix) -> str:
     """Content fingerprint: the shape and nnz, strided samples and the
@@ -179,10 +179,93 @@ def _read_entry(path: str):
     return meta, arrays
 
 
+def _save_lazy_sharded_row(path: str, plan: ShardedRowPlan) -> None:
+    """A lazy row plan: each chunk's per-rank global row lists, flat."""
+    chunks = plan.chunks
+    meta = {"type": "sharded_row_lazy", "n_dev": int(plan.n_dev),
+            "m": int(plan.m), "m_loc": int(plan.m_loc),
+            "num_cols": int(plan.num_cols),
+            "chunk_meta": [[int(c.width), int(c._r)] +
+                           [int(g.size) for g in c._grows] for c in chunks]}
+    _write_entry(path, meta, {
+        "global_ids": plan.global_ids,
+        "grows": _cat([g for c in chunks for g in c._grows], np.int64),
+        "rows": _cat([c.rows.reshape(-1) for c in chunks], np.int32),
+        "nnz": _cat([c.nnz.reshape(-1) for c in chunks], np.int32)})
+
+
+def _load_lazy_sharded_row(meta: dict, arrays: dict,
+                           csr: CSRMatrix) -> ShardedRowPlan:
+    n_dev = meta["n_dev"]
+    chunks, go, ro = [], 0, 0
+    for cm in meta["chunk_meta"]:
+        width, r = int(cm[0]), int(cm[1])
+        ch = object.__new__(LazyShardedChunk)
+        ch.width, ch._csr, ch._r = width, csr, r
+        ch._grows = []
+        for d in range(n_dev):
+            k = int(cm[2 + d])
+            ch._grows.append(np.asarray(arrays["grows"][go:go + k]))
+            go += k
+        ch.rows = np.asarray(arrays["rows"][ro:ro + n_dev * r]).reshape(
+            n_dev, r)
+        ch.nnz = np.asarray(arrays["nnz"][ro:ro + n_dev * r]).reshape(
+            n_dev, r)
+        ro += n_dev * r
+        chunks.append(ch)
+    return ShardedRowPlan(
+        n_dev=n_dev, m=meta["m"], m_loc=meta["m_loc"],
+        global_ids=np.asarray(arrays["global_ids"]),
+        num_cols=meta["num_cols"], chunks=chunks)
+
+
+def _save_lazy_aligned_steps(path: str, plan: AlignedSteps) -> None:
+    """Lazy steps whose one member each views one shared matrix (one
+    rank: the CSC itself), as subrow descriptors; the loader re-binds
+    them to the caller's matrix. Anything else is not stored."""
+    steps = plan.steps
+    if any(not hasattr(st, "_per_dev") for st in steps):
+        return   # eager and lazy steps mixed
+    mats = {id(ch._csr) for st in steps for ch in st._per_dev
+            if ch is not None}
+    if len({len(st._per_dev) for st in steps} | {1}) != 1 or len(mats) > 1:
+        return   # lazy steps over two or more ranks
+    mem = [st._per_dev[0] for st in steps]
+    meta = {"type": "aligned_steps_lazy", "n_panels": int(plan.n_panels),
+            "sentinel": int(steps[0]._sentinel) if steps else 0,
+            "panel_size": int(steps[0]._panel_size) if steps else 0,
+            "chunk_meta": [[int(st.panel), int(st.width), int(st._r),
+                            int(c._sub_off.shape[0]), int(c._base)]
+                           for st, c in zip(steps, mem)]}
+    _write_entry(path, meta, {
+        "sub_off": _cat([c._sub_off for c in mem], np.int64),
+        "sub_len": _cat([c._sub_len for c in mem], np.int32),
+        "sub_rows": _cat([c._sub_rows for c in mem], np.int32)})
+
+
+def _load_lazy_aligned_steps(meta: dict, arrays: dict,
+                             csr: CSRMatrix) -> AlignedSteps:
+    sent, psize = meta["sentinel"], meta["panel_size"]
+    steps, so = [], 0
+    for panel, width, r, k, base in meta["chunk_meta"]:
+        panel, width, r, k, base = (int(panel), int(width), int(r), int(k),
+                                    int(base))
+        ch = LazyPanelChunk(
+            csr, panel, width, np.asarray(arrays["sub_off"][so:so + k]),
+            np.asarray(arrays["sub_len"][so:so + k]),
+            np.asarray(arrays["sub_rows"][so:so + k]), r, base, psize)
+        so += k
+        steps.append(LazyAlignedPanelChunk(panel, width, [ch], r, sent,
+                                           psize))
+    return AlignedSteps(steps=steps, n_panels=meta["n_panels"])
+
+
 def _save_sharded(path: str, plan) -> None:
-    """The eager sharded kinds, in the JAX package's layout (the port
-    builds no lazy plan)."""
+    """The sharded kinds, eager and lazy, in the JAX package's layout."""
     if isinstance(plan, ShardedRowPlan):
+        if any(not hasattr(c, "cols") for c in plan.chunks):
+            _save_lazy_sharded_row(path, plan)
+            return
         arrays = _pack_dev_chunks(plan.chunks)
         arrays["global_ids"] = plan.global_ids
         _write_entry(path, {"type": "sharded_row", "n_dev": plan.n_dev,
@@ -202,6 +285,8 @@ def _save_sharded(path: str, plan) -> None:
             "cols": _cat([b.cols.reshape(-1) for b in blocks], np.int32),
             "vals": _cat([b.vals.reshape(-1) for b in blocks],
                          np.float32)})
+    elif any(not hasattr(c, "cols") for c in plan.steps):
+        _save_lazy_aligned_steps(path, plan)
     else:
         _write_entry(path, {"type": "aligned_steps",
                             "n_panels": plan.n_panels},
@@ -301,19 +386,20 @@ def save_plan(cache_dir: str, key: str, plan) -> None:
         raise TypeError(f"unknown plan type {type(plan)!r}")
 
 
-def load_plan(cache_dir: str, key: str):
-    """The plan stored under `key`, or None when there is none. An entry
-    of a lazy sharded kind raises ShardedEntryError (a
-    NotImplementedError)."""
+def load_plan(cache_dir: str, key: str, csr: Optional[CSRMatrix] = None):
+    """The plan stored under `key`, or None when there is none. A lazy
+    entry re-binds to `csr` (the matrix its chunks read: the CSR of a
+    row plan, the CSC of theta steps), and is None without it."""
     meta, arrays = _read_entry(os.path.join(cache_dir, key))
     if meta is None:
         return None
     kind = meta["type"]
-    if kind in LAZY_SHARDED_TYPES:
-        raise ShardedEntryError(
-            f"plan cache entry {key} is a lazy sharded {kind!r} plan of "
-            "sharded out-of-core training, which is not ported yet "
-            "(ROADMAP A12, sharded out-of-core)")
+    if kind == "sharded_row_lazy":
+        return None if csr is None else \
+            _load_lazy_sharded_row(meta, arrays, csr)
+    if kind == "aligned_steps_lazy":
+        return None if csr is None else \
+            _load_lazy_aligned_steps(meta, arrays, csr)
     if kind in ("sharded_row", "reduce", "aligned_steps"):
         return _load_sharded(meta, arrays)
     if kind == "split":
@@ -415,17 +501,17 @@ def cached_transpose(cache_dir: Optional[str], csr: CSRMatrix) -> CSRMatrix:
 
 
 def cached_build(cache_dir: Optional[str], kind: str, csr: CSRMatrix,
-                 params: dict, build_fn):
+                 params: dict, build_fn,
+                 csr_for_lazy: Optional[CSRMatrix] = None):
     """build_fn() memoized on disk under (kind, the data set of `csr`,
     params); cache_dir None builds every time. A corrupt or unreadable
-    entry is rebuilt; an entry of a lazy sharded kind raises."""
+    entry is rebuilt. `csr_for_lazy`: the matrix a lazy entry's chunks
+    re-bind to (the CSR for a row plan, the CSC for theta steps)."""
     if not cache_dir:
         return build_fn()
     key = plan_key(kind, dataset_fingerprint(csr), params)
     try:
-        plan = load_plan(cache_dir, key)
-    except ShardedEntryError:
-        raise
+        plan = load_plan(cache_dir, key, csr=csr_for_lazy)
     except Exception:
         plan = None   # corrupt or stale entry: rebuild
     if plan is not None:

@@ -230,9 +230,9 @@ def test_tables_match_root():
 
 
 @pytest.mark.parametrize("extra,err,match", [
-    (["--out-of-core", "--mesh", "2"], NotImplementedError,
-     "A12, sharded out-of-core"),
-    # --mesh N runs N ranks under torchrun; here the world has one
+    # --mesh N, with --out-of-core too, runs N ranks under torchrun; here
+    # the world has one
+    (["--out-of-core", "--mesh", "2"], ValueError, "world has 1 rank"),
     (["--mesh", "2"], ValueError, "world has 1 rank"),
     (["--platform", "tpu"], ValueError, "cpu")])
 def test_unported_options_raise(cache, extra, err, match):
@@ -251,6 +251,19 @@ def test_mesh_runs_the_sharded_model(cache, capsys):
     assert list(line) == base and np.isfinite(line["train_rmse_final"])
     assert "[bench] sharded plans built in" in out.err
     assert "reduce blocks, 1 devices)" in out.err
+
+
+def test_mesh_out_of_core_runs_the_sharded_ooc_model(cache, capsys):
+    """--mesh 1 --out-of-core in one process: ShardedOutOfCoreALS on a
+    world of one rank, the root bench's keys and its log line."""
+    base, _ = _root_out_keys()
+    assert bench.main(ARGS + ["--mesh", "1", "--out-of-core", "--iters",
+                              "1"]) == 0
+    out = capsys.readouterr()
+    line = json.loads(out.out.strip().splitlines()[-1])
+    assert list(line) == base and np.isfinite(line["train_rmse_final"])
+    assert "[bench] sharded+OOC plans built in" in out.err
+    assert "local X panels x 1 devices)" in out.err
 
 
 def test_accuracy_check_needs_three_iterations(cache, capsys):

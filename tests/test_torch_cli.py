@@ -1,9 +1,12 @@
 """The port's CLI takes every flag of the JAX package's CLI
 (cumf_als_tpu/cli.py): `--plan-cache` caches the plans on disk and
-leaves the results as they are, and `--profile-dir` and `--x-placement`
-name the ROADMAP items that will port them, as `--mesh` does."""
+leaves the results as they are; `--profile-dir`, `--x-placement` and
+`--mesh N --out-of-core` (sharded out-of-core training, under torchrun
+for N > 1) run."""
 
 import os
+import subprocess
+import sys
 
 import pytest
 
@@ -11,6 +14,7 @@ from cumf_als_tpu import cli as jcli
 
 from cumf_als_tpu_torch import cli
 from cumf_als_tpu_torch.data.synthetic import synthetic_ratings
+from cumf_als_tpu_torch.parallel.mesh import free_port
 from cumf_als_tpu_torch.utils.io import write_dataset
 
 
@@ -55,16 +59,58 @@ def test_plan_cache_has_no_effect(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--x-placement", "host"], "A12, sharded out-of-core"),
-    (["--x-placement", "device"], "A12, sharded out-of-core"),
-    (["--mesh", "2", "--out-of-core"], "A12, sharded out-of-core")])
-def test_unported_flags_name_their_roadmap_item(flags, item):
-    """They raise before any data is read (the directory does not
-    exist)."""
-    argv = ["30", "20", "16", "500", "50", "0.05", "1", "1",
-            "/nonexistent/ds", "--device", "cpu"] + flags
-    with pytest.raises(NotImplementedError, match=item):
-        cli.main(argv)
+    (["--x-placement", "host"], "ALS Done."),
+    (["--x-placement", "device"], "ALS Done."),
+    (["--mesh", "2", "--out-of-core"], "X host-resident (")])
+def test_unported_flags_name_their_roadmap_item(tmp_path, capsys, flags,
+                                                item):
+    """Once refused naming A12, these flags run: --x-placement alone has
+    no effect (as in the JAX CLI, it steers sharded out-of-core training
+    only), and --mesh 2 --out-of-core runs ShardedOutOfCoreALS on two
+    ranks under torchrun, rank 0 printing. Each prints `item`."""
+    tr, te = synthetic_ratings(m=30, n=20, nnz=300, nnz_test=40, seed=1)
+    d = str(tmp_path / "ds")
+    write_dataset(d, tr, te)
+    argv = ["30", "20", "16", str(tr.nnz), str(te.nnz), "0.05", "1", "1",
+            d, "--device", "cpu", "--iters", "2", "--solver", "cholesky"
+            ] + flags
+    if "--mesh" not in flags:
+        assert cli.main(argv) == 0
+        out = capsys.readouterr().out
+    else:
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        run = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run",
+             "--nproc-per-node", "2", "--master-port",
+             str(free_port()), "-m", "cumf_als_tpu_torch.cli"] + argv,
+            cwd=repo, capture_output=True, text=True, timeout=300,
+            env=dict(os.environ, PYTHONPATH=repo, OMP_NUM_THREADS="1"))
+        assert run.returncode == 0, run.stderr[-3000:]
+        out = run.stdout
+        assert out.count("ALS Done.") == 1   # rank 0 alone prints
+        assert "*******mesh: 2 devices;" in out
+    assert item in out
+    assert "--------- Test RMSE in iter 1:" in out
+
+
+def test_mesh_out_of_core_x_placement_device(tmp_path, capsys):
+    """The twin of the JAX CLI's test_cli_x_placement_device: --mesh 1
+    --out-of-core --x-placement device prints the reference stdout
+    contract, train RMSE falling."""
+    tr, te = synthetic_ratings(m=120, n=90, nnz=3000, nnz_test=400, seed=5)
+    d = str(tmp_path / "ds")
+    write_dataset(d, tr, te)
+    argv = ["120", "90", "16", str(tr.nnz), str(te.nnz), "0.05", "1", "1",
+            d, "--iters", "2", "--solver", "cholesky", "--mesh", "1",
+            "--out-of-core", "--x-placement", "device", "--plan-cache",
+            "off", "--device", "cpu"]
+    assert cli.main(argv) == 0
+    out = capsys.readouterr().out
+    assert "X HBM-resident" in out and "Test RMSE in iter 1" in out
+    assert "ALS Done." in out
+    rmses = [float(line.rsplit(":", 1)[1]) for line in out.splitlines()
+             if "Train RMSE" in line]
+    assert len(rmses) == 2 and rmses[-1] < rmses[0]
 
 
 def test_profile_dir_traces_the_run(tmp_path, capsys):

@@ -1060,3 +1060,77 @@ def test_sharded_world_one_on_the_card_matches_the_cpu(card, gram_dtype):
         assert r["launches"] == dict.fromkeys(cs.LAUNCHES, 0) | {
             gram: 3 * (r["x_steps"] + r["n_blocks"]),
             sol: 3 * (r["x_slices"] + r["n_blocks"])}
+
+
+@pytest.mark.parametrize("place", ["host", "device"])
+def test_sharded_ooc_on_the_card_matches_the_cpu(card, place, monkeypatch):
+    """ShardedOutOfCoreALS at one rank on the card against the same run on
+    the CPU, with panels of 16 X rows and X chunks of at most 32 rows (the
+    table buffers and chunk slots turn over many times a phase). X on the
+    host: K1 on the X chunks, K2 on the theta steps, K3 once an iteration
+    over all of theta. X on the card: K1 on the X chunks and on theta's
+    rows against the device X, and with THETA_SEG_W = 64 the hot columns'
+    segments by K2 (f32 A) and their solve by K3. Each kernel launches as
+    often as the plans say."""
+    from cumf_als_tpu_torch.config import ALSConfig
+    from cumf_als_tpu_torch.data.synthetic import (init_factors,
+                                                   synthetic_ratings)
+    from cumf_als_tpu_torch.parallel import sharded_ooc as so
+    monkeypatch.setattr(so.ShardedOutOfCoreALS, "THETA_SEG_W", 64)
+    train, test = synthetic_ratings(m=300, n=220, nnz=12000, nnz_test=1500,
+                                    rank=6, noise=0.1, seed=7)
+    cfg = ALSConfig(m=300, n=220, f=100, lam=0.5, iters=3, verbose=False,
+                    debug_timing=False, panel_size=16, chunk_nnz=1 << 9,
+                    chunk_rows=32, factor_dtype="bf16", gram_dtype="f32",
+                    backend="pallas", solver="cg", x_placement=place)
+    x0, th0 = init_factors(300, 220, 100, seed=2)
+    model = so.ShardedOutOfCoreALS(cfg, train, None, test, device=card)
+    res = model.run(x0, th0)
+    n_x = len(model.row_plan.chunks)
+    if place == "host":
+        assert model.x_store.is_pinned() and model.n_panels == 19
+        want = {"gather_gram_cg": 3 * n_x,
+                "gather_gram_out": 3 * len(model.theta_steps),
+                "solve_cg_reg": 3}
+    else:
+        assert model._hot_chunks and model.x_store is None
+        want = {"gather_gram_cg": 3 * (n_x + len(model.th_plan.chunks)),
+                "gather_gram_out": 3 * len(model._hot_chunks),
+                "solve_cg_reg": 3}
+    assert cs.LAUNCHES == dict.fromkeys(cs.LAUNCHES, 0) | want
+    ref = so.ShardedOutOfCoreALS(cfg, train, None, test,
+                                 device="cpu").run(x0, th0)
+    for a, b in zip(ref.history, res.history):
+        assert b.train_rmse == pytest.approx(a.train_rmse, abs=1e-4)
+        assert b.test_rmse == pytest.approx(a.test_rmse, abs=1e-4)
+    np.testing.assert_allclose(res.x, ref.x, atol=2e-3)
+    np.testing.assert_allclose(res.theta, ref.theta, atol=2e-3)
+
+
+@pytest.mark.parametrize("table_dtype", [torch.float32, torch.bfloat16])
+def test_k2_on_a_hot_segment_chunk(card, table_dtype):
+    """K2 with an f32 A on the shape of a hot-segment chunk of the direct
+    theta route: R = 16 segments of P = 2^18 slots, the last ones partly
+    filled and one empty, against its plain version: A to `gram_limit`,
+    b within rtol 1e-5 + 1e-5, as phase 2 of chip_smoke.py holds K2's b."""
+    rng = np.random.RandomState(3)
+    r, p, n, f = 16, 1 << 18, 100_000, 128
+    table = torch.from_numpy(
+        0.2 * rng.random_sample((n + 1, f)).astype(np.float32))
+    table[n] = 0
+    lens = np.full(r, p)
+    lens[-3:] = (p // 3, 17, 0)
+    cols = np.full((r, p), n, np.int32)
+    vals = np.zeros((r, p), np.float32)
+    for i, k in enumerate(lens):
+        cols[i, :k] = rng.randint(0, n, k)
+        vals[i, :k] = rng.randint(1, 11, k) / 2
+    args = (table.to(table_dtype).to(card), torch.from_numpy(cols).to(card),
+            torch.from_numpy(vals).to(card))
+    a, b = cs.gather_gram_out(*args, out_dtype=torch.float32)
+    assert cs.LAUNCHES["gather_gram_out"] == 1
+    pa, pb = cs.gather_gram_out_plain(*args, out_dtype=torch.float32)
+    body = cs.gram_body(args[0])
+    _assert_gram_close(a, pa.cpu(), p, body)
+    torch.testing.assert_close(b, pb, rtol=1e-5, atol=1e-5)
+    assert bool((a[-1] == 0).all()) and bool((b[-1] == 0).all())

@@ -148,7 +148,11 @@ def test_factory_picks_the_model(medium_problem):
     with pytest.raises(ValueError, match="world has 1 rank"):
         make_model(ALSConfig(mesh_shape=(2,), **base), train, None, test,
                    device="cpu")
-    with pytest.raises(NotImplementedError, match="A12, sharded out-of-core"):
+    from cumf_als_tpu_torch.parallel.sharded_ooc import ShardedOutOfCoreALS
+    assert type(make_model(ALSConfig(mesh_shape=(1,), host_offload_x=True,
+                                     **base), train, None, test,
+                           device="cpu")) is ShardedOutOfCoreALS
+    with pytest.raises(ValueError, match="world has 1 rank"):
         make_model(ALSConfig(mesh_shape=(2,), host_offload_x=True, **base),
                    train, None, test, device="cpu")
     if not torch.cuda.is_available():   # no silent CPU

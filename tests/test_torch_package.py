@@ -33,6 +33,8 @@ import cumf_als_tpu_torch.native, cumf_als_tpu_torch.utils.plan_cache
 import cumf_als_tpu_torch.models.out_of_core
 import cumf_als_tpu_torch.parallel.plan, cumf_als_tpu_torch.parallel.mesh
 import cumf_als_tpu_torch.parallel.sharded_als
+import cumf_als_tpu_torch.parallel.sharded_ooc
+import cumf_als_tpu_torch.utils.stream_cache
 from cumf_als_tpu_torch.models.factory import make_model
 tr, te = synthetic_ratings(m=30, n=20, nnz=300, nnz_test=40, seed=1)
 cfg = pkg.ALSConfig(m=30, n=20, f=16, iters=2, verbose=False,
@@ -46,6 +48,11 @@ assert len(ooc.run(x0, th0).history) == 2
 sharded = make_model(cfg.replace(mesh_shape=(1,)), tr, None, te,
                      device="cpu")
 assert len(sharded.run(x0, th0).history) == 2
+for place in ("host", "device"):
+    sooc = make_model(cfg.replace(mesh_shape=(1,), host_offload_x=True,
+                                  x_placement=place, panel_size=8), tr,
+                      None, te, device="cpu")
+    assert len(sooc.run(x0, th0).history) == 2
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "cumf_als_tpu" or m.startswith("cumf_als_tpu."))
@@ -210,18 +217,19 @@ def test_cli_usage_and_unported_models(tmp_path, capsys):
     d, tr, te = _dataset(tmp_path)
     base = ["30", "20", "16", str(tr.nnz), str(te.nnz), "0.05", "1", "1",
             d, "--device", "cpu", "--iters", "1"]
-    # sharded out-of-core training is not ported; --mesh N needs a
-    # world of N ranks (torchrun)
-    with pytest.raises(NotImplementedError, match="sharded out-of-core"):
-        cli.main(base + ["--mesh=2", "--out-of-core"])
-    with pytest.raises(ValueError, match="world has 1 rank"):
-        cli.main(base + ["--mesh=2"])
+    # --mesh N needs a world of N ranks (torchrun), with --out-of-core too
+    for flags in (["--mesh=2", "--out-of-core"], ["--mesh=2"]):
+        with pytest.raises(ValueError, match="world has 1 rank"):
+            cli.main(base + flags)
     capsys.readouterr()
-    # out-of-core and sharded training are ported: they run
+    # out-of-core, sharded and sharded out-of-core training run
     assert cli.main(base + ["--out-of-core"]) == 0
     assert "*******out-of-core:" in capsys.readouterr().out
     assert cli.main(base + ["--mesh=1"]) == 0
     assert "*******mesh: 1 devices over axis 'data'." in \
+        capsys.readouterr().out
+    assert cli.main(base + ["--mesh=1", "--out-of-core"]) == 0
+    assert "*******mesh: 1 devices; X host-resident" in \
         capsys.readouterr().out
 
 

@@ -117,9 +117,13 @@ def test_a_port_entry_loads_in_jax(medium_problem, tmp_path, kind):
 
 
 def test_a_sharded_entry_raises_naming_a12(medium_problem, tmp_path):
-    """An eager sharded entry of the JAX package loads (ShardedALS's
-    kinds; tests/test_torch_sharded.py holds them array for array); a
-    lazy one, of sharded out-of-core training, raises naming A12."""
+    """Once refused naming A12: an eager sharded entry of the JAX package
+    loads (ShardedALS's kinds; tests/test_torch_sharded.py holds them
+    array for array), and so does a lazy one, of sharded out-of-core
+    training, re-bound to the caller's CSR: its chunks materialize the
+    JAX chunks' arrays. Without the CSR it loads as no entry, and
+    cached_build with `csr_for_lazy` takes it rather than rebuilding
+    (tests/test_torch_sharded_ooc.py holds both lazy kinds both ways)."""
     from cumf_als_tpu.parallel.plan import build_sharded_row_plan
     train = medium_problem[0]
     csr = _port(train)
@@ -129,18 +133,25 @@ def test_a_sharded_entry_raises_naming_a12(medium_problem, tmp_path):
         train, 2, chunk_nnz=1 << 10, chunk_rows=64))
     plan = pc.load_plan(str(tmp_path), key)
     assert plan.n_dev == 2 and plan.chunks[0].cols.shape[0] == 2
-    jpc.save_plan(str(tmp_path), "lazy", build_sharded_row_plan(
-        train, 2, chunk_nnz=1 << 10, chunk_rows=64, lazy=True))
-    with pytest.raises(NotImplementedError,
-                       match="A12, sharded out-of-core"):
-        pc.load_plan(str(tmp_path), "lazy")
-    # cached_build does not take it for a stale entry and rebuild
+    jlazy = build_sharded_row_plan(train, 2, chunk_nnz=1 << 10,
+                                   chunk_rows=64, lazy=True)
+    jpc.save_plan(str(tmp_path), "lazy", jlazy)
+    assert pc.load_plan(str(tmp_path), "lazy") is None
+    got = pc.load_plan(str(tmp_path), "lazy", csr=csr)
+    assert len(got.chunks) == len(jlazy.chunks)
+    for a, b in zip(jlazy.chunks, got.chunks):
+        for x, y in zip(a.materialize(), b.materialize()):
+            np.testing.assert_array_equal(y, x)
     lazy_key = pc.plan_key("sh_row_lazy", pc.dataset_fingerprint(csr),
                            params)
     os.rename(tmp_path / "lazy", tmp_path / lazy_key)
-    with pytest.raises(NotImplementedError, match="A12"):
-        pc.cached_build(str(tmp_path), "sh_row_lazy", csr, params,
-                        lambda: _build(tiling, "update", csr))
+
+    def rebuild():
+        raise AssertionError("the lazy entry was rebuilt")
+
+    plan = pc.cached_build(str(tmp_path), "sh_row_lazy", csr, params,
+                           rebuild, csr_for_lazy=csr)
+    assert plan.chunks[0]._csr is csr
 
 
 def test_a_corrupt_entry_is_rebuilt(medium_problem, tmp_path):
