@@ -163,7 +163,37 @@ result line):
    --out-of-core --mesh 1 --iters 3` in a subprocess (the root bench's
    keys, train RMSE within 2e-3 of (a)). K1, K2 and K3 launch exactly as
    the plans say in each run; the counts go into the `kernels` line as
-   `sharded_ooc_launches`.
+   `sharded_ooc_launches`;
+12. the integrations and entry points:
+   a. the full-hugewiki driver (`cumf_als_tpu_torch.hugewiki_full`) at
+      full width, F=100, on `hugewiki` at scale 0.04 (2,003,304 x 1,591,
+      ~124M ratings: the native generator, lazy plans not yet), plans
+      through the bench's plan cache: `main` in this process for 2
+      iterations with X on the card and cold CG starts, K1, K2 and K3
+      launched exactly as its plans say (read around the run alone; K2
+      and K3 on the columns above THETA_SEG_W ratings, which this shape
+      has); the same 2 iterations through
+      scripts/torch_hugewiki_full_driver.sh, one process an iteration
+      under `--state-dir`, train and test RMSE within 2e-4 of the one
+      process's; a third invocation a no-op that prints the state; then
+      X on the host, 2 iterations in one process against iteration 0
+      here and iteration 1 in a process of its own, which resumes from
+      the bf16 `x_host.npy` ('<V2', the JAX script's file), within 2e-4;
+      the kernel libraries built in each process (0);
+   b. `entry()`: its function on the card, K4 launched once (through
+      `ops.solve.solve` without a diagonal), the predictions within
+      atol 5e-3 of the CPU's; K4 at entry()'s shapes (256 systems, f32 A)
+      against its plain version, with times;
+   c. `dryrun_multichip(1)` (an NCCL group of one) and
+      `dryrun_multichip(2)` (two ranks on the one card, gloo), each
+      against the same on the CPU: RMSEs within 2e-3, the squared-error
+      sum within 2e-3 relative, the same panel count;
+   d. `integrations.torch_op.do_als` on a 300 x 220 problem on the card
+      against the CPU (RMSE within 1e-4), `TorchMF.predict`'s RMSE within
+      1e-3 relative of the op's (the TF op is held to the JAX package's
+      in the CPU tests; a line says whether TensorFlow is installed).
+   The K1/K2/K3 counts of (a) go into the `kernels` line as
+   `hugewiki_launches`, K4's check of (b) as `entry_check`.
 
 The data sets come through the bench's loader (`bench.load_workload`),
 which generates each once into .bench_cache/torch/ and memory-maps it;
@@ -207,6 +237,11 @@ is the short call for sharded out-of-core training: it builds K1, K2
 and K3 alone, runs the out-of-core reference of phase 9 (OutOfCoreALS
 on hugewiki_mini, 3 iterations), then phase 11, and prints no result
 line.
+
+    python3 chip_smoke.py --integrations
+
+is the short call for the integrations and entry points: it builds K1,
+K2, K3 and K4 alone, runs phase 12 and prints no result line.
 
     python3 chip_smoke.py --wide
 
@@ -2815,6 +2850,245 @@ def sharded_ooc(cs, bench, ref_ooc=None):
     return launches, checks
 
 
+HUGEWIKI_SCALE = 0.04
+HW_ITERS = 2
+
+
+def hw_main(argv, label):
+    """cumf_als_tpu_torch.hugewiki_full.main(argv) in this process: its
+    stdout is logged, its last line (JSON) returned."""
+    import contextlib
+    import io
+
+    from cumf_als_tpu_torch import hugewiki_full as hw
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = hw.main(argv)
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines[:-1]:
+        log(f"[{label}] {line}")
+    log(f"[{label}] {lines[-1]}")
+    if rc != 0:
+        raise AssertionError(f"{label}: exit {rc}")
+    return json.loads(lines[-1])
+
+
+def hw_process(cmd, label, timeout=600):
+    """A command of the hugewiki driver in a subprocess from this
+    checkout (its output logged); returns its last stdout line."""
+    t0 = time.monotonic()
+    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=timeout)
+    for line in (out.stderr + out.stdout).splitlines():
+        log(f"[{label}] {line}")
+    if out.returncode != 0:
+        raise AssertionError(f"{label}: exit {out.returncode}")
+    log(f"[{label}] {time.monotonic() - t0:.1f} s")
+    return out.stdout.strip().splitlines()[-1]
+
+
+def hw_gaps(label, history, single, limit=2e-4):
+    """A state dir's per-iteration RMSEs against the single-process
+    run's."""
+    worst = 0.0
+    for h in history:
+        i = h["iter"]
+        worst = max(worst, abs(h["train_rmse"] - single["train_rmse"][i]),
+                    abs(h["test_rmse"] - single["test_rmse"][i]))
+        log(f"[{label}] iter {i}: train {h['train_rmse']} | "
+            f"{single['train_rmse'][i]}, test {h['test_rmse']} | "
+            f"{single['test_rmse'][i]} (state dir | one process; limit "
+            f"{limit:g}); n_compiles {h['n_compiles']}")
+    if worst > limit or [h["iter"] for h in history] != \
+            list(range(len(single["train_rmse"]))):
+        raise AssertionError(f"{label}: off the single-process run by "
+                             f"{worst:.3e}")
+
+
+def hugewiki_driver(cs, bench):
+    """Phase 12a: the full-hugewiki driver on hugewiki at HUGEWIKI_SCALE,
+    F=100 (see the module docstring). Returns the launches of the
+    in-process run with X on the card and the numbers of the phase."""
+    import shutil
+
+    from cumf_als_tpu_torch import hugewiki_full as hw
+    from cumf_als_tpu_torch.parallel import sharded_ooc as so
+    t0 = time.monotonic()
+    train, test = bench.load_workload("hugewiki", HUGEWIKI_SCALE)
+    log(f"[hugewiki] scale {HUGEWIKI_SCALE}: m={train.num_rows} "
+        f"n={train.num_cols} nnz={train.nnz} nnz_test={test.nnz}, CRC-32 "
+        f"{bench.dataset_crc32(train, test)}; "
+        f"{time.monotonic() - t0:.1f} s to load (generating it on first "
+        f"use)")
+    base = ["--scale", str(HUGEWIKI_SCALE), "--iters", str(HW_ITERS)]
+    out = {}
+    # 1. X on the card, one process, cold CG starts (the state dir's)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cs.reset_launch_counts()
+    single = hw_main(base + ["--x-warm-start", "off"], "hugewiki device")
+    torch.cuda.synchronize()
+    got = {k: v for k, v in cs.LAUNCHES.items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    # the plans the run took, read back from the plan cache
+    args = hw.build_parser().parse_args(base + ["--x-warm-start", "off"])
+    model = so.ShardedOutOfCoreALS(hw.make_config(args, train, test),
+                                   train, None, test, n_devices=1,
+                                   device=DEV)
+    lens = np.diff(np.asarray(model.train_csc.indptr))
+    want = sooc_expect(model, HW_ITERS)
+    log(f"[hugewiki device] {len(model.row_plan.chunks)} X chunks, "
+        f"{len(model.th_plan.chunks)} direct theta chunks; "
+        f"{model._hot_rows.size} columns above THETA_SEG_W = "
+        f"{model.THETA_SEG_W} ratings (the most rated: {lens.max()}) in "
+        f"{len(model._hot_chunks)} hot-segment chunks; launches {got}, the "
+        f"plans say { {k: v for k, v in want.items() if v} }; peak device "
+        f"memory {peak / 2**30:.2f} GiB; s/iter {single['value']} "
+        f"(x {single['x_seconds']}, theta {single['theta_seconds']})")
+    out.update(hot_columns=int(model._hot_rows.size),
+               hot_chunks=len(model._hot_chunks), most_rated=int(lens.max()),
+               peak_bytes=peak, single=single)
+    del model
+    torch.cuda.empty_cache()
+    if got != {k: v for k, v in want.items() if v}:
+        raise AssertionError("hugewiki device: launches off the plans")
+    if single["n_compiles"] != 0 or not np.isfinite(
+            single["train_rmse"] + single["test_rmse"]).all():
+        raise AssertionError(f"hugewiki device: {single}")
+
+    state = os.path.join(bench.CACHE_DIR, "hugewiki_state_smoke")
+    shutil.rmtree(state, ignore_errors=True)
+    try:
+        # 2. the same iterations, one process each, through the loop
+        driver = ["bash", os.path.join(ROOT, "scripts",
+                                       "torch_hugewiki_full_driver.sh"),
+                  str(HW_ITERS), str(HUGEWIKI_SCALE)]
+        hw_process(driver + [os.path.join(state, "device")],
+                   "hugewiki driver")
+        with open(os.path.join(state, "device", "state.json")) as fh:
+            st = json.load(fh)
+        hw_gaps("hugewiki driver", st["history"], single)
+        # 3. once more: a no-op that prints the state
+        last = hw_process([sys.executable, "-m",
+                           "cumf_als_tpu_torch.hugewiki_full", *base,
+                           "--state-dir", os.path.join(state, "device")],
+                          "hugewiki no-op", timeout=120)
+        if json.loads(last) != st:
+            raise AssertionError("hugewiki no-op: not the final state")
+        # 4. X on the host: one process, then iteration 0 here and
+        # iteration 1 in a process of its own, through x_host.npy
+        host = base + ["--x-placement", "host"]
+        single_h = hw_main(host, "hugewiki host")
+        hd = os.path.join(state, "host")
+        hw_main(host + ["--state-dir", hd], "hugewiki host, iteration 0")
+        x_path = os.path.join(hd, "x_host.npy")
+        x_host = np.load(x_path, mmap_mode="r")
+        log(f"[hugewiki host] x_host.npy: dtype {x_host.dtype}, shape "
+            f"{x_host.shape}, {os.path.getsize(x_path)} bytes")
+        if x_host.dtype != np.dtype("V2") or x_host.shape[0] != 1:
+            raise AssertionError("hugewiki host: x_host.npy is not the "
+                                 "bf16 '<V2' store")
+        del x_host
+        hw_process(driver + [hd, "--x-placement", "host"],
+                   "hugewiki host driver")
+        with open(os.path.join(hd, "state.json")) as fh:
+            st_h = json.load(fh)
+        hw_gaps("hugewiki host", st_h["history"], single_h)
+        out.update(single_host=single_h, state=st, state_host=st_h)
+    finally:
+        shutil.rmtree(state, ignore_errors=True)
+    return got, out
+
+
+def integrations(cs, bench):
+    """Phase 12: the hugewiki driver (a), entry() (b),
+    dryrun_multichip() (c) and the torch op (d) on the card (see the
+    module docstring). Returns the K1/K2/K3 launches of (a)'s run with X
+    on the card, K4's check at entry()'s shapes and the numbers of the
+    phase."""
+    import importlib.util
+    from types import SimpleNamespace
+
+    from cumf_als_tpu_torch.data.synthetic import synthetic_ratings
+    from cumf_als_tpu_torch.entry import dryrun_multichip, entry
+    from cumf_als_tpu_torch.integrations.torch_op import TorchMF, do_als
+    from cumf_als_tpu_torch.ops.gram import extend_table, gram_rhs
+    from cumf_als_tpu_torch.ops.solve import solve
+    t_phase = time.monotonic()
+    hw_launches, out = hugewiki_driver(cs, bench)
+    log(f"[integrations] 12a took {time.monotonic() - t_phase:.1f} s")
+
+    # (b) entry(): its CG through K4 once, against the CPU
+    fn, args = entry()
+    cs.reset_launch_counts()
+    got = fn(*args)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in cs.LAUNCHES.items() if v}
+    cfn, cargs = entry(device="cpu")
+    err = (got.cpu() - cfn(*cargs)).abs().max().item()
+    log(f"[entry] fn on the card: launches {launched}; max|pred - cpu| "
+        f"{err:.3e} (limit 5e-3: a CG row near the exit threshold may "
+        f"stop one step apart); predictions up to "
+        f"{got.abs().max().item():.3f}")
+    if launched != {"solve_cg": 1} or err > 5e-3:
+        raise AssertionError("entry(): K4 not launched once, or off the CPU")
+    theta, cols, vals, nnz, x0 = args[:5]
+    a, b = gram_rhs(extend_table(theta), cols, vals, nnz, 0.048)
+    ok, k4 = check_k4(cs, solve, a, b, x0,
+                      SimpleNamespace(cg_iters=6, cg_tol=1e-4))
+    if not ok:
+        raise AssertionError("K4 disagrees at entry()'s shapes")
+    k4["entry_launches"] = launched["solve_cg"]
+
+    # (c) the multi-rank dry run: one rank (NCCL), two on one card (gloo)
+    dry = {}
+    for n in (1, 2):
+        t0 = time.monotonic()
+        card_n = dryrun_multichip(n)
+        cpu_n = dryrun_multichip(n, device="cpu")
+        gaps = {k: abs(card_n[k] - cpu_n[k]) / (abs(cpu_n[k])
+                                               if k == "train_se" else 1.0)
+                for k in card_n if k != "n_panels"}
+        log(f"[dryrun {n}] card {card_n} | cpu {cpu_n}; gaps {gaps} "
+            f"(limit 2e-3; train_se relative); {time.monotonic() - t0:.1f} "
+            f"s for both")
+        if card_n["n_panels"] != cpu_n["n_panels"] or not all(
+                np.isfinite(card_n[k]) and g <= 2e-3
+                for k, g in gaps.items()):
+            raise AssertionError(f"dryrun_multichip({n}) off the CPU")
+        dry[n] = card_n
+
+    # (d) the torch op on the card against the CPU
+    train, test = synthetic_ratings(m=300, n=220, nnz=12000, nnz_test=1500,
+                                    rank=6, noise=0.1, seed=7)
+    host = [torch.from_numpy(x) for x in (
+        train.indptr.astype(np.int64), train.indices, train.data, test.row,
+        test.col, test.data)]
+    op = {}
+    for dev in (DEV, "cpu"):
+        op[dev] = do_als(*[t.to(dev) for t in host], 300, 220, 16, 0.05,
+                         iters=3, device=dev)
+    thetat, xt, rmse = op[DEV]
+    pred = TorchMF(xt, thetat).predict(host[3].to(DEV), host[4].to(DEV))
+    e = pred.cpu().numpy() - test.data
+    mf_rmse = float(np.sqrt(np.mean(e * e)))
+    d_rmse = abs(float(rmse) - float(op["cpu"][2]))
+    log(f"[torch op] card rmse {float(rmse):.6f}, cpu "
+        f"{float(op['cpu'][2]):.6f} (limit 1e-4); TorchMF.predict's RMSE "
+        f"{mf_rmse:.6f} (within 1e-3 relative of the op's); outputs on "
+        f"{thetat.device}")
+    if not (thetat.device.type == DEV and d_rmse <= 1e-4 and
+            abs(mf_rmse - float(rmse)) <= 1e-3 * float(rmse)):
+        raise AssertionError("integrations.torch_op off the CPU")
+    log("[tf op] not run: TensorFlow is " + (
+        "not installed on this machine" if importlib.util.find_spec(
+            "tensorflow") is None else "installed, but the TF op is held "
+        "to the JAX package's on the CPU alone") +
+        " (tests/test_torch_integrations.py)")
+    log(f"[integrations] phase 12 took {time.monotonic() - t_phase:.1f} s")
+    return hw_launches, k4, dict(out, dryrun=dry, op_rmse=float(rmse))
+
+
 def batched_models(ALS, cfg, train, csc, test, gram_dtype):
     """The batched-panel model (X in 5 row batches of 4096) and the panel
     model it is held against, both built from a config with this
@@ -3025,10 +3299,12 @@ def main() -> int:
     short = {(): None, ("--gram",): GRAM_KERNELS,
              ("--theta",): THETA_KERNELS, ("--wide",): WIDE_SHORT,
              ("--ooc",): SPLIT_KERNELS, ("--sharded",): SPLIT_KERNELS,
-             ("--sharded-ooc",): SPLIT_KERNELS}
+             ("--sharded-ooc",): SPLIT_KERNELS,
+             ("--integrations",): SPLIT_KERNELS + ("solve_cg",)}
     if tuple(sys.argv[1:]) not in short:
         print("usage: chip_smoke.py [--gram | --theta | --wide | --ooc | "
-              "--sharded | --sharded-ooc]", file=sys.stderr)
+              "--sharded | --sharded-ooc | --integrations]",
+              file=sys.stderr)
         return 2
     only = short[tuple(sys.argv[1:])]
     sharded_only = tuple(sys.argv[1:]) == ("--sharded",)
@@ -3063,6 +3339,10 @@ def main() -> int:
         if not ok:
             log("[wide] FAIL (the short call: no result line)")
             return 1
+    elif tuple(sys.argv[1:]) == ("--integrations",):
+        integrations(cs, bench)
+        log("[integrations] OK (the short call: no result line)")
+        return 0
     elif only == SPLIT_KERNELS and sooc_only:
         sharded_ooc(cs, bench)
         log("[sooc] OK (the short call: no result line)")
@@ -3410,6 +3690,13 @@ def main() -> int:
         results[name]["sharded_ooc_launches"] = {
             k: v.get(name, 0) for k, v in so_launches.items()}
         results[name]["sharded_ooc_check"] = so_checks[name]
+
+    # ---- 12. the integrations and entry points: the hugewiki driver,
+    # entry() (K4), dryrun_multichip(), the torch op
+    hw_launches, k4_entry, _ = integrations(cs, bench)
+    for name in SPLIT_KERNELS:
+        results[name]["hugewiki_launches"] = hw_launches.get(name, 0)
+    results["solve_cg"]["entry_check"] = k4_entry
 
     launches.update({k: launches_aug[k] for k in AUG_KERNELS})
     launches["solve_cg"] = k4_launches

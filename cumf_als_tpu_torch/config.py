@@ -197,3 +197,8 @@ NETFLIX = ALSConfig(m=17770, n=480189, f=100, nnz=99_072_112,
                     nnz_test=1_408_395, lam=0.048, x_batch=1, theta_batch=3)
 ML10M = ALSConfig(m=71567, n=65133, f=100, nnz=9_000_048,
                   nnz_test=1_000_006, lam=0.05, x_batch=1, theta_batch=1)
+YAHOO = ALSConfig(m=1_000_990, n=624_961, f=100, nnz=252_800_275,
+                  nnz_test=4_003_960, lam=1.4, x_batch=6, theta_batch=3)
+HUGEWIKI = ALSConfig(m=50_082_603, n=39_780, f=100, nnz=3_101_144_313,
+                     nnz_test=344_573_330, lam=0.048, x_batch=240,
+                     theta_batch=3, host_offload_x=True)

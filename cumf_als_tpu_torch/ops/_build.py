@@ -19,7 +19,7 @@ import os
 import shutil
 import subprocess
 import time
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional, Tuple
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -78,6 +78,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _loaded: Dict[str, ctypes._CFuncPtr] = {}
 # kernel name -> what nvcc printed at its last build in this process
 BUILD_LOG: Dict[str, str] = {}
+# (time.monotonic() when it finished, kernel name) of each library built
+# in this process, in order (with a warm _build/ it stays empty)
+BUILT: List[Tuple[float, str]] = []
 
 
 def _nvcc() -> str:
@@ -134,6 +137,7 @@ def build(names: Optional[Iterable[str]] = None, force: bool = False,
             failed.append(f"{name}:\n{out}")
             continue
         os.replace(tmp, _lib_path(name))
+        BUILT.append((time.monotonic(), name))
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return time.monotonic() - t0

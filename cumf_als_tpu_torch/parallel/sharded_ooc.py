@@ -532,10 +532,16 @@ class ShardedOutOfCoreALS(Streams):
                                     ].float().numpy()
         return out
 
+    def gather_x_store(self) -> torch.Tensor:
+        """Every rank's host shard, (n_dev, m_loc, f_pad) in the store
+        dtype on the host: the JAX package's `x_host` layout, which
+        `run(x_host0=)` takes back (a collective: every rank calls it)."""
+        return self._gather(self.x_store)
+
     def unshard_x_host(self) -> np.ndarray:
         """Every rank's host shard gathered into the (m, f) factors (a
         collective: every rank calls it)."""
-        return self._unshard(self._gather(self.x_store))
+        return self._unshard(self.gather_x_store())
 
     def fetch_x(self) -> np.ndarray:
         """Every rank's device shard gathered into the (m, f) factors (a

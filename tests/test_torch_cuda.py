@@ -1134,3 +1134,47 @@ def test_k2_on_a_hot_segment_chunk(card, table_dtype):
     _assert_gram_close(a, pa.cpu(), p, body)
     torch.testing.assert_close(b, pb, rtol=1e-5, atol=1e-5)
     assert bool((a[-1] == 0).all()) and bool((b[-1] == 0).all())
+
+
+@pytest.mark.parametrize("solver", ["cg", "cholesky"])
+def test_torch_op_on_the_card_matches_the_cpu(card, solver):
+    """integrations.torch_op.do_als on card tensors against the same op
+    on the CPU: outputs on the card, RMSE within 1e-4, factors within
+    atol 2e-2 (a CG row near the exit threshold may stop one step apart);
+    TorchMF's RMSE on the card is the op's within 1e-3 relative."""
+    from cumf_als_tpu_torch.data.synthetic import synthetic_ratings
+    from cumf_als_tpu_torch.integrations.torch_op import TorchMF, do_als
+    train, test = synthetic_ratings(m=60, n=45, nnz=1400, nnz_test=200,
+                                    rank=4, noise=0.05, seed=3)
+    host = [torch.from_numpy(a) for a in (
+        train.indptr.astype(np.int64), train.indices, train.data, test.row,
+        test.col, test.data)]
+    runs = {}
+    for dev, args in (("cuda", [t.to(card) for t in host]), ("cpu", host)):
+        runs[dev] = do_als(*args, 60, 45, 16, 0.05, iters=3, solver=solver,
+                           device=dev)
+    thetat, xt, rmse = runs["cuda"]
+    assert thetat.is_cuda and xt.is_cuda and rmse.is_cuda
+    assert float(rmse) == pytest.approx(float(runs["cpu"][2]), abs=1e-4)
+    for a, b in zip(runs["cuda"][:2], runs["cpu"][:2]):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=2e-2)
+    pred = TorchMF(xt, thetat).predict(host[3].to(card), host[4].to(card))
+    e = pred.cpu().numpy() - test.data
+    assert np.sqrt(np.mean(e * e)) == pytest.approx(float(rmse), rel=1e-3)
+
+
+def test_entry_on_the_card_matches_the_cpu(card):
+    """entry()'s function on the card (its CG through K4, launched once)
+    against the same function on the CPU (K4's plain version): the
+    predictions (O(1)) within atol 5e-3, the slack of a CG row that
+    stops one step apart at the exit threshold."""
+    from cumf_als_tpu_torch.entry import entry
+    fn, args = entry()
+    assert all(a.is_cuda for a in args)
+    cs.reset_launch_counts()
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert cs.LAUNCHES == dict.fromkeys(cs.LAUNCHES, 0) | {"solve_cg": 1}
+    cfn, cargs = entry(device="cpu")
+    np.testing.assert_allclose(got.cpu().numpy(), cfn(*cargs).numpy(),
+                               atol=5e-3, rtol=0)

@@ -35,6 +35,10 @@ import cumf_als_tpu_torch.parallel.plan, cumf_als_tpu_torch.parallel.mesh
 import cumf_als_tpu_torch.parallel.sharded_als
 import cumf_als_tpu_torch.parallel.sharded_ooc
 import cumf_als_tpu_torch.utils.stream_cache
+import cumf_als_tpu_torch.hugewiki_full
+import cumf_als_tpu_torch.integrations.tf_op
+from cumf_als_tpu_torch.entry import entry
+from cumf_als_tpu_torch.integrations.torch_op import TorchMF, do_als
 from cumf_als_tpu_torch.models.factory import make_model
 tr, te = synthetic_ratings(m=30, n=20, nnz=300, nnz_test=40, seed=1)
 cfg = pkg.ALSConfig(m=30, n=20, f=16, iters=2, verbose=False,
@@ -53,6 +57,17 @@ for place in ("host", "device"):
                                   x_placement=place, panel_size=8), tr,
                       None, te, device="cpu")
     assert len(sooc.run(x0, th0).history) == 2
+import torch
+thetat, xt, rmse = do_als(torch.from_numpy(tr.indptr.astype("int64")),
+                          torch.from_numpy(tr.indices),
+                          torch.from_numpy(tr.data), torch.from_numpy(te.row),
+                          torch.from_numpy(te.col), torch.from_numpy(te.data),
+                          30, 20, 16, 0.05, iters=1, device="cpu")
+assert TorchMF(xt, thetat).predict(torch.from_numpy(te.row),
+                                   torch.from_numpy(te.col)).shape == (te.nnz,)
+fn, args = entry(device="cpu")
+assert fn(*args).shape == (512,)
+assert pkg.ShardedALS and pkg.ShardedOutOfCoreALS and pkg.HUGEWIKI
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "cumf_als_tpu" or m.startswith("cumf_als_tpu."))
