@@ -10,8 +10,9 @@ result line):
    run fails), and the build of every CUDA kernel from csrc/ (twelve)
    with `-Xptxas -v`: registers, spills and added wgmma waits of the
    tensor-core entry functions of K1, K2, K5a, K6 and the tensor-core
-   pass 1 of the 256-lane body, registers and spills of the other
-   256-lane entry functions;
+   pass 1 of the 256-lane body (and of K2 and K5a at f = 256),
+   registers and spills of the other 256-lane entry functions and of
+   the batched CGs K3, K4 and K5b (the ring body and the f = 256 body);
 2. each kernel against its plain PyTorch version on the card, on real
    chunks of the Netflix-shaped plans, with kernel, plain, yardstick and
    bound times: the widest, the most populous and the fewest-row
@@ -193,7 +194,36 @@ result line):
       1e-3 relative of the op's (the TF op is held to the JAX package's
       in the CPU tests; a line says whether TensorFlow is installed).
    The K1/K2/K3 counts of (a) go into the `kernels` line as
-   `hugewiki_launches`, K4's check of (b) as `entry_check`.
+   `hugewiki_launches`, K4's check of (b) as `entry_check`;
+13. the panel and solve kernels at 256 lanes (K2, K5a, K3, K4, K5b at
+   f = 256; factor widths 128 < F <= 256), and the paths they open:
+   a. each against its plain version at f = 256, with times and bounds:
+      K2 and K5a on a synthetic chunk of the Netflix X phase's most
+      populous shape (R = 2304, P = 576, a 65,537-row bf16 panel), bf16
+      and f32 A, and on a float32 copy of the table (the FMA body); K2
+      on a hot-segment chunk (R = 16, P = 2^18, f32 A) of (c)'s X and on
+      (c)'s most rated theta chunk; K3, K4 and K5b on 16,384 systems of
+      one synthetic chunk (K2's and K5a's A, one row in 64 without
+      ratings, which must solve to exactly 0), bf16 and f32 A, K3 also
+      at CG-20 with a tolerance that stops systems early, and K3 on
+      (c)'s first theta slice;
+   b. K3, K4 and K5b at f = 128 on the same kind of systems, on their
+      one body (csrc/bulk_cg.cuh) (K4's and K5b's former one-block CG
+      times are printed beside their checks on the main path's X slice,
+      the systems they were read on);
+   c. `OutOfCoreALS` on hugewiki_mini at F=200 (phase 9's configuration,
+      3 iterations: K1 at 256 lanes on the X chunks, K2 and K3 at 256
+      on theta), launches read around the run alone, against the
+      in-core `ALS` of the same data and configuration (direct routes,
+      K1 at 256 lanes): train and test RMSE within 2e-3 at every
+      iteration;
+   d. Netflix F=200 with the X phase on the panel route
+      (`panel_budget_bytes` 6 GiB), 2 iterations with gram_dtype "bf16"
+      (K2, K3) and 2 with "f32" (K5a, K5b; aug "auto"), theta direct,
+      each within 2e-3 of phase 5's wide-off run at every iteration.
+   The f = 256 numbers go into the `kernels` line as `f256`, those of
+   (b) as `f128_one_body`, the launches of (c) and (d) as
+   `f256_launches`.
 
 The data sets come through the bench's loader (`bench.load_workload`),
 which generates each once into .bench_cache/torch/ and memory-maps it;
@@ -243,6 +273,14 @@ line.
 is the short call for the integrations and entry points: it builds K1,
 K2, K3 and K4 alone, runs phase 12 and prints no result line.
 
+    python3 chip_smoke.py --panel-256
+
+is the short call for the panel and solve kernels at 256 lanes: it
+builds K1 (and its two passes at 256 lanes), K2, K3, K4, K5a and K5b
+(with the ptxas report), runs phase 5's wide-off F=200 run (2
+iterations, the reference of 13d), then phase 13, and prints no result
+line.
+
     python3 chip_smoke.py --wide
 
 is the short call after a change to csrc/wide.cuh or the passes: it
@@ -288,12 +326,13 @@ REPLACES = {
     "wide_span_solve": "cumf_als_tpu/ops/pallas_solve.py:804",
 }
 # the Gram body each kernel's measured launches ran ("cg": a solve alone)
-# ("bulk-cg": K3's persistent blocks on bulk-async copies, csrc/bulk_cg.cuh;
+# ("bulk-cg": the persistent blocks on bulk-async copies of K3, K4 and
+# K5b, csrc/bulk_cg.cuh;
 # K8's own kernel is the FMA body a float32 G takes: a bf16 G launches the
 # two passes, pass 1 on the tensor cores, which count under their names)
 BODY = {"gather_gram_cg": "wgmma", "gather_gram_out": "wgmma",
-        "solve_cg_reg": "bulk-cg", "solve_cg": "cg",
-        "gather_gram_aug_out": "wgmma", "solve_cg_aug": "cg",
+        "solve_cg_reg": "bulk-cg", "solve_cg": "bulk-cg",
+        "gather_gram_aug_out": "wgmma", "solve_cg_aug": "bulk-cg",
         "gather_gram_cg_aug": "wgmma", "gather_gram_cg_wide": "fma",
         "fused_gram_cg_cat": "fma", "wide_span_gram": "fma",
         "wide_span_gram_mma": "wgmma", "wide_span_solve": "cg"}
@@ -307,6 +346,10 @@ SPAN_KERNELS = ("wide_span_gram", "wide_span_gram_mma", "wide_span_solve")
 # on the tensor cores
 MMA_PASSES = ("wide_span_gram_mma", "wide_span_solve")
 WIDE_SHORT = ("gather_gram_cg", "gather_gram_cg_wide") + SPAN_KERNELS
+# the short call of phase 13: K1 (at 256 lanes its two passes), K2, K3,
+# K4, K5a, K5b
+PANEL_256_SHORT = SPLIT_KERNELS + AUG_KERNELS[1:] + ("solve_cg",) + \
+    MMA_PASSES
 # the device times (ms) of the 256-lane kernels on the same chunks on the
 # FMA body, before the tensor-core pass 1 (the bracketed times of PERF.md
 # §6; NVIDIA H100 80GB HBM3, 700.00 W):
@@ -533,20 +576,27 @@ def ptxas_lines(build_log):
         log(f"[ptxas] {name}, the {len(regs)} 256-lane entry functions "
             f"(csrc/wide.cuh): registers {sorted(set(regs))}, spill stores "
             f"up to {max(spills, default=0)} bytes")
-    if "solve_cg_reg" in build_log:
-        lines = build_log["solve_cg_reg"].splitlines()
-        regs, spills = [], []
+    for name in ("solve_cg_reg", "solve_cg", "solve_cg_aug"):
+        if name not in build_log:
+            continue
+        lines = build_log[name].splitlines()
+        regs, spills = {}, {}
         for i, line in enumerate(lines):
-            if "Compiling entry function" in line and \
-                    "solve_cg_reg_kernel" in line:
-                info = " ".join(lines[i + 1:i + 5])
-                regs += [int(x) for x in re.findall(r"Used (\d+) registers",
-                                                    info)]
-                spills += [int(x) for x in re.findall(
-                    r"(\d+) bytes spill stores", info)]
-        log(f"[ptxas] solve_cg_reg, the {len(regs)} entry functions of K3 "
-            f"(csrc/bulk_cg.cuh, f = 16..128, bf16 and f32 A): registers "
-            f"{regs}, spill stores {spills} bytes")
+            for kind in ("solve_kernel", "solve_wide_kernel"):
+                if "Compiling entry function" in line and kind in line:
+                    info = " ".join(lines[i + 1:i + 5])
+                    regs.setdefault(kind, []).extend(
+                        int(x) for x in re.findall(r"Used (\d+) registers",
+                                                   info))
+                    spills.setdefault(kind, []).extend(
+                        int(x) for x in re.findall(
+                            r"(\d+) bytes spill stores", info))
+        log(f"[ptxas] {name}, its entry functions on csrc/bulk_cg.cuh: the "
+            f"ring body (f = 16..128, bf16 and f32 A) registers "
+            f"{regs.get('solve_kernel')}, spill stores "
+            f"{spills.get('solve_kernel')} bytes; the f = 256 body "
+            f"registers {regs.get('solve_wide_kernel')}, spill stores "
+            f"{spills.get('solve_wide_kernel')} bytes")
     for name, out in build_log.items():
         for line in out.splitlines():
             if "warning" in line.lower() or "Potential" in line:
@@ -877,16 +927,81 @@ def check_gram(cs, tp, ch, a_dtype, aug, label, table_rows=None):
                     gathered_bytes=gathered, gathered_tb_per_s=rate)
 
 
+# the times (events, ms) of K4 and K5b on their one-block-a-system CG,
+# before they moved onto K3's body: the first X solve slice of the f32
+# aug configuration (16,384 f32 systems at f = 128; PR 12 call 3; NVIDIA
+# H100 80GB HBM3, 700.00 W). Printed beside the same slice's checks only.
+ONE_BLOCK_MS = {"solve_cg": 0.592, "solve_cg_aug": 0.661}
+SOLVE_NAMES = {"solve_cg_reg": "K3", "solve_cg": "K4", "solve_cg_aug": "K5b"}
+
+
+def check_solve(cs, kernel, args, label, cg_iters=6, cg_tol=1e-4,
+                empty=None, before=None, fn=None):
+    """K3, K4 or K5b (`kernel`) against its plain version on `args` (its
+    wrapper's), x within 2e-3; one call of `fn` (the wrapper, or a caller
+    of it such as the public dispatcher) must launch the kernel once; the
+    systems `empty` (no ratings: A = 0) solve to exactly 0, and K5b's
+    lane f - 1 of x is exactly 0. Times by CUDA events, at cg_iters and
+    at 0 (the kernel still loads A and forms b - A x0, so the difference
+    is the CG); the bound is the bytes of A, diag, b, x0 and x against
+    one matvec of each system. `before`: an earlier design's time on the
+    same systems, printed in the log line alone."""
+    fn = fn or getattr(cs, kernel)
+    plain_fn = getattr(cs, f"{kernel}_plain")
+    kw = dict(cg_iters=cg_iters, cg_tol=cg_tol)
+    count = cs.LAUNCHES[kernel]
+    x = fn(*args, **kw)
+    launched = cs.LAUNCHES[kernel] == count + 1
+    px = plain_fn(*args, **kw)
+    err = (x - px).abs().max().item()
+    del px
+    a = args[0]
+    r, f, _ = a.shape
+    ok = err <= 2e-3 and bool(torch.isfinite(x).all()) and launched
+    exact = True
+    if empty is not None:
+        exact &= bool((x[empty] == 0).all())
+    if kernel == "solve_cg_aug":
+        exact &= bool((x[:, f - 1] == 0).all())
+    ms = time_ms(lambda: fn(*args, **kw))
+    ms0 = time_ms(lambda: fn(*args, cg_iters=0, cg_tol=cg_tol))
+    plain = time_ms(lambda: plain_fn(*args, **kw), reps=3)
+    bms, by = bound_ms(nbytes(*(t for t in args if torch.is_tensor(t)), x),
+                       2.0 * r * f * f, a.dtype)
+    per_sm = cs.cg_blocks_per_sm(a.device, f, a.dtype, kernel)
+    before_txt = f"before: {before:.3f} ms; " if before else ""
+    ok &= exact
+    log(f"[{SOLVE_NAMES[kernel]} {kernel}] {label}: {r} systems at f={f}, "
+        f"A {a.dtype}, cg_iters {cg_iters}, cg_tol {cg_tol:g}: max|dx|="
+        f"{err:.3e} (limit 2e-3), one launch a call: {launched}, empty "
+        f"systems and aug lane exactly 0: {exact}; kernel {ms:.3f} ms "
+        f"({before_txt}at cg_iters 0 {ms0:.3f} ms, the CG: {ms - ms0:.3f} "
+        f"ms), plain {plain:.3f} ms, bound {bms:.4f} ms ({by}), "
+        f"{bms / ms:.0%} of the bound; {per_sm} blocks an SM (the kernel's "
+        f"occupancy query; events); {'OK' if ok else 'FAIL'}")
+    return ok, dict(max_abs_err=err, ms=ms, ms_cg0=ms0, plain_ms=plain,
+                    bound_ms=bms, bound_by=by, library_ms=None,
+                    blocks_per_sm=per_sm, f=f, systems=r,
+                    a_dtype=str(a.dtype))
+
+
+def dispatch_k4(solve):
+    """K4 as a user reaches it: the public dispatcher without a diagonal,
+    in `check_solve`'s calling form."""
+    return lambda a, b, x0, cg_iters, cg_tol: solve(
+        a, b, x0, solver="cg", cg_iters=cg_iters, cg_tol=cg_tol,
+        backend="pallas")
+
+
 def check_k3(cs, a_buf, b_buf, x0_full, row_nnz, lo, batch, cfg,
              what="slice"):
-    """K3 on one solve slice of the X-phase accumulators, at the run's
-    cg_iters and at 0 (at 0 the kernel still loads A and forms b - A x0,
-    so the difference is the CG), with the slice's A as stored and
-    widened to float32 (what a gram_dtype="f32" run without aug feeds
-    K3); the stored dtype's numbers fill the entry, the float32 ones go
-    under f32_* (a float32 A is checked once). `what` names the systems
-    in the log line; the time before K3's redesign, on the main path's
-    X slice, is printed beside a "slice" alone."""
+    """K3 on one solve slice of the X-phase accumulators (`check_solve`),
+    with the slice's A as stored and widened to float32 (what a
+    gram_dtype="f32" run without aug feeds K3); the stored dtype's
+    numbers fill the entry, the float32 ones go under f32_* (a float32 A
+    is checked once). `what` names the systems in the log line; the time
+    before K3's redesign, on the main path's X slice, is printed beside a
+    "slice" alone."""
     b = b_buf[lo:lo + batch]
     x0 = x0_full[lo:lo + batch]
     nnzf = row_nnz[lo:lo + batch].float()
@@ -894,39 +1009,16 @@ def check_k3(cs, a_buf, b_buf, x0_full, row_nnz, lo, batch, cfg,
     ok_all, out = True, {}
     a_s = a_buf[lo:lo + batch]
     for a in (a_s,) if a_s.dtype == torch.float32 else (a_s, a_s.float()):
-        kw = dict(cg_iters=cfg.cg_iters, cg_tol=cfg.cg_tol)
-        x = cs.solve_cg_reg(a, diag, b, x0, **kw)
-        px = cs.solve_cg_reg_plain(a, diag, b, x0, **kw)
-        err = (x - px).abs().max().item()
-        del px
-        ms = time_ms(lambda: cs.solve_cg_reg(a, diag, b, x0, **kw))
-        ms0 = time_ms(lambda: cs.solve_cg_reg(a, diag, b, x0, cg_iters=0,
-                                              cg_tol=cfg.cg_tol))
-        plain = time_ms(lambda: cs.solve_cg_reg_plain(a, diag, b, x0, **kw),
-                        reps=3)
-        f = a.shape[-1]
-        # the least CG work: one matvec per system
-        bms, by = bound_ms(nbytes(a, diag, b, x0, x), 2.0 * batch * f * f,
-                           a.dtype)
-        ok = err <= 2e-3
-        per_sm = cs.cg_reg_blocks_per_sm(a.device, f, a.dtype)
-        before = f"before: {BEFORE_MS['K3']:.3f} ms" if a.dtype == \
-            torch.bfloat16 and what == "slice" else "before: not measured"
-        log(f"[K3 solve_cg_reg] {what} of {batch} systems, A {a.dtype}: "
-            f"max|dx|={err:.3e} (limit 2e-3); kernel {ms:.3f} ms ({before}), "
-            f"at cg_iters 0 {ms0:.3f} ms (the CG: {ms - ms0:.3f} ms), plain "
-            f"{plain:.3f} ms, bound {bms:.4f} ms ({by}), {bms / ms:.0%} of "
-            f"the bound; {per_sm} blocks an SM (the kernel's occupancy "
-            f"query); {'OK' if ok else 'FAIL'}")
+        before = BEFORE_MS["K3"] if a.dtype == torch.bfloat16 and \
+            what == "slice" else None
+        ok, res = check_solve(cs, "solve_cg_reg", (a, diag, b, x0), what,
+                              cfg.cg_iters, cfg.cg_tol, before=before)
         ok_all &= ok
-        res = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
-                   bound_by=by, library_ms=None, ms_cg0=ms0,
-                   blocks_per_sm=per_sm)
         if out:
             out.update({f"f32_{k}": v for k, v in res.items()})
         else:
             out = res
-        del a, x
+        del a
     return ok_all, out
 
 
@@ -1007,54 +1099,6 @@ def gram_edges(cs):
         f"{ {' '.join(k): round(v, 9) for k, v in worst.items()} }; "
         f"{'OK' if ok_all else 'FAIL'}")
     return ok_all
-
-
-def check_k5b(cs, a, diag, x0, cfg):
-    """K5b on one solve slice of the augmented X-phase accumulator."""
-    kw = dict(cg_iters=cfg.cg_iters, cg_tol=cfg.cg_tol)
-    x = cs.solve_cg_aug(a, diag, x0, **kw)
-    px = cs.solve_cg_aug_plain(a, diag, x0, **kw)
-    err = (x - px).abs().max().item()
-    lane_ok = bool((x[:, -1] == 0).all())
-    ms = time_ms(lambda: cs.solve_cg_aug(a, diag, x0, **kw))
-    plain = time_ms(lambda: cs.solve_cg_aug_plain(a, diag, x0, **kw),
-                    reps=3)
-    batch, f, _ = a.shape
-    # the least CG work: one matvec per system
-    bms, by = bound_ms(nbytes(a, diag, x0, x), 2.0 * batch * f * f, a.dtype)
-    ok = err <= 2e-3 and lane_ok
-    log(f"[K5b solve_cg_aug] slice of {batch} systems, A' {a.dtype}: "
-        f"max|dx|={err:.3e} (limit 2e-3), lane f-1 of x zero: {lane_ok}; "
-        f"kernel {ms:.3f} ms, plain {plain:.3f} ms, bound {bms:.4f} ms "
-        f"({by}); {'OK' if ok else 'FAIL'}")
-    return ok, dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
-                    bound_by=by, library_ms=None)
-
-
-def check_k4(cs, solve, a_reg, b, x0, cfg):
-    """K4 through the public dispatcher, on one solve slice with the
-    diagonal already added."""
-    kw = dict(solver="cg", cg_iters=cfg.cg_iters, cg_tol=cfg.cg_tol,
-              backend="pallas")
-    before = cs.LAUNCHES["solve_cg"]
-    x = solve(a_reg, b, x0, **kw)
-    rose = cs.LAUNCHES["solve_cg"] == before + 1
-    px = cs.solve_cg_plain(a_reg, b, x0, cfg.cg_iters, cfg.cg_tol)
-    err = (x - px).abs().max().item()
-    ms = time_ms(lambda: solve(a_reg, b, x0, **kw))
-    plain = time_ms(lambda: cs.solve_cg_plain(a_reg, b, x0, cfg.cg_iters,
-                                              cfg.cg_tol), reps=3)
-    batch, f, _ = a_reg.shape
-    bms, by = bound_ms(nbytes(a_reg, b, x0, x), 2.0 * batch * f * f,
-                       a_reg.dtype)
-    ok = err <= 2e-3 and rose
-    log(f"[K4 solve_cg] ops.solve.solve without diag, slice of {batch} "
-        f"systems, A {a_reg.dtype}: max|dx|={err:.3e} (limit 2e-3), the "
-        f"dispatcher launched the kernel: {rose}; kernel {ms:.3f} ms, "
-        f"plain {plain:.3f} ms, bound {bms:.4f} ms ({by}); "
-        f"{'OK' if ok else 'FAIL'}")
-    return ok, dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
-                    bound_by=by, library_ms=None)
 
 
 def chunk_x0(ch, current):
@@ -1811,7 +1855,8 @@ def wide_paths(cs, ALS, cfg, train, csc, test, small_train, small_test,
     three pass kernels, adds K1's numbers at f=256 to its entry, and
     returns the launch counts of the two tensor-core route passes (the
     wide_kernel="on" run), of the FMA-only kernels (the small float32
-    run) and of K8 (its own path)."""
+    run) and of K8 (its own path), and the wide-off run's history (phase
+    13d's reference)."""
     import copy
 
     from cumf_als_tpu_torch.data.synthetic import init_factors
@@ -1943,7 +1988,7 @@ def wide_paths(cs, ALS, cfg, train, csc, test, small_train, small_test,
         cs, al, "wide on", MMA_PASSES, others + fma_256, x0_np, th0_np)
     al_off = copy.copy(al)     # the same plans; wide_kernel steers no plan
     al_off.cfg = cfg_w.replace(wide_kernel="off", iters=2)
-    _, launches_off = full_width(
+    hist_off, launches_off = full_width(
         cs, al_off, "wide off", MMA_PASSES, others + fma_256, x0_np, th0_np,
         iters=2)
     n_chunks = len(chunks_x) + len(chunks_t)
@@ -2043,7 +2088,7 @@ def wide_paths(cs, ALS, cfg, train, csc, test, small_train, small_test,
     return {"gather_gram_cg_wide": f32_on["gather_gram_cg_wide"],
             "wide_span_gram": f32_on["wide_span_gram"],
             "fused_gram_cg_cat": k8_launches["fused_gram_cg_cat"],
-            **{k: launches_on[k] for k in MMA_PASSES}}
+            **{k: launches_on[k] for k in MMA_PASSES}}, hist_off
 
 
 def run_bench(args, label):
@@ -2110,10 +2155,12 @@ def workload_data(bench, name, want):
     return train, test, load_s
 
 
-def ooc_run(cs, model, label, expect):
-    """model.run for OOC_ITERS iterations with the launch counts and the
-    peak device memory read around it alone; `expect`: the launches each
-    kernel must make (every other kernel none)."""
+def ooc_run(cs, model, label, expect, at_least=()):
+    """model.run for its iterations with the launch counts and the peak
+    device memory read around it alone; `expect`: the launches each
+    kernel must make, `at_least`: kernels that must launch (the two
+    passes of K1 at 256 lanes, whose count the row batches set); every
+    other kernel none."""
     x0, th0 = init_factors_np(model)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
@@ -2133,9 +2180,11 @@ def ooc_run(cs, model, label, expect):
         f"{statistics.median(per_iter):.4f}; peak device memory "
         f"{peak / 2**30:.2f} GiB ({base / 2**30:.2f} GiB allocated before "
         f"the run); launches {launches}")
-    if launches != {k: v for k, v in expect.items() if v}:
+    exact = {k: v for k, v in launches.items() if k not in at_least}
+    if exact != {k: v for k, v in expect.items() if v} or \
+            min((launches.get(k, 0) for k in at_least), default=1) == 0:
         raise AssertionError(f"{label}: launches {launches}, expected "
-                             f"{expect}")
+                             f"{expect} and some of {list(at_least)}")
     if not all(np.isfinite([h.train_rmse for h in res.history] +
                            [h.test_rmse for h in res.history])):
         raise AssertionError(f"{label}: non-finite RMSE")
@@ -2568,17 +2617,17 @@ def sooc_expect(model, iters):
             "solve_cg_reg": iters}
 
 
-def hot_k2_chunk(model, dev, p=1 << 18, r=16):
+def hot_k2_chunk(csc, pad, dev, p=1 << 18, r=16):
     """A hot-segment chunk of the direct theta route at P = p: the first
-    p ratings of each of the r most rated theta columns, one segment a
-    row, pad slots naming the device X's zero row m_loc (what
-    _materialize_hot gives a column of more than p ratings)."""
+    p ratings of each of the r most rated theta columns of `csc`, one
+    segment a row, pad slots naming X's zero row `pad` (the device X's
+    m_loc: what _materialize_hot gives a column of more than p
+    ratings)."""
     from types import SimpleNamespace
-    csc = model.train_csc
     indptr = np.asarray(csc.indptr, np.int64)
     lens = np.diff(indptr)
     top = np.argsort(-lens, kind="stable")[:r]
-    cols = np.full((r, p), model.row_plan.m_loc, np.int32)
+    cols = np.full((r, p), pad, np.int32)
     vals = np.zeros((r, p), np.float32)
     nnz = np.zeros(r, np.int32)
     for j, c in enumerate(top):
@@ -2732,7 +2781,7 @@ def sharded_ooc(cs, bench, ref_ooc=None):
             table_rows=live_rows(c), se_exact=True)
         del x_t
         # K2 on a hot-segment chunk at P = 2^18 (f32 A)
-        hot, hot_lens = hot_k2_chunk(b, dev)
+        hot, hot_lens = hot_k2_chunk(b.train_csc, b.row_plan.m_loc, dev)
         ok2, checks["gather_gram_out"] = check_gram(
             cs, b._x_dev, hot, torch.float32, False,
             f"sooc b: a hot-segment chunk of the 16 most rated columns "
@@ -3007,7 +3056,6 @@ def integrations(cs, bench):
     on the card, K4's check at entry()'s shapes and the numbers of the
     phase."""
     import importlib.util
-    from types import SimpleNamespace
 
     from cumf_als_tpu_torch.data.synthetic import synthetic_ratings
     from cumf_als_tpu_torch.entry import dryrun_multichip, entry
@@ -3034,8 +3082,9 @@ def integrations(cs, bench):
         raise AssertionError("entry(): K4 not launched once, or off the CPU")
     theta, cols, vals, nnz, x0 = args[:5]
     a, b = gram_rhs(extend_table(theta), cols, vals, nnz, 0.048)
-    ok, k4 = check_k4(cs, solve, a, b, x0,
-                      SimpleNamespace(cg_iters=6, cg_tol=1e-4))
+    ok, k4 = check_solve(cs, "solve_cg", (a, b, x0),
+                         "ops.solve.solve without diag, entry()'s systems",
+                         fn=dispatch_k4(solve))
     if not ok:
         raise AssertionError("K4 disagrees at entry()'s shapes")
     k4["entry_launches"] = launched["solve_cg"]
@@ -3274,6 +3323,315 @@ def batched_panel(cs, ALS, cfg, train, csc, test, x0, th0):
     return [k2["bf16"], k2["f32"]]
 
 
+# ----------------------------------------------------------- phase 13 --
+# iterations of the runs of phase 13: (c) out of core and its in-core
+# reference, (d) each panel run (phase 5's wide-off run is its reference)
+P256_OOC_ITERS = 3
+P256_PANEL_ITERS = 2
+def panel_chunk(f, r, p, seed, n=65536):
+    """A synthetic panel chunk at width f: a bf16 panel table of n rows
+    and its zero row (lane f - 1 free for the aug form), R rows of P
+    slots with nnz from 0 to P (one row in 64 without ratings), pad slots
+    at each row's tail naming the zero row, values in halves."""
+    from types import SimpleNamespace
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    tp = (0.3 * torch.randn((n + 1, f), generator=gen, device=DEV)
+          ).to(torch.bfloat16)
+    tp[n] = 0
+    tp[:, f - 1] = 0
+    nnz = torch.randint(1, p + 1, (r,), generator=gen, device=DEV,
+                        dtype=torch.int32)
+    nnz[::64] = 0
+    mask = torch.arange(p, device=DEV)[None, :] < nnz[:, None]
+    cols = torch.where(mask, torch.randint(0, n, (r, p), generator=gen,
+                                           device=DEV), n).to(torch.int32)
+    vals = (torch.randint(2, 11, (r, p), generator=gen, device=DEV) / 2.0
+            * mask).float()
+    return tp, SimpleNamespace(cols=cols, vals=vals, nnz=nnz, panel=0)
+
+
+def solve_systems(cs, f, lam=0.048, r=16384, p=64, seed=11):
+    """The systems of the solve checks at width f: K2's (A, b) and K5a's
+    A' of one synthetic panel chunk of R rows (A f32), the diagonal
+    nnz lam + [nnz = 0], a warm start with lane f - 1 and the empty
+    rows zero, and the mask of the empty rows."""
+    tp, ch = panel_chunk(f, r, p, seed)
+    r = ch.cols.shape[0]
+    a, b = cs.gather_gram_out(tp, ch.cols, ch.vals)
+    a_aug = cs.gather_gram_aug_out(tp, ch.cols, ch.vals)
+    nnzf = ch.nnz.float()
+    diag = nnzf * lam + (nnzf == 0).float()
+    gen = torch.Generator(device=DEV).manual_seed(seed + 1)
+    x0 = 0.1 * torch.randn((r, f), generator=gen, device=DEV)
+    empty = ch.nnz == 0
+    x0[empty] = 0
+    x0[:, f - 1] = 0
+    return a, b, a_aug, diag, x0, empty
+
+
+def solve_checks(cs, f, label):
+    """K3, K4 and K5b at width f on `solve_systems`, each with an f32 and
+    a bf16 A, at CG-6 and (K3) at CG-20 with a tolerance that stops
+    systems early. Returns ok and each kernel's numbers (f32 A; bf16
+    under bf16_*)."""
+    a, b, a_aug, diag, x0, empty = solve_systems(cs, f)
+    out, ok_all = {}, True
+    eye = torch.eye(f, device=DEV)
+
+    def run(kernel, make):
+        nonlocal ok_all
+        for dtype in (torch.float32, torch.bfloat16):
+            args = make(dtype)
+            ok, res = check_solve(cs, kernel, args, label, empty=empty)
+            ok_all &= ok
+            if dtype == torch.float32:
+                out[kernel] = res
+            else:
+                out[kernel].update({f"bf16_{k}": v for k, v in res.items()})
+            del args
+            torch.cuda.empty_cache()
+
+    run("solve_cg_reg", lambda dt: (a.to(dt), diag, b, x0))
+    ok, res = check_solve(cs, "solve_cg_reg", (a, diag, b, x0),
+                          label + ", a tolerance that stops early",
+                          cg_iters=20, cg_tol=1.0, empty=empty)
+    ok_all &= ok
+    out["solve_cg_reg"]["early_stop_check"] = res
+    run("solve_cg", lambda dt: ((a + diag[:, None, None] * eye).to(dt), b,
+                                x0))
+    del a, b
+    torch.cuda.empty_cache()
+    run("solve_cg_aug", lambda dt: (a_aug.to(dt), diag, x0))
+    del a_aug
+    torch.cuda.empty_cache()
+    return ok_all, out
+
+
+def panel_256_grams(cs, x_table, hot):
+    """13a's Gram checks at f = 256: K2 and K5a on the shape of the
+    Netflix X phase's most populous panel chunk (R = 2304, P = 576, a
+    65,537-row bf16 panel) with a bf16 and an f32 A and, on the FMA body,
+    a float32 copy of the table; K2 on a hot-segment chunk (R = 16,
+    P = 2^18, f32 A) of the out-of-core run's X. Returns ok and the
+    numbers by check."""
+    tp, ch = panel_chunk(256, 2304, 576, seed=12)
+    out, ok_all = {}, True
+    for aug in (False, True):
+        name = "gather_gram_aug_out" if aug else "gather_gram_out"
+        for a_dtype, table in ((torch.bfloat16, tp), (torch.float32, tp),
+                               (torch.float32, tp.float())):
+            label = "f=256 synthetic X panel chunk" + (
+                ", float32 table" if table.dtype == torch.float32 else "")
+            ok, res = check_gram(cs, table, ch, a_dtype, aug, label)
+            ok_all &= ok
+            key = "bf16_a" if a_dtype == torch.bfloat16 else (
+                "f32_a" if table.dtype == torch.bfloat16 else "f32_table")
+            out.setdefault(name, {})[key] = res
+    del tp, ch
+    torch.cuda.empty_cache()
+    ok, out["gather_gram_out"]["hot_segment"] = check_gram(
+        cs, x_table, hot, torch.float32, False,
+        "f=256 a hot-segment chunk of the out-of-core run's X (the 16 most "
+        "rated theta columns, their first 2^18 ratings)",
+        table_rows=live_rows(hot))
+    ok_all &= ok
+    return ok_all, out
+
+
+def panel_256_ooc(cs, bench, results):
+    """13c: OutOfCoreALS on hugewiki_mini at F=200 (f_pad 256), X on the
+    host: K1 at 256 lanes on the X chunks (the two passes), K2 at 256 on
+    the theta steps (f32 accumulators, promoted by depth as at F=100), K3
+    at 256 on the theta slices; against the in-core ALS of the same data
+    and configuration (direct routes, K1 at 256 lanes), RMSE within 2e-3
+    at every iteration. Then K2 on the out-of-core run's most rated theta
+    chunk and on a hot-segment chunk, and K3 on its first theta slice,
+    against their plain versions. Returns ok, the launches of both runs
+    and the X table the Gram checks of 13a use, with the hot chunk."""
+    from cumf_als_tpu_torch.config import ALSConfig
+    from cumf_als_tpu_torch.models.als import ALS
+    from cumf_als_tpu_torch.models.out_of_core import OutOfCoreALS
+    from cumf_als_tpu_torch.ops.gram import extend_table
+    from cumf_als_tpu_torch.utils.plan_cache import cached_transpose
+    train, test, _ = workload_data(bench, "hugewiki_mini",
+                                   RECORDED_HUGEWIKI_MINI)
+    n_it = P256_OOC_ITERS
+    cfg = ALSConfig(m=train.num_rows, n=train.num_cols, f=200,
+                    nnz=train.nnz, nnz_test=test.nnz, lam=0.048,
+                    iters=n_it, solver="cg", backend="pallas",
+                    factor_dtype="bf16", gram_dtype="bf16",
+                    plan_cache_dir=bench.plan_cache_dir(), verbose=False,
+                    debug_timing=False)
+    csc = cached_transpose(cfg.plan_cache_dir, train)
+    t0 = time.monotonic()
+    ooc = OutOfCoreALS(cfg.replace(host_offload_x=True), train, csc, test,
+                       device=DEV)
+    log(f"[ooc 256] F=200 f_pad {cfg.f_pad}: plans {time.monotonic() - t0:.1f}"
+        f" s; X phase {len(ooc.plan_x.chunks)} chunks, theta phase "
+        f"{len(ooc.plan_theta.chunks)} chunks over "
+        f"{ooc.plan_theta.n_panels} X panels, {ooc.n_slices} solve slices "
+        f"of {ooc.solve_batch}; theta accumulators {ooc.accum_dtype}")
+    expect = {"gather_gram_out": len(ooc.plan_theta.chunks) * n_it,
+              "solve_cg_reg": ooc.n_slices * n_it}
+    res_o, launches_o, peak_o = ooc_run(cs, ooc, "ooc 256", expect,
+                                        at_least=MMA_PASSES)
+
+    # K2 and K3 at the out-of-core path's shapes, on the state it left
+    j = max(range(len(ooc.plan_theta.chunks)),
+            key=lambda i: int(ooc.plan_theta.chunks[i].nnz.sum()))
+    (c,), _ = ooc._host_th.upload(j, j + 1, torch.device(DEV))
+    s = ooc.plan_theta.panel_size
+    lo, hi = c.panel * s, min(c.panel * s + s, ooc.plan_theta.num_cols)
+    tp = torch.zeros((s + 1, cfg.f_pad), dtype=torch.bfloat16, device=DEV)
+    tp[:hi - lo] = ooc.x_store[lo:hi].to(DEV)
+    ok_all, k2 = check_gram(cs, tp, c, ooc.accum_dtype, False,
+                            f"f=256 out-of-core theta chunk {j} of "
+                            f"{len(ooc.plan_theta.chunks)}")
+    del tp, c
+    a_buf, b_buf = ooc.theta_accumulators()
+    theta = torch.nn.functional.pad(
+        torch.from_numpy(np.asarray(res_o.theta, np.float32)).to(DEV),
+        (0, cfg.f_pad - cfg.f, 0, ooc.n_pad - cfg.n))
+    ok, k3 = check_solve(
+        cs, "solve_cg_reg",
+        (a_buf[:ooc.solve_batch],
+         ooc._theta_nnz_pad[:ooc.solve_batch].float() * cfg.lam +
+         (ooc._theta_nnz_pad[:ooc.solve_batch] == 0).float(),
+         b_buf[:ooc.solve_batch], theta[:ooc.solve_batch].contiguous()),
+        "the first theta slice of the out-of-core run")
+    ok_all &= ok
+    del a_buf, b_buf, theta
+    # the bf16 gather table of the hot segments (m + 1, 256)
+    x_table = extend_table(ooc.x_store.to(DEV, torch.bfloat16))
+    del ooc
+    torch.cuda.empty_cache()
+    hot, hot_lens = hot_k2_chunk(csc, train.num_rows, DEV)
+    log(f"[ooc 256] hot-segment chunk: the 16 most rated theta columns "
+        f"({int(hot_lens.min())}..{int(hot_lens.max())} ratings)")
+
+    t0 = time.monotonic()
+    inc = ALS(cfg.replace(use_panels="never", train_rmse_method="direct"),
+              train, csc, test, device=DEV)
+    log(f"[in-core 256] plans {time.monotonic() - t0:.1f} s; X phase "
+        f"{len(inc.plan_x[1])} chunks, theta phase "
+        f"{len(inc.plan_theta[1])} chunks (both direct, K1 at 256 lanes)")
+    res_i, launches_i, peak_i = ooc_run(cs, inc, "in-core 256", {},
+                                        at_least=MMA_PASSES)
+    del inc
+    torch.cuda.empty_cache()
+    worst = 0.0
+    for ho, hi_ in zip(res_o.history, res_i.history):
+        d = max(abs(ho.train_rmse - hi_.train_rmse),
+                abs(ho.test_rmse - hi_.test_rmse))
+        worst = max(worst, d)
+        log(f"[ooc 256 | in-core 256] iter {ho.iteration}: train "
+            f"{ho.train_rmse:.6f} | {hi_.train_rmse:.6f}, test "
+            f"{ho.test_rmse:.6f} | {hi_.test_rmse:.6f} (limit 2e-3)")
+    log(f"[ooc 256 | in-core 256] worst RMSE gap {worst:.3e}; peak device "
+        f"memory {peak_o / 2**30:.2f} | {peak_i / 2**30:.2f} GiB")
+    if worst > 2e-3:
+        raise AssertionError("out-of-core and in-core runs at F=200 "
+                             "disagree")
+    results["gather_gram_out"]["f256_ooc_chunk"] = k2
+    results["solve_cg_reg"]["f256_ooc_slice"] = k3
+    return ok_all, {"ooc": launches_o, "in-core": launches_i}, x_table, hot
+
+
+def panel_256_netflix(cs, ALS, cfg, train, csc, test, hist_ref):
+    """13d: Netflix F=200 with the X phase on the panel route
+    (panel_budget_bytes 6 GiB takes the 17,771 x 256^2 accumulators),
+    theta direct (K1 at 256 lanes): with gram_dtype "bf16" (split
+    buffers: K2 and K3 at 256) and "f32" (aug "auto": K5a and K5b at 256),
+    each for P256_PANEL_ITERS iterations, RMSE within 2e-3 of phase 5's
+    wide-off run (`hist_ref`) at every iteration. Returns the launches of
+    each run."""
+    import copy
+
+    from cumf_als_tpu_torch.data.synthetic import init_factors
+    from cumf_als_tpu_torch.ops.tiling import PanelPlan, UpdatePlan
+    n_it = P256_PANEL_ITERS
+    cfg_p = cfg.replace(f=200, panel_budget_bytes=6 << 30, iters=n_it)
+    t0 = time.monotonic()
+    al = ALS(cfg_p, train, csc, test, device=DEV)
+    plan_x, chunks_x, aux_x = al.plan_x
+    log(f"[panel 256] F=200 f_pad {cfg_p.f_pad}, panel_budget_bytes 6 GiB: "
+        f"plans {time.monotonic() - t0:.1f} s; X phase "
+        f"{type(plan_x).__name__} ({len(chunks_x)} chunks over "
+        f"{plan_x.n_panels} panels, {aux_x['m_pad'] // aux_x['solve_batch']}"
+        f" solve slices of {aux_x['solve_batch']}), theta phase "
+        f"{type(al.plan_theta[0]).__name__} ({len(al.plan_theta[1])} "
+        f"chunks)")
+    if not (isinstance(plan_x, PanelPlan) and
+            isinstance(al.plan_theta[0], UpdatePlan)):
+        raise AssertionError("expected the panel X route and direct theta "
+                             "at F=200")
+    x0, th0 = init_factors(cfg_p.m, cfg_p.n, cfg_p.f, seed=0)
+    launches = {}
+    for label, gram_dtype, kernels in (
+            ("panel 256 bf16", "bf16", ("gather_gram_out", "solve_cg_reg")),
+            ("panel 256 f32", "f32", ("gather_gram_aug_out",
+                                      "solve_cg_aug"))):
+        model = copy.copy(al)    # the same plans: gram_dtype steers none
+        model.cfg = cfg_p.replace(gram_dtype=gram_dtype)
+        if model._use_panel_aug() != (gram_dtype == "f32"):
+            raise AssertionError(f"{label}: the aug gate")
+        others = tuple(k for k in SPLIT_KERNELS + AUG_KERNELS + WIDE_KERNELS
+                       + ("solve_cg", "wide_span_gram") if k not in kernels)
+        hist, launches[label] = full_width(
+            cs, model, label, kernels + MMA_PASSES, others, x0, th0,
+            iters=n_it)
+        worst = 0.0
+        for h, r in zip(hist, hist_ref):
+            d = max(abs(h.train_rmse - r.train_rmse),
+                    abs(h.test_rmse - r.test_rmse))
+            worst = max(worst, d)
+            log(f"[{label} | wide off] iter {h.iteration}: train "
+                f"{h.train_rmse:.6f} | {r.train_rmse:.6f}, test "
+                f"{h.test_rmse:.6f} | {r.test_rmse:.6f} (limit 2e-3)")
+        if len(hist) != len(hist_ref) or worst > 2e-3:
+            raise AssertionError(f"{label}: off phase 5's wide-off run")
+        del model
+        torch.cuda.empty_cache()
+    del al
+    torch.cuda.empty_cache()
+    return launches
+
+
+def panel_256(cs, bench, ALS, cfg, train, csc, test, hist_ref, results):
+    """Phase 13: the panel and solve kernels at 256 lanes (K2, K5a, K3,
+    K4, K5b at f = 256), and the paths they open: (a) the kernels against
+    their plain versions at f = 256, with times and bounds; (b) K3, K4
+    and K5b at f = 128 on their one body; (c) OutOfCoreALS at F=200 on
+    hugewiki_mini; (d) Netflix F=200 on the panel route. Fills results[...]
+    with the f = 256 numbers and each kernel's launches in (c) and (d)."""
+    t_start = time.monotonic()
+    ok_all, launches_c, x_table, hot = panel_256_ooc(cs, bench, results)
+    ok, grams = panel_256_grams(cs, x_table, hot)
+    ok_all &= ok
+    del x_table, hot
+    torch.cuda.empty_cache()
+    ok, solves_256 = solve_checks(cs, 256, "f=256 synthetic panel systems")
+    ok_all &= ok
+    ok, solves_128 = solve_checks(cs, 128, "f=128 synthetic panel systems")
+    ok_all &= ok
+    if not ok_all:
+        raise AssertionError("a kernel disagrees with its plain version at "
+                             "f = 256 or on the one batched-CG body")
+    launches_d = panel_256_netflix(cs, ALS, cfg, train, csc, test, hist_ref)
+    for name in ("gather_gram_out", "gather_gram_aug_out"):
+        results[name]["f256"] = grams[name]
+    for name in SOLVE_NAMES:
+        results[name]["f256"] = solves_256[name]
+        results[name]["f128_one_body"] = solves_128[name]
+    for name in ("gather_gram_out", "gather_gram_aug_out") + \
+            tuple(SOLVE_NAMES) + MMA_PASSES:
+        results[name]["f256_launches"] = {
+            "ooc F=200 (13c, 3 iterations)": launches_c["ooc"].get(name, 0),
+            **{f"{k} (13d, {P256_PANEL_ITERS} iterations)": v.get(name, 0)
+               for k, v in launches_d.items()}}
+    log(f"[phase 13] {time.monotonic() - t_start:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3300,10 +3658,11 @@ def main() -> int:
              ("--theta",): THETA_KERNELS, ("--wide",): WIDE_SHORT,
              ("--ooc",): SPLIT_KERNELS, ("--sharded",): SPLIT_KERNELS,
              ("--sharded-ooc",): SPLIT_KERNELS,
-             ("--integrations",): SPLIT_KERNELS + ("solve_cg",)}
+             ("--integrations",): SPLIT_KERNELS + ("solve_cg",),
+             ("--panel-256",): PANEL_256_SHORT}
     if tuple(sys.argv[1:]) not in short:
         print("usage: chip_smoke.py [--gram | --theta | --wide | --ooc | "
-              "--sharded | --sharded-ooc | --integrations]",
+              "--sharded | --sharded-ooc | --integrations | --panel-256]",
               file=sys.stderr)
         return 2
     only = short[tuple(sys.argv[1:])]
@@ -3377,6 +3736,22 @@ def main() -> int:
         torch.cuda.empty_cache()
         sharded(cs, bench, cfg, train, test, hist_main)
         log("[sharded] OK (the short call: no result line)")
+        return 0
+    if only == PANEL_256_SHORT:
+        # phase 13 with its reference: phase 5's wide-off run of 2
+        # iterations (the split X route, K1 at 256 lanes)
+        ref = ALS(cfg.replace(f=200, iters=2), train, csc, test,
+                  device=DEV)
+        x0_w, th0_w = init_factors(cfg.m, cfg.n, 200, seed=0)
+        hist_off, _ = full_width(
+            cs, ref, "wide off", MMA_PASSES,
+            SPLIT_KERNELS + AUG_KERNELS + WIDE_KERNELS + ("solve_cg",),
+            x0_w, th0_w, iters=2)
+        del ref
+        torch.cuda.empty_cache()
+        results = {name: {} for name in REPLACES}
+        panel_256(cs, bench, ALS, cfg, train, csc, test, hist_off, results)
+        log("[panel 256] OK (the short call: no result line)")
         return 0
     if only == WIDE_SHORT:
         al, cfg_w, f2, _, _, theta_t, x_t, x_ext = wide_setup(
@@ -3593,8 +3968,10 @@ def main() -> int:
     x0_full = torch.zeros((m_pad, cfg.f_pad), device="cuda")
     nnzf = aux_x["row_nnz_pad"].float()
     diag_full = nnzf * cfg.lam + (nnzf == 0).float()
-    ok, results["solve_cg_aug"] = check_k5b(
-        cs, a_aug[:batch], diag_full[:batch], x0_full[:batch], cfg_aug)
+    ok, results["solve_cg_aug"] = check_solve(
+        cs, "solve_cg_aug", (a_aug[:batch], diag_full[:batch],
+                             x0_full[:batch]), "slice", cfg_aug.cg_iters,
+        cfg_aug.cg_tol, before=ONE_BLOCK_MS["solve_cg_aug"])
     ok_all &= ok
 
     def regularized(lo):
@@ -3604,8 +3981,11 @@ def main() -> int:
         return ua, ub
 
     a_reg, b_reg = regularized(0)
-    ok, results["solve_cg"] = check_k4(cs, solve, a_reg, b_reg,
-                                       x0_full[:batch], cfg_aug)
+    ok, results["solve_cg"] = check_solve(
+        cs, "solve_cg", (a_reg, b_reg, x0_full[:batch]),
+        "ops.solve.solve without diag, slice", cfg_aug.cg_iters,
+        cfg_aug.cg_tol, before=ONE_BLOCK_MS["solve_cg"],
+        fn=dispatch_k4(solve))
     ok_all &= ok
     del a_reg, b_reg
     if not ok_all:
@@ -3655,8 +4035,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 5. the factor widths above 128
-    wide_launches = wide_paths(cs, ALS, cfg, train, csc, test, str_, ste,
-                               results)
+    wide_launches, hist_wide_off = wide_paths(
+        cs, ALS, cfg, train, csc, test, str_, ste, results)
 
     # ---- 6. the batched-panel route
     results["gather_gram_out"]["batched_panel_launches"] = batched_panel(
@@ -3697,6 +4077,10 @@ def main() -> int:
     for name in SPLIT_KERNELS:
         results[name]["hugewiki_launches"] = hw_launches.get(name, 0)
     results["solve_cg"]["entry_check"] = k4_entry
+
+    # ---- 13. the panel and solve kernels at 256 lanes, and the paths
+    # they open: out-of-core at F=200, Netflix F=200 on the panel route
+    panel_256(cs, bench, ALS, cfg, train, csc, test, hist_wide_off, results)
 
     launches.update({k: launches_aug[k] for k in AUG_KERNELS})
     launches["solve_cg"] = k4_launches

@@ -1,9 +1,10 @@
 // Shared device code of the ALS kernels at f <= 128: the split-buffer
-// forms gather_gram_cg.cu, gather_gram_out.cu and solve_cg_reg.cu, the
-// already-regularized solve solve_cg.cu, and the augmented-lane forms
-// gather_gram_cg_aug.cu, gather_gram_aug_out.cu and solve_cg_aug.cu.
-// The CG loop and the dot product here also serve the 256-lane kernels
-// of wide.cuh.
+// forms gather_gram_cg.cu and gather_gram_out.cu and the augmented-lane
+// forms gather_gram_cg_aug.cu and gather_gram_aug_out.cu (their FMA
+// bodies, for a float32 table or f < 128). The CG loop and the dot
+// product here also serve the 256-lane kernels of wide.cuh and the
+// f = 256 solves of bulk_cg.cuh (K3, K4 and K5b, whose f <= 128 body is
+// bulk_cg.cuh's own).
 //
 // One thread block owns one f x f system, f = 16 * NB with NB in 1..8
 // (f a multiple of 16, at most 128). The 256 threads form a 16 x 16
@@ -168,20 +169,6 @@ __device__ __forceinline__ void gram_row(Smem<NB>& s, const TT* table,
   }
   b_acc += b_group;
   r2_acc += r2_group;
-}
-
-// This thread's register tile of one stored system (f32 or bf16), as f32.
-template <int NB, typename AT>
-__device__ __forceinline__ void load_system(const AT* src,
-                                            float (&a)[NB][NB]) {
-  constexpr int F = 16 * NB;
-  const int ty = threadIdx.x >> 4;
-  const int tx = threadIdx.x & 15;
-#pragma unroll
-  for (int k = 0; k < NB; ++k)
-#pragma unroll
-    for (int l = 0; l < NB; ++l)
-      a[k][l] = to_f32(src[(ty + 16 * k) * F + tx * NB + l]);
 }
 
 // Unpack an augmented A' held in registers: row F - 1 goes to s.b (lanes

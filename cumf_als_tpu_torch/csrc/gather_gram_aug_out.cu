@@ -35,10 +35,16 @@
 // blocks share an SM and each walks its rows as one stream of tiles, so
 // the next row's gather and this row's write-out overlap the Gram.
 // A float32 table, and a bf16 table at f < 128, keep the f32 FMA body of
-// common.cuh (gram_row). The entry point chooses by dtype and f alone.
+// common.cuh (gram_row). At f = 256 (factor widths 128 < F < 256) a bf16
+// table takes the three-block tensor-core Gram of wide_gram_mma.cuh, the
+// value stored over lane 255 of each gathered row in the blocks that
+// hold lanes 128..255, and the whole symmetric A' written; a float32
+// table the FMA body of wide.cuh (panel_gram with the value in lane 255).
+// The entry point chooses by dtype and f alone.
 
 #include "common.cuh"
 #include "gram_mma.cuh"
+#include "wide_gram_mma.cuh"
 
 namespace {
 
@@ -110,6 +116,10 @@ extern "C" int cumf_gather_gram_aug_out(const void* table, int table_bf16,
   if (table_bf16 && f == cumf::mma::kF)
     return cumf::mma::run<true>(table, cols, vals, vals_bf16, a_out,
                                 out_bf16, nullptr, r, p, st);
+  if (f == cumf::wide::kStride)
+    return cumf::wide_mma::run_panel<true>(table, table_bf16, cols, vals,
+                                           vals_bf16, a_out, out_bf16,
+                                           nullptr, r, p, st);
   if (table_bf16 && vals_bf16)
     return dispatch_out<__nv_bfloat16, __nv_bfloat16>(
         out_bf16, f, table, cols, vals, a_out, r, p, st);

@@ -29,10 +29,18 @@
 // so the next row's gather and this row's write-out overlap the Gram.
 // A float32 table, and a bf16 table at f < 128, keep the f32 FMA body of
 // common.cuh (gram_row): bf16 tensor cores would round a float32 table.
-// The entry point chooses by dtype and f alone.
+// At f = 256 (factor widths 128 < F <= 256) a bf16 table takes the
+// three-block tensor-core Gram of wide_gram_mma.cuh, which writes the
+// whole symmetric A (its (0, 1) block and that block's transpose) and b;
+// a float32 table the FMA body of wide.cuh (panel_gram: the upper
+// triangle of 8 x 8 tiles, one thread a tile, each tile written with its
+// transpose). There an f32 A of 256 KB a row bounds the kernel: the
+// out-of-core theta chunk R = 6656 writes 1.74 GB, ~0.52 ms at
+// 3.35 TB/s. The entry point chooses by dtype and f alone.
 
 #include "common.cuh"
 #include "gram_mma.cuh"
+#include "wide_gram_mma.cuh"
 
 namespace {
 
@@ -106,6 +114,10 @@ extern "C" int cumf_gather_gram_out(const void* table, int table_bf16,
   if (table_bf16 && f == cumf::mma::kF)
     return cumf::mma::run<false>(table, cols, vals, vals_bf16, a_out,
                                  out_bf16, b_out, r, p, st);
+  if (f == cumf::wide::kStride)
+    return cumf::wide_mma::run_panel<false>(table, table_bf16, cols, vals,
+                                            vals_bf16, a_out, out_bf16,
+                                            b_out, r, p, st);
   if (table_bf16 && vals_bf16)
     return dispatch_out<__nv_bfloat16, __nv_bfloat16>(
         out_bf16, f, table, cols, vals, a_out, b_out, r, p, st);

@@ -38,12 +38,13 @@ KERNELS = {
                      [_VP, _I, _VP, _VP, _VP, _VP, _I, _I, _I, _F, _I,
                       _VP]),
     "solve_cg": ("cumf_solve_cg",
-                 [_VP, _I, _VP, _VP, _VP, _I, _I, _I, _F, _VP]),
+                 [_VP, _I, _VP, _VP, _VP, _VP, _I, _I, _I, _F, _I, _VP]),
     "gather_gram_aug_out": ("cumf_gather_gram_aug_out",
                             [_VP, _I, _VP, _VP, _I, _VP, _I,
                              _I, _I, _I, _VP]),
     "solve_cg_aug": ("cumf_solve_cg_aug",
-                     [_VP, _I, _VP, _VP, _VP, _I, _I, _I, _F, _VP]),
+                     [_VP, _I, _VP, _VP, _VP, _VP, _I, _I, _I, _F, _I,
+                      _VP]),
     "gather_gram_cg_aug": ("cumf_gather_gram_cg_aug",
                            [_VP, _I, _VP, _VP, _I, _VP, _VP, _VP, _VP,
                             _I, _I, _I, _F, _I, _F, _VP]),
@@ -66,12 +67,11 @@ KERNELS = {
 # query name -> the kernel whose library holds it, its C entry point and
 # its argument types (a query launches nothing and counts no launch)
 QUERIES = {
-    "solve_cg_reg_blocks_per_sm": ("solve_cg_reg",
-                                   "cumf_solve_cg_reg_blocks_per_sm",
-                                   [_I, _I, _VP]),
-}
+    f"{name}_blocks_per_sm": (name, f"cumf_{name}_blocks_per_sm",
+                              [_I, _I, _VP])
+    for name in ("solve_cg_reg", "solve_cg", "solve_cg_aug")}
 HEADERS = ("common.cuh", "wide.cuh", "gram_mma.cuh", "frag_cg.cuh",
-           "bulk_cg.cuh")
+           "bulk_cg.cuh", "wide_gram_mma.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 

@@ -44,8 +44,10 @@ the triangle-of-tiles body of csrc/wide.cuh); ``gather_gram_cg_wide``
 solves only the 128 + f2 live lanes (f2 = `wide_f2(F)`) and returns
 exact zeros above them; ``fused_gram_cg_cat`` is the 256-lane body over
 an already gathered, lane-packed G. `wide_enabled` is the opt-in gate of
-the second. The panel and solve kernels (K2-K5b) and the augmented fused
-kernel (K6) take f <= 128 only.
+the second. The panel Grams (K2, K5a) and the batched solves (K3, K4,
+K5b) take f = 256 too, so the accumulate-then-solve routes (the panel
+and batched-panel routes, out-of-core theta, the sharded partials) run
+at those widths; the augmented fused kernel (K6) takes f <= 128 only.
 
 The Gram kernels K1, K2, K5a and K6 are bound by operations on an H100
 (K2 and K5a by the write of A as well when A is f32), and what feeds
@@ -80,11 +82,18 @@ the same two passes for a bf16 G whose f2 is a multiple of 32
 reads the table, and sums every slot up to P, as `_kernel_cat` does; a
 float32 G keeps the uncut FMA body. Each pass counts its own launches.
 
-K3 (``solve_cg_reg``) runs persistent blocks (`cg_reg_grid`) that bring
-each system's A, b and x0 into a ring of two shared-memory stages with
-bulk-async copies and run the CG with A in registers and two block-wide
-barriers a step (csrc/bulk_cg.cuh); K4 and K5b keep the
-one-block-a-system CG of csrc/common.cuh.
+K2 and K5a at f = 256 write the whole symmetric A: a bf16 table runs
+three 128 x 128 blocks of A on the tensor cores (csrc/wide_gram_mma.cuh,
+the body of the row cut's pass 1), a float32 table the FMA body of
+csrc/wide.cuh (`panel_gram`).
+
+K3 (``solve_cg_reg``), K4 (``solve_cg``) and K5b (``solve_cg_aug``) are
+one body (csrc/bulk_cg.cuh) with a compile-time switch each: persistent
+blocks (`cg_grid`) that, at f <= 128, bring each system's A, b and
+x0 into a ring of two shared-memory stages with bulk-async copies and
+run the CG with A in registers and two block-wide barriers a step; at
+f = 256 A is read from device memory on each matvec, the grid holding
+no more systems in flight than stay in the L2.
 
 The row gather runs inside the kernels, so the wrappers keep the
 contracts of the JAX wrappers (`gather_gram_cg`, `gather_gram_out`,
@@ -393,7 +402,8 @@ def gram_body(table_ext: torch.Tensor) -> str:
     at f = 128, the width of the main path (csrc/gram_mma.cuh; for K1 and
     K6 the CG on the fragment of csrc/frag_cg.cuh), and at f = 256 (K1 and
     K7: pass 1 of the row cut on the tensor cores,
-    csrc/wide_span_gram_mma.cu, then pass 2); "fma" (the f32 FMA bodies
+    csrc/wide_span_gram_mma.cu, then pass 2; K2 and K5a: the same three
+    blocks, csrc/wide_gram_mma.cuh); "fma" (the f32 FMA bodies
     of csrc/common.cuh and csrc/wide.cuh) for a float32 table, which bf16
     tensor cores would round, and for every other width. A caller cannot
     choose, and neither body gives way to the other or to the plain
@@ -434,14 +444,15 @@ def gather_gram_out(table_ext, cols, vals,
     (pallas_solve.gather_gram_out). table_ext (s+1, f) f32/bf16 with a
     zero row at the pad id s; cols (R, P) int32 panel-local; vals (R, P)
     f32/bf16. Returns A (R, f, f) in out_dtype (summed in f32) and
-    b (R, f) f32. On a card the Gram runs in the body `gram_body` names;
-    on the tensor cores the bf16 products are exact and the f32 sums are
-    taken in the hardware's order."""
+    b (R, f) f32; f a multiple of 16 up to 128, or 256. On a card the
+    Gram runs in the body `gram_body` names; on the tensor cores the bf16
+    products are exact and the f32 sums are taken in the hardware's
+    order."""
     if _on_cpu(table_ext, cols, vals):
         return gather_gram_out_plain(table_ext, cols, vals, out_dtype)
     r, p = cols.shape
     f = table_ext.shape[1]
-    _check_f("gather_gram_out", f)
+    _check_f("gather_gram_out", f, wide_ok=True)
     if out_dtype not in _FLOATS:
         raise ValueError(f"out_dtype {out_dtype} not in {_FLOATS}")
     _check("table_ext", table_ext, table_ext.shape, _FLOATS)
@@ -467,63 +478,79 @@ def solve_cg_reg_plain(a, diag, b, x0, cg_iters: int = 6,
 
 
 @functools.lru_cache(maxsize=None)
-def _cg_reg_blocks_per_sm(index: int, f: int, a_bf16: int) -> int:
+def _cg_blocks_per_sm(index: int, kernel: str, f: int, a_bf16: int) -> int:
     out = ctypes.c_int(0)
     with torch.cuda.device(index):
-        err = _build.load("solve_cg_reg_blocks_per_sm")(
+        err = _build.load(f"{kernel}_blocks_per_sm")(
             f, a_bf16, ctypes.addressof(out))
     if err or out.value < 1:
-        raise RuntimeError(f"solve_cg_reg: occupancy query at f = {f}: "
-                           f"CUDA error {err}, {out.value} blocks an SM")
+        raise RuntimeError(f"{kernel}: occupancy query at f = {f}: CUDA "
+                           f"error {err}, {out.value} blocks an SM")
     return out.value
 
 
-def cg_reg_blocks_per_sm(device, f: int, dtype: torch.dtype) -> int:
-    """Blocks of K3 at this f and A dtype that fit one SM of the card
-    `device` names, as the kernel's own occupancy query gives them from
-    its registers and shared memory (csrc/solve_cg_reg.cu): two at
-    f = 128 with a bf16 A, one with an f32 A (two rings of two stages
-    pass the SM's shared memory), more at smaller f (three at f = 96
-    with an f32 A)."""
+def cg_blocks_per_sm(device, f: int, dtype: torch.dtype, kernel: str) -> int:
+    """Blocks of the batched CG `kernel` (K3 "solve_cg_reg", K4
+    "solve_cg" or K5b "solve_cg_aug", one body) at this f and A dtype
+    that fit one SM of the card `device` names, as the kernel's own
+    occupancy query gives them from its registers and shared memory
+    (csrc/bulk_cg.cuh): two at f = 128 with a bf16 A, one with an f32 A
+    (two rings of two stages pass the SM's shared memory), more at
+    smaller f (three at f = 96 with an f32 A); at f = 256 no more than
+    keep the systems in flight within three quarters of the L2 (one with
+    an f32 A on an H100, two with a bf16 A)."""
     index = device.index if device.index is not None else \
         torch.cuda.current_device()
-    return _cg_reg_blocks_per_sm(index, f, int(dtype == torch.bfloat16))
+    return _cg_blocks_per_sm(index, kernel, f,
+                             int(dtype == torch.bfloat16))
 
 
-def cg_reg_grid(r: int, sms: int, per_sm: int) -> int:
-    """Persistent blocks of one K3 launch over R systems: one a system up
-    to the blocks that fit the card at once, `per_sm` on each of `sms`
-    SMs; above that each block walks R / grid systems."""
+def cg_grid(r: int, sms: int, per_sm: int) -> int:
+    """Persistent blocks of one K3, K4 or K5b launch over R systems: one
+    a system up to the blocks that fit the card at once, `per_sm` on each
+    of `sms` SMs; above that each block walks R / grid systems."""
     return max(1, min(r, per_sm * sms))
+
+
+def _bulk_solve(name: str, a, diag, b, x0, cg_iters: int, cg_tol: float):
+    """Checks and one launch of the batched CG `name` (K3, K4 or K5b) on
+    card tensors: a (R, f, f) f32/bf16, f a multiple of 16 up to 128 or
+    256; diag (R,) f32 or None (K4); b (R, f) f32 or None (K5b); x0 (R, f)
+    f32. The kernel copies each system's A, b and x0 whole (at f <= 128
+    into shared memory, at 256 in 16-byte loads): their storage must
+    start on 16-byte boundaries."""
+    r, f, _ = a.shape
+    _check_f(name, f, wide_ok=True)
+    _check("a", a, (r, f, f), _FLOATS)
+    if diag is not None:
+        _check("diag", diag, (r,), (torch.float32,))
+    if b is not None:
+        _check("b", b, (r, f), (torch.float32,))
+    _check("x0", x0, (r, f), (torch.float32,))
+    for what, t in (("a", a), ("b", b), ("x0", x0)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name}: the storage of {what} must start on "
+                             f"a 16-byte boundary")
+    x = torch.empty((r, f), dtype=torch.float32, device=a.device)
+    if r:
+        grid = cg_grid(r, _sms(a.device),
+                       cg_blocks_per_sm(a.device, f, a.dtype, name))
+        _launch(name, a.data_ptr(), _bf16(a),
+                None if diag is None else diag.data_ptr(),
+                None if b is None else b.data_ptr(), x0.data_ptr(),
+                x.data_ptr(), r, f, int(cg_iters), float(cg_tol), grid)
+    return x
 
 
 def solve_cg_reg(a, diag, b, x0, cg_iters: int = 6, cg_tol: float = 1e-4):
     """Batched CG on the raw Gram plus a per-system diagonal
     (pallas_solve.solve_cg_pallas with diag). a (R, f, f) f32/bf16,
-    diag (R,) f32, b and x0 (R, f) f32. Returns x (R, f) f32. On a card
-    the kernel copies each system's A, b and x0 whole into shared memory
-    (csrc/bulk_cg.cuh): their storage must start on 16-byte
-    boundaries."""
+    diag (R,) f32, b and x0 (R, f) f32, f a multiple of 16 up to 128 or
+    256. Returns x (R, f) f32. On a card a, b and x0 must start on
+    16-byte boundaries (csrc/bulk_cg.cuh)."""
     if _on_cpu(a, diag, b, x0):
         return solve_cg_reg_plain(a, diag, b, x0, cg_iters, cg_tol)
-    r, f, _ = a.shape
-    _check_f("solve_cg_reg", f)
-    _check("a", a, (r, f, f), _FLOATS)
-    _check("diag", diag, (r,), (torch.float32,))
-    _check("b", b, (r, f), (torch.float32,))
-    _check("x0", x0, (r, f), (torch.float32,))
-    for name, t in (("a", a), ("b", b), ("x0", x0)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"solve_cg_reg: the storage of {name} must "
-                             f"start on a 16-byte boundary")
-    x = torch.empty((r, f), dtype=torch.float32, device=a.device)
-    if r:
-        grid = cg_reg_grid(r, _sms(a.device),
-                           cg_reg_blocks_per_sm(a.device, f, a.dtype))
-        _launch("solve_cg_reg", a.data_ptr(), _bf16(a), diag.data_ptr(),
-                b.data_ptr(), x0.data_ptr(), x.data_ptr(), r, f,
-                int(cg_iters), float(cg_tol), grid)
-    return x
+    return _bulk_solve("solve_cg_reg", a, diag, b, x0, cg_iters, cg_tol)
 
 
 # --------------------------------------------------------- K4 solve_cg --
@@ -535,21 +562,12 @@ def solve_cg_plain(a, b, x0, cg_iters: int = 6, cg_tol: float = 1e-4):
 def solve_cg(a, b, x0, cg_iters: int = 6, cg_tol: float = 1e-4):
     """Batched CG on already regularized systems
     (pallas_solve.solve_cg_pallas without diag). a (R, f, f) f32/bf16,
-    b and x0 (R, f) f32. Returns x (R, f) f32; a system of zeros returns
-    its x0."""
+    b and x0 (R, f) f32, f a multiple of 16 up to 128 or 256. Returns x
+    (R, f) f32; a system of zeros returns its x0. On a card a, b and x0
+    must start on 16-byte boundaries (K3's body, csrc/bulk_cg.cuh)."""
     if _on_cpu(a, b, x0):
         return solve_cg_plain(a, b, x0, cg_iters, cg_tol)
-    r, f, _ = a.shape
-    _check_f("solve_cg", f)
-    _check("a", a, (r, f, f), _FLOATS)
-    _check("b", b, (r, f), (torch.float32,))
-    _check("x0", x0, (r, f), (torch.float32,))
-    x = torch.empty((r, f), dtype=torch.float32, device=a.device)
-    if r:
-        _launch("solve_cg", a.data_ptr(), _bf16(a), b.data_ptr(),
-                x0.data_ptr(), x.data_ptr(), r, f, int(cg_iters),
-                float(cg_tol))
-    return x
+    return _bulk_solve("solve_cg", a, None, b, x0, cg_iters, cg_tol)
 
 
 # --------------------------------------------- K5a gather_gram_aug_out --
@@ -569,13 +587,13 @@ def gather_gram_aug_out(table_ext, cols, vals,
     < f); cols (R, P) int32 panel-local; vals (R, P) f32/bf16, rounded to
     the table's dtype as they enter lane f-1. Returns A' (R, f, f) in
     out_dtype (summed in f32): A in rows/columns < f-1, b in row and
-    column f-1, sum v^2 in the corner. On a card the Gram runs in the
-    body `gram_body` names."""
+    column f-1, sum v^2 in the corner; f a multiple of 16 up to 128, or
+    256. On a card the Gram runs in the body `gram_body` names."""
     if _on_cpu(table_ext, cols, vals):
         return gather_gram_aug_out_plain(table_ext, cols, vals, out_dtype)
     r, p = cols.shape
     f = table_ext.shape[1]
-    _check_f("gather_gram_aug_out", f)
+    _check_f("gather_gram_aug_out", f, wide_ok=True)
     if out_dtype not in _FLOATS:
         raise ValueError(f"out_dtype {out_dtype} not in {_FLOATS}")
     _check("table_ext", table_ext, table_ext.shape, _FLOATS)
@@ -604,21 +622,14 @@ def solve_cg_aug(a_aug, diag, x0, cg_iters: int = 6, cg_tol: float = 1e-4):
     """Batched CG on an augmented accumulator plus a per-system diagonal
     (pallas_solve.solve_cg_pallas with aug=True): b is row f-1 of A',
     row and column f-1 are masked, and the unpack never passes over
-    device memory. a_aug (R, f, f) f32/bf16, diag (R,) f32, x0 (R, f)
-    f32 with lane f-1 zero. Returns x (R, f) f32, lane f-1 exactly 0."""
+    device memory. a_aug (R, f, f) f32/bf16, f a multiple of 16 up to
+    128 or 256, diag (R,) f32, x0 (R, f) f32 with lane f-1 zero. Returns
+    x (R, f) f32, lane f-1 exactly 0. On a card a_aug and x0 must start
+    on 16-byte boundaries (K3's body, csrc/bulk_cg.cuh)."""
     if _on_cpu(a_aug, diag, x0):
         return solve_cg_aug_plain(a_aug, diag, x0, cg_iters, cg_tol)
-    r, f, _ = a_aug.shape
-    _check_f("solve_cg_aug", f)
-    _check("a_aug", a_aug, (r, f, f), _FLOATS)
-    _check("diag", diag, (r,), (torch.float32,))
-    _check("x0", x0, (r, f), (torch.float32,))
-    x = torch.empty((r, f), dtype=torch.float32, device=a_aug.device)
-    if r:
-        _launch("solve_cg_aug", a_aug.data_ptr(), _bf16(a_aug),
-                diag.data_ptr(), x0.data_ptr(), x.data_ptr(), r, f,
-                int(cg_iters), float(cg_tol))
-    return x
+    return _bulk_solve("solve_cg_aug", a_aug, diag, None, x0, cg_iters,
+                       cg_tol)
 
 
 # ------------------------------------ K7 gather_gram_cg_wide / K8 cat --

@@ -34,8 +34,7 @@ Not ported, XLA dispatch and TPU-memory workarounds: `fused_iteration`,
 with no effect. As the JAX model, this one writes no save_model dumps.
 
 At F > 128 (f_pad 256) the partials of two or more ranks go through K2
-and K3, which take f <= 128 and raise at 256 with their names (ROADMAP
-queue C); their plain versions, on the CPU, take f_pad 256.
+and K3 at f = 256, as at 128.
 """
 
 from __future__ import annotations

@@ -44,8 +44,7 @@ every rank, so every rank calls them.
 Not ported, XLA dispatch and TPU-memory workarounds:
 `call_with_vmem_backoff`, the grouping of theta steps by
 `fuse_max_chunks`. At F > 128 (f_pad 256) the theta steps and the hot
-segments go through K2 and K3, which take f <= 128 and raise at 256 with
-their names (ROADMAP queue C).
+segments go through K2 and K3 at f = 256, as at 128.
 """
 
 from __future__ import annotations

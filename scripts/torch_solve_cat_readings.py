@@ -15,12 +15,12 @@ builds the Netflix-shaped data (scale 1.0) as chip_smoke.py does, and:
   is the CG. Times are CUDA events around one launch (`time_ms`) and
   device time behind queued work (`queued_ms`); x against the plain
   version at cg_iters 6.
-- K4 (`solve_cg`) and K5b (`solve_cg_aug`), which keep the
-  one-block-a-system CG of csrc/common.cuh, on the same slice in float32:
-  K4 on f32(A) + diag I with b beside it, K5b on the augmented A' that
-  carries b in row and column f - 1 (lane 127 is free at F=100), at the
-  run's cg_iters, by events and device time: the yardstick of a
-  comparison between two trees, since neither kernel's code differs.
+- K4 (`solve_cg`) and K5b (`solve_cg_aug`) on the same slice in
+  float32: K4 on f32(A) + diag I with b beside it, K5b on the augmented
+  A' that carries b in row and column f - 1 (lane 127 is free at F=100),
+  at the run's cg_iters, by events and device time. Both run K3's body
+  (csrc/bulk_cg.cuh); a tree from before that change ran them on a
+  one-block-a-system CG, so the two trees compare the designs.
 - K8 (`fused_gram_cg_cat`) on the most populous theta chunk of the
   F=200 plan (R=16384, P=256, f2 = 96), G gathered with torch from the
   bf16 table and from a float32 copy of it, by events, and beside it K1

@@ -12,6 +12,7 @@ tests of the augmented routes and their gates."""
 import contextlib
 import io
 
+import jax
 import numpy as np
 import pytest
 import jax.experimental.pallas as pl
@@ -52,6 +53,10 @@ def interpret_pallas(monkeypatch):
     yield
     for flag in flags:
         setattr(ps, flag, None)
+    # the jit caches keep what was traced in interpret mode: a gate's probe
+    # that hits them afterwards would pass, and send a later test's JAX
+    # model down its Pallas route on the CPU
+    jax.clear_caches()
 
 
 @pytest.fixture(scope="module")

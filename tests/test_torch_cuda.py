@@ -157,13 +157,13 @@ def test_aug_kernels_match_plain(card, f, dtype):
         "solve_cg_aug": 1, "solve_cg": 1}
 
 
-def _edge_chunk(p, r, kind, seed=0):
+def _edge_chunk(p, r, kind, seed=0, f=128):
     """The chunk of tests/test_torch_gram.py: r rows of p slots at
-    f = 128, pad slots at each row's tail; with r > 1 row 0 is full and
-    row 2 holds pad slots only; lane 127 of the table free for the aug
-    form. kind "integers": a table of small integers, so that every sum
-    is exact in f32 in any order."""
-    n, f = 60, 128
+    f = 128 (or `f`), pad slots at each row's tail; with r > 1 row 0 is
+    full and row 2 holds pad slots only; lane f - 1 of the table free for
+    the aug form. kind "integers": a table of small integers, so that
+    every sum is exact in f32 in any order."""
+    n = 60
     rng = np.random.RandomState(seed + 131 * p + r)
     if kind == "integers":
         table = rng.randint(-4, 5, (n + 1, f)).astype(np.float32)
@@ -213,6 +213,43 @@ def test_gram_kernels_at_the_tile_edges(card, p, r, table_dtype, out_dtype,
         _assert_gram_close(a, pa, p, body)
         _assert_gram_close(a5, pa5, p, body)
         torch.testing.assert_close(b.cpu(), pb, rtol=1e-5, atol=1e-5)
+    for out in (a, b, a5):
+        assert torch.all(out[empty.to(card)] == 0)
+    assert cs.LAUNCHES == dict.fromkeys(cs.LAUNCHES, 0) | {
+        "gather_gram_out": 1, "gather_gram_aug_out": 1}
+
+
+@pytest.mark.parametrize("p", [8, 72, 136, 520])
+@pytest.mark.parametrize("table_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["integers", "random"])
+def test_panel_grams_at_256_lanes(card, p, table_dtype, out_dtype, kind):
+    """K2 and K5a at f = 256 (factor widths 128 < F <= 256) against their
+    plain versions, in both bodies (a bf16 table runs the three
+    tensor-core blocks of csrc/wide_gram_mma.cuh, a float32 table the FMA
+    body of csrc/wide.cuh): bit for bit on an integer table (the proof
+    of the block layout, the transposed (1, 0) block and the value in
+    lane 255), within `gram_limit` on a random one; A symmetric; rows of
+    pad slots only exactly 0."""
+    table, cols, vals, empty = _edge_chunk(p, 5, kind, f=256)
+    cpu = (table.to(table_dtype), cols, vals)
+    gpu = tuple(t.to(card) for t in cpu)
+    body = cs.gram_body(gpu[0])
+    a, b = cs.gather_gram_out(*gpu, out_dtype=out_dtype)
+    pa, pb = cs.gather_gram_out(*cpu, out_dtype=out_dtype)
+    a5 = cs.gather_gram_aug_out(*gpu, out_dtype=out_dtype)
+    pa5 = cs.gather_gram_aug_out(*cpu, out_dtype=out_dtype)
+    assert a.shape == a5.shape == (5, 256, 256)
+    if kind == "integers":
+        assert torch.equal(a.cpu(), pa) and torch.equal(b.cpu(), pb)
+        assert torch.equal(a5.cpu(), pa5)
+    else:
+        _assert_gram_close(a, pa, p, body)
+        _assert_gram_close(a5, pa5, p, body)
+        torch.testing.assert_close(b.cpu(), pb, rtol=1e-5, atol=1e-5)
+    for out in (a, a5):
+        off = out[:, :128, 128:]
+        assert torch.equal(off, out[:, 128:, :128].transpose(1, 2))
     for out in (a, b, a5):
         assert torch.all(out[empty.to(card)] == 0)
     assert cs.LAUNCHES == dict.fromkeys(cs.LAUNCHES, 0) | {
@@ -380,11 +417,23 @@ def test_solve_dispatch_launches_a_kernel_or_raises(card):
     assert cs.LAUNCHES["solve_cg_reg"] == 1
     solve(a, None, x0, diag=diag, aug=True, **kw)
     assert cs.LAUNCHES["solve_cg_aug"] == 1
+    # f = 256 (128 < F <= 256): K4, K3 and K5b launch there too
     wide = torch.eye(256, device=card).repeat(R, 1, 1).contiguous()
+    bw = torch.ones((R, 256), device=card)
+    x0w = torch.zeros((R, 256), device=card)
+    torch.testing.assert_close(solve(wide, bw, x0w, **kw), bw)
+    torch.testing.assert_close(solve(wide, bw, x0w, diag=diag, **kw),
+                               bw / 2)
+    xa = solve(wide, None, x0w, diag=diag, aug=True, **kw)
+    # A' = I: b, row 255 without its lane 255, is 0
+    assert bool((xa == 0).all())
+    assert cs.LAUNCHES == dict.fromkeys(cs.LAUNCHES, 0) | {
+        "solve_cg": 2, "solve_cg_reg": 2, "solve_cg_aug": 2}
+    odd = torch.eye(136, device=card).repeat(R, 1, 1).contiguous()
     with pytest.raises(ValueError):
-        solve(wide, torch.ones((R, 256), device=card),
-              torch.zeros((R, 256), device=card), **kw)
-    assert sum(cs.LAUNCHES.values()) == 3
+        solve(odd, torch.ones((R, 136), device=card),
+              torch.zeros((R, 136), device=card), **kw)
+    assert sum(cs.LAUNCHES.values()) == 6
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(card):
@@ -406,15 +455,12 @@ def test_wrappers_reject_what_the_kernels_do_not_take(card):
                           aug=True)
     with pytest.raises(ValueError):     # int64 ids
         cs.gather_gram_aug_out(table, cols.long(), vals)
-    # f = 256: K1 alone takes it; K6 and the panel kernels name themselves
+    # f = 256: K6 alone of the 128-lane kernels names itself (K1, K2 and
+    # K5a take it: below)
     wide = torch.zeros((N + 1, 256), device=card)
     x0w = torch.zeros((R, 256), device=card)
     with pytest.raises(ValueError, match="gather_gram_cg_aug"):
         cs.gather_gram_cg(wide, cols, vals, nnz, x0w, LAM, aug=True)
-    with pytest.raises(ValueError, match="gather_gram_out"):
-        cs.gather_gram_out(wide, cols, vals)
-    with pytest.raises(ValueError, match="gather_gram_aug_out"):
-        cs.gather_gram_aug_out(wide, cols, vals)
     with pytest.raises(ValueError):     # a 128-lane table
         cs.gather_gram_cg_wide(table, cols, vals, nnz, x0w, LAM, 32)
     with pytest.raises(ValueError):     # f2 off the grid
@@ -426,6 +472,22 @@ def test_wrappers_reject_what_the_kernels_do_not_take(card):
     with pytest.raises(ValueError):     # a strided g2
         cs.fused_gram_cg_cat(g1, g1[:, :, :32], vals, nnz, x0w, LAM)
     assert sum(cs.LAUNCHES.values()) == 0
+    # K2 and K5a at f = 256 launch and agree with their plain versions
+    wide = torch.from_numpy(
+        np.random.RandomState(5).standard_normal((N + 1, 256)).astype(
+            np.float32) * 0.3).to(card).to(torch.bfloat16)
+    wide[N] = 0
+    wide[:, 255] = 0
+    a, b = cs.gather_gram_out(wide, cols, vals)
+    pa, pb = cs.gather_gram_out_plain(wide, cols, vals)
+    _assert_gram_close(a, pa.cpu(), P, "wgmma")
+    torch.testing.assert_close(b, pb, rtol=1e-5, atol=1e-5)
+    a5 = cs.gather_gram_aug_out(wide, cols, vals)
+    _assert_gram_close(a5, cs.gather_gram_aug_out_plain(wide, cols,
+                                                         vals).cpu(),
+                       P, "wgmma")
+    assert cs.LAUNCHES == dict.fromkeys(cs.LAUNCHES, 0) | {
+        "gather_gram_out": 1, "gather_gram_aug_out": 1}
 
 
 # ----------------------- the row cut of the 256-lane body (K1, K7) --
@@ -766,8 +828,8 @@ def k3_systems(r, f, dtype, seed=0):
 
 
 def _k3_grid(card, f, dtype):
-    return cs.cg_reg_grid(1 << 30, cs._sms(card),
-                          cs.cg_reg_blocks_per_sm(card, f, dtype))
+    return cs.cg_grid(1 << 30, cs._sms(card),
+                      cs.cg_blocks_per_sm(card, f, dtype, "solve_cg_reg"))
 
 
 @pytest.mark.parametrize("f,dtype,least,most", [
@@ -781,7 +843,8 @@ def test_k3_blocks_per_sm(card, f, dtype, least, most):
     stages a block: one block); more where a block's registers and
     stages leave room (three at f = 96 with an f32 A), at most the SM's
     2,048 threads. It launches nothing."""
-    assert least <= cs.cg_reg_blocks_per_sm(card, f, dtype) <= most
+    assert least <= cs.cg_blocks_per_sm(card, f, dtype,
+                                        "solve_cg_reg") <= most
     assert cs.LAUNCHES == dict.fromkeys(cs.LAUNCHES, 0)
 
 
@@ -855,6 +918,78 @@ def test_k3_takes_storage_on_16_byte_boundaries_only(card):
     with pytest.raises(ValueError, match="16-byte"):
         cs.solve_cg_reg(shifted, diag, b, x0)
     assert cs.LAUNCHES["solve_cg_reg"] == 0
+
+
+# ------------------- K3, K4 and K5b: one body (csrc/bulk_cg.cuh) ------
+SOLVES = ("solve_cg_reg", "solve_cg", "solve_cg_aug")
+
+
+def solve_args(kernel, cpu):
+    """The arguments of `kernel` from k3_systems' (a, diag, b, x0): K4
+    takes A + diag I and b; K5b takes A' = A with b in row f - 1 (and
+    its column) and the diagonal, and x0 with lane f - 1 zero."""
+    a, diag, b, x0 = cpu
+    f = a.shape[-1]
+    if kernel == "solve_cg_reg":
+        return a, diag, b, x0
+    if kernel == "solve_cg":
+        return (a.float() + diag[:, None, None] * torch.eye(f)).to(
+            a.dtype), b, x0
+    aug = a.clone()
+    aug[:, f - 1, :] = b.to(a.dtype)
+    aug[:, :, f - 1] = b.to(a.dtype)
+    x0 = x0.clone()
+    x0[:, f - 1] = 0.0
+    return aug, diag, x0
+
+
+def run_solve(kernel, args, **kw):
+    return getattr(cs, kernel)(*args, **kw)
+
+
+@pytest.mark.parametrize("kernel", SOLVES)
+@pytest.mark.parametrize("f", list(range(16, 129, 16)) + [256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_solves_match_plain_at_every_width(card, kernel, f, dtype):
+    """K3, K4 and K5b against their plain versions (x within 2e-3) at
+    every f they take, f = 256 included, with a bf16 and a float32 A;
+    one launch, on a grid of the kernel's own occupancy query; K5b's
+    lane f - 1 of x exactly 0."""
+    cpu = solve_args(kernel, k3_systems(40, f, dtype))
+    x = run_solve(kernel, [t.to(card) for t in cpu])
+    px = run_solve(kernel, cpu)
+    torch.testing.assert_close(x.cpu(), px, atol=2e-3, rtol=0)
+    if kernel == "solve_cg_aug":
+        assert bool((x[:, f - 1] == 0).all())
+    assert cs.LAUNCHES == dict.fromkeys(cs.LAUNCHES, 0) | {kernel: 1}
+
+
+@pytest.mark.parametrize("kernel", SOLVES)
+@pytest.mark.parametrize("f", [128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_solves_zero_systems_iters_0_repeat_and_grid(card, kernel, f,
+                                                     dtype):
+    """Over more systems than the persistent grid: an all-zero system
+    (K3 and K5b with diag 0) returns its x0 exactly; cg_iters 0 returns
+    x0 exactly; a second run equals the first bit for bit; the kernel's
+    occupancy query gives at least one block an SM (at f = 256 no more
+    than keep the systems in flight within the L2)."""
+    per_sm = cs.cg_blocks_per_sm(card, f, dtype, kernel)
+    assert per_sm >= 1
+    r = cs.cg_grid(1 << 30, cs._sms(card), per_sm) + 7
+    a, diag, b, x0 = k3_systems(r, f, dtype, seed=4)
+    a[2] = 0.0
+    diag[2] = 0.0
+    b[2] = 0.0
+    args = solve_args(kernel, (a, diag, b, x0))
+    gpu = [t.to(card) for t in args]
+    x = run_solve(kernel, gpu)
+    x0_used = args[-1]
+    assert torch.equal(x[2].cpu(), x0_used[2])
+    torch.testing.assert_close(x.cpu(), run_solve(kernel, args), atol=2e-3,
+                               rtol=0)
+    assert torch.equal(run_solve(kernel, gpu), x)
+    assert torch.equal(run_solve(kernel, gpu, cg_iters=0).cpu(), x0_used)
 
 
 # ------------------------- K8 on the two passes of the row cut (bf16 G) --
@@ -1011,14 +1146,37 @@ def test_out_of_core_on_the_card_matches_the_cpu(card, factor_dtype):
     np.testing.assert_allclose(res.theta, ref.theta, atol=2e-3)
 
 
+# K1 at f = 256 on a bf16 table runs as the two passes of its row cut,
+# each counted under its own name, as often as the row batches set
+K1_PASSES = ("wide_span_gram_mma", "wide_span_solve")
+
+
+def _launched_as_planned(want, f):
+    """cs.LAUNCHES against the plans' counts `want`, every other kernel
+    none: exact at f_pad = 128; at f_pad = 256 K1's count (under
+    gather_gram_cg in `want`) goes to the two passes of its row cut,
+    which must both launch where K1 runs, and every other count is
+    exact."""
+    if f <= 128:
+        assert cs.LAUNCHES == dict.fromkeys(cs.LAUNCHES, 0) | want
+        return
+    k1 = want.pop("gather_gram_cg", 0)
+    got = {k: v for k, v in cs.LAUNCHES.items() if k not in K1_PASSES}
+    assert got == dict.fromkeys(got, 0) | want
+    assert all((cs.LAUNCHES[k] > 0) == (k1 > 0) for k in K1_PASSES)
+
+
 @pytest.mark.parametrize("gram_dtype", ["bf16", "f32"])
-def test_sharded_world_one_on_the_card_matches_the_cpu(card, gram_dtype):
+@pytest.mark.parametrize("f", [100, 200])
+def test_sharded_world_one_on_the_card_matches_the_cpu(card, gram_dtype, f):
     """ShardedALS at one rank on the card against the same run on the CPU,
     with X on the panel route (panels of 16 theta rows) and theta in
     reduce blocks of 32 rows solved by K1: bf16 accumulators take K2 and
     K3, f32 ones the augmented K5a and K5b. Each kernel launches as often
     as the plans say; two ranks on the card (gloo, both on cuda:0) match
-    two ranks on the CPU, theta equal bit for bit on the two ranks."""
+    two ranks on the CPU, theta equal bit for bit on the two ranks. At
+    F = 200 (f_pad = 256) every kernel of the two routes runs at 256
+    lanes."""
     from cumf_als_tpu_torch.config import ALSConfig
     from cumf_als_tpu_torch.data.synthetic import (init_factors,
                                                    synthetic_ratings)
@@ -1026,20 +1184,20 @@ def test_sharded_world_one_on_the_card_matches_the_cpu(card, gram_dtype):
     from cumf_als_tpu_torch.parallel.sharded_als import ShardedALS, run_rank
     train, test = synthetic_ratings(m=300, n=220, nnz=12000, nnz_test=1500,
                                     rank=6, noise=0.1, seed=7)
-    cfg = ALSConfig(m=300, n=220, f=100, lam=0.5, iters=3, verbose=False,
+    cfg = ALSConfig(m=300, n=220, f=f, lam=0.5, iters=3, verbose=False,
                     debug_timing=False, panel_size=16, chunk_nnz=1 << 9,
                     chunk_rows=32, factor_dtype="bf16",
                     gram_dtype=gram_dtype, backend="pallas", solver="cg")
-    x0, th0 = init_factors(300, 220, 100, seed=2)
+    x0, th0 = init_factors(300, 220, f, seed=2)
     model = ShardedALS(cfg, train, None, test, block_rows=32, device=card)
     assert model.x_steps is not None and model.single_fused()
     res = model.run(x0, th0)
     gram, sol = ("gather_gram_out", "solve_cg_reg") if gram_dtype == \
         "bf16" else ("gather_gram_aug_out", "solve_cg_aug")
     slices = model._x_m_pad // model._x_solve_batch
-    assert cs.LAUNCHES == dict.fromkeys(cs.LAUNCHES, 0) | {
+    _launched_as_planned({
         "gather_gram_cg": 3 * len(model.reduce_plan.blocks),
-        gram: 3 * len(model.x_steps), sol: 3 * slices}
+        gram: 3 * len(model.x_steps), sol: 3 * slices}, f)
     ref = ShardedALS(cfg, train, None, test, block_rows=32,
                      device="cpu").run(x0, th0)
     for a, b in zip(ref.history, res.history):
@@ -1063,7 +1221,9 @@ def test_sharded_world_one_on_the_card_matches_the_cpu(card, gram_dtype):
 
 
 @pytest.mark.parametrize("place", ["host", "device"])
-def test_sharded_ooc_on_the_card_matches_the_cpu(card, place, monkeypatch):
+@pytest.mark.parametrize("f", [100, 200])
+def test_sharded_ooc_on_the_card_matches_the_cpu(card, place, f,
+                                                 monkeypatch):
     """ShardedOutOfCoreALS at one rank on the card against the same run on
     the CPU, with panels of 16 X rows and X chunks of at most 32 rows (the
     table buffers and chunk slots turn over many times a phase). X on the
@@ -1071,7 +1231,8 @@ def test_sharded_ooc_on_the_card_matches_the_cpu(card, place, monkeypatch):
     over all of theta. X on the card: K1 on the X chunks and on theta's
     rows against the device X, and with THETA_SEG_W = 64 the hot columns'
     segments by K2 (f32 A) and their solve by K3. Each kernel launches as
-    often as the plans say."""
+    often as the plans say. At F = 200 (f_pad = 256) K1 takes the two
+    passes of its row cut, K2 and K3 their 256-lane bodies."""
     from cumf_als_tpu_torch.config import ALSConfig
     from cumf_als_tpu_torch.data.synthetic import (init_factors,
                                                    synthetic_ratings)
@@ -1079,11 +1240,11 @@ def test_sharded_ooc_on_the_card_matches_the_cpu(card, place, monkeypatch):
     monkeypatch.setattr(so.ShardedOutOfCoreALS, "THETA_SEG_W", 64)
     train, test = synthetic_ratings(m=300, n=220, nnz=12000, nnz_test=1500,
                                     rank=6, noise=0.1, seed=7)
-    cfg = ALSConfig(m=300, n=220, f=100, lam=0.5, iters=3, verbose=False,
+    cfg = ALSConfig(m=300, n=220, f=f, lam=0.5, iters=3, verbose=False,
                     debug_timing=False, panel_size=16, chunk_nnz=1 << 9,
                     chunk_rows=32, factor_dtype="bf16", gram_dtype="f32",
                     backend="pallas", solver="cg", x_placement=place)
-    x0, th0 = init_factors(300, 220, 100, seed=2)
+    x0, th0 = init_factors(300, 220, f, seed=2)
     model = so.ShardedOutOfCoreALS(cfg, train, None, test, device=card)
     res = model.run(x0, th0)
     n_x = len(model.row_plan.chunks)
@@ -1097,7 +1258,7 @@ def test_sharded_ooc_on_the_card_matches_the_cpu(card, place, monkeypatch):
         want = {"gather_gram_cg": 3 * (n_x + len(model.th_plan.chunks)),
                 "gather_gram_out": 3 * len(model._hot_chunks),
                 "solve_cg_reg": 3}
-    assert cs.LAUNCHES == dict.fromkeys(cs.LAUNCHES, 0) | want
+    _launched_as_planned(want, f)
     ref = so.ShardedOutOfCoreALS(cfg, train, None, test,
                                  device="cpu").run(x0, th0)
     for a, b in zip(ref.history, res.history):
@@ -1132,6 +1293,34 @@ def test_k2_on_a_hot_segment_chunk(card, table_dtype):
     pa, pb = cs.gather_gram_out_plain(*args, out_dtype=torch.float32)
     body = cs.gram_body(args[0])
     _assert_gram_close(a, pa.cpu(), p, body)
+    torch.testing.assert_close(b, pb, rtol=1e-5, atol=1e-5)
+    assert bool((a[-1] == 0).all()) and bool((b[-1] == 0).all())
+
+
+def test_k2_at_256_on_a_hot_segment_chunk(card):
+    """K2 at f = 256 (the hot segments of sharded out-of-core training at
+    F > 128) on a bf16 table with an f32 A: R = 16 segments of P = 2^18
+    slots, the last ones partly filled and one empty, against its plain
+    version, A to `gram_limit`, b within rtol 1e-5 + 1e-5."""
+    rng = np.random.RandomState(4)
+    r, p, n, f = 16, 1 << 18, 100_000, 256
+    table = torch.from_numpy(
+        0.2 * rng.random_sample((n + 1, f)).astype(np.float32))
+    table[n] = 0
+    lens = np.full(r, p)
+    lens[-3:] = (p // 3, 17, 0)
+    cols = np.full((r, p), n, np.int32)
+    vals = np.zeros((r, p), np.float32)
+    for i, k in enumerate(lens):
+        cols[i, :k] = rng.randint(0, n, k)
+        vals[i, :k] = rng.randint(1, 11, k) / 2
+    args = (table.to(torch.bfloat16).to(card),
+            torch.from_numpy(cols).to(card), torch.from_numpy(vals).to(card))
+    a, b = cs.gather_gram_out(*args, out_dtype=torch.float32)
+    assert cs.LAUNCHES["gather_gram_out"] == 1
+    pa, pb = cs.gather_gram_out_plain(*args, out_dtype=torch.float32)
+    _assert_gram_close(a, pa.cpu(), p, "wgmma")
+    del pa
     torch.testing.assert_close(b, pb, rtol=1e-5, atol=1e-5)
     assert bool((a[-1] == 0).all()) and bool((b[-1] == 0).all())
 

@@ -126,6 +126,15 @@ def test_state_dir_resumes_across_packages(tmp_path, capsys, monkeypatch):
     from cumf_als_tpu_torch.parallel import sharded_ooc as so
     # the JAX set-up of the test run stands (no compile cache in HOME)
     monkeypatch.setattr(jax_setup, "setup_jax", lambda *a, **k: None)
+    # the JAX script's CPU route: its gates probe anew, and no kernel a test
+    # traced in interpret mode before this one answers a probe from the jit
+    # caches (it would pass, and the script would take its Pallas route)
+    import jax
+    import cumf_als_tpu.ops.pallas_solve as ps
+    jax.clear_caches()
+    for flag in ("_STATUS", "_AUG_STATUS", "_CG_STATUS",
+                 "_PANEL_AUG_STATUS", "_WIDE_STATUS"):
+        monkeypatch.setattr(ps, flag, None)
     host = BASE + ["--iters", "3", "--x-placement", "host"]
     sd = str(tmp_path / "state")
     assert hw.main(host + ["--state-dir", sd]) == 0

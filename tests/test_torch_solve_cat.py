@@ -1,7 +1,7 @@
 """The host side of K3's persistent design and of K8's two-pass route,
 and the plain version of that route against the JAX package.
 
-K3 (`solve_cg_reg`) launches persistent blocks: `cg_reg_grid` (one
+K3 (`solve_cg_reg`) launches persistent blocks: `cg_grid` (one
 block a system up to what fits the card; the blocks an SM come from the
 kernel's occupancy query, held on the card in tests/test_torch_cuda.py). K8 (`fused_gram_cg_cat`) chooses its body from G's dtype and f2
 alone (`cat_body`); on the two passes its CPU reference is
@@ -33,7 +33,7 @@ LAM = 0.05
 def test_k3_persistent_grid(r, sms, per_sm, want):
     """One block a system up to the blocks that fit the card at once;
     above that every block walks several systems."""
-    assert cs.cg_reg_grid(r, sms, per_sm) == want
+    assert cs.cg_grid(r, sms, per_sm) == want
 
 
 @pytest.mark.parametrize("dtype,f2,want", [

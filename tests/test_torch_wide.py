@@ -219,8 +219,9 @@ def test_wide_enabled_matches(monkeypatch, fields, want):
 
 
 def test_k2_to_k6_name_themselves_at_256_lanes():
-    """Only K1 takes f = 256: the message of every other f check names
-    the kernel that refused (the checks run before any device work)."""
+    """Without `wide_ok` the f check refuses 256 and its message names
+    the kernel that refused (K6 alone calls it so; K1-K5b pass wide_ok);
+    the checks run before any device work."""
     for name in ("gather_gram_out", "solve_cg_reg", "solve_cg",
                  "gather_gram_aug_out", "solve_cg_aug",
                  "gather_gram_cg_aug"):
