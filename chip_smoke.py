@@ -79,6 +79,21 @@ result line):
       the tensor cores reading the two slabs), each equal bit for bit to
       K1 at f=256 as routed on that table, and one chunk on a float32 G
       (the FMA kernel) against K1's uncut kernel on a float32 copy;
+   e. K6 at f=256 (aug_gram="force", wide_kernel "off", on the same
+      plans: X split, theta direct): K6 against its plain version on the
+      most populous theta chunk (the two passes, pass 1 on the tensor
+      cores with the values over lane 255), on the split X chunk with the
+      fewest rows (the cut, S > 1) with the bf16 table and a float32 copy
+      (the cut on the FMA body), and on the most populous theta chunk of
+      a float32 table (K6's uncut kernel), x within 2e-3, se within 1e-3
+      relative, lane 255 of x exactly 0, a repeat equal bit for bit; each
+      pass alone on the populous chunk (tensor cores) and the float32
+      split chunk (FMA body), pass 1's A' through the record layout
+      within `gram_limit`, pass 2 on those records; then
+      `ALS.run` for 2 iterations, K6 counting one a chunk and its two
+      passes launched, train RMSE within 1e-3 of (c)'s wide-off run at
+      every iteration and test RMSE falling. Its numbers go into the
+      `kernels` line as K6's `f256` and `f256_launches`;
 6. the batched-panel route at full width on the same data, F=100, bf16
    factors, backend "pallas", Cholesky, `panel_budget_bytes` 2^29 and
    `batch_rows` 4096: the X accumulators (1.16 GB) pass the budget, so X
@@ -275,11 +290,11 @@ K2, K3 and K4 alone, runs phase 12 and prints no result line.
 
     python3 chip_smoke.py --panel-256
 
-is the short call for the panel and solve kernels at 256 lanes: it
-builds K1 (and its two passes at 256 lanes), K2, K3, K4, K5a and K5b
-(with the ptxas report), runs phase 5's wide-off F=200 run (2
-iterations, the reference of 13d), then phase 13, and prints no result
-line.
+is the short call for the panel and solve kernels at 256 lanes and for
+K6 at 256 lanes: it builds K1 and K6 (and the three pass kernels), K2,
+K3, K4, K5a and K5b (with the ptxas report), runs phase 5's wide-off
+F=200 run (2 iterations, the reference of 5e and 13d), phase 5e on its
+plans, then phase 13, and prints no result line.
 
     python3 chip_smoke.py --wide
 
@@ -346,10 +361,11 @@ SPAN_KERNELS = ("wide_span_gram", "wide_span_gram_mma", "wide_span_solve")
 # on the tensor cores
 MMA_PASSES = ("wide_span_gram_mma", "wide_span_solve")
 WIDE_SHORT = ("gather_gram_cg", "gather_gram_cg_wide") + SPAN_KERNELS
-# the short call of phase 13: K1 (at 256 lanes its two passes), K2, K3,
-# K4, K5a, K5b
-PANEL_256_SHORT = SPLIT_KERNELS + AUG_KERNELS[1:] + ("solve_cg",) + \
-    MMA_PASSES
+# the short call of phases 5e and 13: K1 and K6 (at 256 lanes their two
+# passes; K6's uncut kernel and the FMA pass 1 on a float32 table), K2,
+# K3, K4, K5a, K5b
+PANEL_256_SHORT = SPLIT_KERNELS + AUG_KERNELS + ("solve_cg",) + \
+    SPAN_KERNELS
 # the device times (ms) of the 256-lane kernels on the same chunks on the
 # FMA body, before the tensor-core pass 1 (the bracketed times of PERF.md
 # §6; NVIDIA H100 80GB HBM3, 700.00 W):
@@ -537,7 +553,8 @@ def ptxas_lines(build_log):
         lines = build_log[name].splitlines()
         regs, spills, smem = [], [], []
         for i, line in enumerate(lines):
-            if "Compiling entry function" in line and "mma_kernel" in line:
+            if "Compiling entry function" in line and (
+                    "mma_kernel" in line or "panel_stream_kernel" in line):
                 info = " ".join(lines[i + 1:i + 5])
                 regs += [int(x) for x in re.findall(r"Used (\d+) registers",
                                                     info)]
@@ -2003,6 +2020,9 @@ def wide_paths(cs, ALS, cfg, train, csc, test, small_train, small_test,
             raise AssertionError("a 256-lane chunk did not run the tensor-"
                                  "core pass 1")
 
+    # ---- 5e. K6 at 256 lanes: aug_gram="force" on the same plans
+    aug_256(cs, al_off, hist_off, results)
+
     # ---- 5d. K8's path: no route of ALS calls it (as in the JAX
     # package), so its public wrapper runs over every theta chunk on a G
     # gathered with torch from the bf16 table (the two passes, pass 1 on
@@ -2089,6 +2109,230 @@ def wide_paths(cs, ALS, cfg, train, csc, test, small_train, small_test,
             "wide_span_gram": f32_on["wide_span_gram"],
             "fused_gram_cg_cat": k8_launches["fused_gram_cg_cat"],
             **{k: launches_on[k] for k in MMA_PASSES}}, hist_off
+
+
+# ------------------------------------------------------------ phase 5e --
+AUG_256_ITERS = 2
+
+
+def check_k6_256(cs, table_ext, ch, current, cfg, label):
+    """K6 (gather_gram_cg(aug=True)) at f = 256 on one chunk of a 256-lane
+    table whose lane 255 is free, as the wrapper routes it (a bf16 table:
+    the two passes, pass 1 on the tensor cores with the values over lane
+    255; a float32 one: the uncut kernel, or the cut on the FMA body
+    under the SM count): against the uncut plain version with K1's
+    limits at f = 256 (x 2e-3, se 1e-3 relative), lane 255 of x, empty
+    rows and the dummy rows exactly 0, a second call equal bit for bit.
+    Prints the route, its launches, the device time, the plain version's
+    and the bound (the live work of `wide_work` at 256 lanes)."""
+    x0 = chunk_x0(ch, current)
+    args = (table_ext, ch.cols, ch.vals, ch.nnz, x0, cfg.lam)
+    kw = dict(cg_iters=cfg.cg_iters, cg_tol=cfg.cg_tol, aug=True)
+    cs.reset_launch_counts()
+    x, se = cs.gather_gram_cg(*args, **kw)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in cs.LAUNCHES.items() if v}
+    x2, se2 = cs.gather_gram_cg(*args, **kw)
+    same = torch.equal(x, x2) and torch.equal(se, se2)
+    del x2, se2
+    px, pse = cs.gather_gram_cg_aug_plain(*args, cfg.cg_iters, cfg.cg_tol)
+    err = (x - px).abs().max().item()
+    se_rel = ((se - pse).abs() / pse.abs().clamp_min(1.0)).max().item()
+    del px, pse
+    zero_ok = bool((x[:, 255] == 0).all()) and \
+        bool((x[ch.nnz == 0] == 0).all()) and \
+        bool((se[ch.nnz == 0] == 0).all())
+    ms = queued_ms(lambda: cs.gather_gram_cg(*args, **kw))
+    plain = queued_ms(lambda: cs.gather_gram_cg_aug_plain(
+        *args, cfg.cg_iters, cfg.cg_tol), reps=3)
+    r, p = ch.cols.shape
+    read, flops = wide_work(table_ext, ch, 256)
+    bms, by = bound_ms(read + r * 256 * 4 + nbytes(x, se), flops,
+                       table_ext.dtype)
+    ok = err <= 2e-3 and se_rel <= 1e-3 and zero_ok and same
+    route = route_of(cs, table_ext, r, p)[0]
+    log(f"[K6 gather_gram_cg_aug f=256] {label} chunk R={r} P={p}, table "
+        f"{table_ext.dtype} ({route}; launches of one call {launches}): "
+        f"max|dx|={err:.3e} (limit 2e-3), max rel dse={se_rel:.3e} (limit "
+        f"1e-3), lane 255 of x and empty rows exactly 0: {zero_ok}, a "
+        f"second call equal bit for bit: {same}; device time {ms:.3f} ms, "
+        f"plain {plain:.3f} ms, bound {bms:.4f} ms ({by}); "
+        f"{'OK' if ok else 'FAIL'}")
+    return ok, dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                    bound_by=by, library_ms=None, shape=[r, p],
+                    launches_one_call=launches, route=route)
+
+
+def check_k6_passes(cs, table_ext, ch, current, cfg, label):
+    """Each pass of K6 at f = 256 alone on one chunk, in the spans the
+    wrapper cuts it into (`route_of`): pass 1 (`span_grams` with aug: on
+    the tensor cores for a bf16 table, on the FMA body for a float32
+    one) against `span_gram_plain` with aug, every live record's A' read
+    through the record layout (`span_record_unpack`) within
+    `gram_limit`; pass 2 (`span_solve` with aug) on pass 1's own records
+    against `span_solve_plain` with aug on the same records unpacked: x
+    within 2e-3, se within 1e-3 relative. Returns the numbers of the two
+    passes."""
+    x0 = chunk_x0(ch, current)
+    r, p = ch.cols.shape
+    _, n_spans, span = route_of(cs, table_ext, r, p)
+    body = cs.gram_body(table_ext)
+    gargs = (table_ext, ch.cols, ch.vals, ch.nnz, 256, n_spans, span)
+    part = cs.span_grams(*gargs, aug=True)
+    live = cs._span_live(ch.nnz, p, n_spans, span)
+    pa = torch.stack([cs.span_gram_plain(
+        table_ext, ch.cols, ch.vals, ch.nnz, k * span, (k + 1) * span, 256,
+        aug=True)[0] for k in range(n_spans)], dim=1)[live]
+    a = cs.span_record_unpack(part[live], 256)[0]
+    lim, limit = gram_limit(a, pa, span, body)
+    diff = (a - pa).abs()
+    a_err = diff.max().item()
+    a_ok = bool((diff <= lim).all())
+    n_live = int(live.sum().item())
+    del lim, diff, a, pa
+    kw = dict(cg_iters=cfg.cg_iters, cg_tol=cfg.cg_tol)
+    x, se = cs.span_solve(part, ch.nnz, x0, cfg.lam, p, span, aug=True,
+                          **kw)
+    ua, ub, ur2 = cs.span_record_unpack(
+        torch.where(live[:, :, None], part, torch.zeros_like(part)), 256)
+    card_parts = [(ua[:, k], ub[:, k], ur2[:, k]) for k in range(n_spans)]
+    px, pse = cs.span_solve_plain(card_parts, ch.nnz, x0, cfg.lam, aug=True,
+                                  **kw)
+    x_err = (x - px).abs().max().item()
+    se_rel = ((se - pse).abs() / pse.abs().clamp_min(1.0)).max().item()
+    del px, pse
+    ms1 = queued_ms(lambda: cs.span_grams(*gargs, aug=True))
+    plain1 = queued_ms(lambda: [cs.span_gram_plain(
+        table_ext, ch.cols, ch.vals, ch.nnz, k * span, (k + 1) * span, 256,
+        aug=True) for k in range(n_spans)], reps=3)
+    ms2 = queued_ms(lambda: cs.span_solve(part, ch.nnz, x0, cfg.lam, p,
+                                          span, aug=True, **kw))
+    plain2 = queued_ms(lambda: cs.span_solve_plain(
+        card_parts, ch.nnz, x0, cfg.lam, aug=True, **kw), reps=3)
+    del ua, ub, ur2, card_parts, part
+    rec_bytes = n_live * cs.span_record_floats(256) * 4
+    read, flops = wide_work(table_ext, ch, 256)
+    b1, by1 = bound_ms(read + rec_bytes, flops, table_ext.dtype)
+    # pass 2: the records once, and the CG's cg_iters + 2 matvecs a row
+    b2, by2 = bound_ms(rec_bytes + nbytes(ch.nnz, x, se) + r * 256 * 4,
+                       r * (cfg.cg_iters + 2) * 2.0 * 256 * 256,
+                       torch.float32)
+    ok = a_ok and x_err <= 2e-3 and se_rel <= 1e-3
+    log(f"[K6 passes f=256] {label} chunk R={r} P={p}, table "
+        f"{table_ext.dtype}, S={n_spans} spans of {span} slots, {n_live} "
+        f"live: pass 1 (aug, body {body}) max|dA'|={a_err:.3e} (limit "
+        f"{limit}: {a_ok}); pass 2 (aug) on the same records max|dx|="
+        f"{x_err:.3e}, max rel dse={se_rel:.3e} (limits 2e-3, 1e-3); "
+        f"device time: pass 1 {ms1:.3f} ms (plain {plain1:.3f}, bound "
+        f"{b1:.4f} ms, {by1}), pass 2 {ms2:.3f} ms (plain {plain2:.3f}, "
+        f"bound {b2:.4f} ms, {by2}); {'OK' if ok else 'FAIL'}")
+    return ok, {"pass_1": dict(max_abs_err=a_err, ms=ms1, plain_ms=plain1,
+                               bound_ms=b1, bound_by=by1, library_ms=None,
+                               spans=n_spans, span_len=span),
+                "pass_2": dict(max_abs_err=x_err, ms=ms2, plain_ms=plain2,
+                               bound_ms=b2, bound_by=by2, library_ms=None,
+                               spans=n_spans, span_len=span)}
+
+
+def aug_256(cs, model, hist_ref, results):
+    """Phase 5e: K6 at f = 256 on the Netflix F=200 plans of `model` (X on
+    the split route, theta direct), with aug_gram="force" and wide_kernel
+    off, so both phases' fused chunks run K6 at 256 lanes. First K6
+    against its plain version (`check_k6_256`) on the most populous
+    theta chunk, on the split X chunk with the fewest rows (the cut,
+    S > 1) with the bf16 table and with a float32 copy of it (the cut on
+    the FMA body), and on the most populous theta chunk of a float32
+    table (the uncut kernel of gather_gram_cg_aug.cu); then ALS.run for
+    AUG_256_ITERS iterations, train RMSE within 1e-3 of phase 5's
+    wide-off run (`hist_ref`, the split kernel K1 at 256 on the same
+    plans) at every iteration and test RMSE falling, K6 counting one a
+    chunk and its two passes launched, no other fused kernel. Fills
+    results["gather_gram_cg_aug"] with the f = 256 numbers."""
+    import copy
+
+    from cumf_als_tpu_torch.data.synthetic import init_factors
+    t_start = time.monotonic()
+    cfg_a = model.cfg.replace(wide_kernel="off", aug_gram="force",
+                              iters=AUG_256_ITERS)
+    if not (cs.aug_enabled(cfg_a) and not cs.wide_enabled(cfg_a) and
+            cfg_a.f_pad == 256):
+        raise AssertionError("aug F=200: the gate does not send the fused "
+                             "routes to K6")
+    plan_x, chunks_x, aux_x = model.plan_x
+    chunks_t = model.plan_theta[1]
+    x0_np, th0_np = init_factors(cfg_a.m, cfg_a.n, cfg_a.f, seed=0)
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    theta_t = model._pad_f(th0_np)
+    # a stand-in X for the theta-phase table (lanes >= 200 zero, so lane
+    # 255 is free): the real X starts at zero
+    x_t = model._pad_f(0.2 * torch.rand((cfg_a.m, cfg_a.f), generator=gen,
+                                        device=DEV).cpu().numpy())
+    x_ext = ext16(x_t)
+    th_perm_ext = ext16(theta_t.index_select(0, aux_x["perm"]))
+    populous = max(chunks_t, key=lambda c: c.rows.shape[0] * c.width)
+    fewest = min(chunks_x, key=lambda c: (c.cols.shape[0], -c.width))
+    out, ok_all = {}, True
+    for key, table, current, ch, label in (
+            ("theta_populous", x_ext, theta_t, populous,
+             "theta most populous"),
+            ("split_x_fewest", th_perm_ext, x_t, fewest,
+             "split X fewest rows"),
+            ("split_x_fewest_f32_table", th_perm_ext.float(), x_t, fewest,
+             "split X fewest rows, float32 table"),
+            ("theta_populous_f32_table", x_ext.float(), theta_t, populous,
+             "theta most populous, float32 table")):
+        ok, out[key] = check_k6_256(cs, table, ch, current, cfg_a, label)
+        ok_all &= ok
+        if key in ("theta_populous", "split_x_fewest_f32_table"):
+            # each pass alone: on the tensor cores and on the FMA body
+            ok, out[key]["passes"] = check_k6_passes(cs, table, ch,
+                                                     current, cfg_a, label)
+            ok_all &= ok
+        del table
+        torch.cuda.empty_cache()
+    if out["split_x_fewest"]["launches_one_call"].get(
+            "wide_span_gram_mma", 0) != 1 or \
+            route_of(cs, th_perm_ext, *fewest.cols.shape)[1] < 2:
+        ok_all = False
+        log("[aug 256] the split X chunk with the fewest rows did not cut")
+    del x_ext, th_perm_ext, theta_t, x_t
+    torch.cuda.empty_cache()
+    if not ok_all:
+        raise AssertionError("K6 at f = 256 disagrees with its plain "
+                             "version")
+    al = copy.copy(model)      # the same plans: aug steers no plan
+    al.cfg = cfg_a
+    others = SPLIT_KERNELS + AUG_KERNELS[1:] + WIDE_KERNELS + (
+        "solve_cg", "wide_span_gram")
+    hist, launches = full_width(
+        cs, al, "aug 256", ("gather_gram_cg_aug",) + MMA_PASSES, others,
+        x0_np, th0_np, iters=AUG_256_ITERS)
+    n_chunks = len(chunks_x) + len(chunks_t)
+    worst = 0.0
+    for h, r in zip(hist, hist_ref):
+        d = abs(h.train_rmse - r.train_rmse)
+        worst = max(worst, d)
+        log(f"[aug 256 | wide off] iter {h.iteration}: train "
+            f"{h.train_rmse:.6f} | {r.train_rmse:.6f} (limit 1e-3), test "
+            f"{h.test_rmse:.6f} | {r.test_rmse:.6f}")
+    te = [h.test_rmse for h in hist]
+    log(f"[aug 256] K6 chunks {launches['gather_gram_cg_aug']} over "
+        f"{AUG_256_ITERS} iterations of {n_chunks} chunks ({len(chunks_x)} "
+        f"split X, {len(chunks_t)} theta); the passes "
+        f"{[launches[k] for k in MMA_PASSES]}; worst train RMSE gap to "
+        f"wide off {worst:.3e}; phase 5e {time.monotonic() - t_start:.1f} s")
+    if len(hist) > len(hist_ref) or worst > 1e-3 or not te[-1] < te[0]:
+        raise AssertionError("aug F=200: off phase 5's wide-off run")
+    if launches["gather_gram_cg_aug"] != n_chunks * AUG_256_ITERS or \
+            launches["wide_span_gram_mma"] < n_chunks * AUG_256_ITERS:
+        raise AssertionError("aug F=200: a fused chunk did not run K6 at "
+                             "256 lanes")
+    results.setdefault("gather_gram_cg_aug", {})["f256"] = out
+    results["gather_gram_cg_aug"]["f256_launches"] = {
+        f"ALS.run F=200 aug force ({AUG_256_ITERS} iterations)":
+            {k: launches[k] for k in ("gather_gram_cg_aug",) + MMA_PASSES}}
+    del al
+    torch.cuda.empty_cache()
 
 
 def run_bench(args, label):
@@ -3407,6 +3651,34 @@ def solve_checks(cs, f, label):
     return ok_all, out
 
 
+def parent_panel_ms(key, kernel):
+    """The parent tree's time of K2 or K5a at f = 256 on chunk shape
+    `key`, as scripts/torch_panel_256_readings.py read it earlier in the
+    same call into its default output,
+    _archive/panel_256_readings/readings.json (its own synthetic chunk of
+    that shape), or None where no such reading exists."""
+    path = os.path.join(ROOT, "_archive", "panel_256_readings",
+                        "readings.json")
+    if not os.path.exists(path):
+        return None
+    with open(path) as fh:
+        got = json.load(fh).get(key, {}).get("ms", {})
+    return got.get(f"parent {kernel} full")
+
+
+def log_parent(name, key, res):
+    """Print this run's time of K2 or K5a at f = 256 beside the parent's
+    (`parent_panel_ms`), and keep the parent's in `res`."""
+    old = parent_panel_ms(key, name)
+    res["parent_ms"] = old
+    tag = "K5a" if name == "gather_gram_aug_out" else "K2"
+    log(f"[panel 256 parent] {tag} on {key}: {res['ms']:.3f} ms here, the "
+        f"parent's kernel " + (f"{old:.3f} ms (scripts/torch_panel_256_"
+                               f"readings.py earlier in this call, on its "
+                               f"own chunk of the shape)" if old is not None
+                               else "not read in this call"))
+
+
 def panel_256_grams(cs, x_table, hot):
     """13a's Gram checks at f = 256: K2 and K5a on the shape of the
     Netflix X phase's most populous panel chunk (R = 2304, P = 576, a
@@ -3427,6 +3699,9 @@ def panel_256_grams(cs, x_table, hot):
             key = "bf16_a" if a_dtype == torch.bfloat16 else (
                 "f32_a" if table.dtype == torch.bfloat16 else "f32_table")
             out.setdefault(name, {})[key] = res
+            if table.dtype == torch.bfloat16:
+                log_parent(name, "X panel R=2304 P=576, A " +
+                           str(a_dtype).split(".")[-1], res)
     del tp, ch
     torch.cuda.empty_cache()
     ok, out["gather_gram_out"]["hot_segment"] = check_gram(
@@ -3435,6 +3710,8 @@ def panel_256_grams(cs, x_table, hot):
         "rated theta columns, their first 2^18 ratings)",
         table_rows=live_rows(hot))
     ok_all &= ok
+    log_parent("gather_gram_out", "hot segment R=16 P=2^18, A float32",
+               out["gather_gram_out"]["hot_segment"])
     return ok_all, out
 
 
@@ -3487,6 +3764,8 @@ def panel_256_ooc(cs, bench, results):
     ok_all, k2 = check_gram(cs, tp, c, ooc.accum_dtype, False,
                             f"f=256 out-of-core theta chunk {j} of "
                             f"{len(ooc.plan_theta.chunks)}")
+    log_parent("gather_gram_out", "out-of-core theta shape R=6656 P=72, A "
+               + str(ooc.accum_dtype).split(".")[-1], k2)
     del tp, c
     a_buf, b_buf = ooc.theta_accumulators()
     theta = torch.nn.functional.pad(
@@ -3747,9 +4026,11 @@ def main() -> int:
             cs, ref, "wide off", MMA_PASSES,
             SPLIT_KERNELS + AUG_KERNELS + WIDE_KERNELS + ("solve_cg",),
             x0_w, th0_w, iters=2)
+        results = {name: {} for name in REPLACES}
+        # phase 5e on the same plans: K6 at 256 lanes
+        aug_256(cs, ref, hist_off, results)
         del ref
         torch.cuda.empty_cache()
-        results = {name: {} for name in REPLACES}
         panel_256(cs, bench, ALS, cfg, train, csc, test, hist_off, results)
         log("[panel 256] OK (the short call: no result line)")
         return 0

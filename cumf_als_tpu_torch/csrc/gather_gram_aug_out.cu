@@ -36,9 +36,11 @@
 // the next row's gather and this row's write-out overlap the Gram.
 // A float32 table, and a bf16 table at f < 128, keep the f32 FMA body of
 // common.cuh (gram_row). At f = 256 (factor widths 128 < F < 256) a bf16
-// table takes the three-block tensor-core Gram of wide_gram_mma.cuh, the
-// value stored over lane 255 of each gathered row in the blocks that
-// hold lanes 128..255, and the whole symmetric A' written; a float32
+// table takes K2's panel body of wide_gram_mma.cuh: the Gram of the
+// table's lanes on the tensor cores, b and sum v^2 from the values
+// rounded to bf16 on the CUDA cores (every product exact in f32, as on
+// the tensor cores), written over row and column 255 of A' as the value
+// lane would hold them, and the whole symmetric A' written; a float32
 // table the FMA body of wide.cuh (panel_gram with the value in lane 255).
 // The entry point chooses by dtype and f alone.
 

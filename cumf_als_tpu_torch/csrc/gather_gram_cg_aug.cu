@@ -31,9 +31,25 @@
 // f < 128 keep the f32 FMA body of common.cuh, one block a row, where the
 // value enters lane f - 1 while the tile is staged. The entry point
 // chooses by dtype and f alone.
+//
+// f = 256 (factor widths 128 < F < 256, padded to 256 lanes, lane 255
+// free) runs as K1 does at that width, in the aug layout. A bf16 table
+// takes the two passes of the row cut on every chunk: pass 1 on the
+// tensor cores (wide_span_gram_mma.cu, source kSpansAug: the value over
+// lane 255 of each gathered slot, the record's tiles holding A'), pass 2
+// (wide_span_solve.cu with aug: b from column 255 of the summed records,
+// r2 from the corner, row and column 255 zeroed, then the solve). A
+// float32 table takes the same cut on a chunk with fewer rows than the
+// card has SMs (pass 1 on wide.cuh's FMA body with the value in lane
+// 255), and otherwise the uncut kernel below: gather_row of wide.cuh
+// with the AUG switch (the same splice and unpack, one block a row), so
+// a float32 chunk runs K6's own kernel wherever K1 runs its own. The
+// wrapper (ops/cuda_solve.py, gather_gram_cg) makes that choice; this
+// entry point sees only the uncut float32 chunks at f = 256.
 
 #include "common.cuh"
 #include "frag_cg.cuh"
+#include "wide.cuh"
 
 namespace {
 
@@ -88,6 +104,25 @@ __global__ void __launch_bounds__(cumf::kThreads)
   }
 }
 
+// The uncut kernel at f = 256: gather_row of wide.cuh in the aug layout.
+template <typename TT, typename VT>
+__global__ void __launch_bounds__(cumf::wide::Shape<32>::THREADS)
+    gather_gram_cg_aug_256_kernel(const TT* __restrict__ table,
+                                  const int32_t* __restrict__ cols,
+                                  const VT* __restrict__ vals,
+                                  const int32_t* __restrict__ nnz,
+                                  const float* __restrict__ x0,
+                                  float* __restrict__ x_out,
+                                  float* __restrict__ se_out, int p,
+                                  float lam, int cg_iters, float cg_tol) {
+  __shared__ cumf::wide::Smem<32> s;
+  const int64_t row = blockIdx.x;
+  cumf::wide::gather_row<32, TT, VT, true>(
+      s, table, cols + row * p, vals + row * p, min(nnz[row], p),
+      (float)nnz[row], lam, x0 + row * cumf::wide::kStride,
+      x_out + row * cumf::wide::kStride, se_out + row, cg_iters, cg_tol);
+}
+
 template <int NB, typename TT, typename VT>
 void launch(const void* table, const void* cols, const void* vals,
             const void* nnz, const void* x0, void* x_out, void* se_out,
@@ -104,6 +139,14 @@ int dispatch(int f, const void* table, const void* cols, const void* vals,
              const void* nnz, const void* x0, void* x_out, void* se_out,
              int r, int p, float lam, int cg_iters, float cg_tol,
              cudaStream_t stream) {
+  if (f == cumf::wide::kStride) {
+    gather_gram_cg_aug_256_kernel<TT, VT>
+        <<<r, cumf::wide::Shape<32>::THREADS, 0, stream>>>(
+            (const TT*)table, (const int32_t*)cols, (const VT*)vals,
+            (const int32_t*)nnz, (const float*)x0, (float*)x_out,
+            (float*)se_out, p, lam, cg_iters, cg_tol);
+    return (int)cudaGetLastError();
+  }
 #define CUMF_LAUNCH(NB)                                                   \
   launch<NB, TT, VT>(table, cols, vals, nnz, x0, x_out, se_out, r, p, lam, \
                      cg_iters, cg_tol, stream)

@@ -30,13 +30,15 @@
 // A float32 table, and a bf16 table at f < 128, keep the f32 FMA body of
 // common.cuh (gram_row): bf16 tensor cores would round a float32 table.
 // At f = 256 (factor widths 128 < F <= 256) a bf16 table takes the
-// three-block tensor-core Gram of wide_gram_mma.cuh, which writes the
-// whole symmetric A (its (0, 1) block and that block's transpose) and b;
-// a float32 table the FMA body of wide.cuh (panel_gram: the upper
-// triangle of 8 x 8 tiles, one thread a tile, each tile written with its
-// transpose). There an f32 A of 256 KB a row bounds the kernel: the
-// out-of-core theta chunk R = 6656 writes 1.74 GB, ~0.52 ms at
-// 3.35 TB/s. The entry point chooses by dtype and f alone.
+// panel body of wide_gram_mma.cuh: one block of two warpgroups a row
+// of A, each slot's table row gathered once, the upper triangle's ten
+// 64 x 64 blocks on the tensor cores, b on the CUDA cores, and the whole
+// symmetric A written through shared memory in coalesced rows; a float32
+// table the FMA body of wide.cuh (panel_gram: the upper triangle of
+// 8 x 8 tiles, one thread a tile, each tile written with its transpose).
+// There an f32 A of 256 KB a row bounds the kernel: the out-of-core
+// theta chunk R = 6656 writes 1.74 GB, ~0.52 ms at 3.35 TB/s. The entry
+// point chooses by dtype and f alone.
 
 #include "common.cuh"
 #include "gram_mma.cuh"

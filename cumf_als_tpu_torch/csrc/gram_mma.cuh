@@ -142,9 +142,10 @@ __device__ __forceinline__ void wgmma_wait() {
 // operand would define the sums anew, the new values would meet the ones
 // still in flight at the loop's join, and ptxas would then wait for every
 // wgmma at each turn of the loop (its note C7517).
-__device__ __forceinline__ void use_acc(const float (&acc)[64]) {
+template <int N>
+__device__ __forceinline__ void use_acc(const float (&acc)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" ::"f"(acc[i]) : "memory");
+  for (int i = 0; i < N; ++i) asm volatile("" ::"f"(acc[i]) : "memory");
 }
 
 // Matrix descriptor of an MN-major operand under the 128-byte swizzle

@@ -1,8 +1,9 @@
-// Device code of the 256-lane kernels: gather_gram_cg.cu at f = 256,
-// gather_gram_cg_wide.cu, fused_gram_cg_cat.cu, the two passes of the
-// row cut, wide_span_gram.cu and wide_span_solve.cu, and the panel Grams
-// gather_gram_out.cu and gather_gram_aug_out.cu at f = 256 on a float32
-// table (panel_gram).
+// Device code of the 256-lane kernels: gather_gram_cg.cu and
+// gather_gram_cg_aug.cu (K6, the aug unpack of unpack_aug_tiles) at
+// f = 256, gather_gram_cg_wide.cu, fused_gram_cg_cat.cu, the two passes
+// of the row cut, wide_span_gram.cu and wide_span_solve.cu (each with an
+// aug mode for K6), and the panel Grams gather_gram_out.cu and
+// gather_gram_aug_out.cu at f = 256 on a float32 table (panel_gram).
 //
 // One thread block owns one system of FL = 8 * T live lanes out of the
 // 256 lanes of a factor row (T = 20, 24, 28 or 32: FL = 160, 192, 224,
@@ -274,8 +275,10 @@ __device__ __forceinline__ void solve_and_store(
 }
 
 // This thread's tile of the Gram over slots [lo, hi) of one row,
-// gathered from a kStride-lane table, with b and r2 beside it.
-template <int T, typename TT, typename VT>
+// gathered from a kStride-lane table, with b and r2 beside it. With AUG
+// the values ride lane FL - 1 (load_tile_table), so the tiles hold A'
+// and b and r2 beside them are not the row's (unpack_aug_tiles).
+template <int T, typename TT, typename VT, bool AUG = false>
 __device__ __forceinline__ void gram_slots(Smem<T>& s, const TT* table,
                                            const int32_t* cols,
                                            const VT* vals, int lo, int hi,
@@ -287,16 +290,55 @@ __device__ __forceinline__ void gram_slots(Smem<T>& s, const TT* table,
   r2_acc = 0.f;
   for (int t0 = lo; t0 < hi; t0 += kTile) {
     const int nt = min(kTile, hi - t0);
-    load_tile_table<T>(s, table, cols, vals, t0, nt);
+    load_tile_table<T, TT, VT, AUG>(s, table, cols, vals, t0, nt);
     accumulate_tile<T>(s, nt, tl, a, b_acc, r2_acc);
     __syncthreads();
   }
 }
 
+// The aug unpack on the triangle of tiles (K6 at f = 256, T = 32): A'
+// holds the values' lane FL - 1 in its last row and column, which the
+// tiles (ti, T - 1) keep as their entries (k, kB - 1). b = that column
+// (rows < FL - 1, lane FL - 1 of b zero), r2 = the corner (entry
+// (kB - 1, kB - 1) of tile (T - 1, T - 1)); then row and column FL - 1 of
+// A are zeroed, so the solve sees A, b and r2 as the split kernels form
+// them (pallas_solve.py `_kernel_aug`). b and r2 pass through shared
+// memory to the threads that solve_and_store takes them from; one
+// barrier.
+template <int T>
+__device__ __forceinline__ void unpack_aug_tiles(Smem<T>& s, const Tile& tl,
+                                                 float (&a)[kB][kB],
+                                                 float& b_acc,
+                                                 float& r2_acc) {
+  constexpr int FL = Shape<T>::FL;
+  const int tid = threadIdx.x;
+  if (tl.on && tl.tj == T - 1) {
+#pragma unroll
+    for (int k = 0; k < kB; ++k) {
+      s.b[kB * tl.ti + k] = a[k][kB - 1];
+      a[k][kB - 1] = 0.f;
+    }
+    if (tl.ti == T - 1) {
+      s.red[1] = s.b[FL - 1];  // the corner, written just above
+      s.b[FL - 1] = 0.f;
+#pragma unroll
+      for (int l = 0; l < kB; ++l) a[kB - 1][l] = 0.f;
+    }
+  }
+  __syncthreads();
+  // solve_and_store writes these back to the same places from the same
+  // threads, so no second barrier is needed
+  if (tid < FL)
+    b_acc = s.b[tid];
+  else if (tid == FL)
+    r2_acc = s.red[1];
+}
+
 // One row, gathered from a kStride-lane table: Gram over slots [0, n),
-// then solve_and_store. The body of gather_gram_cg at f = 256 (T = 32)
-// and of gather_gram_cg_wide.
-template <int T, typename TT, typename VT>
+// then solve_and_store. The body of gather_gram_cg at f = 256 (T = 32),
+// with AUG of gather_gram_cg(aug=True) at f = 256, and of
+// gather_gram_cg_wide.
+template <int T, typename TT, typename VT, bool AUG = false>
 __device__ __forceinline__ void gather_row(
     Smem<T>& s, const TT* table, const int32_t* cols, const VT* vals, int n,
     float nnzf, float lam, const float* x0_row, float* x_row, float* se_row,
@@ -304,7 +346,9 @@ __device__ __forceinline__ void gather_row(
   const Tile tl = tile_of<T>();
   float a[kB][kB];
   float b_acc, r2_acc;
-  gram_slots<T>(s, table, cols, vals, 0, n, tl, a, b_acc, r2_acc);
+  gram_slots<T, TT, VT, AUG>(s, table, cols, vals, 0, n, tl, a, b_acc,
+                             r2_acc);
+  if constexpr (AUG) unpack_aug_tiles<T>(s, tl, a, b_acc, r2_acc);
   solve_and_store<T>(s, tl, a, b_acc, r2_acc, nnzf, lam, x0_row, x_row,
                      se_row, cg_iters, cg_tol);
 }
@@ -380,8 +424,10 @@ struct SpanRecord {
 
 // Pass 1 of the row cut on the FMA body: the Gram over slots [lo, hi) of
 // one row into its record (thread tid writes tile tid, 64 contiguous
-// floats).
-template <int T, typename TT, typename VT>
+// floats). With AUG (K6, FL = 256) the tiles hold the span's A', the
+// values in lane FL - 1; pass 2 reads b and r2 from them, not from the
+// record's own b and r2.
+template <int T, typename TT, typename VT, bool AUG = false>
 __device__ __forceinline__ void span_gram(Smem<T>& s, const TT* table,
                                           const int32_t* cols,
                                           const VT* vals, int lo, int hi,
@@ -392,7 +438,8 @@ __device__ __forceinline__ void span_gram(Smem<T>& s, const TT* table,
   const Tile tl = tile_of<T>();
   float a[kB][kB];
   float b_acc, r2_acc;
-  gram_slots<T>(s, table, cols, vals, lo, hi, tl, a, b_acc, r2_acc);
+  gram_slots<T, TT, VT, AUG>(s, table, cols, vals, lo, hi, tl, a, b_acc,
+                             r2_acc);
   if (tl.on) {
     float4* dst = reinterpret_cast<float4*>(rec + tid * kB * kB);
 #pragma unroll
@@ -410,7 +457,9 @@ __device__ __forceinline__ void span_gram(Smem<T>& s, const TT* table,
 // Pass 2 of the row cut: the sums of a row's `live` records (spans 0 ..
 // live - 1, in that order), then solve_and_store. A row without slots
 // has no live record and solves A = 0, b = 0, r2 = 0 as gather_row does.
-template <int T>
+// With AUG (K6, FL = 256) the records hold A' alone: b and r2 come from
+// its summed last column (unpack_aug_tiles).
+template <int T, bool AUG = false>
 __device__ __forceinline__ void span_solve(
     Smem<T>& s, const float* recs, int live, float nnzf, float lam,
     const float* x0_row, float* x_row, float* se_row, int cg_iters,
@@ -433,11 +482,14 @@ __device__ __forceinline__ void span_solve(
         a[k][4] += w.x; a[k][5] += w.y; a[k][6] += w.z; a[k][7] += w.w;
       }
     }
+    if (AUG)
+      continue;
     if (tid < FL)
       b_acc += rec[Rec::B + tid];
     else if (tid == FL)
       r2_acc += rec[Rec::R2];
   }
+  if constexpr (AUG) unpack_aug_tiles<T>(s, tl, a, b_acc, r2_acc);
   solve_and_store<T>(s, tl, a, b_acc, r2_acc, nnzf, lam, x0_row, x_row,
                      se_row, cg_iters, cg_tol);
 }

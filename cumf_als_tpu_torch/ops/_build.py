@@ -56,13 +56,13 @@ KERNELS = {
                            _I, _I, _I, _F, _I, _F, _VP]),
     "wide_span_gram": ("cumf_wide_span_gram",
                        [_VP, _I, _VP, _VP, _I, _VP, _VP,
-                        _I, _I, _I, _I, _I, _VP]),
+                        _I, _I, _I, _I, _I, _I, _VP]),
     "wide_span_gram_mma": ("cumf_wide_span_gram_mma",
                            [_VP, _VP, _VP, _VP, _I, _VP, _VP,
-                            _I, _I, _I, _I, _I, _I, _VP]),
+                            _I, _I, _I, _I, _I, _I, _I, _VP]),
     "wide_span_solve": ("cumf_wide_span_solve",
                         [_VP, _VP, _VP, _VP, _VP,
-                         _I, _I, _I, _I, _I, _I, _F, _I, _F, _VP]),
+                         _I, _I, _I, _I, _I, _I, _I, _F, _I, _F, _VP]),
 }
 # query name -> the kernel whose library holds it, its C entry point and
 # its argument types (a query launches nothing and counts no launch)

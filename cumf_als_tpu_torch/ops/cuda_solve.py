@@ -47,7 +47,8 @@ an already gathered, lane-packed G. `wide_enabled` is the opt-in gate of
 the second. The panel Grams (K2, K5a) and the batched solves (K3, K4,
 K5b) take f = 256 too, so the accumulate-then-solve routes (the panel
 and batched-panel routes, out-of-core theta, the sharded partials) run
-at those widths; the augmented fused kernel (K6) takes f <= 128 only.
+at those widths; so does the augmented fused kernel (K6, with
+aug_gram="force" at 128 < F < 256), as K1 runs there.
 
 The Gram kernels K1, K2, K5a and K6 are bound by operations on an H100
 (K2 and K5a by the write of A as well when A is f32), and what feeds
@@ -61,14 +62,16 @@ f32 FMA body of csrc/common.cuh. `gram_body` is that rule. One block
 takes one row at a time, so a chunk with fewer rows than the card has
 SMs leaves SMs idle.
 
-K1 at f = 256 and K7 (the 256-lane body, csrc/wide.cuh) run as two
-passes that meet at a record in scratch memory: pass 1 writes the Gram,
-b and r2 of each span of a row's slots, pass 2 (``wide_span_solve``)
-adds a row's records in span order and runs the CG, so a result repeats
-bit for bit. With a bf16 table (`gram_body` "wgmma") every chunk takes
-them, pass 1 on the tensor cores (``wide_span_gram_mma``: three
-128 x 128 blocks of A, each on gram_mma.cuh's wgmma over a cp.async
-ring) in the spans of `row_spans`: one span a row on a chunk of as many
+K1 and K6 at f = 256 and K7 (the 256-lane body, csrc/wide.cuh) run as
+two passes that meet at a record in scratch memory: pass 1 writes the
+Gram, b and r2 of each span of a row's slots (K6: the Gram A' with the
+values in lane 255), pass 2 (``wide_span_solve``) adds a row's records
+in span order and runs the CG (K6: b and r2 taken from A' first), so a
+result repeats bit for bit. With a bf16 table (`gram_body` "wgmma")
+every chunk takes them, pass 1 on the tensor cores
+(``wide_span_gram_mma``: three 128 x 128 blocks of A, each on
+gram_mma.cuh's wgmma over a cp.async ring) in the spans of
+`row_spans`: one span a row on a chunk of as many
 rows as the card has SMs, unless a row is longer than
 `SPAN_MAX_TILES_MMA` tiles (the error of the fragment's f32 sums grows
 with the span), and the cut below that; its bound is the gather and the
@@ -83,9 +86,10 @@ reads the table, and sums every slot up to P, as `_kernel_cat` does; a
 float32 G keeps the uncut FMA body. Each pass counts its own launches.
 
 K2 and K5a at f = 256 write the whole symmetric A: a bf16 table runs
-three 128 x 128 blocks of A on the tensor cores (csrc/wide_gram_mma.cuh,
-the body of the row cut's pass 1), a float32 table the FMA body of
-csrc/wide.cuh (`panel_gram`).
+the panel body of csrc/wide_gram_mma.cuh on the tensor cores (one block
+of two warpgroups a row of A, each slot gathered once, A written through
+shared memory; a chunk of few rows the row cut's three-block pass 1),
+a float32 table the FMA body of csrc/wide.cuh (`panel_gram`).
 
 K3 (``solve_cg_reg``), K4 (``solve_cg``) and K5b (``solve_cg_aug``) are
 one body (csrc/bulk_cg.cuh) with a compile-time switch each: persistent
@@ -345,7 +349,7 @@ def gather_gram_cg(table_ext, cols, vals, nnz, x0, lam: float,
 
     table_ext (n+1, f) f32/bf16, zero-extended (a bf16 run casts the
     table before the gather, as models/als.py does), f a multiple of 16
-    up to 128, or 256 (without aug); cols (R, P) int32,
+    up to 128, or 256; cols (R, P) int32,
     pad id n, pad slots at each row's tail; vals (R, P) f32/bf16; nnz
     (R,) int32; x0 (R, f) f32. Returns x (R, f) f32 and se (R, 1) f32.
 
@@ -357,32 +361,39 @@ def gather_gram_cg(table_ext, cols, vals, nnz, x0, lam: float,
     the tensor cores the bf16 products are exact and the f32 sums are
     taken in the hardware's order.
 
-    At f = 256 (not aug) a bf16 table takes the two passes of the row
-    cut on every chunk, pass 1 on the tensor cores; a float32 table takes
-    them on a chunk with fewer rows than the card has SMs (`row_spans`)
-    and the uncut kernel otherwise. `spans` forces the number of spans a
-    row is cut into (1: one span a row, which on a float32 table is the
-    uncut kernel) and is taken at f = 256 only. Tensors on the CPU take
-    the plain version whatever `spans` says."""
+    At f = 256 a bf16 table takes the two passes of the row cut on every
+    chunk, pass 1 on the tensor cores; a float32 table takes them on a
+    chunk with fewer rows than the card has SMs (`row_spans`) and the
+    uncut kernel otherwise; with aug both in the aug layout (pass 1's
+    records hold A', pass 2 unpacks b and r2 from it), and each chunk
+    that ran the two passes also counts one under "gather_gram_cg_aug",
+    so K6's count is its chunks at every width (the passes count their
+    own launches). `spans` forces the number of spans a row is cut into
+    (1: one span a row, which on a float32 table is the uncut kernel)
+    and is taken at f = 256 only. Tensors on the CPU take the plain
+    version whatever `spans` says."""
     name = "gather_gram_cg_aug" if aug else "gather_gram_cg"
-    _check_spans(name, spans, table_ext.shape[1] == 256 and not aug)
+    _check_spans(name, spans, table_ext.shape[1] == 256)
     if _on_cpu(table_ext, cols, vals, nnz, x0):
         plain = gather_gram_cg_aug_plain if aug else gather_gram_cg_plain
         return plain(table_ext, cols, vals, nnz, x0, lam, cg_iters, cg_tol)
     r, p = cols.shape
     f = table_ext.shape[1]
-    _check_f(name, f, wide_ok=not aug)
+    _check_f(name, f, wide_ok=True)
     _check("table_ext", table_ext, table_ext.shape, _FLOATS)
     _check("cols", cols, (r, p), (torch.int32,))
     _check("vals", vals, (r, p), _FLOATS)
     _check("nnz", nnz, (r,), (torch.int32,))
     _check("x0", x0, (r, f), (torch.float32,))
-    if r and f == 256 and not aug:
+    if r and f == 256:
         n_spans, span_len = _chunk_spans(x0.device, r, p, spans,
                                          **span_plan(table_ext))
         if n_spans > 1 or gram_body(table_ext) == "wgmma":
-            return _row_cut(table_ext, cols, vals, nnz, x0, lam, 256,
-                            n_spans, span_len, cg_iters, cg_tol)
+            out = _row_cut(table_ext, cols, vals, nnz, x0, lam, 256,
+                           n_spans, span_len, cg_iters, cg_tol, aug)
+            if aug:     # K6 at 256 lanes ran: its chunk count
+                LAUNCHES[name] += 1
+            return out
     x = torch.empty((r, f), dtype=torch.float32, device=x0.device)
     se = torch.empty((r, 1), dtype=torch.float32, device=x0.device)
     if r:
@@ -400,10 +411,10 @@ def gram_body(table_ext: torch.Tensor) -> str:
     table on a card, by its dtype and width alone: "wgmma" (cp.async
     gather into swizzled bf16 tiles, tensor-core Gram) for a bf16 table
     at f = 128, the width of the main path (csrc/gram_mma.cuh; for K1 and
-    K6 the CG on the fragment of csrc/frag_cg.cuh), and at f = 256 (K1 and
-    K7: pass 1 of the row cut on the tensor cores,
-    csrc/wide_span_gram_mma.cu, then pass 2; K2 and K5a: the same three
-    blocks, csrc/wide_gram_mma.cuh); "fma" (the f32 FMA bodies
+    K6 the CG on the fragment of csrc/frag_cg.cuh), and at f = 256 (K1, K6
+    and K7: pass 1 of the row cut on the tensor cores,
+    csrc/wide_span_gram_mma.cu, then pass 2; K2 and K5a: the panel body
+    of csrc/wide_gram_mma.cuh); "fma" (the f32 FMA bodies
     of csrc/common.cuh and csrc/wide.cuh) for a float32 table, which bf16
     tensor cores would round, and for every other width. A caller cannot
     choose, and neither body gives way to the other or to the plain
@@ -904,17 +915,22 @@ def span_record_unpack(rec: torch.Tensor, fl: int):
 
 
 @full_f32()
-def span_gram_plain(table_ext, cols, vals, nnz, lo: int, hi: int, fl: int):
+def span_gram_plain(table_ext, cols, vals, nnz, lo: int, hi: int, fl: int,
+                    aug: bool = False):
     """Plain version of pass 1 (``wide_span_gram``) for one span: the
     dense A (R, fl, fl), b (R, fl) and r2 (R, 1) of slots
     [lo, min(hi, nnz[r], P)) of each row over table lanes < fl, in f32
-    einsums."""
+    einsums. With aug (K6, fl = 256) the values ride lane fl - 1 of G
+    (`augment_g`), so A is the span's A'; pass 2 reads b and r2 from it."""
     r = cols.shape[0]
     c = cols[:, lo:hi]
     live = (torch.arange(lo, lo + c.shape[1], device=cols.device)[None, :]
             < nnz.long()[:, None]).float()
     g = table_ext[:, :fl].index_select(0, c.reshape(-1).long()).reshape(
-        r, c.shape[1], fl).float() * live[:, :, None]
+        r, c.shape[1], fl)
+    if aug:
+        g = augment_g(g, vals[:, lo:hi])
+    g = g.float() * live[:, :, None]
     v = vals[:, lo:hi].float() * live
     a = torch.einsum("rpf,rpg->rfg", g, g)
     b = torch.einsum("rp,rpf->rf", v, g)
@@ -922,14 +938,18 @@ def span_gram_plain(table_ext, cols, vals, nnz, lo: int, hi: int, fl: int):
 
 
 def span_solve_plain(parts, nnz, x0, lam: float, cg_iters: int = 6,
-                     cg_tol: float = 1e-4):
+                     cg_tol: float = 1e-4, aug: bool = False):
     """Plain version of pass 2 (``wide_span_solve``): the (A, b, r2) of
     `parts` summed in span order, then the tail of the fused kernels
-    (`_solve_and_se`) on the fl live lanes. x0 (R, 256); returns x
-    (R, 256) with lanes >= fl exactly 0, and se (R, 1)."""
+    (`_solve_and_se`) on the fl live lanes. With aug the summed A is A'
+    and b and r2 come from it (`unpack_aug`), as K6 takes them. x0
+    (R, 256); returns x (R, 256) with lanes >= fl exactly 0, and se
+    (R, 1)."""
     a, b, r2 = parts[0]
     for pa, pb, pr in parts[1:]:
         a, b, r2 = a + pa, b + pb, r2 + pr
+    if aug:
+        a, b, r2 = unpack_aug(a)
     fl = a.shape[-1]
     x, se = _solve_and_se(a, b, r2, nnz, x0[:, :fl], lam, cg_iters, cg_tol)
     return torch.nn.functional.pad(x, (0, x0.shape[1] - fl)), se
@@ -937,12 +957,14 @@ def span_solve_plain(parts, nnz, x0, lam: float, cg_iters: int = 6,
 
 def row_cut_plain(table_ext, cols, vals, nnz, x0, lam: float, fl: int,
                   spans: int, span_len: int, cg_iters: int = 6,
-                  cg_tol: float = 1e-4):
+                  cg_tol: float = 1e-4, aug: bool = False):
     """The CPU reference of the row cut: `span_gram_plain` over spans
-    0 .. spans - 1 of `span_len` slots, then `span_solve_plain`."""
+    0 .. spans - 1 of `span_len` slots, then `span_solve_plain` (with aug
+    both in K6's layout, fl = 256)."""
     parts = [span_gram_plain(table_ext, cols, vals, nnz, s * span_len,
-                             (s + 1) * span_len, fl) for s in range(spans)]
-    return span_solve_plain(parts, nnz, x0, lam, cg_iters, cg_tol)
+                             (s + 1) * span_len, fl, aug)
+             for s in range(spans)]
+    return span_solve_plain(parts, nnz, x0, lam, cg_iters, cg_tol, aug)
 
 
 def _span_live(nnz, p: int, spans: int, span_len: int) -> torch.Tensor:
@@ -952,7 +974,7 @@ def _span_live(nnz, p: int, spans: int, span_len: int) -> torch.Tensor:
 
 
 def span_grams(table_ext, cols, vals, nnz, fl: int, spans: int,
-               span_len: int) -> torch.Tensor:
+               span_len: int, aug: bool = False) -> torch.Tensor:
     """Pass 1 of the row cut: the records (R, spans,
     span_record_floats(fl)) of the Gram of every span, span s of a row
     over slots [s L, min((s + 1) L, nnz, P)), L = `span_len` (a multiple
@@ -962,10 +984,12 @@ def span_grams(table_ext, cols, vals, nnz, fl: int, spans: int,
     (``wide_span_gram_mma``: the bf16 products are exact, the f32 sums
     taken in the hardware's order), a float32 table on the FMA body
     (``wide_span_gram``). A span with no slots is left as `torch.empty`
-    made it (pass 2 reads only live spans)."""
-    if fl not in (160, 192, 224, 256):
-        raise ValueError(f"wide_span_gram: fl must be 160, 192, 224 or 256, "
-                         f"got {fl}")
+    made it (pass 2 reads only live spans). With aug (K6, fl = 256) the
+    values ride lane 255 of G, rounded to the table's dtype, so each
+    record's tiles hold the span's A' (its b and r2 are not pass 2's)."""
+    if fl not in (160, 192, 224, 256) or (aug and fl != 256):
+        raise ValueError(f"wide_span_gram: fl must be 160, 192, 224 or 256 "
+                         f"(256 with aug), got {fl}")
     tile = span_plan(table_ext)["tile"]
     if span_len <= 0 or span_len % tile:
         raise ValueError(f"wide_span_gram: span_len must be a positive "
@@ -985,17 +1009,18 @@ def span_grams(table_ext, cols, vals, nnz, fl: int, spans: int,
         _launch("wide_span_gram_mma", table_ext.data_ptr(), None,
                 cols.data_ptr(), vals.data_ptr(), _bf16(vals),
                 nnz.data_ptr(), part.data_ptr(), r, p, fl, 0, spans,
-                span_len)
+                span_len, int(aug))
     else:
         _launch("wide_span_gram", table_ext.data_ptr(), _bf16(table_ext),
                 cols.data_ptr(), vals.data_ptr(), _bf16(vals),
-                nnz.data_ptr(), part.data_ptr(), r, p, fl, spans, span_len)
+                nnz.data_ptr(), part.data_ptr(), r, p, fl, spans, span_len,
+                int(aug))
     return part
 
 
 def span_solve(part, nnz, x0, lam: float, p: int, span_len: int,
                cg_iters: int = 6, cg_tol: float = 1e-4,
-               all_slots: bool = False):
+               all_slots: bool = False, aug: bool = False):
     """Pass 2 of the row cut: each row's live records of `part` (from
     `span_grams` over P = `p` slots) summed in span order, the
     regularized CG from x0 (R, 256) f32 and the train error, as
@@ -1003,12 +1028,18 @@ def span_solve(part, nnz, x0, lam: float, p: int, span_len: int,
     x (R, 256) with lanes >= fl exactly 0, and se (R, 1). A span is live
     below min(nnz, P), or with `all_slots` (K8's records from
     `cat_span_grams`, over every slot) below P; nnz sets the regularizer
-    either way. Card tensors only."""
+    either way. With aug (K6's records from `span_grams(aug=True)`, 256
+    lanes) b and r2 come from the summed A': its last column and corner,
+    then its last row and column are zeroed; lane 255 of x comes back
+    exactly 0. Card tensors only."""
     r, spans, size = part.shape
     sizes = {span_record_floats(fl): fl for fl in (160, 192, 224, 256)}
     if size not in sizes:
         raise ValueError(f"wide_span_solve: records of {size} floats")
     fl = sizes[size]
+    if aug and (fl != 256 or all_slots):
+        raise ValueError("wide_span_solve: aug takes 256-lane records of "
+                         "a gather (not all_slots)")
     _on_card("wide_span_solve", part, nnz, x0)
     _check("part", part, part.shape, (torch.float32,))
     _check("nnz", nnz, (r,), (torch.int32,))
@@ -1018,7 +1049,7 @@ def span_solve(part, nnz, x0, lam: float, p: int, span_len: int,
     if r:
         _launch("wide_span_solve", part.data_ptr(), nnz.data_ptr(),
                 x0.data_ptr(), x.data_ptr(), se.data_ptr(), r, int(p), fl,
-                spans, int(span_len), int(all_slots), float(lam),
+                spans, int(span_len), int(all_slots), int(aug), float(lam),
                 int(cg_iters), float(cg_tol))
     return x, se
 
@@ -1032,7 +1063,7 @@ def row_batches(spans: int, fl: int,
 
 
 def _two_passes(grams, nnz, x0, lam, fl, p, spans, span_len, cg_iters,
-                cg_tol, all_slots=False):
+                cg_tol, all_slots=False, aug=False):
     """The two passes over a chunk of P = `p` slots a row, in batches of
     `row_batches` rows: grams(lo, hi) is pass 1 over rows [lo, hi)."""
     r = x0.shape[0]
@@ -1042,7 +1073,7 @@ def _two_passes(grams, nnz, x0, lam, fl, p, spans, span_len, cg_iters,
         hi = min(lo + step, r)
         part = grams(lo, hi)
         x, se = span_solve(part, nnz[lo:hi], x0[lo:hi], lam, p, span_len,
-                           cg_iters, cg_tol, all_slots)
+                           cg_iters, cg_tol, all_slots, aug)
         del part
         xs.append(x)
         ses.append(se)
@@ -1052,13 +1083,14 @@ def _two_passes(grams, nnz, x0, lam, fl, p, spans, span_len, cg_iters,
 
 
 def _row_cut(table_ext, cols, vals, nnz, x0, lam, fl, spans, span_len,
-             cg_iters, cg_tol):
-    """The two passes over a chunk gathered from a table (K1, K7)."""
+             cg_iters, cg_tol, aug=False):
+    """The two passes over a chunk gathered from a table (K1, K7; K6
+    with aug)."""
     def grams(lo, hi):
         return span_grams(table_ext, cols[lo:hi], vals[lo:hi], nnz[lo:hi],
-                          fl, spans, span_len)
+                          fl, spans, span_len, aug)
     return _two_passes(grams, nnz, x0, lam, fl, cols.shape[1], spans,
-                       span_len, cg_iters, cg_tol)
+                       span_len, cg_iters, cg_tol, aug=aug)
 
 
 @full_f32()
@@ -1146,7 +1178,7 @@ def cat_span_grams(g1, g2, vals, spans: int, span_len: int) -> torch.Tensor:
     if r:
         _launch("wide_span_gram_mma", g1.data_ptr(), g2.data_ptr(), None,
                 vals.data_ptr(), _bf16(vals), None, part.data_ptr(), r, p,
-                256, f2, spans, span_len)
+                256, f2, spans, span_len, 0)
     return part
 
 

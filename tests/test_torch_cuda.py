@@ -256,6 +256,40 @@ def test_panel_grams_at_256_lanes(card, p, table_dtype, out_dtype, kind):
         "gather_gram_out": 1, "gather_gram_aug_out": 1}
 
 
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("vals_dtype", [torch.float32, torch.bfloat16])
+def test_panel_grams_at_256_repeat_and_are_symmetric(card, out_dtype,
+                                                      vals_dtype):
+    """K2 and K5a at f = 256 on a bf16 table (the panel body of
+    csrc/wide_gram_mma.cuh, one block a row of A, its blocks walking
+    rows) on more rows than the card has SMs, the ids and values a view
+    that starts at an odd slot (P = 199): two launches give the same
+    bits, A is exactly symmetric (both triangles written from one sum),
+    A and b against the plain version (`gram_limit`, b rtol 1e-5), and
+    A' carries b and sum v^2 in row and column 255 as the plain version's
+    value lane does."""
+    table, cols, vals, empty = _edge_chunk(199, 301, "random", f=256)
+    gpu = (table.to(torch.bfloat16).to(card), cols[1:].to(card),
+           vals.to(vals_dtype)[1:].to(card))
+    empty = empty[1:]
+    a, b = cs.gather_gram_out(*gpu, out_dtype=out_dtype)
+    a2, b2 = cs.gather_gram_out(*gpu, out_dtype=out_dtype)
+    assert torch.equal(a, a2) and torch.equal(b, b2)
+    pa, pb = cs.gather_gram_out_plain(*gpu, out_dtype=out_dtype)
+    _assert_gram_close(a, pa.cpu(), 199, "wgmma")
+    torch.testing.assert_close(b, pb, rtol=1e-5, atol=1e-5)
+    a5 = cs.gather_gram_aug_out(*gpu, out_dtype=out_dtype)
+    assert torch.equal(a5, cs.gather_gram_aug_out(*gpu, out_dtype=out_dtype))
+    for out in (a, a5):
+        assert torch.equal(out, out.transpose(1, 2))
+    pa5 = cs.gather_gram_aug_out_plain(*gpu, out_dtype=out_dtype)
+    _assert_gram_close(a5, pa5.cpu(), 199, "wgmma")
+    assert torch.all(a[empty.to(card)] == 0) and \
+        torch.all(a5[empty.to(card)] == 0)
+    assert cs.LAUNCHES == dict.fromkeys(cs.LAUNCHES, 0) | {
+        "gather_gram_out": 2, "gather_gram_aug_out": 2}
+
+
 THETA_NNZ = (0, 1, 15, 16, 17, 63, 64, 65, 128, 129)
 
 
@@ -455,12 +489,20 @@ def test_wrappers_reject_what_the_kernels_do_not_take(card):
                           aug=True)
     with pytest.raises(ValueError):     # int64 ids
         cs.gather_gram_aug_out(table, cols.long(), vals)
-    # f = 256: K6 alone of the 128-lane kernels names itself (K1, K2 and
-    # K5a take it: below)
+    # K6 takes f = 256 as K1 does; what it still refuses: f off the grid
+    # (it names itself), and aug records narrower than 256 lanes or of
+    # all slots in the passes
+    odd = torch.zeros((N + 1, 136), device=card)
+    with pytest.raises(ValueError, match="gather_gram_cg_aug"):
+        cs.gather_gram_cg(odd, cols, vals, nnz,
+                          torch.zeros((R, 136), device=card), LAM, aug=True)
     wide = torch.zeros((N + 1, 256), device=card)
     x0w = torch.zeros((R, 256), device=card)
-    with pytest.raises(ValueError, match="gather_gram_cg_aug"):
-        cs.gather_gram_cg(wide, cols, vals, nnz, x0w, LAM, aug=True)
+    with pytest.raises(ValueError, match="256 with aug"):
+        cs.span_grams(wide, cols, vals, nnz, 224, 1, 64, aug=True)
+    part = torch.zeros((R, 1, cs.span_record_floats(256)), device=card)
+    with pytest.raises(ValueError, match="aug"):
+        cs.span_solve(part, nnz, x0w, LAM, P, 64, all_slots=True, aug=True)
     with pytest.raises(ValueError):     # a 128-lane table
         cs.gather_gram_cg_wide(table, cols, vals, nnz, x0w, LAM, 32)
     with pytest.raises(ValueError):     # f2 off the grid
@@ -572,6 +614,44 @@ def test_row_cut_matches_plain_and_the_uncut_kernel(card, p, spans, f_true,
     assert torch.all(x[empty] == 0) and torch.all(se[empty] == 0)
     assert torch.all(x[:, fl:] == 0)
     x2, se2 = run(spans)
+    assert torch.equal(x2, x) and torch.equal(se2, se)
+
+
+@pytest.mark.parametrize("p,spans", CUTS + [(300, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k6_at_256_matches_plain_and_repeats(card, p, spans, dtype):
+    """K6 (gather_gram_cg(aug=True)) at f = 256, F = 200, lane 255 free:
+    one span a row and the cut forced at S = 2, 3, 7, on the span-edge
+    grid of `cut_chunk`, a bf16 table (the two passes, pass 1 on the
+    tensor cores with the values over lane 255) and a float32 one (the
+    passes on the FMA body, or at S = 1 the uncut kernel of
+    gather_gram_cg_aug.cu): against the uncut plain version and the plain
+    cut route, x within 2e-3 and se within 2e-3 + 1e-4 relative, as K1's
+    cut; lane 255 of x, empty rows and the dummy row exactly 0; a second
+    run equal bit for bit; K6 counts one chunk, the passes their
+    launches."""
+    tile = 64 if dtype == torch.bfloat16 else 32
+    n_spans, span = cs._cut(-(-p // tile), spans, tile)
+    cpu = cut_chunk(200, dtype, p, span, seed=17)
+    gpu = [t.to(card) for t in cpu]
+    x, se = cs.gather_gram_cg(*gpu, LAM, aug=True, spans=spans)
+    torch.cuda.synchronize()
+    pass1 = "wide_span_gram_mma" if dtype == torch.bfloat16 else \
+        "wide_span_gram"
+    passes = dtype == torch.bfloat16 or n_spans > 1
+    want = {pass1: 1, "wide_span_solve": 1} if passes else {}
+    assert cs.LAUNCHES == dict.fromkeys(cs.LAUNCHES, 0) | want | {
+        "gather_gram_cg_aug": 1}
+    px, pse = cs.gather_gram_cg_aug_plain(*cpu, LAM)
+    torch.testing.assert_close(x.cpu(), px, atol=2e-3, rtol=0)
+    torch.testing.assert_close(se.cpu(), pse, atol=2e-3, rtol=1e-4)
+    cx, cse = cs.row_cut_plain(*cpu, LAM, 256, n_spans, span, aug=True)
+    torch.testing.assert_close(x.cpu(), cx, atol=2e-3, rtol=0)
+    torch.testing.assert_close(se.cpu(), cse, atol=2e-3, rtol=1e-4)
+    empty = gpu[3] == 0
+    assert torch.all(x[:, 255] == 0)
+    assert torch.all(x[empty] == 0) and torch.all(se[empty] == 0)
+    x2, se2 = cs.gather_gram_cg(*gpu, LAM, aug=True, spans=spans)
     assert torch.equal(x2, x) and torch.equal(se2, se)
 
 
@@ -1146,9 +1226,78 @@ def test_out_of_core_on_the_card_matches_the_cpu(card, factor_dtype):
     np.testing.assert_allclose(res.theta, ref.theta, atol=2e-3)
 
 
+def test_out_of_core_at_f_200_aug_force_on_the_card(card):
+    """OutOfCoreALS at F = 200 (f_pad 256) with aug_gram="force" on the
+    card against the same run on the CPU, as the test above: the X
+    chunks through K6 at f = 256 (the two passes on the bf16 table, one
+    K6 count a chunk), theta through K2 and K3 at 256."""
+    from cumf_als_tpu_torch.config import ALSConfig
+    from cumf_als_tpu_torch.data.synthetic import (init_factors,
+                                                   synthetic_ratings)
+    from cumf_als_tpu_torch.models.out_of_core import OutOfCoreALS
+    train, test = synthetic_ratings(m=300, n=220, nnz=12000, nnz_test=1500,
+                                    rank=6, noise=0.1, seed=7)
+    cfg = ALSConfig(m=300, n=220, f=200, lam=0.5, iters=3, verbose=False,
+                    debug_timing=False, panel_size=16, chunk_nnz=1 << 9,
+                    chunk_rows=32, factor_dtype="bf16", gram_dtype="f32",
+                    aug_gram="force", backend="pallas", solver="cg")
+    assert cs.aug_enabled(cfg)
+    x0, th0 = init_factors(300, 220, 200, seed=2)
+    model = OutOfCoreALS(cfg, train, None, test, device=card)
+    res = model.run(x0, th0)
+    got = {k: v for k, v in cs.LAUNCHES.items() if k not in K1_PASSES}
+    assert got == dict.fromkeys(got, 0) | {
+        "gather_gram_cg_aug": 3 * len(model.plan_x.chunks),
+        "gather_gram_out": 3 * len(model.plan_theta.chunks),
+        "solve_cg_reg": 3 * model.n_slices}
+    assert cs.LAUNCHES["wide_span_gram_mma"] == \
+        cs.LAUNCHES["wide_span_solve"] >= 3 * len(model.plan_x.chunks)
+    ref = OutOfCoreALS(cfg, train, None, test, device="cpu").run(x0, th0)
+    for a, b in zip(ref.history, res.history):
+        assert b.train_rmse == pytest.approx(a.train_rmse, abs=1e-4)
+        assert b.test_rmse == pytest.approx(a.test_rmse, abs=1e-4)
+    np.testing.assert_allclose(res.x, ref.x, atol=2e-3)
+    np.testing.assert_allclose(res.theta, ref.theta, atol=2e-3)
+
+
 # K1 at f = 256 on a bf16 table runs as the two passes of its row cut,
 # each counted under its own name, as often as the row batches set
 K1_PASSES = ("wide_span_gram_mma", "wide_span_solve")
+
+
+def test_sharded_world_one_at_f_200_aug_force_on_the_card(card):
+    """ShardedALS at one rank, F = 200 with aug_gram="force", on the card
+    against the same run on the CPU: theta's reduce blocks through K6 at
+    f = 256 (the two passes, one K6 count a block), X on the panel route
+    through K5a and K5b at 256 (f32 accumulators)."""
+    from cumf_als_tpu_torch.config import ALSConfig
+    from cumf_als_tpu_torch.data.synthetic import (init_factors,
+                                                   synthetic_ratings)
+    from cumf_als_tpu_torch.parallel.sharded_als import ShardedALS
+    train, test = synthetic_ratings(m=300, n=220, nnz=12000, nnz_test=1500,
+                                    rank=6, noise=0.1, seed=7)
+    cfg = ALSConfig(m=300, n=220, f=200, lam=0.5, iters=3, verbose=False,
+                    debug_timing=False, panel_size=16, chunk_nnz=1 << 9,
+                    chunk_rows=32, factor_dtype="bf16", gram_dtype="f32",
+                    aug_gram="force", backend="pallas", solver="cg")
+    x0, th0 = init_factors(300, 220, 200, seed=2)
+    model = ShardedALS(cfg, train, None, test, block_rows=32, device=card)
+    assert model.x_steps is not None and model.single_fused()
+    res = model.run(x0, th0)
+    slices = model._x_m_pad // model._x_solve_batch
+    got = {k: v for k, v in cs.LAUNCHES.items() if k not in K1_PASSES}
+    assert got == dict.fromkeys(got, 0) | {
+        "gather_gram_cg_aug": 3 * len(model.reduce_plan.blocks),
+        "gather_gram_aug_out": 3 * len(model.x_steps),
+        "solve_cg_aug": 3 * slices}
+    assert cs.LAUNCHES["wide_span_gram_mma"] > 0
+    ref = ShardedALS(cfg, train, None, test, block_rows=32,
+                     device="cpu").run(x0, th0)
+    for a, b in zip(ref.history, res.history):
+        assert b.train_rmse == pytest.approx(a.train_rmse, abs=1e-4)
+        assert b.test_rmse == pytest.approx(a.test_rmse, abs=1e-4)
+    np.testing.assert_allclose(res.x, ref.x, atol=2e-3)
+    np.testing.assert_allclose(res.theta, ref.theta, atol=2e-3)
 
 
 def _launched_as_planned(want, f):

@@ -340,9 +340,9 @@ def test_the_two_passes_take_card_tensors_only(fl):
 
 
 def test_wrappers_take_spans_on_the_256_lane_body_only():
-    """`spans` is a keyword of `gather_gram_cg` at f = 256 (not aug) and
-    of `gather_gram_cg_wide`; CPU tensors take the plain version
-    whatever it says, and nothing counts a launch."""
+    """`spans` is a keyword of `gather_gram_cg` at f = 256 (K1 and, with
+    aug, K6) and of `gather_gram_cg_wide`; CPU tensors take the plain
+    version whatever it says, and nothing counts a launch."""
     cs.reset_launch_counts()
     table, cols, vals, nnz, x0 = (_t(a) for a in _edge_chunk(
         200, 64, 32, ROWS["tile edges"], seed=4))
@@ -356,9 +356,13 @@ def test_wrappers_take_spans_on_the_256_lane_body_only():
     with pytest.raises(ValueError, match="256-lane"):
         cs.gather_gram_cg(table[:, :128].contiguous(), cols, vals, nnz,
                           x0[:, :128].contiguous(), LAM, spans=2)
+    xa, sea = cs.gather_gram_cg(table, cols, vals, nnz, x0, LAM, aug=True,
+                                spans=2)
+    assert torch.equal(xa, cs.gather_gram_cg_aug_plain(
+        table, cols, vals, nnz, x0, LAM)[0])
     with pytest.raises(ValueError, match="256-lane"):
-        cs.gather_gram_cg(table, cols, vals, nnz, x0, LAM, aug=True,
-                          spans=2)
+        cs.gather_gram_cg(table[:, :128].contiguous(), cols, vals, nnz,
+                          x0[:, :128].contiguous(), LAM, aug=True, spans=2)
     for bad in (0, 70000):
         with pytest.raises(ValueError, match="spans"):
             cs.gather_gram_cg_wide(table, cols, vals, nnz, x0, LAM, 96,
