@@ -146,6 +146,29 @@ def test_the_gate_sends_f_200_force_to_k6():
     assert not cs.aug_enabled(ALSConfig(f=200, aug_gram="auto", **base))
 
 
+def test_wide_on_takes_k7_not_k6(problem, monkeypatch):
+    """With wide_kernel="on" the fused routes take K7 even where the aug
+    gate holds (models/als.py): no chunk reaches K6 at 256."""
+    _, al, x0, th0 = _runs(problem, "f32", aug_gram="force", f=136,
+                           wide_kernel="on", iters=1)
+    assert cs.aug_enabled(al.cfg) and cs.wide_enabled(al.cfg)
+    seen = {"aug": 0, "wide": 0}
+    aug_plain, wide_plain = (cs.gather_gram_cg_aug_plain,
+                             cs.gather_gram_cg_wide_plain)
+
+    def count(key, fn):
+        def wrapped(*a, **k):
+            seen[key] += 1
+            return fn(*a, **k)
+        return wrapped
+    monkeypatch.setattr(cs, "gather_gram_cg_aug_plain",
+                        count("aug", aug_plain))
+    monkeypatch.setattr(cs, "gather_gram_cg_wide_plain",
+                        count("wide", wide_plain))
+    al.run(x0, th0)
+    assert seen["aug"] == 0 and seen["wide"] == len(al.plan_theta[1])
+
+
 def test_forced_aug_at_f_136_matches_jax(problem, interpret_pallas,
                                          monkeypatch):
     """ALS at F = 136 (f_pad 256), f32, aug_gram="force": theta on the

@@ -1417,6 +1417,50 @@ def test_sharded_ooc_on_the_card_matches_the_cpu(card, place, f,
     np.testing.assert_allclose(res.theta, ref.theta, atol=2e-3)
 
 
+@pytest.mark.parametrize("place", ["host", "device"])
+def test_sharded_ooc_at_f_200_aug_force_on_the_card(card, place,
+                                                     monkeypatch):
+    """ShardedOutOfCoreALS at one rank, F = 200 with aug_gram="force", on
+    the card against the same run on the CPU, as the test above: its X
+    chunks (and with X on the card its direct theta chunks) through K6 at
+    f = 256 (the two passes, one K6 count a chunk), the rest as there."""
+    from cumf_als_tpu_torch.config import ALSConfig
+    from cumf_als_tpu_torch.data.synthetic import (init_factors,
+                                                   synthetic_ratings)
+    from cumf_als_tpu_torch.parallel import sharded_ooc as so
+    monkeypatch.setattr(so.ShardedOutOfCoreALS, "THETA_SEG_W", 64)
+    train, test = synthetic_ratings(m=300, n=220, nnz=12000, nnz_test=1500,
+                                    rank=6, noise=0.1, seed=7)
+    cfg = ALSConfig(m=300, n=220, f=200, lam=0.5, iters=3, verbose=False,
+                    debug_timing=False, panel_size=16, chunk_nnz=1 << 9,
+                    chunk_rows=32, factor_dtype="bf16", gram_dtype="f32",
+                    aug_gram="force", backend="pallas", solver="cg",
+                    x_placement=place)
+    x0, th0 = init_factors(300, 220, 200, seed=2)
+    model = so.ShardedOutOfCoreALS(cfg, train, None, test, device=card)
+    res = model.run(x0, th0)
+    n_x = len(model.row_plan.chunks)
+    if place == "host":
+        want = {"gather_gram_cg_aug": 3 * n_x,
+                "gather_gram_out": 3 * len(model.theta_steps),
+                "solve_cg_reg": 3}
+    else:
+        want = {"gather_gram_cg_aug": 3 * (n_x + len(model.th_plan.chunks)),
+                "gather_gram_out": 3 * len(model._hot_chunks),
+                "solve_cg_reg": 3}
+    got = {k: v for k, v in cs.LAUNCHES.items() if k not in K1_PASSES}
+    assert got == dict.fromkeys(got, 0) | want
+    assert cs.LAUNCHES["wide_span_gram_mma"] == \
+        cs.LAUNCHES["wide_span_solve"] >= want["gather_gram_cg_aug"]
+    ref = so.ShardedOutOfCoreALS(cfg, train, None, test,
+                                 device="cpu").run(x0, th0)
+    for a, b in zip(ref.history, res.history):
+        assert b.train_rmse == pytest.approx(a.train_rmse, abs=1e-4)
+        assert b.test_rmse == pytest.approx(a.test_rmse, abs=1e-4)
+    np.testing.assert_allclose(res.x, ref.x, atol=2e-3)
+    np.testing.assert_allclose(res.theta, ref.theta, atol=2e-3)
+
+
 @pytest.mark.parametrize("table_dtype", [torch.float32, torch.bfloat16])
 def test_k2_on_a_hot_segment_chunk(card, table_dtype):
     """K2 with an f32 A on the shape of a hot-segment chunk of the direct
