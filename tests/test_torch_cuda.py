@@ -1265,31 +1265,41 @@ def test_out_of_core_at_f_200_aug_force_on_the_card(card):
 K1_PASSES = ("wide_span_gram_mma", "wide_span_solve")
 
 
-def test_sharded_world_one_at_f_200_aug_force_on_the_card(card):
+@pytest.mark.parametrize("x_route", ["panel", "direct"])
+def test_sharded_world_one_at_f_200_aug_force_on_the_card(card, x_route):
     """ShardedALS at one rank, F = 200 with aug_gram="force", on the card
     against the same run on the CPU: theta's reduce blocks through K6 at
-    f = 256 (the two passes, one K6 count a block), X on the panel route
-    through K5a and K5b at 256 (f32 accumulators)."""
+    f = 256 (the two passes, one K6 count a block); X on the panel route
+    through K5a and K5b at 256 (f32 accumulators, panels of 16 theta
+    rows), or with the default panel size on the direct route through
+    K6 at 256 as well."""
     from cumf_als_tpu_torch.config import ALSConfig
     from cumf_als_tpu_torch.data.synthetic import (init_factors,
                                                    synthetic_ratings)
     from cumf_als_tpu_torch.parallel.sharded_als import ShardedALS
     train, test = synthetic_ratings(m=300, n=220, nnz=12000, nnz_test=1500,
                                     rank=6, noise=0.1, seed=7)
+    panel = dict(panel_size=16) if x_route == "panel" else {}
     cfg = ALSConfig(m=300, n=220, f=200, lam=0.5, iters=3, verbose=False,
-                    debug_timing=False, panel_size=16, chunk_nnz=1 << 9,
-                    chunk_rows=32, factor_dtype="bf16", gram_dtype="f32",
-                    aug_gram="force", backend="pallas", solver="cg")
+                    debug_timing=False, chunk_nnz=1 << 9, chunk_rows=32,
+                    factor_dtype="bf16", gram_dtype="f32",
+                    aug_gram="force", backend="pallas", solver="cg",
+                    **panel)
     x0, th0 = init_factors(300, 220, 200, seed=2)
     model = ShardedALS(cfg, train, None, test, block_rows=32, device=card)
-    assert model.x_steps is not None and model.single_fused()
+    assert (model.x_steps is not None) == (x_route == "panel")
+    assert model.single_fused()
     res = model.run(x0, th0)
-    slices = model._x_m_pad // model._x_solve_batch
     got = {k: v for k, v in cs.LAUNCHES.items() if k not in K1_PASSES}
-    assert got == dict.fromkeys(got, 0) | {
-        "gather_gram_cg_aug": 3 * len(model.reduce_plan.blocks),
-        "gather_gram_aug_out": 3 * len(model.x_steps),
-        "solve_cg_aug": 3 * slices}
+    if x_route == "panel":
+        slices = model._x_m_pad // model._x_solve_batch
+        want = {"gather_gram_cg_aug": 3 * len(model.reduce_plan.blocks),
+                "gather_gram_aug_out": 3 * len(model.x_steps),
+                "solve_cg_aug": 3 * slices}
+    else:
+        want = {"gather_gram_cg_aug": 3 * (len(model.reduce_plan.blocks) +
+                                           len(model._x_chunks))}
+    assert got == dict.fromkeys(got, 0) | want
     assert cs.LAUNCHES["wide_span_gram_mma"] > 0
     ref = ShardedALS(cfg, train, None, test, block_rows=32,
                      device="cpu").run(x0, th0)
