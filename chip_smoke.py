@@ -87,13 +87,17 @@ result line):
       (the cut on the FMA body), and on the most populous theta chunk of
       a float32 table (K6's uncut kernel), x within 2e-3, se within 1e-3
       relative, lane 255 of x exactly 0, a repeat equal bit for bit; each
-      pass alone on the populous chunk (tensor cores) and the float32
-      split chunk (FMA body), pass 1's A' through the record layout
-      within `gram_limit`, pass 2 on those records; then
-      `ALS.run` for 2 iterations, K6 counting one a chunk and its two
-      passes launched, train RMSE within 1e-3 of (c)'s wide-off run at
-      every iteration and test RMSE falling. Its numbers go into the
-      `kernels` line as K6's `f256` and `f256_launches`;
+      pass alone on the populous chunk (tensor cores), the float32 split
+      chunk (FMA body) and the populous chunk of the float32 table (the
+      cut at S = 1 on the FMA body, timed beside the uncut kernel), pass
+      1's A' through the record layout within `gram_limit`, pass 2 on
+      those records; then
+      `ALS.run` for 2 iterations, its two passes launched at least once
+      a chunk and no other fused kernel, train RMSE within 1e-3 of (c)'s
+      wide-off run at every iteration and test RMSE falling. Its numbers
+      go into the `kernels` line as K6's `f256`, and the passes' launches
+      in that run as its `f256_launches` (K6 at 256 lanes counts no
+      launch of its own, as K1 there);
 6. the batched-panel route at full width on the same data, F=100, bf16
    factors, backend "pallas", Cholesky, `panel_budget_bytes` 2^29 and
    `batch_rows` 4096: the X accumulators (1.16 GB) pass the budget, so X
@@ -1127,8 +1131,8 @@ def chunk_x0(ch, current):
 
 
 def route_of(cs, table_ext, r, p, spans=None):
-    """How the wrappers of K7 and K1 at f=256 run a chunk of R rows of P
-    slots on this table: (text, S, L)."""
+    """How the wrappers of K7, K1 and K6 at f=256 run a chunk of R rows of
+    P slots on this table: (text, S, L)."""
     n_spans, span = cs._chunk_spans(torch.device(DEV, 0), r, p, spans,
                                     **cs.span_plan(table_ext))
     if cs.gram_body(table_ext) == "wgmma":
@@ -2245,8 +2249,8 @@ def aug_256(cs, model, hist_ref, results):
     table (the uncut kernel of gather_gram_cg_aug.cu); then ALS.run for
     AUG_256_ITERS iterations, train RMSE within 1e-3 of phase 5's
     wide-off run (`hist_ref`, the split kernel K1 at 256 on the same
-    plans) at every iteration and test RMSE falling, K6 counting one a
-    chunk and its two passes launched, no other fused kernel. Fills
+    plans) at every iteration and test RMSE falling, K6's two passes
+    launched at least once a chunk, no other fused kernel. Fills
     results["gather_gram_cg_aug"] with the f = 256 numbers."""
     import copy
 
@@ -2283,8 +2287,10 @@ def aug_256(cs, model, hist_ref, results):
              "theta most populous, float32 table")):
         ok, out[key] = check_k6_256(cs, table, ch, current, cfg_a, label)
         ok_all &= ok
-        if key in ("theta_populous", "split_x_fewest_f32_table"):
-            # each pass alone: on the tensor cores and on the FMA body
+        if key != "split_x_fewest":
+            # each pass alone: on the tensor cores and on the FMA body;
+            # on the float32 populous chunk the cut at S = 1, which the
+            # uncut kernel's time above is held against
             ok, out[key]["passes"] = check_k6_passes(cs, table, ch,
                                                      current, cfg_a, label)
             ok_all &= ok
@@ -2302,11 +2308,10 @@ def aug_256(cs, model, hist_ref, results):
                              "version")
     al = copy.copy(model)      # the same plans: aug steers no plan
     al.cfg = cfg_a
-    others = SPLIT_KERNELS + AUG_KERNELS[1:] + WIDE_KERNELS + (
+    others = SPLIT_KERNELS + AUG_KERNELS + WIDE_KERNELS + (
         "solve_cg", "wide_span_gram")
-    hist, launches = full_width(
-        cs, al, "aug 256", ("gather_gram_cg_aug",) + MMA_PASSES, others,
-        x0_np, th0_np, iters=AUG_256_ITERS)
+    hist, launches = full_width(cs, al, "aug 256", MMA_PASSES, others,
+                                x0_np, th0_np, iters=AUG_256_ITERS)
     n_chunks = len(chunks_x) + len(chunks_t)
     worst = 0.0
     for h, r in zip(hist, hist_ref):
@@ -2316,21 +2321,21 @@ def aug_256(cs, model, hist_ref, results):
             f"{h.train_rmse:.6f} | {r.train_rmse:.6f} (limit 1e-3), test "
             f"{h.test_rmse:.6f} | {r.test_rmse:.6f}")
     te = [h.test_rmse for h in hist]
-    log(f"[aug 256] K6 chunks {launches['gather_gram_cg_aug']} over "
-        f"{AUG_256_ITERS} iterations of {n_chunks} chunks ({len(chunks_x)} "
-        f"split X, {len(chunks_t)} theta); the passes "
-        f"{[launches[k] for k in MMA_PASSES]}; worst train RMSE gap to "
-        f"wide off {worst:.3e}; phase 5e {time.monotonic() - t_start:.1f} s")
+    log(f"[aug 256] {AUG_256_ITERS} iterations of {n_chunks} chunks "
+        f"({len(chunks_x)} split X, {len(chunks_t)} theta); K6's passes "
+        f"{dict((k, launches[k]) for k in MMA_PASSES)}; worst train RMSE "
+        f"gap to wide off {worst:.3e}; phase 5e "
+        f"{time.monotonic() - t_start:.1f} s")
     if len(hist) > len(hist_ref) or worst > 1e-3 or not te[-1] < te[0]:
         raise AssertionError("aug F=200: off phase 5's wide-off run")
-    if launches["gather_gram_cg_aug"] != n_chunks * AUG_256_ITERS or \
+    if launches["wide_span_gram_mma"] != launches["wide_span_solve"] or \
             launches["wide_span_gram_mma"] < n_chunks * AUG_256_ITERS:
-        raise AssertionError("aug F=200: a fused chunk did not run K6 at "
-                             "256 lanes")
-    results.setdefault("gather_gram_cg_aug", {})["f256"] = out
-    results["gather_gram_cg_aug"]["f256_launches"] = {
-        f"ALS.run F=200 aug force ({AUG_256_ITERS} iterations)":
-            {k: launches[k] for k in ("gather_gram_cg_aug",) + MMA_PASSES}}
+        raise AssertionError("aug F=200: a fused chunk did not run K6's "
+                             "two passes at 256 lanes")
+    results.setdefault("gather_gram_cg_aug", {}).update(
+        f256=out, f256_launches=launches["wide_span_gram_mma"],
+        f256_launches_path=f"ALS.run F=200 aug force (bf16, "
+                           f"{AUG_256_ITERS} iterations): the two passes")
     del al
     torch.cuda.empty_cache()
 
@@ -3651,34 +3656,6 @@ def solve_checks(cs, f, label):
     return ok_all, out
 
 
-def parent_panel_ms(key, kernel):
-    """The parent tree's time of K2 or K5a at f = 256 on chunk shape
-    `key`, as scripts/torch_panel_256_readings.py read it earlier in the
-    same call into its default output,
-    _archive/panel_256_readings/readings.json (its own synthetic chunk of
-    that shape), or None where no such reading exists."""
-    path = os.path.join(ROOT, "_archive", "panel_256_readings",
-                        "readings.json")
-    if not os.path.exists(path):
-        return None
-    with open(path) as fh:
-        got = json.load(fh).get(key, {}).get("ms", {})
-    return got.get(f"parent {kernel} full")
-
-
-def log_parent(name, key, res):
-    """Print this run's time of K2 or K5a at f = 256 beside the parent's
-    (`parent_panel_ms`), and keep the parent's in `res`."""
-    old = parent_panel_ms(key, name)
-    res["parent_ms"] = old
-    tag = "K5a" if name == "gather_gram_aug_out" else "K2"
-    log(f"[panel 256 parent] {tag} on {key}: {res['ms']:.3f} ms here, the "
-        f"parent's kernel " + (f"{old:.3f} ms (scripts/torch_panel_256_"
-                               f"readings.py earlier in this call, on its "
-                               f"own chunk of the shape)" if old is not None
-                               else "not read in this call"))
-
-
 def panel_256_grams(cs, x_table, hot):
     """13a's Gram checks at f = 256: K2 and K5a on the shape of the
     Netflix X phase's most populous panel chunk (R = 2304, P = 576, a
@@ -3699,9 +3676,6 @@ def panel_256_grams(cs, x_table, hot):
             key = "bf16_a" if a_dtype == torch.bfloat16 else (
                 "f32_a" if table.dtype == torch.bfloat16 else "f32_table")
             out.setdefault(name, {})[key] = res
-            if table.dtype == torch.bfloat16:
-                log_parent(name, "X panel R=2304 P=576, A " +
-                           str(a_dtype).split(".")[-1], res)
     del tp, ch
     torch.cuda.empty_cache()
     ok, out["gather_gram_out"]["hot_segment"] = check_gram(
@@ -3710,8 +3684,6 @@ def panel_256_grams(cs, x_table, hot):
         "rated theta columns, their first 2^18 ratings)",
         table_rows=live_rows(hot))
     ok_all &= ok
-    log_parent("gather_gram_out", "hot segment R=16 P=2^18, A float32",
-               out["gather_gram_out"]["hot_segment"])
     return ok_all, out
 
 
@@ -3764,8 +3736,6 @@ def panel_256_ooc(cs, bench, results):
     ok_all, k2 = check_gram(cs, tp, c, ooc.accum_dtype, False,
                             f"f=256 out-of-core theta chunk {j} of "
                             f"{len(ooc.plan_theta.chunks)}")
-    log_parent("gather_gram_out", "out-of-core theta shape R=6656 P=72, A "
-               + str(ooc.accum_dtype).split(".")[-1], k2)
     del tp, c
     a_buf, b_buf = ooc.theta_accumulators()
     theta = torch.nn.functional.pad(

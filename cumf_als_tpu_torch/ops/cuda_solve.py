@@ -168,14 +168,11 @@ def _check(name: str, t: torch.Tensor, shape, dtypes) -> None:
         raise ValueError(f"{name}: not contiguous")
 
 
-def _check_f(name: str, f: int, wide_ok: bool = False) -> None:
-    """f must be a multiple of 16 up to 128; `wide_ok` also admits 256."""
-    if wide_ok and f == 256:
-        return
-    if f % 16 or not 16 <= f <= 128:
+def _check_f(name: str, f: int) -> None:
+    """f must be a multiple of 16 up to 128, or 256."""
+    if f != 256 and (f % 16 or not 16 <= f <= 128):
         raise ValueError(f"{name}: the kernel takes f a multiple of 16 up "
-                         f"to 128{' or f = 256' if wide_ok else ''}, got "
-                         f"{f}")
+                         f"to 128 or f = 256, got {f}")
 
 
 def _launch(name: str, *args) -> None:
@@ -365,13 +362,13 @@ def gather_gram_cg(table_ext, cols, vals, nnz, x0, lam: float,
     chunk, pass 1 on the tensor cores; a float32 table takes them on a
     chunk with fewer rows than the card has SMs (`row_spans`) and the
     uncut kernel otherwise; with aug both in the aug layout (pass 1's
-    records hold A', pass 2 unpacks b and r2 from it), and each chunk
-    that ran the two passes also counts one under "gather_gram_cg_aug",
-    so K6's count is its chunks at every width (the passes count their
-    own launches). `spans` forces the number of spans a row is cut into
-    (1: one span a row, which on a float32 table is the uncut kernel)
-    and is taken at f = 256 only. Tensors on the CPU take the plain
-    version whatever `spans` says."""
+    records hold A', pass 2 unpacks b and r2 from it). Each kernel
+    counts its own launches: a chunk on the two passes counts one under
+    each pass and none under "gather_gram_cg" or "gather_gram_cg_aug",
+    which count the uncut kernel. `spans` forces the number of spans a
+    row is cut into (1: one span a row, which on a float32 table is the
+    uncut kernel) and is taken at f = 256 only. Tensors on the CPU take
+    the plain version whatever `spans` says."""
     name = "gather_gram_cg_aug" if aug else "gather_gram_cg"
     _check_spans(name, spans, table_ext.shape[1] == 256)
     if _on_cpu(table_ext, cols, vals, nnz, x0):
@@ -379,7 +376,7 @@ def gather_gram_cg(table_ext, cols, vals, nnz, x0, lam: float,
         return plain(table_ext, cols, vals, nnz, x0, lam, cg_iters, cg_tol)
     r, p = cols.shape
     f = table_ext.shape[1]
-    _check_f(name, f, wide_ok=True)
+    _check_f(name, f)
     _check("table_ext", table_ext, table_ext.shape, _FLOATS)
     _check("cols", cols, (r, p), (torch.int32,))
     _check("vals", vals, (r, p), _FLOATS)
@@ -389,11 +386,8 @@ def gather_gram_cg(table_ext, cols, vals, nnz, x0, lam: float,
         n_spans, span_len = _chunk_spans(x0.device, r, p, spans,
                                          **span_plan(table_ext))
         if n_spans > 1 or gram_body(table_ext) == "wgmma":
-            out = _row_cut(table_ext, cols, vals, nnz, x0, lam, 256,
-                           n_spans, span_len, cg_iters, cg_tol, aug)
-            if aug:     # K6 at 256 lanes ran: its chunk count
-                LAUNCHES[name] += 1
-            return out
+            return _row_cut(table_ext, cols, vals, nnz, x0, lam, 256,
+                            n_spans, span_len, cg_iters, cg_tol, aug)
     x = torch.empty((r, f), dtype=torch.float32, device=x0.device)
     se = torch.empty((r, 1), dtype=torch.float32, device=x0.device)
     if r:
@@ -463,7 +457,7 @@ def gather_gram_out(table_ext, cols, vals,
         return gather_gram_out_plain(table_ext, cols, vals, out_dtype)
     r, p = cols.shape
     f = table_ext.shape[1]
-    _check_f("gather_gram_out", f, wide_ok=True)
+    _check_f("gather_gram_out", f)
     if out_dtype not in _FLOATS:
         raise ValueError(f"out_dtype {out_dtype} not in {_FLOATS}")
     _check("table_ext", table_ext, table_ext.shape, _FLOATS)
@@ -531,7 +525,7 @@ def _bulk_solve(name: str, a, diag, b, x0, cg_iters: int, cg_tol: float):
     into shared memory, at 256 in 16-byte loads): their storage must
     start on 16-byte boundaries."""
     r, f, _ = a.shape
-    _check_f(name, f, wide_ok=True)
+    _check_f(name, f)
     _check("a", a, (r, f, f), _FLOATS)
     if diag is not None:
         _check("diag", diag, (r,), (torch.float32,))
@@ -604,7 +598,7 @@ def gather_gram_aug_out(table_ext, cols, vals,
         return gather_gram_aug_out_plain(table_ext, cols, vals, out_dtype)
     r, p = cols.shape
     f = table_ext.shape[1]
-    _check_f("gather_gram_aug_out", f, wide_ok=True)
+    _check_f("gather_gram_aug_out", f)
     if out_dtype not in _FLOATS:
         raise ValueError(f"out_dtype {out_dtype} not in {_FLOATS}")
     _check("table_ext", table_ext, table_ext.shape, _FLOATS)

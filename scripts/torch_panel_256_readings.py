@@ -41,9 +41,8 @@ TFLOP/s). Then gather = full - no gather, tensor cores = full - no mma,
 store = full - no store, b = full - no b: the parts overlap, so they need
 not add up to the full time, and what is left after taking one out is
 what bounds the rest. Writes every reading to FILE (default
-_archive/panel_256_readings/readings.json), where chip_smoke.py's phase
-13a finds the parent's times to print beside its own, and prints one
-line of JSON with the card's name and power limit last.
+_archive/panel_256_readings/readings.json) and prints one line of JSON
+with the card's name and power limit last.
 """
 
 from __future__ import annotations
@@ -61,7 +60,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 HEADER = "wide_gram_mma.cuh"
-# where the readings go by default, and where chip_smoke.py looks for them
+# where the readings go by default
 READINGS = os.path.join(ROOT, "_archive", "panel_256_readings",
                         "readings.json")
 # text patches of the panel kernel's header, by the tree's design: a

@@ -219,14 +219,16 @@ def test_wide_enabled_matches(monkeypatch, fields, want):
 
 
 def test_k2_to_k6_name_themselves_at_256_lanes():
-    """Without `wide_ok` the f check refuses 256 and its message names
-    the kernel that refused (K6 alone calls it so; K1-K5b pass wide_ok);
-    the checks run before any device work."""
+    """The f check takes 256 for every kernel (K1-K6 all run there), and
+    refuses a width off the grid with a message that names the kernel
+    that refused; the checks run before any device work."""
     for name in ("gather_gram_out", "solve_cg_reg", "solve_cg",
                  "gather_gram_aug_out", "solve_cg_aug",
                  "gather_gram_cg_aug"):
-        with pytest.raises(ValueError, match=name):
-            cs._check_f(name, 256)
-    cs._check_f("gather_gram_cg", 256, wide_ok=True)
+        cs._check_f(name, 256)
+        for bad in (136, 192):
+            with pytest.raises(ValueError, match=name):
+                cs._check_f(name, bad)
+    cs._check_f("gather_gram_cg", 256)
     with pytest.raises(ValueError, match="or f = 256"):
-        cs._check_f("gather_gram_cg", 192, wide_ok=True)
+        cs._check_f("gather_gram_cg", 192)
