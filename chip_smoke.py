@@ -7,7 +7,7 @@ result line):
 
 1. card and build: the card's name and power limit, the torch/CUDA
    versions, the build of the native data plane (`g++`; without it the
-   run fails), and the build of every CUDA kernel from csrc/ (twelve)
+   run fails), and the build of every CUDA kernel from csrc/ (thirteen)
    with `-Xptxas -v`: registers, spills and added wgmma waits of the
    tensor-core entry functions of K1, K2, K5a, K6 and the tensor-core
    pass 1 of the 256-lane body (and of K2 and K5a at f = 256),
@@ -19,13 +19,20 @@ result line):
    theta-phase chunk for K1 and K6 (device time, `queued_ms`), small
    chunks whose rows stop at the edges of the 64-slot tile, and their
    time over the whole theta phase split by chunks under and over 132
-   rows; for K2 and K5a the most populous, the widest and the
-   fewest-row X-phase panel chunk (the most populous with a bf16 and an
-   f32 A, the widest and the fewest-row one also with a float32 table,
-   which keeps the FMA body), small chunks at the edges of their 64-slot
-   tile (integer
+   rows; for K2 and K5a the most populous, the widest and, among the
+   chunks their cut takes (`cs.gram_spans`: fewer rows than the blocks
+   that fit the card, each row's slots cut into spans across blocks,
+   then pass 2, `gram_span_sum`), the fewest-row X-phase panel chunk and
+   one of about 40 rows (the most populous with a bf16 and an f32 A, the
+   widest and the fewest-row one also with a float32 table, which keeps
+   the FMA body, uncut; the two of few rows three ways: as routed
+   against the plain version, twice with the same bits, and against
+   spans=1 with both times), pass 2 alone on the fewest-row chunk's
+   partials (bit for bit against its plain version), small chunks at
+   the edges of their 64-slot tile (integer
    tables: bit for bit, the proof of the tile layout), and their time
-   over the whole X phase split by chunks under and over 132 rows; one
+   over the whole X phase, as routed and uncut, split by chunks under
+   and over the blocks that fit the card (264 at f = 128); one
    full solve slice of the X-phase accumulators for K3 (split, bf16, at
    cg_iters 0 and 6, and the same slice widened to float32), K5b
    (augmented, f32) and K4 (the same slice unpacked and regularized
@@ -167,7 +174,8 @@ result line):
       within 2e-3 of (a): K1 on the widest direct theta chunk against
       the device X (its se held to the exact se of its x, in float64),
       and K2 on a hot-segment chunk of the 16 most rated columns (R =
-      16, P = 2^18, f32 A), against their plain versions;
+      16, P = 2^18, f32 A), against their plain versions (K2 three ways,
+      as phase 2's few-row chunks);
       with no column above THETA_SEG_W ratings, one more iteration with
       it lowered until 8 columns are hot (K2 on their segments, K3 on
       their solve), RMSE within 2e-3 of (b)'s first;
@@ -220,7 +228,8 @@ result line):
       K2 and K5a on a synthetic chunk of the Netflix X phase's most
       populous shape (R = 2304, P = 576, a 65,537-row bf16 panel), bf16
       and f32 A, and on a float32 copy of the table (the FMA body); K2
-      on a hot-segment chunk (R = 16, P = 2^18, f32 A) of (c)'s X and on
+      on a hot-segment chunk (R = 16, P = 2^18, f32 A) of (c)'s X (three
+      ways, as phase 2's few-row chunks) and on
       (c)'s most rated theta chunk; K3, K4 and K5b on 16,384 systems of
       one synthetic chunk (K2's and K5a's A, one row in 64 without
       ratings, which must solve to exactly 0), bf16 and f32 A, K3 also
@@ -250,15 +259,24 @@ their counts and CRC-32s are held to those of the JAX package's
 `workload_ratings(name, 1.0, 0)` (both pass 2^26 ratings, so both come
 from the native generator).
 
+Wherever K2 or K5a run, their cut's pass 2 (`gram_span_sum`) must
+launch once for each call on a chunk the cut takes, as the plans'
+shapes and `cs.gram_spans` say (at two ranks in 11d: the same count on
+both ranks); its entry in the `kernels` line holds phase 2's check of
+pass 2 alone and the main path's launches.
+
 It prints a `kernels` JSON line, the card line, and last
 {"ok": true, "device": {...}}. It imports nothing of JAX.
 
     python3 chip_smoke.py --gram
 
 is the short call after a change to K2, K5a or csrc/gram_mma.cuh: it
-builds those two kernels alone (with the ptxas report), runs the edge
-cases and three synthetic chunk shapes against the plain versions with
-their times, and prints no result line.
+builds those two kernels and their cut's pass 2 alone (with the ptxas
+report), runs the edge cases and three synthetic chunk shapes against
+the plain versions with their times, then the cut at f = 128 and 256
+three ways on synthetic chunks of the fewest-row X panel shape (16 x
+4096), of about 40 rows (40 x 3840) and of the hot segments (16 x
+2^18), and prints no result line.
 
     python3 chip_smoke.py --theta
 
@@ -343,6 +361,10 @@ REPLACES = {
     "wide_span_gram": "cumf_als_tpu/ops/pallas_solve.py:804",
     "wide_span_gram_mma": "cumf_als_tpu/ops/pallas_solve.py:804",
     "wide_span_solve": "cumf_als_tpu/ops/pallas_solve.py:804",
+    # pass 2 of the cut of K2 and K5a on a chunk of few rows (pass 1 is
+    # the panel kernel itself): `_gram_kernel` (534) and
+    # `_gram_kernel_aug` (610)
+    "gram_span_sum": "cumf_als_tpu/ops/pallas_solve.py:534",
 }
 # the Gram body each kernel's measured launches ran ("cg": a solve alone)
 # ("bulk-cg": the persistent blocks on bulk-async copies of K3, K4 and
@@ -354,11 +376,14 @@ BODY = {"gather_gram_cg": "wgmma", "gather_gram_out": "wgmma",
         "gather_gram_aug_out": "wgmma", "solve_cg_aug": "bulk-cg",
         "gather_gram_cg_aug": "wgmma", "gather_gram_cg_wide": "fma",
         "fused_gram_cg_cat": "fma", "wide_span_gram": "fma",
-        "wide_span_gram_mma": "wgmma", "wide_span_solve": "cg"}
+        "wide_span_gram_mma": "wgmma", "wide_span_solve": "cg",
+        "gram_span_sum": "sum"}
 SPLIT_KERNELS = ("gather_gram_cg", "gather_gram_out", "solve_cg_reg")
 AUG_KERNELS = ("gather_gram_cg_aug", "gather_gram_aug_out", "solve_cg_aug")
 WIDE_KERNELS = ("gather_gram_cg_wide", "fused_gram_cg_cat")
 GRAM_KERNELS = ("gather_gram_out", "gather_gram_aug_out")
+# pass 2 of K2's and K5a's cut on a chunk of few rows (`cs.gram_spans`)
+SPAN_SUM = "gram_span_sum"
 THETA_KERNELS = ("gather_gram_cg", "gather_gram_cg_aug")
 SPAN_KERNELS = ("wide_span_gram", "wide_span_gram_mma", "wide_span_solve")
 # the route of K7 and K1 at f=256 on a bf16 table: the two passes, pass 1
@@ -369,7 +394,7 @@ WIDE_SHORT = ("gather_gram_cg", "gather_gram_cg_wide") + SPAN_KERNELS
 # passes; K6's uncut kernel and the FMA pass 1 on a float32 table), K2,
 # K3, K4, K5a, K5b
 PANEL_256_SHORT = SPLIT_KERNELS + AUG_KERNELS + ("solve_cg",) + \
-    SPAN_KERNELS
+    SPAN_KERNELS + (SPAN_SUM,)
 # the device times (ms) of the 256-lane kernels on the same chunks on the
 # FMA body, before the tensor-core pass 1 (the bracketed times of PERF.md
 # §6; NVIDIA H100 80GB HBM3, 700.00 W):
@@ -652,7 +677,76 @@ def gram_synthetic(cs):
                              nnz=nnz[:rows].clamp(max=slots), panel=0)
         for aug in (False, True):
             for a_dtype in (torch.bfloat16, torch.float32):
-                ok &= check_gram(cs, tp, ch, a_dtype, aug, "synthetic")[0]
+                ok &= check_gram(cs, tp, ch, a_dtype, aug, "synthetic",
+                                 cut=rows < 264)[0]
+    return ok
+
+
+def synthetic_chunk(gen, r, p, n, fill=0.5):
+    """A panel chunk of r rows of p slots over a table of n rows (pad id
+    n), made from `gen`: each row's first nnz slots live (nnz from
+    fill p to p, one row of pad slots only), values halves in 1..5."""
+    from types import SimpleNamespace
+    nnz = torch.randint(int(fill * p), p + 1, (r,), generator=gen,
+                        device=DEV, dtype=torch.int32)
+    nnz[min(3, r - 1)] = 0
+    mask = torch.arange(p, device=DEV)[None, :] < nnz[:, None]
+    cols = torch.where(mask, torch.randint(0, n, (r, p), generator=gen,
+                                           device=DEV), n).to(torch.int32)
+    vals = (torch.randint(2, 11, (r, p), generator=gen, device=DEV) / 2.0
+            * mask).float()
+    return SimpleNamespace(cols=cols, vals=vals, nnz=nnz, panel=0)
+
+
+def synthetic_table(gen, n, f, signed=True):
+    """A bf16 gather table of n rows and one zero row (the pad id n), its
+    lane f - 1 zero (the aug form's free lane): 0.3 N(0, 1), or with
+    `signed` False 0.2 U(0, 1), as init_factors makes theta (the X
+    phase's table at iteration 0, and phase 2's stand-in X)."""
+    if signed:
+        t = 0.3 * torch.randn((n + 1, f), generator=gen, device=DEV)
+    else:
+        t = 0.2 * torch.rand((n + 1, f), generator=gen, device=DEV)
+    t = t.to(torch.bfloat16)
+    t[n] = 0
+    t[:, f - 1] = 0
+    return t
+
+
+def gram_cut_synthetic(cs):
+    """The cut of K2 and K5a (`cs.gram_spans`) at f = 128 and 256 on
+    chunks of few rows made from a seed: the shapes of the Netflix X
+    panel plan's fewest-row chunk (16 x 4096) and of one of about 40 rows
+    (40 x 3840) over a 65,537-row panel, and the hot-segment shape (16 x
+    2^18) over a 2,000,001-row table; each three ways (`check_gram` with
+    cut): the cut against the plain version, the same bits twice, and
+    against spans=1 with both times. The tables are factors as the paths
+    gather them at iteration 0 (`synthetic_table` unsigned): with signed
+    entries b sums with cancellation, and its limit, 1e-5 relative to
+    |b|, no longer measures the f32 rounding (PERF.md, the cut's
+    findings)."""
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    ok = True
+    for f in (128, 256):
+        panel = synthetic_table(gen, 65536, f, signed=False)
+        big = synthetic_table(gen, 2_000_000, f, signed=False)
+        for tab, r, p, label in (
+                (panel, 16, 4096, "the fewest-row X panel shape"),
+                (panel, 40, 3840, "an X panel shape of about 40 rows"),
+                (big, 16, 1 << 18, "the hot-segment shape")):
+            ch = synthetic_chunk(gen, r, p, tab.shape[0] - 1)
+            hot = p == 1 << 18
+            for aug in (False, True):
+                if hot and aug:
+                    continue   # the hot segments run K2 alone
+                a_dtype = torch.float32 if hot or aug else torch.bfloat16
+                ok &= check_gram(cs, tab, ch, a_dtype, aug,
+                                 f"synthetic, {label}, f={f}",
+                                 table_rows=tab.shape[0] if not hot else
+                                 live_rows(ch), cut=True)[0]
+            del ch
+        del panel, big
+        torch.cuda.empty_cache()
     return ok
 
 
@@ -872,7 +966,52 @@ def theta_synthetic(cs, lam=0.048):
     return ok
 
 
-def check_gram(cs, tp, ch, a_dtype, aug, label, table_rows=None):
+def check_span_sum(cs, tp, ch, a_dtype, label):
+    """Pass 2 of K2's cut (`gram_span_sum`) alone, on the f32 partials of
+    a chunk the cut takes (pass 1: K2 uncut over the (R S, P / S) view),
+    against its plain version: the same adds in the same order, so equal
+    bit for bit (the limit is 0). Device times; the yardstick is one
+    torch.sum over the spans of A (another order; b left out); the bound
+    the bytes of the partials read once and of A and b written once."""
+    r, p = ch.cols.shape
+    f = tp.shape[1]
+    s = cs.gram_spans(r, p, f, sm_count(), tp.dtype)
+    view = (ch.cols.view(r * s, p // s), ch.vals.view(r * s, p // s))
+    a_part, b_part = cs.gather_gram_out(tp, *view, out_dtype=torch.float32,
+                                        spans=1)
+    count = cs.LAUNCHES[SPAN_SUM]
+    a, b = cs.gram_span_sum(a_part, b_part, s, a_dtype)
+    launched = cs.LAUNCHES[SPAN_SUM] == count + 1
+    pa, pb = cs.gram_span_sum_plain(a_part, b_part, s, a_dtype)
+    exact = same_bits(a, pa) and same_bits(b, pb)
+    err = max((a.float() - pa.float()).abs().max().item(),
+              (b - pb).abs().max().item())
+    ms = queued_ms(lambda: cs.gram_span_sum(a_part, b_part, s, a_dtype))
+    plain = queued_ms(lambda: cs.gram_span_sum_plain(a_part, b_part, s,
+                                                     a_dtype), reps=3)
+    parts = a_part.view(r, s, f * f)
+    lib = queued_ms(lambda: torch.sum(parts, 1))
+    bms, by = bound_ms(nbytes(a_part, b_part, a, b),
+                       float((s - 1) * r * (f * f + f)), torch.float32)
+    ok = exact and launched
+    log(f"[pass 2 gram_span_sum] {label}: R={r} P={p}, S={s} spans, f={f}, "
+        f"A {a_dtype}: max|d|={err:.3e} (limit 0: the same adds in the "
+        f"same order; equal bit for bit {exact}), one launch: {launched}; "
+        f"device time: kernel {ms:.4f} ms, plain {plain:.4f} ms, torch.sum "
+        f"over the spans of A {lib:.4f} ms, bound {bms:.4f} ms ({by}); "
+        f"{'OK' if ok else 'FAIL'}")
+    return ok, dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                    bound_by=by, library_ms=lib, spans=s, shape=[r, p])
+
+
+def same_bits(x: torch.Tensor, y: torch.Tensor) -> bool:
+    """x and y hold the same bits (f32 or bf16)."""
+    as_int = torch.int16 if x.dtype == torch.bfloat16 else torch.int32
+    return x.dtype == y.dtype and torch.equal(x.view(as_int), y.view(as_int))
+
+
+def check_gram(cs, tp, ch, a_dtype, aug, label, table_rows=None,
+               cut=False):
     """K2 (or, with aug, K5a) on one X-phase panel chunk: kernel vs plain,
     and torch.bmm on a pre-gathered (and, with aug, pre-augmented) G as
     the yardstick: it leaves out the gather, the value splice and b, and
@@ -882,41 +1021,87 @@ def check_gram(cs, tp, ch, a_dtype, aug, label, table_rows=None):
     the line prints the measured error relative to the size of the sum,
     max |dA_ij| / sqrt(A_ii A_jj), in units of 2^-23. `table_rows`, when
     given, is the number of table rows the bound counts (a large table's
-    rows the chunk names), else the whole table."""
+    rows the chunk names), else the whole table. With `cut` the chunk
+    must be one that `cs.gram_spans` cuts (S > 1), and it runs three
+    ways: as routed (one launch of the kernel and one of its pass 2,
+    `gram_span_sum`, counted), again (the same bits both times), and
+    with spans=1 (the uncut body, also within `gram_limit`), both timed
+    here."""
     args = (tp, ch.cols, ch.vals)
+    r, p = ch.cols.shape
+    f = tp.shape[1]
     if aug:
         name, fn, plain_fn = ("K5a gather_gram_aug_out",
                               cs.gather_gram_aug_out,
                               cs.gather_gram_aug_out_plain)
-        a, b = fn(*args, out_dtype=a_dtype), None
-        pa = plain_fn(*args, out_dtype=a_dtype)
     else:
         name, fn, plain_fn = ("K2 gather_gram_out", cs.gather_gram_out,
                               cs.gather_gram_out_plain)
-        a, b = fn(*args, out_dtype=a_dtype)
-        pa, pb = plain_fn(*args, out_dtype=a_dtype)
-    af, paf = a.float(), pa.float()
-    diff = (af - paf).abs()
-    err = diff.max().item()
+    kernel = name.split()[1]
+    spans = cs.gram_spans(r, p, f, sm_count(), tp.dtype)
+    if cut and spans == 1:
+        raise AssertionError(f"{label}: R={r} P={p} is not a chunk the "
+                             f"cut takes")
+
+    def run(**kw):
+        out = fn(*args, out_dtype=a_dtype, **kw)
+        return (out, None) if aug else out
+
+    before = (cs.LAUNCHES[kernel], cs.LAUNCHES[SPAN_SUM])
+    a, b = run()
+    counted = (cs.LAUNCHES[kernel] - before[0],
+               cs.LAUNCHES[SPAN_SUM] - before[1]) == (1, int(spans > 1))
+    pa, pb = (plain_fn(*args, out_dtype=a_dtype), None) if aug else \
+        plain_fn(*args, out_dtype=a_dtype)
     body = cs.gram_body(tp)
-    lim, limit = gram_limit(a, pa, ch.cols.shape[1], body)
-    a_ok = bool((diff <= lim).all())
+    lim, limit = gram_limit(a, pa, p, body)
+
+    def a_error(got):
+        diff = (got.float() - pa.float()).abs()
+        return diff.max().item(), bool((diff <= lim).all()), diff
+
+    err, a_ok, diff = a_error(a)
+    paf = pa.float()
     d = paf.diagonal(dim1=1, dim2=2).clamp_min(0).sqrt()
     of_sum = (diff / (d[:, :, None] * d[:, None, :]).clamp_min(1e-30)
               )[diff > 0]
     of_sum = of_sum.max().item() / 2.0 ** -23 if of_sum.numel() else 0.0
-    del lim
+    del diff, d, paf
     pad_rows = ch.nnz == 0
-    zero_ok = bool((af[pad_rows] == 0).all())
+    zero_ok = bool((a[pad_rows] == 0).all())
     b_rel = 0.0
     if b is not None:
         b_rel = ((b - pb).abs() / pb.abs().clamp_min(1.0)).max().item()
         zero_ok &= bool((b[pad_rows] == 0).all())
-    del af, paf, diff, d, a, pa
-    ms = queued_ms(lambda: fn(*args, out_dtype=a_dtype))
+    extra, cut_txt = {}, ""
+    if cut:
+        a2, b2 = run()
+        repeat = same_bits(a, a2) and (b is None or same_bits(b, b2))
+        del a2, b2
+        # the uncut body, reported beside the route (its own limit; the
+        # route is what the check holds)
+        a1, b1 = run(spans=1)
+        lim1 = gram_limit(a1, pa, p, body)[0]
+        d1 = (a1.float() - pa.float()).abs()
+        err1, ok1 = d1.max().item(), bool((d1 <= lim1).all())
+        if b is not None:
+            ok1 &= bool(((b1 - pb).abs() <= 1e-5 * pb.abs().clamp_min(1.0)
+                         ).all())
+        del a1, b1, lim1, d1
+        ms1 = queued_ms(lambda: run(spans=1))
+        extra = dict(spans=spans, repeat_bits=repeat, uncut_ms=ms1,
+                     uncut_max_abs_err=err1, uncut_within_limits=ok1,
+                     counted=counted)
+        a_ok &= repeat
+    del lim, a, pa
+    ms = queued_ms(lambda: run())
+    if cut:
+        cut_txt = (f"; the cut, S={spans} spans of {p // spans} slots: "
+                   f"{ms:.3f} ms against {extra['uncut_ms']:.3f} uncut "
+                   f"(spans=1, max|dA|={extra['uncut_max_abs_err']:.3e}, "
+                   f"{'within' if ok1 else 'OFF'} its limits), this call; "
+                   f"the same bits twice: {repeat}")
     plain = queued_ms(lambda: plain_fn(*args, out_dtype=a_dtype), reps=3)
-    r, p = ch.cols.shape
-    f = tp.shape[1]
     g = tp.index_select(0, ch.cols.reshape(-1).long()).reshape(r, p, f)
     if aug:
         g = cs.augment_g(g, ch.vals)
@@ -933,19 +1118,20 @@ def check_gram(cs, tp, ch, a_dtype, aug, label, table_rows=None):
                        flops, tp.dtype)
     gathered = r * p * f * tp.element_size()
     rate = gathered / (ms * 1e-3) / 1e12
-    ok = a_ok and b_rel <= 1e-5 and zero_ok
+    ok = a_ok and b_rel <= 1e-5 and zero_ok and counted
     log(f"[{name}] {label}: panel {ch.panel} chunk R={r} P={p}, table "
-        f"{tp.dtype}, A {a_dtype}, body {body}: max|dA|={err:.3e} (limit "
+        f"{tp.dtype}, A {a_dtype}, body {body}, spans {spans} (launches "
+        f"counted: {counted}): max|dA|={err:.3e} (limit "
         f"{limit}: {a_ok}), max |dA_ij|/sqrt(A_ii A_jj)={of_sum:.2f} x 2^-23, "
         f"max rel db={b_rel:.3e} (limit 1e-5), rows of pad slots only "
         f"exactly 0: {zero_ok}; device time: kernel {ms:.3f} ms, plain "
         f"{plain:.3f} ms, torch.bmm on pre-gathered G (no gather, no "
         f"{'splice' if aug else 'b'}, A in G's dtype) {lib:.3f} ms, bound "
         f"{bms:.4f} ms ({by}); gathered from the L2 {gathered / 1e6:.1f} "
-        f"MB, {rate:.3f} TB/s; {'OK' if ok else 'FAIL'}")
+        f"MB, {rate:.3f} TB/s{cut_txt}; {'OK' if ok else 'FAIL'}")
     return ok, dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
                     bound_by=by, library_ms=lib, body=body,
-                    gathered_bytes=gathered, gathered_tb_per_s=rate)
+                    gathered_bytes=gathered, gathered_tb_per_s=rate, **extra)
 
 
 # the times (events, ms) of K4 and K5b on their one-block-a-system CG,
@@ -1275,8 +1461,10 @@ def queued_each(calls):
     """Device time of each of `calls`, launched in turn behind a run of
     large matrix products so that the events between them read device
     time (a chunk's kernel can be shorter than the host's work to launch
-    it); the first three run once before as a warm-up."""
-    for call in calls[:3]:      # the first launch loads the kernel
+    it); each runs once before as a warm-up (the first launch of a kernel
+    loads it, and a new size of scratch would reach cudaMalloc, which can
+    wait for the device)."""
+    for call in calls:   # loads the kernels, fills the allocator's cache
         call()
     torch.cuda.synchronize()
     keep_busy(80)
@@ -1297,8 +1485,9 @@ def queued_each(calls):
 
 def split_by_rows(times, chunks, sms):
     """Sum of per-chunk times, and of those of the chunks with fewer rows
-    than the card has SMs (one block takes one row at a time, so those
-    leave SMs idle), with the longest four of them, ms and (R, P)."""
+    than `sms` (the card's SMs, or the blocks of a body that fit it: one
+    block takes one row at a time, so those leave SMs idle unless cut),
+    with the longest four of them, ms and (R, P)."""
     split = dict(total=sum(times), few=0.0, n_few=0, sms=sms,
                  widest=max(c.cols.shape[1] for c in chunks))
     few = []
@@ -1313,6 +1502,26 @@ def split_by_rows(times, chunks, sms):
 
 def sm_count() -> int:
     return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def gram_shape(c):
+    """(R, P) of the K2 or K5a call on chunk or step `c`: a device
+    chunk's cols, else its rows (an aligned step's per rank, a lazy
+    one's count) and width."""
+    cols = getattr(c, "cols", None)
+    if torch.is_tensor(cols):
+        return tuple(cols.shape)
+    r = getattr(c, "_r", None)
+    return (int(r) if r is not None else int(c.rows.shape[-1]),
+            int(c.width))
+
+
+def span_sums(cs, shapes, f, iters=1):
+    """Launches of K2's and K5a's pass 2 (`gram_span_sum`) over `iters`
+    iterations of calls on chunks of these (R, P) shapes with a bf16
+    table at width f: one a call on a chunk `cs.gram_spans` cuts."""
+    sms = sm_count()
+    return iters * sum(cs.gram_spans(r, p, f, sms) > 1 for r, p in shapes)
 
 
 def cut_runner(cs, table_ext, ch, x0, cfg, f2):
@@ -1668,9 +1877,10 @@ def phase_totals(cs, al, theta_t, x_t):
     kernel (K1, or K6 when the config takes the augmented form) over the
     theta phase, from the warm starts of theta_t's shape; the Gram
     kernel alone (K2 or K5a) over the X phase (the panels' tables made
-    outside the timing), with the bytes gathered and written; and the X
-    phase's whole Gram step (that kernel + the index_add_ scatter into
-    the accumulators)."""
+    outside the timing), as routed and uncut (spans=1, under "uncut"),
+    split at the blocks of its body that fit the card, with the bytes
+    gathered and written; and the X phase's whole Gram step (that kernel
+    + the index_add_ scatter into the accumulators)."""
     cfg = al.cfg
     f = cfg.f_pad
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -1700,9 +1910,17 @@ def phase_totals(cs, al, theta_t, x_t):
         cs.gather_gram_out
     tables = {p: torch.cat([th16[p * s:(p + 1) * s], zero])
               for p in sorted({ch.panel for ch in chunks})}
-    split = split_by_rows(queued_each([
-        lambda ch=ch: gram(tables[ch.panel], ch.cols, ch.vals,
-                           out_dtype=a_dtype) for ch in chunks]), chunks, sms)
+    resident = cs.gram_blocks_per_sm(f) * sms
+
+    def x_times(spans):
+        return split_by_rows(queued_each([
+            lambda ch=ch: gram(tables[ch.panel], ch.cols, ch.vals,
+                               out_dtype=a_dtype, spans=spans)
+            for ch in chunks]), chunks, resident)
+    split, uncut = x_times(None), x_times(1)
+    split["uncut"] = uncut
+    split["n_cut"] = sum(cs.gram_spans(*ch.cols.shape, f, sms) > 1
+                         for ch in chunks)
     del tables
     a_item = torch.tensor([], dtype=a_dtype).element_size()
     split["gathered"] = sum(ch.cols.numel() * f * 2 for ch in chunks)
@@ -2003,7 +2221,7 @@ def wide_paths(cs, ALS, cfg, train, csc, test, small_train, small_test,
     # ---- 5c. the F = 200 path at full width: with a bf16 table every
     # 256-lane chunk runs the two passes, pass 1 on the tensor cores, and
     # no uncut kernel and no FMA pass 1
-    others = SPLIT_KERNELS + AUG_KERNELS + ("solve_cg",)
+    others = SPLIT_KERNELS + AUG_KERNELS + ("solve_cg", SPAN_SUM)
     fma_256 = WIDE_KERNELS + ("wide_span_gram",)
     _, launches_on = full_width(
         cs, al, "wide on", MMA_PASSES, others + fma_256, x0_np, th0_np)
@@ -2309,7 +2527,7 @@ def aug_256(cs, model, hist_ref, results):
     al = copy.copy(model)      # the same plans: aug steers no plan
     al.cfg = cfg_a
     others = SPLIT_KERNELS + AUG_KERNELS + WIDE_KERNELS + (
-        "solve_cg", "wide_span_gram")
+        "solve_cg", "wide_span_gram", SPAN_SUM)
     hist, launches = full_width(cs, al, "aug 256", MMA_PASSES, others,
                                 x0_np, th0_np, iters=AUG_256_ITERS)
     n_chunks = len(chunks_x) + len(chunks_t)
@@ -2557,7 +2775,9 @@ def out_of_core(cs, bench):
     n = OOC_ITERS
     expect = {"gather_gram_cg": len(ooc.plan_x.chunks) * n,
               "gather_gram_out": len(ooc.plan_theta.chunks) * n,
-              "solve_cg_reg": ooc.n_slices * n}
+              "solve_cg_reg": ooc.n_slices * n,
+              SPAN_SUM: span_sums(cs, map(gram_shape, ooc.plan_theta.chunks),
+                                  cfg.f_pad, n)}
     res_o, launches, peak_o = ooc_run(cs, ooc, "ooc", expect)
     full_x = cuda_tensors_of_rows(train.num_rows)
     log(f"[ooc] live CUDA tensors of X's {train.num_rows} rows after the "
@@ -2727,7 +2947,10 @@ def sharded(cs, bench, cfg, train, test, hist_main):
             f"blocks, K1 on each")
         expect = {"gather_gram_cg": ITERS * len(blocks),
                   "gather_gram_out": ITERS * len(one.x_steps),
-                  "solve_cg_reg": ITERS * slices}
+                  "solve_cg_reg": ITERS * slices,
+                  SPAN_SUM: span_sums(cs, map(gram_shape, one.x_steps),
+                                      cfg.f_pad, ITERS)}
+        expect = {k: v for k, v in expect.items() if v}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         cs.reset_launch_counts()
@@ -2771,13 +2994,23 @@ def sharded(cs, bench, cfg, train, test, hist_main):
                   x0, th0, backend="gloo", device=DEV + ":0", timeout=900)
     log(f"[sharded two ranks] spawned, built and ran in "
         f"{time.monotonic() - t0:.1f} s")
+    # each rank's view of the plans, rebuilt here from the plan cache (a
+    # Mesh of that rank with no group): the shapes of its K2 calls, and
+    # the checks below
+    views = [ShardedALS(scfg, train, csc, None,
+                        mesh=Mesh(rank=r, world_size=2, device=dev))
+             for r in range(2)]
     for r, out in enumerate(ranks):
         sharded_log(f"sharded two ranks, rank {r}", out["history"],
                     out["peak_bytes"], out["launches"],
                     "gloo over one card (two processes on cuda:0, the "
                     "partials through host memory; not a multi-GPU time):")
+        shapes = [gram_shape(c) for c in (views[r].x_steps or [])] + \
+            [gram_shape(c) for c in views[r]._blocks]
         want = {"gather_gram_out": its * (out["x_steps"] + out["n_blocks"]),
-                "solve_cg_reg": its * (out["x_slices"] + out["n_blocks"])}
+                "solve_cg_reg": its * (out["x_slices"] + out["n_blocks"]),
+                SPAN_SUM: span_sums(cs, shapes, cfg.f_pad, its)}
+        want = {k: v for k, v in want.items() if v}
         got = {k: v for k, v in out["launches"].items() if v}
         if got != want:
             raise AssertionError(f"rank {r}: launches {got}, the plans say "
@@ -2798,11 +3031,7 @@ def sharded(cs, bench, cfg, train, test, hist_main):
 
     # K2 on rank 0's most populous theta partial (bf16 A) and K3 on that
     # block summed over both ranks as the all-reduce sums it (bf16 A: one
-    # rounded add), at the final factors: each rank's view rebuilt here
-    # from the plan cache (a Mesh of that rank with no group)
-    views = [ShardedALS(scfg, train, csc, None,
-                        mesh=Mesh(rank=r, world_size=2, device=dev))
-             for r in range(2)]
+    # rounded add), at the final factors, on each rank's view
     tables = [ext16(v.shard_x(ranks[0]["x"])) for v in views]
     blocks = views[0]._blocks
     i = max(range(len(blocks)),
@@ -2850,20 +3079,27 @@ def sooc_run(cs, model, label, expect, x0, th0):
     return res, got, torch.cuda.max_memory_allocated()
 
 
-def sooc_expect(model, iters):
+def sooc_expect(cs, model, iters):
     """The launches a ShardedOutOfCoreALS run of `iters` iterations
     makes on "pallas" with CG: K1 on each X chunk (and, on the direct
     theta route, on each theta chunk), K2 on each theta step (each hot
-    segment chunk), K3 once (once more with hot columns)."""
+    segment chunk), with its pass 2 on each the cut takes, K3 once (once
+    more with hot columns)."""
     n_x = len(model.row_plan.chunks)
+    f = model.cfg.f_pad
     if model._theta_direct:
         hot = len(model._hot_chunks)
         return {"gather_gram_cg": iters * (n_x + len(model.th_plan.chunks)),
                 "gather_gram_out": iters * hot,
-                "solve_cg_reg": iters * int(hot > 0)}
+                "solve_cg_reg": iters * int(hot > 0),
+                SPAN_SUM: span_sums(cs, [(len(c[0]), model.THETA_SEG_W)
+                                         for c in model._hot_chunks], f,
+                                    iters)}
     return {"gather_gram_cg": iters * n_x,
             "gather_gram_out": iters * len(model.theta_steps),
-            "solve_cg_reg": iters}
+            "solve_cg_reg": iters,
+            SPAN_SUM: span_sums(cs, map(gram_shape, model.theta_steps), f,
+                                iters)}
 
 
 def hot_k2_chunk(csc, pad, dev, p=1 << 18, r=16):
@@ -2965,7 +3201,7 @@ def sharded_ooc(cs, bench, ref_ooc=None):
                 torch.bfloat16):
             raise AssertionError("the X store is not pinned bf16 memory")
         res_a, launches["a"], peak_a = sooc_run(
-            cs, a, "sooc a (host)", sooc_expect(a, OOC_ITERS), x0, th0)
+            cs, a, "sooc a (host)", sooc_expect(cs, a, OOC_ITERS), x0, th0)
         runs["a"] = res_a.history
         rmse_gaps("sooc a", res_a.history, ref_ooc.history, "out-of-core")
         dx = np.abs(res_a.x - ref_ooc.x).max()
@@ -3004,7 +3240,7 @@ def sharded_ooc(cs, bench, ref_ooc=None):
             f"{b.THETA_SEG_W} ratings ({len(b._hot_chunks)} segment "
             f"chunks)")
         res_b, launches["b"], peak_b = sooc_run(
-            cs, b, "sooc b (device)", sooc_expect(b, OOC_ITERS), x0, th0)
+            cs, b, "sooc b (device)", sooc_expect(cs, b, OOC_ITERS), x0, th0)
         runs["b"] = res_b.history
         rmse_gaps("sooc b", res_b.history, res_a.history, "sooc a")
         log(f"[sooc b] peak device memory {peak_b / 2**30:.2f} GiB")
@@ -3035,7 +3271,7 @@ def sharded_ooc(cs, bench, ref_ooc=None):
             cs, b._x_dev, hot, torch.float32, False,
             f"sooc b: a hot-segment chunk of the 16 most rated columns "
             f"({hot_lens.min()}..{hot_lens.max()} ratings, the first 2^18 "
-            f"of each)", table_rows=live_rows(hot))
+            f"of each)", table_rows=live_rows(hot), cut=True)
         del c, u, theta_t, hot
         if not (ok1 and ok2 and ok3):
             raise AssertionError("K1, K2 or K3 disagrees at the sharded "
@@ -3057,7 +3293,7 @@ def sharded_ooc(cs, bench, ref_ooc=None):
                 f"{len(bh._hot_chunks)} segment chunks of "
                 f"{len(bh._hot_chunks[0][0])} rows")
             res_h, launches["b_hot"], _ = sooc_run(
-                cs, bh, "sooc b hot", sooc_expect(bh, 1), x0, th0)
+                cs, bh, "sooc b hot", sooc_expect(cs, bh, 1), x0, th0)
             runs["b_hot"] = res_h.history
             rmse_gaps("sooc b hot", res_h.history, res_b.history, "sooc b")
             del bh
@@ -3076,7 +3312,7 @@ def sharded_ooc(cs, bench, ref_ooc=None):
                 f"s into a fresh plan cache; stream stores ready: X "
                 f"{lz._x_stream.ready}, theta {lz._theta_stream.ready}")
             res_c, launches["c"], _ = sooc_run(
-                cs, lz, "sooc c (lazy)", sooc_expect(lz, OOC_ITERS), x0,
+                cs, lz, "sooc c (lazy)", sooc_expect(cs, lz, OOC_ITERS), x0,
                 th0)
             runs["c"] = res_c.history
             sizes = {k: os.path.getsize(os.path.join(lazy_dir, "streams", k))
@@ -3115,6 +3351,13 @@ def sharded_ooc(cs, bench, ref_ooc=None):
                 "gather_gram_out": its * out["theta_steps"],
                 "solve_cg_reg": its}
         got = {k: v for k, v in out["launches"].items() if v}
+        # pass 2 of K2's cut: the ranks run the same steps in lockstep,
+        # so the same number of them, at most one a K2 launch
+        sums = [o["launches"].get(SPAN_SUM, 0) for o in ranks]
+        if got.pop(SPAN_SUM, 0) != sums[0] or sums[0] != sums[1] or \
+                sums[0] > want["gather_gram_out"]:
+            raise AssertionError(f"sooc d rank {r}: pass 2 of K2's cut "
+                                 f"launched {sums} times")
         if got != want:
             raise AssertionError(f"sooc d rank {r}: launches {got}, the "
                                  f"plans say {want}")
@@ -3234,7 +3477,7 @@ def hugewiki_driver(cs, bench):
                                    train, None, test, n_devices=1,
                                    device=DEV)
     lens = np.diff(np.asarray(model.train_csc.indptr))
-    want = sooc_expect(model, HW_ITERS)
+    want = sooc_expect(cs, model, HW_ITERS)
     log(f"[hugewiki device] {len(model.row_plan.chunks)} X chunks, "
         f"{len(model.th_plan.chunks)} direct theta chunks; "
         f"{model._hot_rows.size} columns above THETA_SEG_W = "
@@ -3528,7 +3771,8 @@ def batched_panel(cs, ALS, cfg, train, csc, test, x0, th0):
     route (bf16, f32)."""
     if not float(train.data.min()) > 0:
         raise AssertionError("the Gram bound needs ratings > 0")
-    others = tuple(k for k in REPLACES if k != "gather_gram_out")
+    others = tuple(k for k in REPLACES
+                   if k not in ("gather_gram_out", SPAN_SUM))
     k2, runs = {}, {}
     for gram_dtype in ("f32", "bf16"):
         batched, panel = batched_models(ALS, cfg, train, csc, test,
@@ -3682,7 +3926,7 @@ def panel_256_grams(cs, x_table, hot):
         cs, x_table, hot, torch.float32, False,
         "f=256 a hot-segment chunk of the out-of-core run's X (the 16 most "
         "rated theta columns, their first 2^18 ratings)",
-        table_rows=live_rows(hot))
+        table_rows=live_rows(hot), cut=True)
     ok_all &= ok
     return ok_all, out
 
@@ -3721,7 +3965,9 @@ def panel_256_ooc(cs, bench, results):
         f"{ooc.plan_theta.n_panels} X panels, {ooc.n_slices} solve slices "
         f"of {ooc.solve_batch}; theta accumulators {ooc.accum_dtype}")
     expect = {"gather_gram_out": len(ooc.plan_theta.chunks) * n_it,
-              "solve_cg_reg": ooc.n_slices * n_it}
+              "solve_cg_reg": ooc.n_slices * n_it,
+              SPAN_SUM: span_sums(cs, map(gram_shape, ooc.plan_theta.chunks),
+                                  cfg.f_pad, n_it)}
     res_o, launches_o, peak_o = ooc_run(cs, ooc, "ooc 256", expect,
                                         at_least=MMA_PASSES)
 
@@ -3827,8 +4073,8 @@ def panel_256_netflix(cs, ALS, cfg, train, csc, test, hist_ref):
         others = tuple(k for k in SPLIT_KERNELS + AUG_KERNELS + WIDE_KERNELS
                        + ("solve_cg", "wide_span_gram") if k not in kernels)
         hist, launches[label] = full_width(
-            cs, model, label, kernels + MMA_PASSES, others, x0, th0,
-            iters=n_it)
+            cs, model, label, kernels + MMA_PASSES + (SPAN_SUM,), others, x0,
+            th0, iters=n_it)
         worst = 0.0
         for h, r in zip(hist, hist_ref):
             d = max(abs(h.train_rmse - r.train_rmse),
@@ -3903,7 +4149,7 @@ def main() -> int:
     log(f"[card] {card}")
     log(f"[versions] python {sys.version.split()[0]} torch "
         f"{torch.__version__} cuda {torch.version.cuda}")
-    short = {(): None, ("--gram",): GRAM_KERNELS,
+    short = {(): None, ("--gram",): GRAM_KERNELS + (SPAN_SUM,),
              ("--theta",): THETA_KERNELS, ("--wide",): WIDE_SHORT,
              ("--ooc",): SPLIT_KERNELS, ("--sharded",): SPLIT_KERNELS,
              ("--sharded-ooc",): SPLIT_KERNELS,
@@ -3931,8 +4177,9 @@ def main() -> int:
     log(f"[build] native data plane {native.LIB_PATH} in "
         f"{time.monotonic() - t0:.1f} s")
     ptxas_ok = ptxas_lines(_build.BUILD_LOG)
-    if only == GRAM_KERNELS:
-        ok = ptxas_ok and gram_edges(cs) and gram_synthetic(cs)
+    if only == GRAM_KERNELS + (SPAN_SUM,):
+        ok = ptxas_ok and gram_edges(cs) and gram_synthetic(cs) and \
+            gram_cut_synthetic(cs)
         log(f"[gram] {'OK' if ok else 'FAIL'} (the short call: no result "
             f"line)")
         return 0 if ok else 1
@@ -3978,7 +4225,7 @@ def main() -> int:
         x0_np, th0_np = init_factors(cfg.m, cfg.n, cfg.f, seed=0)
         al = ALS(cfg, train, csc, test, device="cuda")
         hist_main, _ = full_width(
-            cs, al, "main", SPLIT_KERNELS,
+            cs, al, "main", SPLIT_KERNELS + (SPAN_SUM,),
             AUG_KERNELS + WIDE_KERNELS + SPAN_KERNELS + ("solve_cg",),
             x0_np, th0_np)
         del al
@@ -4074,6 +4321,11 @@ def main() -> int:
             f"longest of them, ms and (R, P): "
             f"{[(round(m, 3), rp) for m, rp in x['longest_few']]}; device "
             f"time between events, launches queued behind other work); "
+            f"the same uncut (spans=1, this call): "
+            f"{x['uncut']['total']:.1f} ms, {x['uncut']['few']:.1f} ms in "
+            f"those chunks (the longest: "
+            f"{[(round(m, 3), rp) for m, rp in x['uncut']['longest_few']]})"
+            f", {x['n_cut']} chunks cut; "
             f"the widest chunk: {x['widest']} slots; it "
             f"gathered "
             f"{x['gathered'] / 1e9:.2f} GB from the L2 and wrote "
@@ -4083,29 +4335,43 @@ def main() -> int:
             f"{gram_tot:.1f} ms")
 
     def x_chunks_and_panels(model):
-        """The most populous, the widest and the fewest-row chunk of the
-        X phase, each with its panel's zero-extended bf16 table."""
+        """The most populous and the widest chunk of the X phase, and the
+        fewest-row one and one of about 40 rows among those K2's cut
+        takes (`cs.gram_spans`; the most slots among equals), each with
+        its panel's zero-extended bf16 table."""
         plan, chunks, _ = model.plan_x
         s = plan.panel_size
         th16 = torch.nn.functional.pad(
             theta_t.to(torch.bfloat16),
             (0, 0, 0, plan.n_panels * s - theta_t.shape[0]))
+        sms = sm_count()
+        cut = [c for c in chunks
+               if cs.gram_spans(*c.cols.shape, cfg.f_pad, sms) > 1]
+        if not cut:
+            raise AssertionError("no X panel chunk takes K2's cut")
         picks = (("most populous",
                   max(chunks, key=lambda c: c.rows.shape[0] * c.width)),
                  ("widest", max(chunks, key=lambda c: c.width)),
-                 ("fewest rows", min(chunks, key=lambda c: c.rows.shape[0])))
+                 ("fewest rows",
+                  min(cut, key=lambda c: (c.rows.shape[0], -c.width))),
+                 ("about 40 rows",
+                  min(cut, key=lambda c: (abs(c.rows.shape[0] - 40),
+                                          -c.width))))
         return [(label, ch, torch.cat(
             [th16[ch.panel * s:(ch.panel + 1) * s],
              th16.new_zeros((1, cfg.f_pad))])) for label, ch in picks]
 
     def check_grams(model, aug, a_dtype, key):
-        """K2 (or, with aug, K5a) on the three chunks (the most populous fills
-        results[key], the other two add their times to it), on the most
-        populous also with the other A dtype, and on the widest and the
-        fewest-row chunk with a float32 table, which takes the FMA body."""
+        """K2 (or, with aug, K5a) on the four chunks (the most populous
+        fills results[key], the others add their numbers to it), on the
+        most populous also with the other A dtype, on the two chunks of
+        few rows three ways (`check_gram` with cut), and on the widest and
+        the fewest-row chunk with a float32 table, which takes the FMA
+        body."""
         ok_all = True
         for label, ch, tp in x_chunks_and_panels(model):
-            ok, res = check_gram(cs, tp, ch, a_dtype, aug, label)
+            few = label in ("fewest rows", "about 40 rows")
+            ok, res = check_gram(cs, tp, ch, a_dtype, aug, label, cut=few)
             ok_all &= ok
             if label == "most populous":
                 results[key] = res
@@ -4121,6 +4387,8 @@ def main() -> int:
                 results[key].update(
                     {f"{tag}_{k}": v for k, v in res.items()},
                     **{f"{tag}_shape": list(ch.cols.shape)})
+                if label == "about 40 rows":
+                    continue
                 ok, _ = check_gram(cs, tp.float(), ch, torch.float32, aug,
                                    label + ", float32 table")
                 ok_all &= ok
@@ -4142,6 +4410,12 @@ def main() -> int:
                               plan_x.num_rows)
     ok_all &= gram_edges(cs)
     ok_all &= check_grams(al, False, a_dtype, "gather_gram_out")
+    for label, ch, tp in x_chunks_and_panels(al):
+        if label == "fewest rows":
+            ok, results[SPAN_SUM] = check_span_sum(
+                cs, tp, ch, a_dtype, "the fewest-row X panel chunk K2's "
+                "cut takes")
+            ok_all &= ok
 
     a_buf, b_buf = al.accumulate_panels(theta_t, al.plan_x)
     x0_full = torch.zeros((aux_x["m_pad"], cfg.f_pad), device="cuda")
@@ -4189,7 +4463,7 @@ def main() -> int:
     # ---- 4a. the bf16 path at full width (split buffers: K1, K2, K3)
     log(f"[main] data {gen_s:.1f} s, plans {plan_s:.1f} s")
     hist_main, launches = full_width(
-        cs, al, "main", SPLIT_KERNELS,
+        cs, al, "main", SPLIT_KERNELS + (SPAN_SUM,),
         AUG_KERNELS + WIDE_KERNELS + SPAN_KERNELS + ("solve_cg",), x0_np,
         th0_np)
     del al, plan_x, chunks_x, aux_x   # frees the plans on the card
@@ -4273,7 +4547,7 @@ def main() -> int:
     # ---- 4b. this slice's path at full width (f32 accumulators,
     # aug_gram="force": K5a, K5b, K6)
     hist_aug, launches_aug = full_width(
-        cs, al_aug, "aug", AUG_KERNELS,
+        cs, al_aug, "aug", AUG_KERNELS + (SPAN_SUM,),
         SPLIT_KERNELS + WIDE_KERNELS + SPAN_KERNELS + ("solve_cg",), x0_np,
         th0_np)
     for hm, ha in zip(hist_main, hist_aug):
@@ -4334,6 +4608,7 @@ def main() -> int:
     panel_256(cs, bench, ALS, cfg, train, csc, test, hist_wide_off, results)
 
     launches.update({k: launches_aug[k] for k in AUG_KERNELS})
+    results[SPAN_SUM]["aug_launches"] = launches_aug[SPAN_SUM]
     launches["solve_cg"] = k4_launches
     launches.update(wide_launches)
     kernels = [{"name": name, "route": "cuda",

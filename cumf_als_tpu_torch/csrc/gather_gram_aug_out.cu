@@ -42,7 +42,9 @@
 // the tensor cores), written over row and column 255 of A' as the value
 // lane would hold them, and the whole symmetric A' written; a float32
 // table the FMA body of wide.cuh (panel_gram with the value in lane 255).
-// The entry point chooses by dtype and f alone.
+// The entry point chooses by dtype and f alone. A chunk of few rows on a
+// bf16 table takes K2's cut (gather_gram_out.cu): this entry point over
+// the (R S, P / S) view with an f32 A', then gram_span_sum.cu.
 
 #include "common.cuh"
 #include "gram_mma.cuh"

@@ -39,6 +39,15 @@
 // There an f32 A of 256 KB a row bounds the kernel: the out-of-core
 // theta chunk R = 6656 writes 1.74 GB, ~0.52 ms at 3.35 TB/s. The entry
 // point chooses by dtype and f alone.
+// A chunk of few rows on a bf16 table (fewer rows than the blocks of its
+// body that fit the card: the hot segments, R = 16, P = 2^18, and the
+// few-row X panel chunks) is cut across blocks by the wrapper
+// (gram_spans in ops/cuda_solve.py): this entry point runs on the
+// (R S, P / S) view of cols and vals with an f32 A, each span of S a row
+// of it, and pass 2 (gram_span_sum.cu) adds each row's S partials (A and
+// b) in span order. There the gather still bounds the work, now spread
+// over every SM, and the partials add R S (f^2 + f) floats written and
+// read once more.
 
 #include "common.cuh"
 #include "gram_mma.cuh"

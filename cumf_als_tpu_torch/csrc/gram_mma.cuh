@@ -18,8 +18,17 @@
 // tiles of this one are multiplied and its sums are written (or solved).
 // A row holds the slots its caller names (all P of them in K2 and K5a,
 // the first min(nnz, P) in K1 and K6), and a row without slots has no
-// tiles. A chunk with fewer rows than the card has SMs leaves SMs idle:
-// one block walks all the slots of its row.
+// tiles. One block walks all the slots of its row, so a chunk with fewer
+// rows than the blocks that fit the card (two an SM) would leave SMs
+// idle. K2 and K5a cut such a chunk across blocks instead (the wrappers'
+// rule, gram_spans in ops/cuda_solve.py): each row's P slots in S spans
+// of whole tiles, this kernel run unchanged over the (R S, P / S) view of
+// cols and vals, so that span s of row r is row r S + s of the view and
+// writes its f32 partial (A, and K2's b) to scratch, then pass 2
+// (gram_span_sum.cu) adds each row's S partials in span order into A in
+// A's dtype. What bounds the cut: the gather, as uncut, now spread over
+// the card, then the partials' bytes, 64.5 KB a span written and read
+// once more. K1 and K6 stay uncut.
 //
 // The tile. 64 slots of the row make one 16 KB tile in shared memory,
 // kept bf16 as gathered. It is stored [slot][lane] as two halves of

@@ -10,12 +10,20 @@
 //   - the panel Grams at f = 256 (gather_gram_out.cu, K2, and
 //     gather_gram_aug_out.cu, K5a): the raw Gram of all P slots of a row,
 //     written whole, the (R, 256, 256) A in A's dtype and, for K2, b
-//     (R, 256) in f32: one thread block a row of A (panel_stream_kernel);
-//     a chunk of few rows, where three blocks a row fit the card (3 R at
-//     most the SM count: the hot segments, R = 16), keeps the three-block
+//     (R, 256) in f32: one thread block a row of A (panel_stream_kernel).
+//     A chunk of fewer rows than SMs is cut across blocks by the wrappers
+//     where that pays (gram_spans in ops/cuda_solve.py: the hot segments,
+//     R = 16, P = 2^18, and most few-row X panel chunks): this entry point
+//     runs over the (R S, P / S) view of the chunk, each span of a row a
+//     row of it, writing f32 partials, and gram_span_sum.cu adds each
+//     row's S partials in span order; the gather, spread over every SM,
+//     then the partials' bytes (257 KB a span) bound it. A chunk the cut
+//     leaves whole with three blocks a row fitting the card (3 R at most
+//     the SM count: chunks of a few short rows) keeps the three-block
 //     kernel (sources kPanel and kPanelAug), which spreads each row over
-//     three SMs. `run_panel` chooses, and takes a float32 table to
-//     wide.cuh's FMA body, panel_gram.
+//     three SMs, ~25% faster than the panel body there. `run_panel`
+//     chooses, and takes a float32 table to wide.cuh's FMA body,
+//     panel_gram.
 //
 // Pass 1's sources. kSpans (K1, K7): slot t of a row names table row
 // cols[t], whose 256 lanes are one contiguous row of the table; span s

@@ -63,6 +63,8 @@ KERNELS = {
     "wide_span_solve": ("cumf_wide_span_solve",
                         [_VP, _VP, _VP, _VP, _VP,
                          _I, _I, _I, _I, _I, _I, _I, _F, _I, _F, _VP]),
+    "gram_span_sum": ("cumf_gram_span_sum",
+                      [_VP, _VP, _VP, _I, _VP, _I, _I, _I, _VP]),
 }
 # query name -> the kernel whose library holds it, its C entry point and
 # its argument types (a query launches nothing and counts no launch)

@@ -16,6 +16,8 @@ wrapper                      TPU kernel it replaces      CUDA source
 (K1 at f = 256, K7 and K8    ``_kernel_wide``,           csrc/wide_span_gram.cu
 in two passes: pass 1 FMA    ``_kernel`` at 256 lanes,   or wide_span_gram_mma.cu,
 or tensor cores, pass 2)     ``_kernel_cat``             csrc/wide_span_solve.cu
+``gram_span_sum`` (pass 2    ``_gram_kernel``,           csrc/gram_span_sum.cu
+of K2's and K5a's cut)       ``_gram_kernel_aug``
 ===========================  ==========================  ==========================
 
 (TPU kernels: cumf_als_tpu/ops/pallas_solve.py.) Each wrapper takes its
@@ -59,8 +61,16 @@ on the tensor cores (csrc/gram_mma.cuh); K1 and K6 stop each row at its
 nnz and run the CG on the wgmma fragment in registers
 (csrc/frag_cg.cuh). A float32 table and a bf16 table at f < 128 keep the
 f32 FMA body of csrc/common.cuh. `gram_body` is that rule. One block
-takes one row at a time, so a chunk with fewer rows than the card has
-SMs leaves SMs idle.
+takes one row at a time, so a chunk with fewer rows than the blocks that
+fit the card would leave SMs idle: K2 and K5a cut such a chunk on a bf16
+table at f = 128 or 256 (`gram_spans`, from the shape and the SM count
+alone): each row's P slots in S spans of whole 64-slot tiles, the kernel
+run unchanged over the (R S, P / S) view of cols and vals (span s of row
+r is its row r S + s) writing f32 partials to scratch, then pass 2
+(``gram_span_sum``) adding each row's S partials in span order into A in
+its dtype and b, so a result repeats bit for bit; the cut is bound by
+the gather, now spread over the card, and the partials' bytes. K1 and
+K6 keep one block a row.
 
 K1 and K6 at f = 256 and K7 (the 256-lane body, csrc/wide.cuh) run as
 two passes that meet at a record in scratch memory: pass 1 writes the
@@ -88,8 +98,10 @@ float32 G keeps the uncut FMA body. Each pass counts its own launches.
 K2 and K5a at f = 256 write the whole symmetric A: a bf16 table runs
 the panel body of csrc/wide_gram_mma.cuh on the tensor cores (one block
 of two warpgroups a row of A, each slot gathered once, A written through
-shared memory; a chunk of few rows the row cut's three-block pass 1),
-a float32 table the FMA body of csrc/wide.cuh (`panel_gram`).
+shared memory; a chunk of fewer rows than SMs in the cut above, or,
+where the cut leaves it whole and 3 R is at most the SM count, the row
+cut's three-block pass 1), a float32 table the FMA body of csrc/wide.cuh
+(`panel_gram`).
 
 K3 (``solve_cg_reg``), K4 (``solve_cg``) and K5b (``solve_cg_aug``) are
 one body (csrc/bulk_cg.cuh) with a compile-time switch each: persistent
@@ -150,12 +162,13 @@ def _on_cpu(*tensors) -> bool:
     return False
 
 
-def _on_card(name: str, *tensors) -> None:
+def _on_card(name: str, *tensors, plain: str = "row_cut_plain") -> None:
     """Raises unless the tensors lie on the current CUDA device: a
-    kernel that is only ever the card half of another wrapper's route."""
+    kernel that is only ever the card half of another wrapper's route
+    (on the CPU its route's plain version is `plain`)."""
     if _on_cpu(*tensors):
         raise ValueError(f"{name}: takes card tensors only (on the CPU the "
-                         f"row cut's plain version is row_cut_plain)")
+                         f"plain version is {plain})")
 
 
 def _check(name: str, t: torch.Tensor, shape, dtypes) -> None:
@@ -444,7 +457,8 @@ def gather_gram_out_plain(table_ext, cols, vals,
 
 
 def gather_gram_out(table_ext, cols, vals,
-                    out_dtype: torch.dtype = torch.float32):
+                    out_dtype: torch.dtype = torch.float32,
+                    spans: Optional[int] = None):
     """Raw partial (A, b) of one panel chunk, no regularizer
     (pallas_solve.gather_gram_out). table_ext (s+1, f) f32/bf16 with a
     zero row at the pad id s; cols (R, P) int32 panel-local; vals (R, P)
@@ -452,25 +466,14 @@ def gather_gram_out(table_ext, cols, vals,
     b (R, f) f32; f a multiple of 16 up to 128, or 256. On a card the
     Gram runs in the body `gram_body` names; on the tensor cores the bf16
     products are exact and the f32 sums are taken in the hardware's
-    order."""
+    order, and a chunk of few rows takes the cut of `gram_spans` (each
+    row's slots in S spans across blocks, then ``gram_span_sum``).
+    `spans` forces S on a card (1: the uncut kernel); tensors on the CPU
+    take the plain version whatever it says."""
     if _on_cpu(table_ext, cols, vals):
         return gather_gram_out_plain(table_ext, cols, vals, out_dtype)
-    r, p = cols.shape
-    f = table_ext.shape[1]
-    _check_f("gather_gram_out", f)
-    if out_dtype not in _FLOATS:
-        raise ValueError(f"out_dtype {out_dtype} not in {_FLOATS}")
-    _check("table_ext", table_ext, table_ext.shape, _FLOATS)
-    _check("cols", cols, (r, p), (torch.int32,))
-    _check("vals", vals, (r, p), _FLOATS)
-    a = torch.empty((r, f, f), dtype=out_dtype, device=cols.device)
-    b = torch.empty((r, f), dtype=torch.float32, device=cols.device)
-    if r:
-        _check_gram_table(table_ext, cols)
-        _launch("gather_gram_out", table_ext.data_ptr(), _bf16(table_ext),
-                cols.data_ptr(), vals.data_ptr(), _bf16(vals),
-                a.data_ptr(), _bf16(a), b.data_ptr(), r, p, f)
-    return a, b
+    return _panel_gram("gather_gram_out", table_ext, cols, vals, out_dtype,
+                       spans, aug=False)
 
 
 # ----------------------------------------------------- K3 solve_cg_reg --
@@ -585,7 +588,8 @@ def gather_gram_aug_out_plain(table_ext, cols, vals,
 
 
 def gather_gram_aug_out(table_ext, cols, vals,
-                        out_dtype: torch.dtype = torch.float32):
+                        out_dtype: torch.dtype = torch.float32,
+                        spans: Optional[int] = None):
     """Raw partial augmented Gram A' of one panel chunk
     (pallas_solve.gather_gram_aug_out). table_ext (s+1, f) f32/bf16 with
     a zero row at the pad id s and lane f-1 all zero (true factor width
@@ -593,24 +597,217 @@ def gather_gram_aug_out(table_ext, cols, vals,
     the table's dtype as they enter lane f-1. Returns A' (R, f, f) in
     out_dtype (summed in f32): A in rows/columns < f-1, b in row and
     column f-1, sum v^2 in the corner; f a multiple of 16 up to 128, or
-    256. On a card the Gram runs in the body `gram_body` names."""
+    256. On a card the Gram runs in the body `gram_body` names, a chunk
+    of few rows in the cut of `gram_spans`, as K2's; `spans` as K2's."""
     if _on_cpu(table_ext, cols, vals):
         return gather_gram_aug_out_plain(table_ext, cols, vals, out_dtype)
+    return _panel_gram("gather_gram_aug_out", table_ext, cols, vals,
+                       out_dtype, spans, aug=True)[0]
+
+
+# ------------------------- the cut of the panel Grams K2 and K5a --------
+GRAM_TILE = 64      # slots of a tile of the tensor-core bodies (mma::kSlots)
+# the fewest tiles of a span, and the spans of a chunk an SM (at most
+# the blocks of the body that fit an SM): `gram_spans`
+GRAM_CUT_MIN_TILES = 4
+GRAM_CUT_TARGET = 2
+# at f = 256 against the three-block body (3 R <= SMs): a span's tile
+# costs this many of the three-block body's, and the cut this many tiles
+# more (its two launches and the partials)
+GRAM_CUT_TILE_COST_256 = 1.5
+GRAM_CUT_EXTRA_TILES_256 = 8
+
+
+def gram_blocks_per_sm(f: int) -> int:
+    """Blocks of the tensor-core panel body that fit one SM: two at
+    f = 128 (csrc/gram_mma.cuh, 128 registers a thread), one at f = 256
+    (the panel body of csrc/wide_gram_mma.cuh, ~200 KB of shared
+    memory)."""
+    return 2 if f == 128 else 1
+
+
+def gram_spans(r: int, p: int, f: int, sms: int,
+               dtype: torch.dtype = torch.bfloat16,
+               min_tiles: int = GRAM_CUT_MIN_TILES,
+               target: int = GRAM_CUT_TARGET) -> int:
+    """S, the spans of whole `GRAM_TILE`-slot tiles each row of a K2 or
+    K5a chunk of R rows of P slots is cut into on a card of `sms` SMs,
+    from the shape alone: span s of row r covers slots [s L, (s + 1) L),
+    L = P / S, and the S spans cover [0, P) once. S = 1 (the uncut
+    kernel) unless the table takes a tensor-core body (`dtype` bf16,
+    f = 128 or 256), P is a whole number of tiles and R is below the
+    blocks that fit the card at once (`gram_blocks_per_sm` an SM); else
+    the largest S that divides P's tiles, leaves no span under
+    `min_tiles` tiles, keeps R S within `target` spans an SM (at most
+    the body's blocks an SM) and the f32 partials of R S spans within
+    `SPAN_SCRATCH_BYTES`. At f = 256 a chunk of 3 R <= SMs runs uncut on
+    the three-block body, which spreads each row over three SMs: there
+    the cut must beat it, GRAM_CUT_TILE_COST_256 T / S +
+    GRAM_CUT_EXTRA_TILES_256 < T for T tiles a row, else S = 1.
+
+    The constants are measured (scripts/torch_gram_cut_sweep.py; PERF.md,
+    the cut's findings; an H100 SXM at 700 W): over the 244 Netflix X
+    panel chunks
+    under 264 rows at f = 128, K2 took 7.857 ms at target 2 and min_tiles
+    4 against 8.648 at target 1, 7.904 and 7.966 at min_tiles 2 and 8,
+    and 10.328 uncut, and no chunk the cut took was slower than uncut;
+    over the 207 chunks under 132 rows at f = 256, 7.385 ms against
+    8.848 uncut, with four chunks of 3 R <= SMs and 960 to 1664 slots 1
+    to 12% slower than the three-block body, which the last condition
+    leaves whole (the three-block body there: 10.6 us + 1.41 us a tile,
+    the cut 21.4 us + 2.1 us a tile of a span)."""
+    per_sm = gram_blocks_per_sm(f)
+    tiles, rest = divmod(p, GRAM_TILE)
+    if dtype != torch.bfloat16 or f not in (128, 256) or rest or \
+            r >= per_sm * sms:
+        return 1
+    items = min(target, per_sm) * sms
+    record = (f * f + f) * 4
+    best = 1
+    for s in range(2, tiles // min_tiles + 1):
+        if r * s > items or r * s * record > SPAN_SCRATCH_BYTES:
+            break
+        if tiles % s == 0:
+            best = s
+    if f == 256 and 3 * r <= sms and GRAM_CUT_TILE_COST_256 * tiles / best \
+            + GRAM_CUT_EXTRA_TILES_256 >= tiles:
+        return 1
+    return best
+
+
+def _gram_spans_of(name: str, table_ext, r: int, p: int, spans) -> int:
+    """S for this chunk on this card: `gram_spans`, or what `spans`
+    forces (a divisor of P's whole tiles on a tensor-core body; 1
+    anywhere)."""
+    f = table_ext.shape[1]
+    if spans is None:
+        return gram_spans(r, p, f, _sms(table_ext.device), table_ext.dtype)
+    s = int(spans)
+    if s < 1:
+        raise ValueError(f"{name}: spans must be at least 1, got {spans}")
+    if s == 1:
+        return 1
+    if gram_body(table_ext) != "wgmma" or p % (GRAM_TILE * s):
+        raise ValueError(f"{name}: spans = {spans} cuts a bf16 table's "
+                         f"chunk (f = 128 or 256) whose P ({p}) is a "
+                         f"multiple of {GRAM_TILE} x spans only")
+    return s
+
+
+def _panel_gram(name: str, table_ext, cols, vals, out_dtype, spans,
+                aug: bool):
+    """K2 (`name` "gather_gram_out") or K5a ("gather_gram_aug_out") on
+    card tensors: (A, b), b None for K5a. A chunk that `gram_spans` (or
+    `spans`) cuts into S > 1 spans runs as two passes: the kernel itself
+    over the (R S, P / S) view of cols and vals, each span a row of it,
+    writing f32 partials (one launch, counted under `name`), then
+    ``gram_span_sum`` adding each row's S partials in span order into A
+    in out_dtype (and b). Both passes repeat bit for bit."""
     r, p = cols.shape
     f = table_ext.shape[1]
-    _check_f("gather_gram_aug_out", f)
+    _check_f(name, f)
     if out_dtype not in _FLOATS:
         raise ValueError(f"out_dtype {out_dtype} not in {_FLOATS}")
     _check("table_ext", table_ext, table_ext.shape, _FLOATS)
     _check("cols", cols, (r, p), (torch.int32,))
     _check("vals", vals, (r, p), _FLOATS)
-    a = torch.empty((r, f, f), dtype=out_dtype, device=cols.device)
+    dev = cols.device
+    s = 1
     if r:
         _check_gram_table(table_ext, cols)
-        _launch("gather_gram_aug_out", table_ext.data_ptr(),
-                _bf16(table_ext), cols.data_ptr(), vals.data_ptr(),
-                _bf16(vals), a.data_ptr(), _bf16(a), r, p, f)
-    return a
+        s = _gram_spans_of(name, table_ext, r, p, spans)
+
+    def grams(a_out, b_out, rows, slots):
+        args = (table_ext.data_ptr(), _bf16(table_ext), cols.data_ptr(),
+                vals.data_ptr(), _bf16(vals), a_out.data_ptr(),
+                _bf16(a_out))
+        tail = (rows, slots, f)
+        if aug:
+            _launch(name, *args, *tail)
+        else:
+            _launch(name, *args, b_out.data_ptr(), *tail)
+
+    if s > 1:
+        a_part = torch.empty((r * s, f, f), dtype=torch.float32, device=dev)
+        b_part = None if aug else torch.empty((r * s, f),
+                                              dtype=torch.float32, device=dev)
+        grams(a_part, b_part, r * s, p // s)
+        return gram_span_sum(a_part, b_part, s, out_dtype)
+    a = torch.empty((r, f, f), dtype=out_dtype, device=dev)
+    b = None if aug else torch.empty((r, f), dtype=torch.float32,
+                                     device=dev)
+    if r:
+        grams(a, b, r, p)
+    return a, b
+
+
+def gram_span_sum_plain(a_part, b_part, spans: int,
+                        out_dtype: torch.dtype = torch.float32):
+    """Plain version of pass 2 (``gram_span_sum``): the partials of each
+    row's `spans` spans (rows r S .. r S + S - 1 of a_part (R S, f, f)
+    and b_part (R S, f) f32, b_part None for K5a) added in span order, A
+    cast to out_dtype. Returns (A, b)."""
+    def add(parts):
+        parts = parts.reshape(-1, spans, *parts.shape[1:])
+        acc = parts[:, 0]
+        for k in range(1, spans):
+            acc = acc + parts[:, k]
+        return acc
+    return add(a_part).to(out_dtype), \
+        None if b_part is None else add(b_part)
+
+
+def gram_span_sum(a_part, b_part, spans: int,
+                  out_dtype: torch.dtype = torch.float32):
+    """Pass 2 of the cut of K2 and K5a (csrc/gram_span_sum.cu): the f32
+    partials of each row's `spans` spans, a_part (R S, f, f) and b_part
+    (R S, f) or None (K5a), added in span order into A (R, f, f) in
+    out_dtype and b (R, f) f32 (None for K5a). Card tensors only; its
+    plain version is `gram_span_sum_plain`."""
+    _on_card("gram_span_sum", *(t for t in (a_part, b_part)
+                                if t is not None),
+             plain="gram_span_sum_plain")
+    rs, f, _ = a_part.shape
+    if spans < 1 or rs % spans:
+        raise ValueError(f"gram_span_sum: {rs} partials are not rows of "
+                         f"{spans} spans")
+    r = rs // spans
+    _check("a_part", a_part, (rs, f, f), (torch.float32,))
+    if b_part is not None:
+        _check("b_part", b_part, (rs, f), (torch.float32,))
+    a = torch.empty((r, f, f), dtype=out_dtype, device=a_part.device)
+    b = None if b_part is None else \
+        torch.empty((r, f), dtype=torch.float32, device=a_part.device)
+    if r:
+        _launch("gram_span_sum", a_part.data_ptr(),
+                None if b_part is None else b_part.data_ptr(), a.data_ptr(),
+                _bf16(a), None if b is None else b.data_ptr(), r, spans, f)
+    return a, b
+
+
+@full_f32()
+def gram_cut_plain(table_ext, cols, vals, spans: int,
+                   out_dtype: torch.dtype = torch.float32,
+                   aug: bool = False):
+    """Plain version of the cut (K2, or K5a with aug): each of the
+    `spans` equal spans of a row's slots gathered and its Gram (and b)
+    summed in f32 (with aug the values ride lane f-1, `augment_g`), the
+    spans' partials added in span order, A cast at the end. Returns
+    (A, b), b None with aug."""
+    r, p = cols.shape
+    if p % spans:
+        raise ValueError(f"gram_cut_plain: {spans} spans do not divide "
+                         f"P = {p}")
+    c = cols.reshape(r * spans, p // spans)
+    v = vals.reshape(r * spans, p // spans)
+    g = _gather(table_ext, c)
+    if aug:
+        g = augment_g(g, v)
+    g = g.float()
+    a_parts = torch.einsum("rpf,rpg->rfg", g, g)
+    b_parts = None if aug else torch.einsum("rp,rpf->rf", v.float(), g)
+    del g
+    return gram_span_sum_plain(a_parts, b_parts, spans, out_dtype)
 
 
 # ---------------------------------------------------- K5b solve_cg_aug --

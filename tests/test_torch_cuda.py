@@ -290,6 +290,94 @@ def test_panel_grams_at_256_repeat_and_are_symmetric(card, out_dtype,
         "gather_gram_out": 2, "gather_gram_aug_out": 2}
 
 
+def _few_row_chunk(r, p, n, f, seed=0):
+    """A chunk of few rows on the card (bf16 table of n rows and a zero
+    row, lane f - 1 zero, entries 0.2 U(0, 1) as init_factors makes a
+    factor: with signed ones b's sums over 2^18 slots cancel and rtol
+    1e-5 of |b| no longer measures their rounding; each row's first nnz
+    slots live, nnz from P / 2 to P, row 1 of pad slots only; values in
+    halves)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    table = (0.2 * torch.rand((n + 1, f), generator=gen, device="cuda")
+             ).to(torch.bfloat16)
+    table[n] = 0
+    table[:, f - 1] = 0
+    nnz = torch.randint(p // 2, p + 1, (r,), generator=gen, device="cuda")
+    nnz[1] = 0
+    mask = torch.arange(p, device="cuda")[None, :] < nnz[:, None]
+    cols = torch.where(mask, torch.randint(0, n, (r, p), generator=gen,
+                                           device="cuda"), n).to(torch.int32)
+    vals = (torch.randint(2, 11, (r, p), generator=gen, device="cuda") / 2.0
+            * mask).float()
+    return table, cols, vals
+
+
+@pytest.mark.parametrize("f", [128, 256])
+@pytest.mark.parametrize("aug", [False, True])
+def test_gram_cut_on_the_hot_shape(card, f, aug):
+    """K2 and K5a on a chunk of the hot segments' shape (R = 16, P = 2^18,
+    a 2,000,001-row table, f32 A) take the cut of `cs.gram_spans` (one
+    launch of the kernel over the spans, one of pass 2): A (and b)
+    within `gram_limit` of the plain version, the same bits twice, and
+    spans=1 (the uncut kernel, no pass 2) within the same limit."""
+    r, p = 16, 1 << 18
+    table, cols, vals = _few_row_chunk(r, p, 2_000_000, f)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert cs.gram_spans(r, p, f, sms) > 1
+    fn = cs.gather_gram_aug_out if aug else cs.gather_gram_out
+    plain = cs.gather_gram_aug_out_plain if aug else \
+        cs.gather_gram_out_plain
+
+    def run(**kw):
+        out = fn(table, cols, vals, out_dtype=torch.float32, **kw)
+        return (out, None) if aug else out
+
+    a, b = run()
+    assert cs.LAUNCHES == dict.fromkeys(cs.LAUNCHES, 0) | {
+        fn.__name__: 1, "gram_span_sum": 1}
+    a2, b2 = run()
+    assert torch.equal(a.view(torch.int32), a2.view(torch.int32))
+    pa = plain(table, cols, vals)
+    pa, pb = (pa, None) if aug else pa
+    _assert_gram_close(a, pa.cpu(), p, "wgmma")
+    if not aug:
+        assert torch.equal(b.view(torch.int32), b2.view(torch.int32))
+        torch.testing.assert_close(b, pb, rtol=1e-5, atol=1e-5)
+    assert torch.all(a[1] == 0)
+    cs.reset_launch_counts()
+    a1, b1 = run(spans=1)
+    assert cs.LAUNCHES == dict.fromkeys(cs.LAUNCHES, 0) | {fn.__name__: 1}
+    _assert_gram_close(a1, pa.cpu(), p, "wgmma")
+
+
+@pytest.mark.parametrize("f", [128, 256])
+def test_gram_chunks_of_many_rows_keep_the_uncut_kernel(card, f):
+    """A chunk of as many rows as the blocks of its body that fit the
+    card takes the uncut kernel, no pass 2: the same bits as spans=1; a
+    chunk of few rows cut as routed equals the chunk forced to the same
+    S; `spans` must cut P into whole 64-slot tiles of a bf16 table."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    r = cs.gram_blocks_per_sm(f) * sms
+    table, cols, vals = _few_row_chunk(r, 512, 600, f, seed=1)
+    assert cs.gram_spans(r, 512, f, sms) == 1
+    a, b = cs.gather_gram_out(table, cols, vals)
+    a1, b1 = cs.gather_gram_out(table, cols, vals, spans=1)
+    assert torch.equal(a.view(torch.int32), a1.view(torch.int32))
+    assert torch.equal(b.view(torch.int32), b1.view(torch.int32))
+    assert cs.LAUNCHES == dict.fromkeys(cs.LAUNCHES, 0) | {
+        "gather_gram_out": 2}
+    few = _few_row_chunk(8, 4096, 600, f, seed=2)
+    table = few[0]
+    s = cs.gram_spans(8, 4096, f, sms)
+    assert s > 1
+    a = cs.gather_gram_aug_out(*few, out_dtype=torch.bfloat16)
+    a2 = cs.gather_gram_aug_out(*few, out_dtype=torch.bfloat16, spans=s)
+    assert torch.equal(a.view(torch.int16), a2.view(torch.int16))
+    for bad, t in ((3, table), (2, table.float())):
+        with pytest.raises(ValueError, match="spans"):
+            cs.gather_gram_out(t, *few[1:], spans=bad)
+
+
 THETA_NNZ = (0, 1, 15, 16, 17, 63, 64, 65, 128, 129)
 
 
