@@ -7,19 +7,27 @@ result line):
 
 1. card and build: the card's name and power limit, the torch/CUDA
    versions, the build of the native data plane (`g++`; without it the
-   run fails), and the build of every CUDA kernel from csrc/ (thirteen)
+   run fails), and the build of every CUDA kernel from csrc/ (fourteen)
    with `-Xptxas -v`: registers, spills and added wgmma waits of the
-   tensor-core entry functions of K1, K2, K5a, K6 and the tensor-core
-   pass 1 of the 256-lane body (and of K2 and K5a at f = 256),
-   registers and spills of the other 256-lane entry functions and of
-   the batched CGs K3, K4 and K5b (the ring body and the f = 256 body);
+   tensor-core entry functions of K1, K2, K5a, K6 (with pass 1 of K1's
+   and K6's cut) and the tensor-core pass 1 of the 256-lane body (and of
+   K2 and K5a at f = 256), registers and spills of pass 2 of K1's and
+   K6's cut, of the other 256-lane entry functions and of the batched
+   CGs K3, K4 and K5b (the ring body and the f = 256 body);
 2. each kernel against its plain PyTorch version on the card, on real
    chunks of the Netflix-shaped plans, with kernel, plain, yardstick and
    bound times: the widest, the most populous and the fewest-row
-   theta-phase chunk for K1 and K6 (device time, `queued_ms`), small
-   chunks whose rows stop at the edges of the 64-slot tile, and their
-   time over the whole theta phase split by chunks under and over 132
-   rows; for K2 and K5a the most populous, the widest and, among the
+   theta-phase chunk for K1 and K6 (device time, `queued_ms`), and,
+   among the chunks their cut takes (`cs.theta_spans`: fewer rows than
+   the blocks that fit the card, 264, each row's slots cut into spans
+   across blocks, then pass 2, `frag_span_solve`), the fewest-row one
+   and the one with the most slots, three ways (as routed against the
+   plain version, twice with the same bits, and against spans=1 with
+   both times), pass 2 alone on the fewest-row one's records against
+   its plain version, small chunks whose rows stop at the edges of the
+   64-slot tile, and their time over the whole theta phase, as routed
+   and uncut, split by chunks under and over 264 rows; for K2 and K5a
+   the most populous, the widest and, among the
    chunks their cut takes (`cs.gram_spans`: fewer rows than the blocks
    that fit the card, each row's slots cut into spans across blocks,
    then pass 2, `gram_span_sum`), the fewest-row X-phase panel chunk and
@@ -172,7 +180,10 @@ result line):
       its plain version;
    b. X on the card, theta on the direct route, 3 iterations, RMSE
       within 2e-3 of (a): K1 on the widest direct theta chunk against
-      the device X (its se held to the exact se of its x, in float64),
+      the device X (R = 8, P = 196,608, one real row: the cut, three
+      ways as phase 2's few-row chunks; its se held to the exact se of
+      its x, in float64, within the rounding of the cut's steps, a
+      limit that must reject a K1 dropping the last 1/64 of the row),
       and K2 on a hot-segment chunk of the 16 most rated columns (R =
       16, P = 2^18, f32 A), against their plain versions (K2 three ways,
       as phase 2's few-row chunks);
@@ -263,7 +274,13 @@ Wherever K2 or K5a run, their cut's pass 2 (`gram_span_sum`) must
 launch once for each call on a chunk the cut takes, as the plans'
 shapes and `cs.gram_spans` say (at two ranks in 11d: the same count on
 both ranks); its entry in the `kernels` line holds phase 2's check of
-pass 2 alone and the main path's launches.
+pass 2 alone and the main path's launches. Wherever K1 or K6 run at
+f = 128, their cut's pass 2 (`frag_span_solve`) must launch once for
+each call on a chunk the cut takes, as the plans' shapes and
+`cs.theta_spans` say (4a, 4b, 9, 10a, 11a-c, 12a exactly; at two ranks
+in 11d at most once a K1 launch), and pass 1 counts under the kernel's
+own name, once a chunk as uncut; the 12a line prints both counts and
+the theta seconds beside those of the uncut kernel (PERF.md §5).
 
 It prints a `kernels` JSON line, the card line, and last
 {"ok": true, "device": {...}}. It imports nothing of JAX.
@@ -281,11 +298,13 @@ three ways on synthetic chunks of the fewest-row X panel shape (16 x
     python3 chip_smoke.py --theta
 
 is the short call after a change to K1, K6 or csrc/frag_cg.cuh (or to
-gram_mma.cuh, which they share): it builds those two kernels alone (with
-the ptxas report), runs the edge grid (rows that stop at different nnz
-inside one chunk), times three synthetic chunk shapes and the most
-populous, the widest and the fewest-row chunk of the real Netflix theta
-plan against the plain versions, and prints no result line.
+gram_mma.cuh, which they share): it builds those two kernels and their
+cut's pass 2 alone (with the ptxas report), runs the edge grid (rows
+that stop at different nnz inside one chunk), times three synthetic
+chunk shapes and the most populous, the widest and the fewest-row chunk
+of the real Netflix theta plan against the plain versions, the two
+few-row chunks of that plan the cut takes three ways and pass 2 alone,
+and prints no result line.
 
     python3 chip_smoke.py --ooc
 
@@ -365,6 +384,10 @@ REPLACES = {
     # the panel kernel itself): `_gram_kernel` (534) and
     # `_gram_kernel_aug` (610)
     "gram_span_sum": "cumf_als_tpu/ops/pallas_solve.py:534",
+    # pass 2 of the cut of K1 and K6 at f = 128 on a chunk of few rows
+    # (pass 1 is their own entry point): `_kernel` (299) and
+    # `_kernel_aug` (345)
+    "frag_span_solve": "cumf_als_tpu/ops/pallas_solve.py:299",
 }
 # the Gram body each kernel's measured launches ran ("cg": a solve alone)
 # ("bulk-cg": the persistent blocks on bulk-async copies of K3, K4 and
@@ -377,7 +400,7 @@ BODY = {"gather_gram_cg": "wgmma", "gather_gram_out": "wgmma",
         "gather_gram_cg_aug": "wgmma", "gather_gram_cg_wide": "fma",
         "fused_gram_cg_cat": "fma", "wide_span_gram": "fma",
         "wide_span_gram_mma": "wgmma", "wide_span_solve": "cg",
-        "gram_span_sum": "sum"}
+        "gram_span_sum": "sum", "frag_span_solve": "cg"}
 SPLIT_KERNELS = ("gather_gram_cg", "gather_gram_out", "solve_cg_reg")
 AUG_KERNELS = ("gather_gram_cg_aug", "gather_gram_aug_out", "solve_cg_aug")
 WIDE_KERNELS = ("gather_gram_cg_wide", "fused_gram_cg_cat")
@@ -385,6 +408,10 @@ GRAM_KERNELS = ("gather_gram_out", "gather_gram_aug_out")
 # pass 2 of K2's and K5a's cut on a chunk of few rows (`cs.gram_spans`)
 SPAN_SUM = "gram_span_sum"
 THETA_KERNELS = ("gather_gram_cg", "gather_gram_cg_aug")
+# pass 2 of K1's and K6's cut on a chunk of few rows at f = 128
+# (`cs.theta_spans`; pass 1 counts under the kernel's own name)
+SPAN_SOLVE = "frag_span_solve"
+THETA_SHORT = THETA_KERNELS + (SPAN_SOLVE,)
 SPAN_KERNELS = ("wide_span_gram", "wide_span_gram_mma", "wide_span_solve")
 # the route of K7 and K1 at f=256 on a bf16 table: the two passes, pass 1
 # on the tensor cores
@@ -394,7 +421,7 @@ WIDE_SHORT = ("gather_gram_cg", "gather_gram_cg_wide") + SPAN_KERNELS
 # passes; K6's uncut kernel and the FMA pass 1 on a float32 table), K2,
 # K3, K4, K5a, K5b
 PANEL_256_SHORT = SPLIT_KERNELS + AUG_KERNELS + ("solve_cg",) + \
-    SPAN_KERNELS + (SPAN_SUM,)
+    SPAN_KERNELS + (SPAN_SUM, SPAN_SOLVE)
 # the device times (ms) of the 256-lane kernels on the same chunks on the
 # FMA body, before the tensor-core pass 1 (the bracketed times of PERF.md
 # §6; NVIDIA H100 80GB HBM3, 700.00 W):
@@ -568,11 +595,13 @@ def card_line() -> str:
 # ------------------------------------------------------------ phase 1 --
 def ptxas_lines(build_log):
     """What ptxas reports for the tensor-core entry functions of K1, K2,
-    K5a, K6 and the tensor-core pass 1 of the 256-lane body (registers
-    and spill stores of each instantiation, static shared memory where it
-    names any; the tiles are dynamic shared memory), the registers and
-    spills of the 256-lane entry functions and of K3, and every warning of
-    the build. Returns False if one of them spills or ptxas added a wgmma
+    K5a, K6 (with pass 1 of K1's and K6's cut, in their libraries) and
+    the tensor-core pass 1 of the 256-lane body (registers and spill
+    stores of each instantiation, static shared memory where it names
+    any; the tiles are dynamic shared memory), the registers and spills
+    of pass 2 of K1's and K6's cut, of the 256-lane entry functions and
+    of K3, and every warning of the build. Returns False if one of the
+    tensor-core entry functions or pass 2 spills or ptxas added a wgmma
     wait."""
     import re
     ok = True
@@ -583,7 +612,8 @@ def ptxas_lines(build_log):
         regs, spills, smem = [], [], []
         for i, line in enumerate(lines):
             if "Compiling entry function" in line and (
-                    "mma_kernel" in line or "panel_stream_kernel" in line):
+                    "mma_kernel" in line or "panel_stream_kernel" in line
+                    or "span_gram_kernel" in line):
                 info = " ".join(lines[i + 1:i + 5])
                 regs += [int(x) for x in re.findall(r"Used (\d+) registers",
                                                     info)]
@@ -604,6 +634,21 @@ def ptxas_lines(build_log):
             f"memory {max(smem, default=0)} bytes (dynamic: the ring of "
             f"tiles), wgmma waits added by ptxas (C7517): {waits}, "
             f"warpgroup arrives added by ptxas (C7519): {arrives}")
+    if SPAN_SOLVE in build_log:
+        lines = build_log[SPAN_SOLVE].splitlines()
+        regs, spills = [], []
+        for i, line in enumerate(lines):
+            if "Compiling entry function" in line and \
+                    "span_solve_kernel" in line:
+                info = " ".join(lines[i + 1:i + 5])
+                regs += [int(x) for x in re.findall(r"Used (\d+) registers",
+                                                    info)]
+                spills += [int(x) for x in re.findall(
+                    r"(\d+) bytes spill stores", info)]
+        ok &= bool(regs) and max(spills, default=0) == 0
+        log(f"[ptxas] {SPAN_SOLVE}, pass 2 of K1's and K6's cut (the CG "
+            f"of csrc/frag_cg.cuh): registers {regs}, spill stores "
+            f"{spills} bytes")
     for name in WIDE_SHORT:
         if name not in build_log or name == "wide_span_gram_mma":
             continue
@@ -777,25 +822,45 @@ def se_witness(table_ext, ch, x, se, steps):
     return rel, of_terms, ok
 
 
+def se_steps(cs, table_ext, r, p):
+    """The accumulation steps of a K1 or K6 row of P slots as routed on a
+    card, counted as `gram_limit` counts them: a slot each on the FMA
+    body, 16 slots each on the tensor cores; on a chunk the cut takes
+    (`cs.theta_spans`, S > 1) the steps of one span of P / S slots and
+    the S adds of pass 2; then 4 for the reference's own rounding.
+    Returns (steps, S)."""
+    if cs.gram_body(table_ext) == "fma":
+        return p + 4, 1
+    s = cs.theta_spans(r, p, table_ext.shape[1], sm_count(), table_ext.dtype)
+    return -(-(p // s) // 16) + (s if s > 1 else 0) + 4, s
+
+
 def check_k1(cs, table_ext, ch, theta, cfg, label, aug=False,
-             table_rows=None, se_exact=False):
+             table_rows=None, se_exact=False, cut=False):
     """K1 (or, with aug, K6) on one theta-phase chunk: kernel vs plain,
     x within 2e-3 and se within 1e-3 relative; rows without ratings
-    exactly 0 in x and se, and with aug lane f-1 of x exactly 0. Kernel
-    and plain are timed by one clock, device time behind queued work
-    (`queued_ms`): a few-row chunk's kernel is not much longer than the
-    host's work to launch it. `table_rows`, when given, is the number of
-    table rows the bound counts (a large table's rows the chunk names),
-    else the whole table.
+    exactly 0 in x and se, and with aug lane f-1 of x exactly 0; the
+    launches of the call counted (one of the kernel, and one of pass 2,
+    `frag_span_solve`, on a chunk the cut takes). Kernel and plain are
+    timed by one clock, device time behind queued work (`queued_ms`): a
+    few-row chunk's kernel is not much longer than the host's work to
+    launch it. `table_rows`, when given, is the number of table rows the
+    bound counts (a large table's rows the chunk names), else the whole
+    table. With `cut` the chunk must be one that `cs.theta_spans` cuts
+    (S > 1), and it runs three ways, as K2's few-row chunks do: as
+    routed, again (the same bits both times), and with spans=1 (the
+    uncut kernel, x held to the same 2e-3), both timed here.
 
     `se_exact` holds se instead to the exact se of the kernel's own x
     (`se_witness`, float64), within the rounding of the terms se is taken
     from: se = r2 - 2 x.b + x^T A x (less the ridge) cancels, so its f32
     error follows r2 + 2|x.b| + x^T A x, not se; steps counts the
-    accumulation steps as `gram_limit` does. For rows of many ratings,
-    where that rounding outgrows 1e-3 of se. The plain version's error
-    against its own exact se is printed beside the kernel's, and so is
-    the reading of a deliberately wrong kernel: the kernel run with the
+    accumulation steps of the route as `gram_limit` does (`se_steps`:
+    on a cut chunk a span's steps and the S adds of pass 2). For rows of
+    many ratings, where that rounding outgrows 1e-3 of se. The plain
+    version's error against its own exact se is printed beside the
+    kernel's (with `cut`, the uncut kernel's too), and so is the reading
+    of a deliberately wrong kernel: the kernel run as routed with the
     last 1/64 and 1/8 of each real row's slots made pad slots (a K1 that
     stops its rows early), against the exact se of the whole row."""
     x0 = chunk_x0(ch, theta)
@@ -803,22 +868,45 @@ def check_k1(cs, table_ext, ch, theta, cfg, label, aug=False,
     kw = dict(cg_iters=cfg.cg_iters, cg_tol=cfg.cg_tol)
     plain_fn = cs.gather_gram_cg_aug_plain if aug else \
         cs.gather_gram_cg_plain
+    kernel = "gather_gram_cg_aug" if aug else "gather_gram_cg"
+    r, p = ch.cols.shape
+    steps, spans = se_steps(cs, table_ext, r, p)
+    if cut and spans == 1:
+        raise AssertionError(f"{label}: R={r} P={p} is not a chunk the cut "
+                             f"takes")
+    before = (cs.LAUNCHES[kernel], cs.LAUNCHES[SPAN_SOLVE])
     x, se = cs.gather_gram_cg(*args, aug=aug, **kw)
+    counted = (cs.LAUNCHES[kernel] - before[0],
+               cs.LAUNCHES[SPAN_SOLVE] - before[1]) == (1, int(spans > 1))
     px, pse = plain_fn(*args, **kw)
     err = (x - px).abs().max().item()
     se_rel = ((se - pse).abs() / pse.abs().clamp_min(1.0)).max().item()
     se_ok, se_limit = se_rel <= 1e-3, "1e-3 relative"
+    extra, cut_txt = {}, ""
+    if cut:
+        x2, se2 = cs.gather_gram_cg(*args, aug=aug, **kw)
+        repeat = same_bits(x, x2) and same_bits(se, se2)
+        x1, se1 = cs.gather_gram_cg(*args, aug=aug, spans=1, **kw)
+        err1 = (x1 - px).abs().max().item()
+        extra = dict(spans=spans, repeat_bits=repeat,
+                     uncut_max_abs_err=err1, counted=counted)
+        del x2, se2
     if se_exact:
-        p_ = ch.cols.shape[1]
-        steps = (p_ if cs.gram_body(table_ext) == "fma" else
-                 -(-p_ // 16)) + 4
         k_rel, k_terms, se_ok = se_witness(table_ext, ch, x, se, steps)
         p_rel, p_terms, p_ok = se_witness(table_ext, ch, px, pse, steps)
+        uncut_txt = ""
+        if cut:
+            u_rel, u_terms, _ = se_witness(table_ext, ch, x1, se1, steps)
+            extra.update(se_of_exact=k_rel, plain_se_of_exact=p_rel,
+                         uncut_se_of_exact=u_rel)
+            uncut_txt = (f"; the uncut kernel (spans=1) {u_rel:.3e} of se, "
+                         f"{u_terms:.3e} of the terms")
         se_limit = (f"none; held instead: |se - the exact se of its x "
                     f"(float64)| <= {steps} x 2^-23 (r2 + 2|x.b| + x^T A "
-                    f"x) + 1e-5: kernel {se_ok}, {k_rel:.3e} of se, "
-                    f"{k_terms:.3e} of the terms; plain {p_ok}, "
-                    f"{p_rel:.3e} of se, {p_terms:.3e} of the terms")
+                    f"x) + 1e-5 ({steps} steps: S={spans}): kernel {se_ok}, "
+                    f"{k_rel:.3e} of se, {k_terms:.3e} of the terms; plain "
+                    f"{p_ok}, {p_rel:.3e} of se, {p_terms:.3e} of the "
+                    f"terms{uncut_txt}")
         pad = int(ch.cols[int(ch.nnz.argmin()), -1])
         for frac in (64, 8):
             cols_w, vals_w = ch.cols.clone(), ch.vals.clone()
@@ -831,38 +919,95 @@ def check_k1(cs, table_ext, ch, theta, cfg, label, aug=False,
             w_rel, w_terms, w_ok = se_witness(table_ext, ch, xw, sew,
                                               steps)
             w_dx = (xw - px).abs().max().item()
+            verdict = "passes" if w_ok and w_dx <= 2e-3 else "rejects"
+            extra[f"wrong_1_{frac}"] = verdict
             log(f"[K1 se witness] a deliberately wrong K1 that drops the "
                 f"last 1/{frac} of each real row's slots: |se - exact se "
                 f"of its x over the whole row| {w_rel:.3e} of se, "
-                f"{w_terms:.3e} of the terms, within the se limit: {w_ok}; "
-                f"max|dx| vs plain {w_dx:.3e} (limit 2e-3); the check "
-                f"{'passes' if w_ok and w_dx <= 2e-3 else 'rejects'} it")
+                f"{w_terms:.3e} of the terms, within the se limit ({steps} "
+                f"x 2^-23 of the terms): {w_ok}; max|dx| vs plain "
+                f"{w_dx:.3e} (limit 2e-3); the check {verdict} it")
             del cols_w, vals_w, xw, sew
+    if cut:
+        del x1, se1
     empty = ch.nnz == 0
     zero_ok = bool((x[empty] == 0).all()) and bool((se[empty] == 0).all())
     if aug:
         zero_ok &= bool((x[:, -1] == 0).all())
     del px, pse
     ms = queued_ms(lambda: cs.gather_gram_cg(*args, aug=aug, **kw))
+    if cut:
+        ms1 = queued_ms(lambda: cs.gather_gram_cg(*args, aug=aug, spans=1,
+                                                  **kw))
+        extra["uncut_ms"] = ms1
+        cut_txt = (f"; the cut, S={spans} spans of {p // spans} slots: "
+                   f"{ms:.3f} ms against {ms1:.3f} uncut (spans=1, "
+                   f"max|dx|={extra['uncut_max_abs_err']:.3e}), this call; "
+                   f"the same bits twice: {extra['repeat_bits']}")
     plain = queued_ms(lambda: plain_fn(*args, **kw), reps=3)
-    r, p = ch.cols.shape
     f = table_ext.shape[1]
     flops = 2.0 * float(ch.nnz.sum().item()) * f * f
     table_b = nbytes(table_ext) if table_rows is None else \
         table_rows * f * table_ext.element_size()
     bms, by = bound_ms(table_b + nbytes(ch.cols, ch.vals, ch.nnz, x0, x,
                                         se), flops, table_ext.dtype)
-    ok = err <= 2e-3 and se_ok and zero_ok
+    ok = err <= 2e-3 and se_ok and zero_ok and counted
+    if cut:
+        ok &= extra["repeat_bits"] and extra["uncut_max_abs_err"] <= 2e-3
     name = "K6 gather_gram_cg_aug" if aug else "K1 gather_gram_cg"
     log(f"[{name}] {label} chunk R={r} P={p}, table {table_ext.dtype}, "
-        f"body {cs.gram_body(table_ext)}: max|dx|={err:.3e} (limit 2e-3), "
+        f"body {cs.gram_body(table_ext)}, spans {spans} (launches counted: "
+        f"{counted}): max|dx|={err:.3e} (limit 2e-3), "
         f"max rel dse={se_rel:.3e} (limit {se_limit}), "
         f"{int(empty.sum())} rows without ratings"
         f"{' and lane f-1' if aug else ''} exactly 0: "
         f"{zero_ok}; device time: kernel {ms:.3f} ms, plain {plain:.3f} "
-        f"ms, bound {bms:.4f} ms ({by}); {'OK' if ok else 'FAIL'}")
+        f"ms, bound {bms:.4f} ms ({by}){cut_txt}; {'OK' if ok else 'FAIL'}")
     return ok, dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
-                    bound_by=by, library_ms=None)
+                    bound_by=by, library_ms=None, **extra)
+
+
+def check_span_solve(cs, table_ext, ch, theta, cfg, label, aug=False):
+    """Pass 2 of K1's (with aug, K6's) cut alone (`frag_span_solve`), on
+    the records pass 1 (`theta_span_grams`) writes for a chunk the cut
+    takes, against its plain version on the same records: x within 2e-3,
+    se within 1e-3 relative (the CG adds in another order), rows without
+    ratings exactly 0, one launch. Device times; no single PyTorch call
+    computes it (library null); the bound the bytes of the live records
+    read once, x0 and nnz read, x and se written."""
+    x0 = chunk_x0(ch, theta)
+    r, p = ch.cols.shape
+    s = cs.theta_spans(r, p, table_ext.shape[1], sm_count(), table_ext.dtype)
+    part = cs.theta_span_grams(table_ext, ch.cols, ch.vals, ch.nnz, s,
+                               aug=aug)
+    args = (part, ch.nnz, x0, cfg.lam, p, s)
+    kw = dict(cg_iters=cfg.cg_iters, cg_tol=cfg.cg_tol, aug=aug)
+    count = cs.LAUNCHES[SPAN_SOLVE]
+    x, se = cs.frag_span_solve(*args, **kw)
+    launched = cs.LAUNCHES[SPAN_SOLVE] == count + 1
+    px, pse = cs.frag_span_solve_plain(*args, **kw)
+    err = (x - px).abs().max().item()
+    se_rel = ((se - pse).abs() / pse.abs().clamp_min(1.0)).max().item()
+    empty = ch.nnz == 0
+    zero_ok = bool((x[empty] == 0).all()) and bool((se[empty] == 0).all())
+    ms = queued_ms(lambda: cs.frag_span_solve(*args, **kw))
+    plain = queued_ms(lambda: cs.frag_span_solve_plain(*args, **kw), reps=3)
+    live = int(cs._span_live(ch.nnz, p, s, p // s).sum())
+    read = live * cs.THETA_RECORD_FLOATS * 4 + nbytes(x0, ch.nnz, x, se)
+    steps = cfg.cg_iters + 2
+    bms, by = bound_ms(read, float(r * steps * 2 * 128 * 128),
+                       torch.float32)
+    ok = err <= 2e-3 and se_rel <= 1e-3 and zero_ok and launched
+    log(f"[pass 2 {SPAN_SOLVE}] {label}: R={r} P={p}, S={s} spans, "
+        f"{live} live records, aug {aug}: max|dx|={err:.3e} (limit 2e-3), "
+        f"max rel dse={se_rel:.3e} (limit 1e-3), rows without ratings "
+        f"exactly 0: {zero_ok}, one launch: {launched}; device time: "
+        f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.4f} ms "
+        f"({by}); {'OK' if ok else 'FAIL'}")
+    del part
+    return ok, dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                    bound_by=by, library_ms=None, spans=s, shape=[r, p],
+                    live_records=live)
 
 
 def theta_chunk(p, seed, aug, vals_dtype, n=60, f=128):
@@ -1873,17 +2018,18 @@ def cut_totals(cs, label, chunks, table, current, cfg, f2):
 
 def phase_totals(cs, al, theta_t, x_t):
     """Device time of one phase's kernel chunk by chunk (`queued_each`),
-    split by chunks with fewer rows than the card has SMs: the fused
-    kernel (K1, or K6 when the config takes the augmented form) over the
-    theta phase, from the warm starts of theta_t's shape; the Gram
-    kernel alone (K2 or K5a) over the X phase (the panels' tables made
-    outside the timing), as routed and uncut (spans=1, under "uncut"),
-    split at the blocks of its body that fit the card, with the bytes
-    gathered and written; and the X phase's whole Gram step (that kernel
-    + the index_add_ scatter into the accumulators)."""
+    split by chunks with fewer rows than the blocks of its body that fit
+    the card (264 at f = 128 on an H100): the fused kernel (K1, or K6
+    when the config takes the augmented form) over the theta phase, from
+    the warm starts of theta_t's shape, as routed and uncut (spans=1,
+    under "uncut"); the Gram kernel alone (K2 or K5a) over the X phase
+    (the panels' tables made outside the timing), as routed and uncut,
+    with the bytes gathered and written; and the X phase's whole Gram
+    step (that kernel + the index_add_ scatter into the accumulators)."""
     cfg = al.cfg
     f = cfg.f_pad
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    resident = cs.gram_blocks_per_sm(f) * sms
 
     table_ext = torch.cat([x_t.to(torch.bfloat16),
                            x_t.new_zeros((1, f), dtype=torch.bfloat16)])
@@ -1891,11 +2037,18 @@ def phase_totals(cs, al, theta_t, x_t):
     chunks_t = al.plan_theta[1]
     x0s = [torch.zeros((ch.rows.shape[0], f), device="cuda")
            for ch in chunks_t]
-    theta = split_by_rows(queued_each([
-        lambda ch=ch, x0=x0: cs.gather_gram_cg(
-            table_ext, ch.cols, ch.vals, ch.nnz, x0, cfg.lam,
-            cg_iters=cfg.cg_iters, cg_tol=cfg.cg_tol, aug=aug_direct)
-        for ch, x0 in zip(chunks_t, x0s)]), chunks_t, sms)
+
+    def theta_times(spans):
+        return split_by_rows(queued_each([
+            lambda ch=ch, x0=x0: cs.gather_gram_cg(
+                table_ext, ch.cols, ch.vals, ch.nnz, x0, cfg.lam,
+                cg_iters=cfg.cg_iters, cg_tol=cfg.cg_tol, aug=aug_direct,
+                spans=spans)
+            for ch, x0 in zip(chunks_t, x0s)]), chunks_t, resident)
+    theta = theta_times(None)
+    theta["uncut"] = theta_times(1)
+    theta["n_cut"] = sum(cs.theta_spans(*ch.cols.shape, f, sms) > 1
+                         for ch in chunks_t)
     del x0s, table_ext
 
     plan, chunks, _ = al.plan_x
@@ -1910,7 +2063,6 @@ def phase_totals(cs, al, theta_t, x_t):
         cs.gather_gram_out
     tables = {p: torch.cat([th16[p * s:(p + 1) * s], zero])
               for p in sorted({ch.panel for ch in chunks})}
-    resident = cs.gram_blocks_per_sm(f) * sms
 
     def x_times(spans):
         return split_by_rows(queued_each([
@@ -1936,10 +2088,13 @@ def phase_totals(cs, al, theta_t, x_t):
     return theta, split, start.elapsed_time(end)
 
 
-def full_width(cs, model, label, expect, absent, x0, th0, iters=ITERS):
+def full_width(cs, model, label, expect, absent, x0, th0, iters=ITERS,
+               exact=None):
     """One full-width path: ALS.run with every launch count read around
-    it alone; a path of RECORDED_TRAIN_RMSE must reach that train RMSE
-    after its last iteration (within 1e-3) and lower its test RMSE."""
+    it alone (each kernel of `expect` at least once an iteration, each of
+    `absent` never, each of `exact` as often as it says); a path of
+    RECORDED_TRAIN_RMSE must reach that train RMSE after its last
+    iteration (within 1e-3) and lower its test RMSE."""
     torch.cuda.reset_peak_memory_stats()
     cs.reset_launch_counts()
     res = model.run(x0, th0)
@@ -1979,7 +2134,27 @@ def full_width(cs, model, label, expect, absent, x0, th0, iters=ITERS):
             raise AssertionError(
                 f"{label}: {name} launched {launches[name]} times on a "
                 f"path that does not run it")
+    for name, want in (exact or {}).items():
+        if launches[name] != want:
+            raise AssertionError(
+                f"{label}: {name} launched {launches[name]} times, the "
+                f"plans say {want}")
     return res.history, launches
+
+
+def theta_cuts(cs, shapes, f, iters=1):
+    """Launches of K1's and K6's pass 2 (`frag_span_solve`) over `iters`
+    iterations of calls on chunks of these (R, P) shapes with a bf16
+    table at width f: one a call on a chunk `cs.theta_spans` cuts."""
+    sms = sm_count()
+    return iters * sum(cs.theta_spans(r, p, f, sms) > 1 for r, p in shapes)
+
+
+def theta_pass_2(cs, model, iters=ITERS):
+    """{SPAN_SOLVE: its launches} over `iters` iterations of an ALS whose
+    theta phase runs K1 or K6 on the direct route's chunks."""
+    return {SPAN_SOLVE: theta_cuts(cs, map(gram_shape, model.plan_theta[1]),
+                                   model.cfg.f_pad, iters)}
 
 
 def ext16(t):
@@ -2221,7 +2396,7 @@ def wide_paths(cs, ALS, cfg, train, csc, test, small_train, small_test,
     # ---- 5c. the F = 200 path at full width: with a bf16 table every
     # 256-lane chunk runs the two passes, pass 1 on the tensor cores, and
     # no uncut kernel and no FMA pass 1
-    others = SPLIT_KERNELS + AUG_KERNELS + ("solve_cg", SPAN_SUM)
+    others = SPLIT_KERNELS + AUG_KERNELS + ("solve_cg", SPAN_SUM, SPAN_SOLVE)
     fma_256 = WIDE_KERNELS + ("wide_span_gram",)
     _, launches_on = full_width(
         cs, al, "wide on", MMA_PASSES, others + fma_256, x0_np, th0_np)
@@ -2527,7 +2702,7 @@ def aug_256(cs, model, hist_ref, results):
     al = copy.copy(model)      # the same plans: aug steers no plan
     al.cfg = cfg_a
     others = SPLIT_KERNELS + AUG_KERNELS + WIDE_KERNELS + (
-        "solve_cg", "wide_span_gram", SPAN_SUM)
+        "solve_cg", "wide_span_gram", SPAN_SUM, SPAN_SOLVE)
     hist, launches = full_width(cs, al, "aug 256", MMA_PASSES, others,
                                 x0_np, th0_np, iters=AUG_256_ITERS)
     n_chunks = len(chunks_x) + len(chunks_t)
@@ -2777,7 +2952,9 @@ def out_of_core(cs, bench):
               "gather_gram_out": len(ooc.plan_theta.chunks) * n,
               "solve_cg_reg": ooc.n_slices * n,
               SPAN_SUM: span_sums(cs, map(gram_shape, ooc.plan_theta.chunks),
-                                  cfg.f_pad, n)}
+                                  cfg.f_pad, n),
+              SPAN_SOLVE: theta_cuts(cs, map(gram_shape, ooc.plan_x.chunks),
+                                     cfg.f_pad, n)}
     res_o, launches, peak_o = ooc_run(cs, ooc, "ooc", expect)
     full_x = cuda_tensors_of_rows(train.num_rows)
     log(f"[ooc] live CUDA tensors of X's {train.num_rows} rows after the "
@@ -2799,7 +2976,9 @@ def out_of_core(cs, bench):
         f"{len(inc.plan_x[1])} chunks, theta phase {len(inc.plan_theta[1])} "
         f"chunks (both direct)")
     res_i, _, peak_i = ooc_run(cs, inc, "in-core", {
-        "gather_gram_cg": (len(inc.plan_x[1]) + len(inc.plan_theta[1])) * n})
+        "gather_gram_cg": (len(inc.plan_x[1]) + len(inc.plan_theta[1])) * n,
+        SPAN_SOLVE: theta_cuts(cs, map(gram_shape, inc.plan_x[1] +
+                                       inc.plan_theta[1]), cfg.f_pad, n)})
     del inc
     torch.cuda.empty_cache()
     worst = 0.0
@@ -2949,7 +3128,9 @@ def sharded(cs, bench, cfg, train, test, hist_main):
                   "gather_gram_out": ITERS * len(one.x_steps),
                   "solve_cg_reg": ITERS * slices,
                   SPAN_SUM: span_sums(cs, map(gram_shape, one.x_steps),
-                                      cfg.f_pad, ITERS)}
+                                      cfg.f_pad, ITERS),
+                  SPAN_SOLVE: theta_cuts(cs, map(gram_shape, blocks),
+                                         cfg.f_pad, ITERS)}
         expect = {k: v for k, v in expect.items() if v}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -3082,11 +3263,15 @@ def sooc_run(cs, model, label, expect, x0, th0):
 def sooc_expect(cs, model, iters):
     """The launches a ShardedOutOfCoreALS run of `iters` iterations
     makes on "pallas" with CG: K1 on each X chunk (and, on the direct
-    theta route, on each theta chunk), K2 on each theta step (each hot
-    segment chunk), with its pass 2 on each the cut takes, K3 once (once
-    more with hot columns)."""
+    theta route, on each theta chunk), with its pass 2 on each the cut
+    takes, K2 on each theta step (each hot segment chunk), with its pass
+    2 on each the cut takes, K3 once (once more with hot columns)."""
     n_x = len(model.row_plan.chunks)
     f = model.cfg.f_pad
+    k1 = list(model.row_plan.chunks)
+    if model._theta_direct:
+        k1 += list(model.th_plan.chunks)
+    pass_2 = theta_cuts(cs, map(gram_shape, k1), f, iters)
     if model._theta_direct:
         hot = len(model._hot_chunks)
         return {"gather_gram_cg": iters * (n_x + len(model.th_plan.chunks)),
@@ -3094,12 +3279,14 @@ def sooc_expect(cs, model, iters):
                 "solve_cg_reg": iters * int(hot > 0),
                 SPAN_SUM: span_sums(cs, [(len(c[0]), model.THETA_SEG_W)
                                          for c in model._hot_chunks], f,
-                                    iters)}
+                                    iters),
+                SPAN_SOLVE: pass_2}
     return {"gather_gram_cg": iters * n_x,
             "gather_gram_out": iters * len(model.theta_steps),
             "solve_cg_reg": iters,
             SPAN_SUM: span_sums(cs, map(gram_shape, model.theta_steps), f,
-                                iters)}
+                                iters),
+            SPAN_SOLVE: pass_2}
 
 
 def hot_k2_chunk(csc, pad, dev, p=1 << 18, r=16):
@@ -3263,7 +3450,13 @@ def sharded_ooc(cs, bench, ref_ooc=None):
             f"sooc b: the widest direct theta chunk ({widest} of "
             f"{len(b.th_plan.chunks)}, {c.n_real} real rows) against a "
             f"device X of {x_t.shape[0]} rows, initial factors",
-            table_rows=live_rows(c), se_exact=True)
+            table_rows=live_rows(c), se_exact=True, cut=True)
+        # the se limit of the cut's steps must see a K1 that drops the
+        # last 1/64 of the row
+        sees = checks["gather_gram_cg"]["wrong_1_64"] == "rejects"
+        log(f"[sooc b] the se check rejects the K1 that drops 1/64 of the "
+            f"row: {sees}")
+        ok1 &= sees
         del x_t
         # K2 on a hot-segment chunk at P = 2^18 (f32 A)
         hot, hot_lens = hot_k2_chunk(b.train_csc, b.row_plan.m_loc, dev)
@@ -3352,12 +3545,16 @@ def sharded_ooc(cs, bench, ref_ooc=None):
                 "solve_cg_reg": its}
         got = {k: v for k, v in out["launches"].items() if v}
         # pass 2 of K2's cut: the ranks run the same steps in lockstep,
-        # so the same number of them, at most one a K2 launch
+        # so the same number of them, at most one a K2 launch; pass 2 of
+        # K1's cut at most one a K1 launch on the rank's own X chunks
         sums = [o["launches"].get(SPAN_SUM, 0) for o in ranks]
         if got.pop(SPAN_SUM, 0) != sums[0] or sums[0] != sums[1] or \
                 sums[0] > want["gather_gram_out"]:
             raise AssertionError(f"sooc d rank {r}: pass 2 of K2's cut "
                                  f"launched {sums} times")
+        if got.pop(SPAN_SOLVE, 0) > want["gather_gram_cg"]:
+            raise AssertionError(f"sooc d rank {r}: pass 2 of K1's cut "
+                                 f"launched more often than K1")
         if got != want:
             raise AssertionError(f"sooc d rank {r}: launches {got}, the "
                                  f"plans say {want}")
@@ -3393,13 +3590,20 @@ def sharded_ooc(cs, bench, ref_ooc=None):
 
 HUGEWIKI_SCALE = 0.04
 HW_ITERS = 2
+# the theta seconds of 12a's two iterations before K1's cut (every theta
+# chunk on the uncut kernel; PERF.md §5, a run of chip_smoke.py on an
+# NVIDIA H100 80GB HBM3 at 700.00 W): printed beside this run's only
+UNCUT_HW_THETA_S = (0.2129, 0.2009)
 
 
 def hw_main(argv, label):
     """cumf_als_tpu_torch.hugewiki_full.main(argv) in this process: its
-    stdout is logged, its last line (JSON) returned."""
+    stdout is logged, its last line (JSON) returned, with the unrounded
+    seconds of each theta update its log printed (the JSON's are
+    rounded to 0.1 s) under "theta_run_seconds"."""
     import contextlib
     import io
+    import re
 
     from cumf_als_tpu_torch import hugewiki_full as hw
     buf = io.StringIO()
@@ -3411,7 +3615,11 @@ def hw_main(argv, label):
     log(f"[{label}] {lines[-1]}")
     if rc != 0:
         raise AssertionError(f"{label}: exit {rc}")
-    return json.loads(lines[-1])
+    out = json.loads(lines[-1])
+    out["theta_run_seconds"] = [float(x) for line in lines[:-1] for x in
+                                re.findall(r"update theta run (\S+) seconds",
+                                           line)]
+    return out
 
 
 def hw_process(cmd, label, timeout=600):
@@ -3486,9 +3694,23 @@ def hugewiki_driver(cs, bench):
         f"plans say { {k: v for k, v in want.items() if v} }; peak device "
         f"memory {peak / 2**30:.2f} GiB; s/iter {single['value']} "
         f"(x {single['x_seconds']}, theta {single['theta_seconds']})")
+    sms = sm_count()
+    cut_t = sum(cs.theta_spans(*gram_shape(c), model.cfg.f_pad, sms) > 1
+                for c in model.th_plan.chunks)
+    cut_x = sum(cs.theta_spans(*gram_shape(c), model.cfg.f_pad, sms) > 1
+                for c in model.row_plan.chunks)
+    log(f"[hugewiki device] K1's cut: {cut_t} of the "
+        f"{len(model.th_plan.chunks)} direct theta chunks and {cut_x} of "
+        f"the {len(model.row_plan.chunks)} X chunks under 264 rows cut; "
+        f"in {HW_ITERS} iterations K1 (pass 1 on the cut chunks, the uncut "
+        f"kernel on the others) launched {got.get('gather_gram_cg', 0)} "
+        f"times, pass 2 ({SPAN_SOLVE}) {got.get(SPAN_SOLVE, 0)} times; "
+        f"theta seconds {single['theta_run_seconds']} against "
+        f"{list(UNCUT_HW_THETA_S)} uncut (PERF.md §5)")
     out.update(hot_columns=int(model._hot_rows.size),
                hot_chunks=len(model._hot_chunks), most_rated=int(lens.max()),
-               peak_bytes=peak, single=single)
+               peak_bytes=peak, single=single, theta_cut_chunks=cut_t,
+               x_cut_chunks=cut_x)
     del model
     torch.cuda.empty_cache()
     if got != {k: v for k, v in want.items() if v}:
@@ -4071,7 +4293,8 @@ def panel_256_netflix(cs, ALS, cfg, train, csc, test, hist_ref):
         if model._use_panel_aug() != (gram_dtype == "f32"):
             raise AssertionError(f"{label}: the aug gate")
         others = tuple(k for k in SPLIT_KERNELS + AUG_KERNELS + WIDE_KERNELS
-                       + ("solve_cg", "wide_span_gram") if k not in kernels)
+                       + ("solve_cg", "wide_span_gram", SPAN_SOLVE)
+                       if k not in kernels)
         hist, launches[label] = full_width(
             cs, model, label, kernels + MMA_PASSES + (SPAN_SUM,), others, x0,
             th0, iters=n_it)
@@ -4150,7 +4373,7 @@ def main() -> int:
     log(f"[versions] python {sys.version.split()[0]} torch "
         f"{torch.__version__} cuda {torch.version.cuda}")
     short = {(): None, ("--gram",): GRAM_KERNELS + (SPAN_SUM,),
-             ("--theta",): THETA_KERNELS, ("--wide",): WIDE_SHORT,
+             ("--theta",): THETA_SHORT, ("--wide",): WIDE_SHORT,
              ("--ooc",): SPLIT_KERNELS, ("--sharded",): SPLIT_KERNELS,
              ("--sharded-ooc",): SPLIT_KERNELS,
              ("--integrations",): SPLIT_KERNELS + ("solve_cg",),
@@ -4183,7 +4406,7 @@ def main() -> int:
         log(f"[gram] {'OK' if ok else 'FAIL'} (the short call: no result "
             f"line)")
         return 0 if ok else 1
-    if only == THETA_KERNELS:
+    if only == THETA_SHORT:
         ok = theta_edges(cs) and theta_synthetic(cs)
         if not ok:
             log("[theta] FAIL (the short call: no result line)")
@@ -4225,9 +4448,9 @@ def main() -> int:
         x0_np, th0_np = init_factors(cfg.m, cfg.n, cfg.f, seed=0)
         al = ALS(cfg, train, csc, test, device="cuda")
         hist_main, _ = full_width(
-            cs, al, "main", SPLIT_KERNELS + (SPAN_SUM,),
+            cs, al, "main", SPLIT_KERNELS + (SPAN_SUM, SPAN_SOLVE),
             AUG_KERNELS + WIDE_KERNELS + SPAN_KERNELS + ("solve_cg",),
-            x0_np, th0_np)
+            x0_np, th0_np, exact=theta_pass_2(cs, al))
         del al
         torch.cuda.empty_cache()
         sharded(cs, bench, cfg, train, test, hist_main)
@@ -4241,7 +4464,8 @@ def main() -> int:
         x0_w, th0_w = init_factors(cfg.m, cfg.n, 200, seed=0)
         hist_off, _ = full_width(
             cs, ref, "wide off", MMA_PASSES,
-            SPLIT_KERNELS + AUG_KERNELS + WIDE_KERNELS + ("solve_cg",),
+            SPLIT_KERNELS + AUG_KERNELS + WIDE_KERNELS + ("solve_cg",
+                                                          SPAN_SOLVE),
             x0_w, th0_w, iters=2)
         results = {name: {} for name in REPLACES}
         # phase 5e on the same plans: K6 at 256 lanes
@@ -4284,12 +4508,49 @@ def main() -> int:
                            torch.zeros((1, cfg.f_pad), dtype=torch.bfloat16,
                                        device="cuda")])
 
+    def theta_cut_chunks(model):
+        """The fewest-row theta chunk among those K1's cut takes
+        (`cs.theta_spans`: fewer rows than the blocks that fit the card;
+        the most slots among equals), and the one with the most slots
+        among the others."""
+        sms = sm_count()
+        cut = [c for c in model.plan_theta[1]
+               if cs.theta_spans(*c.cols.shape, cfg.f_pad, sms) > 1]
+        if len(cut) < 2:
+            raise AssertionError("fewer than two theta chunks take K1's "
+                                 "cut")
+        fewest = min(cut, key=lambda c: (c.rows.shape[0], -c.width))
+        most = max((c for c in cut if c is not fewest),
+                   key=lambda c: c.rows.shape[0] * c.width)
+        return (("cut_fewest", "fewest-row cut", fewest),
+                ("cut_most", "most slots cut", most))
+
     def check_theta(model, c, aug, key):
         """K1 (or, with aug, K6) on the widest, the most populous (fills
         results[key]) and the fewest-row theta chunk of the model's
-        plan."""
+        plan; on the two chunks of few rows `theta_cut_chunks` picks
+        three ways (`check_k1` with cut); pass 2 of the cut alone on the
+        fewest-row one (fills results[SPAN_SOLVE], with aug under
+        "aug_")."""
         chunks = model.plan_theta[1]
         ok_all = True
+        cuts = theta_cut_chunks(model)
+        for tag, label, ch in cuts:
+            ok, res = check_k1(cs, table_ext, ch, theta_t, c, label,
+                               aug=aug, cut=True)
+            ok_all &= ok
+            results.setdefault(key, {}).update(
+                {f"{tag}_{k}": v for k, v in res.items()},
+                **{f"{tag}_shape": list(ch.cols.shape)})
+        ok, res = check_span_solve(cs, table_ext, cuts[0][2], theta_t, c,
+                                   "the fewest-row theta chunk the cut "
+                                   "takes", aug=aug)
+        ok_all &= ok
+        if aug:
+            results.setdefault(SPAN_SOLVE, {}).update(
+                {f"aug_{k}": v for k, v in res.items()})
+        else:
+            results[SPAN_SOLVE] = dict(res, **results.get(SPAN_SOLVE, {}))
         for label, ch in (
                 ("widest", max(chunks, key=lambda c: c.width)),
                 ("most populous",
@@ -4310,11 +4571,20 @@ def main() -> int:
     def totals(model, names):
         th, x, gram_tot = phase_totals(cs, model, theta_t, x_t)
         n_x = len(model.plan_x[1])
+        results[names[2]]["phase_totals"] = dict(
+            theta_ms=th["total"], theta_few_ms=th["few"],
+            theta_uncut_ms=th["uncut"]["total"],
+            theta_uncut_few_ms=th["uncut"]["few"], theta_cut=th["n_cut"],
+            theta_few=th["n_few"])
         log(f"[phase totals] {names[0]} over the {len(model.plan_theta[1])} "
             f"theta chunks {th['total']:.1f} ms, of which {th['few']:.1f} ms "
             f"in the {th['n_few']} chunks with fewer than {th['sms']} rows "
             f"(the longest of them, ms and (R, P): "
-            f"{[(round(m, 3), rp) for m, rp in th['longest_few']]}); "
+            f"{[(round(m, 3), rp) for m, rp in th['longest_few']]}); the "
+            f"same uncut (spans=1, this call): {th['uncut']['total']:.1f} "
+            f"ms, {th['uncut']['few']:.1f} ms in those chunks (the longest: "
+            f"{[(round(m, 3), rp) for m, rp in th['uncut']['longest_few']]})"
+            f", {th['n_cut']} chunks cut; "
             f"{names[1]} over the {n_x} X "
             f"chunks {x['total']:.1f} ms, of which {x['few']:.1f} ms in the "
             f"{x['n_few']} chunks with fewer than {x['sms']} rows (the "
@@ -4396,7 +4666,7 @@ def main() -> int:
 
     results, ok_all = {}, True
     ok_all &= check_theta(al, cfg, False, "gather_gram_cg")
-    if only == THETA_KERNELS:
+    if only == THETA_SHORT:
         # K6 on the same chunks: lane 127 of the table is free at F=100
         ok_all &= check_theta(al, cfg, True, "gather_gram_cg_aug")
         ok_all &= ptxas_ok
@@ -4424,7 +4694,7 @@ def main() -> int:
         aux_x["solve_batch"], cfg)
     ok_all &= ok
     del a_buf, b_buf, x0_full
-    totals(al, ("K1", "K2"))
+    totals(al, ("K1", "K2", "gather_gram_cg"))
     torch.cuda.empty_cache()
     if not ok_all:
         raise AssertionError("a kernel disagrees with its plain version")
@@ -4463,9 +4733,9 @@ def main() -> int:
     # ---- 4a. the bf16 path at full width (split buffers: K1, K2, K3)
     log(f"[main] data {gen_s:.1f} s, plans {plan_s:.1f} s")
     hist_main, launches = full_width(
-        cs, al, "main", SPLIT_KERNELS + (SPAN_SUM,),
+        cs, al, "main", SPLIT_KERNELS + (SPAN_SUM, SPAN_SOLVE),
         AUG_KERNELS + WIDE_KERNELS + SPAN_KERNELS + ("solve_cg",), x0_np,
-        th0_np)
+        th0_np, exact=theta_pass_2(cs, al))
     del al, plan_x, chunks_x, aux_x   # frees the plans on the card
     torch.cuda.empty_cache()
 
@@ -4540,16 +4810,16 @@ def main() -> int:
     if k4_launches < m_pad // batch or k4_err > 1e-5:
         raise AssertionError("K4 path failed")
     del a_aug, x0_full, diag_full, nnzf
-    totals(al_aug, ("K6", "K5a"))
+    totals(al_aug, ("K6", "K5a", "gather_gram_cg_aug"))
     del theta_t, x_t, table_ext
     torch.cuda.empty_cache()
 
     # ---- 4b. this slice's path at full width (f32 accumulators,
     # aug_gram="force": K5a, K5b, K6)
     hist_aug, launches_aug = full_width(
-        cs, al_aug, "aug", AUG_KERNELS + (SPAN_SUM,),
+        cs, al_aug, "aug", AUG_KERNELS + (SPAN_SUM, SPAN_SOLVE),
         SPLIT_KERNELS + WIDE_KERNELS + SPAN_KERNELS + ("solve_cg",), x0_np,
-        th0_np)
+        th0_np, exact=theta_pass_2(cs, al_aug))
     for hm, ha in zip(hist_main, hist_aug):
         log(f"[main | aug] iter {hm.iteration}: train {hm.train_rmse:.6f} | "
             f"{ha.train_rmse:.6f}, test {hm.test_rmse:.6f} | "
@@ -4577,6 +4847,7 @@ def main() -> int:
     for name in SPLIT_KERNELS:
         results[name]["ooc_launches"] = ooc_launches[name]
         results[name]["ooc_check"] = ooc_checks[name]
+    results[SPAN_SOLVE]["ooc_launches"] = ooc_launches.get(SPAN_SOLVE, 0)
 
     # ---- 10. sharded training on the Netflix data: one rank (NCCL), two
     # ranks on the one card (gloo)
@@ -4585,6 +4856,8 @@ def main() -> int:
         results[name]["sharded_launches"] = {
             k: v.get(name, 0) for k, v in sh_launches.items()}
         results[name]["sharded_check"] = sh_checks[name]
+    results[SPAN_SOLVE]["sharded_launches"] = {
+        k: v.get(SPAN_SOLVE, 0) for k, v in sh_launches.items()}
 
     # ---- 11. sharded out-of-core training on hugewiki_mini: one rank
     # (NCCL) with X on the host, on the card, on lazy plans; two ranks on
@@ -4595,11 +4868,13 @@ def main() -> int:
         results[name]["sharded_ooc_launches"] = {
             k: v.get(name, 0) for k, v in so_launches.items()}
         results[name]["sharded_ooc_check"] = so_checks[name]
+    results[SPAN_SOLVE]["sharded_ooc_launches"] = {
+        k: v.get(SPAN_SOLVE, 0) for k, v in so_launches.items()}
 
     # ---- 12. the integrations and entry points: the hugewiki driver,
     # entry() (K4), dryrun_multichip(), the torch op
     hw_launches, k4_entry, _ = integrations(cs, bench)
-    for name in SPLIT_KERNELS:
+    for name in SPLIT_KERNELS + (SPAN_SOLVE,):
         results[name]["hugewiki_launches"] = hw_launches.get(name, 0)
     results["solve_cg"]["entry_check"] = k4_entry
 
@@ -4609,6 +4884,7 @@ def main() -> int:
 
     launches.update({k: launches_aug[k] for k in AUG_KERNELS})
     results[SPAN_SUM]["aug_launches"] = launches_aug[SPAN_SUM]
+    results[SPAN_SOLVE]["aug_launches"] = launches_aug[SPAN_SOLVE]
     launches["solve_cg"] = k4_launches
     launches.update(wide_launches)
     kernels = [{"name": name, "route": "cuda",

@@ -44,6 +44,29 @@
 // Overlap: done() runs while the gather of the next row's first kAhead
 // tiles is in flight, and the other block on the SM keeps the tensor
 // cores busy.
+//
+// The cut of a chunk of few rows. One block walks all the slots of its
+// row, so a chunk of fewer rows than the blocks that fit the card (two
+// an SM) leaves SMs idle: on one row of 187,933 ratings the uncut kernel
+// takes ~4.6 ms on one SM while 131 wait. The wrapper (ops/cuda_solve.py,
+// `theta_spans`: the rule of K2's cut, no span under 8 tiles) cuts such
+// a chunk into S spans of whole 64-slot tiles a row and runs two passes:
+//   pass 1 (span_gram_kernel, launched through K1's or K6's own entry
+//     point): gram_stream over the (R S, P / S) view of cols and vals,
+//     span s of row r its row r S + s, each span over its live slots
+//     (`SpanLen`: none past the row's nnz, so no tiles and no record);
+//     a span with slots writes its f32 record, A (and K1's b and r2,
+//     summed as the uncut kernel sums them; K6's A' holds b and r2 in
+//     row 127) to scratch;
+//   pass 2 (span_solve_kernel, frag_span_solve.cu): one block a row adds
+//     the row's live records in span order straight into the wgmma
+//     fragment's layout and runs frag_cg_row on it, the same CG, the same
+//     barriers and the same train error as the uncut kernel. A span past
+//     the row's nnz was never written and is never read.
+// No atomics and a fixed order: a result repeats bit for bit. The cut
+// also shortens the f32 sums of the fragment (a span's wgmma adds one
+// 16-slot step at a time), and so the error of A, b and r2 on a long
+// row.
 #pragma once
 
 #include "gram_mma.cuh"
@@ -262,6 +285,159 @@ int launch_cg(const void* table, const void* cols, const void* vals,
           (const __nv_bfloat16*)table, (const int32_t*)cols, (const VT*)vals,
           (const int32_t*)nnz, (const float*)x0, (float*)x_out,
           (float*)se_out, p, r, lam, cg_iters, cg_tol);
+  return (int)cudaGetLastError();
+}
+
+// Floats of one span's record in the cut: A (kF x kF, row-major), then
+// K1's b (kF) and r2 (1), padded to a multiple of 4 floats (each record
+// starts on a 16-byte boundary). K6's record holds A' alone; its tail is
+// never written.
+constexpr int kRecordFloats = kF * kF + kF + 4;
+
+// Pass 1 of the cut: the record of every span of the (R S, P / S) view
+// that holds slots (`views` = R S rows of `len` slots).
+template <bool AUG, typename VT>
+__global__ void __launch_bounds__(kThreads, 2)
+    span_gram_kernel(const __nv_bfloat16* __restrict__ table,
+                     const int32_t* __restrict__ cols,
+                     const VT* __restrict__ vals,
+                     const int32_t* __restrict__ nnz,
+                     float* __restrict__ part, int views, int spans,
+                     int len) {
+  extern __shared__ unsigned char smem_raw[];
+  Smem& s = aligned_smem(smem_raw);
+  gram_stream<AUG, !AUG, !AUG>(
+      s, table, cols, vals, len, views, SpanLen{nnz, spans, len},
+      [&](int v, int n, const float (&acc)[64], float b0, float b1) {
+        if (n == 0) return;  // no wgmma ran: acc holds another span's sums
+        float* rec = part + (int64_t)v * kRecordFloats;
+        store_fragment<float>(acc, rec);
+        if constexpr (!AUG) {
+          // b: the four quarters of the slots, r2: its 16 parts, each
+          // added in the order frag_cg_row adds them
+          const int tid = threadIdx.x;
+          const int lanes = 2 * (tid & (kF / 2 - 1));
+          const int quarter = tid >> 6;
+          float r2 = 0.f;
+          if (tid == 0) {  // before the barrier: the stream then zeroes r2
+            r2 = s.r2[0];
+#pragma unroll
+            for (int j = 1; j < 16; ++j) r2 += s.r2[j];
+          }
+          if (quarter > 0)
+            *reinterpret_cast<float2*>(&s.b[quarter - 1][lanes]) =
+                make_float2(b0, b1);
+          __syncthreads();
+          if (quarter == 0) {
+            float2 sum = make_float2(b0, b1);
+#pragma unroll
+            for (int q = 0; q < 3; ++q) {
+              sum.x += s.b[q][lanes];
+              sum.y += s.b[q][lanes + 1];
+            }
+            *reinterpret_cast<float2*>(rec + kF * kF + lanes) = sum;
+          }
+          if (tid == 0) rec[kF * kF + kF] = r2;
+        }
+      });
+}
+
+// Pass 2 of the cut: row blockIdx.x's live records (spans s with
+// s len < min(nnz, p)) added in span order into this thread's part of
+// the fragment, then frag_cg_row. K1 hands it b as quarter 0's part and
+// r2 as part 0 (the other parts zero, so frag_cg_row's sums give them
+// unchanged); K6 takes b and r2 out of row 127 of the summed A'.
+template <bool AUG>
+__global__ void __launch_bounds__(kThreads)
+    span_solve_kernel(const float* __restrict__ part,
+                      const int32_t* __restrict__ nnz,
+                      const float* __restrict__ x0,
+                      float* __restrict__ x_out,
+                      float* __restrict__ se_out, int p, int spans, int len,
+                      float lam, int cg_iters, float cg_tol) {
+  __shared__ CgSmem c;
+  __shared__ float r2s[16];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int k = lane & 3;
+  const int lo = 16 * (tid >> 5) + (lane >> 2);  // this thread's rows lo,
+  const int row = blockIdx.x;                    // lo + 8 of A
+  const int n = min(__ldg(nnz + row), p);
+  const int live = n > 0 ? (n + len - 1) / len : 0;
+  const float* rec = part + (int64_t)row * spans * kRecordFloats;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  float b0 = 0.f, b1 = 0.f, r2 = 0.f;
+  for (int sp = 0; sp < live; ++sp, rec += kRecordFloats) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const float2 a_lo =
+          *reinterpret_cast<const float2*>(rec + lo * kF + 8 * i + 2 * k);
+      const float2 a_hi = *reinterpret_cast<const float2*>(
+          rec + (lo + 8) * kF + 8 * i + 2 * k);
+      acc[4 * i] += a_lo.x;
+      acc[4 * i + 1] += a_lo.y;
+      acc[4 * i + 2] += a_hi.x;
+      acc[4 * i + 3] += a_hi.y;
+    }
+    if (!AUG && tid < kF / 2) {
+      const float2 b = *reinterpret_cast<const float2*>(rec + kF * kF +
+                                                        2 * tid);
+      b0 += b.x;
+      b1 += b.y;
+    }
+    if (!AUG && tid == 0) r2 += rec[kF * kF + kF];
+  }
+  if (tid < 16) r2s[tid] = tid == 0 ? r2 : 0.f;
+  // frag_cg_row's first barrier comes before its first read of r2s
+  frag_cg_row<AUG>(c, row, n, acc, b0, b1, AUG ? c.r2 : r2s, nnz, x0,
+                   x_out, se_out, lam, cg_iters, cg_tol);
+}
+
+// The host side of pass 1: r rows of p slots cut into `spans` spans of
+// p / spans slots, a record each in part (r spans, kRecordFloats).
+template <bool AUG, typename VT>
+int launch_span_gram(const void* table, const void* cols, const void* vals,
+                     const void* nnz, void* part, int r, int p, int spans,
+                     cudaStream_t stream) {
+  static const cudaError_t allowed = cudaFuncSetAttribute(
+      span_gram_kernel<AUG, VT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemBytes);
+  if (allowed != cudaSuccess) return (int)allowed;
+  static const int resident = 2 * sm_count();
+  const int views = r * spans;
+  span_gram_kernel<AUG, VT>
+      <<<views < resident ? views : resident, kThreads, kSmemBytes,
+         stream>>>((const __nv_bfloat16*)table, (const int32_t*)cols,
+                   (const VT*)vals, (const int32_t*)nnz, (float*)part,
+                   views, spans, p / spans);
+  return (int)cudaGetLastError();
+}
+
+template <bool AUG>
+int run_span_gram(const void* table, const void* cols, const void* vals,
+                  int vals_bf16, const void* nnz, void* part, int r, int p,
+                  int spans, cudaStream_t stream) {
+  if (spans < 1 || p % spans) return (int)cudaErrorInvalidValue;
+  if (vals_bf16)
+    return launch_span_gram<AUG, __nv_bfloat16>(table, cols, vals, nnz, part,
+                                                r, p, spans, stream);
+  return launch_span_gram<AUG, float>(table, cols, vals, nnz, part, r, p,
+                                      spans, stream);
+}
+
+// The host side of pass 2: one block a row.
+template <bool AUG>
+int run_span_solve(const void* part, const void* nnz, const void* x0,
+                   void* x_out, void* se_out, int r, int p, int spans,
+                   float lam, int cg_iters, float cg_tol,
+                   cudaStream_t stream) {
+  if (spans < 1 || p % spans) return (int)cudaErrorInvalidValue;
+  span_solve_kernel<AUG><<<r, kThreads, 0, stream>>>(
+      (const float*)part, (const int32_t*)nnz, (const float*)x0,
+      (float*)x_out, (float*)se_out, p, spans, p / spans, lam, cg_iters,
+      cg_tol);
   return (int)cudaGetLastError();
 }
 

@@ -27,6 +27,18 @@
 // fragment in registers (3 block barriers a CG step). Two blocks share
 // an SM, each walking its rows as one stream of tiles, so the next row's
 // gather and the other block's Gram overlap this row's CG.
+// A chunk with fewer rows than those blocks (two an SM) would leave SMs
+// idle: the wrapper cuts it across blocks (`theta_spans` in
+// ops/cuda_solve.py, the rule of K2's cut: S spans of whole 64-slot tiles
+// a row, none under 8, P a whole number of tiles). This entry point,
+// given `part`, then runs pass 1 of that cut (frag_cg.cuh: the Gram, b
+// and r2 of each span into an f32 record), and frag_span_solve.cu adds
+// each row's records in span order and solves on the fragment. There the gather, spread over
+// the card, bounds the work: the widest direct theta chunk of sharded
+// out-of-core training (R = 8, P = 196,608, one real row of 187,933
+// ratings) needs 6.2 GFLOP (6 us on the tensor cores) and ~17 us of
+// table rows from device memory, where the uncut kernel took ~4.6 ms on
+// one SM.
 // A float32 table and a bf16 table at f < 128 keep the f32 FMA body of
 // common.cuh, one block a row: bf16 tensor cores would round a float32
 // table. f = 256 (one factor width above 128, padded to 256 lanes) takes
@@ -153,8 +165,18 @@ extern "C" int cumf_gather_gram_cg(const void* table, int table_bf16,
                                    int vals_bf16, const void* nnz,
                                    const void* x0, void* x_out, void* se_out,
                                    int r, int p, int f, float lam,
-                                   int cg_iters, float cg_tol, void* stream) {
+                                   int cg_iters, float cg_tol, void* part,
+                                   int spans, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  // pass 1 of the cut of a chunk of few rows (frag_cg.cuh): `spans`
+  // spans a row, each span's record into part; x_out and se_out
+  // are pass 2's
+  if (part) {
+    if (!table_bf16 || f != cumf::mma::kF)
+      return (int)cudaErrorInvalidValue;
+    return cumf::mma::run_span_gram<false>(table, cols, vals, vals_bf16,
+                                           nnz, part, r, p, spans, st);
+  }
   // the tensor-core body where it takes the table, else the FMA bodies
   if (table_bf16 && f == cumf::mma::kF)
     return cumf::mma::run_cg<false>(table, cols, vals, vals_bf16, nnz, x0,

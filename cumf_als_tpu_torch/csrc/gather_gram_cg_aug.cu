@@ -27,10 +27,14 @@
 // bf16, rides lane 127 of the cp.async-gathered tile (as in K5a), one
 // wgmma Gram gives A, b and r2, and the CG reads A from the wgmma
 // fragment in registers, b and r2 taken out of row 127 before the
-// matvec masks row and column 127. A float32 table and a bf16 table at
-// f < 128 keep the f32 FMA body of common.cuh, one block a row, where the
-// value enters lane f - 1 while the tile is staged. The entry point
-// chooses by dtype and f alone.
+// matvec masks row and column 127. A chunk of fewer rows than two an SM
+// is cut across blocks as K1's is (frag_cg.cuh): given `part`, this
+// entry point runs pass 1 (each span's A', the value over lane 127, into
+// an f32 record), and frag_span_solve.cu with aug takes b and r2 out of
+// row 127 of each row's summed records and solves. A float32 table and
+// a bf16 table at f < 128 keep the f32 FMA body of common.cuh, one block
+// a row, where the value enters lane f - 1 while the tile is staged. The
+// entry point chooses by dtype and f alone.
 //
 // f = 256 (factor widths 128 < F < 256, padded to 256 lanes, lane 255
 // free) runs as K1 does at that width, in the aug layout. A bf16 table
@@ -163,8 +167,17 @@ extern "C" int cumf_gather_gram_cg_aug(const void* table, int table_bf16,
                                        const void* x0, void* x_out,
                                        void* se_out, int r, int p, int f,
                                        float lam, int cg_iters, float cg_tol,
-                                       void* stream) {
+                                       void* part, int spans, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  // pass 1 of the cut of a chunk of few rows (frag_cg.cuh): `spans`
+  // spans a row, each span's record of A' into part; x_out and se_out
+  // are pass 2's
+  if (part) {
+    if (!table_bf16 || f != cumf::mma::kF)
+      return (int)cudaErrorInvalidValue;
+    return cumf::mma::run_span_gram<true>(table, cols, vals, vals_bf16, nnz,
+                                          part, r, p, spans, st);
+  }
   // the tensor-core body where it takes the table, else the FMA body
   if (table_bf16 && f == cumf::mma::kF)
     return cumf::mma::run_cg<true>(table, cols, vals, vals_bf16, nnz, x0,

@@ -28,7 +28,10 @@
 // (gram_span_sum.cu) adds each row's S partials in span order into A in
 // A's dtype. What bounds the cut: the gather, as uncut, now spread over
 // the card, then the partials' bytes, 64.5 KB a span written and read
-// once more. K1 and K6 stay uncut.
+// once more. K1 and K6 cut such a chunk the same way at f = 128
+// (frag_cg.cuh: pass 1 this stream over the view, each span stopping at
+// the row's nnz, `SpanLen`, and writing its f32 record; pass 2 adds a
+// row's records in span order and solves, frag_span_solve.cu).
 //
 // The tile. 64 slots of the row make one 16 KB tile in shared memory,
 // kept bf16 as gathered. It is stored [slot][lane] as two halves of
@@ -216,6 +219,20 @@ struct LiveSlots {
   int p;
   __device__ __forceinline__ int operator()(int row) const {
     return min(__ldg(nnz + row), p);
+  }
+};
+// The live slots of a span in the cut of K1 and K6: the chunk's (R, P)
+// cols and vals read as (R S, L), L = P / S, so that row v = r S + s of
+// that view holds slots [s L, (s + 1) L) of row r, of which the first
+// clamp(min(nnz[r], P) - s L, 0, L) are live. A span past its row's nnz
+// has none, and so no tiles.
+struct SpanLen {
+  const int32_t* nnz;
+  int spans, len;
+  __device__ __forceinline__ int operator()(int v) const {
+    const int r = v / spans;
+    const int n = min(__ldg(nnz + r), spans * len) - (v - r * spans) * len;
+    return max(0, min(n, len));
   }
 };
 

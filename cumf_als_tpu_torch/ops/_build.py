@@ -25,12 +25,14 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
-# kernel name -> the C entry point and its argument types
+# kernel name -> the C entry point and its argument types (the entry
+# points of K1 and K6 also run pass 1 of their cut on a chunk of few
+# rows when given a record buffer; frag_span_solve is its pass 2)
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNELS = {
     "gather_gram_cg": ("cumf_gather_gram_cg",
                        [_VP, _I, _VP, _VP, _I, _VP, _VP, _VP, _VP,
-                        _I, _I, _I, _F, _I, _F, _VP]),
+                        _I, _I, _I, _F, _I, _F, _VP, _I, _VP]),
     "gather_gram_out": ("cumf_gather_gram_out",
                         [_VP, _I, _VP, _VP, _I, _VP, _I, _VP,
                          _I, _I, _I, _VP]),
@@ -47,7 +49,7 @@ KERNELS = {
                       _VP]),
     "gather_gram_cg_aug": ("cumf_gather_gram_cg_aug",
                            [_VP, _I, _VP, _VP, _I, _VP, _VP, _VP, _VP,
-                            _I, _I, _I, _F, _I, _F, _VP]),
+                            _I, _I, _I, _F, _I, _F, _VP, _I, _VP]),
     "gather_gram_cg_wide": ("cumf_gather_gram_cg_wide",
                             [_VP, _I, _VP, _VP, _I, _VP, _VP, _VP, _VP,
                              _I, _I, _I, _F, _I, _F, _VP]),
@@ -65,6 +67,9 @@ KERNELS = {
                          _I, _I, _I, _I, _I, _I, _I, _F, _I, _F, _VP]),
     "gram_span_sum": ("cumf_gram_span_sum",
                       [_VP, _VP, _VP, _I, _VP, _I, _I, _I, _VP]),
+    "frag_span_solve": ("cumf_frag_span_solve",
+                        [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _I,
+                         _F, _VP]),
 }
 # query name -> the kernel whose library holds it, its C entry point and
 # its argument types (a query launches nothing and counts no launch)

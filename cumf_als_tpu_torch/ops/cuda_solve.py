@@ -18,6 +18,8 @@ in two passes: pass 1 FMA    ``_kernel`` at 256 lanes,   or wide_span_gram_mma.c
 or tensor cores, pass 2)     ``_kernel_cat``             csrc/wide_span_solve.cu
 ``gram_span_sum`` (pass 2    ``_gram_kernel``,           csrc/gram_span_sum.cu
 of K2's and K5a's cut)       ``_gram_kernel_aug``
+``frag_span_solve`` (pass 2  ``_kernel``,                csrc/frag_span_solve.cu
+of K1's and K6's cut)        ``_kernel_aug``
 ===========================  ==========================  ==========================
 
 (TPU kernels: cumf_als_tpu/ops/pallas_solve.py.) Each wrapper takes its
@@ -26,7 +28,9 @@ on a CUDA device; anything else raises. The two passes of the row cut
 are the card half of ``gather_gram_cg`` at f = 256 and
 ``gather_gram_cg_wide``, whose CPU tensors take the uncut plain
 versions: their wrappers take card tensors only, and `row_cut_plain` is
-the plain version of the pair. There is no fallback from the kernel to
+the plain version of the pair; so are the two passes of K1's and K6's
+cut at f = 128 (`theta_span_grams`, ``frag_span_solve``), whose plain
+version is `theta_cut_plain`. There is no fallback from the kernel to
 the plain version. On the card the plain versions are only called to
 check the kernels against them. The plain versions' float32 products
 run in full float32 whatever TF32 setting the caller chose
@@ -70,7 +74,15 @@ r is its row r S + s) writing f32 partials to scratch, then pass 2
 (``gram_span_sum``) adding each row's S partials in span order into A in
 its dtype and b, so a result repeats bit for bit; the cut is bound by
 the gather, now spread over the card, and the partials' bytes. K1 and
-K6 keep one block a row.
+K6 cut such a chunk at f = 128 by the same rule (`theta_spans`): pass 1
+is their own entry point over the same view, each span stopping at its
+row's nnz and writing an f32 record (A, b and r2; K6's A'), counted
+under "gather_gram_cg" or "gather_gram_cg_aug" as the uncut launch is,
+and pass 2 (``frag_span_solve``) adds each row's live records in span
+order and runs the uncut kernel's CG and train error on them
+(csrc/frag_cg.cuh), so a chunk counts one launch of its kernel whether
+cut or not, and one of pass 2 when cut. The shorter f32 sums of a span
+also bound the error of A, b and r2 on a long row.
 
 K1 and K6 at f = 256 and K7 (the 256-lane body, csrc/wide.cuh) run as
 two passes that meet at a record in scratch memory: pass 1 writes the
@@ -371,6 +383,14 @@ def gather_gram_cg(table_ext, cols, vals, nnz, x0, lam: float,
     the tensor cores the bf16 products are exact and the f32 sums are
     taken in the hardware's order.
 
+    At f = 128 a bf16 table on a chunk of fewer rows than the blocks
+    that fit the card, P a whole number of 64-slot tiles, takes the cut
+    of `theta_spans`: pass 1 the kernel's own entry point over the
+    (R S, P / S) view, counted under "gather_gram_cg" or
+    "gather_gram_cg_aug" as the uncut kernel is, then pass 2,
+    ``frag_span_solve`` (its plain version: `theta_cut_plain`). Every
+    other chunk at f = 128 runs the uncut kernel, one block a row.
+
     At f = 256 a bf16 table takes the two passes of the row cut on every
     chunk, pass 1 on the tensor cores; a float32 table takes them on a
     chunk with fewer rows than the card has SMs (`row_spans`) and the
@@ -379,11 +399,13 @@ def gather_gram_cg(table_ext, cols, vals, nnz, x0, lam: float,
     counts its own launches: a chunk on the two passes counts one under
     each pass and none under "gather_gram_cg" or "gather_gram_cg_aug",
     which count the uncut kernel. `spans` forces the number of spans a
-    row is cut into (1: one span a row, which on a float32 table is the
-    uncut kernel) and is taken at f = 256 only. Tensors on the CPU take
-    the plain version whatever `spans` says."""
+    row is cut into (1: one span a row, which at f = 128, and on a
+    float32 table at 256, is the uncut kernel) and is taken at f = 128
+    and 256 only; at f = 128 a cut (spans > 1) needs a bf16 table and P
+    a multiple of 64 spans. Tensors on the CPU take the plain version
+    whatever `spans` says."""
     name = "gather_gram_cg_aug" if aug else "gather_gram_cg"
-    _check_spans(name, spans, table_ext.shape[1] == 256)
+    _check_spans(name, spans, table_ext.shape[1] in (128, 256))
     if _on_cpu(table_ext, cols, vals, nnz, x0):
         plain = gather_gram_cg_aug_plain if aug else gather_gram_cg_plain
         return plain(table_ext, cols, vals, nnz, x0, lam, cg_iters, cg_tol)
@@ -395,6 +417,12 @@ def gather_gram_cg(table_ext, cols, vals, nnz, x0, lam: float,
     _check("vals", vals, (r, p), _FLOATS)
     _check("nnz", nnz, (r,), (torch.int32,))
     _check("x0", x0, (r, f), (torch.float32,))
+    if r and f == 128:
+        s = _gram_spans_of(name, table_ext, r, p, spans, rule=theta_spans)
+        if s > 1:
+            part = theta_span_grams(table_ext, cols, vals, nnz, s, aug)
+            return frag_span_solve(part, nnz, x0, lam, p, s, cg_iters,
+                                   cg_tol, aug)
     if r and f == 256:
         n_spans, span_len = _chunk_spans(x0.device, r, p, spans,
                                          **span_plan(table_ext))
@@ -408,7 +436,8 @@ def gather_gram_cg(table_ext, cols, vals, nnz, x0, lam: float,
         _launch(name, table_ext.data_ptr(), _bf16(table_ext),
                 cols.data_ptr(), vals.data_ptr(), _bf16(vals),
                 nnz.data_ptr(), x0.data_ptr(), x.data_ptr(), se.data_ptr(),
-                r, p, f, float(lam), int(cg_iters), float(cg_tol))
+                r, p, f, float(lam), int(cg_iters), float(cg_tol), None,
+                0)
     return x, se
 
 
@@ -675,13 +704,14 @@ def gram_spans(r: int, p: int, f: int, sms: int,
     return best
 
 
-def _gram_spans_of(name: str, table_ext, r: int, p: int, spans) -> int:
-    """S for this chunk on this card: `gram_spans`, or what `spans`
-    forces (a divisor of P's whole tiles on a tensor-core body; 1
-    anywhere)."""
+def _gram_spans_of(name: str, table_ext, r: int, p: int, spans,
+                   rule=gram_spans) -> int:
+    """S for this chunk on this card: `rule` (`gram_spans`, or K1's
+    `theta_spans`), or what `spans` forces (a divisor of P's whole tiles
+    on a tensor-core body; 1 anywhere)."""
     f = table_ext.shape[1]
     if spans is None:
-        return gram_spans(r, p, f, _sms(table_ext.device), table_ext.dtype)
+        return rule(r, p, f, _sms(table_ext.device), table_ext.dtype)
     s = int(spans)
     if s < 1:
         raise ValueError(f"{name}: spans must be at least 1, got {spans}")
@@ -808,6 +838,157 @@ def gram_cut_plain(table_ext, cols, vals, spans: int,
     b_parts = None if aug else torch.einsum("rp,rpf->rf", v.float(), g)
     del g
     return gram_span_sum_plain(a_parts, b_parts, spans, out_dtype)
+
+
+# ---------------------------- the cut of K1 and K6 at f = 128 ----------
+# floats of one span's record (kRecordFloats of csrc/frag_cg.cuh): A
+# (128 x 128), b (128), r2 (1), padded to a multiple of 4
+THETA_RECORD_FLOATS = 128 * 128 + 128 + 4
+# the fewest tiles of a span of K1's and K6's cut (`theta_spans`)
+THETA_CUT_MIN_TILES = 8
+
+
+def theta_spans(r: int, p: int, f: int, sms: int,
+                dtype: torch.dtype = torch.bfloat16) -> int:
+    """S, the spans each row of a K1 or K6 chunk of R rows of P slots is
+    cut into on a card of `sms` SMs: at f = 128 the rule of K2's cut,
+    `gram_spans` (S > 1 only for a bf16 table, R below the two blocks an
+    SM that fit the card and P a whole number of 64-slot tiles; the
+    largest S of whole tiles with R S at most `GRAM_CUT_TARGET` spans an
+    SM), with no span under `THETA_CUT_MIN_TILES` tiles where K2 takes
+    four; 1 at every other width (f = 256 has the row cut of
+    `row_spans`). On an H100 (132 SMs) the widest direct theta chunk of
+    sharded out-of-core training, 8 x 196,608, takes S = 32, the hugewiki
+    driver's 32 x 81,920 S = 8.
+
+    The constants are measured (scripts/torch_theta_cut_sweep.py;
+    PERF.md, the cut's findings; an H100 SXM at 700 W): K1's rows stop at
+    their nnz, and a few-row chunk's rows are often far shorter than P
+    (Netflix's 8 x 8192 holds 125 live tiles of 1,024), so spans past
+    the rows' ends cost launches and records for nothing. Over the 22
+    Netflix theta chunks the cut can take, K1 took 1.012 ms at min_tiles
+    8 against 1.213 at 4 and 1.365 at 1 or 2 (2.267 uncut, 0.989 at each
+    chunk's best S), target 2 against 1: 1.012 against 1.024; over the 41
+    of hugewiki_mini's in-core theta plan 6.436 against 6.440 (43.664
+    uncut; target 1: 7.626); over the 49 of the hugewiki driver's 18.777
+    at every min_tiles (94.520 uncut; target 1: 26.312)."""
+    if f != 128:
+        return 1
+    return gram_spans(r, p, f, sms, dtype, min_tiles=THETA_CUT_MIN_TILES)
+
+
+def theta_span_grams(table_ext, cols, vals, nnz, spans: int,
+                     aug: bool = False) -> torch.Tensor:
+    """Pass 1 of the cut of K1 (with aug, K6) at f = 128: the records
+    (R S, THETA_RECORD_FLOATS) f32 of each span of each row, span s of
+    row r (record r S + s) over slots [s L, min((s + 1) L, nnz, P)),
+    L = P / S: its A row-major, then b and r2 (`theta_records_unpack`);
+    with aug the values ride lane 127 of G, rounded to bf16, and A holds
+    A' alone. The kernel's own entry point runs it, so the launch counts
+    under "gather_gram_cg" (or "gather_gram_cg_aug"). table_ext (n+1,
+    128) bf16 on a 16-byte boundary, cols and vals (R, P), P a multiple
+    of 64 S, nnz (R,) int32, all on the card. A span with no slots is
+    left as `torch.empty` made it (pass 2 reads only live spans)."""
+    name = "gather_gram_cg_aug" if aug else "gather_gram_cg"
+    _on_card(name, table_ext, cols, vals, nnz, plain="theta_cut_plain")
+    r, p = cols.shape
+    if gram_body(table_ext) != "wgmma" or table_ext.shape[1] != 128 or \
+            spans < 1 or p % (GRAM_TILE * spans):
+        raise ValueError(f"{name}: its cut takes a bf16 table at f = 128 "
+                         f"and P a multiple of {GRAM_TILE} x spans, got "
+                         f"{table_ext.dtype}, f = {table_ext.shape[1]}, "
+                         f"P = {p}, spans = {spans}")
+    _check("cols", cols, (r, p), (torch.int32,))
+    _check("vals", vals, (r, p), _FLOATS)
+    _check("nnz", nnz, (r,), (torch.int32,))
+    _check_gram_table(table_ext, cols)
+    part = torch.empty((r * spans, THETA_RECORD_FLOATS),
+                       dtype=torch.float32, device=cols.device)
+    if r:
+        _launch(name, table_ext.data_ptr(), 1, cols.data_ptr(),
+                vals.data_ptr(), _bf16(vals), nnz.data_ptr(), None, None,
+                None, r, p, 128, 0.0, 0, 0.0, part.data_ptr(), int(spans))
+    return part
+
+
+def theta_records_unpack(part: torch.Tensor, r: int, spans: int):
+    """(A, b, r2) of K1's span records (R S, THETA_RECORD_FLOATS) as
+    (R, S, 128, 128), (R, S, 128) and (R, S, 1); K6's records hold A'
+    in A alone."""
+    f = 128
+    rec = part.view(r, spans, THETA_RECORD_FLOATS)
+    return (rec[..., :f * f].reshape(r, spans, f, f),
+            rec[..., f * f:f * f + f], rec[..., f * f + f:f * f + f + 1])
+
+
+@full_f32()
+def frag_span_solve_plain(part, nnz, x0, lam: float, p: int, spans: int,
+                          cg_iters: int = 6, cg_tol: float = 1e-4,
+                          aug: bool = False):
+    """Plain version of pass 2 (``frag_span_solve``): each row's live
+    records (span s live below min(nnz, P), s P / S < min(nnz, P); the
+    others were never written) added in span order, then the tail the
+    fused kernels share (`_solve_and_se`); with aug b and r2 come out of
+    the summed A' (`unpack_aug`)."""
+    r = nnz.shape[0]
+    a_s, b_s, r2_s = theta_records_unpack(part, r, spans)
+    live = _span_live(nnz, p, spans, p // spans)
+    a, b, r2 = (torch.zeros_like(t[:, 0]) for t in (a_s, b_s, r2_s))
+    for k in range(spans):
+        on = live[:, k]
+        a = a + torch.where(on[:, None, None], a_s[:, k], 0.0)
+        b = b + torch.where(on[:, None], b_s[:, k], 0.0)
+        r2 = r2 + torch.where(on[:, None], r2_s[:, k], 0.0)
+    if aug:
+        a, b, r2 = unpack_aug(a)
+    return _solve_and_se(a, b, r2, nnz, x0, lam, cg_iters, cg_tol)
+
+
+def frag_span_solve(part, nnz, x0, lam: float, p: int, spans: int,
+                    cg_iters: int = 6, cg_tol: float = 1e-4,
+                    aug: bool = False):
+    """Pass 2 of the cut of K1 and K6 at f = 128
+    (csrc/frag_span_solve.cu): part (R S, THETA_RECORD_FLOATS) f32 from
+    pass 1 over P = `p` slots a row in `spans` spans, nnz (R,) int32, x0
+    (R, 128) f32. Each row's live records added in span order, then the
+    regularized CG and the train error as K1 (with aug K6: b and r2 from
+    row 127 of the summed A', lane 127 of x exactly 0) runs them. Returns
+    x (R, 128) f32 and se (R, 1). Card tensors only; its plain version
+    is `frag_span_solve_plain`."""
+    _on_card("frag_span_solve", part, nnz, x0, plain="frag_span_solve_plain")
+    r = nnz.shape[0]
+    if spans < 1 or p % spans:
+        raise ValueError(f"frag_span_solve: {spans} spans do not cut "
+                         f"P = {p}")
+    _check("part", part, (r * spans, THETA_RECORD_FLOATS), (torch.float32,))
+    _check("nnz", nnz, (r,), (torch.int32,))
+    _check("x0", x0, (r, 128), (torch.float32,))
+    x = torch.empty((r, 128), dtype=torch.float32, device=x0.device)
+    se = torch.empty((r, 1), dtype=torch.float32, device=x0.device)
+    if r:
+        _launch("frag_span_solve", part.data_ptr(), nnz.data_ptr(),
+                x0.data_ptr(), x.data_ptr(), se.data_ptr(), r, int(p),
+                int(spans), int(aug), float(lam), int(cg_iters),
+                float(cg_tol))
+    return x, se
+
+
+def theta_cut_plain(table_ext, cols, vals, nnz, x0, lam: float, spans: int,
+                    cg_iters: int = 6, cg_tol: float = 1e-4,
+                    aug: bool = False):
+    """Plain version of the cut of K1 (with aug, K6) at f = 128: each of
+    the `spans` equal spans of a row's slots, [s L, (s + 1) L) up to the
+    row's nnz, summed into its own f32 A, b and r2 (with aug the values
+    ride lane 127, `augment_g`, and A' holds them), the spans added in
+    span order, then the fused kernels' tail (`_solve_and_se`; with aug
+    b and r2 unpacked first): `row_cut_plain` at fl = f."""
+    r, p = cols.shape
+    if p % spans:
+        raise ValueError(f"theta_cut_plain: {spans} spans do not divide "
+                         f"P = {p}")
+    return row_cut_plain(table_ext, cols, vals, nnz, x0, lam,
+                         table_ext.shape[1], spans, p // spans, cg_iters,
+                         cg_tol, aug)
 
 
 # ---------------------------------------------------- K5b solve_cg_aug --
@@ -1053,7 +1234,7 @@ def _check_spans(name: str, spans, allowed: bool) -> None:
     if spans is None:
         return
     if not allowed:
-        raise ValueError(f"{name}: spans applies to the 256-lane body "
+        raise ValueError(f"{name}: spans applies at f = 128 and f = 256 "
                          f"only")
     if not 1 <= int(spans) <= 65535:
         raise ValueError(f"{name}: spans must be 1 to 65535, got {spans}")

@@ -354,7 +354,8 @@ def test_new_plain_routes_count_no_launch():
         "gather_gram_cg", "gather_gram_out", "solve_cg_reg", "solve_cg",
         "gather_gram_aug_out", "solve_cg_aug", "gather_gram_cg_aug",
         "gather_gram_cg_wide", "fused_gram_cg_cat", "wide_span_gram",
-        "wide_span_gram_mma", "wide_span_solve", "gram_span_sum"}
+        "wide_span_gram_mma", "wide_span_solve", "gram_span_sum",
+        "frag_span_solve"}
     assert sum(cs.LAUNCHES.values()) == 0
 
 

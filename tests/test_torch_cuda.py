@@ -378,6 +378,151 @@ def test_gram_chunks_of_many_rows_keep_the_uncut_kernel(card, f):
             cs.gather_gram_out(t, *few[1:], spans=bad)
 
 
+# ------------------- the cut of K1 and K6 on few-row chunks (f = 128) --
+def _theta_few_rows(r, p, n, aug, seed=0):
+    """A theta chunk of few rows at f = 128 on the card: a bf16 table of
+    n rows and a zero row, entries 0.2 U(0, 1) as init_factors makes a
+    factor, lane 127 zero; row 0 of P - 3000 slots (much longer than the
+    rest), row 1 without ratings, row 2 stopping at the edge of a quarter
+    of P (a span's edge), the others P / 64 to P / 8; values in halves,
+    one 3.3 (not exact in bf16); warm starts 0.1 N(0, 1), zero where nnz
+    is 0, and in lane 127 with aug."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    table = (0.2 * torch.rand((n + 1, 128), generator=gen, device="cuda")
+             ).to(torch.bfloat16)
+    table[n] = 0
+    table[:, 127] = 0
+    nnz = torch.randint(p // 64, p // 8 + 1, (r,), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    nnz[0], nnz[1], nnz[2] = p - 3000, 0, p // 4
+    mask = torch.arange(p, device="cuda")[None, :] < nnz[:, None]
+    cols = torch.where(mask, torch.randint(0, n, (r, p), generator=gen,
+                                           device="cuda"), n).to(torch.int32)
+    vals = (torch.randint(2, 11, (r, p), generator=gen, device="cuda") / 2.0
+            * mask).float()
+    vals[0, 0] = 3.3
+    x0 = 0.1 * torch.randn((r, 128), generator=gen, device="cuda")
+    x0[nnz == 0] = 0
+    if aug:
+        x0[:, 127] = 0
+    return table, cols, vals, nnz, x0
+
+
+def _same_bits(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("r,p,n", [(8, 196608, 2_000_000),
+                                   (32, 81920, 2_000_000),
+                                   (16, 8192, 17_770)])
+@pytest.mark.parametrize("aug", [False, True])
+def test_theta_cut_on_few_row_chunks(card, r, p, n, aug):
+    """K1 and K6 on a chunk of few rows at f = 128 take the cut of
+    `cs.theta_spans` (one launch of the kernel's entry point for pass 1,
+    one of pass 2): x within 2e-3 and se within 1e-3 relative of the
+    plain version, rows without ratings exactly 0 (K6: lane 127 too), the
+    same bits twice; spans=1 is the uncut kernel, no pass 2, x within
+    2e-3 of the plain version."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert cs.theta_spans(r, p, 128, sms) > 1
+    args = _theta_few_rows(r, p, n, aug)
+    name = "gather_gram_cg_aug" if aug else "gather_gram_cg"
+    x, se = cs.gather_gram_cg(*args, LAM, aug=aug)
+    assert cs.LAUNCHES == dict.fromkeys(cs.LAUNCHES, 0) | {
+        name: 1, "frag_span_solve": 1}
+    x2, se2 = cs.gather_gram_cg(*args, LAM, aug=aug)
+    assert _same_bits(x, x2) and _same_bits(se, se2)
+    plain = cs.gather_gram_cg_aug_plain if aug else cs.gather_gram_cg_plain
+    px, pse = plain(*args, LAM)
+    torch.testing.assert_close(x, px, atol=2e-3, rtol=0)
+    assert bool(((se - pse).abs() <= 1e-3 * pse.abs().clamp_min(1.0)).all())
+    empty = args[3] == 0
+    assert torch.all(x[empty] == 0) and torch.all(se[empty] == 0)
+    if aug:
+        assert torch.all(x[:, 127] == 0)
+    cs.reset_launch_counts()
+    x1, _ = cs.gather_gram_cg(*args, LAM, aug=aug, spans=1)
+    assert cs.LAUNCHES == dict.fromkeys(cs.LAUNCHES, 0) | {name: 1}
+    torch.testing.assert_close(x1, px, atol=2e-3, rtol=0)
+
+
+@pytest.mark.parametrize("aug", [False, True])
+def test_theta_chunks_of_many_rows_keep_the_uncut_kernel(card, aug):
+    """A chunk of as many rows as the blocks that fit the card (two an
+    SM) takes the uncut kernel, no pass 2: the same bits as spans=1; a
+    chunk of few rows cut as routed equals the chunk forced to the same
+    S; `spans` must cut P into whole 64-slot tiles of a bf16 table."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    r = 2 * sms
+    args = _theta_few_rows(r, 4096, 600, aug, seed=1)
+    assert cs.theta_spans(r, 4096, 128, sms) == 1
+    name = "gather_gram_cg_aug" if aug else "gather_gram_cg"
+    x, se = cs.gather_gram_cg(*args, LAM, aug=aug)
+    x1, se1 = cs.gather_gram_cg(*args, LAM, aug=aug, spans=1)
+    assert _same_bits(x, x1) and _same_bits(se, se1)
+    assert cs.LAUNCHES == dict.fromkeys(cs.LAUNCHES, 0) | {name: 2}
+    few = _theta_few_rows(8, 4096, 600, aug, seed=2)
+    s = cs.theta_spans(8, 4096, 128, sms)
+    assert s > 1
+    x, se = cs.gather_gram_cg(*few, LAM, aug=aug)
+    xs, ses = cs.gather_gram_cg(*few, LAM, aug=aug, spans=s)
+    assert _same_bits(x, xs) and _same_bits(se, ses)
+    for bad, t in ((3, few[0]), (2, few[0].float())):
+        with pytest.raises(ValueError, match="spans"):
+            cs.gather_gram_cg(t, *few[1:], LAM, aug=aug, spans=bad)
+
+
+@pytest.mark.parametrize("spans", [4, 16])
+@pytest.mark.parametrize("aug", [False, True])
+def test_theta_cut_passes_alone(card, spans, aug):
+    """Pass 1 of the cut on an integer table (every sum exact) equals the
+    plain span Grams bit for bit in each live record (A row-major, then
+    b and r2; K6's A' with the values in lane 127): the proof of the
+    record layout and of `SpanLen`, rows stopping inside a span, at its
+    edge and at the tile's. Pass 2 alone on those records: x within 2e-3
+    and se within 1e-3 relative of its plain version."""
+    rng = np.random.RandomState(spans)
+    r, p, n = 8, 1024, 60
+    table = torch.from_numpy(rng.randint(-2, 3, (n + 1, 128)).astype(
+        np.float32))
+    table[n] = 0
+    table[:, 127] = 0
+    nnz = torch.tensor([1024, 0, 1, 63, 64, 65, 256, 700], dtype=torch.int32)
+    mask = torch.arange(p)[None, :] < nnz[:, None].long()
+    cols = torch.where(mask, torch.from_numpy(rng.randint(0, n, (r, p))),
+                       n).to(torch.int32)
+    vals = torch.from_numpy(rng.randint(1, 6, (r, p)).astype(np.float32)) \
+        * mask
+    x0 = torch.from_numpy((rng.standard_normal((r, 128)) * 0.1).astype(
+        np.float32))
+    x0[:, 127] = 0
+    gpu = [t.to(card) for t in (table.to(torch.bfloat16), cols, vals, nnz,
+                                x0)]
+    name = "gather_gram_cg_aug" if aug else "gather_gram_cg"
+    part = cs.theta_span_grams(*gpu[:4], spans, aug=aug)
+    assert cs.LAUNCHES == dict.fromkeys(cs.LAUNCHES, 0) | {name: 1}
+    a_s, b_s, r2_s = cs.theta_records_unpack(part, r, spans)
+    live = cs._span_live(gpu[3], p, spans, p // spans)
+    span = p // spans
+    for k in range(spans):
+        a, b, r2 = cs.span_gram_plain(*gpu[:4], k * span, (k + 1) * span,
+                                      128, aug)
+        on = live[:, k]
+        assert torch.equal(a_s[on, k], a[on])
+        if not aug:
+            assert torch.equal(b_s[on, k], b[on])
+            assert torch.equal(r2_s[on, k], r2[on])
+    x, se = cs.frag_span_solve(part, gpu[3], gpu[4], LAM, p, spans, aug=aug)
+    px, pse = cs.frag_span_solve_plain(part, gpu[3], gpu[4], LAM, p, spans,
+                                       aug=aug)
+    torch.testing.assert_close(x, px, atol=2e-3, rtol=0)
+    assert bool(((se - pse).abs() <= 1e-3 * pse.abs().clamp_min(1.0)).all())
+    assert torch.all(x[1] == 0) and torch.all(se[1] == 0)
+    if aug:
+        assert torch.all(x[:, 127] == 0)
+    assert cs.LAUNCHES["frag_span_solve"] == 1
+
+
 THETA_NNZ = (0, 1, 15, 16, 17, 63, 64, 65, 128, 129)
 
 

@@ -341,8 +341,10 @@ def test_the_two_passes_take_card_tensors_only(fl):
 
 def test_wrappers_take_spans_on_the_256_lane_body_only():
     """`spans` is a keyword of `gather_gram_cg` at f = 256 (K1 and, with
-    aug, K6) and of `gather_gram_cg_wide`; CPU tensors take the plain
-    version whatever it says, and nothing counts a launch."""
+    aug, K6) and of `gather_gram_cg_wide`, and of `gather_gram_cg` at
+    f = 128 too (the cut of K1 and K6 on few-row chunks); below 128 it is
+    refused. CPU tensors take the plain version whatever it says, and
+    nothing counts a launch."""
     cs.reset_launch_counts()
     table, cols, vals, nnz, x0 = (_t(a) for a in _edge_chunk(
         200, 64, 32, ROWS["tile edges"], seed=4))
@@ -353,16 +355,22 @@ def test_wrappers_take_spans_on_the_256_lane_body_only():
                                      spans=2)
     assert torch.equal(xw, cs.gather_gram_cg_wide(
         table, cols, vals, nnz, x0, LAM, 96)[0])
-    with pytest.raises(ValueError, match="256-lane"):
-        cs.gather_gram_cg(table[:, :128].contiguous(), cols, vals, nnz,
-                          x0[:, :128].contiguous(), LAM, spans=2)
+    narrow = (table[:, :128].contiguous(), cols, vals, nnz,
+              x0[:, :128].contiguous())
+    assert torch.equal(cs.gather_gram_cg(*narrow, LAM, spans=2)[0],
+                       cs.gather_gram_cg_plain(*narrow, LAM)[0])
+    narrower = (table[:, :64].contiguous(), cols, vals, nnz,
+                x0[:, :64].contiguous())
+    with pytest.raises(ValueError, match="f = 128 and f = 256 only"):
+        cs.gather_gram_cg(*narrower, LAM, spans=2)
     xa, sea = cs.gather_gram_cg(table, cols, vals, nnz, x0, LAM, aug=True,
                                 spans=2)
     assert torch.equal(xa, cs.gather_gram_cg_aug_plain(
         table, cols, vals, nnz, x0, LAM)[0])
-    with pytest.raises(ValueError, match="256-lane"):
-        cs.gather_gram_cg(table[:, :128].contiguous(), cols, vals, nnz,
-                          x0[:, :128].contiguous(), LAM, aug=True, spans=2)
+    assert torch.equal(cs.gather_gram_cg(*narrow, LAM, aug=True, spans=2)[0],
+                       cs.gather_gram_cg_aug_plain(*narrow, LAM)[0])
+    with pytest.raises(ValueError, match="f = 128 and f = 256 only"):
+        cs.gather_gram_cg(*narrower, LAM, aug=True, spans=2)
     for bad in (0, 70000):
         with pytest.raises(ValueError, match="spans"):
             cs.gather_gram_cg_wide(table, cols, vals, nnz, x0, LAM, 96,
