@@ -243,8 +243,10 @@ result line):
       ways, as phase 2's few-row chunks) and on
       (c)'s most rated theta chunk; K3, K4 and K5b on 16,384 systems of
       one synthetic chunk (K2's and K5a's A, one row in 64 without
-      ratings, which must solve to exactly 0), bf16 and f32 A, K3 also
-      at CG-20 with a tolerance that stops systems early, and K3 on
+      ratings, which must solve to exactly 0), bf16 and f32 A, K3 and
+      K5b also at CG-20 with a tolerance that stops systems early, K5b
+      on an A' whose column 255 differs from its row 255 (b: at f = 256
+      only the second block of a cluster holds that row), and K3 on
       (c)'s first theta slice;
    b. K3, K4 and K5b at f = 128 on the same kind of systems, on their
       one body (csrc/bulk_cg.cuh) (K4's and K5b's former one-block CG
@@ -600,9 +602,9 @@ def ptxas_lines(build_log):
     stores of each instantiation, static shared memory where it names
     any; the tiles are dynamic shared memory), the registers and spills
     of pass 2 of K1's and K6's cut, of the 256-lane entry functions and
-    of K3, and every warning of the build. Returns False if one of the
-    tensor-core entry functions or pass 2 spills or ptxas added a wgmma
-    wait."""
+    of K3, K4 and K5b, and every warning of the build. Returns False if
+    one of the tensor-core entry functions, pass 2 or the f = 256 body of
+    K3, K4 or K5b spills, or ptxas added a wgmma wait."""
     import re
     ok = True
     for name in GRAM_KERNELS + THETA_KERNELS + ("wide_span_gram_mma",):
@@ -673,7 +675,7 @@ def ptxas_lines(build_log):
         lines = build_log[name].splitlines()
         regs, spills = {}, {}
         for i, line in enumerate(lines):
-            for kind in ("solve_kernel", "solve_wide_kernel"):
+            for kind in ("solve_kernel", "solve_cluster_kernel"):
                 if "Compiling entry function" in line and kind in line:
                     info = " ".join(lines[i + 1:i + 5])
                     regs.setdefault(kind, []).extend(
@@ -682,12 +684,16 @@ def ptxas_lines(build_log):
                     spills.setdefault(kind, []).extend(
                         int(x) for x in re.findall(
                             r"(\d+) bytes spill stores", info))
+        wide = spills.get("solve_cluster_kernel", [])
+        # the f = 256 body holds 128 floats of A a thread: a spill would
+        # put A in local memory
+        ok &= len(wide) == 2 and max(wide) == 0
         log(f"[ptxas] {name}, its entry functions on csrc/bulk_cg.cuh: the "
             f"ring body (f = 16..128, bf16 and f32 A) registers "
             f"{regs.get('solve_kernel')}, spill stores "
-            f"{spills.get('solve_kernel')} bytes; the f = 256 body "
-            f"registers {regs.get('solve_wide_kernel')}, spill stores "
-            f"{spills.get('solve_wide_kernel')} bytes")
+            f"{spills.get('solve_kernel')} bytes; the f = 256 cluster body "
+            f"(f32 and bf16 A) registers "
+            f"{regs.get('solve_cluster_kernel')}, spill stores {wide} bytes")
     for name, out in build_log.items():
         for line in out.splitlines():
             if "warning" in line.lower() or "Potential" in line:
@@ -1321,6 +1327,8 @@ def check_solve(cs, kernel, args, label, cg_iters=6, cg_tol=1e-4,
     bms, by = bound_ms(nbytes(*(t for t in args if torch.is_tensor(t)), x),
                        2.0 * r * f * f, a.dtype)
     per_sm = cs.cg_blocks_per_sm(a.device, f, a.dtype, kernel)
+    grid_txt = f"{per_sm} clusters of two blocks on the card" if f == 256 \
+        else f"{per_sm} blocks an SM"
     before_txt = f"before: {before:.3f} ms; " if before else ""
     ok &= exact
     log(f"[{SOLVE_NAMES[kernel]} {kernel}] {label}: {r} systems at f={f}, "
@@ -1329,12 +1337,12 @@ def check_solve(cs, kernel, args, label, cg_iters=6, cg_tol=1e-4,
         f"systems and aug lane exactly 0: {exact}; kernel {ms:.3f} ms "
         f"({before_txt}at cg_iters 0 {ms0:.3f} ms, the CG: {ms - ms0:.3f} "
         f"ms), plain {plain:.3f} ms, bound {bms:.4f} ms ({by}), "
-        f"{bms / ms:.0%} of the bound; {per_sm} blocks an SM (the kernel's "
-        f"occupancy query; events); {'OK' if ok else 'FAIL'}")
+        f"{bms / ms:.0%} of the bound; {grid_txt} (the kernel's occupancy "
+        f"query; events); {'OK' if ok else 'FAIL'}")
     return ok, dict(max_abs_err=err, ms=ms, ms_cg0=ms0, plain_ms=plain,
                     bound_ms=bms, bound_by=by, library_ms=None,
-                    blocks_per_sm=per_sm, f=f, systems=r,
-                    a_dtype=str(a.dtype))
+                    **{"clusters" if f == 256 else "blocks_per_sm": per_sm},
+                    f=f, systems=r, a_dtype=str(a.dtype))
 
 
 def dispatch_k4(solve):
@@ -4086,9 +4094,11 @@ def solve_systems(cs, f, lam=0.048, r=16384, p=64, seed=11):
 
 def solve_checks(cs, f, label):
     """K3, K4 and K5b at width f on `solve_systems`, each with an f32 and
-    a bf16 A, at CG-6 and (K3) at CG-20 with a tolerance that stops
-    systems early. Returns ok and each kernel's numbers (f32 A; bf16
-    under bf16_*)."""
+    a bf16 A, at CG-6; K3 and K5b at CG-20 with a tolerance that stops
+    systems early; K5b on an A' whose column f - 1 differs from its row
+    f - 1 (b comes from the row, which at f = 256 only the second block
+    of a cluster holds). Returns ok and each kernel's numbers (f32 A;
+    bf16 under bf16_*)."""
     a, b, a_aug, diag, x0, empty = solve_systems(cs, f)
     out, ok_all = {}, True
     eye = torch.eye(f, device=DEV)
@@ -4117,6 +4127,17 @@ def solve_checks(cs, f, label):
     del a, b
     torch.cuda.empty_cache()
     run("solve_cg_aug", lambda dt: (a_aug.to(dt), diag, x0))
+    ok, res = check_solve(cs, "solve_cg_aug", (a_aug, diag, x0),
+                          label + ", a tolerance that stops early",
+                          cg_iters=20, cg_tol=1.0, empty=empty)
+    ok_all &= ok
+    out["solve_cg_aug"]["early_stop_check"] = res
+    a_aug[:, :f - 1, f - 1] = -0.5 * a_aug[:, :f - 1, f - 1] + 0.25
+    ok, res = check_solve(cs, "solve_cg_aug", (a_aug, diag, x0),
+                          label + ", column f - 1 unlike row f - 1 (b)",
+                          empty=empty)
+    ok_all &= ok
+    out["solve_cg_aug"]["asymmetric_check"] = res
     del a_aug
     torch.cuda.empty_cache()
     return ok_all, out
@@ -4430,8 +4451,8 @@ def main() -> int:
         log("[ooc] OK (the short call: no result line)")
         return 0
     elif not ptxas_ok:
-        raise AssertionError("a tensor-core kernel spills or waits for "
-                             "every wgmma")
+        raise AssertionError("a tensor-core kernel or the f = 256 solve "
+                             "body spills, or ptxas waits for every wgmma")
 
     # ---- data and plans of the full Netflix shape (shared by 2 and 4),
     # through the bench's loader: generated into its cache on first use

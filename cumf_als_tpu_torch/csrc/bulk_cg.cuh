@@ -44,23 +44,47 @@
 // partials in one fixed order, so the exit is the same for the whole
 // block and a result repeats bit for bit.
 //
-// f = 256. The register tile (NB = 16: 256 floats a thread) does not
-// fit, and neither does an f32 A (256 KB) in one block's shared memory
-// (227 KB at most). Of the two layouts that would keep A on chip, a
-// two-block cluster exchanging halves of p through distributed shared
-// memory, or A read from device memory on each matvec, this file takes
-// the second: it is the simple one, and what it re-reads stays in the
-// L2. Persistent blocks walk the systems, one system a block; the grid
-// holds as many systems in flight as fit three quarters of the L2 (one
-// block an SM with an f32 A on an H100, 132 x 256 KB = 33 MB of its
-// 50 MB; two with a bf16 A), so only the first matvec of a system
-// (r = b - A x0) reads A from HBM and the cg_iters after it from the
-// L2. A matvec gives each warp 32 rows: lane l reads columns 8 l ..
-// 8 l + 7 of a row (32 or 16 contiguous bytes, a warp a whole row),
-// adds the diagonal where it falls (K5b: zeroes row and column f - 1
-// first), multiplies by its 8 entries of v and the warp adds its lanes
-// by a butterfly in one fixed order. The CG is common.cuh's cg_loop,
-// the same contract as above.
+// f = 256: one system a cluster of two blocks, A held in registers.
+// Neither an f32 A (256 KB) nor its register tile (256 floats a thread)
+// fits one block, so block c of the cluster (its rank) owns rows
+// 128 c .. 128 c + 127: thread (ty, tx) keeps A[128 c + ty + 16 k]
+// [64 j + 4 tx + i] (k < 8; j, i < 4), the f <= 128 layout with eight
+// rows and sixteen columns a thread (the columns in four groups of four,
+// 64 apart, so that a quarter warp's 16-byte reads of a staged row fall
+// in distinct banks): 128 f32 registers, one block an SM; a bf16 A stays
+// bf16 in 64 registers (two columns a word, widened as the matvec reads
+// them), two blocks an SM. Persistent clusters walk the systems
+// cluster_id, + n_clusters, ...; each block brings its half of A (one
+// contiguous 128 x 256 block), b and x0 into its stage by bulk-async
+// copies on the stage's mbarrier, and starts the next system's copies
+// as soon as every thread has its tile in registers, so they stream in
+// while this system's CG runs: A is read from device memory once a
+// system. K5b's b is row 255 of A', which block 1 holds; block 0 copies
+// that row too. The diagonal (K3, K5b) is added in row view, d p_i to
+// row i's sum, so a bf16 tile is never rounded with it.
+//
+// A CG step: each block computes A p for its 128 rows (the transposing
+// butterfly of the f <= 128 body); the row's owner stores the sum into
+// its own block's shared memory and, by st.async, into its peer's, each
+// remote store completing 4 bytes of the peer's exchange mbarrier (one
+// phase: this block's eight warps arrive, one of them expecting the
+// peer's 512 bytes). Every thread waits on its own block's barrier
+// (acquire at cluster scope, the trap after 2^24 tries). Now both blocks
+// hold all 256 entries of A p and run cg_loop's vector updates on all
+// 256 lanes: r in shared memory (thread tid updates lane tid, then a
+// block barrier), p in column view; the same fmaf on the same numbers,
+// p.Ap and r.r summed by each half warp over its sixteen threads'
+// columns in one fixed order, so alpha, beta and the exit test are
+// equal bit for bit in both blocks (and in every thread) by
+// construction: a divergent exit would leave the peer waiting on an
+// exchange that never comes. A p is
+// double buffered: the peer stores into buffer e & 1 at exchange e only
+// after its own barrier of exchange e - 1 completed, which needed this
+// block's stores of e - 1, made after its reads of exchange e - 2. One
+// exchange a step, one for A x0; a cluster barrier at the start (the
+// peer's barriers are initialized) and at the end (no block leaves while
+// its peer may still store into its shared memory). The order of the
+// updates and the guards is cg_loop's, as above.
 #pragma once
 
 #include "common.cuh"
@@ -218,21 +242,12 @@ __device__ __forceinline__ void stage_tile(const AT* sa, float d,
   }
 }
 
-// (A v) of row ty + 16 (tx >> 1) (0 where that row is past F), from v in
-// column view. Row sums of the tile, then the transposing butterfly over
-// the 16 threads of the row group: at each level a thread keeps half of
-// its partial rows and sends the other half to its partner.
-template <int NB>
-__device__ __forceinline__ float matvec_row(const float (&a)[NB][NB],
-                                            const float (&v)[NB]) {
+// The transposing butterfly over the 16 threads of a row group: s[k]
+// is this thread's partial sum of row ty + 16 k; at each level a thread
+// keeps half of its partial rows and sends the other half to its
+// partner. Returns the whole sum of row ty + 16 (tx >> 1).
+__device__ __forceinline__ float row_butterfly(const float (&s)[8]) {
   const int tx = threadIdx.x & 15;
-  float s[8];
-#pragma unroll
-  for (int k = 0; k < 8; ++k) s[k] = 0.f;
-#pragma unroll
-  for (int k = 0; k < NB; ++k)
-#pragma unroll
-    for (int l = 0; l < NB; ++l) s[k] = fmaf(a[k][l], v[l], s[k]);
   const bool h8 = tx & 8, h4 = tx & 4, h2 = tx & 2;
   float w[4];
 #pragma unroll
@@ -249,6 +264,21 @@ __device__ __forceinline__ float matvec_row(const float (&a)[NB][NB],
   const float send = h2 ? u[0] : u[1];
   float t = (h2 ? u[1] : u[0]) + __shfl_xor_sync(0xffffffffu, send, 2);
   return t + __shfl_xor_sync(0xffffffffu, t, 1);
+}
+
+// (A v) of row ty + 16 (tx >> 1) (0 where that row is past F), from v in
+// column view: row sums of the tile, then row_butterfly.
+template <int NB>
+__device__ __forceinline__ float matvec_row(const float (&a)[NB][NB],
+                                            const float (&v)[NB]) {
+  float s[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) s[k] = 0.f;
+#pragma unroll
+  for (int k = 0; k < NB; ++k)
+#pragma unroll
+    for (int l = 0; l < NB; ++l) s[k] = fmaf(a[k][l], v[l], s[k]);
+  return row_butterfly(s);
 }
 
 // The sum over the warp of v from its even lanes (the odd ones hold the
@@ -399,110 +429,369 @@ __device__ __forceinline__ void solve_systems(
 
 // ---------------------------------------------------------- f = 256 --
 constexpr int kWideF = 256;
+constexpr int kHalf = kWideF / 2;  // the rows a block of the cluster owns
+constexpr int kCols = 16;          // the columns a thread holds
 
-// Shared memory of the f = 256 body: cg_loop's vectors (16-byte aligned
-// for the matvec's float4 reads of v).
-struct alignas(16) WideScratch {
-  float b[kWideF];
-  float x[kWideF];
-  float r[kWideF];
-  float p[kWideF];
-  float ap[kWideF];
-  float red[2];
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t v;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(v));
+  return v;
+}
+__device__ __forceinline__ uint32_t cluster_index() {
+  uint32_t v;
+  asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(v));
+  return v;
+}
+__device__ __forceinline__ uint32_t cluster_count() {
+  uint32_t v;
+  asm volatile("mov.u32 %0, %%nclusterid.x;\n" : "=r"(v));
+  return v;
+}
+
+// Every thread of both blocks; the shared memory each wrote before is
+// seen by the other's threads after.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The address in the peer block `rank` of this block's shared address.
+__device__ __forceinline__ uint32_t peer_addr(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(addr), "r"(rank));
+  return out;
+}
+
+// Store v at `addr` of the peer's shared memory; the store completes 4
+// bytes of the transaction count of the peer's barrier `bar`.
+__device__ __forceinline__ void st_async(uint32_t addr, float v,
+                                         uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, "
+      "[%2];\n" ::"r"(addr),
+      "f"(v), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// mbar_wait, acquiring at cluster scope (the peer's stores into this
+// block's shared memory); the same trap.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
+                                                  uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  for (uint32_t tries = 0; !done; ++tries) {
+    if (tries == (1u << 24)) __trap();
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// The stage of a block: its half of A (128 rows x 256, stored dtype),
+// then b (256 f32; K5b: row 255 of A', which only block 1's half holds,
+// copied by block 0) and x0 (256 f32).
+template <typename AT, Mode M>
+struct WideStage {
+  static constexpr int A_BYTES = kHalf * kWideF * (int)sizeof(AT);
+  static constexpr int B = A_BYTES;
+  static constexpr int X0 =
+      B + kWideF * (kHasB<M> ? 4 : (int)sizeof(AT));
+  static constexpr int BYTES = X0 + kWideF * 4;
 };
 
-// out = (A v) of one system at f = 256, A read from device memory, as
-// Mode M shapes it (K5b: row and column 255 zeroed; K3, K5b: + d on the
-// diagonal). Warp w takes rows 32 w .. 32 w + 31, four at a time; lane l
-// reads columns 8 l .. 8 l + 7. Ends in a barrier (cg_loop's contract).
-template <typename AT, Mode M>
-struct WideMatvec {
-  const AT* a;
-  float d;
-  __device__ __forceinline__ void operator()(const float* v,
-                                             float* out) const {
-    constexpr int F = kWideF;
-    constexpr int kRows = 4;  // rows whose loads are in flight at once
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    const int c0 = 8 * lane;
-    float vv[8];
-    {
-      const float4 lo = *reinterpret_cast<const float4*>(v + c0);
-      const float4 hi = *reinterpret_cast<const float4*>(v + c0 + 4);
-      vv[0] = lo.x; vv[1] = lo.y; vv[2] = lo.z; vv[3] = lo.w;
-      vv[4] = hi.x; vv[5] = hi.y; vv[6] = hi.z; vv[7] = hi.w;
-    }
-#pragma unroll 1
-    for (int r0 = 32 * warp; r0 < 32 * warp + 32; r0 += kRows) {
-      float e[kRows][8];
-#pragma unroll
-      for (int q = 0; q < kRows; ++q) {
-        const AT* src = a + (int64_t)(r0 + q) * F + c0;
-        if constexpr (sizeof(AT) == 2) {
-          // eight bf16 in one 16-byte load: the lower lane in the low half
-          const uint4 w = __ldg(reinterpret_cast<const uint4*>(src));
-          const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            e[q][2 * j] = __uint_as_float(ws[j] << 16);
-            e[q][2 * j + 1] = __uint_as_float(ws[j] & 0xffff0000u);
-          }
-        } else {
-          const float4 lo = __ldg(reinterpret_cast<const float4*>(src));
-          const float4 hi = __ldg(reinterpret_cast<const float4*>(src) + 1);
-          e[q][0] = lo.x; e[q][1] = lo.y; e[q][2] = lo.z; e[q][3] = lo.w;
-          e[q][4] = hi.x; e[q][5] = hi.y; e[q][6] = hi.z; e[q][7] = hi.w;
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < kRows; ++q) {
-        const int row = r0 + q;
-        float sum = 0.f;
-#pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          float aij = e[q][k];
-          if constexpr (M == Mode::kAug)
-            if (row == F - 1 || c0 + k == F - 1) aij = 0.f;
-          if constexpr (kHasDiag<M>)
-            if (c0 + k == row) aij += d;
-          sum = fmaf(aij, vv[k], sum);
-        }
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1)
-          sum += __shfl_xor_sync(0xffffffffu, sum, o);
-        if (lane == 0) out[row] = sum;
-      }
-    }
-    __syncthreads();
+// Shared memory beside the stage.
+struct WideScratch {
+  uint64_t full;                     // the stage's barrier
+  uint64_t xbar[2];                  // the exchange barriers, a buffer each
+  alignas(16) float ap[2][kWideF];   // A v of both blocks' rows
+  alignas(16) float r[kWideF];       // the residual, all 256 lanes
+};
+
+// A thread's tile of A as stored: f32 entries (16 words a row), or bf16
+// pairs (8 words a row: columns q and q + 1 in the low and high half of
+// word q / 2), so a bf16 A takes half the registers and two blocks fit
+// an SM.
+template <typename AT>
+struct WideTile {
+  static constexpr int W = kCols * (int)sizeof(AT) / 4;
+  uint32_t w[8][W];
+  __device__ __forceinline__ float at(int k, int q) const {
+    if constexpr (sizeof(AT) == 4)
+      return __uint_as_float(w[k][q]);
+    else
+      return __uint_as_float(q & 1 ? w[k][q >> 1] & 0xffff0000u
+                                   : w[k][q >> 1] << 16);
   }
 };
 
-// Solve systems blockIdx.x, blockIdx.x + gridDim.x, ... < r at f = 256
-// as Mode M says, A read from device memory on each matvec.
+// This thread's tile of the staged half of A; K5b zeroes column F - 1
+// (its row F - 1 is zeroed in row view, see the matvec below).
 template <typename AT, Mode M>
-__device__ __forceinline__ void solve_systems_wide(
-    WideScratch& s, const AT* __restrict__ a_in,
+__device__ __forceinline__ void wide_tile(const AT* sa, WideTile<AT>& t) {
+  constexpr int F = kWideF;
+  constexpr int W = WideTile<AT>::W;
+  const int ty = threadIdx.x >> 4;
+  const int tx = threadIdx.x & 15;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const AT* src = sa + (ty + 16 * k) * F + 64 * j + 4 * tx;
+      if constexpr (sizeof(AT) == 2) {
+        const uint2 v = *reinterpret_cast<const uint2*>(src);
+        t.w[k][2 * j] = v.x;
+        t.w[k][2 * j + 1] = v.y;
+      } else {
+        const uint4 v = *reinterpret_cast<const uint4*>(src);
+        t.w[k][4 * j] = v.x;
+        t.w[k][4 * j + 1] = v.y;
+        t.w[k][4 * j + 2] = v.z;
+        t.w[k][4 * j + 3] = v.w;
+      }
+    }
+  }
+  if constexpr (M == Mode::kAug) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      // column F - 1 is entry q = 15 of thread tx = 15: the last word,
+      // or the high half of it
+      if (tx == 15) t.w[k][W - 1] &= sizeof(AT) == 4 ? 0u : 0x0000ffffu;
+  }
+}
+
+// (A v) of row ty + 16 (tx >> 1) of this block's half, from v in column
+// view: the row sums of the stored tile, each entry widened as it is
+// read, then row_butterfly.
+template <typename AT>
+__device__ __forceinline__ float wide_matvec(const WideTile<AT>& t,
+                                             const float (&v)[kCols]) {
+  float s[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    s[k] = 0.f;
+#pragma unroll
+    for (int q = 0; q < kCols; ++q) s[k] = fmaf(t.at(k, q), v[q], s[k]);
+  }
+  return row_butterfly(s);
+}
+
+// Group j of this thread's columns of a 256-vector in shared memory:
+// entries q = 4 j .. 4 j + 3 of its column view are columns
+// 64 j + 4 tx .. 64 j + 4 tx + 3.
+__device__ __forceinline__ float4 col_group(const float* v, int j) {
+  return *reinterpret_cast<const float4*>(v + 64 * j +
+                                          4 * (threadIdx.x & 15));
+}
+
+// This thread's sixteen entries of a 256-vector in shared memory, in
+// column view.
+__device__ __forceinline__ void load_cols(const float* v,
+                                          float (&out)[kCols]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float4 w = col_group(v, j);
+    out[4 * j] = w.x;
+    out[4 * j + 1] = w.y;
+    out[4 * j + 2] = w.z;
+    out[4 * j + 3] = w.w;
+  }
+}
+
+// The sum over the 256 columns of u v, u in column view, v in shared
+// memory: each thread's sixteen as four sums of four, then its half
+// warp's sixteen threads by a butterfly. Every thread of both blocks
+// holds the same u and v, so every thread gets the same bits.
+__device__ __forceinline__ float col_dot(const float (&u)[kCols],
+                                         const float* v) {
+  float t4[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float4 w = col_group(v, j);
+    t4[0] = fmaf(u[4 * j], w.x, t4[0]);
+    t4[1] = fmaf(u[4 * j + 1], w.y, t4[1]);
+    t4[2] = fmaf(u[4 * j + 2], w.z, t4[2]);
+    t4[3] = fmaf(u[4 * j + 3], w.w, t4[3]);
+  }
+  float t = (t4[0] + t4[1]) + (t4[2] + t4[3]);
+  t += __shfl_xor_sync(0xffffffffu, t, 8);
+  t += __shfl_xor_sync(0xffffffffu, t, 4);
+  t += __shfl_xor_sync(0xffffffffu, t, 2);
+  return t + __shfl_xor_sync(0xffffffffu, t, 1);
+}
+
+// The same sum with v = u, in registers.
+__device__ __forceinline__ float col_norm2(const float (&u)[kCols]) {
+  float t4[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int q = 0; q < kCols; ++q) t4[q & 3] = fmaf(u[q], u[q], t4[q & 3]);
+  float t = (t4[0] + t4[1]) + (t4[2] + t4[3]);
+  t += __shfl_xor_sync(0xffffffffu, t, 8);
+  t += __shfl_xor_sync(0xffffffffu, t, 4);
+  t += __shfl_xor_sync(0xffffffffu, t, 2);
+  return t + __shfl_xor_sync(0xffffffffu, t, 1);
+}
+
+// Solve systems cluster_id, cluster_id + n_clusters, ... < r at f = 256
+// as Mode M says, this block holding rows 128 c .. 128 c + 127 of each.
+// `stage`: WideStage::BYTES of dynamic shared memory, 16-byte aligned;
+// diag is unused with K4, b with K5b.
+template <typename AT, Mode M>
+__device__ __forceinline__ void solve_systems_cluster(
+    unsigned char* stage, WideScratch& s, const AT* __restrict__ a_in,
     const float* __restrict__ diag, const float* __restrict__ b,
     const float* __restrict__ x0, float* __restrict__ x_out, int r,
     int cg_iters, float cg_tol) {
+  using St = WideStage<AT, M>;
   constexpr int F = kWideF;
-  const int tid = threadIdx.x;  // kThreads = F: one lane a thread
-  for (int sys = blockIdx.x; sys < r; sys += gridDim.x) {
-    const AT* a = a_in + (int64_t)sys * F * F;
+  const int tid = threadIdx.x;
+  const int ty = tid >> 4;
+  const int tx = tid & 15;
+  const int c = (int)cluster_rank();
+  const int first = (int)cluster_index();
+  const int step = (int)cluster_count();
+  const int grow = kHalf * c + ty + 16 * (tx >> 1);  // row view, global
+  const bool owner = !(tx & 1);  // writes the row's A v and its x
+
+  if (tid == 0) {
+    mbar_init(&s.full, 1);
+    // this block's warps, and the peer's 128 stores as 512 bytes
+    for (int e = 0; e < 2; ++e) mbar_init(&s.xbar[e], kWarps);
+    mbar_init_fence();
+  }
+  cluster_sync();  // both blocks' barriers are ready for the peer's stores
+  const uint32_t peer_ap = peer_addr(smem_u32(&s.ap[0][0]), c ^ 1);
+  const uint32_t peer_xbar = peer_addr(smem_u32(&s.xbar[0]), c ^ 1);
+
+  // start the copies of system `sys` into the stage
+  auto start = [&](int64_t sys) {
+    const AT* a = a_in + sys * F * F;
+    const bool brow = !kHasB<M> && c == 0;
+    mbar_expect_tx(&s.full,
+                   St::A_BYTES + F * 4 +
+                       (kHasB<M> ? F * 4 : (brow ? F * (int)sizeof(AT) : 0)));
+    bulk_copy(stage, a + kHalf * c * F, St::A_BYTES, &s.full);
+    if constexpr (kHasB<M>)
+      bulk_copy(stage + St::B, b + sys * F, F * 4, &s.full);
+    else if (brow)
+      bulk_copy(stage + St::B, a + (F - 1) * F, F * (int)sizeof(AT),
+                &s.full);
+    bulk_copy(stage + St::X0, x0 + sys * F, F * 4, &s.full);
+  };
+  if (tid == 0 && first < r) start(first);
+
+  // Exchange e: this thread's row of A v into buffer e & 1 of both
+  // blocks; returns the buffer once all 256 entries are in: the peer's
+  // 128 stores complete 512 bytes of this block's barrier, whose phase
+  // also waits for this block's eight warps.
+  uint32_t e = 0;
+  auto exchange = [&](float v) -> const float* {
+    const int buf = e & 1;
+    if (owner) {
+      s.ap[buf][grow] = v;
+      st_async(peer_ap + 4 * (buf * F + grow), v, peer_xbar + 8 * buf);
+    }
+    __syncwarp();
+    if (tid == 0)
+      mbar_expect_tx(&s.xbar[buf], kHalf * 4);
+    else if ((tid & 31) == 0)
+      mbar_arrive(&s.xbar[buf]);
+    mbar_wait_cluster(&s.xbar[buf], (e >> 1) & 1);
+    ++e;
+    return s.ap[buf];
+  };
+
+  int i = 0;
+  for (int sys = first; sys < r; sys += step, ++i) {
     float d = 0.f;
     if constexpr (kHasDiag<M>) d = __ldg(diag + sys);
-    if constexpr (kHasB<M>)
-      s.b[tid] = b[(int64_t)sys * F + tid];
-    else
-      s.b[tid] = tid < F - 1 ? to_f32(a[(F - 1) * F + tid]) : 0.f;
-    s.x[tid] = x0[(int64_t)sys * F + tid];
+    mbar_wait(&s.full, i & 1);
+    const AT* sa = reinterpret_cast<const AT*>(stage);
+    const float* sx0 = reinterpret_cast<const float*>(stage + St::X0);
+    WideTile<AT> t;
+    wide_tile<AT, M>(sa, t);
+    // (A + d I) v of this thread's row, the diagonal added in row view
+    // (vr: v's entry there); K5b's masked row F - 1 sums to 0, set here
+    // rather than in the tile, where the mask costs a bf16 tile
+    // registers it does not have
+    auto matvec = [&](const float(&v)[kCols], float vr) -> float {
+      float sum = wide_matvec<AT>(t, v);
+      if constexpr (M == Mode::kAug)
+        if (grow == F - 1) sum = 0.f;
+      if constexpr (kHasDiag<M>)
+        return fmaf(d, vr, sum);
+      else
+        return sum;
+    };
+    // x0 in both views; b of lane tid: staged, or K5b's row F - 1 of A'
+    // with lane F - 1 as 0
+    float x_col[kCols];
+    load_cols(sx0, x_col);
+    float xr = sx0[grow];
+    float bt;
+    if constexpr (kHasB<M>) {
+      bt = reinterpret_cast<const float*>(stage + St::B)[tid];
+    } else {
+      const AT* sb = c == 1 ? sa + (kHalf - 1) * F
+                            : reinterpret_cast<const AT*>(stage + St::B);
+      bt = tid < F - 1 ? to_f32(sb[tid]) : 0.f;
+    }
+
+    // r = b - A x0; after the exchange every thread of the block is done
+    // with the stage. Thread tid keeps lane tid of r in s.r (each block
+    // all 256 lanes); p lives in column view (p_col) and row view (pr).
+    const float* ax = exchange(matvec(x_col, xr));
+    if (tid == 0 && sys + step < r) {
+      fence_proxy_async();
+      start(sys + step);
+    }
+    s.r[tid] = bt - ax[tid];
     __syncthreads();
-    const WideMatvec<AT, M> mv{a, d};
-    cg_loop<F>(s.b, s.x, s.r, s.p, s.ap, s.red, mv, cg_iters, cg_tol);
-    x_out[(int64_t)sys * F + tid] = s.x[tid];
-    __syncthreads();  // s.b and s.x take the next system
+    float p_col[kCols];
+    load_cols(s.r, p_col);
+    float pr = s.r[grow];
+    float rsold = col_norm2(p_col);
+
+    for (int it = 0; it < cg_iters; ++it) {
+      const float apr = matvec(p_col, pr);
+      const float* ap = exchange(apr);
+      const float pap = col_dot(p_col, ap);
+      // the Pallas guard, literally: a zero p.Ap gives alpha 0, a NaN one
+      // gives NaN (so a NaN system stays NaN)
+      const float nonzero = fabsf(pap) > 0.f ? 1.f : 0.f;
+      const float alpha = nonzero * rsold / (pap + (1.f - nonzero));
+      xr = fmaf(alpha, pr, xr);
+      s.r[tid] = fmaf(-alpha, ap[tid], s.r[tid]);
+      __syncthreads();
+      float r_col[kCols];
+      load_cols(s.r, r_col);
+      const float rsnew = col_norm2(r_col);
+      if (!(rsnew >= cg_tol)) break;  // per-system exit, after the update
+      const float beta = rsnew / (rsold + (rsold <= 0.f ? 1.f : 0.f));
+      pr = fmaf(beta, pr, s.r[grow]);
+#pragma unroll
+      for (int q = 0; q < kCols; ++q)
+        p_col[q] = fmaf(beta, p_col[q], r_col[q]);
+      rsold = rsnew;
+    }
+    if (owner) x_out[(int64_t)sys * F + grow] = xr;
   }
+  cluster_sync();  // the peer no longer writes into this block's memory
 }
 
 // The kernels and their host side have internal linkage: each of the
@@ -526,16 +815,23 @@ __global__ void __launch_bounds__(kThreads, 2)
 }
 
 template <typename AT, Mode M>
-__global__ void __launch_bounds__(kThreads)
-    solve_wide_kernel(const AT* __restrict__ a_in,
-                      const float* __restrict__ diag,
-                      const float* __restrict__ b,
-                      const float* __restrict__ x0,
-                      float* __restrict__ x_out, int r, int cg_iters,
-                      float cg_tol) {
+constexpr int kWideStageBytes = WideStage<AT, M>::BYTES;
+
+// f = 256, launched in clusters of two blocks (launch_cluster). An f32
+// tile is 128 registers a thread: one block an SM, up to 255 registers;
+// a bf16 tile is 64: two blocks an SM, up to 128.
+template <typename AT, Mode M>
+__global__ void __launch_bounds__(kThreads, sizeof(AT) == 2 ? 2 : 1)
+    solve_cluster_kernel(const AT* __restrict__ a_in,
+                         const float* __restrict__ diag,
+                         const float* __restrict__ b,
+                         const float* __restrict__ x0,
+                         float* __restrict__ x_out, int r, int cg_iters,
+                         float cg_tol) {
+  extern __shared__ __align__(128) unsigned char stages[];
   __shared__ WideScratch s;
-  solve_systems_wide<AT, M>(s, a_in, diag, b, x0, x_out, r, cg_iters,
-                            cg_tol);
+  solve_systems_cluster<AT, M>(stages, s, a_in, diag, b, x0, x_out, r,
+                               cg_iters, cg_tol);
 }
 
 // the ring is dynamic shared memory above 48 KB: allowed once per
@@ -562,12 +858,44 @@ int launch(const void* a, const void* diag, const void* b, const void* x0,
 }
 
 template <typename AT, Mode M>
-int launch_wide(const void* a, const void* diag, const void* b,
-                const void* x0, void* x_out, int r, int cg_iters,
-                float cg_tol, int grid, cudaStream_t stream) {
-  solve_wide_kernel<AT, M><<<grid, kThreads, 0, stream>>>(
-      (const AT*)a, (const float*)diag, (const float*)b, (const float*)x0,
-      (float*)x_out, r, cg_iters, cg_tol);
+cudaError_t allow_cluster_stage() {
+  static const cudaError_t allowed = cudaFuncSetAttribute(
+      solve_cluster_kernel<AT, M>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kWideStageBytes<AT, M>);
+  return allowed;
+}
+
+// The launch of `grid` blocks (even) in clusters of two, on `stream`;
+// `attr` holds the cluster dimension.
+template <typename AT, Mode M>
+cudaLaunchConfig_t cluster_config(int grid, cudaStream_t stream,
+                                  cudaLaunchAttribute* attr) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = 2;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid, 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = kWideStageBytes<AT, M>;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <typename AT, Mode M>
+int launch_cluster(const void* a, const void* diag, const void* b,
+                   const void* x0, void* x_out, int r, int cg_iters,
+                   float cg_tol, int grid, cudaStream_t stream) {
+  const cudaError_t allowed = allow_cluster_stage<AT, M>();
+  if (allowed != cudaSuccess) return (int)allowed;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config<AT, M>(grid, stream, &attr);
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, solve_cluster_kernel<AT, M>, (const AT*)a, (const float*)diag,
+      (const float*)b, (const float*)x0, (float*)x_out, r, cg_iters, cg_tol);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -582,26 +910,16 @@ int ring_blocks_per_sm(int* out) {
       out, solve_kernel<NB, AT, M>, kThreads, kRingBytes<NB, AT, M>);
 }
 
-// f = 256: the blocks an SM the kernel's registers and shared memory
-// allow, but no more than keep the systems in flight (one A of f^2
-// entries a block) within three quarters of the L2
+// f = 256: how many clusters of two blocks the whole current device
+// holds at once (not a count an SM: the GPCs decide how SMs pair)
 template <typename AT, Mode M>
-int wide_blocks_per_sm(int* out) {
-  int occ = 0, device = 0, l2 = 0, sms = 0;
-  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &occ, solve_wide_kernel<AT, M>, kThreads, 0);
-  if (err == cudaSuccess) err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&l2, cudaDevAttrL2CacheSize, device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                 device);
-  if (err != cudaSuccess) return (int)err;
-  const long long a_bytes = (long long)kWideF * kWideF * sizeof(AT);
-  const long long fit = 3LL * l2 / 4 / ((long long)(sms > 0 ? sms : 1) *
-                                        a_bytes);
-  *out = occ < fit ? occ : (fit > 1 ? (int)fit : 1);
-  return 0;
+int clusters_on_device(int* out) {
+  const cudaError_t allowed = allow_cluster_stage<AT, M>();
+  if (allowed != cudaSuccess) return (int)allowed;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config<AT, M>(2, 0, &attr);
+  return (int)cudaOccupancyMaxActiveClusters(
+      out, solve_cluster_kernel<AT, M>, &cfg);
 }
 
 template <typename AT, Mode M>
@@ -609,8 +927,8 @@ int dispatch(int f, const void* a, const void* diag, const void* b,
              const void* x0, void* x_out, int r, int cg_iters, float cg_tol,
              int grid, cudaStream_t stream) {
   if (f == kWideF)
-    return launch_wide<AT, M>(a, diag, b, x0, x_out, r, cg_iters, cg_tol,
-                              grid, stream);
+    return launch_cluster<AT, M>(a, diag, b, x0, x_out, r, cg_iters, cg_tol,
+                                 grid, stream);
 #define CUMF_LAUNCH(NB)                                                      \
   return launch<NB, AT, M>(a, diag, b, x0, x_out, r, cg_iters, cg_tol, grid, \
                            stream)
@@ -621,7 +939,7 @@ int dispatch(int f, const void* a, const void* diag, const void* b,
 
 template <typename AT, Mode M>
 int dispatch_occupancy(int f, int* out) {
-  if (f == kWideF) return wide_blocks_per_sm<AT, M>(out);
+  if (f == kWideF) return clusters_on_device<AT, M>(out);
 #define CUMF_QUERY(NB) return ring_blocks_per_sm<NB, AT, M>(out)
   CUMF_DISPATCH_NB(f, CUMF_QUERY)
 #undef CUMF_QUERY
@@ -629,14 +947,17 @@ int dispatch_occupancy(int f, int* out) {
 }
 
 // The host side of a solve kernel: r systems of f (a multiple of 16 up
-// to 128, or 256) in `grid` persistent blocks, 1 <= grid <= r
-// (`cuda_solve.cg_grid`, from the SM count and blocks_per_sm). a, b, x0
-// contiguous, on 16-byte boundaries. Returns the CUDA error.
+// to 128, or 256) in `grid` persistent blocks (`cuda_solve.cg_grid`,
+// from blocks_per_sm): 1 <= grid <= r, or at f = 256 an even
+// 2 <= grid <= 2 r (a cluster of two a system). a, b, x0 contiguous, on
+// 16-byte boundaries. Returns the CUDA error.
 template <Mode M>
 int run(const void* a, int a_bf16, const void* diag, const void* b,
         const void* x0, void* x_out, int r, int f, int cg_iters,
         float cg_tol, int grid, cudaStream_t stream) {
-  if (grid < 1 || grid > r) return (int)cudaErrorInvalidValue;
+  const int per = f == kWideF ? 2 : 1;
+  if (grid < per || grid % per || grid > per * r)
+    return (int)cudaErrorInvalidValue;
   if (a_bf16)
     return dispatch<__nv_bfloat16, M>(f, a, diag, b, x0, x_out, r, cg_iters,
                                       cg_tol, grid, stream);
@@ -646,8 +967,9 @@ int run(const void* a, int a_bf16, const void* diag, const void* b,
 
 // The occupancy query beside each kernel: writes to *out (an int) the
 // blocks of this kernel at this f and A dtype that one SM of the current
-// device takes (at f = 256 also bounded by the L2, see above), so the
-// host sizes the persistent grid without a copy of the kernel's layout.
+// device takes, or at f = 256 the clusters of two blocks that the whole
+// device takes, so the host sizes the persistent grid without a copy of
+// the kernel's layout.
 template <Mode M>
 int blocks_per_sm(int f, int a_bf16, void* out) {
   if (a_bf16) return dispatch_occupancy<__nv_bfloat16, M>(f, (int*)out);

@@ -2,9 +2,8 @@
 // forms gather_gram_cg.cu and gather_gram_out.cu and the augmented-lane
 // forms gather_gram_cg_aug.cu and gather_gram_aug_out.cu (their FMA
 // bodies, for a float32 table or f < 128). The CG loop and the dot
-// product here also serve the 256-lane kernels of wide.cuh and the
-// f = 256 solves of bulk_cg.cuh (K3, K4 and K5b, whose f <= 128 body is
-// bulk_cg.cuh's own).
+// product here also serve the 256-lane kernels of wide.cuh (the solves
+// K3, K4 and K5b have their own, in bulk_cg.cuh).
 //
 // One thread block owns one f x f system, f = 16 * NB with NB in 1..8
 // (f a multiple of 16, at most 128). The 256 threads form a 16 x 16

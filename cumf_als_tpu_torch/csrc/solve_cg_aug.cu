@@ -19,13 +19,15 @@
 // 3.35 TB/s (1.28 ms at f = 256); the CG work is small.
 // What this design does about it: K3's (bulk_cg.cuh, Mode::kAug):
 // persistent blocks with A' and x0 in a ring of bulk-async stages, A in
-// registers, two barriers a CG step at f <= 128; A' re-read from the L2
-// at f = 256.
+// registers, two barriers a CG step at f <= 128; at f = 256 a cluster
+// of two blocks a system, half of A' in each one's registers (block 0
+// also copies row f - 1, which only block 1's half holds, for b).
 
 #include "bulk_cg.cuh"
 
 // a, x0: contiguous, on 16-byte boundaries; b is not read; grid: the
-// persistent blocks, 1 <= grid <= r.
+// persistent blocks, 1 <= grid <= r
+// (at f = 256 an even 2 <= grid <= 2 r: clusters of two blocks).
 extern "C" int cumf_solve_cg_aug(const void* a, int a_bf16, const void* diag,
                                  const void* b, const void* x0, void* x_out,
                                  int r, int f, int cg_iters, float cg_tol,
@@ -36,7 +38,8 @@ extern "C" int cumf_solve_cg_aug(const void* a, int a_bf16, const void* diag,
 }
 
 // writes to *out (an int) the blocks of K5b at this f and A dtype that
-// one SM of the current device takes
+// one SM of the current device takes; at f = 256 the clusters of two
+// blocks that the whole device takes
 extern "C" int cumf_solve_cg_aug_blocks_per_sm(int f, int a_bf16,
                                                void* out) {
   return cumf::bulk::blocks_per_sm<cumf::bulk::Mode::kAug>(f, a_bf16, out);

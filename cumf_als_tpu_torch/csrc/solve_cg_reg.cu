@@ -21,13 +21,17 @@
 // each walking the systems blockIdx.x, + gridDim.x, ...; a ring of two
 // shared-memory stages filled by bulk-async copies, so the next
 // system's A is in flight while this one's CG runs; A held in registers
-// for the matvecs; two block-wide barriers a CG step. At f = 256 A is
-// re-read from the L2 on each matvec (see bulk_cg.cuh).
+// for the matvecs; two block-wide barriers a CG step. At f = 256 one
+// system a cluster of two blocks, each holding half of A in registers
+// (from one stage, or a ring of two with a bf16 A), A p exchanged
+// through distributed shared memory once a step (see bulk_cg.cuh), so A
+// is read from device memory once there too.
 
 #include "bulk_cg.cuh"
 
 // a, b, x0: contiguous, on 16-byte boundaries; grid: the persistent
-// blocks, 1 <= grid <= r.
+// blocks, 1 <= grid <= r
+// (at f = 256 an even 2 <= grid <= 2 r: clusters of two blocks).
 extern "C" int cumf_solve_cg_reg(const void* a, int a_bf16, const void* diag,
                                  const void* b, const void* x0, void* x_out,
                                  int r, int f, int cg_iters, float cg_tol,
@@ -38,7 +42,8 @@ extern "C" int cumf_solve_cg_reg(const void* a, int a_bf16, const void* diag,
 }
 
 // writes to *out (an int) the blocks of K3 at this f and A dtype that
-// one SM of the current device takes
+// one SM of the current device takes; at f = 256 the clusters of two
+// blocks that the whole device takes
 extern "C" int cumf_solve_cg_reg_blocks_per_sm(int f, int a_bf16,
                                                void* out) {
   return cumf::bulk::blocks_per_sm<cumf::bulk::Mode::kReg>(f, a_bf16, out);

@@ -117,11 +117,13 @@ cut's three-block pass 1), a float32 table the FMA body of csrc/wide.cuh
 
 K3 (``solve_cg_reg``), K4 (``solve_cg``) and K5b (``solve_cg_aug``) are
 one body (csrc/bulk_cg.cuh) with a compile-time switch each: persistent
-blocks (`cg_grid`) that, at f <= 128, bring each system's A, b and
-x0 into a ring of two shared-memory stages with bulk-async copies and
-run the CG with A in registers and two block-wide barriers a step; at
-f = 256 A is read from device memory on each matvec, the grid holding
-no more systems in flight than stay in the L2.
+blocks (`cg_grid`) that bring each system's A, b and x0 into
+shared-memory stages with bulk-async copies and run the CG with A in
+registers. At f <= 128 one block a system, a ring of two stages, two
+block-wide barriers a step; at f = 256 one cluster of two blocks a
+system, each block holding half of A's rows, A p exchanged between the
+two through distributed shared memory once a step, so A is read from
+device memory once a system there too.
 
 The row gather runs inside the kernels, so the wrappers keep the
 contracts of the JAX wrappers (`gather_gram_cg`, `gather_gram_out`,
@@ -533,29 +535,49 @@ def cg_blocks_per_sm(device, f: int, dtype: torch.dtype, kernel: str) -> int:
     occupancy query gives them from its registers and shared memory
     (csrc/bulk_cg.cuh): two at f = 128 with a bf16 A, one with an f32 A
     (two rings of two stages pass the SM's shared memory), more at
-    smaller f (three at f = 96 with an f32 A); at f = 256 no more than
-    keep the systems in flight within three quarters of the L2 (one with
-    an f32 A on an H100, two with a bf16 A)."""
+    smaller f (three at f = 96 with an f32 A). At f = 256 it counts
+    clusters, not blocks an SM: the clusters of two blocks (one system
+    each) that the whole card holds at once
+    (cudaOccupancyMaxActiveClusters, as the GPCs place them): an f32
+    tile takes one block an SM (66 clusters on an H100), a bf16 tile two
+    (132)."""
     index = device.index if device.index is not None else \
         torch.cuda.current_device()
     return _cg_blocks_per_sm(index, kernel, f,
                              int(dtype == torch.bfloat16))
 
 
-def cg_grid(r: int, sms: int, per_sm: int) -> int:
+def cg_grid(r: int, sms: int, per_sm: int, clusters: int = 0) -> int:
     """Persistent blocks of one K3, K4 or K5b launch over R systems: one
     a system up to the blocks that fit the card at once, `per_sm` on each
-    of `sms` SMs; above that each block walks R / grid systems."""
+    of `sms` SMs; above that each block walks R / grid systems. At
+    f = 256 a system takes a cluster of two blocks: given `clusters`,
+    what `cg_blocks_per_sm` counts there (the clusters the card holds),
+    two blocks a system up to that many clusters (`sms` and `per_sm` are
+    not read), so the grid is even, 2 <= grid <= 2 R."""
+    if clusters:
+        return 2 * max(1, min(r, clusters))
     return max(1, min(r, per_sm * sms))
+
+
+def solve_grid(device, r: int, f: int, dtype: torch.dtype,
+               kernel: str) -> int:
+    """The grid of one launch of `kernel` (K3, K4 or K5b) over R systems
+    at this f and A dtype on the card `device` names: `cg_grid` from the
+    kernel's occupancy query (clusters at f = 256)."""
+    units = cg_blocks_per_sm(device, f, dtype, kernel)
+    if f == 256:
+        return cg_grid(r, 0, 0, clusters=units)
+    return cg_grid(r, _sms(device), units)
 
 
 def _bulk_solve(name: str, a, diag, b, x0, cg_iters: int, cg_tol: float):
     """Checks and one launch of the batched CG `name` (K3, K4 or K5b) on
     card tensors: a (R, f, f) f32/bf16, f a multiple of 16 up to 128 or
     256; diag (R,) f32 or None (K4); b (R, f) f32 or None (K5b); x0 (R, f)
-    f32. The kernel copies each system's A, b and x0 whole (at f <= 128
-    into shared memory, at 256 in 16-byte loads): their storage must
-    start on 16-byte boundaries."""
+    f32. The kernel copies each system's A, b and x0 whole into shared
+    memory (at f = 256 each of two blocks half of A's rows): their
+    storage must start on 16-byte boundaries."""
     r, f, _ = a.shape
     _check_f(name, f)
     _check("a", a, (r, f, f), _FLOATS)
@@ -570,8 +592,7 @@ def _bulk_solve(name: str, a, diag, b, x0, cg_iters: int, cg_tol: float):
                              f"a 16-byte boundary")
     x = torch.empty((r, f), dtype=torch.float32, device=a.device)
     if r:
-        grid = cg_grid(r, _sms(a.device),
-                       cg_blocks_per_sm(a.device, f, a.dtype, name))
+        grid = solve_grid(a.device, r, f, a.dtype, name)
         _launch(name, a.data_ptr(), _bf16(a),
                 None if diag is None else diag.data_ptr(),
                 None if b is None else b.data_ptr(), x0.data_ptr(),

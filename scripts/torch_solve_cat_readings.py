@@ -2,6 +2,7 @@
 beside K4 and K5b (PyTorch/CUDA port).
 
     python3 scripts/torch_solve_cat_readings.py [--cache DIR]
+    python3 scripts/torch_solve_cat_readings.py --f256
 
 Run from the root of the repository on a machine with a CUDA card. It
 builds the Netflix-shaped data (scale 1.0) as chip_smoke.py does, and:
@@ -26,6 +27,16 @@ builds the Netflix-shaped data (scale 1.0) as chip_smoke.py does, and:
   bf16 table and from a float32 copy of it, by events, and beside it K1
   at f = 256 as its wrapper routes that chunk on the bf16 table (device
   time).
+
+`--f256` times the solves at f = 256 alone, without the Netflix data:
+K3 and K5b on chip_smoke.py's phase-13a systems (16,384 rows of a
+synthetic panel chunk, P = 64, seed 11: K2's A and b and K5a's A', from
+the plain versions, so any tree of the port builds the same inputs; the
+diagonal nnz lam + [nnz = 0], a warm start with lane 255 and the empty
+rows zero), with an f32 and a bf16 A, each at cg_iters 0 and 6
+(cg_tol 1e-4), by events and device time; x against the plain version
+at cg_iters 6, and the bound (A, diag, b, x0 and x read or written
+once).
 
 `--cache DIR` keeps those inputs in DIR (about 0.8 GB) after a first run
 and reads them from there in later runs, so two trees of the port can be
@@ -84,6 +95,50 @@ def build_inputs(smoke, cs):
     return k3, k8
 
 
+def f256_readings(smoke, cs, lam=0.048, r=16384, p=64, seed=11):
+    """K3 and K5b at f = 256 on the phase-13a systems (see above)."""
+    import torch
+    f = 256
+    tp, ch = smoke.panel_chunk(f, r, p, seed)
+    nnzf = ch.nnz.float()
+    diag = nnzf * lam + (nnzf == 0).float()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    x0 = 0.1 * torch.randn((r, f), generator=gen, device="cuda")
+    x0[ch.nnz == 0] = 0
+    x0[:, f - 1] = 0
+    kw = dict(cg_tol=1e-4)
+    rows = []
+    for name in ("solve_cg_reg", "solve_cg_aug"):
+        if name == "solve_cg_reg":
+            a, b = cs.gather_gram_out_plain(tp, ch.cols, ch.vals)
+            rest = (diag, b, x0)
+        else:
+            a = cs.gather_gram_aug_out_plain(tp, ch.cols, ch.vals)
+            rest = (diag, x0)
+        for dtype in (torch.float32, torch.bfloat16):
+            ad = a.to(dtype)
+            fn = getattr(cs, name)
+            row = {"kernel": name, "a_dtype": str(dtype), "systems": r,
+                   "f": f}
+            for iters in (0, 6):
+                def call():
+                    return fn(ad, *rest, cg_iters=iters, **kw)
+                row[f"events_ms_cg{iters}"] = smoke.time_ms(call)
+                row[f"device_ms_cg{iters}"] = smoke.queued_ms(call)
+            x = fn(ad, *rest, cg_iters=6, **kw)
+            px = getattr(cs, f"{name}_plain")(ad, *rest, cg_iters=6, **kw)
+            row["max_abs_err"] = (x - px).abs().max().item()
+            row["bound_ms"] = smoke.bound_ms(
+                smoke.nbytes(ad, *rest, x), 2.0 * r * f * f, dtype)[0]
+            smoke.log(f"[f256 readings] {row}")
+            rows.append(row)
+            del ad, x, px
+            torch.cuda.empty_cache()
+        del a, rest
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -91,12 +146,17 @@ def main() -> int:
         return 2
     ap = argparse.ArgumentParser()
     ap.add_argument("--cache", default=None)
+    ap.add_argument("--f256", action="store_true")
     args = ap.parse_args()
     torch.backends.cuda.matmul.allow_tf32 = False
     import chip_smoke as smoke
     from cumf_als_tpu_torch.ops import cuda_solve as cs
 
     card = smoke.card_line()
+    if args.f256:
+        print(json.dumps({"card": card, "root": ROOT,
+                          "f256": f256_readings(smoke, cs)}))
+        return 0
     path = os.path.join(args.cache, "inputs.pt") if args.cache else None
     if path and os.path.exists(path):
         k3, k8 = torch.load(path, map_location="cuda")

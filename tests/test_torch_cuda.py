@@ -1260,6 +1260,13 @@ def run_solve(kernel, args, **kw):
     return getattr(cs, kernel)(*args, **kw)
 
 
+def in_flight(card, f, dtype, kernel):
+    """The systems one launch of `kernel` holds at once: a block each, or
+    at f = 256 a cluster of two blocks each."""
+    grid = cs.solve_grid(card, 1 << 30, f, dtype, kernel)
+    return grid // 2 if f == 256 else grid
+
+
 @pytest.mark.parametrize("kernel", SOLVES)
 @pytest.mark.parametrize("f", list(range(16, 129, 16)) + [256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1282,14 +1289,18 @@ def test_solves_match_plain_at_every_width(card, kernel, f, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_solves_zero_systems_iters_0_repeat_and_grid(card, kernel, f,
                                                      dtype):
-    """Over more systems than the persistent grid: an all-zero system
-    (K3 and K5b with diag 0) returns its x0 exactly; cg_iters 0 returns
-    x0 exactly; a second run equals the first bit for bit; the kernel's
-    occupancy query gives at least one block an SM (at f = 256 no more
-    than keep the systems in flight within the L2)."""
+    """Over more systems than the persistent grid holds in flight: an
+    all-zero system (K3 and K5b with diag 0) returns its x0 exactly;
+    cg_iters 0 returns x0 exactly; a second run equals the first bit for
+    bit; the kernel's occupancy query gives at least one block an SM (at
+    f = 256 at least one cluster of two blocks, and no more than two
+    blocks an SM: an f32 tile takes one, a bf16 tile two)."""
     per_sm = cs.cg_blocks_per_sm(card, f, dtype, kernel)
     assert per_sm >= 1
-    r = cs.cg_grid(1 << 30, cs._sms(card), per_sm) + 7
+    if f == 256:
+        assert per_sm <= cs._sms(card) * (2 if dtype == torch.bfloat16
+                                          else 1) // 2
+    r = in_flight(card, f, dtype, kernel) + 7
     a, diag, b, x0 = k3_systems(r, f, dtype, seed=4)
     a[2] = 0.0
     diag[2] = 0.0
@@ -1303,6 +1314,77 @@ def test_solves_zero_systems_iters_0_repeat_and_grid(card, kernel, f,
                                rtol=0)
     assert torch.equal(run_solve(kernel, gpu), x)
     assert torch.equal(run_solve(kernel, gpu, cg_iters=0).cpu(), x0_used)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k5b_at_256_reads_b_from_row_255(card, dtype):
+    """K5b at f = 256 on an A' whose row 255 (b) and column 255 differ:
+    b comes from the row, which only the second block of a cluster holds
+    (pallas_solve.py:_cg_solve_aug_kernel reads row f - 1); within 2e-3
+    of the plain version, lane 255 exactly 0, bits repeating. A kernel
+    reading the column would solve for another b."""
+    a, diag, b, x0 = k3_systems(40, 256, dtype, seed=5)
+    aug, diag, x0 = solve_args("solve_cg_aug", (a, diag, b, x0))
+    rng = np.random.RandomState(6)
+    aug[:, :255, 255] = torch.from_numpy(
+        rng.standard_normal((40, 255)).astype(np.float32)).to(dtype)
+    assert not torch.equal(aug[:, 255, :255], aug[:, :255, 255])
+    gpu = [t.to(card) for t in (aug, diag, x0)]
+    x = cs.solve_cg_aug(*gpu)
+    px = cs.solve_cg_aug(aug, diag, x0)
+    torch.testing.assert_close(x.cpu(), px, atol=2e-3, rtol=0)
+    assert bool((x[:, 255] == 0).all())
+    assert torch.equal(cs.solve_cg_aug(*gpu), x)
+    assert cs.LAUNCHES == dict.fromkeys(cs.LAUNCHES, 0) | {
+        "solve_cg_aug": 2}
+
+
+@pytest.mark.parametrize("kernel", SOLVES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_solves_at_256_stop_at_different_steps(card, kernel, dtype):
+    """K3, K4 and K5b at f = 256 with a cg_tol that stops the systems of
+    one launch at different steps: b and x0 scaled by 1e-5 (r.r below
+    the tolerance from the start: the first step's update, then the
+    exit), 3e-3 (a few steps) and 1 (never, in 20). Both blocks of a
+    cluster must take the same exit, or the launch hangs at the next
+    exchange (and traps). Held to the plain version with x scaled back,
+    x within 2e-3; bits repeating."""
+    r = 3 * in_flight(card, 256, dtype, kernel) + 5
+    a, diag, b, x0 = k3_systems(r, 256, dtype, seed=7)
+    scale = torch.tensor([1e-5, 3e-3, 1.0]).repeat(r // 3 + 1)[:r]
+    args = solve_args(kernel, (a, diag, b * scale[:, None],
+                               x0 * scale[:, None]))
+    kw = dict(cg_iters=20, cg_tol=1e-6)
+    gpu = [t.to(card) for t in args]
+    x = run_solve(kernel, gpu, **kw)
+    px = run_solve(kernel, args, **kw)
+    torch.testing.assert_close(x.cpu() / scale[:, None],
+                               px / scale[:, None], atol=2e-3, rtol=0)
+    assert torch.equal(run_solve(kernel, gpu, **kw), x)
+    # the tolerance does stop systems early: never stopping moves x
+    full = run_solve(kernel, args, cg_iters=20, cg_tol=0.0)
+    assert not torch.equal(full, px)
+
+
+@pytest.mark.parametrize("kernel", SOLVES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("where", ["one", "three", "above"])
+def test_solves_at_256_around_the_cluster_grid(card, kernel, dtype, where):
+    """K3, K4 and K5b at f = 256 on R = 1 and 3 systems (a grid of 2 and
+    6 blocks) and on one more system than the clusters in flight (one
+    cluster walks two); within 2e-3 of the plain version, one launch,
+    bits repeating."""
+    r = {"one": 1, "three": 3,
+         "above": in_flight(card, 256, dtype, kernel) + 1}[where]
+    assert cs.solve_grid(card, r, 256, dtype, kernel) == 2 * min(
+        r, cs.cg_blocks_per_sm(card, 256, dtype, kernel))
+    args = solve_args(kernel, k3_systems(r, 256, dtype, seed=r))
+    gpu = [t.to(card) for t in args]
+    x = run_solve(kernel, gpu)
+    assert cs.LAUNCHES == dict.fromkeys(cs.LAUNCHES, 0) | {kernel: 1}
+    torch.testing.assert_close(x.cpu(), run_solve(kernel, args), atol=2e-3,
+                               rtol=0)
+    assert torch.equal(run_solve(kernel, gpu), x)
 
 
 # ------------------------- K8 on the two passes of the row cut (bf16 G) --
