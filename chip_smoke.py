@@ -7,17 +7,20 @@ result line):
 
 1. card and build: the card's name and power limit, the torch/CUDA
    versions, the build of the native data plane (`g++`; without it the
-   run fails), and the build of every CUDA kernel from csrc/ (fourteen)
+   run fails), and the build of every CUDA kernel from csrc/ (sixteen)
    with `-Xptxas -v`: registers, spills and added wgmma waits of the
    tensor-core entry functions of K1, K2, K5a, K6 (with pass 1 of K1's
    and K6's cut) and the tensor-core pass 1 of the 256-lane body (and of
    K2 and K5a at f = 256), registers and spills of pass 2 of K1's and
    K6's cut, of the other 256-lane entry functions and of the batched
-   CGs K3, K4 and K5b (the ring body and the f = 256 body);
+   CGs K3, K4 and K5b (the ring body and the f = 256 body), and of the
+   two kernels of f >= 384 (`tile_gram`: no spill and no added wgmma
+   wait on its tensor-core body; `global_cg`);
 2. each kernel against its plain PyTorch version on the card, on real
    chunks of the Netflix-shaped plans, with kernel, plain, yardstick and
-   bound times: the widest, the most populous and the fewest-row
-   theta-phase chunk for K1 and K6 (device time, `queued_ms`), and,
+   bound times: the widest, the most populous (also on a float32 table,
+   the FMA body) and the fewest-row theta-phase chunk for K1 and K6
+   (device time, `queued_ms`), and,
    among the chunks their cut takes (`cs.theta_spans`: fewer rows than
    the blocks that fit the card, 264, each row's slots cut into spans
    across blocks, then pass 2, `frag_span_solve`), the fewest-row one
@@ -32,8 +35,8 @@ result line):
    that fit the card, each row's slots cut into spans across blocks,
    then pass 2, `gram_span_sum`), the fewest-row X-phase panel chunk and
    one of about 40 rows (the most populous with a bf16 and an f32 A, the
-   widest and the fewest-row one also with a float32 table, which keeps
-   the FMA body, uncut; the two of few rows three ways: as routed
+   most populous, the widest and the fewest-row one also with a float32
+   table, which keeps the FMA body, uncut; the two of few rows three ways: as routed
    against the plain version, twice with the same bits, and against
    spans=1 with both times), pass 2 alone on the fewest-row chunk's
    partials (bit for bit against its plain version), small chunks at
@@ -160,9 +163,9 @@ result line):
    b. two ranks spawned on the one card (both on cuda:0, gloo: NCCL
       refuses two ranks on one card; the partials go through host
       memory, so its s/iter is a gloo-over-one-card time, not a
-      multi-GPU one), 2 iterations, one `run` call an iteration: RMSE
-      within 2e-3 of (a), theta's SHA-256 equal on both ranks after each
-      iteration, the gathered X equal to each rank's rows; K2 on rank 0's
+      multi-GPU one), 1 iteration (`SHARDED_TWO_RANK_ITERS`): RMSE
+      within 2e-3 of (a), theta's SHA-256 equal on both ranks after it,
+      the gathered X equal to each rank's rows; K2 on rank 0's
       partial of the most populous reduce block (bf16 A) and K3 on that
       block summed over both ranks as the all-reduce sums it, against
       their plain versions.
@@ -264,7 +267,37 @@ result line):
       each within 2e-3 of phase 5's wide-off run at every iteration.
    The f = 256 numbers go into the `kernels` line as `f256`, those of
    (b) as `f128_one_body`, the launches of (c) and (d) as
-   `f256_launches`.
+   `f256_launches`;
+14. factor widths F > 256 (f_pad = 128 T, T >= 3), on the same Netflix
+   data at F=300 (f_pad 384), bf16 factors, where every route runs the
+   two kernels of f >= 384 and no other: `tile_gram` (the Gram in
+   128 x 128 tiles: K2, K5a, pass 1 of K1 and K6) and `global_cg` (the
+   CG on A in device memory: K3, K4, K5b, pass 2 of K1 and K6):
+   k. each against its plain version at f = 384 and 512, with times,
+      launches and bounds: K1 and K6 (the two passes, in row batches of
+      `cs.tiled_batch_rows`) on the most populous and the widest theta
+      chunk of (a)'s plan (at 512 the first 4096 rows of the populous
+      one), bf16 and float32 tables; K2 and K5a on a synthetic chunk of
+      the X panel shape (R = 2304, P = 576), bf16 and f32 A, bf16 and
+      float32 tables, with torch.bmm on the pre-gathered G; K3, K4 and
+      K5b on 16,384 systems at 384 (past 2^31 elements of A) and 4,096
+      at 512, f32 and bf16 A, and K3 at CG-20 with cg_tol 1 (a system
+      where one exit test goes the other way, at a step whose plain
+      rsnew lies within a factor `EXIT_BAND` of cg_tol, is held to the
+      plain iterate where that CG stops, at most `EXIT_CAP` a launch;
+      the rule must reject a CG that stops a step early and one that
+      ignores cg_tol);
+   a. `ALS.run` for 2 iterations with the defaults: X on the split
+      route, theta direct, K1 at f = 384 on both;
+   b. `panel_budget_bytes` 12 GiB: X on the panel route (K2 and K3 at
+      384, bf16 accumulators), theta direct;
+   c. (b) with gram_dtype "f32" and aug_gram "force": K5a and K5b on X,
+      K6 on theta;
+   each run's s/iter, phase seconds and peak memory printed, the two
+   kernels launched and no other, train RMSE falling, (b) and (c)
+   within 2e-3 of (a) at every iteration. The numbers go into the
+   `kernels` line under `tile_gram` and `global_cg`, (a)'s launches as
+   theirs.
 
 The data sets come through the bench's loader (`bench.load_workload`),
 which generates each once into .bench_cache/torch/ and memory-maps it;
@@ -339,6 +372,12 @@ K3, K4, K5a and K5b (with the ptxas report), runs phase 5's wide-off
 F=200 run (2 iterations, the reference of 5e and 13d), phase 5e on its
 plans, then phase 13, and prints no result line.
 
+    python3 chip_smoke.py --wide-f
+
+is the short call for factor widths F > 256: it builds `tile_gram` and
+`global_cg` alone (with the ptxas report), runs phase 14 on the Netflix
+data and prints no result line.
+
     python3 chip_smoke.py --wide
 
 is the short call after a change to csrc/wide.cuh or the passes: it
@@ -390,6 +429,12 @@ REPLACES = {
     # (pass 1 is their own entry point): `_kernel` (299) and
     # `_kernel_aug` (345)
     "frag_span_solve": "cumf_als_tpu/ops/pallas_solve.py:299",
+    # factor widths f >= 384: the tiled Gram of K2 (`_gram_kernel`, 534),
+    # K5a (610) and pass 1 of K1 (299) and K6 (345); the CG on A in device
+    # memory of K3 (`_cg_solve_reg_kernel`, 1105), K4 (1097), K5b (1122)
+    # and pass 2 of K1 and K6
+    "tile_gram": "cumf_als_tpu/ops/pallas_solve.py:534",
+    "global_cg": "cumf_als_tpu/ops/pallas_solve.py:1105",
 }
 # the Gram body each kernel's measured launches ran ("cg": a solve alone)
 # ("bulk-cg": the persistent blocks on bulk-async copies of K3, K4 and
@@ -402,7 +447,8 @@ BODY = {"gather_gram_cg": "wgmma", "gather_gram_out": "wgmma",
         "gather_gram_cg_aug": "wgmma", "gather_gram_cg_wide": "fma",
         "fused_gram_cg_cat": "fma", "wide_span_gram": "fma",
         "wide_span_gram_mma": "wgmma", "wide_span_solve": "cg",
-        "gram_span_sum": "sum", "frag_span_solve": "cg"}
+        "gram_span_sum": "sum", "frag_span_solve": "cg",
+        "tile_gram": "wgmma", "global_cg": "global-cg"}
 SPLIT_KERNELS = ("gather_gram_cg", "gather_gram_out", "solve_cg_reg")
 AUG_KERNELS = ("gather_gram_cg_aug", "gather_gram_aug_out", "solve_cg_aug")
 WIDE_KERNELS = ("gather_gram_cg_wide", "fused_gram_cg_cat")
@@ -570,6 +616,14 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def gram_ops(ch, f, b: bool = True) -> float:
+    """The operations of a Gram on chunk `ch` at f lanes, as the function
+    needs them: the symmetric A's upper triangle and diagonal, nnz f
+    (f + 1), and b, 2 nnz f."""
+    slots = float(ch.nnz.sum().item())
+    return slots * f * (f + 1) + (2.0 * slots * f if b else 0.0)
+
+
 def wide_work(table_ext, ch, fl):
     """What one launch of the 256-lane body (csrc/wide.cuh: K1 at f=256,
     K7, pass 1 of the row cut) must do on chunk `ch` at fl live lanes:
@@ -694,6 +748,32 @@ def ptxas_lines(build_log):
             f"{spills.get('solve_kernel')} bytes; the f = 256 cluster body "
             f"(f32 and bf16 A) registers "
             f"{regs.get('solve_cluster_kernel')}, spill stores {wide} bytes")
+    for name, kinds in (("tile_gram", ("tile_gram_mma", "tile_gram_fma")),
+                        ("global_cg", ("global_cg_kernel",))):
+        if name not in build_log:
+            continue
+        lines = build_log[name].splitlines()
+        regs, spills = {}, {}
+        for i, line in enumerate(lines):
+            for kind in kinds:
+                if "Compiling entry function" in line and kind in line:
+                    info = " ".join(lines[i + 1:i + 5])
+                    regs.setdefault(kind, []).extend(
+                        int(x) for x in re.findall(r"Used (\d+) registers",
+                                                   info))
+                    spills.setdefault(kind, []).extend(
+                        int(x) for x in re.findall(
+                            r"(\d+) bytes spill stores", info))
+        waits = sum("C7517" in line for line in lines)
+        arrives = sum("C7519" in line for line in lines)
+        if name == "tile_gram":
+            # the tensor-core body: no spill, no wgmma wait added by ptxas
+            ok &= bool(regs.get("tile_gram_mma")) and \
+                max(spills.get("tile_gram_mma", [1])) == 0 and waits == 0
+        log(f"[ptxas] {name} (f >= 384), its entry functions: registers "
+            f"{regs}, spill stores {spills} bytes; wgmma waits added by "
+            f"ptxas (C7517): {waits}, warpgroup arrives added by ptxas "
+            f"(C7519): {arrives}")
     for name, out in build_log.items():
         for line in out.splitlines():
             if "warning" in line.lower() or "Potential" in line:
@@ -952,7 +1032,7 @@ def check_k1(cs, table_ext, ch, theta, cfg, label, aug=False,
                    f"the same bits twice: {extra['repeat_bits']}")
     plain = queued_ms(lambda: plain_fn(*args, **kw), reps=3)
     f = table_ext.shape[1]
-    flops = 2.0 * float(ch.nnz.sum().item()) * f * f
+    flops = gram_ops(ch, f, b=not aug)
     table_b = nbytes(table_ext) if table_rows is None else \
         table_rows * f * table_ext.element_size()
     bms, by = bound_ms(table_b + nbytes(ch.cols, ch.vals, ch.nnz, x0, x,
@@ -1259,7 +1339,7 @@ def check_gram(cs, tp, ch, a_dtype, aug, label, table_rows=None,
     gt = g.transpose(1, 2)
     lib = queued_ms(lambda: torch.bmm(gt, g))
     del g, gt
-    flops = 2.0 * float(ch.nnz.sum().item()) * f * f
+    flops = gram_ops(ch, f, b=not aug)
     out_bytes = r * f * f * torch.tensor([], dtype=a_dtype).element_size()
     if not aug:
         out_bytes += r * f * 4
@@ -3088,12 +3168,19 @@ def sharded_profile(model, x0, th0):
     return share
 
 
+# iterations of phase 10b (two ranks on one card over gloo): one, as the
+# partials of an iteration cross host memory in ~26 s (PERF.md §5); no
+# recorded RMSE reads that count
+SHARDED_TWO_RANK_ITERS = 1
+
+
 def sharded(cs, bench, cfg, train, test, hist_main):
     """Phase 10: ShardedALS on the Netflix data at full width (F=100,
     bf16, CG, "pallas"), (a) at one rank on an NCCL group of one, 3
     iterations, against phase 4a's ALS run; (b) at two ranks on the one
     card, both on cuda:0 over gloo (NCCL refuses two ranks on one card),
-    spawned, 2 iterations, against (a). Launch counts equal the plans'
+    spawned, SHARDED_TWO_RANK_ITERS iterations, against (a). Launch
+    counts equal the plans'
     counts; K1 (a), K2 and K3 (b) are held to their plain versions at the
     sharded shapes. Returns the launches and the checks' numbers."""
     import functools
@@ -3176,7 +3263,7 @@ def sharded(cs, bench, cfg, train, test, hist_main):
     torch.cuda.empty_cache()
 
     # (b) two ranks on the one card over gloo, spawned
-    its = 2
+    its = SHARDED_TWO_RANK_ITERS
     t0 = time.monotonic()
     ranks = spawn(2, run_rank, scfg.replace(iters=its),
                   functools.partial(bench.load_workload, "netflix", 1.0),
@@ -4371,6 +4458,553 @@ def panel_256(cs, bench, ALS, cfg, train, csc, test, hist_ref, results):
     log(f"[phase 13] {time.monotonic() - t_start:.1f} s")
 
 
+# ----------------------------------------------------------- phase 14 --
+# the factor width of phase 14 (f_pad 384) and the iterations of its runs
+WIDE_F = 300
+WIDE_F_ITERS = 2
+# the kernels of the widths f >= 384 (F > 256): every route there runs
+# these two and no other
+TILED_KERNELS = ("tile_gram", "global_cg")
+
+
+def time_once(fn):
+    """CUDA-event time (ms) of one call of fn, and what it returned: for
+    a plain version too long and too large to repeat."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), out
+
+
+def launched_since(cs, before):
+    """{kernel: launches} since the snapshot `before` of cs.LAUNCHES."""
+    return {k: v - before[k] for k, v in cs.LAUNCHES.items()
+            if v != before[k]}
+
+
+def widen(t, f):
+    """t (R, f0) zero-padded to f lanes."""
+    return torch.nn.functional.pad(t, (0, f - t.shape[1])).contiguous()
+
+
+def tiled_k1(cs, table_ext, ch, x0, lam, label, aug, table_rows=None):
+    """K1 (K6 with aug) at f >= 384 as routed (the two passes, one launch
+    of ``tile_gram`` and one of ``global_cg`` a row batch, and no other)
+    against its plain version (`gather_gram_cg_plain`, with aug
+    `gather_gram_cg_aug_plain`): x within 2e-3, se within 1e-3
+    relative, the rows without ratings and the lanes >= WIDE_F of x
+    exactly 0, a repeat equal bit for bit. Kernel time behind queued work
+    (`queued_ms`), the plain version's one call by events; the bound
+    counts the function's work: each table row once (`table_rows` of a
+    large table, else the whole table), the chunk, x0, x and se, and the
+    Gram's operations (`gram_ops`)."""
+    args = (table_ext, ch.cols, ch.vals, ch.nnz, x0, lam)
+    r, p = ch.cols.shape
+    f = table_ext.shape[1]
+    batches = -(-r // cs.tiled_batch_rows(f))
+    before = dict(cs.LAUNCHES)
+    x, se = cs.gather_gram_cg(*args, aug=aug)
+    got = launched_since(cs, before)
+    counted = got == {"tile_gram": batches, "global_cg": batches}
+    x2, se2 = cs.gather_gram_cg(*args, aug=aug)
+    repeat = same_bits(x, x2) and same_bits(se, se2)
+    del x2, se2
+    plain_fn = cs.gather_gram_cg_aug_plain if aug else \
+        cs.gather_gram_cg_plain
+    plain_ms, (px, pse) = time_once(lambda: plain_fn(*args))
+    err = (x - px).abs().max().item()
+    se_rel = ((se - pse).abs() / pse.abs().clamp_min(1.0)).max().item()
+    del px, pse
+    empty = ch.nnz == 0
+    zero_ok = bool((x[empty] == 0).all()) and bool((se[empty] == 0).all()) \
+        and bool((x[:, WIDE_F:] == 0).all())
+    ms = queued_ms(lambda: cs.gather_gram_cg(*args, aug=aug), reps=3)
+    flops = gram_ops(ch, f, b=not aug)
+    table_b = nbytes(table_ext) if table_rows is None else \
+        table_rows * f * table_ext.element_size()
+    bms, by = bound_ms(table_b + nbytes(ch.cols, ch.vals, ch.nnz, x0, x,
+                                        se), flops, table_ext.dtype)
+    ok = err <= 2e-3 and se_rel <= 1e-3 and zero_ok and counted and repeat
+    name = "K6" if aug else "K1"
+    log(f"[{name} at f={f}] {label}: chunk R={r} P={p}, table "
+        f"{table_ext.dtype}, body {cs.gram_body(table_ext)}, {batches} row "
+        f"batches (launches {got}: {counted}): max|dx|={err:.3e} (limit "
+        f"2e-3), max rel dse={se_rel:.3e} (limit 1e-3), {int(empty.sum())} "
+        f"rows without ratings and lanes >= {WIDE_F} exactly 0: {zero_ok}, "
+        f"the same bits twice: {repeat}; device time: kernel {ms:.3f} ms, "
+        f"plain {plain_ms:.3f} ms (one call, events), bound {bms:.4f} ms "
+        f"({by}); {'OK' if ok else 'FAIL'}")
+    return ok, dict(max_abs_err=err, se_rel=se_rel, ms=ms,
+                    plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                    library_ms=None, shape=[r, p], f=f,
+                    table=str(table_ext.dtype), launches=got)
+
+
+def tiled_gram(cs, tp, ch, a_dtype, aug, label):
+    """K2 (K5a with aug) at f >= 384: one launch of ``tile_gram``, A
+    within `gram_limit` of the plain version for the body that ran (the
+    whole square, symmetric bit for bit), b within 1e-5 relative, rows
+    of pad slots exactly 0; torch.bmm on the pre-gathered G as the
+    yardstick (`check_gram`'s). Times as `tiled_k1`."""
+    args = (tp, ch.cols, ch.vals)
+    r, p = ch.cols.shape
+    f = tp.shape[1]
+    fn = cs.gather_gram_aug_out if aug else cs.gather_gram_out
+    plain_fn = cs.gather_gram_aug_out_plain if aug else \
+        cs.gather_gram_out_plain
+
+    def run(g=fn):
+        out = g(*args, out_dtype=a_dtype)
+        return (out, None) if aug else out
+
+    before = dict(cs.LAUNCHES)
+    a, b = run()
+    got = launched_since(cs, before)
+    counted = got == {"tile_gram": 1}
+    plain_ms, (pa, pb) = time_once(lambda: run(plain_fn))
+    body = cs.gram_body(tp)
+    lim, limit = gram_limit(a, pa, p, body)
+    diff = (a.float() - pa.float()).abs()
+    err, a_ok = diff.max().item(), bool((diff <= lim).all())
+    del diff, lim, pa
+    a_ok &= torch.equal(a, a.transpose(1, 2))
+    pad_rows = ch.nnz == 0
+    zero_ok = bool((a[pad_rows] == 0).all())
+    b_rel = 0.0
+    if b is not None:
+        b_rel = ((b - pb).abs() / pb.abs().clamp_min(1.0)).max().item()
+        zero_ok &= bool((b[pad_rows] == 0).all())
+    del a, b, pb
+    ms = queued_ms(run, reps=3)
+    g = tp.index_select(0, ch.cols.reshape(-1).long()).reshape(r, p, f)
+    if aug:
+        g = cs.augment_g(g, ch.vals)
+    gt = g.transpose(1, 2)
+    lib = queued_ms(lambda: torch.bmm(gt, g), reps=3)
+    del g, gt
+    flops = gram_ops(ch, f, b=not aug)
+    out_bytes = r * f * f * torch.tensor([], dtype=a_dtype).element_size()
+    if not aug:
+        out_bytes += r * f * 4
+    bms, by = bound_ms(nbytes(tp, ch.cols, ch.vals) + out_bytes, flops,
+                       tp.dtype)
+    ok = a_ok and b_rel <= 1e-5 and zero_ok and counted
+    name = "K5a" if aug else "K2"
+    log(f"[{name} at f={f}] {label}: chunk R={r} P={p}, table {tp.dtype}, "
+        f"A {a_dtype}, body {body} (launches {got}: {counted}): "
+        f"max|dA|={err:.3e} (limit {limit}, and symmetric: {a_ok}), max "
+        f"rel db={b_rel:.3e} (limit 1e-5), rows of pad slots exactly 0: "
+        f"{zero_ok}; device time: kernel {ms:.3f} ms, plain {plain_ms:.3f} "
+        f"ms (one call, events), torch.bmm on pre-gathered G {lib:.3f} ms, "
+        f"bound {bms:.4f} ms ({by}); {'OK' if ok else 'FAIL'}")
+    return ok, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bms, bound_by=by, library_ms=lib, body=body,
+                    shape=[r, p], f=f, table=str(tp.dtype),
+                    a_dtype=str(a_dtype))
+
+
+# 14k's solves: a system whose CG exit differs from the plain version's
+# is excused only where one exit test went the other way, at a step
+# whose plain rsnew lies within a factor EXIT_BAND of cg_tol (once a
+# system has converged its rsnew is rounding noise, which two f32 orders
+# of the same sums can put several times apart), only against the plain
+# iterate where the CG so changed stops, and at most EXIT_CAP systems a
+# launch
+EXIT_BAND = 10.0
+EXIT_CAP = 4
+
+
+def plain_cg_trace(cs, kernel, args, cg_iters):
+    """The plain version of `kernel` (K3, K4 or K5b) on `args` without its
+    exit test: the iterates (n, R, f) and rsnew (n, R) of steps 1..n,
+    each sum as `cs.cg_loop_plain` takes it."""
+    from cumf_als_tpu_torch.ops.precision import full_f32
+    if kernel == "solve_cg_aug":
+        a_aug, diag, x = args
+        a, b, _ = cs.unpack_aug(a_aug)
+    elif kernel == "solve_cg_reg":
+        a, diag, b, x = args
+        a = a.float()
+    else:
+        (a, b, x), diag = args, None
+        a = a.float()
+    if diag is not None:
+        a = a + diag.float()[:, None, None] * torch.eye(
+            a.shape[-1], device=a.device)
+    b, x = b.float(), x.float()
+    xs, rss = [], []
+    with full_f32():
+        def matvec(v):
+            return torch.einsum("rfg,rg->rf", a, v)
+        r = b - matvec(x)
+        p = r
+        rsold = (r * r).sum(-1, keepdim=True)
+        for _ in range(cg_iters):
+            ap = matvec(p)
+            pap = (p * ap).sum(-1, keepdim=True)
+            nonzero = (pap.abs() > 0).float()
+            alpha = nonzero * rsold / (pap + (1.0 - nonzero))
+            x = x + alpha * p
+            r = r - alpha * ap
+            rsnew = (r * r).sum(-1, keepdim=True)
+            p = r + rsnew / (rsold + (rsold <= 0).float()) * p
+            rsold = rsnew
+            xs.append(x)
+            rss.append(rsnew[:, 0])
+    return torch.stack(xs), torch.stack(rss)
+
+
+def plain_exit(trace, cg_iters, cg_tol):
+    """The plain exit step of each system from `plain_cg_trace`'s
+    (xs, rs): the first step whose rsnew < cg_tol, else cg_iters."""
+    below = trace[1] < cg_tol
+    return torch.where(below.any(0), below.float().argmax(0) + 1, cg_iters)
+
+
+def exit_rule_ok(x, px, trace, cg_iters, cg_tol):
+    """Whether x (R, f) passes 14k's solve check against the plain x px:
+    each system within 2e-3 of px, or else of the plain iterate (`trace`,
+    the plain version's iterates and rsnew, `plain_cg_trace`) where one
+    exit test of the plain CG goes the other way at a step whose plain
+    rsnew lies within a factor EXIT_BAND of cg_tol: an earlier step k
+    with rsnew in [cg_tol, EXIT_BAND cg_tol] stopping there, or the plain
+    exit e with rsnew in [cg_tol / EXIT_BAND, cg_tol) not stopping, the
+    CG then running on to the next step whose plain rsnew < cg_tol (or
+    to cg_iters); whichever is nearer x; at most EXIT_CAP systems so
+    excused. Returns ok, each system's max |dx| so held and the excused
+    systems (system, plain exit step, the step x matches, plain rsnew /
+    cg_tol at the test that went the other way)."""
+    xs, rs = trace
+    each = (x - px).abs().amax(1)
+    off = torch.nonzero(each > 2e-3)[:, 0]
+    excused = []
+    if off.numel():
+        e = plain_exit(trace, cg_iters, cg_tol)[off]
+        r = rs[:, off] / cg_tol                     # (steps, systems)
+        r_e = r.gather(0, (e - 1)[None])[0]
+        steps = torch.arange(1, cg_iters + 1, device=x.device)[:, None]
+        # not stopped at e: the CG runs on to the next step below cg_tol
+        below_after = (steps > e) & (r < 1.0)
+        resume = torch.where(below_after.any(0),
+                             below_after.float().argmax(0) + 1, cg_iters)
+        late_ok = (e < cg_iters) & (r_e < 1.0) & (r_e >= 1.0 / EXIT_BAND)
+        x_off = x[off]
+        best = torch.full((off.numel(),), math.inf, device=x.device)
+        step = e.clone()
+        flip = torch.zeros_like(best)
+        for k in range(1, cg_iters + 1):
+            err_k = (x_off - xs[k - 1, off]).abs().amax(1)
+            # stopped at k < e: the test of step k went the other way
+            early = (k < e) & (r[k - 1] >= 1.0) & (r[k - 1] <= EXIT_BAND)
+            late = late_ok & (resume == k)
+            better = (early | late) & (err_k < best)
+            best = torch.where(better, err_k, best)
+            step = torch.where(better, k, step)
+            flip = torch.where(better, torch.where(early, r[k - 1], r_e),
+                               flip)
+        apart = best <= 2e-3
+        each[off] = torch.where(apart, best, each[off])
+        excused = list(zip(off[apart].tolist(), e[apart].tolist(),
+                           step[apart].tolist(), flip[apart].tolist()))
+    err = each.max().item()
+    return err <= 2e-3 and len(excused) <= EXIT_CAP, each, excused
+
+
+def unheld(x, trace, each_ok, cg_iters, cg_tol, most=6):
+    """What a failed solve check prints of the systems still off: each
+    one's plain exit, the plain step whose iterate is nearest x (of all
+    cg_iters) with its max |dx|, and the plain rsnew / cg_tol of every
+    step."""
+    xs, rs = trace
+    off = torch.nonzero(~each_ok)[:, 0][:most]
+    e = plain_exit(trace, cg_iters, cg_tol)
+    lines = []
+    for i in off.tolist():
+        errs = (xs[:, i] - x[i]).abs().amax(1)
+        j = int(errs.argmin())
+        lines.append(f"system {i}: plain exit {int(e[i])}, nearest plain "
+                     f"step {j + 1} ({errs[j].item():.3e}), plain rsnew / "
+                     f"cg_tol " + ", ".join(f"{v:.4g}" for v in
+                                           (rs[:, i] / cg_tol).tolist()))
+    return "; ".join(lines)
+
+
+def tiled_solve(cs, kernel, args, label, empty, cg_iters=6, cg_tol=1e-4):
+    """K3, K4 or K5b (`kernel`) at f >= 384: one launch of ``global_cg``
+    and no other, x within 2e-3 of the plain version under
+    `exit_rule_ok` (a system where one exit test at the threshold went
+    the other way, at most EXIT_CAP), the systems without ratings
+    exactly 0 and K5b's lane f - 1 of x exactly 0. The plain trace must
+    give the plain x at each plain exit bit for bit, and the rule must
+    reject two wrong CGs on these systems wherever their x is more than
+    2e-3 from the plain x: the plain version stopping one step early
+    (cg_iters - 1) and the plain version ignoring cg_tol (`tiled_solves`
+    requires each rejected once at each width). Events at cg_iters and
+    at 0 (A still read twice: b - A x0 and the exit); the bound is the
+    bytes of the arguments and x against one matvec of each system, as
+    `check_solve`'s."""
+    fn = getattr(cs, kernel)
+    plain_fn = getattr(cs, f"{kernel}_plain")
+    kw = dict(cg_iters=cg_iters, cg_tol=cg_tol)
+    before = dict(cs.LAUNCHES)
+    x = fn(*args, **kw)
+    got = launched_since(cs, before)
+    counted = got == {"global_cg": 1}
+    plain_ms, px = time_once(lambda: plain_fn(*args, **kw))
+    # the trace is the plain version's CG step by step: at each system's
+    # plain exit it must give px bit for bit
+    trace = plain_cg_trace(cs, kernel, args, cg_iters)
+    e = plain_exit(trace, cg_iters, cg_tol)
+    same = torch.equal(trace[0][e - 1, torch.arange(len(e), device=DEV)],
+                       px)
+    rule_ok, each, excused = exit_rule_ok(x, px, trace, cg_iters, cg_tol)
+    err = each.max().item()
+    if err > 2e-3:
+        log(f"[{SOLVE_NAMES[kernel]} at f={x.shape[1]}] off and not held: "
+            f"{unheld(x, trace, each <= 2e-3, cg_iters, cg_tol)}")
+    rule_ok &= same
+    rejects, wrongs = [], {}
+    for what, wrong in (
+            ("a step early", dict(cg_iters=cg_iters - 1, cg_tol=cg_tol)),
+            ("cg_tol ignored", dict(cg_iters=cg_iters, cg_tol=0.0))):
+        xw = plain_fn(*args, **wrong)
+        passes, bad_each, bad_excused = exit_rule_ok(xw, px, trace,
+                                                     cg_iters, cg_tol)
+        bad_err = bad_each.max().item()
+        # a wrong CG whose x is within 2e-3 of the plain x everywhere is
+        # not wrong on these systems, and no check of x can reject it
+        wrongs[what] = "NOT REJECTED" if passes and (
+            xw - px).abs().max().item() > 2e-3 else \
+            "no different here" if passes else "rejected"
+        rejects.append(f"{what}: {wrongs[what]} (max|dx| {bad_err:.3e}, "
+                       f"{len(bad_excused)} excused)")
+        rule_ok &= wrongs[what] != "NOT REJECTED"
+        del xw
+    del px, trace, e
+    a = args[0]
+    r, f, _ = a.shape
+    exact = bool((x[empty] == 0).all())
+    if kernel == "solve_cg_aug":
+        exact &= bool((x[:, f - 1] == 0).all())
+    ms = time_ms(lambda: fn(*args, **kw), reps=3)
+    ms0 = time_ms(lambda: fn(*args, cg_iters=0, cg_tol=cg_tol), reps=3)
+    bms, by = bound_ms(nbytes(*(t for t in args if torch.is_tensor(t)), x),
+                       2.0 * r * f * f, a.dtype)
+    ok = rule_ok and bool(torch.isfinite(x).all()) and counted and exact
+    held = ", ".join(f"system {i}: plain exit {e}, the kernel's {j}, plain "
+                     f"rsnew at the test {q:.4f} cg_tol"
+                     for i, e, j, q in excused)
+    log(f"[{SOLVE_NAMES[kernel]} at f={f}] {label}: {r} systems, A "
+        f"{a.dtype} ({a.numel() / 2**31:.2f} x 2^31 elements), cg_iters "
+        f"{cg_iters}: max|dx|={err:.3e} (limit 2e-3; {len(excused)} "
+        f"systems (limit {EXIT_CAP}) held to the plain iterate where one "
+        f"exit test at rsnew within a factor {EXIT_BAND:g} of cg_tol goes "
+        f"the other way{': ' + held if held else ''}; the plain trace gives "
+        f"the plain x bit for bit: {same}; the rule on wrong CGs: "
+        f"{'; '.join(rejects)}), launches {got}: "
+        f"{counted}, empty systems and aug lane exactly 0: {exact}; kernel "
+        f"{ms:.3f} ms (events; at cg_iters 0 {ms0:.3f} ms), plain "
+        f"{plain_ms:.3f} ms (one call), bound {bms:.4f} ms ({by}), "
+        f"{bms / ms:.0%} of the bound; {'OK' if ok else 'FAIL'}")
+    return ok, dict(max_abs_err=err, ms=ms, ms_cg0=ms0, plain_ms=plain_ms,
+                    bound_ms=bms, bound_by=by, library_ms=None, f=f,
+                    systems=r, a_dtype=str(a.dtype),
+                    at_exit=[list(t) for t in excused], wrong_cgs=wrongs)
+
+
+def tiled_solves(cs, f, r):
+    """14k's solves at width f: K3, K4 and K5b on `solve_systems` (R
+    systems of one synthetic panel chunk, K2's (A, b) and K5a's A' from
+    ``tile_gram``), each with an f32 and a bf16 A, at CG-6; K3 at CG-20
+    with cg_tol 1 (most systems stop early, as in `solve_checks`). Each
+    wrong CG of `tiled_solve` must be rejected in one run at least.
+    Returns ok and each kernel's numbers (f32 A; bf16 under bf16_*)."""
+    a, b, a_aug, diag, x0, empty = solve_systems(cs, f, r=r)
+    eye = torch.eye(f, device=DEV)
+    out, ok_all = {}, True
+    label = f"synthetic panel systems, one in 64 without ratings"
+    for kernel, make in (
+            ("solve_cg_reg", lambda dt: (a.to(dt), diag, b, x0)),
+            ("solve_cg", lambda dt: ((a + diag[:, None, None] * eye).to(dt),
+                                     b, x0)),
+            ("solve_cg_aug", lambda dt: (a_aug.to(dt), diag, x0))):
+        for dtype in (torch.float32, torch.bfloat16):
+            ok, res = tiled_solve(cs, kernel, make(dtype), label, empty)
+            ok_all &= ok
+            out.setdefault(kernel, {})[
+                "f32" if dtype == torch.float32 else "bf16"] = res
+            torch.cuda.empty_cache()
+    ok, res = tiled_solve(cs, "solve_cg_reg", (a, diag, b, x0),
+                          label + ", a tolerance that stops early", empty,
+                          cg_iters=20, cg_tol=1.0)
+    ok_all &= ok
+    out["solve_cg_reg"]["early_stop_check"] = res
+    runs = [v for k in out.values() for v in k.values()]
+    for what in runs[0]["wrong_cgs"]:
+        caught = any(v["wrong_cgs"][what] == "rejected" for v in runs)
+        if not caught:
+            log(f"[solves at f={f}] the wrong CG '{what}' was rejected in "
+                f"no run: FAIL")
+        ok_all &= caught
+    del a, b, a_aug
+    torch.cuda.empty_cache()
+    return ok_all, out
+
+
+def wide_f_kernels(cs, model, x_t, theta_t):
+    """14k: the two kernels of f >= 384 against their plain versions, at
+    f = 384 and 512. K1 and K6 on the most populous and the widest theta
+    chunk of the F=300 plan (at 512 the first 4096 rows of the populous
+    one, as far as the plain version's memory goes), on a bf16 table of
+    the stand-in X and a float32 copy; K2 and K5a on a synthetic chunk of
+    the Netflix X panel shape (R = 2304, P = 576, a 65,537-row panel),
+    bf16 and f32 A, bf16 and float32 tables; K3, K4 and K5b on 16,384
+    systems at 384 (past 2^31 elements of A) and 4,096 at 512, f32 and
+    bf16 A. Returns ok and the numbers by kernel."""
+    cfg = model.cfg
+    chunks = model.plan_theta[1]
+    populous = max(chunks, key=lambda c: c.rows.shape[0] * c.width)
+    widest = max(chunks, key=lambda c: c.width)
+    out = {"tile_gram": {}, "global_cg": {}}
+    ok_all = True
+    for f in (384, 512):
+        x_f = widen(x_t, f)
+        table = torch.cat([x_f, x_f.new_zeros((1, f))])
+        for tag, ch in (("populous", populous), ("widest", widest)):
+            if f == 512 and tag == "populous":
+                from types import SimpleNamespace
+                ch = SimpleNamespace(
+                    cols=ch.cols[:4096].contiguous(),
+                    vals=ch.vals[:4096].contiguous(),
+                    nnz=ch.nnz[:4096].contiguous(),
+                    rows=ch.rows[:4096], rows_real=ch.rows_real[
+                        :min(4096, ch.n_real)],
+                    n_real=min(4096, ch.n_real))
+            x0 = widen(chunk_x0(ch, theta_t), f)
+            for dtype in (torch.bfloat16, torch.float32):
+                t = table.to(dtype)
+                for aug in (False, True):
+                    ok, res = tiled_k1(cs, t, ch, x0, cfg.lam,
+                                       f"theta {tag}", aug,
+                                       table_rows=live_rows(ch))
+                    ok_all &= ok
+                    key = (f"{'K6' if aug else 'K1'}_f{f}_{tag}_"
+                           f"{'bf16' if dtype == torch.bfloat16 else 'f32'}"
+                           f"_table")
+                    out["tile_gram"][key] = out["global_cg"][key] = res
+                del t
+            torch.cuda.empty_cache()
+        del table, x_f
+        tp, ch = panel_chunk(f, 2304, 576, seed=14)
+        for aug in (False, True):
+            for a_dtype, t in ((torch.bfloat16, tp), (torch.float32, tp),
+                               (torch.float32, tp.float())):
+                ok, res = tiled_gram(cs, t, ch, a_dtype, aug,
+                                     "synthetic X panel chunk")
+                ok_all &= ok
+                key = f"{'K5a' if aug else 'K2'}_f{f}_" + (
+                    "f32_table" if t.dtype == torch.float32 else
+                    "bf16_a" if a_dtype == torch.bfloat16 else "f32_a")
+                out["tile_gram"][key] = res
+        del tp, ch
+        torch.cuda.empty_cache()
+        ok, solves = tiled_solves(cs, f, 16384 if f == 384 else 4096)
+        ok_all &= ok
+        for kernel, res in solves.items():
+            for dt, r in res.items():
+                out["global_cg"][f"{SOLVE_NAMES[kernel]}_f{f}_{dt}_a"] = r
+    return ok_all, out
+
+
+def wide_f(cs, ALS, cfg, train, csc, test, results):
+    """Phase 14: factor widths F > 256 on the card, Netflix at F=300
+    (f_pad 384), bf16 factors. First 14k (`wide_f_kernels`) on the
+    plans of (a); then three runs of WIDE_F_ITERS iterations, launch
+    counts read around each run alone: (a) the defaults, X on the split
+    route and theta direct, K1 at f = 384 on both; (b) panel_budget_bytes
+    12 GiB, X on the panel route (K2 and K3 at 384, bf16 accumulators),
+    theta direct (K1); (c) (b) with gram_dtype "f32" and aug_gram "force"
+    (K5a and K5b on X, K6 on theta). Every run launches ``tile_gram`` and
+    ``global_cg`` and no other kernel, its train RMSE falls, (b) and (c)
+    stay within 2e-3 of (a) at every iteration. Fills results["tile_gram"]
+    and results["global_cg"] and returns (a)'s launches."""
+    import copy
+
+    from cumf_als_tpu_torch.data.synthetic import init_factors
+    from cumf_als_tpu_torch.ops.tiling import PanelPlan, SplitPlan, \
+        UpdatePlan
+    t_start = time.monotonic()
+    others = tuple(k for k in REPLACES if k not in TILED_KERNELS)
+    cfg_a = cfg.replace(f=WIDE_F, iters=WIDE_F_ITERS)
+    t0 = time.monotonic()
+    al = ALS(cfg_a, train, csc, test, device=DEV)
+    log(f"[F=300 a] f_pad {cfg_a.f_pad}: plans {time.monotonic() - t0:.1f} "
+        f"s; X phase {type(al.plan_x[0]).__name__} ({len(al.plan_x[1])} "
+        f"chunks), theta phase {type(al.plan_theta[0]).__name__} "
+        f"({len(al.plan_theta[1])} chunks)")
+    if not (cfg_a.f_pad == 384 and isinstance(al.plan_x[0], SplitPlan) and
+            isinstance(al.plan_theta[0], UpdatePlan)):
+        raise AssertionError("F=300: expected f_pad 384, the split X route "
+                             "and direct theta")
+    x0, th0 = init_factors(cfg_a.m, cfg_a.n, WIDE_F, seed=0)
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    theta_t = al._pad_f(th0)
+    x_t = al._pad_f(0.2 * torch.rand((cfg_a.m, WIDE_F), generator=gen,
+                                     device=DEV).cpu().numpy())
+    t0 = time.monotonic()
+    ok, kernels = wide_f_kernels(cs, al, x_t.to(torch.bfloat16), theta_t)
+    log(f"[14k] {time.monotonic() - t0:.1f} s")
+    del x_t, theta_t
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("a kernel of f >= 384 disagrees with its plain "
+                             "version")
+    hist_a, launches_a = full_width(cs, al, "F=300 a", TILED_KERNELS, others,
+                                    x0, th0, iters=WIDE_F_ITERS)
+    del al
+    torch.cuda.empty_cache()
+    cfg_b = cfg_a.replace(panel_budget_bytes=12 << 30)
+    t0 = time.monotonic()
+    al = ALS(cfg_b, train, csc, test, device=DEV)
+    log(f"[F=300 b] panel_budget_bytes 12 GiB: plans "
+        f"{time.monotonic() - t0:.1f} s; X phase "
+        f"{type(al.plan_x[0]).__name__} ({len(al.plan_x[1])} chunks), "
+        f"theta phase {type(al.plan_theta[0]).__name__} "
+        f"({len(al.plan_theta[1])} chunks)")
+    if not (isinstance(al.plan_x[0], PanelPlan) and
+            isinstance(al.plan_theta[0], UpdatePlan)):
+        raise AssertionError("F=300 b: expected the panel X route and "
+                             "direct theta")
+    runs = {"F=300 a": {k: v for k, v in launches_a.items() if v}}
+    for label, extra in (("F=300 b", {}),
+                         ("F=300 c", dict(gram_dtype="f32",
+                                          aug_gram="force"))):
+        model = copy.copy(al)    # the same plans: neither field steers one
+        model.cfg = cfg_b.replace(**extra)
+        aug = bool(extra)
+        if model._use_panel_aug() != aug or cs.aug_enabled(model.cfg) != aug:
+            raise AssertionError(f"{label}: the aug gates")
+        hist, launches = full_width(cs, model, label, TILED_KERNELS, others,
+                                    x0, th0, iters=WIDE_F_ITERS)
+        runs[label] = {k: v for k, v in launches.items() if v}
+        rmse_gaps(label, hist, hist_a, "F=300 a")
+        del model
+        torch.cuda.empty_cache()
+    del al
+    torch.cuda.empty_cache()
+    gram, cg = kernels["tile_gram"], kernels["global_cg"]
+    results["tile_gram"] = dict(gram["K2_f384_bf16_a"], checks=gram,
+                                launches_by_run=runs)
+    results["global_cg"] = dict(cg["K3_f384_bf16_a"], checks=cg,
+                                launches_by_run=runs)
+    log(f"[phase 14] {time.monotonic() - t_start:.1f} s")
+    return launches_a
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4398,11 +5032,12 @@ def main() -> int:
              ("--ooc",): SPLIT_KERNELS, ("--sharded",): SPLIT_KERNELS,
              ("--sharded-ooc",): SPLIT_KERNELS,
              ("--integrations",): SPLIT_KERNELS + ("solve_cg",),
-             ("--panel-256",): PANEL_256_SHORT}
+             ("--panel-256",): PANEL_256_SHORT,
+             ("--wide-f",): TILED_KERNELS}
     if tuple(sys.argv[1:]) not in short:
         print("usage: chip_smoke.py [--gram | --theta | --wide | --ooc | "
-              "--sharded | --sharded-ooc | --integrations | --panel-256]",
-              file=sys.stderr)
+              "--sharded | --sharded-ooc | --integrations | --panel-256 | "
+              "--wide-f]", file=sys.stderr)
         return 2
     only = short[tuple(sys.argv[1:])]
     sharded_only = tuple(sys.argv[1:]) == ("--sharded",)
@@ -4496,6 +5131,10 @@ def main() -> int:
         panel_256(cs, bench, ALS, cfg, train, csc, test, hist_off, results)
         log("[panel 256] OK (the short call: no result line)")
         return 0
+    if only == TILED_KERNELS:
+        wide_f(cs, ALS, cfg, train, csc, test, {})
+        log("[wide f] OK (the short call: no result line)")
+        return 0
     if only == WIDE_SHORT:
         al, cfg_w, f2, _, _, theta_t, x_t, x_ext = wide_setup(
             cs, ALS, cfg, train, csc, test)
@@ -4581,6 +5220,14 @@ def main() -> int:
             ok_all &= ok
             if label == "most populous":
                 results[key] = dict(res, **results.get(key, {}))
+                # the FMA body of csrc/common.cuh: a float32 table
+                ok, res = check_k1(cs, table_ext.float(), ch, theta_t, c,
+                                   label + ", float32 table (FMA body)",
+                                   aug=aug)
+                ok_all &= ok
+                results[key]["f32_table"] = {
+                    k: res[k] for k in ("ms", "plain_ms", "max_abs_err",
+                                        "bound_ms", "bound_by")}
             else:
                 tag = label.split()[0]
                 results.setdefault(key, {}).update(
@@ -4673,6 +5320,14 @@ def main() -> int:
                 tag = "f32_out" if other == torch.float32 else "bf16_out"
                 results[key].update({f"{tag}_{k}": res[k]
                                      for k in ("ms", "max_abs_err")})
+                # the FMA body of csrc/common.cuh: a float32 table
+                ok, res = check_gram(cs, tp.float(), ch, torch.float32, aug,
+                                     label + ", float32 table")
+                ok_all &= ok
+                results[key]["f32_table"] = {
+                    k: res[k] for k in ("ms", "plain_ms", "max_abs_err",
+                                        "bound_ms", "bound_by",
+                                        "library_ms")}
             else:
                 tag = label.split()[0]
                 results[key].update(
@@ -4755,8 +5410,8 @@ def main() -> int:
     log(f"[main] data {gen_s:.1f} s, plans {plan_s:.1f} s")
     hist_main, launches = full_width(
         cs, al, "main", SPLIT_KERNELS + (SPAN_SUM, SPAN_SOLVE),
-        AUG_KERNELS + WIDE_KERNELS + SPAN_KERNELS + ("solve_cg",), x0_np,
-        th0_np, exact=theta_pass_2(cs, al))
+        AUG_KERNELS + WIDE_KERNELS + SPAN_KERNELS + TILED_KERNELS +
+        ("solve_cg",), x0_np, th0_np, exact=theta_pass_2(cs, al))
     del al, plan_x, chunks_x, aux_x   # frees the plans on the card
     torch.cuda.empty_cache()
 
@@ -4839,8 +5494,8 @@ def main() -> int:
     # aug_gram="force": K5a, K5b, K6)
     hist_aug, launches_aug = full_width(
         cs, al_aug, "aug", AUG_KERNELS + (SPAN_SUM, SPAN_SOLVE),
-        SPLIT_KERNELS + WIDE_KERNELS + SPAN_KERNELS + ("solve_cg",), x0_np,
-        th0_np, exact=theta_pass_2(cs, al_aug))
+        SPLIT_KERNELS + WIDE_KERNELS + SPAN_KERNELS + TILED_KERNELS +
+        ("solve_cg",), x0_np, th0_np, exact=theta_pass_2(cs, al_aug))
     for hm, ha in zip(hist_main, hist_aug):
         log(f"[main | aug] iter {hm.iteration}: train {hm.train_rmse:.6f} | "
             f"{ha.train_rmse:.6f}, test {hm.test_rmse:.6f} | "
@@ -4902,6 +5557,11 @@ def main() -> int:
     # ---- 13. the panel and solve kernels at 256 lanes, and the paths
     # they open: out-of-core at F=200, Netflix F=200 on the panel route
     panel_256(cs, bench, ALS, cfg, train, csc, test, hist_wide_off, results)
+
+    # ---- 14. factor widths F > 256: Netflix at F=300 (f_pad 384), the
+    # kernels of f >= 384 and three routes
+    launches_wide_f = wide_f(cs, ALS, cfg, train, csc, test, results)
+    launches.update({k: launches_wide_f[k] for k in TILED_KERNELS})
 
     launches.update({k: launches_aug[k] for k in AUG_KERNELS})
     results[SPAN_SUM]["aug_launches"] = launches_aug[SPAN_SUM]

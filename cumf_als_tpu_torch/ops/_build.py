@@ -70,6 +70,14 @@ KERNELS = {
     "frag_span_solve": ("cumf_frag_span_solve",
                         [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _I,
                          _F, _VP]),
+    # factor widths f = 128 T, T >= 3: the tiled Gram (K2, K5a; pass 1 of
+    # K1, K6) and the CG on A in device memory (K3, K4, K5b; pass 2)
+    "tile_gram": ("cumf_tile_gram",
+                  [_VP, _I, _VP, _VP, _I, _VP, _VP, _I, _VP, _VP,
+                   _I, _I, _I, _I, _VP]),
+    "global_cg": ("cumf_global_cg",
+                  [_VP, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                   _I, _I, _I, _I, _F, _I, _F, _VP]),
 }
 # query name -> the kernel whose library holds it, its C entry point and
 # its argument types (a query launches nothing and counts no launch)

@@ -20,6 +20,12 @@ or tensor cores, pass 2)     ``_kernel_cat``             csrc/wide_span_solve.cu
 of K2's and K5a's cut)       ``_gram_kernel_aug``
 ``frag_span_solve`` (pass 2  ``_kernel``,                csrc/frag_span_solve.cu
 of K1's and K6's cut)        ``_kernel_aug``
+``tile_gram`` (f >= 384:     ``_gram_kernel``,           csrc/tile_gram.cu
+K2, K5a; pass 1 of K1, K6)   ``_gram_kernel_aug``,
+                             ``_kernel``, ``_kernel_aug``
+``global_cg`` (f >= 384:     ``_cg_solve_reg_kernel``,   csrc/global_cg.cu
+K3, K4, K5b; pass 2 of K1,   ``_cg_solve_kernel``,
+K6)                          ``_cg_solve_aug_kernel``
 ===========================  ==========================  ==========================
 
 (TPU kernels: cumf_als_tpu/ops/pallas_solve.py.) Each wrapper takes its
@@ -125,6 +131,16 @@ system, each block holding half of A's rows, A p exchanged between the
 two through distributed shared memory once a step, so A is read from
 device memory once a system there too.
 
+Factor widths F > 256 pad to f = 128 T lanes, T >= 3 (`tiled`). There
+every route runs two kernels and no other: ``tile_gram``, the Gram in
+128 x 128 tiles of A, one block a row and a tile (the tensor cores of
+csrc/gram_mma.cuh for a bf16 table, an FMA tile for a float32 one), for
+K2 and K5a and as pass 1 of K1 and K6 (f32 scratch of A, b and r2 in row
+batches under `TILED_SCRATCH_BYTES`); and ``global_cg``, the CG with
+each system's A read from device memory at every matvec (an f32 A of
+576 KB at f = 384 fits no SM), for K3, K4 and K5b and as pass 2 of K1
+and K6. Each counts its own launches; `spans` is refused there.
+
 The row gather runs inside the kernels, so the wrappers keep the
 contracts of the JAX wrappers (`gather_gram_cg`, `gather_gram_out`,
 `gather_gram_aug_out`, `gather_gram_cg_wide`), not those of the inner
@@ -148,6 +164,7 @@ from cumf_als_tpu_torch.ops.precision import full_f32
 LAUNCHES: Dict[str, int] = {name: 0 for name in _build.KERNELS}
 
 _FLOATS = (torch.float32, torch.bfloat16)
+TILE_LANES = 128     # lanes of a slab and of a tile of A at f >= 384
 _ERRORS = {1: "cudaErrorInvalidValue (unsupported f?)",
            2: "cudaErrorMemoryAllocation",
            9: "cudaErrorInvalidConfiguration"}
@@ -195,11 +212,20 @@ def _check(name: str, t: torch.Tensor, shape, dtypes) -> None:
         raise ValueError(f"{name}: not contiguous")
 
 
+def tiled(f: int) -> bool:
+    """Whether width f takes the kernels of factor widths F > 256: f a
+    multiple of 128 from 384 on (``tile_gram``, ``global_cg``)."""
+    return f >= 384 and f % TILE_LANES == 0
+
+
 def _check_f(name: str, f: int) -> None:
-    """f must be a multiple of 16 up to 128, or 256."""
-    if f != 256 and (f % 16 or not 16 <= f <= 128):
-        raise ValueError(f"{name}: the kernel takes f a multiple of 16 up "
-                         f"to 128 or f = 256, got {f}")
+    """f must be a multiple of 16 up to 128, 256, or a multiple of 128
+    from 384 on."""
+    if f == 256 or tiled(f) or (f % 16 == 0 and 16 <= f <= 128):
+        return
+    raise ValueError(f"{name}: the kernel takes f a multiple of 16 up to "
+                     f"128 or f = 256, or f a multiple of 128 from 384 on, "
+                     f"got {f}")
 
 
 def _launch(name: str, *args) -> None:
@@ -373,7 +399,7 @@ def gather_gram_cg(table_ext, cols, vals, nnz, x0, lam: float,
 
     table_ext (n+1, f) f32/bf16, zero-extended (a bf16 run casts the
     table before the gather, as models/als.py does), f a multiple of 16
-    up to 128, or 256; cols (R, P) int32,
+    up to 128, 256, or a multiple of 128 from 384 on; cols (R, P) int32,
     pad id n, pad slots at each row's tail; vals (R, P) f32/bf16; nnz
     (R,) int32; x0 (R, f) f32. Returns x (R, f) f32 and se (R, 1) f32.
 
@@ -400,10 +426,13 @@ def gather_gram_cg(table_ext, cols, vals, nnz, x0, lam: float,
     records hold A', pass 2 unpacks b and r2 from it). Each kernel
     counts its own launches: a chunk on the two passes counts one under
     each pass and none under "gather_gram_cg" or "gather_gram_cg_aug",
-    which count the uncut kernel. `spans` forces the number of spans a
-    row is cut into (1: one span a row, which at f = 128, and on a
-    float32 table at 256, is the uncut kernel) and is taken at f = 128
-    and 256 only; at f = 128 a cut (spans > 1) needs a bf16 table and P
+    which count the uncut kernel. At f >= 384 (F > 256) every chunk
+    takes the two passes of `_tiled_gram_cg`, ``tile_gram`` then
+    ``global_cg``, each counting its own launches, in row batches whose
+    f32 scratch stays under `TILED_SCRATCH_BYTES`. `spans` forces the
+    number of spans a row is cut into (1: one span a row, which at
+    f = 128, and on a float32 table at 256, is the uncut kernel) and is
+    taken at f = 128 and 256 only; at f = 128 a cut (spans > 1) needs a bf16 table and P
     a multiple of 64 spans. Tensors on the CPU take the plain version
     whatever `spans` says."""
     name = "gather_gram_cg_aug" if aug else "gather_gram_cg"
@@ -431,6 +460,9 @@ def gather_gram_cg(table_ext, cols, vals, nnz, x0, lam: float,
         if n_spans > 1 or gram_body(table_ext) == "wgmma":
             return _row_cut(table_ext, cols, vals, nnz, x0, lam, 256,
                             n_spans, span_len, cg_iters, cg_tol, aug)
+    if tiled(f):
+        return _tiled_gram_cg(table_ext, cols, vals, nnz, x0, lam, cg_iters,
+                              cg_tol, aug)
     x = torch.empty((r, f), dtype=torch.float32, device=x0.device)
     se = torch.empty((r, 1), dtype=torch.float32, device=x0.device)
     if r:
@@ -452,13 +484,14 @@ def gram_body(table_ext: torch.Tensor) -> str:
     K6 the CG on the fragment of csrc/frag_cg.cuh), and at f = 256 (K1, K6
     and K7: pass 1 of the row cut on the tensor cores,
     csrc/wide_span_gram_mma.cu, then pass 2; K2 and K5a: the panel body
-    of csrc/wide_gram_mma.cuh); "fma" (the f32 FMA bodies
-    of csrc/common.cuh and csrc/wide.cuh) for a float32 table, which bf16
+    of csrc/wide_gram_mma.cuh), and at f = 128 T, T >= 3 (the tiled Gram
+    of csrc/tile_gram.cu); "fma" (the f32 FMA bodies of csrc/common.cuh,
+    csrc/wide.cuh and tile_gram.cu) for a float32 table, which bf16
     tensor cores would round, and for every other width. A caller cannot
     choose, and neither body gives way to the other or to the plain
     version."""
-    if table_ext.dtype == torch.bfloat16 and table_ext.shape[1] in (128,
-                                                                   256):
+    f = table_ext.shape[1]
+    if table_ext.dtype == torch.bfloat16 and (f in (128, 256) or tiled(f)):
         return "wgmma"
     return "fma"
 
@@ -494,7 +527,8 @@ def gather_gram_out(table_ext, cols, vals,
     (pallas_solve.gather_gram_out). table_ext (s+1, f) f32/bf16 with a
     zero row at the pad id s; cols (R, P) int32 panel-local; vals (R, P)
     f32/bf16. Returns A (R, f, f) in out_dtype (summed in f32) and
-    b (R, f) f32; f a multiple of 16 up to 128, or 256. On a card the
+    b (R, f) f32; f a multiple of 16 up to 128, 256, or a multiple of
+    128 from 384 on (``tile_gram`` there). On a card the
     Gram runs in the body `gram_body` names; on the tensor cores the bf16
     products are exact and the f32 sums are taken in the hardware's
     order, and a chunk of few rows takes the cut of `gram_spans` (each
@@ -540,11 +574,24 @@ def cg_blocks_per_sm(device, f: int, dtype: torch.dtype, kernel: str) -> int:
     each) that the whole card holds at once
     (cudaOccupancyMaxActiveClusters, as the GPCs place them): an f32
     tile takes one block an SM (66 clusters on an H100), a bf16 tile two
-    (132)."""
+    (132). Widths f >= 384 run ``global_cg``, which has no such grid:
+    they raise here.
+    """
+    _check_bulk_f(kernel, f)
     index = device.index if device.index is not None else \
         torch.cuda.current_device()
     return _cg_blocks_per_sm(index, kernel, f,
                              int(dtype == torch.bfloat16))
+
+
+def _check_bulk_f(kernel: str, f: int) -> None:
+    """The bulk body copies a system's A whole into shared memory (at
+    f = 256 half of it into each block of a cluster): it takes the widths
+    of `_check_f` but those of ``global_cg``."""
+    _check_f(kernel, f)
+    if tiled(f):
+        raise ValueError(f"{kernel}: the bulk CG takes f up to 256, got {f} "
+                         f"(f >= 384 runs global_cg)")
 
 
 def cg_grid(r: int, sms: int, per_sm: int, clusters: int = 0) -> int:
@@ -564,7 +611,7 @@ def solve_grid(device, r: int, f: int, dtype: torch.dtype,
                kernel: str) -> int:
     """The grid of one launch of `kernel` (K3, K4 or K5b) over R systems
     at this f and A dtype on the card `device` names: `cg_grid` from the
-    kernel's occupancy query (clusters at f = 256)."""
+    kernel's occupancy query (clusters at f = 256); f <= 128 or 256."""
     units = cg_blocks_per_sm(device, f, dtype, kernel)
     if f == 256:
         return cg_grid(r, 0, 0, clusters=units)
@@ -577,7 +624,9 @@ def _bulk_solve(name: str, a, diag, b, x0, cg_iters: int, cg_tol: float):
     256; diag (R,) f32 or None (K4); b (R, f) f32 or None (K5b); x0 (R, f)
     f32. The kernel copies each system's A, b and x0 whole into shared
     memory (at f = 256 each of two blocks half of A's rows): their
-    storage must start on 16-byte boundaries."""
+    storage must start on 16-byte boundaries. At f >= 384 the solve is
+    ``global_cg``'s (A read from device memory at every matvec), counted
+    under its own name."""
     r, f, _ = a.shape
     _check_f(name, f)
     _check("a", a, (r, f, f), _FLOATS)
@@ -590,6 +639,9 @@ def _bulk_solve(name: str, a, diag, b, x0, cg_iters: int, cg_tol: float):
         if t is not None and t.data_ptr() % 16:
             raise ValueError(f"{name}: the storage of {what} must start on "
                              f"a 16-byte boundary")
+    if tiled(f):
+        return global_cg(a, x0, cg_iters, cg_tol, diag=diag, b=b,
+                         aug=name == "solve_cg_aug")
     x = torch.empty((r, f), dtype=torch.float32, device=a.device)
     if r:
         grid = solve_grid(a.device, r, f, a.dtype, name)
@@ -603,8 +655,9 @@ def _bulk_solve(name: str, a, diag, b, x0, cg_iters: int, cg_tol: float):
 def solve_cg_reg(a, diag, b, x0, cg_iters: int = 6, cg_tol: float = 1e-4):
     """Batched CG on the raw Gram plus a per-system diagonal
     (pallas_solve.solve_cg_pallas with diag). a (R, f, f) f32/bf16,
-    diag (R,) f32, b and x0 (R, f) f32, f a multiple of 16 up to 128 or
-    256. Returns x (R, f) f32. On a card a, b and x0 must start on
+    diag (R,) f32, b and x0 (R, f) f32, f a multiple of 16 up to 128,
+    256, or a multiple of 128 from 384 on (``global_cg`` there). Returns
+    x (R, f) f32. On a card a, b and x0 must start on
     16-byte boundaries (csrc/bulk_cg.cuh)."""
     if _on_cpu(a, diag, b, x0):
         return solve_cg_reg_plain(a, diag, b, x0, cg_iters, cg_tol)
@@ -620,8 +673,9 @@ def solve_cg_plain(a, b, x0, cg_iters: int = 6, cg_tol: float = 1e-4):
 def solve_cg(a, b, x0, cg_iters: int = 6, cg_tol: float = 1e-4):
     """Batched CG on already regularized systems
     (pallas_solve.solve_cg_pallas without diag). a (R, f, f) f32/bf16,
-    b and x0 (R, f) f32, f a multiple of 16 up to 128 or 256. Returns x
-    (R, f) f32; a system of zeros returns its x0. On a card a, b and x0
+    b and x0 (R, f) f32, f a multiple of 16 up to 128, 256, or a
+    multiple of 128 from 384 on. Returns x (R, f) f32; a system of zeros
+    returns its x0. On a card a, b and x0
     must start on 16-byte boundaries (K3's body, csrc/bulk_cg.cuh)."""
     if _on_cpu(a, b, x0):
         return solve_cg_plain(a, b, x0, cg_iters, cg_tol)
@@ -646,8 +700,8 @@ def gather_gram_aug_out(table_ext, cols, vals,
     < f); cols (R, P) int32 panel-local; vals (R, P) f32/bf16, rounded to
     the table's dtype as they enter lane f-1. Returns A' (R, f, f) in
     out_dtype (summed in f32): A in rows/columns < f-1, b in row and
-    column f-1, sum v^2 in the corner; f a multiple of 16 up to 128, or
-    256. On a card the Gram runs in the body `gram_body` names, a chunk
+    column f-1, sum v^2 in the corner; f a multiple of 16 up to 128,
+    256, or a multiple of 128 from 384 on. On a card the Gram runs in the body `gram_body` names, a chunk
     of few rows in the cut of `gram_spans`, as K2's; `spans` as K2's."""
     if _on_cpu(table_ext, cols, vals):
         return gather_gram_aug_out_plain(table_ext, cols, vals, out_dtype)
@@ -748,7 +802,9 @@ def _gram_spans_of(name: str, table_ext, r: int, p: int, spans,
 def _panel_gram(name: str, table_ext, cols, vals, out_dtype, spans,
                 aug: bool):
     """K2 (`name` "gather_gram_out") or K5a ("gather_gram_aug_out") on
-    card tensors: (A, b), b None for K5a. A chunk that `gram_spans` (or
+    card tensors: (A, b), b None for K5a. At f >= 384 one launch of
+    ``tile_gram`` (counted under its name; `spans` refused). A chunk that
+    `gram_spans` (or
     `spans`) cuts into S > 1 spans runs as two passes: the kernel itself
     over the (R S, P / S) view of cols and vals, each span a row of it,
     writing f32 partials (one launch, counted under `name`), then
@@ -763,6 +819,11 @@ def _panel_gram(name: str, table_ext, cols, vals, out_dtype, spans,
     _check("cols", cols, (r, p), (torch.int32,))
     _check("vals", vals, (r, p), _FLOATS)
     dev = cols.device
+    if tiled(f):
+        _check_spans(name, spans, False)
+        a, b, _ = tile_gram(table_ext, cols, vals, None, out_dtype, aug=aug,
+                            with_b=not aug)
+        return a, b
     s = 1
     if r:
         _check_gram_table(table_ext, cols)
@@ -1027,7 +1088,7 @@ def solve_cg_aug(a_aug, diag, x0, cg_iters: int = 6, cg_tol: float = 1e-4):
     (pallas_solve.solve_cg_pallas with aug=True): b is row f-1 of A',
     row and column f-1 are masked, and the unpack never passes over
     device memory. a_aug (R, f, f) f32/bf16, f a multiple of 16 up to
-    128 or 256, diag (R,) f32, x0 (R, f) f32 with lane f-1 zero. Returns
+    128, 256, or a multiple of 128 from 384 on, diag (R,) f32, x0 (R, f) f32 with lane f-1 zero. Returns
     x (R, f) f32, lane f-1 exactly 0. On a card a_aug and x0 must start
     on 16-byte boundaries (K3's body, csrc/bulk_cg.cuh)."""
     if _on_cpu(a_aug, diag, x0):
@@ -1632,3 +1693,181 @@ def fused_gram_cg_cat(g1, g2, vals, nnz, x0, lam: float, cg_iters: int = 6,
                 x0.data_ptr(), x.data_ptr(), se.data_ptr(), r, p, f2,
                 float(lam), int(cg_iters), float(cg_tol))
     return x, se
+
+
+# ------------------ factor widths F > 256: f = 128 T, T >= 3 ----------
+# the most scratch memory (A, b and r2 in f32) one row batch of K1's or
+# K6's two passes takes at f >= 384: 3,631 rows at f = 384
+TILED_SCRATCH_BYTES = 2 << 30
+
+
+def tiled_batch_rows(f: int) -> int:
+    """Rows of one batch of K1's and K6's two passes at f >= 384: as many
+    as keep their f32 scratch (A, b, r2: f^2 + f + 1 floats a row)
+    within `TILED_SCRATCH_BYTES`, at least one."""
+    return max(1, TILED_SCRATCH_BYTES // ((f * f + f + 1) * 4))
+
+
+@full_f32()
+def tile_gram_plain(table_ext, cols, vals, nnz=None,
+                    out_dtype: torch.dtype = torch.float32,
+                    aug: bool = False):
+    """Plain version of ``tile_gram``: each row's first min(nnz, P)
+    slots (all P without nnz) gathered, A = G^T G summed in f32 and cast
+    to out_dtype, b = sum v g and r2 = sum v^2 (R,) in f32. With aug the
+    values ride lane f - 1 (`augment_g`), A is A' and b and r2 are None
+    (A' holds them)."""
+    r, p = cols.shape
+    g = _gather(table_ext, cols)
+    if aug:
+        g = augment_g(g, vals)
+    g, v = g.float(), vals.float()
+    if nnz is not None:
+        live = (torch.arange(p, device=cols.device)[None, :]
+                < nnz.long()[:, None]).float()
+        g, v = g * live[:, :, None], v * live
+    a = torch.einsum("rpf,rpg->rfg", g, g).to(out_dtype)
+    if aug:
+        return a, None, None
+    return a, torch.einsum("rp,rpf->rf", v, g), (v * v).sum(-1)
+
+
+def tile_gram(table_ext, cols, vals, nnz=None,
+              out_dtype: torch.dtype = torch.float32, aug: bool = False,
+              with_b: bool = True, with_r2: bool = False):
+    """The Gram of one chunk at f = 128 T lanes, T >= 3
+    (csrc/tile_gram.cu): one block a row and a 128 x 128 tile (ti <= tj)
+    of its A, the whole symmetric A written. K2 (with b), K5a (aug) and
+    pass 1 of K1 (nnz, b and r2 into f32 scratch) and K6 (nnz, aug) at
+    f >= 384 run it. table_ext (n+1, f) bf16 (the tensor cores, on a
+    16-byte boundary) or f32 (the FMA body); cols and vals (R, P); nnz
+    (R,) int32 or None (every slot). Returns A (R, f, f) in out_dtype
+    (summed in f32), b (R, f) f32 or None, r2 (R,) f32 or None; with aug
+    the values ride lane f - 1, rounded to the table's dtype, and b and
+    r2 are None. Card tensors only; its plain version is
+    `tile_gram_plain`."""
+    live = [t for t in (table_ext, cols, vals, nnz) if t is not None]
+    _on_card("tile_gram", *live, plain="tile_gram_plain")
+    r, p = cols.shape
+    f = table_ext.shape[1]
+    if not tiled(f):
+        raise ValueError(f"tile_gram: takes f a multiple of 128 from 384 "
+                         f"on, got {f}")
+    if aug and (with_b or with_r2):
+        raise ValueError("tile_gram: with aug, A' holds b and r2")
+    if out_dtype not in _FLOATS:
+        raise ValueError(f"out_dtype {out_dtype} not in {_FLOATS}")
+    _check("table_ext", table_ext, table_ext.shape, _FLOATS)
+    _check("cols", cols, (r, p), (torch.int32,))
+    _check("vals", vals, (r, p), _FLOATS)
+    if nnz is not None:
+        _check("nnz", nnz, (r,), (torch.int32,))
+    if table_ext.data_ptr() % 16:
+        raise ValueError("tile_gram: the storage of table_ext must start "
+                         "on a 16-byte boundary")
+    _check_gram_table(table_ext, cols)
+    dev = cols.device
+    a = torch.empty((r, f, f), dtype=out_dtype, device=dev)
+    b = torch.empty((r, f), dtype=torch.float32, device=dev) if with_b \
+        else None
+    r2 = torch.empty((r,), dtype=torch.float32, device=dev) if with_r2 \
+        else None
+    if r:
+        _launch("tile_gram", table_ext.data_ptr(), _bf16(table_ext),
+                cols.data_ptr(), vals.data_ptr(), _bf16(vals),
+                None if nnz is None else nnz.data_ptr(), a.data_ptr(),
+                _bf16(a), None if b is None else b.data_ptr(),
+                None if r2 is None else r2.data_ptr(), r, p, f, int(aug))
+    return a, b, r2
+
+
+def global_cg_plain(a, x0, cg_iters: int = 6, cg_tol: float = 1e-4,
+                    diag=None, b=None, aug: bool = False):
+    """Plain version of ``global_cg`` in the modes of K3–K5b: K5b's unpack
+    with aug (`solve_cg_aug_plain`), K3's diagonal (`solve_cg_reg_plain`),
+    K4's A as given (`solve_cg_plain`). With nnz (pass 2 of K1 and K6)
+    the plain version is the tail of `gather_gram_cg_plain` and
+    `gather_gram_cg_aug_plain`."""
+    if aug:
+        return solve_cg_aug_plain(a, diag, x0, cg_iters, cg_tol)
+    if diag is not None:
+        return solve_cg_reg_plain(a, diag, b, x0, cg_iters, cg_tol)
+    return solve_cg_plain(a, b, x0, cg_iters, cg_tol)
+
+
+def global_cg(a, x0, cg_iters: int = 6, cg_tol: float = 1e-4, diag=None,
+              b=None, r2=None, nnz=None, lam: float = 0.0, aug: bool = False):
+    """The batched CG at f = 128 T lanes, T >= 3, with each system's A
+    read from device memory at every matvec (csrc/global_cg.cu): K3 (diag
+    and b), K4 (b), K5b (aug and diag: b from row f - 1 of A', row and
+    column f - 1 read as 0) and pass 2 of K1 (nnz, lam, b, r2) and K6
+    (nnz, lam, aug) at f >= 384. a (R, f, f) f32/bf16 on a 16-byte
+    boundary, summed in f32; diag (R,) f32; b (R, f) f32; r2 (R,) f32;
+    nnz (R,) int32; x0 (R, f) f32. Returns x (R, f) f32, and with nnz
+    (x [nnz > 0], se (R, 1)) as K1 returns them. Card tensors only; its
+    plain version is `global_cg_plain`, with nnz the tail of
+    `gather_gram_cg_plain` (`gather_gram_cg_aug_plain` with aug)."""
+    live = [t for t in (a, x0, diag, b, r2, nnz) if t is not None]
+    _on_card("global_cg", *live, plain="global_cg_plain")
+    r, f, _ = a.shape
+    if not tiled(f):
+        raise ValueError(f"global_cg: takes f a multiple of 128 from 384 "
+                         f"on, got {f}")
+    fused = nnz is not None
+    mode = 3 if fused else 2 if aug else 0 if diag is not None else 1
+    need = {0: ("diag", "b"), 1: ("b",), 2: ("diag",),
+            3: ("nnz",) if aug else ("nnz", "b", "r2")}[mode]
+    given = dict(diag=diag, b=b, r2=r2, nnz=nnz)
+    for what in need:
+        if given[what] is None:
+            raise ValueError(f"global_cg: this mode needs {what}")
+    _check("a", a, (r, f, f), _FLOATS)
+    _check("x0", x0, (r, f), (torch.float32,))
+    for what, shape, dtype in (("diag", (r,), torch.float32),
+                               ("b", (r, f), torch.float32),
+                               ("r2", (r,), torch.float32),
+                               ("nnz", (r,), torch.int32)):
+        if what in need:
+            _check(what, given[what], shape, (dtype,))
+    for what, t in (("a", a), ("b", b), ("x0", x0)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"global_cg: the storage of {what} must start "
+                             f"on a 16-byte boundary")
+    x = torch.empty((r, f), dtype=torch.float32, device=a.device)
+    se = torch.empty((r, 1), dtype=torch.float32, device=a.device) \
+        if fused else None
+    if r:
+        def ptr(what):
+            return given[what].data_ptr() if what in need else None
+        _launch("global_cg", a.data_ptr(), _bf16(a), ptr("diag"), ptr("b"),
+                ptr("r2"), ptr("nnz"), x0.data_ptr(), x.data_ptr(),
+                None if se is None else se.data_ptr(), r, f, mode, int(aug),
+                float(lam), int(cg_iters), float(cg_tol))
+    return (x, se) if fused else x
+
+
+def _tiled_gram_cg(table_ext, cols, vals, nnz, x0, lam, cg_iters, cg_tol,
+                   aug):
+    """K1 (K6 with aug) at f >= 384 on card tensors: in batches of
+    `tiled_batch_rows` rows, pass 1 ``tile_gram`` (A, and without aug b
+    and r2, of each row's live slots, into f32 scratch), then pass 2
+    ``global_cg`` with nnz."""
+    r = cols.shape[0]
+    step = tiled_batch_rows(table_ext.shape[1])
+    xs, ses = [], []
+    for lo in range(0, r, step):
+        hi = min(lo + step, r)
+        a, b, r2 = tile_gram(table_ext, cols[lo:hi], vals[lo:hi],
+                             nnz[lo:hi], aug=aug, with_b=not aug,
+                             with_r2=not aug)
+        x, se = global_cg(a, x0[lo:hi], cg_iters, cg_tol, b=b, r2=r2,
+                          nnz=nnz[lo:hi], lam=lam, aug=aug)
+        del a, b, r2
+        xs.append(x)
+        ses.append(se)
+    if len(xs) == 1:
+        return xs[0], ses[0]
+    if not xs:
+        return (torch.empty((0, x0.shape[1]), device=x0.device),
+                torch.empty((0, 1), device=x0.device))
+    return torch.cat(xs), torch.cat(ses)

@@ -350,12 +350,17 @@ def test_new_plain_routes_count_no_launch():
     cs.gather_gram_cg_wide(wide, cols, vals, nnz, x0w, LAM, 32)
     g = torch.zeros(cols.shape + (128,))
     cs.fused_gram_cg_cat(g, g[:, :, :32].contiguous(), vals, nnz, x0w, LAM)
+    # f = 384: the routes of tile_gram and global_cg, on the CPU plain too
+    t384, x384 = torch.zeros((table.shape[0], 384)), torch.zeros((R, 384))
+    cs.gather_gram_cg(t384, cols, vals, nnz, x384, LAM)
+    a384, b384 = cs.gather_gram_out(t384, cols, vals)
+    cs.solve_cg_reg(a384, diag, b384, x384)
     assert set(cs.LAUNCHES) == {
         "gather_gram_cg", "gather_gram_out", "solve_cg_reg", "solve_cg",
         "gather_gram_aug_out", "solve_cg_aug", "gather_gram_cg_aug",
         "gather_gram_cg_wide", "fused_gram_cg_cat", "wide_span_gram",
         "wide_span_gram_mma", "wide_span_solve", "gram_span_sum",
-        "frag_span_solve"}
+        "frag_span_solve", "tile_gram", "global_cg"}
     assert sum(cs.LAUNCHES.values()) == 0
 
 

@@ -1349,8 +1349,14 @@ def test_solves_at_256_stop_at_different_steps(card, kernel, dtype):
     cluster must take the same exit, or the launch hangs at the next
     exchange (and traps). Held to the plain version with x scaled back,
     x within 2e-3; bits repeating."""
-    r = 3 * in_flight(card, 256, dtype, kernel) + 5
-    a, diag, b, x0 = k3_systems(r, 256, dtype, seed=7)
+    _stop_at_different_steps(card, kernel, 256, dtype,
+                             3 * in_flight(card, 256, dtype, kernel) + 5)
+
+
+def _stop_at_different_steps(card, kernel, f, dtype, r):
+    """The early-exit check of `test_solves_at_256_stop_at_different_steps`
+    on R systems at width f."""
+    a, diag, b, x0 = k3_systems(r, f, dtype, seed=7)
     scale = torch.tensor([1e-5, 3e-3, 1.0]).repeat(r // 3 + 1)[:r]
     args = solve_args(kernel, (a, diag, b * scale[:, None],
                                x0 * scale[:, None]))
@@ -1628,12 +1634,30 @@ def test_sharded_world_one_at_f_200_aug_force_on_the_card(card, x_route):
     np.testing.assert_allclose(res.theta, ref.theta, atol=2e-3)
 
 
+def _counted_at_f384(want):
+    """The plans' counts `want` (under the names of the f <= 256 kernels)
+    as the launch counters see them at f_pad >= 384, every chunk within
+    one row batch of `cs.tiled_batch_rows`: each Gram (K1's and K6's pass
+    1, K2, K5a) under tile_gram, each solve (their pass 2, K3, K4, K5b)
+    under global_cg."""
+    fused = want.get("gather_gram_cg", 0) + want.get("gather_gram_cg_aug", 0)
+    gram = fused + want.get("gather_gram_out", 0) + \
+        want.get("gather_gram_aug_out", 0)
+    cg = fused + sum(want.get(k, 0) for k in SOLVES)
+    return {k: v for k, v in (("tile_gram", gram), ("global_cg", cg)) if v}
+
+
 def _launched_as_planned(want, f):
     """cs.LAUNCHES against the plans' counts `want`, every other kernel
     none: exact at f_pad = 128; at f_pad = 256 K1's count (under
     gather_gram_cg in `want`) goes to the two passes of its row cut,
     which must both launch where K1 runs, and every other count is
-    exact."""
+    exact; at f_pad >= 384 every count goes to the two kernels there
+    (`_counted_at_f384`)."""
+    if f > 256:
+        assert cs.LAUNCHES == dict.fromkeys(cs.LAUNCHES, 0) | \
+            _counted_at_f384(want)
+        return
     if f <= 128:
         assert cs.LAUNCHES == dict.fromkeys(cs.LAUNCHES, 0) | want
         return
@@ -1644,7 +1668,7 @@ def _launched_as_planned(want, f):
 
 
 @pytest.mark.parametrize("gram_dtype", ["bf16", "f32"])
-@pytest.mark.parametrize("f", [100, 200])
+@pytest.mark.parametrize("f", [100, 200, 300])
 def test_sharded_world_one_on_the_card_matches_the_cpu(card, gram_dtype, f):
     """ShardedALS at one rank on the card against the same run on the CPU,
     with X on the panel route (panels of 16 theta rows) and theta in
@@ -1653,7 +1677,8 @@ def test_sharded_world_one_on_the_card_matches_the_cpu(card, gram_dtype, f):
     as the plans say; two ranks on the card (gloo, both on cuda:0) match
     two ranks on the CPU, theta equal bit for bit on the two ranks. At
     F = 200 (f_pad = 256) every kernel of the two routes runs at 256
-    lanes."""
+    lanes; at F = 300 (f_pad = 384) at 384, on tile_gram and
+    global_cg."""
     from cumf_als_tpu_torch.config import ALSConfig
     from cumf_als_tpu_torch.data.synthetic import (init_factors,
                                                    synthetic_ratings)
@@ -1692,13 +1717,14 @@ def test_sharded_world_one_on_the_card_matches_the_cpu(card, gram_dtype, f):
         assert b.test_rmse == pytest.approx(a.test_rmse, abs=1e-4)
     np.testing.assert_allclose(two[0]["theta"], ref2[0]["theta"], atol=2e-3)
     for r in two:   # at two ranks theta takes partials: no K1
-        assert r["launches"] == dict.fromkeys(cs.LAUNCHES, 0) | {
-            gram: 3 * (r["x_steps"] + r["n_blocks"]),
-            sol: 3 * (r["x_slices"] + r["n_blocks"])}
+        want = {gram: 3 * (r["x_steps"] + r["n_blocks"]),
+                sol: 3 * (r["x_slices"] + r["n_blocks"])}
+        assert r["launches"] == dict.fromkeys(cs.LAUNCHES, 0) | (
+            want if f <= 256 else _counted_at_f384(want))
 
 
 @pytest.mark.parametrize("place", ["host", "device"])
-@pytest.mark.parametrize("f", [100, 200])
+@pytest.mark.parametrize("f", [100, 200, 300])
 def test_sharded_ooc_on_the_card_matches_the_cpu(card, place, f,
                                                  monkeypatch):
     """ShardedOutOfCoreALS at one rank on the card against the same run on
@@ -1709,7 +1735,8 @@ def test_sharded_ooc_on_the_card_matches_the_cpu(card, place, f,
     rows against the device X, and with THETA_SEG_W = 64 the hot columns'
     segments by K2 (f32 A) and their solve by K3. Each kernel launches as
     often as the plans say. At F = 200 (f_pad = 256) K1 takes the two
-    passes of its row cut, K2 and K3 their 256-lane bodies."""
+    passes of its row cut, K2 and K3 their 256-lane bodies; at F = 300
+    (f_pad = 384) every one runs on tile_gram and global_cg."""
     from cumf_als_tpu_torch.config import ALSConfig
     from cumf_als_tpu_torch.data.synthetic import (init_factors,
                                                    synthetic_ratings)
@@ -1889,3 +1916,228 @@ def test_entry_on_the_card_matches_the_cpu(card):
     cfn, cargs = entry(device="cpu")
     np.testing.assert_allclose(got.cpu().numpy(), cfn(*cargs).numpy(),
                                atol=5e-3, rtol=0)
+
+
+# ---------- factor widths F > 256: tile_gram and global_cg at f >= 384 --
+def _tiled_chunk(f, p, seed=0, n=60, r=6):
+    """A chunk at f = 128 T lanes with lanes >= f - 84 of the table and
+    of x0 zero (so lane f - 1 is free for the aug forms): row 0 fills P,
+    row 2 is empty, the others stop inside and at the edge of a 64-slot
+    tile; values in halves (one 3.3, not exact in bf16); on the CPU."""
+    rng = np.random.RandomState(seed + f + p)
+    fl = f - 84
+    table = np.zeros((n + 1, f), np.float32)
+    table[:n, :fl] = rng.standard_normal((n, fl)) * 0.3
+    nnz = np.array([p, min(p, 17), 0, min(p, 64), max(1, p - 1),
+                    min(p, 29)][:r], np.int32)
+    mask = np.arange(p)[None, :] < nnz[:, None]
+    cols = np.where(mask, rng.randint(0, n, (r, p)), n).astype(np.int32)
+    vals = (np.round(rng.uniform(1, 5, (r, p)) * 2) / 2 * mask
+            ).astype(np.float32)
+    vals[0, 0] = 3.3
+    x0 = np.zeros((r, f), np.float32)
+    x0[:, :fl] = rng.standard_normal((r, fl)) * 0.1
+    return [torch.from_numpy(a) for a in (table, cols, vals, nnz, x0)]
+
+
+TILED = [384, 512, 640]
+
+
+@pytest.mark.parametrize("f", TILED)
+@pytest.mark.parametrize("p", [40, 200])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("aug", [False, True])
+def test_tile_gram_matches_plain(card, f, p, dtype, aug):
+    """The tiled Gram (K2, K5a and pass 1 of K1 and K6 at f >= 384)
+    against `tile_gram_plain`: A within `gram_limit` of the body that
+    ran, the whole square (both triangles) and symmetric bit for bit
+    off the diagonal tiles' mirror, b within rtol 1e-5, r2 within rtol
+    1e-5; with nnz each row stops at its nnz; a repeat equal bit for
+    bit; one launch each."""
+    table, cols, vals, nnz, _ = _tiled_chunk(f, p)
+    table = table.to(dtype)
+    gpu = [t.to(card) for t in (table, cols, vals, nnz)]
+    kw = dict(aug=aug, with_b=not aug, with_r2=not aug)
+    a, b, r2 = cs.tile_gram(*gpu, **kw)
+    a2, _, _ = cs.tile_gram(*gpu, **kw)
+    pa, pb, pr2 = cs.tile_gram_plain(table, cols, vals, nnz, aug=aug)
+    assert cs.LAUNCHES["tile_gram"] == 2
+    _assert_gram_close(a, pa, p, cs.gram_body(gpu[0]))
+    assert torch.equal(a, a2)
+    assert torch.equal(a, a.transpose(1, 2))
+    assert bool((a[2] == 0).all())
+    if not aug:
+        torch.testing.assert_close(b.cpu(), pb, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(r2.cpu(), pr2, rtol=1e-5, atol=0)
+    # the panel form: every slot, A in bf16 (K2) or A' in f32 (K5a)
+    out = torch.float32 if aug else torch.bfloat16
+    if aug:
+        pa = cs.gather_gram_aug_out(table, cols, vals, out_dtype=out)
+        ka = cs.gather_gram_aug_out(*gpu[:3], out_dtype=out)
+    else:
+        pa, pb = cs.gather_gram_out(table, cols, vals, out_dtype=out)
+        ka, kb = cs.gather_gram_out(*gpu[:3], out_dtype=out)
+        torch.testing.assert_close(kb.cpu(), pb, rtol=1e-5, atol=1e-5)
+    assert ka.dtype == out
+    _assert_gram_close(ka, pa, p, cs.gram_body(gpu[0]))
+    assert cs.LAUNCHES == dict.fromkeys(cs.LAUNCHES, 0) | {"tile_gram": 3}
+
+
+@pytest.mark.parametrize("f", TILED)
+@pytest.mark.parametrize("p", [40, 200])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("aug", [False, True])
+def test_k1_k6_at_f384_match_plain(card, f, p, dtype, aug):
+    """K1 (K6 with aug) at f >= 384 as routed: the two passes, one launch
+    of each, against the plain version (`gather_gram_cg_plain`, with aug
+    `gather_gram_cg_aug_plain`; x within 2e-3, se within 1e-3 relative),
+    lanes >= F of x and the empty row exactly 0, a repeat equal bit for
+    bit."""
+    cpu = _tiled_chunk(f, p, seed=1)
+    cpu[0] = cpu[0].to(dtype)
+    gpu = [t.to(card) for t in cpu]
+    x, se = cs.gather_gram_cg(*gpu, LAM, aug=aug)
+    assert cs.LAUNCHES == dict.fromkeys(cs.LAUNCHES, 0) | {
+        "tile_gram": 1, "global_cg": 1}
+    x2, se2 = cs.gather_gram_cg(*gpu, LAM, aug=aug)
+    assert torch.equal(x, x2) and torch.equal(se, se2)
+    px, pse = cs.gather_gram_cg(*cpu, LAM, aug=aug)
+    torch.testing.assert_close(x.cpu(), px, atol=2e-3, rtol=0)
+    torch.testing.assert_close(se.cpu(), pse, atol=1e-4, rtol=1e-3)
+    assert bool((x[:, f - 84:] == 0).all()) and bool((x[2] == 0).all())
+
+
+@pytest.mark.parametrize("kernel", SOLVES)
+@pytest.mark.parametrize("f", TILED)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_solves_at_f384_match_plain(card, kernel, f, dtype):
+    """K3, K4 and K5b at f >= 384 run `global_cg` (one launch, counted
+    under its name): x within 2e-3 of the plain version; K5b's lane f - 1
+    exactly 0; an all-zero system (K3 and K5b with diag 0) returns its x0
+    exactly; cg_iters 0 returns x0; a repeat equal bit for bit."""
+    cpu = list(solve_args(kernel, k3_systems(24, f, dtype)))
+    cpu[0][5] = 0.0
+    if kernel != "solve_cg":
+        cpu[1][5] = 0.0
+    gpu = [t.to(card) for t in cpu]
+    x = run_solve(kernel, gpu)
+    assert cs.LAUNCHES == dict.fromkeys(cs.LAUNCHES, 0) | {"global_cg": 1}
+    torch.testing.assert_close(x.cpu(), run_solve(kernel, cpu), atol=2e-3,
+                               rtol=0)
+    assert torch.equal(x[5].cpu(), cpu[-1][5])
+    assert torch.equal(x, run_solve(kernel, gpu))
+    assert torch.equal(run_solve(kernel, gpu, cg_iters=0).cpu(), cpu[-1])
+    if kernel == "solve_cg_aug":
+        assert bool((x[:, f - 1] == 0).all())
+    with pytest.raises(ValueError, match="global_cg"):
+        cs.solve_grid(card, 8, f, dtype, kernel)
+
+
+@pytest.mark.parametrize("kernel", SOLVES)
+@pytest.mark.parametrize("f", [384, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_solves_at_f384_stop_at_different_steps(card, kernel, f, dtype):
+    """K3, K4 and K5b at f >= 384 (``global_cg``, one block a system)
+    with a cg_tol that stops the systems of one launch at different
+    steps, as at f = 256: b and x0 scaled by 1e-5 (the first step's
+    update, then the exit), 3e-3 (a few steps) and 1 (never, in 20) on
+    35 systems. Held to the plain version with x scaled back, x within
+    2e-3; bits repeating; never stopping moves x."""
+    _stop_at_different_steps(card, kernel, f, dtype, 35)
+    assert cs.LAUNCHES["global_cg"] == 2
+
+
+def test_solve_above_2_31_elements_of_a(card):
+    """K3 at f = 384 on 16,384 bf16 systems (2.4e9 elements of A, past
+    2^31): the systems past element 2^31 (from 14,564 on) solve as the
+    plain version solves them, so A is indexed in 64 bits."""
+    f, r = 384, 16384
+    base, diag0, b0, x00 = k3_systems(8, f, torch.bfloat16)
+    a = base.to(card).repeat(r // 8, 1, 1)
+    scale = 1.0 + torch.arange(r, device=card, dtype=torch.float32) / r
+    a.mul_(scale.to(torch.bfloat16)[:, None, None])
+    assert a.numel() > 2 ** 31
+    diag = diag0.to(card).repeat(r // 8)
+    b = b0.to(card).repeat(r // 8, 1)
+    x0 = x00.to(card).repeat(r // 8, 1)
+    x = cs.solve_cg_reg(a, diag, b, x0)
+    assert cs.LAUNCHES["global_cg"] == 1
+    for sel in (slice(0, 4), slice(14560, 14572), slice(r - 4, r)):
+        want = cs.solve_cg_reg(a[sel].cpu(), diag[sel].cpu(), b[sel].cpu(),
+                               x0[sel].cpu())
+        torch.testing.assert_close(x[sel].cpu(), want, atol=2e-3, rtol=0)
+    del a
+
+
+F300 = {
+    "direct": ("bf16", dict(use_panels="never")),
+    "panel": ("bf16", dict(panel_size=2048)),
+    "split": ("bf16", dict(split_gather="force",
+                           gather_part_bytes=1024 * 384 * 2)),
+    "batched panel": ("f32", dict(solver="cholesky", panel_size=2048,
+                                  panel_budget_bytes=1 << 20,
+                                  batch_rows=64)),
+    "aug force": ("f32", dict(aug_gram="force", panel_size=2048)),
+}
+
+
+@pytest.mark.parametrize("strategy", sorted(F300))
+def test_als_at_f300_on_the_card_matches_the_cpu(card, strategy):
+    """ALS at F = 300 (f_pad 384) on Netflix at scale 0.01, 2 iterations,
+    on each strategy that width reaches for the X phase (theta direct),
+    on the card against the same run on the CPU: train and test RMSE
+    within 5e-3 / 1e-2 (bf16) or 1e-3 (f32) at every iteration (phase 3
+    of chip_smoke.py); the kernels it launches are the f >= 384 ones."""
+    from cumf_als_tpu_torch.config import NETFLIX
+    from cumf_als_tpu_torch.data.synthetic import (init_factors,
+                                                   workload_ratings)
+    from cumf_als_tpu_torch.models.als import ALS
+    train, test = workload_ratings("netflix", scale=0.01, seed=1)
+    dtype, extra = F300[strategy]
+    cfg = NETFLIX.replace(**dict(
+        dict(m=train.num_rows, n=train.num_cols, nnz=train.nnz,
+             nnz_test=test.nnz, f=300, iters=2, backend="pallas",
+             solver="cg", factor_dtype=dtype, gram_dtype=dtype,
+             verbose=False, debug_timing=False), **extra))
+    x0, th0 = init_factors(cfg.m, cfg.n, 300, seed=0)
+    model = ALS(cfg, train, None, test, device=card)
+    assert model.cfg.f_pad == 384
+    assert type(model.plan_x[0]).__name__ == {
+        "direct": "UpdatePlan", "panel": "PanelPlan", "split": "SplitPlan",
+        "batched panel": "BatchedPanelPlan",
+        "aug force": "PanelPlan"}[strategy]
+    assert type(model.plan_theta[0]).__name__ == "UpdatePlan"
+    cs.reset_launch_counts()
+    got = model.run(x0, th0).history
+    launched = {k for k, v in cs.LAUNCHES.items() if v}
+    assert launched <= {"tile_gram", "global_cg"} and launched, launched
+    want = ALS(cfg, train, None, test, device="cpu").run(x0, th0).history
+    tol_tr, tol_te = (5e-3, 1e-2) if dtype == "bf16" else (1e-3, 1e-3)
+    for g, w in zip(got, want):
+        assert g.train_rmse == pytest.approx(w.train_rmse, abs=tol_tr)
+        assert g.test_rmse == pytest.approx(w.test_rmse, abs=tol_te)
+
+
+def test_out_of_core_at_f300_on_the_card_matches_the_cpu(card):
+    """OutOfCoreALS at F = 300 on the card (K1 on the X chunks, K2 and K3
+    on theta, all at f = 384: `tile_gram` and `global_cg`) against the
+    same run on the CPU, RMSE within 1e-4 at every iteration."""
+    from cumf_als_tpu_torch.config import ALSConfig
+    from cumf_als_tpu_torch.data.synthetic import (init_factors,
+                                                   synthetic_ratings)
+    from cumf_als_tpu_torch.models.out_of_core import OutOfCoreALS
+    train, test = synthetic_ratings(m=300, n=220, nnz=12000, nnz_test=1500,
+                                    rank=6, noise=0.1, seed=7)
+    cfg = ALSConfig(m=300, n=220, f=300, lam=0.5, iters=2, verbose=False,
+                    debug_timing=False, panel_size=64, chunk_nnz=1 << 10,
+                    chunk_rows=64, factor_dtype="f32", gram_dtype="f32",
+                    backend="pallas", solver="cg")
+    x0, th0 = init_factors(300, 220, 300, seed=2)
+    model = OutOfCoreALS(cfg, train, None, test, device=card)
+    res = model.run(x0, th0)
+    launched = {k for k, v in cs.LAUNCHES.items() if v}
+    assert launched == {"tile_gram", "global_cg"}, launched
+    ref = OutOfCoreALS(cfg, train, None, test, device="cpu").run(x0, th0)
+    for a, b in zip(ref.history, res.history):
+        assert b.train_rmse == pytest.approx(a.train_rmse, abs=1e-4)
+        assert b.test_rmse == pytest.approx(a.test_rmse, abs=1e-4)
