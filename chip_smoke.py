@@ -15,7 +15,8 @@ result line):
    K6's cut, of the other 256-lane entry functions and of the batched
    CGs K3, K4 and K5b (the ring body and the f = 256 body), and of the
    two kernels of f >= 384 (`tile_gram`: no spill and no added wgmma
-   wait on its tensor-core body; `global_cg`);
+   wait on its two tensor-core bodies, the cluster body of f = 384 and
+   512 and the one-block-a-tile body above; `global_cg`);
 2. each kernel against its plain PyTorch version on the card, on real
    chunks of the Netflix-shaped plans, with kernel, plain, yardstick and
    bound times: the widest, the most populous (also on a float32 table,
@@ -277,9 +278,14 @@ result line):
       launches and bounds: K1 and K6 (the two passes, in row batches of
       `cs.tiled_batch_rows`) on the most populous and the widest theta
       chunk of (a)'s plan (at 512 the first 4096 rows of the populous
-      one), bf16 and float32 tables; K2 and K5a on a synthetic chunk of
-      the X panel shape (R = 2304, P = 576), bf16 and f32 A, bf16 and
-      float32 tables, with torch.bmm on the pre-gathered G; K3, K4 and
+      one), bf16 and float32 tables, and on the populous one pass 1
+      alone (``tile_gram`` on each row batch) with its bound and
+      torch.bmm on the pre-gathered G of its live slots; K2 and K5a on
+      a synthetic chunk of the X panel shape (R = 2304, P = 576), bf16
+      and f32 A, bf16 and float32 tables, and on one of few long rows
+      (R = 16, P = 16384: at f = 384 the cut, one launch of
+      ``gram_span_sum`` beside ``tile_gram``), with torch.bmm on the
+      pre-gathered G and the plain version timed after a warm-up; K3, K4 and
       K5b on 16,384 systems at 384 (past 2^31 elements of A) and 4,096
       at 512, f32 and bf16 A, and K3 at CG-20 with cg_tol 1 (a system
       where one exit test goes the other way, at a step whose plain
@@ -294,7 +300,9 @@ result line):
    c. (b) with gram_dtype "f32" and aug_gram "force": K5a and K5b on X,
       K6 on theta;
    each run's s/iter, phase seconds and peak memory printed, the two
-   kernels launched and no other, train RMSE falling, (b) and (c)
+   kernels launched and no other but, in (b) and (c), the cut's pass 2
+   (`gram_span_sum`) exactly as often as the X plan's chunks of few
+   rows say, train RMSE falling, (b) and (c)
    within 2e-3 of (a) at every iteration. The numbers go into the
    `kernels` line under `tile_gram` and `global_cg`, (a)'s launches as
    theirs.
@@ -748,7 +756,8 @@ def ptxas_lines(build_log):
             f"{spills.get('solve_kernel')} bytes; the f = 256 cluster body "
             f"(f32 and bf16 A) registers "
             f"{regs.get('solve_cluster_kernel')}, spill stores {wide} bytes")
-    for name, kinds in (("tile_gram", ("tile_gram_mma", "tile_gram_fma")),
+    for name, kinds in (("tile_gram", ("tile_gram_cluster", "tile_gram_mma",
+                                       "tile_gram_fma")),
                         ("global_cg", ("global_cg_kernel",))):
         if name not in build_log:
             continue
@@ -767,9 +776,13 @@ def ptxas_lines(build_log):
         waits = sum("C7517" in line for line in lines)
         arrives = sum("C7519" in line for line in lines)
         if name == "tile_gram":
-            # the tensor-core body: no spill, no wgmma wait added by ptxas
-            ok &= bool(regs.get("tile_gram_mma")) and \
-                max(spills.get("tile_gram_mma", [1])) == 0 and waits == 0
+            # the tensor-core bodies (the cluster body at f = 384 and 512,
+            # the one-block-a-tile body above): no spill, no wgmma wait
+            # added by ptxas
+            for kind in ("tile_gram_cluster", "tile_gram_mma"):
+                ok &= bool(regs.get(kind)) and \
+                    max(spills.get(kind, [1])) == 0
+            ok &= waits == 0
         log(f"[ptxas] {name} (f >= 384), its entry functions: registers "
             f"{regs}, spill stores {spills} bytes; wgmma waits added by "
             f"ptxas (C7517): {waits}, warpgroup arrives added by ptxas "
@@ -4138,14 +4151,18 @@ def batched_panel(cs, ALS, cfg, train, csc, test, x0, th0):
 # reference, (d) each panel run (phase 5's wide-off run is its reference)
 P256_OOC_ITERS = 3
 P256_PANEL_ITERS = 2
-def panel_chunk(f, r, p, seed, n=65536):
+def panel_chunk(f, r, p, seed, n=65536, signed=True):
     """A synthetic panel chunk at width f: a bf16 panel table of n rows
-    and its zero row (lane f - 1 free for the aug form), R rows of P
-    slots with nnz from 0 to P (one row in 64 without ratings), pad slots
-    at each row's tail naming the zero row, values in halves."""
+    (0.3 N(0, 1), or with `signed` False 0.2 U(0, 1) as
+    `synthetic_table`) and its zero row (lane f - 1 free for the aug
+    form), R rows of P slots with nnz from 0 to P (one row in 64 without
+    ratings), pad slots at each row's tail naming the zero row, values
+    in halves."""
     from types import SimpleNamespace
     gen = torch.Generator(device=DEV).manual_seed(seed)
     tp = (0.3 * torch.randn((n + 1, f), generator=gen, device=DEV)
+          if signed else
+          0.2 * torch.rand((n + 1, f), generator=gen, device=DEV)
           ).to(torch.bfloat16)
     tp[n] = 0
     tp[:, f - 1] = 0
@@ -4491,7 +4508,43 @@ def widen(t, f):
     return torch.nn.functional.pad(t, (0, f - t.shape[1])).contiguous()
 
 
-def tiled_k1(cs, table_ext, ch, x0, lam, label, aug, table_rows=None):
+def tiled_pass1(cs, table_ext, ch, aug, table_rows):
+    """Pass 1 of K1 (K6 with aug) at f >= 384 alone on a chunk, as the
+    route runs it: ``tile_gram`` on each row batch of
+    `cs.tiled_batch_rows` rows (A f32, and without aug b and r2), behind
+    queued work; beside it its bound (each live table row, the chunk, A,
+    b and r2 once, or the Gram's operations) and torch.bmm on the
+    pre-gathered G of the chunk's live slots (pad slots name the zero
+    row; with aug the values over lane f - 1). Returns (ms, bound_ms,
+    bound_by, library_ms)."""
+    r, p = ch.cols.shape
+    f = table_ext.shape[1]
+    step = cs.tiled_batch_rows(f)
+
+    def pass1():
+        for lo in range(0, r, step):
+            hi = min(lo + step, r)
+            cs.tile_gram(table_ext, ch.cols[lo:hi], ch.vals[lo:hi],
+                         ch.nnz[lo:hi], aug=aug, with_b=not aug,
+                         with_r2=not aug)
+
+    ms = queued_ms(pass1, reps=3)
+    out = r * f * f * 4 + (0 if aug else r * (f + 1) * 4)
+    bms, by = bound_ms(table_rows * f * table_ext.element_size() +
+                       nbytes(ch.cols, ch.vals, ch.nnz) + out,
+                       gram_ops(ch, f, b=not aug), table_ext.dtype)
+    g = table_ext.index_select(0, ch.cols.reshape(-1).long()).reshape(r, p, f)
+    if aug:
+        g = cs.augment_g(g, ch.vals)
+    gt = g.transpose(1, 2)
+    lib = queued_ms(lambda: torch.bmm(gt, g), reps=3)
+    del g, gt
+    torch.cuda.empty_cache()
+    return ms, bms, by, lib
+
+
+def tiled_k1(cs, table_ext, ch, x0, lam, label, aug, table_rows=None,
+             pass1=False):
     """K1 (K6 with aug) at f >= 384 as routed (the two passes, one launch
     of ``tile_gram`` and one of ``global_cg`` a row batch, and no other)
     against its plain version (`gather_gram_cg_plain`, with aug
@@ -4501,7 +4554,8 @@ def tiled_k1(cs, table_ext, ch, x0, lam, label, aug, table_rows=None):
     (`queued_ms`), the plain version's one call by events; the bound
     counts the function's work: each table row once (`table_rows` of a
     large table, else the whole table), the chunk, x0, x and se, and the
-    Gram's operations (`gram_ops`)."""
+    Gram's operations (`gram_ops`). With `pass1`, pass 1 alone too
+    (`tiled_pass1`)."""
     args = (table_ext, ch.cols, ch.vals, ch.nnz, x0, lam)
     r, p = ch.cols.shape
     f = table_ext.shape[1]
@@ -4530,6 +4584,17 @@ def tiled_k1(cs, table_ext, ch, x0, lam, label, aug, table_rows=None):
                                         se), flops, table_ext.dtype)
     ok = err <= 2e-3 and se_rel <= 1e-3 and zero_ok and counted and repeat
     name = "K6" if aug else "K1"
+    extra, res = "", {}
+    if pass1:
+        del x, se
+        p_ms, p_bound, p_by, p_lib = tiled_pass1(cs, table_ext, ch, aug,
+                                                 table_rows or
+                                                 table_ext.shape[0])
+        extra = (f"; pass 1 ({cs.tile_gram_body(table_ext)} body) alone "
+                 f"{p_ms:.3f} ms, bound {p_bound:.4f} ms ({p_by}), "
+                 f"torch.bmm on the pre-gathered G {p_lib:.3f} ms")
+        res = dict(pass1_ms=p_ms, pass1_bound_ms=p_bound,
+                   pass1_bound_by=p_by, pass1_library_ms=p_lib)
     log(f"[{name} at f={f}] {label}: chunk R={r} P={p}, table "
         f"{table_ext.dtype}, body {cs.gram_body(table_ext)}, {batches} row "
         f"batches (launches {got}: {counted}): max|dx|={err:.3e} (limit "
@@ -4537,19 +4602,21 @@ def tiled_k1(cs, table_ext, ch, x0, lam, label, aug, table_rows=None):
         f"rows without ratings and lanes >= {WIDE_F} exactly 0: {zero_ok}, "
         f"the same bits twice: {repeat}; device time: kernel {ms:.3f} ms, "
         f"plain {plain_ms:.3f} ms (one call, events), bound {bms:.4f} ms "
-        f"({by}); {'OK' if ok else 'FAIL'}")
+        f"({by}){extra}; {'OK' if ok else 'FAIL'}")
     return ok, dict(max_abs_err=err, se_rel=se_rel, ms=ms,
                     plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                     library_ms=None, shape=[r, p], f=f,
-                    table=str(table_ext.dtype), launches=got)
+                    table=str(table_ext.dtype), launches=got, **res)
 
 
 def tiled_gram(cs, tp, ch, a_dtype, aug, label):
-    """K2 (K5a with aug) at f >= 384: one launch of ``tile_gram``, A
-    within `gram_limit` of the plain version for the body that ran (the
-    whole square, symmetric bit for bit), b within 1e-5 relative, rows
-    of pad slots exactly 0; torch.bmm on the pre-gathered G as the
-    yardstick (`check_gram`'s). Times as `tiled_k1`."""
+    """K2 (K5a with aug) at f >= 384: one launch of ``tile_gram`` (and one
+    of ``gram_span_sum`` where `cs.gram_spans` cuts the chunk), A within
+    `gram_limit` of the plain version for the body that ran (the whole
+    square, symmetric bit for bit), b within 1e-5 relative, rows of pad
+    slots exactly 0; torch.bmm on the pre-gathered G as the yardstick
+    (`check_gram`'s). Times as `tiled_k1`, the plain version's after a
+    first call that warms it up."""
     args = (tp, ch.cols, ch.vals)
     r, p = ch.cols.shape
     f = tp.shape[1]
@@ -4561,10 +4628,12 @@ def tiled_gram(cs, tp, ch, a_dtype, aug, label):
         out = g(*args, out_dtype=a_dtype)
         return (out, None) if aug else out
 
+    spans = cs.gram_spans(r, p, f, sm_count(), tp.dtype)
     before = dict(cs.LAUNCHES)
     a, b = run()
     got = launched_since(cs, before)
-    counted = got == {"tile_gram": 1}
+    counted = got == {"tile_gram": 1, **({SPAN_SUM: 1} if spans > 1 else {})}
+    run(plain_fn)  # the first call: the einsum's warm-up
     plain_ms, (pa, pb) = time_once(lambda: run(plain_fn))
     body = cs.gram_body(tp)
     lim, limit = gram_limit(a, pa, p, body)
@@ -4595,7 +4664,9 @@ def tiled_gram(cs, tp, ch, a_dtype, aug, label):
     ok = a_ok and b_rel <= 1e-5 and zero_ok and counted
     name = "K5a" if aug else "K2"
     log(f"[{name} at f={f}] {label}: chunk R={r} P={p}, table {tp.dtype}, "
-        f"A {a_dtype}, body {body} (launches {got}: {counted}): "
+        f"A {a_dtype}, body {body} ({cs.tile_gram_body(tp)}), {spans} "
+        f"span(s) a row (launches "
+        f"{got}: {counted}): "
         f"max|dA|={err:.3e} (limit {limit}, and symmetric: {a_ok}), max "
         f"rel db={b_rel:.3e} (limit 1e-5), rows of pad slots exactly 0: "
         f"{zero_ok}; device time: kernel {ms:.3f} ms, plain {plain_ms:.3f} "
@@ -4603,6 +4674,7 @@ def tiled_gram(cs, tp, ch, a_dtype, aug, label):
         f"bound {bms:.4f} ms ({by}); {'OK' if ok else 'FAIL'}")
     return ok, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                     bound_ms=bms, bound_by=by, library_ms=lib, body=body,
+                    tile_body=cs.tile_gram_body(tp), spans=spans,
                     shape=[r, p], f=f, table=str(tp.dtype),
                     a_dtype=str(a_dtype))
 
@@ -4890,7 +4962,8 @@ def wide_f_kernels(cs, model, x_t, theta_t):
                 for aug in (False, True):
                     ok, res = tiled_k1(cs, t, ch, x0, cfg.lam,
                                        f"theta {tag}", aug,
-                                       table_rows=live_rows(ch))
+                                       table_rows=live_rows(ch),
+                                       pass1=tag == "populous")
                     ok_all &= ok
                     key = (f"{'K6' if aug else 'K1'}_f{f}_{tag}_"
                            f"{'bf16' if dtype == torch.bfloat16 else 'f32'}"
@@ -4910,6 +4983,19 @@ def wide_f_kernels(cs, model, x_t, theta_t):
                     "f32_table" if t.dtype == torch.float32 else
                     "bf16_a" if a_dtype == torch.bfloat16 else "f32_a")
                 out["tile_gram"][key] = res
+        del tp, ch
+        # a chunk of few long rows (fewer than the clusters that fit the
+        # card: at f = 384 the cut), on factors as the paths gather them
+        # at iteration 0, as gram_cut_synthetic's: with signed entries b
+        # of a long row sums with cancellation, and its limit, 1e-5
+        # relative to |b|, no longer measures the f32 rounding
+        tp, ch = panel_chunk(f, 16, 16384, seed=16, signed=False)
+        for aug, a_dtype in ((False, torch.bfloat16), (True, torch.float32)):
+            ok, res = tiled_gram(cs, tp, ch, a_dtype, aug,
+                                 "synthetic chunk of few long rows")
+            ok_all &= ok
+            out["tile_gram"][f"{'K5a' if aug else 'K2'}_f{f}_few_rows_"
+                             f"{'f32' if aug else 'bf16'}_a"] = res
         del tp, ch
         torch.cuda.empty_cache()
         ok, solves = tiled_solves(cs, f, 16384 if f == 384 else 4096)
@@ -4980,6 +5066,10 @@ def wide_f(cs, ALS, cfg, train, csc, test, results):
         raise AssertionError("F=300 b: expected the panel X route and "
                              "direct theta")
     runs = {"F=300 a": {k: v for k, v in launches_a.items() if v}}
+    # the X panel chunks of fewer rows than the clusters that fit the
+    # card take K2's (K5a's) cut: its pass 2 once a call on each
+    cut = span_sums(cs, [gram_shape(c) for c in al.plan_x[1]], cfg_b.f_pad,
+                    WIDE_F_ITERS)
     for label, extra in (("F=300 b", {}),
                          ("F=300 c", dict(gram_dtype="f32",
                                           aug_gram="force"))):
@@ -4988,8 +5078,10 @@ def wide_f(cs, ALS, cfg, train, csc, test, results):
         aug = bool(extra)
         if model._use_panel_aug() != aug or cs.aug_enabled(model.cfg) != aug:
             raise AssertionError(f"{label}: the aug gates")
-        hist, launches = full_width(cs, model, label, TILED_KERNELS, others,
-                                    x0, th0, iters=WIDE_F_ITERS)
+        hist, launches = full_width(
+            cs, model, label, TILED_KERNELS,
+            tuple(k for k in others if k != SPAN_SUM), x0, th0,
+            iters=WIDE_F_ITERS, exact={SPAN_SUM: cut})
         runs[label] = {k: v for k, v in launches.items() if v}
         rmse_gaps(label, hist, hist_a, "F=300 a")
         del model

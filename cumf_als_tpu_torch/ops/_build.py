@@ -74,7 +74,7 @@ KERNELS = {
     # K1, K6) and the CG on A in device memory (K3, K4, K5b; pass 2)
     "tile_gram": ("cumf_tile_gram",
                   [_VP, _I, _VP, _VP, _I, _VP, _VP, _I, _VP, _VP,
-                   _I, _I, _I, _I, _VP]),
+                   _I, _I, _I, _I, _VP, _I, _VP, _I, _VP]),
     "global_cg": ("cumf_global_cg",
                   [_VP, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                    _I, _I, _I, _I, _F, _I, _F, _VP]),

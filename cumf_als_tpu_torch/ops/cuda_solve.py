@@ -133,13 +133,19 @@ device memory once a system there too.
 
 Factor widths F > 256 pad to f = 128 T lanes, T >= 3 (`tiled`). There
 every route runs two kernels and no other: ``tile_gram``, the Gram in
-128 x 128 tiles of A, one block a row and a tile (the tensor cores of
-csrc/gram_mma.cuh for a bf16 table, an FMA tile for a float32 one), for
-K2 and K5a and as pass 1 of K1 and K6 (f32 scratch of A, b and r2 in row
-batches under `TILED_SCRATCH_BYTES`); and ``global_cg``, the CG with
-each system's A read from device memory at every matvec (an f32 A of
-576 KB at f = 384 fits no SM), for K3, K4 and K5b and as pass 2 of K1
-and K6. Each counts its own launches; `spans` is refused there.
+128 x 128 tiles of A (`tile_gram_body`: on a bf16 table at f = 384 and
+512 a thread-block cluster a row, `cluster_plan`, each slab of the
+gathered rows gathered once and handed between the blocks over
+distributed shared memory, on the tensor cores; at f >= 640 one block a
+row and a tile; an FMA tile a block on a float32 table), for K2 and K5a
+and as pass 1 of K1 and K6 (f32 scratch of A, b and r2 in row batches
+under `TILED_SCRATCH_BYTES`); and ``global_cg``, the CG with each
+system's A read from device memory at every matvec (an f32 A of 576 KB
+at f = 384 fits no SM), for K3, K4 and K5b and as pass 2 of K1 and K6.
+Each counts its own launches. K2 and K5a cut a chunk of fewer rows than
+the clusters that fit the card on the cluster body as at f = 128
+(`gram_spans`, then ``gram_span_sum``); K1's and K6's `spans` is refused
+there.
 
 The row gather runs inside the kernels, so the wrappers keep the
 contracts of the JAX wrappers (`gather_gram_cg`, `gather_gram_out`,
@@ -747,7 +753,11 @@ def gram_spans(r: int, p: int, f: int, sms: int,
     `SPAN_SCRATCH_BYTES`. At f = 256 a chunk of 3 R <= SMs runs uncut on
     the three-block body, which spreads each row over three SMs: there
     the cut must beat it, GRAM_CUT_TILE_COST_256 T / S +
-    GRAM_CUT_EXTRA_TILES_256 < T for T tiles a row, else S = 1.
+    GRAM_CUT_EXTRA_TILES_256 < T for T tiles a row, else S = 1. At
+    f = 128 T', T' >= 3, the same rule on ``tile_gram``'s cluster body
+    (a bf16 table, `tile_gram_body` "cluster"), with the clusters that
+    fit the card (`tile_gram_clusters`) in place of the blocks: R below
+    them, R S within them.
 
     The constants are measured (scripts/torch_gram_cut_sweep.py; PERF.md,
     the cut's findings; an H100 SXM at 700 W): over the 244 Netflix X
@@ -760,12 +770,19 @@ def gram_spans(r: int, p: int, f: int, sms: int,
     to 12% slower than the three-block body, which the last condition
     leaves whole (the three-block body there: 10.6 us + 1.41 us a tile,
     the cut 21.4 us + 2.1 us a tile of a span)."""
-    per_sm = gram_blocks_per_sm(f)
     tiles, rest = divmod(p, GRAM_TILE)
-    if dtype != torch.bfloat16 or f not in (128, 256) or rest or \
-            r >= per_sm * sms:
-        return 1
-    items = min(target, per_sm) * sms
+    if tiled(f):
+        # the cluster body: one cluster a row, one block an SM
+        items = tile_gram_clusters(f, sms) if dtype == torch.bfloat16 \
+            else 0
+        if rest or r >= items:
+            return 1
+    else:
+        per_sm = gram_blocks_per_sm(f)
+        if dtype != torch.bfloat16 or f not in (128, 256) or rest or \
+                r >= per_sm * sms:
+            return 1
+        items = min(target, per_sm) * sms
     record = (f * f + f) * 4
     best = 1
     for s in range(2, tiles // min_tiles + 1):
@@ -792,9 +809,12 @@ def _gram_spans_of(name: str, table_ext, r: int, p: int, spans,
         raise ValueError(f"{name}: spans must be at least 1, got {spans}")
     if s == 1:
         return 1
-    if gram_body(table_ext) != "wgmma" or p % (GRAM_TILE * s):
+    cut = tile_gram_body(table_ext) == "cluster" if tiled(f) else \
+        gram_body(table_ext) == "wgmma"
+    if not cut or p % (GRAM_TILE * s):
         raise ValueError(f"{name}: spans = {spans} cuts a bf16 table's "
-                         f"chunk (f = 128 or 256) whose P ({p}) is a "
+                         f"chunk (f = 128 or 256, or f = 384 or 512 "
+                         f"on tile_gram's cluster body) whose P ({p}) is a "
                          f"multiple of {GRAM_TILE} x spans only")
     return s
 
@@ -803,13 +823,13 @@ def _panel_gram(name: str, table_ext, cols, vals, out_dtype, spans,
                 aug: bool):
     """K2 (`name` "gather_gram_out") or K5a ("gather_gram_aug_out") on
     card tensors: (A, b), b None for K5a. At f >= 384 one launch of
-    ``tile_gram`` (counted under its name; `spans` refused). A chunk that
-    `gram_spans` (or
+    ``tile_gram`` (counted under its name). A chunk that `gram_spans` (or
     `spans`) cuts into S > 1 spans runs as two passes: the kernel itself
-    over the (R S, P / S) view of cols and vals, each span a row of it,
-    writing f32 partials (one launch, counted under `name`), then
-    ``gram_span_sum`` adding each row's S partials in span order into A
-    in out_dtype (and b). Both passes repeat bit for bit."""
+    (``tile_gram`` at f >= 384) over the (R S, P / S) view of cols and
+    vals, each span a row of it, writing f32 partials (one launch,
+    counted under `name`, or under "tile_gram"), then ``gram_span_sum``
+    adding each row's S partials in span order into A in out_dtype (and
+    b). Both passes repeat bit for bit."""
     r, p = cols.shape
     f = table_ext.shape[1]
     _check_f(name, f)
@@ -819,15 +839,19 @@ def _panel_gram(name: str, table_ext, cols, vals, out_dtype, spans,
     _check("cols", cols, (r, p), (torch.int32,))
     _check("vals", vals, (r, p), _FLOATS)
     dev = cols.device
-    if tiled(f):
-        _check_spans(name, spans, False)
-        a, b, _ = tile_gram(table_ext, cols, vals, None, out_dtype, aug=aug,
-                            with_b=not aug)
-        return a, b
     s = 1
     if r:
         _check_gram_table(table_ext, cols)
         s = _gram_spans_of(name, table_ext, r, p, spans)
+    if tiled(f):
+        if s > 1:
+            a_part, b_part, _ = tile_gram(
+                table_ext, cols.view(r * s, p // s), vals.view(r * s, p // s),
+                None, torch.float32, aug=aug, with_b=not aug)
+            return gram_span_sum(a_part, b_part, s, out_dtype)
+        a, b, _ = tile_gram(table_ext, cols, vals, None, out_dtype, aug=aug,
+                            with_b=not aug)
+        return a, b
 
     def grams(a_out, b_out, rows, slots):
         args = (table_ext.data_ptr(), _bf16(table_ext), cols.data_ptr(),
@@ -1732,19 +1756,74 @@ def tile_gram_plain(table_ext, cols, vals, nnz=None,
     return a, torch.einsum("rp,rpf->rf", v, g), (v * v).sum(-1)
 
 
+def cluster_plan(t: int):
+    """The blocks of ``tile_gram``'s cluster body at f = 128 t lanes
+    (t >= 3 slabs of 128 lanes), by rank: (a, b, diag) for a block that
+    owns the tile (a, b) of A, a != b, and where diag also the diagonal
+    tile (a, a) and the gather of slab a, which it hands to every other
+    block that reads it (a or b of that block). Block c < t takes (c, c)
+    and (c, c + 1 mod t); each tile (c, c + k mod t), 2 <= k <= t // 2
+    (for k = t / 2 only c < t / 2), is a block of its own. So every tile
+    of the upper triangle is owned once, each block reads two slabs and
+    owns one or two tiles (two tiles of f32 sums are 128 registers a
+    thread), and each slab is gathered by one block and read by the same
+    number of others: t (t - 1) / 2 blocks in all, 3 at t = 3 and 6 at
+    t = 4."""
+    if t < 3:
+        raise ValueError(f"cluster_plan: takes t >= 3 slabs, got {t}")
+    blocks = [(c, (c + 1) % t, True) for c in range(t)]
+    for k in range(2, t // 2 + 1):
+        blocks += [(c, (c + k) % t, False)
+                   for c in range(t if 2 * k < t else t // 2)]
+    return blocks
+
+
+# the blocks a cluster of the cluster body may hold (the portable most)
+CLUSTER_MAX_BLOCKS = 8
+# slots a row of the tensor-core bodies of ``tile_gram`` sums in its
+# fragment before it adds them to the row's sums (kSpanTiles tiles); the
+# cluster body keeps those sums in a scratch the wrapper passes when P
+# is longer
+TILE_GRAM_SPAN_SLOTS = 32 * GRAM_TILE
+
+
+def tile_gram_body(table_ext: torch.Tensor) -> str:
+    """Which body of ``tile_gram`` runs for this table, by its dtype and
+    width alone: "cluster" (a bf16 table whose `cluster_plan` fits one
+    cluster, f = 384 and 512: a cluster a row of A, each slab gathered
+    once), "tile" (a bf16 table at f >= 640: one block a row and a tile,
+    each block gathering both of its slabs), "fma" (a float32 table)."""
+    if table_ext.dtype != torch.bfloat16:
+        return "fma"
+    t = table_ext.shape[1] // TILE_LANES
+    return "cluster" if len(cluster_plan(t)) <= CLUSTER_MAX_BLOCKS \
+        else "tile"
+
+
+def tile_gram_clusters(f: int, sms: int) -> int:
+    """Clusters of the cluster body at width f that a card of `sms` SMs
+    holds at once at most (one block an SM; the GPCs may fit fewer: 39
+    of 3 blocks on a 132-SM H100, PERF.md)."""
+    return sms // len(cluster_plan(f // TILE_LANES))
+
+
 def tile_gram(table_ext, cols, vals, nnz=None,
               out_dtype: torch.dtype = torch.float32, aug: bool = False,
               with_b: bool = True, with_r2: bool = False):
     """The Gram of one chunk at f = 128 T lanes, T >= 3
-    (csrc/tile_gram.cu): one block a row and a 128 x 128 tile (ti <= tj)
-    of its A, the whole symmetric A written. K2 (with b), K5a (aug) and
-    pass 1 of K1 (nnz, b and r2 into f32 scratch) and K6 (nnz, aug) at
-    f >= 384 run it. table_ext (n+1, f) bf16 (the tensor cores, on a
-    16-byte boundary) or f32 (the FMA body); cols and vals (R, P); nnz
-    (R,) int32 or None (every slot). Returns A (R, f, f) in out_dtype
-    (summed in f32), b (R, f) f32 or None, r2 (R,) f32 or None; with aug
-    the values ride lane f - 1, rounded to the table's dtype, and b and
-    r2 are None. Card tensors only; its plain version is
+    (csrc/tile_gram.cu), the whole symmetric A written, in the body
+    `tile_gram_body` names: on a bf16 table at T = 3 or 4 a thread-block
+    cluster a row of A (`cluster_plan`: each slab of the gathered rows
+    gathered by one block and handed to the others over distributed
+    shared memory), at T >= 5 one block a row and a 128 x 128 tile
+    (ti <= tj) of its A; on a float32 table an FMA tile a block. K2
+    (with b), K5a (aug) and pass 1 of K1 (nnz, b and r2 into f32
+    scratch) and K6 (nnz, aug) at f >= 384 run it. table_ext (n+1, f)
+    bf16 (the tensor cores, on a 16-byte boundary) or f32; cols and vals
+    (R, P); nnz (R,) int32 or None (every slot). Returns A (R, f, f) in
+    out_dtype (summed in f32), b (R, f) f32 or None, r2 (R,) f32 or None;
+    with aug the values ride lane f - 1, rounded to the table's dtype,
+    and b and r2 are None. Card tensors only; its plain version is
     `tile_gram_plain`."""
     live = [t for t in (table_ext, cols, vals, nnz) if t is not None]
     _on_card("tile_gram", *live, plain="tile_gram_plain")
@@ -1773,11 +1852,25 @@ def tile_gram(table_ext, cols, vals, nnz=None,
     r2 = torch.empty((r,), dtype=torch.float32, device=dev) if with_r2 \
         else None
     if r:
+        plan, scratch, sms = None, None, _sms(dev)
+        if tile_gram_body(table_ext) == "cluster":
+            flat = [v for blk in cluster_plan(f // TILE_LANES) for v in blk]
+            plan = (ctypes.c_int * len(flat))(*map(int, flat))
+            # the cluster body copies f32 values (bf16 widen exactly)
+            vals = vals.float()
+            if p > TILE_GRAM_SPAN_SLOTS:
+                # the earlier spans' sums of two tiles a block, one block
+                # an SM
+                scratch = torch.empty((sms, 2, TILE_LANES * TILE_LANES),
+                                      dtype=torch.float32, device=dev)
         _launch("tile_gram", table_ext.data_ptr(), _bf16(table_ext),
                 cols.data_ptr(), vals.data_ptr(), _bf16(vals),
                 None if nnz is None else nnz.data_ptr(), a.data_ptr(),
                 _bf16(a), None if b is None else b.data_ptr(),
-                None if r2 is None else r2.data_ptr(), r, p, f, int(aug))
+                None if r2 is None else r2.data_ptr(), r, p, f, int(aug),
+                None if plan is None else ctypes.addressof(plan),
+                0 if plan is None else len(plan) // 3,
+                None if scratch is None else scratch.data_ptr(), sms)
     return a, b, r2
 
 

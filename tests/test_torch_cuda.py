@@ -1983,6 +1983,90 @@ def test_tile_gram_matches_plain(card, f, p, dtype, aug):
     assert cs.LAUNCHES == dict.fromkeys(cs.LAUNCHES, 0) | {"tile_gram": 3}
 
 
+def _int_rows(f, r, p, seed):
+    """R rows of P slots at f = 128 T lanes over an integer table (entries
+    -3..3 in lanes < f - 84, so lane f - 1 is free for aug): every sum of
+    the Gram exact, so the card's A equals the plain version's bit for
+    bit. Row nnz drawn in [0, P], row 1 full, every 50th row without
+    slots; values in halves. On the card: (table bf16, cols, vals, nnz)."""
+    rng = np.random.RandomState(seed)
+    n, fl = 60, f - 84
+    table = np.zeros((n + 1, f), np.float32)
+    table[:n, :fl] = rng.randint(-3, 4, (n, fl))
+    nnz = rng.randint(0, p + 1, r).astype(np.int32)
+    nnz[::50] = 0
+    nnz[1] = p
+    mask = np.arange(p)[None, :] < nnz[:, None]
+    cols = np.where(mask, rng.randint(0, n, (r, p)), n).astype(np.int32)
+    vals = (np.round(rng.uniform(1, 5, (r, p)) * 2) / 2 * mask
+            ).astype(np.float32)
+    return (torch.from_numpy(table).to(torch.bfloat16).cuda(),
+            *(torch.from_numpy(a).cuda() for a in (cols, vals, nnz)))
+
+
+@pytest.mark.parametrize("f", [384, 512])
+@pytest.mark.parametrize("aug", [False, True])
+def test_tile_gram_cluster_long_and_many_rows(card, f, aug):
+    """The cluster body (`tile_gram_body` "cluster": one cluster a row,
+    each slab gathered by one block and handed to the others) on 300
+    rows, more than the clusters that fit the card, so each cluster walks
+    several, and P = 2117 slots (33 tiles and 5 slots: a row of two spans
+    of the fragment's sums, the first kept in the scratch) over an
+    integer table: A, b and r2 equal to `tile_gram_plain` bit for bit,
+    with nnz (pass 1 of K1 and K6) and without (K2, K5a); the rows
+    without slots exactly 0; a repeat equal bit for bit."""
+    table, cols, vals, nnz = _int_rows(f, 300, 2117, seed=f)
+    assert cs.tile_gram_body(table) == "cluster"
+    for live in (nnz, None):
+        kw = dict(aug=aug, with_b=not aug, with_r2=not aug and live is not None)
+        a, b, r2 = cs.tile_gram(table, cols, vals, live, **kw)
+        a2, b2, r22 = cs.tile_gram(table, cols, vals, live, **kw)
+        pa, pb, pr2 = cs.tile_gram_plain(table, cols, vals, live, aug=aug)
+        assert torch.equal(a, pa) and torch.equal(a, a2)
+        assert bool((a[nnz == 0] == 0).all())
+        if not aug:
+            assert torch.equal(b, pb) and torch.equal(b, b2)
+        if kw["with_r2"]:
+            assert torch.equal(r2, pr2) and torch.equal(r2, r22)
+        del a, a2, pa
+    assert cs.LAUNCHES == dict.fromkeys(cs.LAUNCHES, 0) | {"tile_gram": 4}
+
+
+@pytest.mark.parametrize("f", [384, 512])
+def test_tile_gram_few_rows_cut(card, f):
+    """K2 and K5a at f >= 384 on a chunk of 16 rows of 16,384 slots, fewer
+    rows than the clusters that fit the card: `gram_spans` cuts it at
+    f = 384 (one launch of ``tile_gram`` over the (R S, P / S) view, then
+    ``gram_span_sum``); f = 512 runs it uncut, and `spans=4` forces the
+    cut there. Over an integer table every result equals the plain
+    version bit for bit, cut or not, and repeats; at f = 640 (the
+    one-block-a-tile body) `spans` raises."""
+    r, p = 16, 16384
+    table, cols, vals, _ = _int_rows(f, r, p, seed=3 * f)
+    s = cs.gram_spans(r, p, f, cs._sms(card))
+    assert (s > 1) == (f == 384)
+    pa, pb = cs.gather_gram_out_plain(table, cols, vals, torch.bfloat16)
+    a, b = cs.gather_gram_out(table, cols, vals, out_dtype=torch.bfloat16)
+    assert cs.LAUNCHES == dict.fromkeys(cs.LAUNCHES, 0) | {
+        "tile_gram": 1} | ({"gram_span_sum": 1} if s > 1 else {})
+    assert torch.equal(a, pa) and torch.equal(b, pb)
+    a2, b2 = cs.gather_gram_out(table, cols, vals, out_dtype=torch.bfloat16)
+    assert torch.equal(a, a2) and torch.equal(b, b2)
+    for spans in (1, 4):
+        a1, b1 = cs.gather_gram_out(table, cols, vals,
+                                    out_dtype=torch.bfloat16, spans=spans)
+        assert torch.equal(a1, pa) and torch.equal(b1, pb)
+    del a, a1, a2, pa
+    pa = cs.gather_gram_aug_out_plain(table, cols, vals, torch.float32)
+    for spans in (None, 4):
+        a = cs.gather_gram_aug_out(table, cols, vals, out_dtype=torch.float32,
+                                   spans=spans)
+        assert torch.equal(a, pa)
+    wide = torch.zeros((61, 640), dtype=torch.bfloat16, device=card)
+    with pytest.raises(ValueError, match="spans"):
+        cs.gather_gram_out(wide, cols, vals, spans=2)
+
+
 @pytest.mark.parametrize("f", TILED)
 @pytest.mark.parametrize("p", [40, 200])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -2087,7 +2171,8 @@ def test_als_at_f300_on_the_card_matches_the_cpu(card, strategy):
     on each strategy that width reaches for the X phase (theta direct),
     on the card against the same run on the CPU: train and test RMSE
     within 5e-3 / 1e-2 (bf16) or 1e-3 (f32) at every iteration (phase 3
-    of chip_smoke.py); the kernels it launches are the f >= 384 ones."""
+    of chip_smoke.py); the kernels it launches are the f >= 384 ones, and
+    on the panel route K2's cut's pass 2 as often as the plan says."""
     from cumf_als_tpu_torch.config import NETFLIX
     from cumf_als_tpu_torch.data.synthetic import (init_factors,
                                                    workload_ratings)
@@ -2110,7 +2195,17 @@ def test_als_at_f300_on_the_card_matches_the_cpu(card, strategy):
     cs.reset_launch_counts()
     got = model.run(x0, th0).history
     launched = {k for k, v in cs.LAUNCHES.items() if v}
-    assert launched <= {"tile_gram", "global_cg"} and launched, launched
+    # K2 and K5a on an X panel chunk of few rows add their cut's pass 2,
+    # once an iteration on each chunk `cs.gram_spans` cuts (a bf16 table)
+    cut = 0
+    if type(model.plan_x[0]).__name__ == "PanelPlan":
+        table = torch.bfloat16 if dtype == "bf16" else torch.float32
+        cut = cfg.iters * sum(
+            cs.gram_spans(*c.cols.shape, 384, cs._sms(card), table) > 1
+            for c in model.plan_x[1])
+    assert cs.LAUNCHES["gram_span_sum"] == cut
+    assert launched - {"gram_span_sum"} <= {"tile_gram", "global_cg"} and \
+        launched, launched
     want = ALS(cfg, train, None, test, device="cpu").run(x0, th0).history
     tol_tr, tol_te = (5e-3, 1e-2) if dtype == "bf16" else (1e-3, 1e-3)
     for g, w in zip(got, want):

@@ -224,12 +224,84 @@ def test_tiled_batches_keep_the_scratch_under_its_budget(monkeypatch):
 
 
 def test_wrappers_refuse_spans_at_384():
-    """`spans=` cuts only the f = 128 and 256 routes."""
+    """`spans=` cuts K1 and K6 at f = 128 and 256 only; at f >= 384 it
+    cuts K2 and K5a on ``tile_gram``'s cluster body alone (a bf16 table
+    at f = 384 or 512, P a multiple of 64 spans), not on a float32 table
+    nor on the one-block-a-tile body of f >= 640."""
     table, cols = torch.zeros((9, 384)), torch.zeros((2, 64), dtype=torch.int32)
     with pytest.raises(ValueError, match="spans"):
         cs.gather_gram_cg(table, cols, torch.zeros((2, 64)),
                           torch.zeros(2, dtype=torch.int32),
                           torch.zeros((2, 384)), 0.1, spans=2)
+    for f in (384, 512):
+        bf16 = torch.zeros((9, f), dtype=torch.bfloat16)
+        assert cs._gram_spans_of("gather_gram_out", bf16, 2, 256, 4) == 4
+        for bad in (torch.zeros((9, f)), bf16):
+            p = 256 if bad.dtype == torch.float32 else 192
+            with pytest.raises(ValueError, match="spans"):
+                cs._gram_spans_of("gather_gram_out", bad, 2, p, 4)
+    with pytest.raises(ValueError, match="spans"):
+        cs._gram_spans_of("gather_gram_aug_out",
+                          torch.zeros((9, 640), dtype=torch.bfloat16), 2,
+                          256, 2)
+
+
+@pytest.mark.parametrize("t", range(3, 9))
+def test_cluster_plan_owns_each_tile_once(t):
+    """``tile_gram``'s cluster plan at t slabs: every tile of the upper
+    triangle owned by one block; each block reads two slabs (a != b) and
+    owns one tile or two (with the diagonal); each slab gathered by one
+    block, its diagonal block, and read by as many other blocks as every
+    other slab; t (t - 1) / 2 blocks, t of them with two tiles."""
+    plan = cs.cluster_plan(t)
+    tiles = []
+    for a, b, diag in plan:
+        assert a != b and 0 <= a < t and 0 <= b < t
+        tiles.append((min(a, b), max(a, b)))
+        if diag:
+            tiles.append((a, a))
+    assert sorted(tiles) == [(i, j) for i in range(t) for j in range(i, t)]
+    assert sorted(a for a, _, diag in plan if diag) == list(range(t))
+    readers = [sum(1 for a, b, diag in plan
+                   if b == c or (a == c and not diag)) for c in range(t)]
+    assert len(set(readers)) == 1 and readers[0] >= 1
+    assert len(plan) == t * (t - 1) // 2
+    assert sum(diag for *_, diag in plan) == t
+    # the cluster body's reach: a portable cluster of at most 8 blocks
+    body = cs.tile_gram_body(torch.zeros((2, 128 * t), dtype=torch.bfloat16))
+    assert body == ("cluster" if t <= 4 else "tile")
+    assert (len(plan) <= cs.CLUSTER_MAX_BLOCKS) == (t <= 4)
+    assert cs.tile_gram_body(torch.zeros((2, 128 * t))) == "fma"
+
+
+@pytest.mark.parametrize("r, p, f, dtype, want", [
+    (16, 16384, 384, torch.bfloat16, 2),    # 44 clusters of 3 on 132 SMs
+    (8, 8192, 384, torch.bfloat16, 4),
+    (2304, 576, 384, torch.bfloat16, 1),    # more rows than clusters
+    (44, 576, 384, torch.bfloat16, 1),
+    (16, 16384, 512, torch.bfloat16, 1),    # 22 clusters of 6: 2 spans pass
+    (3, 16384, 512, torch.bfloat16, 4),
+    (16, 16384, 640, torch.bfloat16, 1),    # the one-block-a-tile body
+    (16, 16384, 384, torch.float32, 1),     # the FMA body
+    (16, 16010, 384, torch.bfloat16, 1),    # P not whole tiles
+])
+def test_gram_spans_at_384(r, p, f, dtype, want):
+    """`gram_spans` at f >= 384: the cut of the cluster body on a chunk
+    of fewer rows than the clusters a 132-SM card holds (one block an
+    SM), R S within them, no span under 4 tiles."""
+    assert cs.gram_spans(r, p, f, 132, dtype) == want
+
+
+def test_gram_cut_plain_at_384():
+    """The plain cut (K2, and K5a with aug) at f = 384 in 2 spans against
+    the uncut plain Gram: A and b within rtol 1e-5."""
+    _, table, cols, vals, _, _ = _chunk(384, "f32", seed=5)
+    for aug in (False, True):
+        a, b = cs.gram_cut_plain(table, _t(cols), _t(vals), 2, aug=aug)
+        pa, pb, _ = cs.tile_gram_plain(table, _t(cols), _t(vals), aug=aug)
+        torch.testing.assert_close(a, pa, rtol=1e-5, atol=1e-6)
+        if not aug:
+            torch.testing.assert_close(b, pb, rtol=1e-5, atol=1e-6)
 
 
 def _assert_close(res, ref, dtype):
