@@ -35,11 +35,14 @@ result line):
    chunks their cut takes (`cs.gram_spans`: fewer rows than the blocks
    that fit the card, each row's slots cut into spans across blocks,
    then pass 2, `gram_span_sum`), the fewest-row X-phase panel chunk and
-   one of about 40 rows (the most populous with a bf16 and an f32 A, the
-   most populous, the widest and the fewest-row one also with a float32
-   table, which keeps the FMA body, uncut; the two of few rows three ways: as routed
-   against the plain version, twice with the same bits, and against
-   spans=1 with both times), pass 2 alone on the fewest-row chunk's
+   one of about 40 rows (the most populous with a bf16 and an f32 A; the
+   two of few rows three ways: as routed against the plain version,
+   twice with the same bits, and against spans=1 with both times); the
+   most populous, the widest and the fewest-row one (three ways) also on
+   a float32 table, which takes the split-bf16 body (`cs.panel_body`
+   "split"), with an f32 and a bf16 A, on a float32 copy of the bf16
+   panel and on the panel of the float32 initial factors (full
+   mantissas); pass 2 alone on the fewest-row chunk's
    partials (bit for bit against its plain version), small chunks at
    the edges of their 64-slot tile (integer
    tables: bit for bit, the proof of the tile layout), and their time
@@ -61,6 +64,15 @@ result line):
    a. bf16 Gram accumulators: split buffers, kernels K1, K2, K3;
    b. f32 accumulators with aug_gram="force": the augmented-lane forms,
       kernels K5a, K5b, K6;
+   c. the `ALSConfig` default, float32 factors and f32 accumulators with
+      aug_gram="auto", on (b)'s plans, 2 iterations: the panel-aug X
+      route on the float32 table, K5a on the split body (and
+      `gram_span_sum` on the chunks its cut takes, as many as the plans
+      say), K5b, and K1 on the float32 table of direct theta (the uncut
+      FMA body); no K2, K6, wide or tiled kernel; train RMSE within 2e-3
+      of (b)'s at each iteration, test RMSE falling; K5a's device time
+      over the X phase's chunks on the float32 initial factors, as routed
+      and uncut (spans=1);
    and K4's path, the public dispatcher `ops.solve.solve` without a
    diagonal, over every solve slice of the X-phase accumulators, held
    against the augmented solve of the same systems;
@@ -599,11 +611,14 @@ def gram_limit(a: torch.Tensor, a_plain: torch.Tensor, p: int, body: str):
     sqrt(A_ii A_jj) (Cauchy-Schwarz), so the limit is steps x 2^-23 x
     sqrt(A_ii A_jj) + 1e-5: one f32 ulp of the sum's size for each
     accumulation step (a slot in the FMA body, 16 slots on the tensor
-    cores) and 4 for the plain version's own rounding. A bf16 A adds one
-    bf16 ulp of the larger value: both sides round an f32 sum to
-    nearest."""
+    cores; the split body of a float32 table, "split", six wgmma a
+    16-slot step and two for the three products it drops, mid.lo, lo.mid
+    and lo.lo, at most 2^-23 |g_i| |g_j| a slot) and 4 for the plain
+    version's own rounding. A bf16 A adds one bf16 ulp of the larger
+    value: both sides round an f32 sum to nearest."""
     af, pf = a.float(), a_plain.float()
-    steps = (p if body == "fma" else -(-p // 16)) + 4
+    k_steps = -(-p // 16)
+    steps = {"fma": p, "split": 6 * k_steps + 2}.get(body, k_steps) + 4
     d = pf.diagonal(dim1=-2, dim2=-1).clamp_min(0).sqrt()
     lim = steps * 2.0 ** -23 * d[..., :, None] * d[..., None, :] + 1e-5
     name = f"{steps} x 2^-23 sqrt(A_ii A_jj) + 1e-5"
@@ -614,9 +629,14 @@ def gram_limit(a: torch.Tensor, a_plain: torch.Tensor, p: int, body: str):
     return lim + ulp, name + " + one bf16 ulp"
 
 
-def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
+def bound_ms(nbytes: float, flops, dtype=None) -> tuple:
+    """The least time of a function that moves `nbytes` and does `flops`
+    operations at `dtype`'s peak, or `flops` = {dtype: operations} done
+    at several peaks, one after the other: (ms, "bytes" or
+    "operations"), whichever takes longer."""
+    ops = flops if isinstance(flops, dict) else {dtype: flops}
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = sum(n / PEAK_FLOPS[t] for t, n in ops.items()) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -630,6 +650,22 @@ def gram_ops(ch, f, b: bool = True) -> float:
     (f + 1), and b, 2 nnz f."""
     slots = float(ch.nnz.sum().item())
     return slots * f * (f + 1) + (2.0 * slots * f if b else 0.0)
+
+
+def panel_gram_ops(ch, f, b: bool, body: str, dtype) -> dict:
+    """The operations of K2 (with `b`) or K5a on chunk `ch` by the peak
+    that does them, for `bound_ms`: the split body computes a float32
+    table's Gram to f32 accuracy as six bf16 products of the triangle on
+    the tensor cores (the card's fastest way to that function), b on
+    the CUDA cores at the float32 peak; any other body the Gram
+    (`gram_ops`) at the table's dtype."""
+    if body != "split":
+        return {dtype: gram_ops(ch, f, b)}
+    slots = float(ch.nnz.sum().item())
+    ops = {torch.bfloat16: 6.0 * slots * f * (f + 1)}
+    if b:
+        ops[torch.float32] = 2.0 * slots * f
+    return ops
 
 
 def wide_work(table_ext, ch, fl):
@@ -1297,7 +1333,7 @@ def check_gram(cs, tp, ch, a_dtype, aug, label, table_rows=None,
                cs.LAUNCHES[SPAN_SUM] - before[1]) == (1, int(spans > 1))
     pa, pb = (plain_fn(*args, out_dtype=a_dtype), None) if aug else \
         plain_fn(*args, out_dtype=a_dtype)
-    body = cs.gram_body(tp)
+    body = cs.panel_body(tp)
     lim, limit = gram_limit(a, pa, p, body)
 
     def a_error(got):
@@ -1352,14 +1388,14 @@ def check_gram(cs, tp, ch, a_dtype, aug, label, table_rows=None,
     gt = g.transpose(1, 2)
     lib = queued_ms(lambda: torch.bmm(gt, g))
     del g, gt
-    flops = gram_ops(ch, f, b=not aug)
+    flops = panel_gram_ops(ch, f, not aug, body, tp.dtype)
     out_bytes = r * f * f * torch.tensor([], dtype=a_dtype).element_size()
     if not aug:
         out_bytes += r * f * 4
     table_b = nbytes(tp) if table_rows is None else \
         table_rows * f * tp.element_size()
     bms, by = bound_ms(table_b + nbytes(ch.cols, ch.vals) + out_bytes,
-                       flops, tp.dtype)
+                       flops)
     gathered = r * p * f * tp.element_size()
     rate = gathered / (ms * 1e-3) / 1e12
     ok = a_ok and b_rel <= 1e-5 and zero_ok and counted
@@ -1512,7 +1548,8 @@ def gram_edges(cs):
                 for t_dtype, v_dtype, a_dtype in (
                         (torch.bfloat16, torch.float32, torch.float32),
                         (torch.bfloat16, torch.bfloat16, torch.bfloat16),
-                        (torch.float32, torch.float32, torch.float32)):
+                        (torch.float32, torch.float32, torch.float32),
+                        (torch.float32, torch.bfloat16, torch.bfloat16)):
                     table = torch.from_numpy(tab).to(DEV).to(t_dtype)
                     args = (table, cols, vals.to(v_dtype))
                     a, b = cs.gather_gram_out(*args, out_dtype=a_dtype)
@@ -1534,7 +1571,7 @@ def gram_edges(cs):
                         else:
                             ok = bool((diff <= gram_limit(
                                 a if what == "K2 A" else a5, want, p,
-                                cs.gram_body(table))[0]).all())
+                                cs.panel_body(table))[0]).all())
                         ok &= bool((got[nnz == 0] == 0).all())
                         key = (what, kind)
                         worst[key] = max(worst.get(key, 0.0),
@@ -1544,10 +1581,14 @@ def gram_edges(cs):
                                 f"{kind} table {t_dtype} vals {v_dtype} A "
                                 f"{a_dtype}: max|d|={diff.max().item():.3e}")
                         ok_all &= ok
+    bodies = {str(t): cs.panel_body(torch.zeros((1, f), dtype=t))
+              for t in (torch.bfloat16, torch.float32)}
     log(f"[gram edges] P in (8, 24, 72, 136, 520, 1288) x R in (1, 5, one "
         f"row of pad slots only) x (bf16 table f32 A, bf16 table bf16 vals "
-        f"bf16 A, f32 table f32 A), f=128: integer tables equal the plain "
-        f"version bit for bit (the layout proof), random tables within gram_limit "
+        f"bf16 A, f32 table f32 A, f32 table bf16 vals bf16 A), f=128, "
+        f"body by table {bodies}: integer tables equal the plain "
+        f"version bit for bit (the layout proof), random tables (full f32 "
+        f"mantissas) within gram_limit "
         f"(b: rtol 1e-5 + 1e-5); worst |d| "
         f"{ {' '.join(k): round(v, 9) for k, v in worst.items()} }; "
         f"{'OK' if ok_all else 'FAIL'}")
@@ -1762,12 +1803,13 @@ def gram_shape(c):
             int(c.width))
 
 
-def span_sums(cs, shapes, f, iters=1):
+def span_sums(cs, shapes, f, iters=1, dtype=torch.bfloat16):
     """Launches of K2's and K5a's pass 2 (`gram_span_sum`) over `iters`
-    iterations of calls on chunks of these (R, P) shapes with a bf16
-    table at width f: one a call on a chunk `cs.gram_spans` cuts."""
+    iterations of calls on chunks of these (R, P) shapes with a table of
+    `dtype` at width f: one a call on a chunk `cs.gram_spans` cuts."""
     sms = sm_count()
-    return iters * sum(cs.gram_spans(r, p, f, sms) > 1 for r, p in shapes)
+    return iters * sum(cs.gram_spans(r, p, f, sms, dtype) > 1
+                       for r, p in shapes)
 
 
 def cut_runner(cs, table_ext, ch, x0, cfg, f2):
@@ -2241,6 +2283,115 @@ def full_width(cs, model, label, expect, absent, x0, th0, iters=ITERS,
                 f"{label}: {name} launched {launches[name]} times, the "
                 f"plans say {want}")
     return res.history, launches
+
+
+# iterations of phase 4c (the float32 default configuration)
+F32_ITERS = 2
+
+
+def f32_default(cs, model, hist_ref, x0, th0, results):
+    """Phase 4c: the `ALSConfig` default (factor_dtype and gram_dtype
+    "f32", aug_gram "auto") on the plans of `model`, 4b's (no plan
+    depends on those fields; the routes are asserted): the panel-aug X
+    route, K5a on the float32 table (the split body, csrc/
+    split_gram_mma.cuh) and K5b; K1 on the float32 table of direct theta
+    (the uncut FMA body). First K5a's device time over every X chunk on
+    the float32 initial factors' panels, as routed and uncut (spans=1,
+    this call); then ALS.run for F32_ITERS iterations: K5a and K1 once a
+    chunk an iteration, `gram_span_sum` once a cut chunk, K5b at least
+    once, no other kernel; train RMSE within 2e-3 of `hist_ref` (4b's
+    run, bf16 factors on the same routes) at each iteration, test RMSE
+    falling. Fills results["gather_gram_aug_out"]["f32_default"]."""
+    import copy
+    t_start = time.monotonic()
+    cfg = model.cfg.replace(factor_dtype="f32", gram_dtype="f32",
+                            aug_gram="auto", iters=F32_ITERS)
+    al = copy.copy(model)      # the same plans: the dtypes steer no plan
+    al.cfg = cfg
+    if not (al._phase_strategy(al.train_csr) == "panel" and
+            al._phase_strategy(al.train_csc) == "direct" and
+            al._use_panel_aug() and not cs.aug_enabled(cfg)):
+        raise AssertionError("4c: expected the panel-aug X route and K1 "
+                             "on direct theta")
+    plan, chunks_x, _ = al.plan_x
+    chunks_t = al.plan_theta[1]
+    f, s = cfg.f_pad, plan.panel_size
+    sms = sm_count()
+    # the X phase's table at iteration 0: the float32 initial factors
+    theta_t = al._pad_f(th0)
+    th32 = torch.nn.functional.pad(
+        theta_t, (0, 0, 0, plan.n_panels * s - theta_t.shape[0]))
+    zero = th32.new_zeros((1, f))
+    tables = {p: torch.cat([th32[p * s:(p + 1) * s], zero])
+              for p in sorted({ch.panel for ch in chunks_x})}
+    a_dtype = al._accum_dtype(sum(c.rows.shape[0] for c in chunks_x),
+                              plan.num_rows)
+    if cs.panel_body(tables[chunks_x[0].panel]) != "split":
+        raise AssertionError("4c: the X phase's table does not take the "
+                             "split body")
+
+    def x_times(spans):
+        return split_by_rows(queued_each([
+            lambda ch=ch: cs.gather_gram_aug_out(
+                tables[ch.panel], ch.cols, ch.vals, out_dtype=a_dtype,
+                spans=spans)
+            for ch in chunks_x]), chunks_x, sms)
+    routed, uncut = x_times(None), x_times(1)
+    n_cut = sum(cs.gram_spans(*ch.cols.shape, f, sms, torch.float32) > 1
+                for ch in chunks_x)
+    gathered = sum(ch.cols.numel() * f * 4 for ch in chunks_x)
+    del tables, th32, theta_t
+    torch.cuda.empty_cache()
+    log(f"[phase totals f32] K5a (split body) over the {len(chunks_x)} X "
+        f"chunks on the float32 initial factors, A {a_dtype}: "
+        f"{routed['total']:.1f} ms, of which {routed['few']:.1f} ms in the "
+        f"{routed['n_few']} chunks with fewer than {sms} rows (the longest "
+        f"of them, ms and (R, P): "
+        f"{[(round(m, 3), rp) for m, rp in routed['longest_few']]}), "
+        f"{n_cut} chunks cut; the same uncut (spans=1, this call): "
+        f"{uncut['total']:.1f} ms, {uncut['few']:.1f} ms in those chunks; "
+        f"gathered {gathered / 1e9:.2f} GB from the L2, "
+        f"{gathered / routed['total'] / 1e9:.3f} TB/s over the phase "
+        f"(device time between events, launches queued behind other "
+        f"work)")
+
+    expect = ("gather_gram_aug_out", "solve_cg_aug", "gather_gram_cg")
+    absent = ("gather_gram_out", "solve_cg_reg", "solve_cg",
+              "gather_gram_cg_aug", SPAN_SOLVE) + WIDE_KERNELS + \
+        SPAN_KERNELS + TILED_KERNELS
+    exact = {"gather_gram_aug_out": len(chunks_x) * F32_ITERS,
+             "gather_gram_cg": len(chunks_t) * F32_ITERS,
+             SPAN_SUM: span_sums(cs, map(gram_shape, chunks_x), f,
+                                 F32_ITERS, torch.float32)}
+    hist, launches = full_width(cs, al, "f32 default", expect, absent, x0,
+                                th0, iters=F32_ITERS, exact=exact)
+    worst = 0.0
+    for h, r in zip(hist, hist_ref):
+        d = abs(h.train_rmse - r.train_rmse)
+        worst = max(worst, d)
+        log(f"[f32 default | aug] iter {h.iteration}: train "
+            f"{h.train_rmse:.6f} | {r.train_rmse:.6f} (limit 2e-3), test "
+            f"{h.test_rmse:.6f} | {r.test_rmse:.6f}")
+    te = [h.test_rmse for h in hist]
+    per_iter = [h.x_seconds + h.theta_seconds for h in hist]
+    log(f"[f32 default] {F32_ITERS} iterations, X {len(chunks_x)} panel "
+        f"chunks ({n_cut} cut), theta {len(chunks_t)} direct chunks; "
+        f"s/iter {[round(t, 4) for t in per_iter]}, x "
+        f"{[round(h.x_seconds, 4) for h in hist]} s, theta "
+        f"{[round(h.theta_seconds, 4) for h in hist]} s; launches "
+        f"{ {k: launches[k] for k in expect + (SPAN_SUM,)} }; worst train "
+        f"RMSE gap to aug {worst:.3e}; phase 4c "
+        f"{time.monotonic() - t_start:.1f} s")
+    if worst > 2e-3 or not te[-1] < te[0]:
+        raise AssertionError("4c: off 4b's RMSE")
+    results.setdefault("gather_gram_aug_out", {})["f32_default"] = dict(
+        launches={k: launches[k] for k in expect + (SPAN_SUM,)},
+        x_total_ms=routed["total"], x_few_ms=routed["few"],
+        x_uncut_total_ms=uncut["total"], x_uncut_few_ms=uncut["few"],
+        n_cut=n_cut, s_per_iter=per_iter,
+        train_rmse=[h.train_rmse for h in hist],
+        test_rmse=te)
+    return hist, launches
 
 
 def theta_cuts(cs, shapes, f, iters=1):
@@ -5368,12 +5519,13 @@ def main() -> int:
         """The most populous and the widest chunk of the X phase, and the
         fewest-row one and one of about 40 rows among those K2's cut
         takes (`cs.gram_spans`; the most slots among equals), each with
-        its panel's zero-extended bf16 table."""
+        its panel's zero-extended bf16 table and the same panel of the
+        float32 initial factors (full 24-bit mantissas)."""
         plan, chunks, _ = model.plan_x
         s = plan.panel_size
-        th16 = torch.nn.functional.pad(
-            theta_t.to(torch.bfloat16),
-            (0, 0, 0, plan.n_panels * s - theta_t.shape[0]))
+        th32 = torch.nn.functional.pad(
+            theta_t, (0, 0, 0, plan.n_panels * s - theta_t.shape[0]))
+        th16 = th32.to(torch.bfloat16)
         sms = sm_count()
         cut = [c for c in chunks
                if cs.gram_spans(*c.cols.shape, cfg.f_pad, sms) > 1]
@@ -5387,24 +5539,32 @@ def main() -> int:
                  ("about 40 rows",
                   min(cut, key=lambda c: (abs(c.rows.shape[0] - 40),
                                           -c.width))))
-        return [(label, ch, torch.cat(
-            [th16[ch.panel * s:(ch.panel + 1) * s],
-             th16.new_zeros((1, cfg.f_pad))])) for label, ch in picks]
+        return [(label, ch, *(torch.cat(
+            [t[ch.panel * s:(ch.panel + 1) * s],
+             t.new_zeros((1, cfg.f_pad))]) for t in (th16, th32)))
+            for label, ch in picks]
 
     def check_grams(model, aug, a_dtype, key):
         """K2 (or, with aug, K5a) on the four chunks (the most populous
         fills results[key], the others add their numbers to it), on the
         most populous also with the other A dtype, on the two chunks of
-        few rows three ways (`check_gram` with cut), and on the widest and
-        the fewest-row chunk with a float32 table, which takes the FMA
-        body."""
+        few rows three ways (`check_gram` with cut), and on the most
+        populous, the widest and the fewest-row chunk (three ways: it
+        takes the cut) on a float32 table, which takes the split body
+        (`cs.panel_body`), with an f32 and a bf16 A: a float32 copy of
+        the bf16 panel (every entry exact in bf16, so the split's two
+        lower pieces are zero) and the panel of the float32 initial
+        factors (full mantissas: all three pieces live). Fills
+        results[key]["split"]; the most populous on the full-mantissa
+        table with an f32 A also results[key]["f32_table"]."""
         ok_all = True
-        for label, ch, tp in x_chunks_and_panels(model):
+        split = results.setdefault(key, {}).setdefault("split", {})
+        for label, ch, tp, tp32 in x_chunks_and_panels(model):
             few = label in ("fewest rows", "about 40 rows")
             ok, res = check_gram(cs, tp, ch, a_dtype, aug, label, cut=few)
             ok_all &= ok
             if label == "most populous":
-                results[key] = res
+                results[key].update(res)
                 other = torch.float32 if a_dtype == torch.bfloat16 else \
                     torch.bfloat16
                 ok, res = check_gram(cs, tp, ch, other, aug, label)
@@ -5412,24 +5572,34 @@ def main() -> int:
                 tag = "f32_out" if other == torch.float32 else "bf16_out"
                 results[key].update({f"{tag}_{k}": res[k]
                                      for k in ("ms", "max_abs_err")})
-                # the FMA body of csrc/common.cuh: a float32 table
-                ok, res = check_gram(cs, tp.float(), ch, torch.float32, aug,
-                                     label + ", float32 table")
-                ok_all &= ok
-                results[key]["f32_table"] = {
-                    k: res[k] for k in ("ms", "plain_ms", "max_abs_err",
-                                        "bound_ms", "bound_by",
-                                        "library_ms")}
             else:
                 tag = label.split()[0]
                 results[key].update(
                     {f"{tag}_{k}": v for k, v in res.items()},
                     **{f"{tag}_shape": list(ch.cols.shape)})
-                if label == "about 40 rows":
-                    continue
-                ok, _ = check_gram(cs, tp.float(), ch, torch.float32, aug,
-                                   label + ", float32 table")
-                ok_all &= ok
+            if label == "about 40 rows":
+                continue
+            # the split body of csrc/split_gram_mma.cuh: a float32 table
+            for table_tag, t, what in (
+                    ("copy", tp.float(), "a copy of the bf16 one"),
+                    ("full", tp32, "full mantissas")):
+                for out in (torch.float32, torch.bfloat16):
+                    ok, res = check_gram(
+                        cs, t, ch, out, aug,
+                        f"{label}, float32 table ({what})",
+                        cut=label == "fewest rows")
+                    ok_all &= ok
+                    out_tag = "f32" if out == torch.float32 else "bf16"
+                    split[f"{label.split()[0]}_{table_tag}_{out_tag}_A"] = \
+                        {k: v for k, v in res.items()
+                         if k not in ("gathered_bytes",)}
+                    if label == "most populous" and table_tag == "full" \
+                            and out == torch.float32:
+                        results[key]["f32_table"] = {
+                            k: res[k] for k in ("ms", "plain_ms",
+                                                "max_abs_err", "bound_ms",
+                                                "bound_by", "library_ms",
+                                                "body")}
         return ok_all
 
     results, ok_all = {}, True
@@ -5448,7 +5618,7 @@ def main() -> int:
                               plan_x.num_rows)
     ok_all &= gram_edges(cs)
     ok_all &= check_grams(al, False, a_dtype, "gather_gram_out")
-    for label, ch, tp in x_chunks_and_panels(al):
+    for label, ch, tp, _ in x_chunks_and_panels(al):
         if label == "fewest rows":
             ok, results[SPAN_SUM] = check_span_sum(
                 cs, tp, ch, a_dtype, "the fewest-row X panel chunk K2's "
@@ -5593,6 +5763,10 @@ def main() -> int:
             f"{ha.train_rmse:.6f}, test {hm.test_rmse:.6f} | "
             f"{ha.test_rmse:.6f} (no limit: bf16 and f32 accumulators "
             f"round differently by design)")
+
+    # ---- 4c. the default float32 configuration at full width, on 4b's
+    # plans: K5a on the split body, K5b, K1 on a float32 table
+    f32_default(cs, al_aug, hist_aug, x0_np, th0_np, results)
 
     del al_aug, aux_x   # frees the plans on the card
     torch.cuda.empty_cache()

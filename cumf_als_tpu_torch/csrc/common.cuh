@@ -1,9 +1,13 @@
 // Shared device code of the ALS kernels at f <= 128: the split-buffer
 // forms gather_gram_cg.cu and gather_gram_out.cu and the augmented-lane
 // forms gather_gram_cg_aug.cu and gather_gram_aug_out.cu (their FMA
-// bodies, for a float32 table or f < 128). The CG loop and the dot
-// product here also serve the 256-lane kernels of wide.cuh (the solves
-// K3, K4 and K5b have their own, in bulk_cg.cuh).
+// bodies: K1 and K6 on a float32 table, each of the four at f < 128).
+// K2 and K5a dispatch through CUMF_DISPATCH_NB as K1 and K6 do, but
+// their f = 128 takes a tensor-core body on either table before it: no
+// route of the port runs them below 128 (f_pad >= 128), and the small-f
+// card tests of tests/test_torch_cuda.py hold their FMA body there. The
+// CG loop and the dot product here also serve the 256-lane kernels of
+// wide.cuh (the solves K3, K4 and K5b have their own, in bulk_cg.cuh).
 //
 // One thread block owns one f x f system, f = 16 * NB with NB in 1..8
 // (f a multiple of 16, at most 128). The 256 threads form a 16 x 16

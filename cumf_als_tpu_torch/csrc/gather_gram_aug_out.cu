@@ -34,20 +34,25 @@
 // bf16 G every product, v g and v v included, is exact in f32. Two
 // blocks share an SM and each walks its rows as one stream of tiles, so
 // the next row's gather and this row's write-out overlap the Gram.
-// A float32 table, and a bf16 table at f < 128, keep the f32 FMA body of
-// common.cuh (gram_row). At f = 256 (factor widths 128 < F < 256) a bf16
-// table takes K2's panel body of wide_gram_mma.cuh: the Gram of the
-// table's lanes on the tensor cores, b and sum v^2 from the values
-// rounded to bf16 on the CUDA cores (every product exact in f32, as on
-// the tensor cores), written over row and column 255 of A' as the value
-// lane would hold them, and the whole symmetric A' written; a float32
-// table the FMA body of wide.cuh (panel_gram with the value in lane 255).
-// The entry point chooses by dtype and f alone. A chunk of few rows on a
-// bf16 table takes K2's cut (gather_gram_out.cu): this entry point over
-// the (R S, P / S) view with an f32 A', then gram_span_sum.cu.
+// A float32 table at f = 128 takes K2's split-bf16 body
+// (split_gram_mma.cuh), the slot's f32 value over lane 127 of its
+// gathered f32 row before the split; every table at f < 128 keeps the
+// f32 FMA body of common.cuh (gram_row). At f = 256 (factor widths
+// 128 < F < 256) a bf16 table takes K2's panel body of
+// wide_gram_mma.cuh: the Gram of the table's lanes on the tensor cores,
+// b and sum v^2 from the values rounded to bf16 on the CUDA cores (every
+// product exact in f32, as on the tensor cores), written over row and
+// column 255 of A' as the value lane would hold them, and the whole
+// symmetric A' written; a float32 table the FMA body of wide.cuh
+// (panel_gram with the value in lane 255). The entry point chooses by
+// dtype and f alone. A chunk of few rows on a bf16 table, or on a
+// float32 one at f = 128, takes K2's cut (gather_gram_out.cu): this
+// entry point over the (R S, P / S) view with an f32 A', then
+// gram_span_sum.cu.
 
 #include "common.cuh"
 #include "gram_mma.cuh"
+#include "split_gram_mma.cuh"
 #include "wide_gram_mma.cuh"
 
 namespace {
@@ -116,10 +121,13 @@ extern "C" int cumf_gather_gram_aug_out(const void* table, int table_bf16,
                                         int out_bf16, int r, int p, int f,
                                         void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  // the tensor-core body where it takes the table, else the FMA body
+  // the tensor-core bodies where they take the table, else the FMA body
   if (table_bf16 && f == cumf::mma::kF)
     return cumf::mma::run<true>(table, cols, vals, vals_bf16, a_out,
                                 out_bf16, nullptr, r, p, st);
+  if (f == cumf::mma::kF)
+    return cumf::split::run<true>(table, cols, vals, vals_bf16, a_out,
+                                  out_bf16, nullptr, r, p, st);
   if (f == cumf::wide::kStride)
     return cumf::wide_mma::run_panel<true>(table, table_bf16, cols, vals,
                                            vals_bf16, a_out, out_bf16,

@@ -27,8 +27,12 @@
 // b is summed from the same tile on the CUDA cores while the wgmma runs.
 // Two blocks share an SM and each walks its rows as one stream of tiles,
 // so the next row's gather and this row's write-out overlap the Gram.
-// A float32 table, and a bf16 table at f < 128, keep the f32 FMA body of
-// common.cuh (gram_row): bf16 tensor cores would round a float32 table.
+// A float32 table at f = 128 takes the split-bf16 body of
+// split_gram_mma.cuh: each f32 entry cut into three bf16 pieces, six of
+// their products on the same wgmma, so A keeps f32 accuracy; gathering
+// 512-byte f32 rows (680 MB for the chunk above) sets its pace, one
+// block an SM. Every table at f < 128 keeps the f32 FMA body of
+// common.cuh (gram_row).
 // At f = 256 (factor widths 128 < F <= 256) a bf16 table takes the
 // panel body of wide_gram_mma.cuh: one block of two warpgroups a row
 // of A, each slot's table row gathered once, the upper triangle's ten
@@ -39,9 +43,10 @@
 // There an f32 A of 256 KB a row bounds the kernel: the out-of-core
 // theta chunk R = 6656 writes 1.74 GB, ~0.52 ms at 3.35 TB/s. The entry
 // point chooses by dtype and f alone.
-// A chunk of few rows on a bf16 table (fewer rows than the blocks of its
-// body that fit the card: the hot segments, R = 16, P = 2^18, and the
-// few-row X panel chunks) is cut across blocks by the wrapper
+// A chunk of few rows on a bf16 table, or on a float32 one at f = 128
+// (fewer rows than the blocks of its body that fit the card: the hot
+// segments, R = 16, P = 2^18, and the few-row X panel chunks) is cut
+// across blocks by the wrapper
 // (gram_spans in ops/cuda_solve.py): this entry point runs on the
 // (R S, P / S) view of cols and vals with an f32 A, each span of S a row
 // of it, and pass 2 (gram_span_sum.cu) adds each row's S partials (A and
@@ -51,6 +56,7 @@
 
 #include "common.cuh"
 #include "gram_mma.cuh"
+#include "split_gram_mma.cuh"
 #include "wide_gram_mma.cuh"
 
 namespace {
@@ -121,10 +127,13 @@ extern "C" int cumf_gather_gram_out(const void* table, int table_bf16,
                                     void* b_out, int r, int p, int f,
                                     void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  // the tensor-core body where it takes the table, else the FMA body
+  // the tensor-core bodies where they take the table, else the FMA body
   if (table_bf16 && f == cumf::mma::kF)
     return cumf::mma::run<false>(table, cols, vals, vals_bf16, a_out,
                                  out_bf16, b_out, r, p, st);
+  if (f == cumf::mma::kF)
+    return cumf::split::run<false>(table, cols, vals, vals_bf16, a_out,
+                                   out_bf16, b_out, r, p, st);
   if (f == cumf::wide::kStride)
     return cumf::wide_mma::run_panel<false>(table, table_bf16, cols, vals,
                                             vals_bf16, a_out, out_bf16,

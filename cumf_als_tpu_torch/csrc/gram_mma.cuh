@@ -7,10 +7,13 @@
 // (frag_cg.cuh).
 //
 // It takes a bf16 table at f = 128 only (the width of the main path).
-// A float32 table keeps common.cuh's gram_row (bf16 tensor cores would
-// round it and TF32 would miss the f32 tolerance), and so does a bf16
-// table at f < 128. The wrappers of ops/cuda_solve.py choose by dtype and
-// f alone; nothing falls back from this body to that one.
+// On a float32 table bf16 tensor cores would round the entries and TF32
+// would miss the f32 tolerance: there K2 and K5a take the split-bf16
+// body of split_gram_mma.cuh (this file's tile layout, descriptors and
+// wgmma on three bf16 pieces of each entry), and K1 and K6 keep
+// common.cuh's FMA gram_row, as a bf16 table at f < 128 does. The
+// wrappers of ops/cuda_solve.py choose by dtype and f alone; nothing
+// falls back from one body to another.
 //
 // A block of 256 threads (two warpgroups) takes one row at a time, two
 // blocks an SM, each block walking its share of the chunk's rows as one
@@ -293,10 +296,126 @@ struct SpanLen {
   }
 };
 
+// The gather's side of a stream of tiles, shared by gram_stream below and
+// split_stream (split_gram_mma.cuh): a cursor at the next tile to copy,
+// its slots' ids, the values of the tiles in flight, and the cp.async of
+// a tile. The block takes rows blockIdx.x, blockIdx.x + gridDim.x, ... as
+// ONE stream of tiles (a row of n slots gives ceil(n / 64) of them, a row
+// of none gives none). Each slot's table row is kF entries of T, copied
+// 16 bytes a thread by TPS threads: thread t copies piece t % TPS of
+// slots NS (t / TPS) .. + NS - 1 of every tile, and the thread of the
+// last piece owns those slots' values. AHEAD tiles of loads are in
+// flight; v[0] holds the values of the oldest. A copy's destination is
+// dst(q, slot), the shared address of this thread's piece of `slot` in
+// stream tile q. The wrappers keep rows * p below 2^31.
+template <typename T, int NS, int TPS, int AHEAD, typename VT,
+          typename RowLen>
+struct Feed {
+  static_assert(TPS == 16 || TPS == 32, "16 or 32 threads a slot");
+  static constexpr int kTpsShift = TPS == 16 ? 4 : 5;
+  const T* table;
+  const int32_t* cols;
+  const VT* vals;
+  int p, rows;
+  RowLen row_len;
+  int piece, slot0;  // which 16 bytes of a table row; this thread's slots
+  bool owner;        // owns the values of its slots
+  // the cursor: a tile of row `row`, which holds slots [first, first + n)
+  // of cols and vals (n: the row's slots left); past the stream
+  // row >= rows and n = 0
+  int row, n, first;
+  int id[NS];          // ids of the cursor's tile, -1 beyond its slots
+  float v[AHEAD][NS];  // values of the tiles in flight
+  float v_new[NS];     // values of the tile whose copies started last
+
+  __device__ __forceinline__ Feed(const T* table_, const int32_t* cols_,
+                                  const VT* vals_, int p_, int rows_,
+                                  const RowLen& row_len_)
+      : table(table_), cols(cols_), vals(vals_), p(p_), rows(rows_),
+        row_len(row_len_),
+        // signed, as the slot indices they feed (cols + first + slot0)
+        piece((int)threadIdx.x & (TPS - 1)),
+        slot0(((int)threadIdx.x >> kTpsShift) * NS),
+        owner(piece == TPS - 1),
+        row(blockIdx.x) {
+    enter_row();
+  }
+  // enter row `row`, or the first row after it that has slots
+  __device__ __forceinline__ void enter_row() {
+    for (;; row += gridDim.x) {
+      first = row * p;
+      n = row < rows ? row_len(row) : 0;
+      if (n > 0 || row >= rows) return;
+    }
+  }
+  __device__ __forceinline__ void step() {
+    first += kSlots;
+    n -= kSlots;
+    if (n <= 0) {
+      row += gridDim.x;
+      enter_row();
+    }
+  }
+  __device__ __forceinline__ void load_ids() {
+#pragma unroll
+    for (int i = 0; i < NS; ++i)
+      id[i] = slot0 + i < n ? __ldg(cols + first + slot0 + i) : -1;
+  }
+  __device__ __forceinline__ void load_vals(float (&out)[NS]) const {
+#pragma unroll
+    for (int i = 0; i < NS; ++i)
+      out[i] = owner && slot0 + i < n ? to_f32(vals[first + slot0 + i])
+                                      : 0.f;
+  }
+  // Start the copies of the cursor's tile as stream tile q.
+  template <typename Dst>
+  __device__ __forceinline__ void copy(int q, const Dst& dst) const {
+    if (row < rows) {
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        const bool live = id[i] >= 0;
+        const T* src = table + (int64_t)(live ? id[i] : 0) * kF +
+                       piece * (16 / (int)sizeof(T));
+        cp_async16(dst(q, slot0 + i), src, live ? 16 : 0);
+      }
+    }
+    cp_async_commit();  // one group a tile, also when it is empty
+  }
+  // Stream tiles 0 .. AHEAD - 1 in flight, and the ids of the next.
+  template <typename Dst>
+  __device__ __forceinline__ void prime(const Dst& dst) {
+#pragma unroll
+    for (int a = 0; a < AHEAD; ++a) {
+      load_ids();
+      copy(a, dst);
+      load_vals(v[a]);
+      step();
+    }
+    load_ids();
+  }
+  // Once the stage of stream tile q is free: the cursor's tile, stream
+  // tile q, in flight, its values in v_new, and the ids of the next.
+  template <typename Dst>
+  __device__ __forceinline__ void next(int q, const Dst& dst) {
+    copy(q, dst);
+    load_vals(v_new);
+    step();
+    load_ids();
+  }
+  // The tile the tensor cores took is done with its values: the queue
+  // moves up, the values of the tile that started last at its end.
+  __device__ __forceinline__ void shift() {
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+#pragma unroll
+      for (int a = 0; a + 1 < AHEAD; ++a) v[a][i] = v[a + 1][i];
+      v[AHEAD - 1][i] = v_new[i];
+    }
+  }
+};
+
 // Gather + Gram over the rows that fall to this block, row r over its
-// first row_len(r) slots of p. The block takes rows blockIdx.x,
-// blockIdx.x + gridDim.x, ... as ONE stream of tiles (a row of n slots
-// gives ceil(n / 64) of them, a row of none gives none), so that the
+// first row_len(r) slots of p, as one stream of tiles (Feed), so that the
 // gather of the next row is in flight while this one's last tiles are
 // multiplied and its sums are written.
 // Per row: acc (this thread's part of the fragment described at the head
@@ -320,62 +439,14 @@ __device__ __forceinline__ void gram_stream(Smem& s,
                                             const RowLen& row_len,
                                             const RowDone& done) {
   const int tid = threadIdx.x;
-  const int piece = tid & 15;       // which 16 bytes of a table row
-  const int slot0 = (tid >> 4) * kSlotsPerThread;  // this thread's slots
   const int wg = tid >> 7;
-  const bool owner = piece == 15;   // owns the values of its slots
   const uint32_t tiles_s = smem_u32(&s.tiles[0][0]);
-
-  // A place in the stream: a tile of row `row`, which holds slots
-  // [first, first + n) of cols and vals (n: the row's slots left);
-  // past the stream row >= rows and n = 0. The wrappers keep
-  // rows * p below 2^31.
-  struct Cursor {
-    int row, n, first;
-  };
-  // enter row c.row, or the first row after it that has slots
-  auto enter_row = [&](Cursor& c) {
-    for (;; c.row += gridDim.x) {
-      c.first = c.row * p;
-      c.n = c.row < rows ? row_len(c.row) : 0;
-      if (c.n > 0 || c.row >= rows) return;
-    }
-  };
-  auto step = [&](Cursor& c) {
-    c.first += kSlots;
-    c.n -= kSlots;
-    if (c.n <= 0) {
-      c.row += gridDim.x;
-      enter_row(c);
-    }
-  };
-  // ids of the cursor's tile, -1 beyond its slots
-  auto load_ids = [&](const Cursor& c, int (&id)[kSlotsPerThread]) {
-#pragma unroll
-    for (int i = 0; i < kSlotsPerThread; ++i)
-      id[i] = slot0 + i < c.n ? __ldg(cols + c.first + slot0 + i) : -1;
-  };
-  auto load_vals = [&](const Cursor& c, float (&v)[kSlotsPerThread]) {
-#pragma unroll
-    for (int i = 0; i < kSlotsPerThread; ++i)
-      v[i] = owner && slot0 + i < c.n ? to_f32(vals[c.first + slot0 + i])
-                                      : 0.f;
-  };
-  // Start the copies of stream tile q, at cursor c, whose ids are `id`.
-  auto start_copies = [&](int q, const Cursor& c,
-                          const int (&id)[kSlotsPerThread]) {
-    if (c.row < rows) {
-      const uint32_t base = tiles_s + (q % kStages) * kTileBytes;
-#pragma unroll
-      for (int i = 0; i < kSlotsPerThread; ++i) {
-        const bool live = id[i] >= 0;
-        const __nv_bfloat16* src =
-            table + (int64_t)(live ? id[i] : 0) * kF + piece * 8;
-        cp_async16(base + tile_offset(slot0 + i, piece * 8), src,
-                   live ? 16 : 0);
-      }
-    }
-    cp_async_commit();  // one group a tile, also when it is empty
+  Feed<__nv_bfloat16, kSlotsPerThread, 16, kAhead, VT, RowLen> feed(
+      table, cols, vals, p, rows, row_len);
+  const int slot0 = feed.slot0;
+  const int lane0 = feed.piece * 8;  // the first lane this thread copies
+  auto dst = [&](int q, int slot) {
+    return tiles_s + (q % kStages) * kTileBytes + tile_offset(slot, lane0);
   };
 
   // Nothing but wgmma touches acc inside the loop over a row's tiles: a
@@ -386,20 +457,8 @@ __device__ __forceinline__ void gram_stream(Smem& s,
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.f;
   float b_sum[2][2] = {{0.f, 0.f}, {0.f, 0.f}};  // WITH_B: [sum][lane]
-  if (WITH_R2 && owner) s.r2[tid >> 4] = 0.f;
-  int id[kSlotsPerThread];
-  float v_queue[kAhead][kSlotsPerThread];  // values of the tiles in flight
-  Cursor ahead;  // the tile whose ids load next
-  ahead.row = blockIdx.x;
-  enter_row(ahead);
-#pragma unroll
-  for (int a = 0; a < kAhead; ++a) {
-    load_ids(ahead, id);
-    start_copies(a, ahead, id);
-    load_vals(ahead, v_queue[a]);
-    step(ahead);
-  }
-  load_ids(ahead, id);
+  if (WITH_R2 && feed.owner) s.r2[tid >> 4] = 0.f;
+  feed.prime(dst);
 
   int q = 0;  // the stream tile the tensor cores take next
   for (int row = blockIdx.x; row < rows; row += gridDim.x) {
@@ -409,17 +468,16 @@ __device__ __forceinline__ void gram_stream(Smem& s,
       const int buf = q % kStages;
       unsigned char* tile = s.tiles[buf];
       cp_async_wait<kAhead - 1>();  // this thread's copies of tile q landed
-      if (owner) {
+      if (feed.owner) {
         float sq = 0.f;  // WITH_R2: this tile's part
 #pragma unroll
         for (int i = 0; i < kSlotsPerThread; ++i) {
-          if constexpr (WITH_B) s.v[buf][slot0 + i] = v_queue[0][i];
-          if constexpr (WITH_R2)
-            sq = fmaf(v_queue[0][i], v_queue[0][i], sq);
+          if constexpr (WITH_B) s.v[buf][slot0 + i] = feed.v[0][i];
+          if constexpr (WITH_R2) sq = fmaf(feed.v[0][i], feed.v[0][i], sq);
           if constexpr (AUG)
             *reinterpret_cast<__nv_bfloat16*>(
                 tile + tile_offset(slot0 + i, kF - 1)) =
-                __float2bfloat16(v_queue[0][i]);
+                __float2bfloat16(feed.v[0][i]);
         }
         if constexpr (WITH_R2) s.r2[tid >> 4] += sq;
       }
@@ -427,11 +485,7 @@ __device__ __forceinline__ void gram_stream(Smem& s,
       // Tile q is whole; every thread has left the wgmma wait of iteration
       // q - 1, so the wgmma of tile q - 2 is done and its buffer is free.
       __syncthreads();
-      float v_new[kSlotsPerThread];
-      start_copies(q + kAhead, ahead, id);  // `ahead` is at tile q + kAhead
-      load_vals(ahead, v_new);
-      step(ahead);
-      load_ids(ahead, id);
+      feed.next(q + kAhead, dst);  // the cursor is at tile q + kAhead
 
       const int k_steps = (min(kSlots, n - lo) + 15) / 16;
       const uint32_t base = tiles_s + buf * kTileBytes;
@@ -468,18 +522,13 @@ __device__ __forceinline__ void gram_stream(Smem& s,
         }
       }
       wgmma_wait<1>();
-#pragma unroll
-      for (int i = 0; i < kSlotsPerThread; ++i) {
-#pragma unroll
-        for (int a = 0; a + 1 < kAhead; ++a) v_queue[a][i] = v_queue[a + 1][i];
-        v_queue[kAhead - 1][i] = v_new[i];
-      }
+      feed.shift();
     }
     wgmma_wait<0>();
     use_acc(acc);
     done(row, n, acc, b_sum[0][0] + b_sum[1][0], b_sum[0][1] + b_sum[1][1]);
     b_sum[0][0] = b_sum[0][1] = b_sum[1][0] = b_sum[1][1] = 0.f;
-    if (WITH_R2 && owner) s.r2[tid >> 4] = 0.f;
+    if (WITH_R2 && feed.owner) s.r2[tid >> 4] = 0.f;
   }
 }
 
@@ -531,6 +580,29 @@ __device__ __forceinline__ void store_fragment(const float (&acc)[64],
   }
 }
 
+// Write b of one row (its 128 lanes at `out`) from each thread's sums
+// over its quarter of the slots (b0, b1: lanes 2 (t % 64) and
+// 2 (t % 64) + 1), the four quarters added in a fixed order through `sb`.
+// The whole block calls it; it holds a barrier.
+__device__ __forceinline__ void store_b(float (&sb)[3][kF], float b0,
+                                        float b1, float* out) {
+  const int tid = threadIdx.x;
+  const int lanes = 2 * (tid & (kF / 2 - 1));
+  const int quarter = tid >> 6;
+  if (quarter > 0)
+    *reinterpret_cast<float2*>(&sb[quarter - 1][lanes]) = make_float2(b0, b1);
+  __syncthreads();
+  if (quarter == 0) {
+    float2 sum = make_float2(b0, b1);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      sum.x += sb[k][lanes];
+      sum.y += sb[k][lanes + 1];
+    }
+    *reinterpret_cast<float2*>(out + lanes) = sum;
+  }
+}
+
 // The kernels and their host side have internal linkage: every source
 // that includes this file is built into a library of its own, and two
 // libraries loaded into one process must not share a kernel's host stub
@@ -552,26 +624,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       s, table, cols, vals, p, rows, AllSlots{p},
       [&](int row, int, const float (&acc)[64], float b0, float b1) {
         store_fragment<OT>(acc, a_out + (int64_t)row * kF * kF);
-        if constexpr (!AUG) {
-          // b: the four quarters of the slots, added in a fixed order
-          const int tid = threadIdx.x;
-          const int lanes = 2 * (tid & (kF / 2 - 1));
-          const int quarter = tid >> 6;
-          if (quarter > 0)
-            *reinterpret_cast<float2*>(&s.b[quarter - 1][lanes]) =
-                make_float2(b0, b1);
-          __syncthreads();
-          if (quarter == 0) {
-            float2 sum = make_float2(b0, b1);
-#pragma unroll
-            for (int k = 0; k < 3; ++k) {
-              sum.x += s.b[k][lanes];
-              sum.y += s.b[k][lanes + 1];
-            }
-            *reinterpret_cast<float2*>(b_out + (int64_t)row * kF + lanes) =
-                sum;
-          }
-        }
+        if constexpr (!AUG) store_b(s.b, b0, b1, b_out + (int64_t)row * kF);
       });
 }
 

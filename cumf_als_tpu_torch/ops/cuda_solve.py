@@ -69,11 +69,16 @@ table row to an SM. For a bf16 table at f = 128, the main path, they
 gather with cp.async into a ring of swizzled bf16 tiles and run the Gram
 on the tensor cores (csrc/gram_mma.cuh); K1 and K6 stop each row at its
 nnz and run the CG on the wgmma fragment in registers
-(csrc/frag_cg.cuh). A float32 table and a bf16 table at f < 128 keep the
-f32 FMA body of csrc/common.cuh. `gram_body` is that rule. One block
-takes one row at a time, so a chunk with fewer rows than the blocks that
-fit the card would leave SMs idle: K2 and K5a cut such a chunk on a bf16
-table at f = 128 or 256 (`gram_spans`, from the shape and the SM count
+(csrc/frag_cg.cuh). On a float32 table at f = 128 K2 and K5a cut each
+entry into three bf16 pieces and run six of their products on the same
+tensor cores (csrc/split_gram_mma.cuh, `panel_body` "split"), which
+keeps A to f32 accuracy; K1 and K6 there, and every kernel at
+f < 128, keep the f32 FMA body of csrc/common.cuh. `gram_body`
+is the rule of K1, K6 and K7, `panel_body` that of K2 and K5a. One
+block takes one row at a time, so a chunk with fewer rows than the
+blocks that fit the card would leave SMs idle: K2 and K5a cut such a
+chunk at f = 128 (a bf16 or a float32 table) or on a bf16 table at 256
+(`gram_spans`, from the shape, the table's dtype and the SM count
 alone): each row's P slots in S spans of whole 64-slot tiles, the kernel
 run unchanged over the (R S, P / S) view of cols and vals (span s of row
 r is its row r S + s) writing f32 partials to scratch, then pass 2
@@ -455,7 +460,8 @@ def gather_gram_cg(table_ext, cols, vals, nnz, x0, lam: float,
     _check("nnz", nnz, (r,), (torch.int32,))
     _check("x0", x0, (r, f), (torch.float32,))
     if r and f == 128:
-        s = _gram_spans_of(name, table_ext, r, p, spans, rule=theta_spans)
+        s = _gram_spans_of(name, table_ext, r, p, spans, rule=theta_spans,
+                           body=gram_body)
         if s > 1:
             part = theta_span_grams(table_ext, cols, vals, nnz, s, aug)
             return frag_span_solve(part, nnz, x0, lam, p, s, cg_iters,
@@ -483,8 +489,9 @@ def gather_gram_cg(table_ext, cols, vals, nnz, x0, lam: float,
 
 # ------------------------------------------- K2 / K5a the panel Grams --
 def gram_body(table_ext: torch.Tensor) -> str:
-    """Which Gram body the kernels K1, K2, K5a, K6 and K7 run for this
-    table on a card, by its dtype and width alone: "wgmma" (cp.async
+    """Which Gram body the kernels K1, K6 and K7 (and K2 and K5a but for
+    a float32 table at f = 128, `panel_body` "split") run for this table
+    on a card, by its dtype and width alone: "wgmma" (cp.async
     gather into swizzled bf16 tiles, tensor-core Gram) for a bf16 table
     at f = 128, the width of the main path (csrc/gram_mma.cuh; for K1 and
     K6 the CG on the fragment of csrc/frag_cg.cuh), and at f = 256 (K1, K6
@@ -492,21 +499,37 @@ def gram_body(table_ext: torch.Tensor) -> str:
     csrc/wide_span_gram_mma.cu, then pass 2; K2 and K5a: the panel body
     of csrc/wide_gram_mma.cuh), and at f = 128 T, T >= 3 (the tiled Gram
     of csrc/tile_gram.cu); "fma" (the f32 FMA bodies of csrc/common.cuh,
-    csrc/wide.cuh and tile_gram.cu) for a float32 table, which bf16
-    tensor cores would round, and for every other width. A caller cannot
-    choose, and neither body gives way to the other or to the plain
-    version."""
+    csrc/wide.cuh and tile_gram.cu) for a float32 table, whose entries
+    bf16 tensor cores would round (K2 and K5a at f = 128 split them into
+    three bf16 pieces instead), and for every other width. A caller
+    cannot choose, and neither body gives way to the other or to the
+    plain version."""
     f = table_ext.shape[1]
     if table_ext.dtype == torch.bfloat16 and (f in (128, 256) or tiled(f)):
         return "wgmma"
     return "fma"
 
 
-def _check_gram_table(table_ext: torch.Tensor, cols: torch.Tensor) -> None:
-    """The tensor-core body copies 16 bytes at a time: the table's rows
-    must lie on 16-byte boundaries. It counts a chunk's slots in 32
+def panel_body(table_ext: torch.Tensor) -> str:
+    """Which Gram body the panel kernels K2 and K5a run for this table on
+    a card, by its dtype and width alone: "split" for a float32 table at
+    f = 128 (csrc/split_gram_mma.cuh: each entry cut into three bf16
+    pieces, hi + mid + lo, and six of their products, all but mid.lo,
+    lo.mid and lo.lo, summed in f32 on the tensor cores), and what
+    `gram_body` says for every other table. Neither body gives way to
+    another or to the plain version."""
+    if table_ext.dtype == torch.float32 and table_ext.shape[1] == 128:
+        return "split"
+    return gram_body(table_ext)
+
+
+def _check_gram_table(table_ext: torch.Tensor, cols: torch.Tensor,
+                      body: Optional[str] = None) -> None:
+    """The tensor-core bodies (`body`, default `gram_body`'s: "wgmma", or
+    K2's and K5a's "split") copy 16 bytes at a time: the table's rows
+    must lie on 16-byte boundaries. They count a chunk's slots in 32
     bits."""
-    if gram_body(table_ext) != "wgmma":
+    if (body or gram_body(table_ext)) not in ("wgmma", "split"):
         return
     if table_ext.data_ptr() % 16:
         raise ValueError("table_ext: its storage must start on a 16-byte "
@@ -535,10 +558,11 @@ def gather_gram_out(table_ext, cols, vals,
     f32/bf16. Returns A (R, f, f) in out_dtype (summed in f32) and
     b (R, f) f32; f a multiple of 16 up to 128, 256, or a multiple of
     128 from 384 on (``tile_gram`` there). On a card the
-    Gram runs in the body `gram_body` names; on the tensor cores the bf16
-    products are exact and the f32 sums are taken in the hardware's
-    order, and a chunk of few rows takes the cut of `gram_spans` (each
-    row's slots in S spans across blocks, then ``gram_span_sum``).
+    Gram runs in the body `panel_body` names; on the tensor cores the
+    bf16 products (of a float32 table's three pieces) are exact and the
+    f32 sums are taken in the hardware's order, and a chunk of few rows
+    takes the cut of `gram_spans` (each row's slots in S spans across
+    blocks, then ``gram_span_sum``).
     `spans` forces S on a card (1: the uncut kernel); tensors on the CPU
     take the plain version whatever it says."""
     if _on_cpu(table_ext, cols, vals):
@@ -707,8 +731,9 @@ def gather_gram_aug_out(table_ext, cols, vals,
     the table's dtype as they enter lane f-1. Returns A' (R, f, f) in
     out_dtype (summed in f32): A in rows/columns < f-1, b in row and
     column f-1, sum v^2 in the corner; f a multiple of 16 up to 128,
-    256, or a multiple of 128 from 384 on. On a card the Gram runs in the body `gram_body` names, a chunk
-    of few rows in the cut of `gram_spans`, as K2's; `spans` as K2's."""
+    256, or a multiple of 128 from 384 on. On a card the Gram runs in the
+    body `panel_body` names, a chunk of few rows in the cut of
+    `gram_spans`, as K2's; `spans` as K2's."""
     if _on_cpu(table_ext, cols, vals):
         return gather_gram_aug_out_plain(table_ext, cols, vals, out_dtype)
     return _panel_gram("gather_gram_aug_out", table_ext, cols, vals,
@@ -728,12 +753,13 @@ GRAM_CUT_TILE_COST_256 = 1.5
 GRAM_CUT_EXTRA_TILES_256 = 8
 
 
-def gram_blocks_per_sm(f: int) -> int:
+def gram_blocks_per_sm(f: int, dtype: torch.dtype = torch.bfloat16) -> int:
     """Blocks of the tensor-core panel body that fit one SM: two at
-    f = 128 (csrc/gram_mma.cuh, 128 registers a thread), one at f = 256
-    (the panel body of csrc/wide_gram_mma.cuh, ~200 KB of shared
-    memory)."""
-    return 2 if f == 128 else 1
+    f = 128 on a bf16 table (csrc/gram_mma.cuh, 128 registers a thread),
+    one on a float32 table there (the split body of
+    csrc/split_gram_mma.cuh, ~195 KB of shared memory) and one at f = 256
+    (the panel body of csrc/wide_gram_mma.cuh, ~200 KB)."""
+    return 2 if f == 128 and dtype == torch.bfloat16 else 1
 
 
 def gram_spans(r: int, p: int, f: int, sms: int,
@@ -744,9 +770,11 @@ def gram_spans(r: int, p: int, f: int, sms: int,
     K5a chunk of R rows of P slots is cut into on a card of `sms` SMs,
     from the shape alone: span s of row r covers slots [s L, (s + 1) L),
     L = P / S, and the S spans cover [0, P) once. S = 1 (the uncut
-    kernel) unless the table takes a tensor-core body (`dtype` bf16,
-    f = 128 or 256), P is a whole number of tiles and R is below the
-    blocks that fit the card at once (`gram_blocks_per_sm` an SM); else
+    kernel) unless the table takes a tensor-core panel body (f = 128, a
+    bf16 or a float32 table: `panel_body` "wgmma" or "split"; a bf16
+    table at f = 256), P is a whole number of tiles and R is below the
+    blocks that fit the card at once (`gram_blocks_per_sm` an SM: 264 on
+    a bf16 table at f = 128, 132 on a float32 one, on an H100); else
     the largest S that divides P's tiles, leaves no span under
     `min_tiles` tiles, keeps R S within `target` spans an SM (at most
     the body's blocks an SM) and the f32 partials of R S spans within
@@ -778,9 +806,9 @@ def gram_spans(r: int, p: int, f: int, sms: int,
         if rest or r >= items:
             return 1
     else:
-        per_sm = gram_blocks_per_sm(f)
-        if dtype != torch.bfloat16 or f not in (128, 256) or rest or \
-                r >= per_sm * sms:
+        per_sm = gram_blocks_per_sm(f, dtype)
+        cut = f == 128 or (f == 256 and dtype == torch.bfloat16)
+        if not cut or rest or r >= per_sm * sms:
             return 1
         items = min(target, per_sm) * sms
     record = (f * f + f) * 4
@@ -797,10 +825,10 @@ def gram_spans(r: int, p: int, f: int, sms: int,
 
 
 def _gram_spans_of(name: str, table_ext, r: int, p: int, spans,
-                   rule=gram_spans) -> int:
+                   rule=gram_spans, body=panel_body) -> int:
     """S for this chunk on this card: `rule` (`gram_spans`, or K1's
-    `theta_spans`), or what `spans` forces (a divisor of P's whole tiles
-    on a tensor-core body; 1 anywhere)."""
+    `theta_spans` with `body` `gram_body`), or what `spans` forces (a
+    divisor of P's whole tiles on a tensor-core body; 1 anywhere)."""
     f = table_ext.shape[1]
     if spans is None:
         return rule(r, p, f, _sms(table_ext.device), table_ext.dtype)
@@ -810,12 +838,14 @@ def _gram_spans_of(name: str, table_ext, r: int, p: int, spans,
     if s == 1:
         return 1
     cut = tile_gram_body(table_ext) == "cluster" if tiled(f) else \
-        gram_body(table_ext) == "wgmma"
+        body(table_ext) in ("wgmma", "split")
     if not cut or p % (GRAM_TILE * s):
-        raise ValueError(f"{name}: spans = {spans} cuts a bf16 table's "
-                         f"chunk (f = 128 or 256, or f = 384 or 512 "
-                         f"on tile_gram's cluster body) whose P ({p}) is a "
-                         f"multiple of {GRAM_TILE} x spans only")
+        raise ValueError(f"{name}: spans = {spans} cuts a chunk on a "
+                         f"tensor-core body (a bf16 table at f = 128 or "
+                         f"256, a float32 one at 128 for K2 and K5a, or "
+                         f"f = 384 or 512 on tile_gram's cluster body) "
+                         f"whose P ({p}) is a multiple of {GRAM_TILE} x "
+                         f"spans only")
     return s
 
 
@@ -841,7 +871,7 @@ def _panel_gram(name: str, table_ext, cols, vals, out_dtype, spans,
     dev = cols.device
     s = 1
     if r:
-        _check_gram_table(table_ext, cols)
+        _check_gram_table(table_ext, cols, panel_body(table_ext))
         s = _gram_spans_of(name, table_ext, r, p, spans)
     if tiled(f):
         if s > 1:
@@ -957,15 +987,15 @@ THETA_CUT_MIN_TILES = 8
 def theta_spans(r: int, p: int, f: int, sms: int,
                 dtype: torch.dtype = torch.bfloat16) -> int:
     """S, the spans each row of a K1 or K6 chunk of R rows of P slots is
-    cut into on a card of `sms` SMs: at f = 128 the rule of K2's cut,
-    `gram_spans` (S > 1 only for a bf16 table, R below the two blocks an
-    SM that fit the card and P a whole number of 64-slot tiles; the
-    largest S of whole tiles with R S at most `GRAM_CUT_TARGET` spans an
-    SM), with no span under `THETA_CUT_MIN_TILES` tiles where K2 takes
-    four; 1 at every other width (f = 256 has the row cut of
-    `row_spans`). On an H100 (132 SMs) the widest direct theta chunk of
-    sharded out-of-core training, 8 x 196,608, takes S = 32, the hugewiki
-    driver's 32 x 81,920 S = 8.
+    cut into on a card of `sms` SMs: on a bf16 table at f = 128 the rule
+    of K2's cut, `gram_spans` (R below the two blocks an SM that fit the
+    card and P a whole number of 64-slot tiles; the largest S of whole
+    tiles with R S at most `GRAM_CUT_TARGET` spans an SM), with no span
+    under `THETA_CUT_MIN_TILES` tiles where K2 takes four; 1 on a float32
+    table (the uncut FMA body) and at every other width (f = 256 has the
+    row cut of `row_spans`). On an H100 (132 SMs) the widest direct theta
+    chunk of sharded out-of-core training, 8 x 196,608, takes S = 32, the
+    hugewiki driver's 32 x 81,920 S = 8.
 
     The constants are measured (scripts/torch_theta_cut_sweep.py;
     PERF.md, the cut's findings; an H100 SXM at 700 W): K1's rows stop at
@@ -978,7 +1008,7 @@ def theta_spans(r: int, p: int, f: int, sms: int,
     of hugewiki_mini's in-core theta plan 6.436 against 6.440 (43.664
     uncut; target 1: 7.626); over the 49 of the hugewiki driver's 18.777
     at every min_tiles (94.520 uncut; target 1: 26.312)."""
-    if f != 128:
+    if f != 128 or dtype != torch.bfloat16:
         return 1
     return gram_spans(r, p, f, sms, dtype, min_tiles=THETA_CUT_MIN_TILES)
 

@@ -71,11 +71,15 @@ def gram_limit(a, a_plain, p, body):
     sums. The terms of A_ij sum in magnitude to at most sqrt(A_ii A_jj)
     (Cauchy-Schwarz), so the limit is steps x 2^-23 x sqrt(A_ii A_jj) +
     1e-5: one f32 ulp of the sum's size for each accumulation step (a
-    slot in the FMA body, 16 slots on the tensor cores) and 4 for the
-    plain version's own rounding. A bf16 A adds one bf16 ulp of the
-    larger value: both sides round an f32 sum to nearest."""
+    slot in the FMA body, 16 slots on the tensor cores; the split body of
+    a float32 table, "split", six wgmma a 16-slot step and two for the
+    three products it drops, mid.lo, lo.mid and lo.lo, at most 2^-23
+    |g_i| |g_j| a slot) and 4 for the plain version's own rounding. A
+    bf16 A adds one bf16 ulp of the larger value: both sides round an f32
+    sum to nearest."""
     af, pf = a.float(), a_plain.float()
-    steps = (p if body == "fma" else -(-p // 16)) + 4
+    k_steps = -(-p // 16)
+    steps = {"fma": p, "split": 6 * k_steps + 2}.get(body, k_steps) + 4
     d = pf.diagonal(dim1=-2, dim2=-1).clamp_min(0).sqrt()
     lim = steps * 2.0 ** -23 * d[..., :, None] * d[..., None, :] + 1e-5
     name = f"{steps} x 2^-23 sqrt(A_ii A_jj) + 1e-5"
@@ -108,7 +112,7 @@ def test_kernels_match_plain(card, f, dtype):
     a, b = cs.gather_gram_out(*gpu[:3], out_dtype=dtype)
     pa, pb = cs.gather_gram_out(*cpu[:3], out_dtype=dtype)
     assert a.dtype == dtype
-    _assert_gram_close(a, pa, P, cs.gram_body(gpu[0]))
+    _assert_gram_close(a, pa, P, cs.panel_body(gpu[0]))
     torch.testing.assert_close(b.cpu(), pb, rtol=1e-5, atol=1e-5)
     diag = cpu[3].float() * LAM + (cpu[3] == 0).float()
     x3 = cs.solve_cg_reg(a, diag.to(card), b, gpu[4])
@@ -138,7 +142,7 @@ def test_aug_kernels_match_plain(card, f, dtype):
     a = cs.gather_gram_aug_out(*gpu[:3], out_dtype=dtype)
     pa = cs.gather_gram_aug_out(*cpu[:3], out_dtype=dtype)
     assert a.dtype == dtype
-    _assert_gram_close(a, pa, P, cs.gram_body(gpu[0]))
+    _assert_gram_close(a, pa, P, cs.panel_body(gpu[0]))
     diag = cpu[3].float() * LAM + (cpu[3] == 0).float()
     x5 = cs.solve_cg_aug(a, diag.to(card), gpu[4])
     px5 = cs.solve_cg_aug(a.cpu(), diag, cpu[4])
@@ -191,16 +195,18 @@ def _edge_chunk(p, r, kind, seed=0, f=128):
 def test_gram_kernels_at_the_tile_edges(card, p, r, table_dtype, out_dtype,
                                         kind):
     """K2 and K5a against their plain versions at the edges of the
-    64-slot tile, in both bodies (a bf16 table runs the tensor cores, a
-    float32 table the FMAs), and at P = 520 and 1288 with rows of 9 and
-    21 tiles through the ring of 4: bit for bit on an integer table,
-    within `_assert_gram_close` on a random one; rows of pad slots only
+    64-slot tile, in both bodies (a bf16 table runs the tensor cores on
+    its entries, a float32 table on their three bf16 pieces, the split
+    body), and at P = 520 and 1288 with rows of 9 and 21 tiles through
+    the rings: bit for bit on an integer table, within
+    `_assert_gram_close` on a random one (full f32 mantissas: the split
+    body's mid and lo pieces are not zero); rows of pad slots only
     exactly 0."""
     table, cols, vals, empty = _edge_chunk(p, r, kind)
     cpu = (table.to(table_dtype), cols, vals)
     gpu = tuple(t.to(card) for t in cpu)
-    body = cs.gram_body(gpu[0])
-    assert body == ("wgmma" if table_dtype == torch.bfloat16 else "fma")
+    body = cs.panel_body(gpu[0])
+    assert body == ("wgmma" if table_dtype == torch.bfloat16 else "split")
     a, b = cs.gather_gram_out(*gpu, out_dtype=out_dtype)
     pa, pb = cs.gather_gram_out(*cpu, out_dtype=out_dtype)
     a5 = cs.gather_gram_aug_out(*gpu, out_dtype=out_dtype)
@@ -373,9 +379,25 @@ def test_gram_chunks_of_many_rows_keep_the_uncut_kernel(card, f):
     a = cs.gather_gram_aug_out(*few, out_dtype=torch.bfloat16)
     a2 = cs.gather_gram_aug_out(*few, out_dtype=torch.bfloat16, spans=s)
     assert torch.equal(a.view(torch.int16), a2.view(torch.int16))
-    for bad, t in ((3, table), (2, table.float())):
+    bad = [(3, table)]
+    if f == 256:
+        bad.append((2, table.float()))   # panel_gram: no cut
+    else:
+        # the split body of a float32 table cuts as the bf16 body does,
+        # its cut held to the plain version within the body's limit on
+        # entries with full mantissas (zero row and lane f - 1 kept)
+        gen = torch.Generator(device=card).manual_seed(3)
+        t32 = 0.2 * torch.rand(table.shape, generator=gen, device=card)
+        t32[table.shape[0] - 1] = 0
+        t32[:, f - 1] = 0
+        assert cs.panel_body(t32) == "split"
+        a32 = cs.gather_gram_aug_out(t32, *few[1:], spans=2)
+        pa32 = cs.gather_gram_aug_out_plain(t32.cpu(),
+                                            *(t.cpu() for t in few[1:]))
+        _assert_gram_close(a32, pa32, 4096, "split")
+    for spans, t in bad:
         with pytest.raises(ValueError, match="spans"):
-            cs.gather_gram_out(t, *few[1:], spans=bad)
+            cs.gather_gram_out(t, *few[1:], spans=spans)
 
 
 # ------------------- the cut of K1 and K6 on few-row chunks (f = 128) --
@@ -1840,7 +1862,7 @@ def test_k2_on_a_hot_segment_chunk(card, table_dtype):
     a, b = cs.gather_gram_out(*args, out_dtype=torch.float32)
     assert cs.LAUNCHES["gather_gram_out"] == 1
     pa, pb = cs.gather_gram_out_plain(*args, out_dtype=torch.float32)
-    body = cs.gram_body(args[0])
+    body = cs.panel_body(args[0])
     _assert_gram_close(a, pa.cpu(), p, body)
     torch.testing.assert_close(b, pb, rtol=1e-5, atol=1e-5)
     assert bool((a[-1] == 0).all()) and bool((b[-1] == 0).all())

@@ -151,18 +151,25 @@ def test_plain_gram_adds_over_spans_of_slots(p, span):
     ("fma", 520, torch.float32, "524 x 2^-23 sqrt(A_ii A_jj) + 1e-5"),
     ("wgmma", 576, torch.float32, "40 x 2^-23 sqrt(A_ii A_jj) + 1e-5"),
     ("wgmma", 8, torch.bfloat16,
-     "5 x 2^-23 sqrt(A_ii A_jj) + 1e-5 + one bf16 ulp")])
+     "5 x 2^-23 sqrt(A_ii A_jj) + 1e-5 + one bf16 ulp"),
+    ("split", 576, torch.float32, "222 x 2^-23 sqrt(A_ii A_jj) + 1e-5"),
+    ("split", 8, torch.bfloat16,
+     "12 x 2^-23 sqrt(A_ii A_jj) + 1e-5 + one bf16 ulp"),
+    ("split", 136, torch.float32, "60 x 2^-23 sqrt(A_ii A_jj) + 1e-5")])
 def test_gram_limit_names_what_each_body_is_held_to(body, p, a_dtype, name):
     """`gram_limit`, the tolerance of the card checks
     (tests/test_torch_cuda.py): on the size of the sum, steps x 2^-23
     sqrt(A_ii A_jj) + 1e-5, a step a slot in the FMA body and 16 slots
-    on the tensor cores, one bf16 ulp more for a bf16 A; an entry that
-    cancels to 0 keeps room for the rounding of its terms."""
+    on the tensor cores (six a 16-slot step and two more for the split
+    body of a float32 table, never looser than the FMA body's), one bf16
+    ulp more for a bf16 A; an entry that cancels to 0 keeps room for the
+    rounding of its terms."""
     g = torch.tensor([[3.0, -3.0, 1.0], [3.0, 3.0, 0.5]])
     a = (g.T @ g)[None].to(a_dtype)       # A_01 = 0 by cancellation
     lim, got = gram_limit(a, a.float(), p, body)
     assert got == name and lim.shape == a.shape and bool((lim > 0).all())
     steps = int(name.split()[0])
+    assert steps <= p + 4       # no looser than the FMA body's
     want = steps * 2.0 ** -23 * 18.0 + 1e-5
     if a_dtype == torch.bfloat16:
         want += 2.0 ** -7 * 1e-30     # the ulp of an exact zero: none

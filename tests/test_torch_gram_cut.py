@@ -3,8 +3,9 @@
 
   - the span rule `gram_spans` as cases: S spans of whole 64-slot tiles
     that cover [0, P) once, S = 1 where the cut does not apply (at or
-    above the blocks that fit the card, a float32 table, a width other
-    than 128 or 256, P not a whole number of tiles), R S within the
+    above the blocks that fit the card, a float32 table at f = 256, a
+    width other than 128 or 256, P not a whole number of tiles), R S
+    within the
     spans an SM allow and near them where P's tiles let it, no span
     under `GRAM_CUT_MIN_TILES` tiles, the f32 partials within
     `SPAN_SCRATCH_BYTES`;
@@ -57,29 +58,35 @@ def interpret_mode(monkeypatch):
     (132, 4096, 256), (2304, 576, 128), (16, 4160, 128), (16, 4100, 128),
     (1, 1 << 20, 256)])
 def test_span_rule(r, p, f):
-    s = cs.gram_spans(r, p, f, SMS)
-    per_sm = cs.gram_blocks_per_sm(f)
-    tiles = p // cs.GRAM_TILE
-    assert s >= 1 and p % s == 0
-    if s > 1:
-        span = p // s
-        assert span % cs.GRAM_TILE == 0                 # whole tiles
-        assert span * s == p                            # [0, P) once
-        assert span // cs.GRAM_TILE >= cs.GRAM_CUT_MIN_TILES
-        assert r < per_sm * SMS
-        assert r * s <= min(cs.GRAM_CUT_TARGET, per_sm) * SMS
-        assert r * s * (f * f + f) * 4 <= cs.SPAN_SCRATCH_BYTES
-        # no larger S of whole tiles fits the same limits
-        items = min(cs.GRAM_CUT_TARGET, per_sm) * SMS
-        assert not [k for k in range(s + 1, tiles + 1)
-                    if tiles % k == 0 and r * k <= items and
-                    tiles // k >= cs.GRAM_CUT_MIN_TILES]
-    if r >= per_sm * SMS or p % cs.GRAM_TILE or \
-            tiles < 2 * cs.GRAM_CUT_MIN_TILES:
-        assert s == 1
-    # the card's other tables and widths keep the uncut kernel
-    assert cs.gram_spans(r, p, f, SMS, torch.float32) == 1
+    # a bf16 table, and a float32 one at f = 128 (the split body, one
+    # block an SM); a float32 table at 256 (panel_gram) and every other
+    # width keep the uncut kernel
+    for dtype in (torch.bfloat16, torch.float32):
+        s = cs.gram_spans(r, p, f, SMS, dtype)
+        if dtype == torch.float32 and f == 256:
+            assert s == 1
+            continue
+        per_sm = cs.gram_blocks_per_sm(f, dtype)
+        tiles = p // cs.GRAM_TILE
+        assert s >= 1 and p % s == 0
+        if s > 1:
+            span = p // s
+            assert span % cs.GRAM_TILE == 0                 # whole tiles
+            assert span * s == p                            # [0, P) once
+            assert span // cs.GRAM_TILE >= cs.GRAM_CUT_MIN_TILES
+            assert r < per_sm * SMS
+            assert r * s <= min(cs.GRAM_CUT_TARGET, per_sm) * SMS
+            assert r * s * (f * f + f) * 4 <= cs.SPAN_SCRATCH_BYTES
+            # no larger S of whole tiles fits the same limits
+            items = min(cs.GRAM_CUT_TARGET, per_sm) * SMS
+            assert not [k for k in range(s + 1, tiles + 1)
+                        if tiles % k == 0 and r * k <= items and
+                        tiles // k >= cs.GRAM_CUT_MIN_TILES]
+        if r >= per_sm * SMS or p % cs.GRAM_TILE or \
+                tiles < 2 * cs.GRAM_CUT_MIN_TILES:
+            assert s == 1
     assert cs.gram_spans(r, p, 112, SMS) == 1
+    assert cs.gram_spans(r, p, 112, SMS, torch.float32) == 1
 
 
 @pytest.mark.parametrize("r,p,f", [(16, 1 << 18, 128), (16, 4096, 128),
