@@ -252,11 +252,18 @@ result line):
 13. the panel and solve kernels at 256 lanes (K2, K5a, K3, K4, K5b at
    f = 256; factor widths 128 < F <= 256), and the paths they open:
    a. each against its plain version at f = 256, with times and bounds:
-      K2 and K5a on a synthetic chunk of the Netflix X phase's most
-      populous shape (R = 2304, P = 576, a 65,537-row bf16 panel), bf16
-      and f32 A, and on a float32 copy of the table (the FMA body); K2
-      on a hot-segment chunk (R = 16, P = 2^18, f32 A) of (c)'s X (three
-      ways, as phase 2's few-row chunks) and on
+      the edge grid of K2 and K5a on a float32 table at f = 256 (the
+      split body of csrc/wide_split_mma.cuh: integer tables bit for bit,
+      random ones within `gram_limit` "split", a chunk of more rows than
+      the card's blocks from an odd slot twice); K2 and K5a on a
+      synthetic chunk of the Netflix X phase's most populous shape
+      (R = 2304, P = 576, a 65,537-row bf16 panel), bf16 and f32 A, and
+      on a float32 table of the same shape (full mantissas, 0.2 U(0, 1):
+      the split body, its bound `panel_gram_ops` "split"), bf16 and f32
+      A; K2 on a hot-segment chunk (R = 16, P = 2^18, f32 A) of (c)'s X
+      (three ways, as phase 2's few-row chunks), bf16 and float32 tables,
+      on a synthetic chunk of the out-of-core theta shape (R = 6656,
+      P = 72) on a float32 table, and on
       (c)'s most rated theta chunk; K3, K4 and K5b on 16,384 systems of
       one synthetic chunk (K2's and K5a's A, one row in 64 without
       ratings, which must solve to exactly 0), bf16 and f32 A, K3 and
@@ -277,10 +284,21 @@ result line):
    d. Netflix F=200 with the X phase on the panel route
       (`panel_budget_bytes` 6 GiB), 2 iterations with gram_dtype "bf16"
       (K2, K3) and 2 with "f32" (K5a, K5b; aug "auto"), theta direct,
-      each within 2e-3 of phase 5's wide-off run at every iteration.
+      each within 2e-3 of phase 5's wide-off run at every iteration;
+   e. (d)'s plans with the `ALSConfig` default dtypes (factor_dtype and
+      gram_dtype "f32", aug_gram "auto"), 2 iterations, as 4c at
+      F=100: the panel-aug X route on the float32 table, K5a at 256 on
+      the split body (and `gram_span_sum` on the chunks its cut takes),
+      K5b at 256, and K1 at 256 lanes on the float32 table of direct
+      theta (the uncut FMA kernel, or the row cut's two FMA passes on a
+      chunk of fewer rows than SMs), every launch as the plans say and
+      no other kernel; train RMSE within 2e-3 of (d)'s f32 run at each
+      iteration, test RMSE falling; K5a's device time over the X
+      phase's chunks on the float32 initial factors, as routed and uncut
+      (spans=1), and K2 and K5a on its fewest-row chunk three ways.
    The f = 256 numbers go into the `kernels` line as `f256`, those of
-   (b) as `f128_one_body`, the launches of (c) and (d) as
-   `f256_launches`;
+   (b) as `f128_one_body`, (e)'s as `f256_default`, the launches of (c),
+   (d) and (e) as `f256_launches`;
 14. factor widths F > 256 (f_pad = 128 T, T >= 3), on the same Netflix
    data at F=300 (f_pad 384), bf16 factors, where every route runs the
    two kernels of f >= 384 and no other: `tile_gram` (the Gram in
@@ -344,8 +362,10 @@ It prints a `kernels` JSON line, the card line, and last
 
 is the short call after a change to K2, K5a or csrc/gram_mma.cuh: it
 builds those two kernels and their cut's pass 2 alone (with the ptxas
-report), runs the edge cases and three synthetic chunk shapes against
-the plain versions with their times, then the cut at f = 128 and 256
+report), runs the edge cases (at f = 128, and at f = 256 on a float32
+table, the split body of csrc/wide_split_mma.cuh) and three synthetic
+chunk shapes against the plain versions with their times, then the cut
+at f = 128 and 256
 three ways on synthetic chunks of the fewest-row X panel shape (16 x
 4096), of about 40 rows (40 x 3840) and of the hot segments (16 x
 2^18), and prints no result line.
@@ -390,7 +410,7 @@ is the short call for the panel and solve kernels at 256 lanes and for
 K6 at 256 lanes: it builds K1 and K6 (and the three pass kernels), K2,
 K3, K4, K5a and K5b (with the ptxas report), runs phase 5's wide-off
 F=200 run (2 iterations, the reference of 5e and 13d), phase 5e on its
-plans, then phase 13, and prints no result line.
+plans, then phase 13 (13a-13e), and prints no result line.
 
     python3 chip_smoke.py --wide-f
 
@@ -693,6 +713,13 @@ def card_line() -> str:
 
 
 # ------------------------------------------------------------ phase 1 --
+# the (value, A) types of an instantiation of the split body at f = 256,
+# by its mangled template arguments
+SPLIT_TYPES = {"ff": "f32 values, f32 A", "f13__nv_bfloat16": "f32 values, "
+               "bf16 A", "13__nv_bfloat16f": "bf16 values, f32 A",
+               "13__nv_bfloat16S3_": "bf16 values, bf16 A"}
+
+
 def ptxas_lines(build_log):
     """What ptxas reports for the tensor-core entry functions of K1, K2,
     K5a, K6 (with pass 1 of K1's and K6's cut, in their libraries) and
@@ -729,6 +756,24 @@ def ptxas_lines(build_log):
         # C7519: a warpgroup.arrive ptxas placed itself (no wait)
         arrives = sum("C7519" in line for line in lines)
         ok &= bool(regs) and max(spills, default=0) == 0 and waits == 0
+        if name in GRAM_KERNELS:
+            # the split body at f = 256 (csrc/wide_split_mma.cuh), one
+            # instantiation a (values, A) dtype pair
+            split = []
+            for i, line in enumerate(lines):
+                if "Compiling entry function" in line and \
+                        "panel_split_mma_kernel" in line:
+                    info = " ".join(lines[i + 1:i + 5])
+                    types = re.findall(r"kernelILb[01]E(\w+?)EEvPKf", line)
+                    split.append((
+                        SPLIT_TYPES.get(types[0] if types else "", "?"),
+                        int(re.findall(r"Used (\d+) registers", info)[0]),
+                        int(re.findall(r"(\d+) bytes spill stores",
+                                       info)[0])))
+            ok &= len(split) == 4 and all(sp == 0 for _, _, sp in split)
+            log(f"[ptxas] {name}, the split body at f = 256 "
+                f"(panel_split_mma_kernel), each instantiation (value and "
+                f"A types, registers, spill stores in bytes): {split}")
         log(f"[ptxas] {name}, the {len(regs)} tensor-core entry functions: "
             f"registers {regs}, spill stores {spills} bytes, static shared "
             f"memory {max(smem, default=0)} bytes (dynamic: the ring of "
@@ -888,6 +933,17 @@ def synthetic_table(gen, n, f, signed=True):
     else:
         t = 0.2 * torch.rand((n + 1, f), generator=gen, device=DEV)
     t = t.to(torch.bfloat16)
+    t[n] = 0
+    t[:, f - 1] = 0
+    return t
+
+
+def float32_table(gen, n, f):
+    """A float32 gather table of n rows and one zero row (the pad id n),
+    0.2 U(0, 1) with full 24-bit mantissas, as init_factors makes a factor
+    in float32 (the X phase's table at iteration 0 of the `ALSConfig`
+    default), its lane f - 1 zero (the aug form's free lane)."""
+    t = 0.2 * torch.rand((n + 1, f), generator=gen, device=DEV)
     t[n] = 0
     t[:, f - 1] = 0
     return t
@@ -1595,6 +1651,127 @@ def gram_edges(cs):
     return ok_all
 
 
+def panel_split_edges(cs):
+    """K2 and K5a at f = 256 on a float32 table (the split body of
+    csrc/wide_split_mma.cuh, 32-slot tiles) at the edges of its tile and
+    k-step, on small chunks made from a seed: P = 8, 24, 40, 72, 136, 520
+    and 1288, R = 1 and 5 (a full row and a row of pad slots only), with
+    f32 and bf16 values and A. On a table of small integers (values in
+    halves) every piece below hi is zero and every sum exact: the kernels
+    equal their plain versions bit for bit, the proof of the piece
+    layout, the strips, the transposed blocks of the epilogue and K5a's
+    value in lane 255; on a random one (full f32 mantissas, all three
+    pieces live) A within `gram_limit` "split" and b within rtol 1e-5.
+    Then a chunk of more rows than the card's blocks (2 SMs + 3 rows of
+    P = 199, the ids and values a view from an odd slot, bf16 values):
+    two launches give the same bits, A is exactly symmetric, both within
+    the limits. b is held to 1e-5 of the size of its sum, Sum |v g|
+    (at least 1): the random tables are signed, and a lane whose terms
+    cancel keeps the rounding of its large partial sums. Returns ok."""
+    rng = np.random.RandomState(17)
+    n, f = 300, 256
+    worst = {}
+    ok_all = True
+
+    def check(what, got, want, kind, p, table, nnz, label, size=None):
+        lim = 1e-5 * size.clamp_min(1.0) if what == "K2 b" else \
+            gram_limit(got, want, p, cs.panel_body(table))[0]
+        got, want = got.float(), want.float()
+        diff = (got - want).abs()
+        ok = bool((diff == 0).all() if kind == "integers" else
+                  (diff <= lim).all())
+        ok &= bool((got[nnz == 0] == 0).all())
+        if got.dim() == 3:
+            ok &= bool(torch.equal(got, got.transpose(1, 2)))
+        key = (what, kind)
+        worst[key] = max(worst.get(key, 0.0), diff.max().item())
+        if not ok:
+            log(f"[split 256 edges] FAIL {what} {label}: max|d|="
+                f"{diff.max().item():.3e}")
+        return ok
+
+    def kernels(table, cols, vals, a_dtype):
+        a, b = cs.gather_gram_out(table, cols, vals, out_dtype=a_dtype)
+        pa, pb = cs.gather_gram_out_plain(table, cols, vals,
+                                          out_dtype=a_dtype)
+        a5 = cs.gather_gram_aug_out(table, cols, vals, out_dtype=a_dtype)
+        pa5 = cs.gather_gram_aug_out_plain(table, cols, vals,
+                                           out_dtype=a_dtype)
+        size = cs.gather_gram_out_plain(table.abs(), cols, vals.abs())[1]
+        return (("K2 A", a, pa), ("K2 b", b, pb), ("K5a A'", a5, pa5)), size
+
+    def table_of(kind, rows):
+        if kind == "integers":
+            tab = rng.randint(-4, 5, (rows + 1, f)).astype(np.float32)
+        else:
+            tab = (rng.standard_normal((rows + 1, f)) * 0.3
+                   ).astype(np.float32)
+        tab[rows] = 0.0
+        tab[:, f - 1] = 0.0     # the free lane of the aug form
+        return torch.from_numpy(tab).to(DEV)
+
+    for p in (8, 24, 40, 72, 136, 520, 1288):
+        for r in (1, 5):
+            nnz = rng.randint(1, p + 1, (r,))
+            if r > 1:
+                nnz[2] = 0          # a row of pad slots only
+                nnz[0] = p          # a full row
+            mask = np.arange(p)[None, :] < nnz[:, None]
+            cols = torch.from_numpy(np.where(
+                mask, rng.randint(0, n, (r, p)), n).astype(np.int32)).to(DEV)
+            vals = torch.from_numpy((np.round(rng.uniform(1, 5, (r, p)) * 2)
+                                     / 2 * mask).astype(np.float32)).to(DEV)
+            nnz_t = torch.from_numpy(nnz).to(DEV)
+            for kind in ("integers", "random"):
+                table = table_of(kind, n)
+                if cs.panel_body(table) != "split":
+                    raise AssertionError("a float32 table at f = 256 does "
+                                         "not take the split body")
+                for v_dtype, a_dtype in (
+                        (torch.float32, torch.float32),
+                        (torch.bfloat16, torch.bfloat16),
+                        (torch.float32, torch.bfloat16),
+                        (torch.bfloat16, torch.float32)):
+                    label = (f"P={p} R={r} {kind} vals {v_dtype} A "
+                             f"{a_dtype}")
+                    pairs, size = kernels(table, cols, vals.to(v_dtype),
+                                          a_dtype)
+                    for what, got, want in pairs:
+                        ok_all &= check(what, got, want, kind, p, table,
+                                        nnz_t, label, size)
+    # more rows than blocks, from an odd slot: the stream across rows
+    r, p = 2 * sm_count() + 3, 199
+    nnz = rng.randint(1, p + 1, (r + 1,))
+    nnz[3] = 0
+    mask = np.arange(p)[None, :] < nnz[:, None]
+    cols = torch.from_numpy(np.where(mask, rng.randint(0, n, (r + 1, p)), n)
+                            .astype(np.int32)).to(DEV)
+    vals = torch.from_numpy((rng.uniform(1, 5, (r + 1, p)) * mask)
+                            .astype(np.float32)).to(DEV)
+    args = (table_of("random", n), cols[1:], vals.to(torch.bfloat16)[1:])
+    nnz_t = torch.from_numpy(nnz[1:]).to(DEV)
+    for a_dtype in (torch.float32, torch.bfloat16):
+        label = f"P={p} R={r} from an odd slot, A {a_dtype}"
+        pairs, size = kernels(*args, a_dtype)
+        again, _ = kernels(*args, a_dtype)
+        for (what, got, want), (_, got2, _) in zip(pairs, again):
+            ok_all &= check(what, got, want, "random", p, args[0], nnz_t,
+                            label, size)
+            if not same_bits(got, got2):
+                log(f"[split 256 edges] FAIL {what} {label}: two launches "
+                    f"differ")
+                ok_all = False
+    log(f"[split 256 edges] P in (8, 24, 40, 72, 136, 520, 1288) x R in "
+        f"(1, 5, one row of pad slots only) x (f32, bf16 vals) x (f32, "
+        f"bf16 A), a float32 table at f=256 (body split), then R={r} "
+        f"P={p} from an odd slot twice: integer tables equal the plain "
+        f"version bit for bit, random ones within gram_limit split (b: "
+        f"1e-5 of Sum |v g|), A symmetric, rows of pad slots only 0; worst |d| "
+        f"{ {' '.join(k): round(v, 9) for k, v in worst.items()} }; "
+        f"{'OK' if ok_all else 'FAIL'}")
+    return ok_all
+
+
 def chunk_x0(ch, current):
     """The warm start of one chunk: the rows' current factors, zeros for
     the dummy tail rows."""
@@ -2285,23 +2462,52 @@ def full_width(cs, model, label, expect, absent, x0, th0, iters=ITERS,
     return res.history, launches
 
 
-# iterations of phase 4c (the float32 default configuration)
+# iterations of phases 4c and 13e (the float32 default configuration)
 F32_ITERS = 2
 
 
-def f32_default(cs, model, hist_ref, x0, th0, results):
-    """Phase 4c: the `ALSConfig` default (factor_dtype and gram_dtype
-    "f32", aug_gram "auto") on the plans of `model`, 4b's (no plan
-    depends on those fields; the routes are asserted): the panel-aug X
-    route, K5a on the float32 table (the split body, csrc/
-    split_gram_mma.cuh) and K5b; K1 on the float32 table of direct theta
-    (the uncut FMA body). First K5a's device time over every X chunk on
-    the float32 initial factors' panels, as routed and uncut (spans=1,
-    this call); then ALS.run for F32_ITERS iterations: K5a and K1 once a
-    chunk an iteration, `gram_span_sum` once a cut chunk, K5b at least
-    once, no other kernel; train RMSE within 2e-3 of `hist_ref` (4b's
-    run, bf16 factors on the same routes) at each iteration, test RMSE
-    falling. Fills results["gather_gram_aug_out"]["f32_default"]."""
+def k1_launches(cs, chunks, f, iters=1, dtype=torch.float32):
+    """Launches of K1 over `iters` iterations of calls on these chunks with
+    a table of `dtype` at width f (f = 128: the uncut kernel on a float32
+    table, `cs.theta_spans`; f = 256: the uncut kernel, or on a chunk the
+    row cut takes, `cs._chunk_spans`, its two passes once a row batch of
+    `cs.row_batches`): {kernel: launches}."""
+    plan = cs.span_plan(torch.zeros((1, f), dtype=dtype))
+    out = dict.fromkeys(("gather_gram_cg", "wide_span_gram",
+                         "wide_span_solve"), 0)
+    for ch in chunks:
+        r, p = ch.cols.shape
+        if f == 256:
+            spans, _ = cs._chunk_spans(torch.device(DEV, 0), r, p, None,
+                                       **plan)
+            if spans > 1:
+                batches = -(-r // cs.row_batches(spans, f))
+                out["wide_span_gram"] += batches
+                out["wide_span_solve"] += batches
+                continue
+        out["gather_gram_cg"] += 1
+    return {k: v * iters for k, v in out.items()}
+
+
+def f32_default(cs, model, hist_ref, x0, th0, results, phase="4c",
+                ref_label="aug", key="f32_default"):
+    """Phase 4c (or, at F=200, 13e): the `ALSConfig` default (factor_dtype
+    and gram_dtype "f32", aug_gram "auto") on the plans of `model` (4b's,
+    or 13d's; no plan depends on those fields; the routes are asserted):
+    the panel-aug X route, K5a on the float32 table (the split body,
+    csrc/split_gram_mma.cuh at f = 128, csrc/wide_split_mma.cuh at 256)
+    and K5b; K1 on the float32 table of direct theta (at f = 128 the
+    uncut FMA body; at 256 the uncut kernel, or the row cut's two FMA
+    passes on a chunk of fewer rows than SMs). First K5a's device time
+    over every X chunk on the float32 initial factors' panels, as routed
+    and uncut (spans=1, this call), and at 256 K2 and K5a on the
+    fewest-row X chunk the cut takes, three ways (`check_gram`); then
+    ALS.run for F32_ITERS iterations: K5a once a chunk an iteration,
+    `gram_span_sum` once a cut chunk, K1 (or its passes) as
+    `k1_launches` says, K5b at least once, no other kernel; train RMSE
+    within 2e-3 of `hist_ref` (`ref_label`'s run, bf16 factors on the
+    same routes) at each iteration, test RMSE falling. Fills
+    results["gather_gram_aug_out"][key]."""
     import copy
     t_start = time.monotonic()
     cfg = model.cfg.replace(factor_dtype="f32", gram_dtype="f32",
@@ -2311,8 +2517,8 @@ def f32_default(cs, model, hist_ref, x0, th0, results):
     if not (al._phase_strategy(al.train_csr) == "panel" and
             al._phase_strategy(al.train_csc) == "direct" and
             al._use_panel_aug() and not cs.aug_enabled(cfg)):
-        raise AssertionError("4c: expected the panel-aug X route and K1 "
-                             "on direct theta")
+        raise AssertionError(f"{phase}: expected the panel-aug X route and "
+                             f"K1 on direct theta")
     plan, chunks_x, _ = al.plan_x
     chunks_t = al.plan_theta[1]
     f, s = cfg.f_pad, plan.panel_size
@@ -2327,8 +2533,8 @@ def f32_default(cs, model, hist_ref, x0, th0, results):
     a_dtype = al._accum_dtype(sum(c.rows.shape[0] for c in chunks_x),
                               plan.num_rows)
     if cs.panel_body(tables[chunks_x[0].panel]) != "split":
-        raise AssertionError("4c: the X phase's table does not take the "
-                             "split body")
+        raise AssertionError(f"{phase}: the X phase's table does not take "
+                             f"the split body")
 
     def x_times(spans):
         return split_by_rows(queued_each([
@@ -2337,13 +2543,31 @@ def f32_default(cs, model, hist_ref, x0, th0, results):
                 spans=spans)
             for ch in chunks_x]), chunks_x, sms)
     routed, uncut = x_times(None), x_times(1)
-    n_cut = sum(cs.gram_spans(*ch.cols.shape, f, sms, torch.float32) > 1
-                for ch in chunks_x)
+    cut = [ch for ch in chunks_x
+           if cs.gram_spans(*ch.cols.shape, f, sms, torch.float32) > 1]
+    n_cut = len(cut)
     gathered = sum(ch.cols.numel() * f * 4 for ch in chunks_x)
+    out = dict(x_total_ms=routed["total"], x_few_ms=routed["few"],
+               x_uncut_total_ms=uncut["total"], x_uncut_few_ms=uncut["few"],
+               n_cut=n_cut, gathered_bytes=gathered,
+               x_tb_per_s=gathered / routed["total"] / 1e9)
+    ok = True
+    if f == 256 and cut:
+        # the fewest-row chunk the cut takes, on its float32 panel
+        ch = min(cut, key=lambda c: (c.cols.shape[0], -c.cols.shape[1]))
+        for aug in (False, True):
+            good, res = check_gram(
+                cs, tables[ch.panel], ch, a_dtype, aug,
+                f"{phase} fewest-row X chunk the cut takes, float32 table "
+                f"(the initial factors)", cut=True)
+            ok &= good
+            out[f"fewest_{'k5a' if aug else 'k2'}"] = {
+                k: v for k, v in res.items() if k != "gathered_bytes"}
     del tables, th32, theta_t
     torch.cuda.empty_cache()
-    log(f"[phase totals f32] K5a (split body) over the {len(chunks_x)} X "
-        f"chunks on the float32 initial factors, A {a_dtype}: "
+    log(f"[phase totals f32 {phase}] K5a (split body) over the "
+        f"{len(chunks_x)} X chunks at f={f} on the float32 initial "
+        f"factors, A {a_dtype}: "
         f"{routed['total']:.1f} ms, of which {routed['few']:.1f} ms in the "
         f"{routed['n_few']} chunks with fewer than {sms} rows (the longest "
         f"of them, ms and (R, P): "
@@ -2354,43 +2578,45 @@ def f32_default(cs, model, hist_ref, x0, th0, results):
         f"{gathered / routed['total'] / 1e9:.3f} TB/s over the phase "
         f"(device time between events, launches queued behind other "
         f"work)")
+    if not ok:
+        raise AssertionError(f"{phase}: K2 or K5a disagrees with its plain "
+                             f"version")
 
-    expect = ("gather_gram_aug_out", "solve_cg_aug", "gather_gram_cg")
+    k1 = k1_launches(cs, chunks_t, f, F32_ITERS)
+    expect = ("gather_gram_aug_out", "solve_cg_aug")
     absent = ("gather_gram_out", "solve_cg_reg", "solve_cg",
-              "gather_gram_cg_aug", SPAN_SOLVE) + WIDE_KERNELS + \
-        SPAN_KERNELS + TILED_KERNELS
+              "gather_gram_cg_aug", SPAN_SOLVE, "wide_span_gram_mma") + \
+        WIDE_KERNELS + TILED_KERNELS
     exact = {"gather_gram_aug_out": len(chunks_x) * F32_ITERS,
-             "gather_gram_cg": len(chunks_t) * F32_ITERS,
              SPAN_SUM: span_sums(cs, map(gram_shape, chunks_x), f,
-                                 F32_ITERS, torch.float32)}
-    hist, launches = full_width(cs, al, "f32 default", expect, absent, x0,
-                                th0, iters=F32_ITERS, exact=exact)
+                                 F32_ITERS, torch.float32), **k1}
+    label = "f32 default" if phase == "4c" else f"f32 default {phase}"
+    hist, launches = full_width(cs, al, label, expect, absent, x0, th0,
+                                iters=F32_ITERS, exact=exact)
     worst = 0.0
     for h, r in zip(hist, hist_ref):
         d = abs(h.train_rmse - r.train_rmse)
         worst = max(worst, d)
-        log(f"[f32 default | aug] iter {h.iteration}: train "
+        log(f"[{label} | {ref_label}] iter {h.iteration}: train "
             f"{h.train_rmse:.6f} | {r.train_rmse:.6f} (limit 2e-3), test "
             f"{h.test_rmse:.6f} | {r.test_rmse:.6f}")
     te = [h.test_rmse for h in hist]
     per_iter = [h.x_seconds + h.theta_seconds for h in hist]
-    log(f"[f32 default] {F32_ITERS} iterations, X {len(chunks_x)} panel "
+    counted = {k: launches[k] for k in expect + (SPAN_SUM,) + tuple(k1)}
+    log(f"[{label}] {F32_ITERS} iterations, X {len(chunks_x)} panel "
         f"chunks ({n_cut} cut), theta {len(chunks_t)} direct chunks; "
         f"s/iter {[round(t, 4) for t in per_iter]}, x "
         f"{[round(h.x_seconds, 4) for h in hist]} s, theta "
         f"{[round(h.theta_seconds, 4) for h in hist]} s; launches "
-        f"{ {k: launches[k] for k in expect + (SPAN_SUM,)} }; worst train "
-        f"RMSE gap to aug {worst:.3e}; phase 4c "
-        f"{time.monotonic() - t_start:.1f} s")
+        f"{counted}; worst train RMSE gap to {ref_label} {worst:.3e}; phase "
+        f"{phase} {time.monotonic() - t_start:.1f} s")
     if worst > 2e-3 or not te[-1] < te[0]:
-        raise AssertionError("4c: off 4b's RMSE")
-    results.setdefault("gather_gram_aug_out", {})["f32_default"] = dict(
-        launches={k: launches[k] for k in expect + (SPAN_SUM,)},
-        x_total_ms=routed["total"], x_few_ms=routed["few"],
-        x_uncut_total_ms=uncut["total"], x_uncut_few_ms=uncut["few"],
-        n_cut=n_cut, s_per_iter=per_iter,
-        train_rmse=[h.train_rmse for h in hist],
-        test_rmse=te)
+        raise AssertionError(f"{phase}: off {ref_label}'s RMSE")
+    results.setdefault("gather_gram_aug_out", {})[key] = dict(
+        launches=counted, s_per_iter=per_iter,
+        x_seconds=[h.x_seconds for h in hist],
+        theta_seconds=[h.theta_seconds for h in hist],
+        train_rmse=[h.train_rmse for h in hist], test_rmse=te, **out)
     return hist, launches
 
 
@@ -4401,31 +4627,49 @@ def solve_checks(cs, f, label):
 def panel_256_grams(cs, x_table, hot):
     """13a's Gram checks at f = 256: K2 and K5a on the shape of the
     Netflix X phase's most populous panel chunk (R = 2304, P = 576, a
-    65,537-row bf16 panel) with a bf16 and an f32 A and, on the FMA body,
-    a float32 copy of the table; K2 on a hot-segment chunk (R = 16,
-    P = 2^18, f32 A) of the out-of-core run's X. Returns ok and the
-    numbers by check."""
+    65,537-row panel) with a bf16 and an f32 A, on a bf16 table (the
+    panel body) and on a float32 one with full mantissas (the split body
+    of csrc/wide_split_mma.cuh), and on a float32 table the out-of-core
+    theta chunk's shape (R = 6656, P = 72); K2 on a hot-segment chunk
+    (R = 16, P = 2^18, f32 A, cut) of the out-of-core run's X, its bf16
+    table and a float32 one of the same rows. Returns ok and the numbers
+    by check."""
     tp, ch = panel_chunk(256, 2304, 576, seed=12)
+    gen = torch.Generator(device=DEV).manual_seed(24)
+    t32 = float32_table(gen, tp.shape[0] - 1, 256)
+    ooc = synthetic_chunk(gen, 6656, 72, tp.shape[0] - 1)
     out, ok_all = {}, True
     for aug in (False, True):
         name = "gather_gram_aug_out" if aug else "gather_gram_out"
-        for a_dtype, table in ((torch.bfloat16, tp), (torch.float32, tp),
-                               (torch.float32, tp.float())):
-            label = "f=256 synthetic X panel chunk" + (
-                ", float32 table" if table.dtype == torch.float32 else "")
-            ok, res = check_gram(cs, table, ch, a_dtype, aug, label)
+        for key, table, chunk, a_dtype in (
+                ("bf16_a", tp, ch, torch.bfloat16),
+                ("f32_a", tp, ch, torch.float32),
+                ("f32_table", t32, ch, torch.float32),
+                ("f32_table_bf16_a", t32, ch, torch.bfloat16),
+                ("f32_table_ooc_shape", t32, ooc, torch.float32)):
+            label = ("f=256 synthetic X panel chunk" if chunk is ch else
+                     "f=256 synthetic chunk of the out-of-core theta "
+                     "shape") + (", float32 table (full mantissas)"
+                                 if table is t32 else "")
+            ok, res = check_gram(cs, table, chunk, a_dtype, aug, label)
             ok_all &= ok
-            key = "bf16_a" if a_dtype == torch.bfloat16 else (
-                "f32_a" if table.dtype == torch.bfloat16 else "f32_table")
             out.setdefault(name, {})[key] = res
-    del tp, ch
+    del tp, ch, t32, ooc
     torch.cuda.empty_cache()
+    label = ("f=256 a hot-segment chunk of the out-of-core run's X (the 16 "
+             "most rated theta columns, their first 2^18 ratings)")
     ok, out["gather_gram_out"]["hot_segment"] = check_gram(
-        cs, x_table, hot, torch.float32, False,
-        "f=256 a hot-segment chunk of the out-of-core run's X (the 16 most "
-        "rated theta columns, their first 2^18 ratings)",
+        cs, x_table, hot, torch.float32, False, label,
         table_rows=live_rows(hot), cut=True)
     ok_all &= ok
+    x32 = float32_table(gen, x_table.shape[0] - 1, 256)
+    ok, out["gather_gram_out"]["hot_segment_f32_table"] = check_gram(
+        cs, x32, hot, torch.float32, False,
+        label + ", float32 table (full mantissas)",
+        table_rows=live_rows(hot), cut=True)
+    ok_all &= ok
+    del x32
+    torch.cuda.empty_cache()
     return ok_all, out
 
 
@@ -4530,14 +4774,17 @@ def panel_256_ooc(cs, bench, results):
     return ok_all, {"ooc": launches_o, "in-core": launches_i}, x_table, hot
 
 
-def panel_256_netflix(cs, ALS, cfg, train, csc, test, hist_ref):
+def panel_256_netflix(cs, ALS, cfg, train, csc, test, hist_ref, results):
     """13d: Netflix F=200 with the X phase on the panel route
     (panel_budget_bytes 6 GiB takes the 17,771 x 256^2 accumulators),
     theta direct (K1 at 256 lanes): with gram_dtype "bf16" (split
     buffers: K2 and K3 at 256) and "f32" (aug "auto": K5a and K5b at 256),
     each for P256_PANEL_ITERS iterations, RMSE within 2e-3 of phase 5's
-    wide-off run (`hist_ref`) at every iteration. Returns the launches of
-    each run."""
+    wide-off run (`hist_ref`) at every iteration. Then 13e on the same
+    plans: `f32_default` with the `ALSConfig` default dtypes (float32
+    factors: K5a on the split body of csrc/wide_split_mma.cuh, K1 on the
+    float32 table), held to 13d's f32 run. Returns the launches of each
+    run."""
     import copy
 
     from cumf_als_tpu_torch.data.synthetic import init_factors
@@ -4586,6 +4833,10 @@ def panel_256_netflix(cs, ALS, cfg, train, csc, test, hist_ref):
             raise AssertionError(f"{label}: off phase 5's wide-off run")
         del model
         torch.cuda.empty_cache()
+    # 13e: the float32 default on 13d's plans, against its f32 run
+    _, launches["f32 default"] = f32_default(
+        cs, al, hist, x0, th0, results, phase="13e",
+        ref_label="panel 256 f32", key="f256_default")
     del al
     torch.cuda.empty_cache()
     return launches
@@ -4596,8 +4847,9 @@ def panel_256(cs, bench, ALS, cfg, train, csc, test, hist_ref, results):
     K4, K5b at f = 256), and the paths they open: (a) the kernels against
     their plain versions at f = 256, with times and bounds; (b) K3, K4
     and K5b at f = 128 on their one body; (c) OutOfCoreALS at F=200 on
-    hugewiki_mini; (d) Netflix F=200 on the panel route. Fills results[...]
-    with the f = 256 numbers and each kernel's launches in (c) and (d)."""
+    hugewiki_mini; (d) Netflix F=200 on the panel route; (e) (d)'s plans
+    with the float32 default dtypes. Fills results[...] with the f = 256
+    numbers and each kernel's launches in (c), (d) and (e)."""
     t_start = time.monotonic()
     ok_all, launches_c, x_table, hot = panel_256_ooc(cs, bench, results)
     ok, grams = panel_256_grams(cs, x_table, hot)
@@ -4611,7 +4863,8 @@ def panel_256(cs, bench, ALS, cfg, train, csc, test, hist_ref, results):
     if not ok_all:
         raise AssertionError("a kernel disagrees with its plain version at "
                              "f = 256 or on the one batched-CG body")
-    launches_d = panel_256_netflix(cs, ALS, cfg, train, csc, test, hist_ref)
+    launches_d = panel_256_netflix(cs, ALS, cfg, train, csc, test, hist_ref,
+                                   results)
     for name in ("gather_gram_out", "gather_gram_aug_out"):
         results[name]["f256"] = grams[name]
     for name in SOLVE_NAMES:
@@ -4621,8 +4874,9 @@ def panel_256(cs, bench, ALS, cfg, train, csc, test, hist_ref, results):
             tuple(SOLVE_NAMES) + MMA_PASSES:
         results[name]["f256_launches"] = {
             "ooc F=200 (13c, 3 iterations)": launches_c["ooc"].get(name, 0),
-            **{f"{k} (13d, {P256_PANEL_ITERS} iterations)": v.get(name, 0)
-               for k, v in launches_d.items()}}
+            **{(f"{k} (13e, {F32_ITERS} iterations)" if k == "f32 default"
+                else f"{k} (13d, {P256_PANEL_ITERS} iterations)"):
+               v.get(name, 0) for k, v in launches_d.items()}}
     log(f"[phase 13] {time.monotonic() - t_start:.1f} s")
 
 
@@ -5300,8 +5554,8 @@ def main() -> int:
         f"{time.monotonic() - t0:.1f} s")
     ptxas_ok = ptxas_lines(_build.BUILD_LOG)
     if only == GRAM_KERNELS + (SPAN_SUM,):
-        ok = ptxas_ok and gram_edges(cs) and gram_synthetic(cs) and \
-            gram_cut_synthetic(cs)
+        ok = ptxas_ok and gram_edges(cs) and panel_split_edges(cs) and \
+            gram_synthetic(cs) and gram_cut_synthetic(cs)
         log(f"[gram] {'OK' if ok else 'FAIL'} (the short call: no result "
             f"line)")
         return 0 if ok else 1

@@ -43,17 +43,18 @@
 // b and sum v^2 from the values rounded to bf16 on the CUDA cores (every
 // product exact in f32, as on the tensor cores), written over row and
 // column 255 of A' as the value lane would hold them, and the whole
-// symmetric A' written; a float32 table the FMA body of wide.cuh
-// (panel_gram with the value in lane 255). The entry point chooses by
-// dtype and f alone. A chunk of few rows on a bf16 table, or on a
-// float32 one at f = 128, takes K2's cut (gather_gram_out.cu): this
-// entry point over the (R S, P / S) view with an f32 A', then
+// symmetric A' written; a float32 table K2's split-bf16 body of
+// wide_split_mma.cuh, the slot's f32 value in lane 255 of its gathered
+// row before the split. The entry point chooses by dtype and f alone. A
+// chunk of few rows takes K2's cut (gather_gram_out.cu): this entry
+// point over the (R S, P / S) view with an f32 A', then
 // gram_span_sum.cu.
 
 #include "common.cuh"
 #include "gram_mma.cuh"
 #include "split_gram_mma.cuh"
 #include "wide_gram_mma.cuh"
+#include "wide_split_mma.cuh"
 
 namespace {
 
@@ -128,10 +129,12 @@ extern "C" int cumf_gather_gram_aug_out(const void* table, int table_bf16,
   if (f == cumf::mma::kF)
     return cumf::split::run<true>(table, cols, vals, vals_bf16, a_out,
                                   out_bf16, nullptr, r, p, st);
+  if (table_bf16 && f == cumf::wide::kStride)
+    return cumf::wide_mma::run_panel<true>(table, cols, vals, vals_bf16,
+                                           a_out, out_bf16, nullptr, r, p, st);
   if (f == cumf::wide::kStride)
-    return cumf::wide_mma::run_panel<true>(table, table_bf16, cols, vals,
-                                           vals_bf16, a_out, out_bf16,
-                                           nullptr, r, p, st);
+    return cumf::wide_split::run<true>(table, cols, vals, vals_bf16, a_out,
+                                       out_bf16, nullptr, r, p, st);
   if (table_bf16 && vals_bf16)
     return dispatch_out<__nv_bfloat16, __nv_bfloat16>(
         out_bf16, f, table, cols, vals, a_out, r, p, st);

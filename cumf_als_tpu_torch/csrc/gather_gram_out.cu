@@ -38,16 +38,15 @@
 // of A, each slot's table row gathered once, the upper triangle's ten
 // 64 x 64 blocks on the tensor cores, b on the CUDA cores, and the whole
 // symmetric A written through shared memory in coalesced rows; a float32
-// table the FMA body of wide.cuh (panel_gram: the upper triangle of
-// 8 x 8 tiles, one thread a tile, each tile written with its transpose).
-// There an f32 A of 256 KB a row bounds the kernel: the out-of-core
-// theta chunk R = 6656 writes 1.74 GB, ~0.52 ms at 3.35 TB/s. The entry
-// point chooses by dtype and f alone.
-// A chunk of few rows on a bf16 table, or on a float32 one at f = 128
-// (fewer rows than the blocks of its body that fit the card: the hot
-// segments, R = 16, P = 2^18, and the few-row X panel chunks) is cut
-// across blocks by the wrapper
-// (gram_spans in ops/cuda_solve.py): this entry point runs on the
+// table the split-bf16 body of wide_split_mma.cuh (the same strips and
+// epilogue, six products of each entry's three bf16 pieces, 32-slot
+// tiles in a smaller ring of f32 stages). There an f32 A of 256 KB a row
+// takes its share: the out-of-core theta chunk R = 6656 writes 1.74 GB,
+// ~0.52 ms at 3.35 TB/s. The entry point chooses by dtype and f alone.
+// A chunk of few rows on a bf16 or a float32 table (fewer rows than the
+// blocks of its body that fit the card: the hot segments, R = 16,
+// P = 2^18, and the few-row X panel chunks) is cut across blocks by the
+// wrapper (gram_spans in ops/cuda_solve.py): this entry point runs on the
 // (R S, P / S) view of cols and vals with an f32 A, each span of S a row
 // of it, and pass 2 (gram_span_sum.cu) adds each row's S partials (A and
 // b) in span order. There the gather still bounds the work, now spread
@@ -58,6 +57,7 @@
 #include "gram_mma.cuh"
 #include "split_gram_mma.cuh"
 #include "wide_gram_mma.cuh"
+#include "wide_split_mma.cuh"
 
 namespace {
 
@@ -134,10 +134,12 @@ extern "C" int cumf_gather_gram_out(const void* table, int table_bf16,
   if (f == cumf::mma::kF)
     return cumf::split::run<false>(table, cols, vals, vals_bf16, a_out,
                                    out_bf16, b_out, r, p, st);
+  if (table_bf16 && f == cumf::wide::kStride)
+    return cumf::wide_mma::run_panel<false>(table, cols, vals, vals_bf16,
+                                            a_out, out_bf16, b_out, r, p, st);
   if (f == cumf::wide::kStride)
-    return cumf::wide_mma::run_panel<false>(table, table_bf16, cols, vals,
-                                            vals_bf16, a_out, out_bf16,
-                                            b_out, r, p, st);
+    return cumf::wide_split::run<false>(table, cols, vals, vals_bf16, a_out,
+                                        out_bf16, b_out, r, p, st);
   if (table_bf16 && vals_bf16)
     return dispatch_out<__nv_bfloat16, __nv_bfloat16>(
         out_bf16, f, table, cols, vals, a_out, b_out, r, p, st);

@@ -2,8 +2,7 @@
 // gather_gram_cg_aug.cu (K6, the aug unpack of unpack_aug_tiles) at
 // f = 256, gather_gram_cg_wide.cu, fused_gram_cg_cat.cu, the two passes
 // of the row cut, wide_span_gram.cu and wide_span_solve.cu (each with an
-// aug mode for K6), and the panel Grams gather_gram_out.cu and
-// gather_gram_aug_out.cu at f = 256 on a float32 table (panel_gram).
+// aug mode for K6).
 //
 // One thread block owns one system of FL = 8 * T live lanes out of the
 // 256 lanes of a factor row (T = 20, 24, 28 or 32: FL = 160, 192, 224,
@@ -351,54 +350,6 @@ __device__ __forceinline__ void gather_row(
   if constexpr (AUG) unpack_aug_tiles<T>(s, tl, a, b_acc, r2_acc);
   solve_and_store<T>(s, tl, a, b_acc, r2_acc, nnzf, lam, x0_row, x_row,
                      se_row, cg_iters, cg_tol);
-}
-
-// The panel Gram of one row at f = 256 on the FMA body (K2, K5a with a
-// float32 table): A = sum g g^T over all p slots of the row (pad slots
-// name the panel's zero row and add nothing), written whole to a_row
-// (256 x 256, in OT: each thread its tile and, off the diagonal, the
-// tile's transpose), and unless AUG b = sum v g to b_row (256 f32).
-// With AUG the values ride lane 255 (load_tile_table) and A' carries b
-// and sum v^2. b sums a tile at a time, then groups of kTilesPerGroup
-// tiles, then the row, as common.cuh's gram_row does.
-template <bool AUG, typename TT, typename VT, typename OT>
-__device__ __forceinline__ void panel_gram(Smem<32>& s, const TT* table,
-                                           const int32_t* cols,
-                                           const VT* vals, int p,
-                                           OT* a_row, float* b_row) {
-  constexpr int F = Shape<32>::FL;
-  const int tid = threadIdx.x;
-  const Tile tl = tile_of<32>();
-  float a[kB][kB];
-  zero_acc<kB>(a);
-  float b_acc = 0.f, b_group = 0.f, r2_unused = 0.f;
-  int tiles = 0;
-  for (int lo = 0; lo < p; lo += kTile) {
-    const int nt = min(kTile, p - lo);
-    load_tile_table<32, TT, VT, AUG>(s, table, cols, vals, lo, nt);
-    float b_tile = 0.f;
-    accumulate_tile<32>(s, nt, tl, a, b_tile, r2_unused);
-    b_group += b_tile;
-    __syncthreads();
-    if (++tiles == kTilesPerGroup) {
-      b_acc += b_group;
-      b_group = 0.f;
-      tiles = 0;
-    }
-  }
-  b_acc += b_group;
-  if (tl.on) {
-#pragma unroll
-    for (int k = 0; k < kB; ++k)
-#pragma unroll
-      for (int l = 0; l < kB; ++l) {
-        a_row[(kB * tl.ti + k) * F + kB * tl.tj + l] = from_f32<OT>(a[k][l]);
-        if (tl.ti != tl.tj)
-          a_row[(kB * tl.tj + l) * F + kB * tl.ti + k] =
-              from_f32<OT>(a[k][l]);
-      }
-  }
-  if (!AUG && tid < F) b_row[tid] = b_acc;
 }
 
 // Index of tile (ti, tj), ti <= tj, in the row-major order of the upper

@@ -22,8 +22,9 @@
 //     the SM count: chunks of a few short rows) keeps the three-block
 //     kernel (sources kPanel and kPanelAug), which spreads each row over
 //     three SMs, ~25% faster than the panel body there. `run_panel`
-//     chooses, and takes a float32 table to wide.cuh's FMA body,
-//     panel_gram.
+//     chooses. A float32 table takes the split-bf16 body of
+//     wide_split_mma.cuh (the panel body's strips and epilogue on three
+//     bf16 pieces of each entry).
 //
 // Pass 1's sources. kSpans (K1, K7): slot t of a row names table row
 // cols[t], whose 256 lanes are one contiguous row of the table; span s
@@ -674,8 +675,10 @@ __device__ __forceinline__ void store_out(OT* a_row, const float* src,
 // buffer `st` once as itself and, off the diagonal, once transposed, and
 // leaves in rows of 16 neighbouring threads (256 or 128 contiguous bytes
 // a row). The two stagings are laid out so that the fragment's stores
-// meet no bank twice.
-template <bool AUG, typename OT, int NA>
+// meet no bank twice. With MIRROR a diagonal block's lower triangle is
+// written from its upper one (wide_split_mma.cuh: there the wgmma sums
+// A_ij and A_ji in different orders).
+template <bool AUG, typename OT, bool MIRROR = false, int NA>
 __device__ __forceinline__ void store_strip(const float (&acc)[NA],
                                             float* st, OT* a_row,
                                             const float* b, int m0, int c0,
@@ -702,8 +705,20 @@ __device__ __forceinline__ void store_strip(const float (&acc)[NA],
 #pragma unroll 1
     for (int k = 0; k < 8; ++k) {
       const int rr = 8 * k + orow;
-      store_out<AUG, OT>(a_row, st + rr * kStageStride + ocol, b, gr0 + rr,
-                         gc0 + ocol);
+      if (MIRROR && c0 + j == m0) {
+        float e[4];
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          const int c = ocol + h;
+          e[h] = c >= rr ? st[rr * kStageStride + c]
+                         : st[c * kStageStride + rr];
+        }
+        mma::store4<OT>(a_row + (gr0 + rr) * kRowLanes + gc0 + ocol, e[0],
+                        e[1], e[2], e[3]);
+      } else {
+        store_out<AUG, OT>(a_row, st + rr * kStageStride + ocol, b,
+                           gr0 + rr, gc0 + ocol);
+      }
     }
     wg_barrier(wg);
     if (c0 + j == m0) continue;   // a diagonal block: no transpose
@@ -962,48 +977,25 @@ int launch_panel(const void* table, const void* cols, const void* vals,
   return (int)cudaGetLastError();
 }
 
-// The panel Gram at f = 256 on a float32 table (bf16 tensor cores would
-// round it): wide.cuh's FMA body, one block a row.
-template <bool AUG, typename VT, typename OT>
-__global__ void __launch_bounds__(cumf::wide::Shape<32>::THREADS)
-    panel_gram_fma_kernel(const float* __restrict__ table,
-                          const int32_t* __restrict__ cols,
-                          const VT* __restrict__ vals,
-                          OT* __restrict__ a_out, float* __restrict__ b_out,
-                          int p) {
-  constexpr int F = cumf::wide::kStride;
-  __shared__ cumf::wide::Smem<32> s;
-  const int64_t row = blockIdx.x;
-  cumf::wide::panel_gram<AUG>(s, table, cols + row * p, vals + row * p, p,
-                              a_out + row * F * F,
-                              AUG ? nullptr : b_out + row * F);
-}
-
-// The panel Gram of r rows of p slots at f = 256: K2 (AUG false: A and
-// b) or K5a (AUG true: A' alone), on the tensor cores for a bf16 table,
-// on the FMA body for a float32 one. Returns the CUDA error.
+// The panel Gram of r rows of p slots at f = 256 on a bf16 table: K2
+// (AUG false: A and b) or K5a (AUG true: A' alone); a float32 table takes
+// the split body of wide_split_mma.cuh. Returns the CUDA error.
 template <bool AUG>
-int run_panel(const void* table, int table_bf16, const void* cols,
-              const void* vals, int vals_bf16, void* a_out, int out_bf16,
-              void* b_out, int r, int p, cudaStream_t stream) {
+int run_panel(const void* table, const void* cols, const void* vals,
+              int vals_bf16, void* a_out, int out_bf16, void* b_out, int r,
+              int p, cudaStream_t stream) {
   constexpr Src S = AUG ? Src::kPanelAug : Src::kPanel;
   // a chunk of few rows (three blocks a row fit the card): the three-block
   // body, which spreads each row over three SMs; else one block a row
   static const int sms = mma::sm_count();
   const bool few = 3 * r <= sms;
 #define CUMF_PANEL_LAUNCH(VT, OT)                                            \
-  if (table_bf16 && few)                                                     \
+  if (few)                                                                   \
     return launch<32, VT, S, OT>(table, nullptr, cols, vals, nullptr,        \
                                  nullptr, a_out, b_out, r, p, 1, p, 0,       \
                                  stream);                                    \
-  if (table_bf16)                                                            \
-    return launch_panel<AUG, VT, OT>(table, cols, vals, a_out, b_out, r, p,  \
-                                     stream);                                \
-  panel_gram_fma_kernel<AUG, VT, OT>                                         \
-      <<<r, cumf::wide::Shape<32>::THREADS, 0, stream>>>(                    \
-          (const float*)table, (const int32_t*)cols, (const VT*)vals,        \
-          (OT*)a_out, (float*)b_out, p);                                     \
-  return (int)cudaGetLastError()
+  return launch_panel<AUG, VT, OT>(table, cols, vals, a_out, b_out, r, p,    \
+                                   stream)
   if (vals_bf16) {
     if (out_bf16) { CUMF_PANEL_LAUNCH(__nv_bfloat16, __nv_bfloat16); }
     CUMF_PANEL_LAUNCH(__nv_bfloat16, float);

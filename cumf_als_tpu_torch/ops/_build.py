@@ -86,7 +86,8 @@ QUERIES = {
                               [_I, _I, _VP])
     for name in ("solve_cg_reg", "solve_cg", "solve_cg_aug")}
 HEADERS = ("common.cuh", "wide.cuh", "gram_mma.cuh", "frag_cg.cuh",
-           "bulk_cg.cuh", "wide_gram_mma.cuh", "split_gram_mma.cuh")
+           "bulk_cg.cuh", "wide_gram_mma.cuh", "split_gram_mma.cuh",
+           "wide_split_mma.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 

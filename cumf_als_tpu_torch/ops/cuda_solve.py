@@ -69,15 +69,16 @@ table row to an SM. For a bf16 table at f = 128, the main path, they
 gather with cp.async into a ring of swizzled bf16 tiles and run the Gram
 on the tensor cores (csrc/gram_mma.cuh); K1 and K6 stop each row at its
 nnz and run the CG on the wgmma fragment in registers
-(csrc/frag_cg.cuh). On a float32 table at f = 128 K2 and K5a cut each
-entry into three bf16 pieces and run six of their products on the same
-tensor cores (csrc/split_gram_mma.cuh, `panel_body` "split"), which
-keeps A to f32 accuracy; K1 and K6 there, and every kernel at
-f < 128, keep the f32 FMA body of csrc/common.cuh. `gram_body`
-is the rule of K1, K6 and K7, `panel_body` that of K2 and K5a. One
-block takes one row at a time, so a chunk with fewer rows than the
-blocks that fit the card would leave SMs idle: K2 and K5a cut such a
-chunk at f = 128 (a bf16 or a float32 table) or on a bf16 table at 256
+(csrc/frag_cg.cuh). On a float32 table at f = 128 and 256 K2 and K5a cut
+each entry into three bf16 pieces and run six of their products on the
+same tensor cores (csrc/split_gram_mma.cuh at 128, csrc/
+wide_split_mma.cuh at 256, `panel_body` "split"), which keeps A to f32
+accuracy; K1 and K6 there, and every kernel at f < 128, keep the f32
+FMA bodies of csrc/common.cuh and csrc/wide.cuh. `gram_body` is the
+rule of K1, K6 and K7, `panel_body` that of K2 and K5a. One block takes
+one row at a time, so a chunk with fewer rows than the blocks that fit
+the card would leave SMs idle: K2 and K5a cut such a chunk at f = 128
+and 256 (a bf16 or a float32 table)
 (`gram_spans`, from the shape, the table's dtype and the SM count
 alone): each row's P slots in S spans of whole 64-slot tiles, the kernel
 run unchanged over the (R S, P / S) view of cols and vals (span s of row
@@ -123,8 +124,9 @@ the panel body of csrc/wide_gram_mma.cuh on the tensor cores (one block
 of two warpgroups a row of A, each slot gathered once, A written through
 shared memory; a chunk of fewer rows than SMs in the cut above, or,
 where the cut leaves it whole and 3 R is at most the SM count, the row
-cut's three-block pass 1), a float32 table the FMA body of csrc/wide.cuh
-(`panel_gram`).
+cut's three-block pass 1), a float32 table the same strips and epilogue
+on the three bf16 pieces of each entry (csrc/wide_split_mma.cuh, 32-slot
+tiles; a chunk of fewer rows than SMs in the cut above).
 
 K3 (``solve_cg_reg``), K4 (``solve_cg``) and K5b (``solve_cg_aug``) are
 one body (csrc/bulk_cg.cuh) with a compile-time switch each: persistent
@@ -490,8 +492,8 @@ def gather_gram_cg(table_ext, cols, vals, nnz, x0, lam: float,
 # ------------------------------------------- K2 / K5a the panel Grams --
 def gram_body(table_ext: torch.Tensor) -> str:
     """Which Gram body the kernels K1, K6 and K7 (and K2 and K5a but for
-    a float32 table at f = 128, `panel_body` "split") run for this table
-    on a card, by its dtype and width alone: "wgmma" (cp.async
+    a float32 table at f = 128 or 256, `panel_body` "split") run for this
+    table on a card, by its dtype and width alone: "wgmma" (cp.async
     gather into swizzled bf16 tiles, tensor-core Gram) for a bf16 table
     at f = 128, the width of the main path (csrc/gram_mma.cuh; for K1 and
     K6 the CG on the fragment of csrc/frag_cg.cuh), and at f = 256 (K1, K6
@@ -500,10 +502,10 @@ def gram_body(table_ext: torch.Tensor) -> str:
     of csrc/wide_gram_mma.cuh), and at f = 128 T, T >= 3 (the tiled Gram
     of csrc/tile_gram.cu); "fma" (the f32 FMA bodies of csrc/common.cuh,
     csrc/wide.cuh and tile_gram.cu) for a float32 table, whose entries
-    bf16 tensor cores would round (K2 and K5a at f = 128 split them into
-    three bf16 pieces instead), and for every other width. A caller
-    cannot choose, and neither body gives way to the other or to the
-    plain version."""
+    bf16 tensor cores would round (K2 and K5a at f = 128 and 256 split
+    them into three bf16 pieces instead), and for every other width. A
+    caller cannot choose, and neither body gives way to the other or to
+    the plain version."""
     f = table_ext.shape[1]
     if table_ext.dtype == torch.bfloat16 and (f in (128, 256) or tiled(f)):
         return "wgmma"
@@ -513,12 +515,12 @@ def gram_body(table_ext: torch.Tensor) -> str:
 def panel_body(table_ext: torch.Tensor) -> str:
     """Which Gram body the panel kernels K2 and K5a run for this table on
     a card, by its dtype and width alone: "split" for a float32 table at
-    f = 128 (csrc/split_gram_mma.cuh: each entry cut into three bf16
-    pieces, hi + mid + lo, and six of their products, all but mid.lo,
-    lo.mid and lo.lo, summed in f32 on the tensor cores), and what
-    `gram_body` says for every other table. Neither body gives way to
-    another or to the plain version."""
-    if table_ext.dtype == torch.float32 and table_ext.shape[1] == 128:
+    f = 128 and 256 (csrc/split_gram_mma.cuh and csrc/wide_split_mma.cuh:
+    each entry cut into three bf16 pieces, hi + mid + lo, and six of
+    their products, all but mid.lo, lo.mid and lo.lo, summed in f32 on
+    the tensor cores), and what `gram_body` says for every other table.
+    Neither body gives way to another or to the plain version."""
+    if table_ext.dtype == torch.float32 and table_ext.shape[1] in (128, 256):
         return "split"
     return gram_body(table_ext)
 
@@ -758,7 +760,9 @@ def gram_blocks_per_sm(f: int, dtype: torch.dtype = torch.bfloat16) -> int:
     f = 128 on a bf16 table (csrc/gram_mma.cuh, 128 registers a thread),
     one on a float32 table there (the split body of
     csrc/split_gram_mma.cuh, ~195 KB of shared memory) and one at f = 256
-    (the panel body of csrc/wide_gram_mma.cuh, ~200 KB)."""
+    (the panel body of csrc/wide_gram_mma.cuh, ~200 KB, on a bf16 table;
+    the split body of csrc/wide_split_mma.cuh, ~226 KB, on a float32
+    one)."""
     return 2 if f == 128 and dtype == torch.bfloat16 else 1
 
 
@@ -770,16 +774,17 @@ def gram_spans(r: int, p: int, f: int, sms: int,
     K5a chunk of R rows of P slots is cut into on a card of `sms` SMs,
     from the shape alone: span s of row r covers slots [s L, (s + 1) L),
     L = P / S, and the S spans cover [0, P) once. S = 1 (the uncut
-    kernel) unless the table takes a tensor-core panel body (f = 128, a
-    bf16 or a float32 table: `panel_body` "wgmma" or "split"; a bf16
-    table at f = 256), P is a whole number of tiles and R is below the
-    blocks that fit the card at once (`gram_blocks_per_sm` an SM: 264 on
-    a bf16 table at f = 128, 132 on a float32 one, on an H100); else
+    kernel) unless the table takes a tensor-core panel body (f = 128 or
+    256, a bf16 or a float32 table: `panel_body` "wgmma" or "split"), P
+    is a whole number of tiles and R is below the blocks that fit the
+    card at once (`gram_blocks_per_sm` an SM: 264 on a bf16 table at
+    f = 128, 132 otherwise, on an H100); else
     the largest S that divides P's tiles, leaves no span under
     `min_tiles` tiles, keeps R S within `target` spans an SM (at most
     the body's blocks an SM) and the f32 partials of R S spans within
-    `SPAN_SCRATCH_BYTES`. At f = 256 a chunk of 3 R <= SMs runs uncut on
-    the three-block body, which spreads each row over three SMs: there
+    `SPAN_SCRATCH_BYTES`. At f = 256 a chunk of 3 R <= SMs on a bf16
+    table runs uncut on the three-block body (a float32 table has none),
+    which spreads each row over three SMs: there
     the cut must beat it, GRAM_CUT_TILE_COST_256 T / S +
     GRAM_CUT_EXTRA_TILES_256 < T for T tiles a row, else S = 1. At
     f = 128 T', T' >= 3, the same rule on ``tile_gram``'s cluster body
@@ -807,8 +812,7 @@ def gram_spans(r: int, p: int, f: int, sms: int,
             return 1
     else:
         per_sm = gram_blocks_per_sm(f, dtype)
-        cut = f == 128 or (f == 256 and dtype == torch.bfloat16)
-        if not cut or rest or r >= per_sm * sms:
+        if f not in (128, 256) or rest or r >= per_sm * sms:
             return 1
         items = min(target, per_sm) * sms
     record = (f * f + f) * 4
@@ -818,8 +822,9 @@ def gram_spans(r: int, p: int, f: int, sms: int,
             break
         if tiles % s == 0:
             best = s
-    if f == 256 and 3 * r <= sms and GRAM_CUT_TILE_COST_256 * tiles / best \
-            + GRAM_CUT_EXTRA_TILES_256 >= tiles:
+    if f == 256 and dtype == torch.bfloat16 and 3 * r <= sms and \
+            GRAM_CUT_TILE_COST_256 * tiles / best + \
+            GRAM_CUT_EXTRA_TILES_256 >= tiles:
         return 1
     return best
 
@@ -842,7 +847,7 @@ def _gram_spans_of(name: str, table_ext, r: int, p: int, spans,
     if not cut or p % (GRAM_TILE * s):
         raise ValueError(f"{name}: spans = {spans} cuts a chunk on a "
                          f"tensor-core body (a bf16 table at f = 128 or "
-                         f"256, a float32 one at 128 for K2 and K5a, or "
+                         f"256, a float32 one there for K2 and K5a, or "
                          f"f = 384 or 512 on tile_gram's cluster body) "
                          f"whose P ({p}) is a multiple of {GRAM_TILE} x "
                          f"spans only")

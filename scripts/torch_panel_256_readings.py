@@ -1,9 +1,11 @@
 """Where the time of K2 and K5a at f = 256 on a bf16 table goes, on the
 card (PyTorch/CUDA port): the tensor-core panel Gram of
 csrc/wide_gram_mma.cuh, split into its gather, its tensor-core work and
-its store of A, in two trees of the port read in one process.
+its store of A, in two trees of the port read in one process. With
+--f32 the same on a float32 table: the split-bf16 body of
+csrc/wide_split_mma.cuh.
 
-    python3 scripts/torch_panel_256_readings.py [--parent CSRC] \\
+    python3 scripts/torch_panel_256_readings.py [--f32] [--parent CSRC] \\
         [--change CSRC] [--work DIR] [--out FILE]
 
 Run from the root of the repository on a machine with a CUDA card. For
@@ -16,7 +18,10 @@ the store of A ("no store": the sums stay alive, nothing is written),
 without the wgmma ("no mma": the gathered tiles are never multiplied),
 without the gather ("no gather": every 16-byte copy is a zero-fill that
 reads no device memory) and, in the one-block design, without b's sum
-on the CUDA cores ("no b"); and K5a (gather_gram_aug_out.cu) as shipped.
+on the CUDA cores ("no b"), and in the split body also without the
+split of the gathered floats into bf16 pieces ("no split": the pieces
+are never written) and with one product of the six ("hi.hi only");
+and K5a (gather_gram_aug_out.cu) as shipped.
 The parts are taken out by text patches of the copied header, each
 checked to apply; the shipped header has no such switch. First each
 tree's K2 and K5a as shipped are held to their plain versions
@@ -29,16 +34,19 @@ behind queued work (`queued_ms` of chip_smoke.py, the median of 5
 launches), the trees in turn (parent, this tree, this tree, parent):
 
 - the X panel chunk of phase 13a: R = 2304, P = 576, a 65,537-row bf16
-  panel (`panel_chunk`), bf16 and f32 A;
+  panel (`panel_chunk`; with --f32 a float32 panel of full-mantissa
+  entries, `float32_table`), bf16 and f32 A;
 - an out-of-core theta chunk's shape: R = 6656, P = 72, f32 A;
 - a hot-segment chunk: R = 16 full rows of P = 2^18 slots over a
   2,000,000-row table (hugewiki_mini's X), f32 A.
 
 Beside them: torch.bmm on the pre-gathered G (A in G's dtype, no gather,
 no b) and the bound (the table rows the chunk names once, ids, values
-and the output written once over 3.35 TB/s, or 2 nnz 256^2 over 989
-TFLOP/s). Then gather = full - no gather, tensor cores = full - no mma,
-store = full - no store, b = full - no b: the parts overlap, so they need
+and the output written once over 3.35 TB/s, or the operations of
+`panel_gram_ops` of chip_smoke.py over the card's peaks). Then gather =
+full - no gather, tensor cores = full - no mma, store = full - no store,
+b = full - no b, split = full - no split, the five products past hi.hi
+= full - hi.hi only: the parts overlap, so they need
 not add up to the full time, and what is left after taking one out is
 what bounds the rest. Writes every reading to FILE (default
 _archive/panel_256_readings/readings.json) and prints one line of JSON
@@ -59,7 +67,9 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-HEADER = "wide_gram_mma.cuh"
+# the header that holds each design's kernel
+HEADERS = {"three_blocks": "wide_gram_mma.cuh", "one_block":
+           "wide_gram_mma.cuh", "split": "wide_split_mma.cuh"}
 # where the readings go by default
 READINGS = os.path.join(ROOT, "_archive", "panel_256_readings",
                         "readings.json")
@@ -99,16 +109,42 @@ PATCHES = {
             ("for (int atom = ROLE; atom < 2 * k_steps; atom += 2)",
              "for (int atom = ROLE; atom < 0; atom += 2)")],
     },
+    # the split-bf16 body of a float32 table (the one-block body's strips
+    # on three bf16 pieces of each entry, 32-slot tiles)
+    "split": {
+        "no store": [
+            ("wm::store_strip<false, OT, true>(",
+             "if (false) wm::store_strip<false, OT, true>(")],
+        "no mma": [
+            ("mma_quarter<ROLE>(acc0, acc1, set,",
+             "if (false) mma_quarter<ROLE>(acc0, acc1, set,")],
+        "no gather": [
+            ("got ? 16 : 0", "0")],
+        "no b": [
+            ("for (int j = 0; j < 16 * k_steps; j += 2)",
+             "for (int j = 0; j < 0; j += 2)")],
+        "no split": [
+            ("      cumf::split::split2(x.x, x.y, hi.x, mid.x, lo.x);\n"
+             "      cumf::split::split2(x.z, x.w, hi.y, mid.y, lo.y);\n",
+             "      if (x.x != -1.f) continue;\n"
+             "      hi = mid = lo = make_uint2(0u, 0u);\n")],
+        "hi.hi only": [
+            (f"    product<ROLE>(acc0, acc1, e0, e1, {i}, {j}, 1);", "")
+            for i, j in ((0, 1), (1, 0), (0, 2), (2, 0), (1, 1))],
+    },
 }
-VARIANTS = ("full", "no store", "no mma", "no gather", "no b")
+VARIANTS = ("full", "no store", "no mma", "no gather", "no b", "no split",
+            "hi.hi only")
 
 
-def design(csrc):
-    text = open(os.path.join(csrc, HEADER)).read()
+def design(csrc, f32=False):
+    if f32:
+        return "split"
+    text = open(os.path.join(csrc, HEADERS["one_block"])).read()
     return "one_block" if "panel_stream_kernel" in text else "three_blocks"
 
 
-def build(trees, work):
+def build(trees, work, f32):
     """Copy each tree's csrc into `work` once a variant, patch, and build
     K2 (every variant) and K5a (full) there, all nvcc processes at once.
     Returns {(tree, variant, kernel): library path}."""
@@ -116,19 +152,21 @@ def build(trees, work):
     nvcc = _build._nvcc()
     procs, libs = [], {}
     for tree, csrc in trees.items():
-        kind = design(csrc)
+        kind = design(csrc, f32)
         for variant in VARIANTS:
             if variant != "full" and variant not in PATCHES[kind]:
                 continue    # a part this design does not have
             d = os.path.join(work, tree, variant.replace(" ", "_"))
             shutil.rmtree(d, ignore_errors=True)
             shutil.copytree(csrc, d)
-            path = os.path.join(d, HEADER)
+            path = os.path.join(d, HEADERS[kind])
             text = open(path).read()
             # the tree's own design must take the patch; the other
-            # design's kernel, where the tree keeps it too (the few-row
-            # chunks), takes its own patch as well
+            # design's kernel in the same header, where the tree keeps it
+            # too (the few-row chunks), takes its own patch as well
             for name, pairs in PATCHES.items():
+                if HEADERS[name] != HEADERS[kind]:
+                    continue
                 pairs = pairs.get(variant, [])
                 if not all(old in text for old, _ in pairs):
                     if name == kind:
@@ -168,14 +206,15 @@ def entry(lib, name):
 
 def run(fn, name, tp, ch, a_dtype):
     """One launch of `fn` (K2 or K5a's entry point) on chunk `ch` of the
-    bf16 table tp: A (and K2's b)."""
+    table tp: A (and K2's b)."""
     import torch
     r, p = ch.cols.shape
     a = torch.empty((r, 256, 256), dtype=a_dtype, device="cuda")
     b = torch.empty((r, 256), dtype=torch.float32, device="cuda")
     tail = (a.data_ptr(), int(a_dtype == torch.bfloat16))
     tail += (b.data_ptr(),) if name == "gather_gram_out" else ()
-    err = fn(tp.data_ptr(), 1, ch.cols.data_ptr(), ch.vals.data_ptr(),
+    err = fn(tp.data_ptr(), int(tp.dtype == torch.bfloat16),
+             ch.cols.data_ptr(), ch.vals.data_ptr(),
              int(ch.vals.dtype == torch.bfloat16), *tail, r, p, 256,
              torch.cuda.current_stream().cuda_stream)
     if err:
@@ -183,18 +222,20 @@ def run(fn, name, tp, ch, a_dtype):
     return a, (b if name == "gather_gram_out" else None)
 
 
-def check(tree, fns):
+def check(tree, fns, f32):
     """K2 and K5a as shipped in `tree` against their plain versions (see
-    the head of this file). Prints what failed; returns whether all
-    held."""
+    the head of this file), on a bf16 table or, with f32, a float32 one.
+    Prints what failed; returns whether all held."""
     import numpy as np
     import torch
     from types import SimpleNamespace
 
     import chip_smoke as smoke
     from cumf_als_tpu_torch.ops import cuda_solve as cs
-    cases = [("X panel chunk R=2304 P=576",) + smoke.panel_chunk(
-        256, 2304, 576, seed=12) + (False,)]
+    dtype, body = (torch.float32, "split") if f32 else \
+        (torch.bfloat16, "wgmma")
+    cases = [("X panel chunk R=2304 P=576",) + panel_chunk(
+        2304, 576, 12, f32) + (False,)]
     for p in (8, 72, 136, 520):
         rng = np.random.RandomState(7 + p)
         n, r = 60, 5
@@ -212,8 +253,7 @@ def check(tree, fns):
             vals=torch.from_numpy(vals).cuda(),
             nnz=torch.from_numpy(nnz.astype(np.int32)).cuda())
         cases.append((f"integer table P={p}",
-                      torch.from_numpy(table).cuda().to(torch.bfloat16), ch,
-                      True))
+                      torch.from_numpy(table).cuda().to(dtype), ch, True))
     ok, asym = True, False
     for label, tp, ch, exact in cases:
         for name in ("gather_gram_out", "gather_gram_aug_out"):
@@ -230,7 +270,7 @@ def check(tree, fns):
                         b is None or torch.equal(b, pb))
                 else:
                     lim, _ = smoke.gram_limit(a, pa, ch.cols.shape[1],
-                                              "wgmma")
+                                              body)
                     good = bool(((a.float() - pa.float()).abs() <= lim)
                                 .all())
                     if b is not None:
@@ -264,23 +304,36 @@ def check(tree, fns):
     return ok
 
 
-def chunks():
+def panel_chunk(r, p, seed, f32):
+    """chip_smoke.py's `panel_chunk` at f = 256: its bf16 panel, or with
+    f32 a float32 panel of full-mantissa entries of the same shape."""
+    import torch
+
+    import chip_smoke as smoke
+    tp, ch = smoke.panel_chunk(256, r, p, seed=seed)
+    if f32:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        tp = smoke.float32_table(gen, tp.shape[0] - 1, 256)
+    return tp, ch
+
+
+def chunks(f32):
     """The three chunk shapes: (label, table, ch, A dtypes)."""
     import torch
     from types import SimpleNamespace
 
-    import chip_smoke as smoke
     out = []
-    tp, ch = smoke.panel_chunk(256, 2304, 576, seed=12)
+    tp, ch = panel_chunk(2304, 576, 12, f32)
     out.append(("X panel R=2304 P=576", tp, ch,
                 (torch.bfloat16, torch.float32)))
-    tp2, ch2 = smoke.panel_chunk(256, 6656, 72, seed=13)
+    tp2, ch2 = panel_chunk(6656, 72, 13, f32)
     out.append(("out-of-core theta shape R=6656 P=72", tp2, ch2,
                 (torch.float32,)))
     gen = torch.Generator(device="cuda").manual_seed(14)
     n, r, p = 2_000_000, 16, 1 << 18
-    big = (0.2 * torch.rand((n + 1, 256), generator=gen, device="cuda")
-           ).to(torch.bfloat16)
+    big = 0.2 * torch.rand((n + 1, 256), generator=gen, device="cuda")
+    if not f32:
+        big = big.to(torch.bfloat16)
     big[n] = 0
     cols = torch.randint(0, n, (r, p), generator=gen, device="cuda",
                          dtype=torch.int32)
@@ -295,6 +348,7 @@ def chunks():
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--f32", action="store_true")
     ap.add_argument("--parent", default=None)
     ap.add_argument("--change", default=os.path.join(
         ROOT, "cumf_als_tpu_torch", "csrc"))
@@ -305,6 +359,7 @@ def main() -> int:
     import torch
 
     import chip_smoke as smoke
+    from cumf_als_tpu_torch.ops import cuda_solve as cs
     if not torch.cuda.is_available():
         print("torch_panel_256_readings: no CUDA device", file=sys.stderr)
         return 2
@@ -312,31 +367,32 @@ def main() -> int:
     trees = {"change": os.path.abspath(args.change)}
     if args.parent:
         trees["parent"] = os.path.abspath(args.parent)
-    libs = build(trees, args.work)
+    libs = build(trees, args.work, args.f32)
     fns = {k: entry(lib, k[2]) for k, lib in libs.items()}
-    readings = {"card": card, "designs": {t: design(c)
+    readings = {"card": card, "designs": {t: design(c, args.f32)
                                           for t, c in trees.items()}}
-    right = {t: check(t, fns) for t in trees}
+    right = {t: check(t, fns, args.f32) for t in trees}
     readings["checks"] = right
     trees = {t: c for t, c in trees.items() if right[t]}
     order = [t for t in ("parent", "change", "change", "parent")
              if t in trees]
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
-    for label, tp, ch, dtypes in chunks():
+    for label, tp, ch, dtypes in chunks(args.f32):
         r, p = ch.cols.shape
         g = tp.index_select(0, ch.cols.reshape(-1).long()).reshape(r, p, 256)
         gt = g.transpose(1, 2)
         bmm = smoke.queued_ms(lambda: torch.bmm(gt, g))
         del g, gt
         rows = torch.unique(ch.cols).numel()
-        flops = 2.0 * float(ch.nnz.sum().item()) * 256 * 256
+        flops = smoke.panel_gram_ops(ch, 256, True, cs.panel_body(tp),
+                                     tp.dtype)
         for a_dtype in dtypes:
             a = torch.empty((r, 256, 256), dtype=a_dtype, device="cuda")
             b = torch.empty((r, 256), dtype=torch.float32, device="cuda")
             out_b = r * 256 * 256 * a.element_size()
             bound, by = smoke.bound_ms(
-                rows * 512 + smoke.nbytes(ch.cols, ch.vals) + out_b +
-                r * 256 * 4, flops, torch.bfloat16)
+                rows * 256 * tp.element_size() +
+                smoke.nbytes(ch.cols, ch.vals) + out_b + r * 256 * 4, flops)
             got = {}
             for tree in order:
                 for variant in VARIANTS:
@@ -350,7 +406,9 @@ def main() -> int:
                             "gather_gram_out" else ()
 
                         def call(fn=fn, tail=tail, name=name):
-                            err = fn(tp.data_ptr(), 1, ch.cols.data_ptr(),
+                            err = fn(tp.data_ptr(),
+                                     int(tp.dtype == torch.bfloat16),
+                                     ch.cols.data_ptr(),
                                      ch.vals.data_ptr(), 0, *tail, r, p,
                                      256, stream())
                             if err:
@@ -379,7 +437,11 @@ def main() -> int:
                     f"{split['no store']:.3f}, tensor cores "
                     f"{split['no mma']:.3f}, gather {split['no gather']:.3f}"
                     + (f", b on the CUDA cores {split['no b']:.3f}"
-                       if "no b" in split else "") +
+                       if "no b" in split else "")
+                    + (f", the split into pieces {split['no split']:.3f}, "
+                       f"the five products past hi.hi "
+                       f"{split['hi.hi only']:.3f}"
+                       if "no split" in split else "") +
                     f" ms); K5a {k5a:.3f} ms; torch.bmm {bmm:.3f} ms, bound "
                     f"{bound:.4f} ms ({by}); each the median of "
                     f"{len(got[f'{k2} full'])} readings")

@@ -232,15 +232,16 @@ def test_gram_kernels_at_the_tile_edges(card, p, r, table_dtype, out_dtype,
 def test_panel_grams_at_256_lanes(card, p, table_dtype, out_dtype, kind):
     """K2 and K5a at f = 256 (factor widths 128 < F <= 256) against their
     plain versions, in both bodies (a bf16 table runs the three
-    tensor-core blocks of csrc/wide_gram_mma.cuh, a float32 table the FMA
-    body of csrc/wide.cuh): bit for bit on an integer table (the proof
-    of the block layout, the transposed (1, 0) block and the value in
-    lane 255), within `gram_limit` on a random one; A symmetric; rows of
-    pad slots only exactly 0."""
+    tensor-core blocks of csrc/wide_gram_mma.cuh, a float32 table the
+    split body of csrc/wide_split_mma.cuh): bit for bit on an integer
+    table (the proof of the block layout, the transposed (1, 0) block
+    and the value in lane 255), within `gram_limit` on a random one; A
+    symmetric; rows of pad slots only exactly 0."""
     table, cols, vals, empty = _edge_chunk(p, 5, kind, f=256)
     cpu = (table.to(table_dtype), cols, vals)
     gpu = tuple(t.to(card) for t in cpu)
-    body = cs.gram_body(gpu[0])
+    body = cs.panel_body(gpu[0])
+    assert body == ("wgmma" if table_dtype == torch.bfloat16 else "split")
     a, b = cs.gather_gram_out(*gpu, out_dtype=out_dtype)
     pa, pb = cs.gather_gram_out(*cpu, out_dtype=out_dtype)
     a5 = cs.gather_gram_aug_out(*gpu, out_dtype=out_dtype)
@@ -361,7 +362,8 @@ def test_gram_chunks_of_many_rows_keep_the_uncut_kernel(card, f):
     """A chunk of as many rows as the blocks of its body that fit the
     card takes the uncut kernel, no pass 2: the same bits as spans=1; a
     chunk of few rows cut as routed equals the chunk forced to the same
-    S; `spans` must cut P into whole 64-slot tiles of a bf16 table."""
+    S; `spans` must cut P into whole 64-slot tiles; a float32 table's
+    split body (f = 128 and 256) cuts as a bf16 table's body does."""
     sms = torch.cuda.get_device_properties(card).multi_processor_count
     r = cs.gram_blocks_per_sm(f) * sms
     table, cols, vals = _few_row_chunk(r, 512, 600, f, seed=1)
@@ -379,25 +381,75 @@ def test_gram_chunks_of_many_rows_keep_the_uncut_kernel(card, f):
     a = cs.gather_gram_aug_out(*few, out_dtype=torch.bfloat16)
     a2 = cs.gather_gram_aug_out(*few, out_dtype=torch.bfloat16, spans=s)
     assert torch.equal(a.view(torch.int16), a2.view(torch.int16))
-    bad = [(3, table)]
-    if f == 256:
-        bad.append((2, table.float()))   # panel_gram: no cut
-    else:
-        # the split body of a float32 table cuts as the bf16 body does,
-        # its cut held to the plain version within the body's limit on
-        # entries with full mantissas (zero row and lane f - 1 kept)
-        gen = torch.Generator(device=card).manual_seed(3)
-        t32 = 0.2 * torch.rand(table.shape, generator=gen, device=card)
-        t32[table.shape[0] - 1] = 0
-        t32[:, f - 1] = 0
-        assert cs.panel_body(t32) == "split"
-        a32 = cs.gather_gram_aug_out(t32, *few[1:], spans=2)
-        pa32 = cs.gather_gram_aug_out_plain(t32.cpu(),
-                                            *(t.cpu() for t in few[1:]))
-        _assert_gram_close(a32, pa32, 4096, "split")
-    for spans, t in bad:
+    # the split body of a float32 table cuts as the bf16 body does, its
+    # cut held to the plain version within the body's limit on entries
+    # with full mantissas (zero row and lane f - 1 kept)
+    gen = torch.Generator(device=card).manual_seed(3)
+    t32 = 0.2 * torch.rand(table.shape, generator=gen, device=card)
+    t32[table.shape[0] - 1] = 0
+    t32[:, f - 1] = 0
+    assert cs.panel_body(t32) == "split"
+    a32 = cs.gather_gram_aug_out(t32, *few[1:], spans=2)
+    pa32 = cs.gather_gram_aug_out_plain(t32.cpu(),
+                                        *(t.cpu() for t in few[1:]))
+    _assert_gram_close(a32, pa32, 4096, "split")
+    for t in (table, t32):
         with pytest.raises(ValueError, match="spans"):
-            cs.gather_gram_out(t, *few[1:], spans=spans)
+            cs.gather_gram_out(t, *few[1:], spans=3)
+
+
+@pytest.mark.parametrize("shape", ["many rows", "out-of-core theta",
+                                   "fewest rows", "hot segment"])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_split_grams_at_256_on_a_float32_table(card, shape, out_dtype):
+    """K2 and K5a on a float32 table at f = 256 (the split body of
+    csrc/wide_split_mma.cuh; entries 0.2 U(0, 1) with full mantissas, a
+    factor at iteration 0) against their plain versions on the shapes
+    the paths give it: more rows than SMs with the ids and values a view
+    from an odd slot and bf16 values (P = 199), the out-of-core theta
+    chunk (R = 6656, P = 72), the fewest-row X panel chunk (R = 16,
+    P = 4096) and the hot segments (R = 16, P = 2^18, K2 alone), the last
+    two cut (`gram_spans`: one launch of the kernel, one of pass 2). A
+    within `gram_limit` "split", b within rtol 1e-5, A exactly symmetric,
+    rows of pad slots only exactly 0, the same bits twice."""
+    r, p, n = {"many rows": (301, 199, 600),
+               "out-of-core theta": (6656, 72, 65_536),
+               "fewest rows": (16, 4096, 65_536),
+               "hot segment": (16, 1 << 18, 2_000_000)}[shape]
+    table, cols, vals = _few_row_chunk(r, p, n, 256, seed=4)
+    gen = torch.Generator(device=card).manual_seed(5)
+    table = 0.2 * torch.rand(table.shape, generator=gen, device=card)
+    table[n] = 0
+    table[:, 255] = 0
+    if shape == "many rows":
+        cols, vals = cols[1:], vals.to(torch.bfloat16)[1:]
+        r -= 1
+    empty = (cols == n).all(dim=1)
+    spans = cs.gram_spans(r, p, 256, torch.cuda.get_device_properties(
+        card).multi_processor_count, torch.float32)
+    assert (spans > 1) == (shape in ("fewest rows", "hot segment"))
+    for aug in (False, True):
+        if shape == "hot segment" and (aug or out_dtype == torch.bfloat16):
+            continue
+        fn = cs.gather_gram_aug_out if aug else cs.gather_gram_out
+        plain = cs.gather_gram_aug_out_plain if aug else \
+            cs.gather_gram_out_plain
+        cs.reset_launch_counts()
+        out = fn(table, cols, vals, out_dtype=out_dtype)
+        assert cs.LAUNCHES == dict.fromkeys(cs.LAUNCHES, 0) | {
+            fn.__name__: 1} | ({"gram_span_sum": 1} if spans > 1 else {})
+        again = fn(table, cols, vals, out_dtype=out_dtype)
+        want = plain(table, cols, vals, out_dtype=out_dtype)
+        a, b = (out, None) if aug else out
+        a2, b2 = (again, None) if aug else again
+        pa, pb = (want, None) if aug else want
+        assert _same_bits(a.float(), a2.float())
+        _assert_gram_close(a, pa.cpu(), p, "split")
+        assert torch.equal(a, a.transpose(1, 2))
+        assert torch.all(a[empty] == 0)
+        if b is not None:
+            assert _same_bits(b, b2) and torch.all(b[empty] == 0)
+            torch.testing.assert_close(b, pb, rtol=1e-5, atol=1e-5)
 
 
 # ------------------- the cut of K1 and K6 on few-row chunks (f = 128) --

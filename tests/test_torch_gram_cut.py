@@ -3,9 +3,8 @@
 
   - the span rule `gram_spans` as cases: S spans of whole 64-slot tiles
     that cover [0, P) once, S = 1 where the cut does not apply (at or
-    above the blocks that fit the card, a float32 table at f = 256, a
-    width other than 128 or 256, P not a whole number of tiles), R S
-    within the
+    above the blocks that fit the card, a width other than 128 or 256, P
+    not a whole number of tiles), R S within the
     spans an SM allow and near them where P's tiles let it, no span
     under `GRAM_CUT_MIN_TILES` tiles, the f32 partials within
     `SPAN_SCRATCH_BYTES`;
@@ -58,14 +57,10 @@ def interpret_mode(monkeypatch):
     (132, 4096, 256), (2304, 576, 128), (16, 4160, 128), (16, 4100, 128),
     (1, 1 << 20, 256)])
 def test_span_rule(r, p, f):
-    # a bf16 table, and a float32 one at f = 128 (the split body, one
-    # block an SM); a float32 table at 256 (panel_gram) and every other
-    # width keep the uncut kernel
+    # a bf16 table, and a float32 one at f = 128 and 256 (the split
+    # bodies, one block an SM); every other width keeps the uncut kernel
     for dtype in (torch.bfloat16, torch.float32):
         s = cs.gram_spans(r, p, f, SMS, dtype)
-        if dtype == torch.float32 and f == 256:
-            assert s == 1
-            continue
         per_sm = cs.gram_blocks_per_sm(f, dtype)
         tiles = p // cs.GRAM_TILE
         assert s >= 1 and p % s == 0
